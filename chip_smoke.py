@@ -1,33 +1,49 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # the check below
+    python3 chip_smoke.py --profile-train  # where a train step's time goes
 
 Phases (any failure raises and the script exits non-zero):
 
 1. device: the card's name and power limit; TF32 off for f32 products.
-2. build: compile every kernel under kubeshare_tpu_torch/csrc with nvcc.
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and a few more (GQA, window, ragged, d=128,
-   f32), with the tolerances below; then its time beside the plain
-   version's, one library call's, and the bound the card sets.
+2. build: compile every kernel under kubeshare_tpu_torch/csrc with nvcc
+   (one nvcc per source, all at once).
+3. kernels: the flash forward and the two flash backward kernels (dK/dV,
+   dQ) against their plain PyTorch versions on the card, at the main
+   paths' shapes and a few more (GQA, window, ragged, d=128, f32), with
+   the tolerances below; then each kernel's time beside the plain
+   version's, one library call's, and the bound the card sets, at the
+   serving flagship's attention shape and at the training shape.
 4. slice: the flagship Transformer (entry.flagship_config, full width,
    weights from a seed) runs its forward at tokens (4, 1024), then serves
    4 requests (896-token prompts, 128 greedy tokens each: bulk prefill,
-   then cached decode).  The launch counters are zeroed before each path
-   and read after it; both are held against the same path with plain
+   then cached decode).  Both are held against the same path with plain
    attention.
+5. train: the repo's train-step flagship (benchmarks/kernel_bench.py
+   MODEL_SIZES["flagship"], rope, bf16, full width and depth) takes 10
+   AdamW steps on a fixed batch of 2 x 2048 tokens through
+   parallel.train.make_train_step.  Step 1's loss and every gradient are
+   held against attention="reference"; the loss must fall; the median
+   step time gives tokens/s and the share of the bf16 peak.
 
-The last lines are the card (nvidia-smi), a JSON ``kernels`` line, and
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-rest of the repository beside it, the script fails before printing any
-result.
+The launch counters are zeroed before each path and read after it.  The
+last lines are the card (nvidia-smi), a JSON ``kernels`` line, and
+``{"ok": true, "device": {...}}``.
+
+``--profile-train`` builds the kernels and runs only the train path's
+steady steps under ``torch.profiler``: the host's enqueue time and the
+wall time per step, the device's busy share, and device time by kernel.
+
+Without a CUDA device, or without the rest of the repository beside it,
+the script fails before printing any result.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -52,6 +68,36 @@ TOLERANCES = {
 # cached K/V (|k| reaches ~8, where a bf16 ulp is 0.03-0.06)
 SLICE_LOGITS_ATOL = 0.1
 SLICE_KV_ATOL = 0.2
+# backward kernels vs flash_backward_reference, same inputs on the card,
+# as max |kernel - plain| / max |plain| per gradient (gradients vary in
+# magnitude from tensor to tensor).  bf16: both round p and ds to bf16 at
+# the same points and the results to bf16 at the end, but from f32 values
+# summed in another order, so an element may land on the neighbouring
+# bf16 value (2^-8 relative); allow a few such ulps of the largest
+# gradient.  f32: only the summation order differs.
+BWD_TOLERANCES = {"bfloat16": 1e-2, "float32": 1e-5}
+# the train step with the kernels vs with attention="reference" (bf16):
+# the reference rounds scores to bf16 before its softmax (an absolute
+# error of ~0.03 on scores of ~8, a few % on p), the kernels keep them
+# f32, and eight layers carry the difference into every gradient.  Loss:
+# absolute, on a loss of ~11.  Gradients: max |diff| / max |ref| per
+# tensor, and their cosine similarity.
+TRAIN_LOSS_ATOL = 2e-2
+TRAIN_GRAD_RTOL = 0.1
+TRAIN_GRAD_MIN_COSINE = 0.99
+# remat on vs off: the backward recomputes each layer with the same
+# kernels on the same inputs, so the gradients agree to round-off (a
+# library reduction whose order may differ between the two runs)
+REMAT_GRAD_RTOL = 1e-3
+
+# benchmarks/kernel_bench.py MODEL_SIZES["flagship"]: the repo's own
+# train-step flagship, at batch 2 x 2048 (suite_model builds it with rope
+# and bf16)
+TRAIN_DIMS = dict(vocab_size=32000, d_model=1024, n_heads=8, n_layers=8,
+                  d_ff=4096, max_seq_len=2048)
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_STEPS = 10
+TRAIN_TIMED_FROM = 3  # median over steps 3..10 (1-based): past warm-up
 
 PROMPT_LEN = 896
 NEW_TOKENS = 128
@@ -79,6 +125,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    # hold the device (~25 ms) while the host queues every timed call, so
+    # the events read device time and not the host's pace of issuing (an
+    # autograd call's host work can exceed its kernels' time)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -94,6 +145,12 @@ def visible_pairs(s: int, causal: bool, window) -> int:
     return s * (s + 1) // 2 if causal else s * s
 
 
+def _bound(nbytes, flops, dtype_name):
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def flash_bound(shape, h_kv, dtype_name, causal, window):
     """(bound_ms, bound_by): bytes of q, k, v, out, lse once each over
     the memory rate vs the two products' operations over the peak."""
@@ -101,9 +158,155 @@ def flash_bound(shape, h_kv, dtype_name, causal, window):
     elt = 2 if dtype_name == "bfloat16" else 4
     nbytes = (2 * b * h * s * d + 2 * b * h_kv * s * d) * elt + b * h * s * 4
     flops = 4 * d * visible_pairs(s, causal, window) * b * h
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(nbytes, flops, dtype_name)
+
+
+def flash_bwd_bound(kernel, shape, h_kv, dtype_name, causal, window):
+    """(bound_ms, bound_by) of one backward kernel.  dkv reads q, k, v,
+    dO, lse, delta and writes dk, dv; it does four products per visible
+    pair (S, dP, p^T.dO, ds^T.q: 8 d FLOPs).  dq reads the same and
+    writes dq; it does three (S, dP, ds.k: 6 d FLOPs)."""
+    b, h, s, d = shape
+    elt = 2 if dtype_name == "bfloat16" else 4
+    q_elems, kv_elems = b * h * s * d, b * h_kv * s * d
+    rows = 2 * b * h * s * 4  # lse and delta, f32
+    pairs = visible_pairs(s, causal, window) * b * h
+    if kernel == "dkv":
+        nbytes = (2 * q_elems + 4 * kv_elems) * elt + rows
+        flops = 8 * d * pairs
+    else:
+        nbytes = (3 * q_elems + 2 * kv_elems) * elt + rows
+        flops = 6 * d * pairs
+    return _bound(nbytes, flops, dtype_name)
+
+
+def train_flops_per_token(dims, seq):
+    """benchmarks/kernel_bench.py:_train_flops_per_token for a dense
+    model: per layer forward 2*(4 d^2) attention projections + 2*(2 d ff)
+    MLP + 2*2*(seq/2)*d causal attention, plus the lm_head's 2 d vocab;
+    a train step is 3x the forward."""
+    d, ff, vocab = dims["d_model"], dims["d_ff"], dims["vocab_size"]
+    layer = 2 * 4 * d * d + 2 * seq * d + 2 * 2 * d * ff
+    return 3 * (2 * d * vocab + dims["n_layers"] * layer)
+
+
+def kernel_resources(log: str):
+    """(kernel, registers, spill bytes) per kernel from ptxas -v output."""
+    import re
+
+    rows, name, spill = [], None, 0
+    for line in log.splitlines():
+        # the mangled name puts the identifier's length just before it
+        entry = re.search(r"Compiling entry function '\w*\d(flash_[a-z0-9_]+?_kernel)ILi(\d+)E", line)
+        if entry:
+            name, spill = f"{entry.group(1)}<{entry.group(2)}>", 0
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills and name:
+            spill = int(spills.group(1)) + int(spills.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            rows.append((name, int(used.group(1)), spill))
+            name = None
+    return rows
+
+
+def reset_counts():
+    from kubeshare_tpu_torch.ops.attention import flash_backward, flash_forward
+
+    flash_forward.launches = 0
+    flash_backward.launches_dkv = 0
+    flash_backward.launches_dq = 0
+
+
+def read_counts():
+    from kubeshare_tpu_torch.ops.attention import flash_backward, flash_forward
+
+    return {"flash_fwd": flash_forward.launches,
+            "flash_bwd_dkv": flash_backward.launches_dkv,
+            "flash_bwd_dq": flash_backward.launches_dq}
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| / max |ref| in f32."""
+    ref = ref.float()
+    return float((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def check_backward(torch, name, q, k, v, out, lse, causal, window, gen):
+    """The dK/dV and dQ kernels against flash_backward_reference on the
+    same inputs (the forward kernel's out and lse, a random dO); returns
+    the worst relative error of each kernel."""
+    from kubeshare_tpu_torch.ops.attention import flash_backward, flash_backward_reference
+
+    dout = torch.randn(q.shape, generator=gen, device=q.device, dtype=q.dtype)
+    dq, dk, dv = flash_backward(q, k, v, out, lse, dout, causal, window)
+    torch.cuda.synchronize()
+    ref = flash_backward_reference(q, k, v, out, lse, dout, causal, window)
+    errs = {n: rel_err(g, r) for n, g, r in zip(("dq", "dk", "dv"),
+                                                 (dq, dk, dv), ref)}
+    abs_errs = {n: float((g.float() - r.float()).abs().max())
+                for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+    finite = all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
+    tol = BWD_TOLERANCES[str(q.dtype).removeprefix("torch.")]
+    print(f"kernel flash_bwd {name}: " + " ".join(
+        f"{n}_rel_err={e:.3e}" for n, e in errs.items()) + f" (tol {tol})")
+    check(finite, f"{name}: non-finite gradients from the backward kernels")
+    for n, e in errs.items():
+        check(e <= tol, f"{name}: {n} disagrees with flash_backward_reference "
+                        f"(max abs err / max |ref| = {e})")
+    return {"dkv": (max(errs["dk"], errs["dv"]),
+                    max(abs_errs["dk"], abs_errs["dv"])),
+            "dq": (errs["dq"], abs_errs["dq"])}
+
+
+def time_shape(torch, shape, gen):
+    """Times of the forward and both backward kernels at one bf16 causal
+    MHA shape, beside the plain versions, the library calls and the
+    bounds."""
+    import torch.nn.functional as F
+    from kubeshare_tpu_torch.ops import attention as A
+
+    b, h, s, d = shape
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda",
+                                 dtype=torch.bfloat16) for _ in range(4))
+    out, lse = A.flash_forward(q, k, v, True)
+    delta = A._backward_delta(out, dout)
+    fwd_ms = time_ms(lambda: A.flash_forward(q, k, v, True))
+    dkv_ms = time_ms(lambda: A._flash_bwd_dkv_cuda(q, k, v, dout, lse, delta,
+                                                   True, None))
+    dq_ms = time_ms(lambda: A._flash_bwd_dq_cuda(q, k, v, dout, lse, delta,
+                                                 True, None))
+    fwd_plain_ms = time_ms(lambda: A.flash_forward_reference(q, k, v, True))
+    # the plain backward computes dq, dk and dv in one call
+    bwd_plain_ms = time_ms(lambda: A.flash_backward_reference(
+        q, k, v, out, lse, dout, True, None))
+    # yardsticks only: the port never calls them.  The library backward
+    # is one autograd.grad of SDPA's output (its forward excluded, graph
+    # kept): it computes what the two backward kernels compute together.
+    fwd_library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    bwd_library_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), dout, retain_graph=True))
+    rows = {}
+    for name, ms, plain_ms, library_ms, bound in (
+        ("flash_fwd", fwd_ms, fwd_plain_ms, fwd_library_ms,
+         flash_bound(shape, h, "bfloat16", True, None)),
+        ("flash_bwd_dkv", dkv_ms, bwd_plain_ms, bwd_library_ms,
+         flash_bwd_bound("dkv", shape, h, "bfloat16", True, None)),
+        ("flash_bwd_dq", dq_ms, bwd_plain_ms, bwd_library_ms,
+         flash_bwd_bound("dq", shape, h, "bfloat16", True, None)),
+    ):
+        rows[name] = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound[0],
+                      "bound_by": bound[1]}
+        print(f"kernel {name} timing at {shape} bf16 causal: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {library_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})")
+    return rows
 
 
 def kernel_phase(torch, device):
@@ -119,9 +322,13 @@ def kernel_phase(torch, device):
         ("d128", (2, 4, 1024, 128), 4, torch.bfloat16, True, None),
         ("f32_ragged_500", (2, 4, 500, 64), 2, torch.float32, True, None),
         ("f32_d128_window", (1, 4, 512, 128), 4, torch.float32, True, 100),
+        ("train", (TRAIN_BATCH, 8, TRAIN_SEQ, 128), 8, torch.bfloat16, True, None),
     ]
     gen = torch.Generator(device=device).manual_seed(1234)
-    worst = 0.0
+    # worst (relative, absolute) error of each kernel over the shapes; the
+    # forward's relative error is not computed (its check is per element)
+    worst = {"flash_fwd": [None, 0.0], "flash_bwd_dkv": [0.0, 0.0],
+             "flash_bwd_dq": [0.0, 0.0]}
     for name, shape, h_kv, dtype, causal, window in cases:
         b, h, s, d = shape
         q = torch.randn(shape, generator=gen, device=device, dtype=dtype)
@@ -147,24 +354,17 @@ def kernel_phase(torch, device):
         check(lse_err <= tol["lse_atol"],
               f"{name}: lse disagrees with flash_forward_reference "
               f"(max abs err {lse_err})")
-        worst = max(worst, err)
+        worst["flash_fwd"][1] = max(worst["flash_fwd"][1], err)
+        bwd = check_backward(torch, name, q, k, v, out, lse, causal, window, gen)
+        for kernel, errs in (("flash_bwd_dkv", bwd["dkv"]),
+                             ("flash_bwd_dq", bwd["dq"])):
+            worst[kernel] = [max(a, b) for a, b in zip(worst[kernel], errs)]
+        del q, k, v, out, lse, ref_out, ref_lse
 
-    # times at the flagship shape (the entry forward's attention)
-    shape, h_kv = (4, 8, 1024, 64), 8
-    q, k, v = (torch.randn(shape, generator=gen, device=device,
-                           dtype=torch.bfloat16) for _ in range(3))
-    kernel_ms = time_ms(lambda: flash_forward(q, k, v, True))
-    plain_ms = time_ms(lambda: flash_forward_reference(q, k, v, True))
-    # yardstick only: the port never calls it
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
-    bound_ms, bound_by = flash_bound(shape, h_kv, "bfloat16", True, None)
-    print(f"kernel flash_fwd timing at {shape} bf16 causal: "
-          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    return {"max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "shape": list(shape)}
+    # times at the serving flagship's attention shape and the training shape
+    timings = [time_shape(torch, shape, gen)
+               for shape in ((4, 8, 1024, 64), (TRAIN_BATCH, 8, TRAIN_SEQ, 128))]
+    return worst, timings
 
 
 def slice_phase(torch, device):
@@ -179,15 +379,15 @@ def slice_phase(torch, device):
     launches = {}
 
     # path 1: the entry forward at (4, 1024)
-    flash_forward.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     logits = fn(params, tokens)
     torch.cuda.synchronize()
     forward_s = time.perf_counter() - t0
-    launches["forward"] = flash_forward.launches
-    check(launches["forward"] == config.n_layers,
-          f"forward launched the kernel {launches['forward']} times, "
-          f"expected {config.n_layers}")
+    launches["forward"] = read_counts()
+    check(launches["forward"]["flash_fwd"] == config.n_layers,
+          f"forward launched the kernel {launches['forward']['flash_fwd']} "
+          f"times, expected {config.n_layers}")
     with torch.no_grad():
         plain_logits = transformer_apply(params, tokens, plain)
     check(tuple(logits.shape) == (*tokens.shape, config.vocab_size),
@@ -203,7 +403,7 @@ def slice_phase(torch, device):
     gen = torch.Generator().manual_seed(7)
     prompts = torch.randint(0, config.vocab_size, (N_REQUESTS, PROMPT_LEN),
                             generator=gen).to(device)
-    flash_forward.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cache, last = prefill(params, config, prompts)
@@ -215,7 +415,7 @@ def slice_phase(torch, device):
     out = greedy_decode_with_cache(params, config, cache, last, NEW_TOKENS)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches["serve"] = flash_forward.launches
+    launches["serve"] = read_counts()
 
     plain_cache, plain_last = prefill(params, plain, prompts)
     plain_out = greedy_decode_with_cache(params, plain, plain_cache,
@@ -250,6 +450,186 @@ def slice_phase(torch, device):
     return launches
 
 
+def train_setup(torch, device):
+    """The train-step flagship's config, params (seed 0) and fixed batch."""
+    from kubeshare_tpu_torch.models.transformer import (
+        TransformerConfig, transformer_init)
+
+    config = TransformerConfig(**TRAIN_DIMS, positional="rope",
+                               dtype=torch.bfloat16, attention="flash")
+    params = transformer_init(config, torch.Generator().manual_seed(0), device)
+    gen = torch.Generator().manual_seed(11)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    tokens = torch.randint(0, config.vocab_size, shape, generator=gen).to(device)
+    targets = torch.randint(0, config.vocab_size, shape, generator=gen).to(device)
+    return config, params, tokens, targets
+
+
+def train_phase(torch, device):
+    """Ten AdamW steps of the train-step flagship on a fixed batch."""
+    from kubeshare_tpu_torch.models.transformer import transformer_apply
+    from kubeshare_tpu_torch.parallel.train import (
+        cross_entropy_loss, make_train_step, tree_leaves)
+
+    config, params, tokens, targets = train_setup(torch, device)
+    plain = dataclasses.replace(config, attention="reference")
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+
+    # (a) step 1's loss and gradients against attention="reference"
+    def loss_and_grads(cfg):
+        loss = cross_entropy_loss(transformer_apply(params, tokens, cfg), targets)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    loss, grads = loss_and_grads(config)
+    reset_counts()
+    remat_loss, remat_grads = loss_and_grads(
+        dataclasses.replace(config, remat=True))
+    remat_launches = read_counts()
+    remat_err = max(rel_err(g, r) for g, r in zip(remat_grads, grads))
+    del remat_grads
+    print(f"train remat: launches {remat_launches} for one forward + "
+          f"backward, loss {float(remat_loss):.5f}, worst grad "
+          f"max-abs-err/max-ref vs remat off {remat_err:.3e}")
+    check(remat_launches == {"flash_fwd": 2 * config.n_layers,
+                             "flash_bwd_dkv": config.n_layers,
+                             "flash_bwd_dq": config.n_layers},
+          f"remat launched {remat_launches}: expected the forward twice "
+          f"per layer and each backward kernel once")
+    check(remat_err <= REMAT_GRAD_RTOL,
+          f"remat gradients differ from remat off by {remat_err} of max")
+    plain_loss, plain_grads = loss_and_grads(plain)
+    loss_err = abs(float(loss) - float(plain_loss))
+    grad_err = max(rel_err(g, r) for g, r in zip(grads, plain_grads))
+    cosine = min(float(torch.nn.functional.cosine_similarity(
+        g.float().flatten(), r.float().flatten(), dim=0))
+        for g, r in zip(grads, plain_grads))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    del grads, plain_grads
+    print(f"train grads vs attention=reference ({len(leaves)} tensors): "
+          f"loss {float(loss):.5f} vs {float(plain_loss):.5f} (abs err "
+          f"{loss_err:.3e}), worst grad max-abs-err/max-ref {grad_err:.3e}, "
+          f"lowest cosine {cosine:.6f}")
+    check(finite, "non-finite gradients on the train path")
+    check(loss_err <= TRAIN_LOSS_ATOL,
+          f"train loss differs from the plain path by {loss_err}")
+    check(grad_err <= TRAIN_GRAD_RTOL,
+          f"train gradients differ from the plain path by {grad_err} of max")
+    check(cosine >= TRAIN_GRAD_MIN_COSINE,
+          f"a train gradient points elsewhere than the plain path's "
+          f"(cosine {cosine})")
+
+    # (b)-(d) ten steps through make_train_step, counted and timed
+    init_state, train_step = make_train_step(
+        lambda p, t: transformer_apply(p, t, config))
+    state = init_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(TRAIN_STEPS)]
+    losses, enqueue_ms = [], []
+    reset_counts()
+    for i, (start, end) in enumerate(events):
+        t0 = time.perf_counter()
+        start.record()
+        state, step_loss = train_step(state, tokens, targets)
+        end.record()
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(step_loss)
+        if i == 0:
+            first = read_counts()
+            check(all(n == config.n_layers for n in first.values()),
+                  f"train step 1 launched {first}, expected {config.n_layers} "
+                  f"of each kernel")
+    launches = read_counts()
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    timed = sorted(step_ms[TRAIN_TIMED_FROM - 1:])
+    median_ms = (timed[(len(timed) - 1) // 2] + timed[len(timed) // 2]) / 2
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops_per_token(TRAIN_DIMS, TRAIN_SEQ) * tokens_per_step
+    share = flops / (median_ms * 1e-3) / PEAK_FLOPS["bfloat16"]
+    # the host's time to enqueue a step (it never waits for the device):
+    # close to the step's device time means the host sets the pace
+    host_ms = sorted(enqueue_ms[TRAIN_TIMED_FROM - 1:])
+    host_median_ms = (host_ms[(len(host_ms) - 1) // 2] + host_ms[len(host_ms) // 2]) / 2
+    print(f"train losses: " + " ".join(f"{x:.4f}" for x in losses))
+    print(f"train host enqueue ms per step: "
+          + " ".join(f"{x:.2f}" for x in enqueue_ms)
+          + f"; median of steps {TRAIN_TIMED_FROM}-{TRAIN_STEPS} {host_median_ms:.3f}")
+    print(f"train {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+          f"launches {launches}, step ms " + " ".join(f"{x:.2f}" for x in step_ms)
+          + f"; median of steps {TRAIN_TIMED_FROM}-{TRAIN_STEPS} "
+          f"{median_ms:.3f} ms, {tokens_per_step / (median_ms * 1e-3):.0f} "
+          f"tokens/s, {flops / 1e12:.3f} TFLOP per step = {share:.4f} of "
+          f"989 TFLOP/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(all(n == TRAIN_STEPS * config.n_layers for n in launches.values()),
+          f"train path launched {launches}, expected "
+          f"{TRAIN_STEPS * config.n_layers} of each kernel")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(abs(losses[0] - float(loss)) <= TRAIN_LOSS_ATOL,
+          f"train step 1 loss {losses[0]} differs from the checked {float(loss)}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    return launches
+
+
+def profile_train(torch, device, warmup: int = 3, steps: int = 5):
+    """Steady train steps under torch.profiler: host enqueue and wall
+    time per step, device busy share, and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeshare_tpu_torch.models.transformer import transformer_apply
+    from kubeshare_tpu_torch.parallel.train import make_train_step
+
+    config, params, tokens, targets = train_setup(torch, device)
+    init_state, train_step = make_train_step(
+        lambda p, t: transformer_apply(p, t, config))
+    state = init_state(params)
+    for _ in range(warmup):
+        state, _ = train_step(state, tokens, targets)
+    torch.cuda.synchronize()
+    enqueue_s = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            state, _ = train_step(state, tokens, targets)
+            enqueue_s.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    rows = []
+    for event in prof.key_averages():
+        # kernels only: a CPU op's row, and a range such as
+        # "Optimizer.step#AdamW.step" on the device's timeline, carry their
+        # kernels' time as well
+        if (not str(event.device_type).endswith("CUDA")
+                or getattr(event, "is_user_annotation", False)):
+            continue
+        device_us = getattr(event, "self_device_time_total",
+                            getattr(event, "self_cuda_time_total", 0))
+        if device_us > 0:
+            rows.append((device_us, event.count, event.key))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows) / 1e3 / steps
+    launches = sum(r[1] for r in rows) / steps
+    wall_ms = wall_s * 1e3 / steps
+    print(f"profile train step ({steps} steps after {warmup} warm-up, "
+          f"profiler on): wall {wall_ms:.3f} ms per step, host enqueue "
+          + " ".join(f"{x * 1e3:.2f}" for x in enqueue_s) + " ms, device "
+          f"busy {device_ms:.3f} ms per step = {device_ms / wall_ms:.4f} "
+          f"of wall, {launches:.0f} device kernels and copies per step")
+    check(device_ms > 0, "the profiler saw no device time")
+    for device_us, count, name in rows[:40]:
+        print(f"profile kernel {device_us / 1e3 / steps:9.4f} ms/step "
+              f"{count // steps:5d} calls/step  {name[:110]}")
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "launches_per_step": launches,
+            "enqueue_ms": [x * 1e3 for x in enqueue_s]}
+
+
 def main() -> int:
     import torch
 
@@ -266,28 +646,54 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _build.build_all()
+    build_logs = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s")
+    for source, log in sorted(build_logs.items()):
+        for kernel, registers, spill in kernel_resources(log):
+            print(f"build {source}.cu {kernel}: {registers} registers, "
+                  f"{spill} bytes spilled")
 
-    flash = kernel_phase(torch, device)
+    if "--profile-train" in sys.argv[1:]:
+        result = profile_train(torch, device)
+        print(card)
+        print(json.dumps({"profile_train": result}))
+        return 0
+
+    worst, timings = kernel_phase(torch, device)
     launches = slice_phase(torch, device)
+    launches["train"] = train_phase(torch, device)
 
-    kernels = [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "kubeshare_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "kubeshare_tpu/ops/attention.py:107",
-        "launches": sum(launches.values()),
-        "launches_by_path": launches,
-        "max_abs_err": flash["max_abs_err"],
-        "ms": flash["ms"],
-        "kernel_ms": flash["ms"],
-        "plain_ms": flash["plain_ms"],
-        "bound_ms": flash["bound_ms"],
-        "bound_by": flash["bound_by"],
-        "library_ms": flash["library_ms"],
-        "timed_shape": flash["shape"],
-    }]
+    sources = {
+        "flash_fwd": ("kubeshare_tpu_torch/csrc/flash_fwd.cu",
+                      "kubeshare_tpu/ops/attention.py:107"),
+        "flash_bwd_dkv": ("kubeshare_tpu_torch/csrc/flash_bwd.cu",
+                          "kubeshare_tpu/ops/attention.py:278"),
+        "flash_bwd_dq": ("kubeshare_tpu_torch/csrc/flash_bwd.cu",
+                         "kubeshare_tpu/ops/attention.py:330"),
+    }
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        # the headline numbers are at the shape of the path that runs the
+        # kernel most: serving's for the forward, training's for the backward
+        main_timing = timings[0 if name == "flash_fwd" else 1][name]
+        by_path = {path: counts[name] for path, counts in launches.items()}
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": worst[name][1],
+            "max_rel_err": worst[name][0],
+            "ms": main_timing["ms"],
+            "plain_ms": main_timing["plain_ms"],
+            "bound_ms": main_timing["bound_ms"],
+            "bound_by": main_timing["bound_by"],
+            "library_ms": main_timing["library_ms"],
+            "timed_shape": main_timing["shape"],
+            "timings": [t[name] for t in timings],
+        })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
-"""Parameters from the JAX package into the port, 1:1 by tree path.
+"""Parameters and training state from the JAX package into the port, 1:1
+by tree path.
 
-The JAX param tree (nested dicts and lists of arrays) is handed over as
-numpy arrays — e.g. ``jax.device_get(params)`` — so this module needs no
-JAX.  Leaves stay f32, as in JAX; compute casts to ``config.dtype``.
+The JAX trees (nested dicts and lists of arrays) are handed over as numpy
+arrays — e.g. ``jax.device_get(params)`` — so this module needs no JAX.
+Leaves stay f32, as in JAX; compute casts to ``config.dtype``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .parallel.train import TrainState, make_train_step, tree_leaves_with_paths
 
 
 def params_from_jax(tree: Any, device=None) -> Any:
@@ -31,3 +33,34 @@ def params_from_jax(tree: Any, device=None) -> Any:
         return torch.from_numpy(np.array(array, dtype=array.dtype)).to(device)
 
     return convert(tree)
+
+
+def train_state_from_jax(params: Any, mu: Any, nu: Any, count: Any,
+                         device=None) -> TrainState:
+    """A port :class:`TrainState` that carries a JAX ``optax.adamw(1e-3)``
+    run on.
+
+    ``params`` is ``jax.device_get(state.params)``; ``mu``, ``nu`` and
+    ``count`` come from optax's ``ScaleByAdamState``
+    (``state.opt_state[0]``), as numpy.  The port's AdamW (its default,
+    :func:`~kubeshare_tpu_torch.parallel.train.adamw`) starts with those
+    moments and that step count, so the port's next step is the JAX
+    run's next step."""
+    tree = params_from_jax(params, device)
+    init_state, _ = make_train_step(lambda p, t: None)
+    state = init_state(tree)
+    moments = {"exp_avg": params_from_jax(mu, device),
+               "exp_avg_sq": params_from_jax(nu, device)}
+    moment_leaves = {name: dict(tree_leaves_with_paths(m))
+                     for name, m in moments.items()}
+    step = int(np.asarray(count))
+    for path, leaf in tree_leaves_with_paths(tree):
+        entry = {"step": torch.tensor(float(step), dtype=torch.float32)}
+        for name, leaves in moment_leaves.items():
+            if path not in leaves or leaves[path].shape != leaf.shape:
+                raise ValueError(f"{name} has no leaf of shape "
+                                 f"{tuple(leaf.shape)} at {path}")
+            entry[name] = leaves[path]
+        state.opt_state.state[leaf] = entry
+    state.step = step
+    return state

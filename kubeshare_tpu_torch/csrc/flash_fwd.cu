@@ -50,6 +50,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 constexpr int kBlockQ = 64;
@@ -90,49 +92,6 @@ __device__ __forceinline__ bool visible(int q_pos, int k_pos, int s,
 // bf16: mma.sync m16n8k16, register-resident softmax
 // ------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global->shared copy; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// c += a . b for one 16x8x16 tile (A row-major, B column-major)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* row_addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(row_addr)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int D>
 struct Bf16Smem {
   // rows padded by 16 bytes: the fragment loads of 8 rows x 16 bytes
@@ -143,20 +102,12 @@ struct Bf16Smem {
   static constexpr size_t kBytes = sizeof(__nv_bfloat16) * 5 * kTile;
 };
 
-// Issue the 16-byte copies of one [64, D] tile; rows at or past `valid`
-// are zero-filled (their source address is clamped to row 0).
+// one [64, D] tile; rows at or past `valid` are zero-filled
 template <int D>
 __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
                                                 const __nv_bfloat16* src,
                                                 int valid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kBlockK * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const bool in = r < valid;
-    cp_async_16(dst + r * Bf16Smem<D>::kLd + c * 8,
-                src + (size_t)(in ? r : 0) * D + c * 8, in ? 16 : 0);
-  }
+  load_rows_async<D, kBlockK, Bf16Smem<D>::kLd, kThreads>(dst, src, valid);
 }
 
 template <int D>
@@ -380,14 +331,7 @@ template <int D>
 __device__ __forceinline__ void load_tile_f32(float* dst,
                                               const float* __restrict__ src,
                                               int valid) {
-  constexpr int kChunks = D / 4;  // float4 per row
-  for (int i = threadIdx.x; i < kBlockK * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid) val = reinterpret_cast<const float4*>(src + (size_t)r * D)[c];
-    reinterpret_cast<float4*>(dst + r * F32Smem<D>::kLd)[c] = val;
-  }
+  load_rows_f32<D, kBlockK, F32Smem<D>::kLd, kThreads>(dst, src, valid);
 }
 
 template <int D>

@@ -20,6 +20,7 @@ from typing import Callable, Dict, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from .. import resolve_device
@@ -42,6 +43,7 @@ class TransformerConfig:
     # (None = n_heads, plain MHA; 1 = MQA)
     n_kv_heads: Optional[int] = None
     positional: str = "learned"  # learned | rope
+    remat: bool = False  # recompute each layer in the backward (memory for FLOPs)
     # MoE layers are not ported yet; a config that sets this raises
     moe_every: Optional[int] = None
 
@@ -205,6 +207,13 @@ def _forward(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
         x = x + params["pos_embed"][offset: offset + seq].to(dtype)
 
     for layer in params["layers"]:
+        if config.remat and kv_sink is None:
+            # keep only each layer's input; its activations are recomputed
+            # in the backward (the JAX model's jax.checkpoint per layer)
+            x, _ = torch.utils.checkpoint.checkpoint(
+                _layer_forward, layer, x, attention_fn, dtype, positions,
+                use_reentrant=False)
+            continue
         x, kv = _layer_forward(layer, x, attention_fn, dtype, positions)
         if kv_sink is not None:
             kv_sink.append(kv)
@@ -219,9 +228,8 @@ def transformer_apply(params: Dict, tokens: torch.Tensor,
                       config: TransformerConfig) -> torch.Tensor:
     """tokens: [batch, seq] integer -> logits [batch, seq, vocab] f32.
 
-    On CUDA with attention ``auto``/``flash`` the flash kernel is
-    forward-only: call under ``torch.no_grad()`` or
-    ``torch.inference_mode()``."""
+    Differentiable: on CUDA with attention ``auto``/``flash`` the
+    backward runs the flash backward kernels."""
     return _forward(params, tokens, config,
                     _select_attention(config, tokens.device), 0)
 
@@ -240,7 +248,10 @@ class _Layer(nn.Module):
 
 class Transformer(nn.Module):
     """The parameters as an ``nn.Module``; ``state_dict`` keys mirror the
-    JAX tree paths.  ``forward(tokens)`` is :func:`transformer_apply`."""
+    JAX tree paths.  ``forward(tokens)`` is :func:`transformer_apply`.
+    ``parameters()`` are the very tensors :meth:`tree` hands out, so an
+    optimizer over the module trains what the functional entry points
+    read."""
 
     def __init__(self, config: TransformerConfig, params: Dict):
         super().__init__()

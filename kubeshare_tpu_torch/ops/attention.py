@@ -1,6 +1,6 @@
-"""Attention ops, port of kubeshare_tpu/ops/attention.py (forward only).
+"""Attention ops, port of kubeshare_tpu/ops/attention.py (dense mode).
 
-Two plain PyTorch versions with deliberately different numerics:
+Plain PyTorch versions with deliberately different numerics:
 
 - :func:`attention_reference` mirrors the JAX ``attention_reference``:
   scores in the input dtype, masked with ``finfo(dtype).min``, softmax in
@@ -8,11 +8,16 @@ Two plain PyTorch versions with deliberately different numerics:
 - :func:`flash_forward_reference` mirrors the flash kernel: f32 scores,
   ``-inf`` masking, p cast to v's dtype before the p . v product, f32
   accumulation, and the per-row logsumexp.
+- :func:`flash_backward_reference` mirrors the two backward kernels:
+  p recomputed from the saved logsumexp, f32 products with p and ds
+  rounded to the input dtype before their matmuls.
 
-:func:`flash_attention` sends a CUDA tensor to the hand-written Hopper
-kernel (``csrc/flash_fwd.cu``) and a CPU tensor to
-:func:`flash_forward_reference`.  There is no fallback between the two:
-a CUDA tensor the kernel does not take raises.
+:func:`flash_attention` is a ``torch.autograd.Function``
+(:class:`FlashAttention`): on a CUDA tensor its forward launches the
+hand-written Hopper kernel (``csrc/flash_fwd.cu``) and its backward the
+dK/dV and dQ kernels (``csrc/flash_bwd.cu``); on a CPU tensor both take
+the plain versions.  There is no fallback between the two: a CUDA tensor
+the kernels do not take raises.
 
 Shapes: q is [batch, heads, seq, head_dim]; k, v are
 [batch, kv_heads, seq, head_dim] (GQA when kv_heads < heads).
@@ -24,10 +29,6 @@ from typing import Optional, Tuple
 
 import torch
 
-BACKWARD_ITEM = (
-    "the flash backward kernels (ROADMAP.md, queue B items 2-3: "
-    "_flash_bwd_dkv_kernel and _flash_bwd_dq_kernel)"
-)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 128)
 
@@ -112,8 +113,51 @@ def flash_forward_reference(
     return out, lse
 
 
+def flash_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, causal: bool = True,
+    window: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the two backward kernels: (dq, dk, dv).
+
+    From the forward's ``out`` and ``lse`` ([b, h, s, 1] f32): p =
+    exp(q . k^T * scale - lse) in f32, 0 where the score is masked;
+    delta = rowsum(dout o out) in f32; dv = p^T . dout with p rounded to
+    dout's dtype; dp = dout . v^T in f32, ds = p o (dp - delta); dk =
+    scale * ds^T . q and dq = scale * ds . k with ds rounded to q's / k's
+    dtype.  Every product accumulates in f32.  GQA: dk, dv are summed over
+    each query-head group in f32, then rounded once to k's / v's dtype.
+    """
+    _check_window(window)
+    b, h, s, d = q.shape
+    h_kv = k.shape[1]
+    k_full, v_full = _repeat_kv(q, k, v)
+    scale = d ** -0.5
+    f32 = torch.float32
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.to(f32), k_full.to(f32)) * scale
+    if causal or window is not None:
+        mask = _band_mask(s, s, window, q.device)
+        scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.exp(scores - lse)
+    probs = torch.where(torch.isfinite(scores), probs, torch.zeros_like(probs))
+    delta = _backward_delta(out, dout)
+    dv = torch.einsum("bhqk,bhqd->bhkd", probs.to(dout.dtype).to(f32),
+                      dout.to(f32))
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.to(f32), v_full.to(f32))
+    ds = probs * (dp - delta)
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).to(f32),
+                              q.to(f32))
+    dq = scale * torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).to(f32),
+                              k_full.to(f32))
+    if h_kv != h:
+        dk = dk.reshape(b, h_kv, h // h_kv, s, d).sum(dim=2)
+        dv = dv.reshape(b, h_kv, h // h_kv, s, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check_kernel_inputs(q, k, v) -> None:
-    """Raise on anything csrc/flash_fwd.cu does not take."""
+    """Raise on anything the flash kernels (csrc/flash_fwd.cu,
+    csrc/flash_bwd.cu) do not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [batch, heads, seq, head_dim]")
     b, h, s, d = q.shape
@@ -142,6 +186,14 @@ def _check_kernel_inputs(q, k, v) -> None:
             raise ValueError(f"flash kernel needs {name} 16-byte aligned")
 
 
+def _launch_args(q, k, causal: bool, window: Optional[int], stream):
+    """The launchers' trailing arguments: dtype, b, h, h_kv, s, d, causal,
+    window (0 = none), scale d^-1/2, stream."""
+    b, h, s, d = q.shape
+    return (KERNEL_DTYPES[q.dtype], b, h, k.shape[1], s, d, int(causal),
+            window or 0, d ** -0.5, stream)
+
+
 def _flash_forward_cuda(q, k, v, causal: bool, window: Optional[int]):
     """Launch csrc/flash_fwd.cu on q's current stream; returns (out, lse)."""
     from . import _build
@@ -155,9 +207,7 @@ def _flash_forward_cuda(q, k, v, causal: bool, window: Optional[int]):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), KERNEL_DTYPES[q.dtype], b, h, k.shape[1], s, d,
-            int(causal), window or 0, d ** -0.5, stream,
-        )
+            lse.data_ptr(), *_launch_args(q, k, causal, window, stream))
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
     flash_forward.launches += 1
@@ -173,16 +223,128 @@ def flash_forward(
     _check_window(window)
     if q.device.type != "cuda":
         return flash_forward_reference(q, k, v, causal, window)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward-only until "
-            f"{BACKWARD_ITEM} land; run under torch.no_grad() or "
-            "torch.inference_mode()"
-        )
     return _flash_forward_cuda(q, k, v, causal, window)
 
 
 flash_forward.launches = 0
+
+
+def _check_backward_inputs(q, k, v, out, lse, dout) -> None:
+    """Raise on anything csrc/flash_bwd.cu does not take (beyond the
+    forward's checks on q, k, v)."""
+    _check_kernel_inputs(q, k, v)
+    b, h, s, _ = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(
+                f"{name} {tuple(t.shape)} {t.dtype} does not match q "
+                f"{tuple(q.shape)} {q.dtype}")
+    if lse.shape != (b, h, s, 1) or lse.dtype != torch.float32:
+        raise ValueError(
+            f"lse must be [b, h, s, 1] float32, got {tuple(lse.shape)} "
+            f"{lse.dtype}")
+    for name, t in (("out", out), ("lse", lse), ("dout", dout)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash backward kernels need a contiguous {name}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash backward kernels need {name} 16-byte aligned")
+
+
+def _backward_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dout o out) in f32, [b, h, s, 1] (JAX computes it
+    outside the kernels too, attention.py:409)."""
+    return (dout.to(torch.float32) * out.to(torch.float32)).sum(
+        dim=-1, keepdim=True)
+
+
+def _flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool,
+                        window: Optional[int]):
+    """Launch the dK/dV kernel of csrc/flash_bwd.cu; returns (dk, dv) at
+    k's / v's shape (the GQA group is summed in the kernel)."""
+    from . import _build
+
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _build.load("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_bwd_dkv_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_launch_args(q, k, causal, window, stream))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv launch failed: CUDA error {err}")
+    flash_backward.launches_dkv += 1
+    return dk, dv
+
+
+def _flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool,
+                       window: Optional[int]):
+    """Launch the dQ kernel of csrc/flash_bwd.cu; returns dq."""
+    from . import _build
+
+    dq = torch.empty_like(q)
+    lib = _build.load("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_bwd_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_launch_args(q, k, causal, window, stream))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {err}")
+    flash_backward.launches_dq += 1
+    return dq
+
+
+def _flash_backward_cuda(q, k, v, out, lse, dout, causal: bool,
+                         window: Optional[int]):
+    _check_backward_inputs(q, k, v, out, lse, dout)
+    delta = _backward_delta(out, dout)
+    dk, dv = _flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, window)
+    dq = _flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, window)
+    return dq, dk, dv
+
+
+def flash_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, causal: bool = True,
+    window: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): the dK/dV and dQ Hopper kernels for a CUDA tensor,
+    :func:`flash_backward_reference` for a CPU tensor.
+    ``flash_backward.launches_dkv`` / ``launches_dq`` count launches."""
+    _check_window(window)
+    if q.device.type != "cuda":
+        return flash_backward_reference(q, k, v, out, lse, dout, causal,
+                                        window)
+    return _flash_backward_cuda(q, k, v, out, lse, dout, causal, window)
+
+
+flash_backward.launches_dkv = 0
+flash_backward.launches_dq = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the flash backward: the forward saves q, k,
+    v, out and the logsumexp; the backward recomputes p from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        out, lse = flash_forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        # the incoming gradient may be a strided view (a permute's grad)
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout.contiguous(),
+                                    ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
 
 
 def use_kernel_default(device: torch.device) -> bool:
@@ -195,11 +357,12 @@ def use_kernel_default(device: torch.device) -> bool:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """Flash attention: the Hopper kernel on CUDA, its plain version on
+    """Flash attention, differentiable: the Hopper kernels on CUDA
+    (forward, and dK/dV + dQ in the backward), their plain versions on
     the CPU.  ``window``: sliding-window causal attention (query i
-    attends keys (i - window, i]); the kernel skips K tiles outside the
-    band, so its cost is O(s * window).  Inputs in another layout (the
+    attends keys (i - window, i]); the kernels skip tiles outside the
+    band, so their cost is O(s * window).  Inputs in another layout (the
     head-split projections are permuted views) are copied to the
-    contiguous layout the kernel reads."""
-    return flash_forward(q.contiguous(), k.contiguous(), v.contiguous(),
-                         causal, window)[0]
+    contiguous layout the kernels read."""
+    return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal, window)

@@ -110,8 +110,27 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 def test_kernel_build_is_keyed_by_source(tmp_path, monkeypatch):
     from kubeshare_tpu_torch.ops import _build
 
-    first = _build.library_path("flash_fwd")
-    assert first.parent == PACKAGE / "_build"
+    names = ("flash_fwd", "flash_bwd")
+    assert set(names) <= set(_build.SIGNATURES)
+    first = {name: _build.library_path(name) for name in names}
+    for name, path in first.items():
+        assert (_build.CSRC / f"{name}.cu").exists()
+        assert path.parent == PACKAGE / "_build"
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    (tmp_path / "flash_fwd.cu").write_text("// another source\n")
-    assert _build.library_path("flash_fwd") != first
+    for name in names:
+        (tmp_path / f"{name}.cu").write_text(f"// another {name}\n")
+    second = {name: _build.library_path(name) for name in names}
+    assert all(second[name] != first[name] for name in names)
+    # an edited shared header rebuilds every source that may include it
+    (tmp_path / "flash_common.cuh").write_text("// a header\n")
+    assert all(_build.library_path(name) != second[name] for name in names)
+
+
+def test_every_launcher_is_registered():
+    # each extern "C" launcher of a source has a ctypes signature
+    from kubeshare_tpu_torch.ops import _build
+    import re
+
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        symbols = set(re.findall(r'extern "C" int (\w+)\(', path.read_text()))
+        assert symbols == set(_build.SIGNATURES[path.stem]), path.name
