@@ -15,12 +15,19 @@ Phases (any failure raises and the script exits non-zero):
    the tolerances below; then each kernel's time beside the plain
    version's, one library call's, and the bound the card sets, at the
    serving flagship's attention shape and at the training shape.
-4. slice: the flagship Transformer (entry.flagship_config, full width,
+4. block_sparse: the masked instantiations of the three kernels against
+   their plain versions at eight masks (documents, prefix-LM, dead rows,
+   mask blocks straddling the kernels' tiles, JAX's default blocks, GQA,
+   f32 at a ragged length and at head_dim 128); block_sparse_attention's
+   forward and gradient at the document-masked training shape, held
+   against the plain path; and each masked kernel's time there beside
+   the plain version's, SDPA's with the expanded mask, and the bound.
+5. slice: the flagship Transformer (entry.flagship_config, full width,
    weights from a seed) runs its forward at tokens (4, 1024), then serves
    4 requests (896-token prompts, 128 greedy tokens each: bulk prefill,
    then cached decode).  Both are held against the same path with plain
    attention.
-5. train: the repo's train-step flagship (benchmarks/kernel_bench.py
+6. train: the repo's train-step flagship (benchmarks/kernel_bench.py
    MODEL_SIZES["flagship"], rope, bf16, full width and depth) takes 10
    AdamW steps on a fixed batch of 2 x 2048 tokens through
    parallel.train.make_train_step.  Step 1's loss and every gradient are
@@ -151,26 +158,33 @@ def _bound(nbytes, flops, dtype_name):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_bound(shape, h_kv, dtype_name, causal, window):
+def flash_bound(shape, h_kv, dtype_name, causal, window, pairs=None):
     """(bound_ms, bound_by): bytes of q, k, v, out, lse once each over
-    the memory rate vs the two products' operations over the peak."""
+    the memory rate vs the two products' operations over the peak.
+    ``pairs``: visible pairs per head, when a block mask sets them."""
     b, h, s, d = shape
     elt = 2 if dtype_name == "bfloat16" else 4
     nbytes = (2 * b * h * s * d + 2 * b * h_kv * s * d) * elt + b * h * s * 4
-    flops = 4 * d * visible_pairs(s, causal, window) * b * h
+    if pairs is None:
+        pairs = visible_pairs(s, causal, window)
+    flops = 4 * d * pairs * b * h
     return _bound(nbytes, flops, dtype_name)
 
 
-def flash_bwd_bound(kernel, shape, h_kv, dtype_name, causal, window):
+def flash_bwd_bound(kernel, shape, h_kv, dtype_name, causal, window,
+                    pairs=None):
     """(bound_ms, bound_by) of one backward kernel.  dkv reads q, k, v,
     dO, lse, delta and writes dk, dv; it does four products per visible
     pair (S, dP, p^T.dO, ds^T.q: 8 d FLOPs).  dq reads the same and
-    writes dq; it does three (S, dP, ds.k: 6 d FLOPs)."""
+    writes dq; it does three (S, dP, ds.k: 6 d FLOPs).  ``pairs``:
+    visible pairs per head, when a block mask sets them."""
     b, h, s, d = shape
     elt = 2 if dtype_name == "bfloat16" else 4
     q_elems, kv_elems = b * h * s * d, b * h_kv * s * d
     rows = 2 * b * h * s * 4  # lse and delta, f32
-    pairs = visible_pairs(s, causal, window) * b * h
+    if pairs is None:
+        pairs = visible_pairs(s, causal, window)
+    pairs *= b * h
     if kernel == "dkv":
         nbytes = (2 * q_elems + 4 * kv_elems) * elt + rows
         flops = 8 * d * pairs
@@ -196,10 +210,12 @@ def kernel_resources(log: str):
 
     rows, name, spill = [], None, 0
     for line in log.splitlines():
-        # the mangled name puts the identifier's length just before it
-        entry = re.search(r"Compiling entry function '\w*\d(flash_[a-z0-9_]+?_kernel)ILi(\d+)E", line)
+        # the mangled name puts the identifier's length just before it;
+        # the masked instantiations' bool template argument reads Lb1E
+        entry = re.search(r"Compiling entry function '\w*\d(flash_[a-z0-9_]+?_kernel)ILi(\d+)E(Lb1E)?", line)
         if entry:
-            name, spill = f"{entry.group(1)}<{entry.group(2)}>", 0
+            masked = ", masked" if entry.group(3) else ""
+            name, spill = f"{entry.group(1)}<{entry.group(2)}{masked}>", 0
             continue
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spills and name:
@@ -212,25 +228,88 @@ def kernel_resources(log: str):
 
 
 def reset_counts():
-    from kubeshare_tpu_torch.ops.attention import flash_backward, flash_forward
+    from kubeshare_tpu_torch.ops import attention as A
 
-    flash_forward.launches = 0
-    flash_backward.launches_dkv = 0
-    flash_backward.launches_dq = 0
+    A.flash_forward.launches = 0
+    A.flash_backward.launches_dkv = 0
+    A.flash_backward.launches_dq = 0
+    A.block_sparse_forward.launches = 0
+    A.block_sparse_backward.launches_dkv = 0
+    A.block_sparse_backward.launches_dq = 0
 
 
 def read_counts():
-    from kubeshare_tpu_torch.ops.attention import flash_backward, flash_forward
+    from kubeshare_tpu_torch.ops import attention as A
 
-    return {"flash_fwd": flash_forward.launches,
-            "flash_bwd_dkv": flash_backward.launches_dkv,
-            "flash_bwd_dq": flash_backward.launches_dq}
+    return {"flash_fwd": A.flash_forward.launches,
+            "flash_bwd_dkv": A.flash_backward.launches_dkv,
+            "flash_bwd_dq": A.flash_backward.launches_dq,
+            "flash_fwd_block_sparse": A.block_sparse_forward.launches,
+            "flash_bwd_dkv_block_sparse": A.block_sparse_backward.launches_dkv,
+            "flash_bwd_dq_block_sparse": A.block_sparse_backward.launches_dq}
+
+
+def only(*names):
+    """The counts of a path that launched each named kernel once and no
+    other kernel."""
+    return {name: int(name in names) for name in read_counts()}
 
 
 def rel_err(got, ref) -> float:
     """max |got - ref| / max |ref| in f32."""
     ref = ref.float()
     return float((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def check_out(torch, label, out, ref_out):
+    """A forward's out against its plain version's, element by element
+    (TOLERANCES); returns the max abs error."""
+    tol = TOLERANCES[str(out.dtype).removeprefix("torch.")]
+    out_err = (out.float() - ref_out.float()).abs()
+    out_ok = bool((out_err <= tol["out_atol"]
+                   + tol["out_rtol"] * ref_out.float().abs()).all())
+    err = float(out_err.max())
+    check(out_ok, f"{label}: out disagrees with the plain version "
+                  f"(max abs err {err})")
+    return err
+
+
+def check_forward(torch, label, out, lse, ref_out, ref_lse):
+    """A forward kernel's (out, lse) against its plain version's on the
+    same inputs; returns out's max abs error."""
+    tol = TOLERANCES[str(out.dtype).removeprefix("torch.")]
+    finite = torch.isfinite(ref_lse)
+    check(bool((torch.isfinite(lse) == finite).all()),
+          f"{label}: lse -inf rows differ")
+    lse_err = float((lse[finite] - ref_lse[finite]).abs().max())
+    err = float((out.float() - ref_out.float()).abs().max())
+    print(f"{label}: out_max_abs_err={err:.3e} lse_max_abs_err={lse_err:.3e}")
+    check_out(torch, label, out, ref_out)
+    check(lse_err <= tol["lse_atol"],
+          f"{label}: lse disagrees with the plain version (max abs err "
+          f"{lse_err})")
+    return err
+
+
+def check_grads(torch, label, grads, ref):
+    """(dq, dk, dv) from the backward kernels against the plain
+    version's; returns the worst (relative, absolute) error of the dK/dV
+    and the dQ kernel."""
+    names = ("dq", "dk", "dv")
+    errs = {n: rel_err(g, r) for n, g, r in zip(names, grads, ref)}
+    abs_errs = {n: float((g.float() - r.float()).abs().max())
+                for n, g, r in zip(names, grads, ref)}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    tol = BWD_TOLERANCES[str(grads[0].dtype).removeprefix("torch.")]
+    print(f"{label}: " + " ".join(
+        f"{n}_rel_err={e:.3e}" for n, e in errs.items()) + f" (tol {tol})")
+    check(finite, f"{label}: non-finite gradients from the backward kernels")
+    for n, e in errs.items():
+        check(e <= tol, f"{label}: {n} disagrees with the plain version "
+                        f"(max abs err / max |ref| = {e})")
+    return {"dkv": (max(errs["dk"], errs["dv"]),
+                    max(abs_errs["dk"], abs_errs["dv"])),
+            "dq": (errs["dq"], abs_errs["dq"])}
 
 
 def check_backward(torch, name, q, k, v, out, lse, causal, window, gen):
@@ -240,24 +319,10 @@ def check_backward(torch, name, q, k, v, out, lse, causal, window, gen):
     from kubeshare_tpu_torch.ops.attention import flash_backward, flash_backward_reference
 
     dout = torch.randn(q.shape, generator=gen, device=q.device, dtype=q.dtype)
-    dq, dk, dv = flash_backward(q, k, v, out, lse, dout, causal, window)
+    grads = flash_backward(q, k, v, out, lse, dout, causal, window)
     torch.cuda.synchronize()
     ref = flash_backward_reference(q, k, v, out, lse, dout, causal, window)
-    errs = {n: rel_err(g, r) for n, g, r in zip(("dq", "dk", "dv"),
-                                                 (dq, dk, dv), ref)}
-    abs_errs = {n: float((g.float() - r.float()).abs().max())
-                for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
-    finite = all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
-    tol = BWD_TOLERANCES[str(q.dtype).removeprefix("torch.")]
-    print(f"kernel flash_bwd {name}: " + " ".join(
-        f"{n}_rel_err={e:.3e}" for n, e in errs.items()) + f" (tol {tol})")
-    check(finite, f"{name}: non-finite gradients from the backward kernels")
-    for n, e in errs.items():
-        check(e <= tol, f"{name}: {n} disagrees with flash_backward_reference "
-                        f"(max abs err / max |ref| = {e})")
-    return {"dkv": (max(errs["dk"], errs["dv"]),
-                    max(abs_errs["dk"], abs_errs["dv"])),
-            "dq": (errs["dq"], abs_errs["dq"])}
+    return check_grads(torch, f"kernel flash_bwd {name}", grads, ref)
 
 
 def time_shape(torch, shape, gen):
@@ -337,23 +402,10 @@ def kernel_phase(torch, device):
         out, lse = flash_forward(q, k, v, causal, window)
         torch.cuda.synchronize()
         ref_out, ref_lse = flash_forward_reference(q, k, v, causal, window)
-        tol = TOLERANCES[str(dtype).removeprefix("torch.")]
-        out_err = (out.float() - ref_out.float()).abs()
-        out_ok = bool((out_err <= tol["out_atol"]
-                       + tol["out_rtol"] * ref_out.float().abs()).all())
-        finite = torch.isfinite(ref_lse)
-        check(bool((torch.isfinite(lse) == finite).all()),
-              f"{name}: lse -inf rows differ")
-        lse_err = float((lse[finite] - ref_lse[finite]).abs().max())
-        err = float(out_err.max())
-        print(f"kernel flash_fwd {name}: shape={shape} h_kv={h_kv} "
-              f"{dtype} causal={causal} window={window} "
-              f"out_max_abs_err={err:.3e} lse_max_abs_err={lse_err:.3e}")
-        check(out_ok, f"{name}: out disagrees with flash_forward_reference "
-                      f"(max abs err {err})")
-        check(lse_err <= tol["lse_atol"],
-              f"{name}: lse disagrees with flash_forward_reference "
-              f"(max abs err {lse_err})")
+        err = check_forward(
+            torch, f"kernel flash_fwd {name}: shape={shape} h_kv={h_kv} "
+            f"{dtype} causal={causal} window={window}",
+            out, lse, ref_out, ref_lse)
         worst["flash_fwd"][1] = max(worst["flash_fwd"][1], err)
         bwd = check_backward(torch, name, q, k, v, out, lse, causal, window, gen)
         for kernel, errs in (("flash_bwd_dkv", bwd["dkv"]),
@@ -365,6 +417,210 @@ def kernel_phase(torch, device):
     timings = [time_shape(torch, shape, gen)
                for shape in ((4, 8, 1024, 64), (TRAIN_BATCH, 8, TRAIN_SEQ, 128))]
     return worst, timings
+
+
+def doc_mask(torch, lengths, block):
+    """Block-diagonal mask of documents of ``lengths`` tokens (multiples
+    of ``block``): a block sees the blocks of its own document."""
+    doc = torch.repeat_interleave(torch.arange(len(lengths)),
+                                  torch.tensor(lengths) // block)
+    return (doc[:, None] == doc[None, :]).to(torch.int32)
+
+
+def random_mask(torch, n, density, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.rand((n, n), generator=gen) < density).to(torch.int32)
+
+
+def block_sparse_cases(torch):
+    """(name, (b, h, s, d), h_kv, dtype, block_q, block_k, mask, causal)"""
+    bf16, f32 = torch.bfloat16, torch.float32
+    docs = doc_mask(torch, (384, 640, 256, 768), 128)
+    i = torch.arange(16)
+    prefix_lm = ((i[None, :] <= i[:, None]) | (i[None, :] < 4)).to(torch.int32)
+    dead = random_mask(torch, 16, 0.5, 21)
+    dead[5] = 0  # queries 320-383 see no key
+    return [
+        ("doc_causal", (2, 8, 2048, 128), 8, bf16, 128, 128, docs, True),
+        ("prefix_lm", (4, 8, 1024, 64), 8, bf16, 64, 64, prefix_lm, False),
+        ("dead_rows", (2, 8, 1024, 64), 8, bf16, 64, 64, dead, False),
+        ("straddle_b32", (2, 4, 1024, 64), 4, bf16, 32, 32,
+         random_mask(torch, 32, 0.6, 22), True),
+        ("coarse_default", (2, 8, 2048, 128), 8, bf16, 512, 1024,
+         torch.tensor([[1, 0], [1, 0], [0, 1], [1, 1]], dtype=torch.int32),
+         True),
+        ("gqa_hkv2", (2, 8, 2048, 128), 2, bf16, 128, 128, docs, True),
+        ("f32_odd_s1000_b40", (2, 4, 1000, 64), 4, f32, 40, 40,
+         random_mask(torch, 25, 0.6, 23), True),
+        ("f32_d128_doc", (1, 4, 1024, 128), 4, f32, 128, 128,
+         doc_mask(torch, (384, 640), 128), True),
+    ]
+
+
+def time_block_sparse(torch, shape, mask, block, gen):
+    """Times of the three masked kernels at one bf16 causal MHA shape and
+    mask, beside the plain versions, SDPA with the expanded mask and the
+    bounds."""
+    import torch.nn.functional as F
+    from kubeshare_tpu_torch.ops import attention as A
+
+    b, h, s, d = shape
+    q, k, v, dout = (torch.randn(shape, generator=gen, device=mask.device,
+                                 dtype=torch.bfloat16) for _ in range(4))
+    mask = mask.bool()  # read in place by the kernels: nothing but them timed
+    args = (mask, True, block, block)
+    out, lse = A.block_sparse_forward(q, k, v, *args)
+    delta = A._backward_delta(out, dout)
+    fwd_ms = time_ms(lambda: A._block_sparse_forward_cuda(q, k, v, *args))
+    dkv_ms = time_ms(lambda: A._block_sparse_bwd_dkv_cuda(
+        q, k, v, dout, lse, delta, *args))
+    dq_ms = time_ms(lambda: A._block_sparse_bwd_dq_cuda(
+        q, k, v, dout, lse, delta, *args))
+    fwd_plain_ms = time_ms(lambda: A.block_sparse_forward_reference(
+        q, k, v, mask, True, block, block))
+    bwd_plain_ms = time_ms(lambda: A.block_sparse_backward_reference(
+        q, k, v, out, lse, dout, mask, True, block, block))
+    # yardsticks only, never on the port's path: SDPA with the element
+    # mask (block mask and causal band) as a boolean attn_mask, and its
+    # backward as one autograd.grad with the graph kept
+    elem = A._element_mask(mask, block, block, s, True)
+    fwd_library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=elem))
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=elem)
+    bwd_library_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), dout, retain_graph=True))
+    # the bounds count the operations of the mask's visible pairs, but
+    # the dense bytes: every row of out and lse is written (zeros where a
+    # row sees nothing), dk and dv in full, and every row of q, k, v and
+    # dO meets a visible pair in these masks, so sparsity removes
+    # operations and no byte of input or output
+    pairs = int(elem.sum())
+    print(f"kernel block_sparse mask at {shape} blocks {block}: visible "
+          f"pairs per head {pairs} = {pairs / (s * s):.4f} of s^2")
+    # the whole op as a caller sees it: forward, delta and both backward
+    # kernels, beside SDPA's forward and backward with the mask
+    path_ms = time_ms(lambda: torch.autograd.grad(A.block_sparse_attention(
+        ql, kl, vl, mask, causal=True, block_q=block, block_k=block),
+        (ql, kl, vl), dout))
+    library_path_ms = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(ql, kl, vl, attn_mask=elem),
+        (ql, kl, vl), dout))
+    print(f"block_sparse_attention forward + grad at {shape}: "
+          f"{path_ms:.4f} ms; SDPA with the mask forward + grad "
+          f"{library_path_ms:.4f} ms")
+    rows = {}
+    for name, ms, plain_ms, library_ms, bound in (
+        ("flash_fwd_block_sparse", fwd_ms, fwd_plain_ms, fwd_library_ms,
+         flash_bound(shape, h, "bfloat16", True, None, pairs)),
+        ("flash_bwd_dkv_block_sparse", dkv_ms, bwd_plain_ms, bwd_library_ms,
+         flash_bwd_bound("dkv", shape, h, "bfloat16", True, None, pairs)),
+        ("flash_bwd_dq_block_sparse", dq_ms, bwd_plain_ms, bwd_library_ms,
+         flash_bwd_bound("dq", shape, h, "bfloat16", True, None, pairs)),
+    ):
+        rows[name] = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound[0],
+                      "bound_by": bound[1], "visible_pairs": pairs}
+        print(f"kernel {name} timing at {shape} bf16 causal doc mask: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {library_ms:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})")
+    return rows
+
+
+def block_sparse_phase(torch, device):
+    """The masked kernels against their plain versions at every case,
+    block_sparse_attention end to end at doc_causal, and the timings."""
+    from kubeshare_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    worst = {"flash_fwd_block_sparse": [None, 0.0],
+             "flash_bwd_dkv_block_sparse": [0.0, 0.0],
+             "flash_bwd_dq_block_sparse": [0.0, 0.0]}
+    launches = None
+    for (name, shape, h_kv, dtype, bq, bk, mask,
+         causal) in block_sparse_cases(torch):
+        b, h, s, d = shape
+        mask = mask.to(device)
+        q = torch.randn(shape, generator=gen, device=device, dtype=dtype)
+        k = torch.randn((b, h_kv, s, d), generator=gen, device=device, dtype=dtype)
+        v = torch.randn((b, h_kv, s, d), generator=gen, device=device, dtype=dtype)
+        dout = torch.randn(shape, generator=gen, device=device, dtype=dtype)
+        args = (mask, causal, bq, bk)
+        out, lse = A.block_sparse_forward(q, k, v, *args)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = A.block_sparse_forward_reference(q, k, v, *args)
+        err = check_forward(
+            torch, f"kernel flash_fwd_block_sparse {name}: shape={shape} "
+            f"h_kv={h_kv} {dtype} blocks=({bq}, {bk}) causal={causal} "
+            f"mask density={float((mask != 0).float().mean()):.3f}",
+            out, lse, ref_out, ref_lse)
+        worst["flash_fwd_block_sparse"][1] = max(
+            worst["flash_fwd_block_sparse"][1], err)
+        grads = A.block_sparse_backward(q, k, v, out, lse, dout, *args)
+        torch.cuda.synchronize()
+        ref = A.block_sparse_backward_reference(q, k, v, out, lse, dout, *args)
+        bwd = check_grads(torch, f"kernel flash_bwd_block_sparse {name}",
+                          grads, ref)
+        for kernel, errs in (("flash_bwd_dkv_block_sparse", bwd["dkv"]),
+                             ("flash_bwd_dq_block_sparse", bwd["dq"])):
+            worst[kernel] = [max(a, b) for a, b in zip(worst[kernel], errs)]
+        if name == "dead_rows":
+            rows = slice(5 * bq, 6 * bq)
+            check(bool((out[:, :, rows] == 0).all())
+                  and bool(torch.isneginf(lse[:, :, rows]).all())
+                  and bool((grads[0][:, :, rows] == 0).all()),
+                  "dead_rows: a query row with no visible key has a nonzero "
+                  "out or dq, or a finite lse")
+            print("kernel block_sparse dead_rows: out and dq of queries "
+                  f"{rows.start}-{rows.stop - 1} are 0, their lse -inf, "
+                  "every gradient finite")
+        if name == "doc_causal":
+            launches = block_sparse_path(torch, q, k, v, dout, args,
+                                         (ref_out, ref_lse))
+        del q, k, v, dout, out, lse, ref_out, ref_lse, grads, ref
+    docs = doc_mask(torch, (384, 640, 256, 768), 128).to(device)
+    timing = time_block_sparse(torch, (TRAIN_BATCH, 8, TRAIN_SEQ, 128), docs,
+                               128, gen)
+    return worst, timing, launches
+
+
+def block_sparse_path(torch, q, k, v, dout, args, plain_forward):
+    """block_sparse_attention forward + autograd.grad, counted, against
+    the plain path (the plain forward and backward on the same inputs)."""
+    from kubeshare_tpu_torch.ops import attention as A
+
+    mask, causal, bq, bk = args
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    reset_counts()
+    out = A.block_sparse_attention(*leaves, mask, causal=causal, block_q=bq,
+                                   block_k=bk)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"block_sparse_attention forward + grad at {tuple(q.shape)}: "
+          f"launches {launches}")
+    check(launches == only("flash_fwd_block_sparse",
+                           "flash_bwd_dkv_block_sparse",
+                           "flash_bwd_dq_block_sparse"),
+          f"block_sparse_attention launched {launches}: expected each "
+          f"masked kernel once and no dense kernel")
+    ref_out, ref_lse = plain_forward
+    check(tuple(out.shape) == tuple(q.shape) and out.dtype == q.dtype,
+          f"block_sparse_attention out {tuple(out.shape)} {out.dtype}")
+    out = out.detach()
+    err = check_out(torch, "block_sparse_attention out vs plain path", out,
+                    ref_out)
+    print(f"block_sparse_attention out vs plain path: max abs err {err:.3e}")
+    ref = A.block_sparse_backward_reference(q, k, v, ref_out, ref_lse, dout,
+                                            *args)
+    check_grads(torch, "block_sparse_attention grads vs plain path", grads,
+                ref)
+    oracle = A.block_sparse_reference(q, k, v, *args)
+    print("block_sparse_attention out vs block_sparse_reference (bf16 "
+          "scores): max abs err "
+          f"{float((out.float() - oracle.float()).abs().max()):.3e}")
+    return launches
 
 
 def slice_phase(torch, device):
@@ -492,7 +748,7 @@ def train_phase(torch, device):
     print(f"train remat: launches {remat_launches} for one forward + "
           f"backward, loss {float(remat_loss):.5f}, worst grad "
           f"max-abs-err/max-ref vs remat off {remat_err:.3e}")
-    check(remat_launches == {"flash_fwd": 2 * config.n_layers,
+    check(remat_launches == {**only(), "flash_fwd": 2 * config.n_layers,
                              "flash_bwd_dkv": config.n_layers,
                              "flash_bwd_dq": config.n_layers},
           f"remat launched {remat_launches}: expected the forward twice "
@@ -539,7 +795,9 @@ def train_phase(torch, device):
         losses.append(step_loss)
         if i == 0:
             first = read_counts()
-            check(all(n == config.n_layers for n in first.values()),
+            check(first == {name: n * config.n_layers for name, n in
+                             only("flash_fwd", "flash_bwd_dkv",
+                                  "flash_bwd_dq").items()},
                   f"train step 1 launched {first}, expected {config.n_layers} "
                   f"of each kernel")
     launches = read_counts()
@@ -566,7 +824,9 @@ def train_phase(torch, device):
           f"tokens/s, {flops / 1e12:.3f} TFLOP per step = {share:.4f} of "
           f"989 TFLOP/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check(all(n == TRAIN_STEPS * config.n_layers for n in launches.values()),
+    check(launches == {name: n * TRAIN_STEPS * config.n_layers for name, n in
+                       only("flash_fwd", "flash_bwd_dkv",
+                            "flash_bwd_dq").items()},
           f"train path launched {launches}, expected "
           f"{TRAIN_STEPS * config.n_layers} of each kernel")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
@@ -660,28 +920,41 @@ def main() -> int:
         return 0
 
     worst, timings = kernel_phase(torch, device)
+    bs_worst, bs_timing, bs_launches = block_sparse_phase(torch, device)
+    worst.update(bs_worst)
     launches = slice_phase(torch, device)
     launches["train"] = train_phase(torch, device)
+    launches["block_sparse"] = bs_launches
 
+    fwd_src = "kubeshare_tpu_torch/csrc/flash_fwd.cu"
+    bwd_src = "kubeshare_tpu_torch/csrc/flash_bwd.cu"
+    jax_src = "kubeshare_tpu/ops/attention.py"
+    # name: (source, TPU kernel, mode, timings); the headline numbers are
+    # at the shape of the path that runs the kernel most: serving's for the
+    # dense forward, training's for the dense backward, the document mask
+    # at the training shape for the masked kernels
     sources = {
-        "flash_fwd": ("kubeshare_tpu_torch/csrc/flash_fwd.cu",
-                      "kubeshare_tpu/ops/attention.py:107"),
-        "flash_bwd_dkv": ("kubeshare_tpu_torch/csrc/flash_bwd.cu",
-                          "kubeshare_tpu/ops/attention.py:278"),
-        "flash_bwd_dq": ("kubeshare_tpu_torch/csrc/flash_bwd.cu",
-                         "kubeshare_tpu/ops/attention.py:330"),
+        "flash_fwd": (fwd_src, f"{jax_src}:107", "dense", timings),
+        "flash_bwd_dkv": (bwd_src, f"{jax_src}:278", "dense", timings),
+        "flash_bwd_dq": (bwd_src, f"{jax_src}:330", "dense", timings),
+        "flash_fwd_block_sparse": (fwd_src, f"{jax_src}:107", "has_mask",
+                                   [bs_timing]),
+        "flash_bwd_dkv_block_sparse": (bwd_src, f"{jax_src}:278", "has_mask",
+                                       [bs_timing]),
+        "flash_bwd_dq_block_sparse": (bwd_src, f"{jax_src}:330", "has_mask",
+                                      [bs_timing]),
     }
     kernels = []
-    for name, (source, replaces) in sources.items():
-        # the headline numbers are at the shape of the path that runs the
-        # kernel most: serving's for the forward, training's for the backward
-        main_timing = timings[0 if name == "flash_fwd" else 1][name]
+    for name, (source, replaces, mode, kernel_timings) in sources.items():
+        main_timing = kernel_timings[1 if name in ("flash_bwd_dkv",
+                                                   "flash_bwd_dq") else 0][name]
         by_path = {path: counts[name] for path, counts in launches.items()}
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
+            "mode": mode,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": worst[name][1],
@@ -692,7 +965,7 @@ def main() -> int:
             "bound_by": main_timing["bound_by"],
             "library_ms": main_timing["library_ms"],
             "timed_shape": main_timing["shape"],
-            "timings": [t[name] for t in timings],
+            "timings": [t[name] for t in kernel_timings],
         })
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -56,6 +56,21 @@
 // Ragged lengths: rows past the sequence end are loaded as zeros, their
 // pairs are masked (p = 0), and they are never written.
 //
+// Block-sparse mode (kMasked = true; the same Pallas kernels with
+// has_mask=True, launched for block_sparse_attention's gradient): a pair
+// is visible when the caller's [s / block_q, s / block_k] mask keeps its
+// block and, if causal, the key is not after the query.  JAX refines the
+// mask to its backward blocks by repetition; here the mask's blocks and
+// the kernels' tiles are independent, so each block first lists, in
+// shared memory, the tiles that hold a visible pair (BlockMask::
+// tile_state, build_live_tiles) and sweeps that list: dK/dV the (query
+// head, live Q step) items of its K tile, dQ the live K tiles of its Q
+// tile, each prefetching the next listed one.  A tile the
+// mask cuts through takes the pair-by-pair test in visible(), so p = 0 on
+// every masked pair and a row with no visible key (lse = -inf) never
+// reaches exp().  The dense instantiations read no mask and compile as
+// before.
+//
 // Layout: q, dO, dq [b, h, s, d]; k, v, dk, dv [b, h_kv, s, d]; lse, delta
 // [b, h, s, 1] f32; all contiguous.
 
@@ -74,11 +89,14 @@ constexpr int kBlockQ = 64;  // Q rows of a dQ block
 constexpr int kWarps = 4;    // warp w owns rows [16w, 16w + 16) of the block
 constexpr int kThreads = kWarps * 32;
 
+// `cut`: the tile straddles mask blocks, so the mask is tested too
 __device__ __forceinline__ bool visible(int q_pos, int k_pos, int s,
-                                        bool banded, int window) {
+                                        bool banded, int window, bool cut,
+                                        const BlockMask& mask) {
   bool ok = q_pos < s && k_pos < s;
   if (banded) ok = ok && q_pos >= k_pos;
   if (window > 0) ok = ok && (q_pos - k_pos) < window;
+  if (cut) ok = ok && mask.keeps(q_pos, k_pos, s);
   return ok;
 }
 
@@ -101,6 +119,30 @@ struct KSweep {
     begin = window > 0 ? max(q0 - window + 1, 0) / kBlockK : 0;
   }
 };
+
+// A masked dK/dV block's live list of Q steps (`rows` queries each) for
+// its K tile at k0, built in the shared memory at `list`
+__device__ __forceinline__ LiveTiles live_q_steps(unsigned char* list,
+                                                  int rows, int k0, int s,
+                                                  bool causal,
+                                                  const BlockMask& mask) {
+  return build_live_tiles<kThreads>(
+      reinterpret_cast<int*>(list), (s + rows - 1) / rows, [&](int step) {
+        return mask.tile_state(step * rows, (step + 1) * rows, k0,
+                               k0 + kBlockK, s, causal);
+      });
+}
+
+// A masked dQ block's live list of K tiles for its Q tile at q0
+__device__ __forceinline__ LiveTiles live_k_tiles(unsigned char* list,
+                                                  int q0, int s, bool causal,
+                                                  const BlockMask& mask) {
+  return build_live_tiles<kThreads>(
+      reinterpret_cast<int*>(list), (s + kBlockK - 1) / kBlockK, [&](int kt) {
+        return mask.tile_state(q0, q0 + kBlockQ, kt * kBlockK,
+                               (kt + 1) * kBlockK, s, causal);
+      });
+}
 
 // [ROWS] f32 row values (lse or delta) into shared memory; rows at or past
 // `valid` are zeros (their pairs are masked).
@@ -131,7 +173,7 @@ struct DkvBf16 {
   static constexpr size_t kBytes = kHalfBytes + sizeof(float) * 4 * kBQ;
 };
 
-template <int D>
+template <int D, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -141,7 +183,8 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const float* __restrict__ delta,
                           __nv_bfloat16* __restrict__ dk,
                           __nv_bfloat16* __restrict__ dv, int h, int h_kv,
-                          int s, int causal, int window, float scale) {
+                          int s, int causal, int window, float scale,
+                          const BlockMask mask) {
   using G = DkvBf16<D>;
   constexpr int kBQ = G::kBQ;
   constexpr int kLd = G::kLd;
@@ -161,8 +204,14 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const bool banded = causal || window > 0;
   const int k0 = blockIdx.x * kBlockK;  // tile 0, with the longest sweep, first
   const int k_rows = min(kBlockK, s - k0);
+  // the Q steps of each query head: the band's (dense), or the live list
+  // of this K tile (masked)
   const QSweep sweep(k0, k0 + k_rows - 1, s, kBQ, banded, window);
-  const int n_items = group * sweep.count;  // (query head, Q tile) pairs
+  const LiveTiles live =
+      kMasked ? live_q_steps(smem_raw + G::kBytes, kBQ, k0, s, banded, mask)
+              : LiveTiles();
+  const int steps = kMasked ? live.count : sweep.count;
+  const int n_items = group * steps;  // (query head, Q tile) pairs
   const size_t kv_offset = ((size_t)(batch * h_kv + kv_head) * s + k0) * D;
 
   const int warp = threadIdx.x / 32;
@@ -173,9 +222,11 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int k_pos0 = k0 + krow0;
   const int k_pos1 = k_pos0 + 8;
 
-  auto item_q0 = [&](int it) { return (sweep.begin + it % sweep.count) * kBQ; };
+  auto item_q0 = [&](int it) {
+    return (kMasked ? live.tile(it % steps) : sweep.begin + it % steps) * kBQ;
+  };
   auto load_item = [&](int it, int buf) {
-    const int head = kv_head * group + it / sweep.count;
+    const int head = kv_head * group + it / steps;
     const int q0 = item_q0(it);
     const size_t row = (size_t)(batch * h + head) * s + q0;
     const int valid = min(kBQ, s - q0);
@@ -211,6 +262,7 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     const int q0 = item_q0(it);
+    const bool cut = kMasked && live.cut(it % steps);
     const __nv_bfloat16* sQb = sQ + buf * G::kQTile;
     const __nv_bfloat16* sdOb = sdO + buf * G::kQTile;
     const float* lse_b = sLse + buf * kBQ;
@@ -246,9 +298,9 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         const int q_pos = q0 + col;
         const float l = lse_b[col];
         const float dl = delta_b[col];
-        const float p0 = visible(q_pos, k_pos0, s, banded, window)
+        const float p0 = visible(q_pos, k_pos0, s, banded, window, cut, mask)
                              ? expf(st[j][c] * scale - l) : 0.f;
-        const float p1 = visible(q_pos, k_pos1, s, banded, window)
+        const float p1 = visible(q_pos, k_pos1, s, banded, window, cut, mask)
                              ? expf(st[j][2 + c] * scale - l) : 0.f;
         st[j][c] = p0;
         st[j][2 + c] = p1;
@@ -286,6 +338,7 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();  // this buffer is refilled two iterations on
   }
+  if (kMasked) cp_async_wait<0>();  // a K tile with no live item: K, V
 
   // ---- dk = scale * acc, dv = acc, rows of the tile inside the sequence ----
   __nv_bfloat16* dk_rows = dk + kv_offset;
@@ -321,7 +374,7 @@ struct DqBf16 {
   static constexpr size_t kBytes = sizeof(__nv_bfloat16) * 6 * kTile;
 };
 
-template <int D>
+template <int D, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
@@ -330,7 +383,8 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dq, int h, int h_kv,
-                         int s, int causal, int window, float scale) {
+                         int s, int causal, int window, float scale,
+                         const BlockMask mask) {
   using G = DqBf16<D>;
   constexpr int kLd = G::kLd;
   constexpr int kNTiles = kBlockK / 8;  // score n-tiles (keys)
@@ -345,9 +399,18 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int batch = blockIdx.z;
   const int kv_head = head / (h / h_kv);
   const bool banded = causal || window > 0;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // longest rows first
+  const int q_tile = gridDim.x - 1 - blockIdx.x;  // longest rows first
+  const int q0 = q_tile * kBlockQ;
   const int q_rows = min(kBlockQ, s - q0);
+  // the K tiles to visit, kt in [kt_begin, kt_end]: tile kt of the band
+  // (dense), or entry kt of this Q tile's live list (masked)
   const KSweep sweep(q0, q0 + q_rows - 1, s, banded, window);
+  const LiveTiles live =
+      kMasked ? live_k_tiles(smem_raw + G::kBytes, q0, s, banded, mask)
+              : LiveTiles();
+  const int kt_begin = kMasked ? 0 : sweep.begin;
+  const int kt_end = kMasked ? live.count - 1 : sweep.end;
+  auto k_start = [&](int kt) { return (kMasked ? live.tile(kt) : kt) * kBlockK; };
   const size_t q_row = (size_t)(batch * h + head) * s + q0;
   const __nv_bfloat16* k_head = k + (size_t)(batch * h_kv + kv_head) * s * D;
   const __nv_bfloat16* v_head = v + (size_t)(batch * h_kv + kv_head) * s * D;
@@ -365,16 +428,18 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const float dl0 = q_pos0 < s ? delta[q_row + row0] : 0.f;
   const float dl1 = q_pos1 < s ? delta[q_row + row0 + 8] : 0.f;
 
-  load_rows_async<D, kBlockQ, kLd, kThreads>(sQ, q + q_row * D, q_rows);
-  load_rows_async<D, kBlockQ, kLd, kThreads>(sdO, dout + q_row * D, q_rows);
-  {
-    const int k0 = sweep.begin * kBlockK;
-    load_rows_async<D, kBlockK, kLd, kThreads>(sK, k_head + (size_t)k0 * D,
-                                               min(kBlockK, s - k0));
-    load_rows_async<D, kBlockK, kLd, kThreads>(sV, v_head + (size_t)k0 * D,
-                                               min(kBlockK, s - k0));
+  if (!kMasked || live.count > 0) {  // an empty live list loads nothing
+    load_rows_async<D, kBlockQ, kLd, kThreads>(sQ, q + q_row * D, q_rows);
+    load_rows_async<D, kBlockQ, kLd, kThreads>(sdO, dout + q_row * D, q_rows);
+    {
+      const int k0 = k_start(kt_begin);
+      load_rows_async<D, kBlockK, kLd, kThreads>(sK, k_head + (size_t)k0 * D,
+                                                 min(kBlockK, s - k0));
+      load_rows_async<D, kBlockK, kLd, kThreads>(sV, v_head + (size_t)k0 * D,
+                                                 min(kBlockK, s - k0));
+    }
+    cp_async_commit();
   }
-  cp_async_commit();
 
   float dq_acc[kDTiles][4];
 #pragma unroll
@@ -383,11 +448,12 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int c = 0; c < 4; ++c) dq_acc[n][c] = 0.f;
   }
 
-  for (int kt = sweep.begin; kt <= sweep.end; ++kt) {
-    const int buf = (kt - sweep.begin) & 1;
-    const int k0 = kt * kBlockK;
-    if (kt < sweep.end) {  // prefetch the next K/V tiles into the other buffer
-      const int k1 = k0 + kBlockK;
+  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    const int k0 = k_start(kt);
+    const bool cut = kMasked && live.cut(kt);
+    if (kt < kt_end) {  // prefetch the next K/V tiles into the other buffer
+      const int k1 = kMasked ? k_start(kt + 1) : k0 + kBlockK;
       load_rows_async<D, kBlockK, kLd, kThreads>(
           sK + (buf ^ 1) * G::kTile, k_head + (size_t)k1 * D,
           min(kBlockK, s - k1));
@@ -431,9 +497,9 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int k_pos = k0 + j * 8 + t * 2 + c;
-        const float p0 = visible(q_pos0, k_pos, s, banded, window)
+        const float p0 = visible(q_pos0, k_pos, s, banded, window, cut, mask)
                              ? expf(sc[j][c] * scale - l0) : 0.f;
-        const float p1 = visible(q_pos1, k_pos, s, banded, window)
+        const float p1 = visible(q_pos1, k_pos, s, banded, window, cut, mask)
                              ? expf(sc[j][2 + c] * scale - l1) : 0.f;
         sc[j][c] = p0 * (dp[j][c] - dl0);
         sc[j][2 + c] = p1 * (dp[j][2 + c] - dl1);
@@ -499,7 +565,7 @@ struct DkvF32 {
   static constexpr size_t kBytes = sizeof(float) * (kDelta + kBQ);
 };
 
-template <int D>
+template <int D, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -509,7 +575,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv,
                          int h, int h_kv, int s, int causal, int window,
-                         float scale) {
+                         float scale, const BlockMask mask) {
   using G = DkvF32<D>;
   constexpr int kBQ = G::kBQ;
   constexpr int kLd = G::kLd;
@@ -534,6 +600,10 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
   const int k0 = blockIdx.x * kBlockK;
   const int k_rows = min(kBlockK, s - k0);
   const QSweep sweep(k0, k0 + k_rows - 1, s, kBQ, banded, window);
+  const LiveTiles live =
+      kMasked ? live_q_steps(smem_raw + G::kBytes, kBQ, k0, s, banded, mask)
+              : LiveTiles();
+  const int steps = kMasked ? live.count : sweep.count;
   const size_t kv_offset = ((size_t)(batch * h_kv + kv_head) * s + k0) * D;
 
   load_rows_f32<D, kBlockK, kLd, kThreads>(sK, k + kv_offset, k_rows);
@@ -543,9 +613,11 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
     sDV[i] = 0.f;
   }
 
-  for (int it = 0; it < group * sweep.count; ++it) {
-    const int head = kv_head * group + it / sweep.count;
-    const int q0 = (sweep.begin + it % sweep.count) * kBQ;
+  for (int it = 0; it < group * steps; ++it) {
+    const int head = kv_head * group + it / steps;
+    const int q0 =
+        (kMasked ? live.tile(it % steps) : sweep.begin + it % steps) * kBQ;
+    const bool cut = kMasked && live.cut(it % steps);
     const size_t row = (size_t)(batch * h + head) * s + q0;
     const int valid = min(kBQ, s - q0);
     __syncthreads();  // every thread is done with the previous Q tile
@@ -571,7 +643,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
         sc = fmaf(kr[e], qr[e], sc);
         dp = fmaf(vr[e], dr[e], dp);
       }
-      const float p = visible(q0 + c, k0 + r, s, banded, window)
+      const float p = visible(q0 + c, k0 + r, s, banded, window, cut, mask)
                           ? expf(sc * scale - sLse[c]) : 0.f;
       sP[r * kLdP + c] = p;
       sDS[r * kLdP + c] = p * (dp - sDelta[c]);
@@ -624,7 +696,7 @@ struct DqF32 {
   static constexpr size_t kBytes = sizeof(float) * (kDelta + kBlockQ);
 };
 
-template <int D>
+template <int D, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -633,7 +705,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         float* __restrict__ dq, int h, int h_kv, int s,
-                        int causal, int window, float scale) {
+                        int causal, int window, float scale,
+                        const BlockMask mask) {
   using G = DqF32<D>;
   constexpr int kLd = G::kLd;
   constexpr int kLdS = G::kLdS;
@@ -652,9 +725,15 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   const int batch = blockIdx.z;
   const int kv_head = head / (h / h_kv);
   const bool banded = causal || window > 0;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
+  const int q_tile = gridDim.x - 1 - blockIdx.x;
+  const int q0 = q_tile * kBlockQ;
   const int q_rows = min(kBlockQ, s - q0);
   const KSweep sweep(q0, q0 + q_rows - 1, s, banded, window);
+  const LiveTiles live =
+      kMasked ? live_k_tiles(smem_raw + G::kBytes, q0, s, banded, mask)
+              : LiveTiles();
+  const int kt_begin = kMasked ? 0 : sweep.begin;
+  const int kt_end = kMasked ? live.count - 1 : sweep.end;
   const size_t q_row = (size_t)(batch * h + head) * s + q0;
   const float* k_head = k + (size_t)(batch * h_kv + kv_head) * s * D;
   const float* v_head = v + (size_t)(batch * h_kv + kv_head) * s * D;
@@ -667,8 +746,9 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
     sDelta[i] = i < q_rows ? delta[q_row + i] : 0.f;
   }
 
-  for (int kt = sweep.begin; kt <= sweep.end; ++kt) {
-    const int k0 = kt * kBlockK;
+  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+    const int k0 = (kMasked ? live.tile(kt) : kt) * kBlockK;
+    const bool cut = kMasked && live.cut(kt);
     __syncthreads();  // every thread is done with the previous K/V tiles
     load_rows_f32<D, kBlockK, kLd, kThreads>(sK, k_head + (size_t)k0 * D,
                                              min(kBlockK, s - k0));
@@ -689,7 +769,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
         sc = fmaf(qr[e], kr[e], sc);
         dp = fmaf(dr[e], vr[e], dp);
       }
-      const float p = visible(q0 + r, k0 + c, s, banded, window)
+      const float p = visible(q0 + r, k0 + c, s, banded, window, cut, mask)
                           ? expf(sc * scale - sLse[r]) : 0.f;
       sDS[r * kLdS + c] = p * (dp - sDelta[r]);
     }
@@ -727,7 +807,8 @@ cudaError_t launch_dkv(Kernel kernel, size_t smem, const void* q,
                        const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv,
                        int b, int h, int h_kv, int s, int causal, int window,
-                       float scale, cudaStream_t stream) {
+                       float scale, const BlockMask& mask,
+                       cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kBlockK - 1) / kBlockK, h_kv, b);
@@ -736,7 +817,7 @@ cudaError_t launch_dkv(Kernel kernel, size_t smem, const void* q,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dk), static_cast<T*>(dv), h, h_kv, s, causal, window,
-      scale);
+      scale, mask);
   return cudaGetLastError();
 }
 
@@ -745,7 +826,8 @@ cudaError_t launch_dq(Kernel kernel, size_t smem, const void* q,
                       const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int b,
                       int h, int h_kv, int s, int causal, int window,
-                      float scale, cudaStream_t stream) {
+                      float scale, const BlockMask& mask,
+                      cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kBlockQ - 1) / kBlockQ, h, b);
@@ -753,12 +835,78 @@ cudaError_t launch_dq(Kernel kernel, size_t smem, const void* q,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), h, h_kv, s, causal, window, scale);
+      static_cast<T*>(dq), h, h_kv, s, causal, window, scale, mask);
   return cudaGetLastError();
 }
 
 bool bad_shape(int b, int h, int h_kv, int s) {
   return b < 1 || s < 1 || h_kv < 1 || h % h_kv != 0;
+}
+
+template <bool kMasked>
+int dispatch_dkv(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dk, void* dv, int dtype, int b, int h, int h_kv, int s,
+                 int d, int causal, int window, float scale,
+                 const BlockMask& mask, cudaStream_t st) {
+  // a masked block's live list of Q steps follows its tiles in shared
+  // memory
+  auto list = [&](int rows) {
+    return kMasked ? live_list_bytes((s + rows - 1) / rows) : 0;
+  };
+  if (dtype == 1 && d == 64)
+    return (int)launch_dkv<__nv_bfloat16>(
+        flash_bwd_dkv_bf16_kernel<64, kMasked>,
+        DkvBf16<64>::kBytes + list(DkvBf16<64>::kBQ), q, k, v, dout, lse,
+        delta, dk, dv, b, h, h_kv, s, causal, window, scale, mask, st);
+  if (dtype == 1 && d == 128)
+    return (int)launch_dkv<__nv_bfloat16>(
+        flash_bwd_dkv_bf16_kernel<128, kMasked>,
+        DkvBf16<128>::kBytes + list(DkvBf16<128>::kBQ), q, k, v, dout, lse,
+        delta, dk, dv, b, h, h_kv, s, causal, window, scale, mask, st);
+  if (dtype == 0 && d == 64)
+    return (int)launch_dkv<float>(
+        flash_bwd_dkv_f32_kernel<64, kMasked>,
+        DkvF32<64>::kBytes + list(DkvF32<64>::kBQ), q, k, v, dout, lse,
+        delta, dk, dv, b, h, h_kv, s, causal, window, scale, mask, st);
+  if (dtype == 0 && d == 128)
+    return (int)launch_dkv<float>(
+        flash_bwd_dkv_f32_kernel<128, kMasked>,
+        DkvF32<128>::kBytes + list(DkvF32<128>::kBQ), q, k, v, dout, lse,
+        delta, dk, dv, b, h, h_kv, s, causal, window, scale, mask, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool kMasked>
+int dispatch_dq(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                void* dq, int dtype, int b, int h, int h_kv, int s, int d,
+                int causal, int window, float scale, const BlockMask& mask,
+                cudaStream_t st) {
+  // a masked block's live list of K tiles follows its tiles in shared
+  // memory
+  const size_t list = kMasked ? live_list_bytes((s + kBlockK - 1) / kBlockK) : 0;
+  if (dtype == 1 && d == 64)
+    return (int)launch_dq<__nv_bfloat16>(
+        flash_bwd_dq_bf16_kernel<64, kMasked>, DqBf16<64>::kBytes + list, q,
+        k, v, dout, lse, delta, dq, b, h, h_kv, s, causal, window, scale, mask,
+        st);
+  if (dtype == 1 && d == 128)
+    return (int)launch_dq<__nv_bfloat16>(
+        flash_bwd_dq_bf16_kernel<128, kMasked>, DqBf16<128>::kBytes + list, q,
+        k, v, dout, lse, delta, dq, b, h, h_kv, s, causal, window, scale, mask,
+        st);
+  if (dtype == 0 && d == 64)
+    return (int)launch_dq<float>(
+        flash_bwd_dq_f32_kernel<64, kMasked>, DqF32<64>::kBytes + list, q, k,
+        v, dout, lse, delta, dq, b, h, h_kv, s, causal, window, scale, mask,
+        st);
+  if (dtype == 0 && d == 128)
+    return (int)launch_dq<float>(
+        flash_bwd_dq_f32_kernel<128, kMasked>, DqF32<128>::kBytes + list, q,
+        k, v, dout, lse, delta, dq, b, h, h_kv, s, causal, window, scale, mask,
+        st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -775,24 +923,9 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     int h, int h_kv, int s, int d, int causal,
                                     int window, float scale, void* stream) {
   if (bad_shape(b, h, h_kv, s)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && d == 64)
-    return (int)launch_dkv<__nv_bfloat16>(
-        flash_bwd_dkv_bf16_kernel<64>, DkvBf16<64>::kBytes, q, k, v, dout,
-        lse, delta, dk, dv, b, h, h_kv, s, causal, window, scale, st);
-  if (dtype == 1 && d == 128)
-    return (int)launch_dkv<__nv_bfloat16>(
-        flash_bwd_dkv_bf16_kernel<128>, DkvBf16<128>::kBytes, q, k, v, dout,
-        lse, delta, dk, dv, b, h, h_kv, s, causal, window, scale, st);
-  if (dtype == 0 && d == 64)
-    return (int)launch_dkv<float>(
-        flash_bwd_dkv_f32_kernel<64>, DkvF32<64>::kBytes, q, k, v, dout, lse,
-        delta, dk, dv, b, h, h_kv, s, causal, window, scale, st);
-  if (dtype == 0 && d == 128)
-    return (int)launch_dkv<float>(
-        flash_bwd_dkv_f32_kernel<128>, DkvF32<128>::kBytes, q, k, v, dout,
-        lse, delta, dk, dv, b, h, h_kv, s, causal, window, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_dkv<false>(q, k, v, dout, lse, delta, dk, dv, dtype, b, h,
+                             h_kv, s, d, causal, window, scale, BlockMask{},
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
@@ -802,22 +935,45 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    int h_kv, int s, int d, int causal,
                                    int window, float scale, void* stream) {
   if (bad_shape(b, h, h_kv, s)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && d == 64)
-    return (int)launch_dq<__nv_bfloat16>(
-        flash_bwd_dq_bf16_kernel<64>, DqBf16<64>::kBytes, q, k, v, dout, lse,
-        delta, dq, b, h, h_kv, s, causal, window, scale, st);
-  if (dtype == 1 && d == 128)
-    return (int)launch_dq<__nv_bfloat16>(
-        flash_bwd_dq_bf16_kernel<128>, DqBf16<128>::kBytes, q, k, v, dout,
-        lse, delta, dq, b, h, h_kv, s, causal, window, scale, st);
-  if (dtype == 0 && d == 64)
-    return (int)launch_dq<float>(
-        flash_bwd_dq_f32_kernel<64>, DqF32<64>::kBytes, q, k, v, dout, lse,
-        delta, dq, b, h, h_kv, s, causal, window, scale, st);
-  if (dtype == 0 && d == 128)
-    return (int)launch_dq<float>(
-        flash_bwd_dq_f32_kernel<128>, DqF32<128>::kBytes, q, k, v, dout, lse,
-        delta, dq, b, h, h_kv, s, causal, window, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_dq<false>(q, k, v, dout, lse, delta, dq, dtype, b, h, h_kv,
+                            s, d, causal, window, scale, BlockMask{},
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The block-sparse backward: the dense launchers' arguments (window must
+// be 0) and the mask's: bits [s / block_q, n_kblocks] uint8 (nonzero
+// keeps the block), block_q, block_k.
+
+extern "C" int flash_bwd_dkv_block_sparse_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, const void* bits,
+    int n_kblocks, int block_q, int block_k, int dtype, int b, int h,
+    int h_kv, int s, int d, int causal, int window, float scale,
+    void* stream) {
+  BlockMask mask;
+  if (bad_shape(b, h, h_kv, s) ||
+      !make_block_mask(bits, n_kblocks, block_q, block_k, s, window,
+                       &mask)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return dispatch_dkv<true>(q, k, v, dout, lse, delta, dk, dv, dtype, b, h,
+                            h_kv, s, d, causal, window, scale, mask,
+                            static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_bwd_dq_block_sparse_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const void* bits,
+    int n_kblocks, int block_q, int block_k, int dtype, int b, int h,
+    int h_kv, int s, int d, int causal, int window, float scale,
+    void* stream) {
+  BlockMask mask;
+  if (bad_shape(b, h, h_kv, s) ||
+      !make_block_mask(bits, n_kblocks, block_q, block_k, s, window,
+                       &mask)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return dispatch_dq<true>(q, k, v, dout, lse, delta, dq, dtype, b, h, h_kv,
+                           s, d, causal, window, scale, mask,
+                           static_cast<cudaStream_t>(stream));
 }

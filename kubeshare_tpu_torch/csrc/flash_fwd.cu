@@ -42,6 +42,19 @@
 // Ragged lengths: rows past the sequence end are loaded as zeros, masked,
 // and never written, so every length runs on the kernel.
 //
+// Block-sparse mode (kMasked = true; replaces the same Pallas kernel with
+// has_mask=True, launched by block_sparse_attention): a pair is visible
+// when the caller's [s / block_q, s / block_k] mask keeps its block and,
+// if causal, the key is not after the query.  The mask's blocks are the
+// caller's (any divisors of s), not the 64-row tiles, so each block first
+// lists, in shared memory, the K tiles that hold a visible pair for its Q
+// tile (BlockMask::tile_state, build_live_tiles), then sweeps that list,
+// prefetching the next listed tile; a tile the mask cuts through takes
+// the pair-by-pair test in visible().  A Q tile with an empty list loads
+// nothing and writes out = 0 and lse = -inf, as does every row with no
+// visible key.  The dense instantiations read no mask and compile as
+// before.
+//
 // Layout: q, out [b, h, s, d]; k, v [b, h_kv, s, d]; all contiguous.
 
 #include <cuda_runtime.h>
@@ -80,12 +93,28 @@ struct Tile {
   }
 };
 
+// `cut`: the tile straddles mask blocks, so the mask is tested too
 __device__ __forceinline__ bool visible(int q_pos, int k_pos, int s,
-                                        bool banded, int window) {
+                                        bool banded, int window, bool cut,
+                                        const BlockMask& mask) {
   bool ok = k_pos < s;
   if (banded) ok = ok && q_pos >= k_pos;
   if (window > 0) ok = ok && (q_pos - k_pos) < window;
+  if (cut) ok = ok && mask.keeps(q_pos, k_pos, s);
   return ok;
+}
+
+// A masked block's live list of K tiles, built in the shared memory at
+// `list` (after the block's tiles)
+__device__ __forceinline__ LiveTiles live_k_tiles(unsigned char* list,
+                                                  const Tile& tile, int s,
+                                                  bool causal,
+                                                  const BlockMask& mask) {
+  return build_live_tiles<kThreads>(
+      reinterpret_cast<int*>(list), (s + kBlockK - 1) / kBlockK, [&](int kt) {
+        return mask.tile_state(tile.q0, tile.q0 + kBlockQ, kt * kBlockK,
+                               (kt + 1) * kBlockK, s, causal);
+      });
 }
 
 // ------------------------------------------------------------------------
@@ -110,14 +139,15 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
   load_rows_async<D, kBlockK, Bf16Smem<D>::kLd, kThreads>(dst, src, valid);
 }
 
-template <int D>
+template <int D, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
                       __nv_bfloat16* __restrict__ out,
                       float* __restrict__ lse, int h, int h_kv, int s,
-                      int causal, int window, float scale) {
+                      int causal, int window, float scale,
+                      const BlockMask mask) {
   using G = Bf16Smem<D>;
   constexpr int kLd = G::kLd;
   constexpr int kNTiles = kBlockK / 8;  // score n-tiles per K tile
@@ -129,6 +159,14 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   const bool banded = causal || window > 0;
   const Tile tile(h, h_kv, s, D, banded, window);
+  // the K tiles to visit, kt in [kt_begin, kt_end]: tile kt of the band
+  // (dense), or entry kt of this Q tile's live list (masked)
+  const LiveTiles live = kMasked ? live_k_tiles(smem_raw + G::kBytes, tile,
+                                                s, banded, mask)
+                                 : LiveTiles();
+  const int kt_begin = kMasked ? 0 : tile.k_tile_begin;
+  const int kt_end = kMasked ? live.count - 1 : tile.k_tile_end;
+  auto k_start = [&](int kt) { return (kMasked ? live.tile(kt) : kt) * kBlockK; };
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;  // fragment row group
@@ -140,13 +178,15 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* k_head = k + tile.kv_offset;
   const __nv_bfloat16* v_head = v + tile.kv_offset;
 
-  load_tile_async<D>(sQ, q + tile.q_offset, tile.q_rows);
-  {
-    const int k0 = tile.k_tile_begin * kBlockK;
-    load_tile_async<D>(sK, k_head + (size_t)k0 * D, min(kBlockK, s - k0));
-    load_tile_async<D>(sV, v_head + (size_t)k0 * D, min(kBlockK, s - k0));
+  if (!kMasked || live.count > 0) {  // an empty live list loads nothing
+    load_tile_async<D>(sQ, q + tile.q_offset, tile.q_rows);
+    {
+      const int k0 = k_start(kt_begin);
+      load_tile_async<D>(sK, k_head + (size_t)k0 * D, min(kBlockK, s - k0));
+      load_tile_async<D>(sV, v_head + (size_t)k0 * D, min(kBlockK, s - k0));
+    }
+    cp_async_commit();
   }
-  cp_async_commit();
 
   uint32_t q_frag[D / 16][4];
   float o[kDTiles][4];
@@ -155,11 +195,11 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows row0, row0+8
   float l0 = 0.f, l1 = 0.f;              // this lane's share of the row sums
 
-  for (int kt = tile.k_tile_begin; kt <= tile.k_tile_end; ++kt) {
-    const int buf = (kt - tile.k_tile_begin) & 1;
-    const int k0 = kt * kBlockK;
-    if (kt < tile.k_tile_end) {  // prefetch the next tile into the other buffer
-      const int k1 = k0 + kBlockK;
+  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    const int k0 = k_start(kt);
+    if (kt < kt_end) {  // prefetch the next tile into the other buffer
+      const int k1 = kMasked ? k_start(kt + 1) : k0 + kBlockK;
       load_tile_async<D>(sK + (buf ^ 1) * G::kTile, k_head + (size_t)k1 * D,
                          min(kBlockK, s - k1));
       load_tile_async<D>(sV + (buf ^ 1) * G::kTile, v_head + (size_t)k1 * D,
@@ -171,7 +211,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    if (kt == tile.k_tile_begin) {
+    if (kt == kt_begin) {
       const __nv_bfloat16* qr = sQ + (warp * kRowsPerWarp + g) * kLd + t * 2;
 #pragma unroll
       for (int e = 0; e < D / 16; ++e) {
@@ -199,10 +239,13 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // ---- scale, mask, online softmax (rows row0 and row0 + 8) ----
-    // a tile needs the element mask only where the band or the end cuts it
+    // a tile needs the element mask only where the band, the end or the
+    // block mask cuts it
+    const bool cut = kMasked && live.cut(kt);
     const bool edge = k0 + kBlockK > s ||
                       (banded && k0 + kBlockK - 1 > tile.q0) ||
-                      (window > 0 && k0 <= tile.q0 + kBlockQ - 1 - window);
+                      (window > 0 && k0 <= tile.q0 + kBlockQ - 1 - window) ||
+                      cut;
     float bm0 = -INFINITY, bm1 = -INFINITY;
 #pragma unroll
     for (int j = 0; j < kNTiles; ++j) {
@@ -212,8 +255,10 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         float x0 = sc[j][c] * scale;
         float x1 = sc[j][2 + c] * scale;
         if (edge) {
-          if (!visible(q_pos0, k_pos, s, banded, window)) x0 = -INFINITY;
-          if (!visible(q_pos1, k_pos, s, banded, window)) x1 = -INFINITY;
+          if (!visible(q_pos0, k_pos, s, banded, window, cut, mask))
+            x0 = -INFINITY;
+          if (!visible(q_pos1, k_pos, s, banded, window, cut, mask))
+            x1 = -INFINITY;
         }
         sc[j][c] = x0;
         sc[j][2 + c] = x1;
@@ -334,12 +379,13 @@ __device__ __forceinline__ void load_tile_f32(float* dst,
   load_rows_f32<D, kBlockK, F32Smem<D>::kLd, kThreads>(dst, src, valid);
 }
 
-template <int D>
+template <int D, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int h, int h_kv, int s,
-                     int causal, int window, float scale) {
+                     int causal, int window, float scale,
+                     const BlockMask mask) {
   using G = F32Smem<D>;
   constexpr int kLd = G::kLd;
   constexpr int kLdS = G::kLdS;
@@ -355,6 +401,11 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const bool banded = causal || window > 0;
   const Tile tile(h, h_kv, s, D, banded, window);
+  const LiveTiles live = kMasked ? live_k_tiles(smem_raw + G::kBytes, tile,
+                                                s, banded, mask)
+                                 : LiveTiles();
+  const int kt_begin = kMasked ? 0 : tile.k_tile_begin;
+  const int kt_end = kMasked ? live.count - 1 : tile.k_tile_end;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -372,8 +423,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* s_rows = sS + warp * kRowsPerWarp * kLdS;
   float* o_rows = sO + warp * kRowsPerWarp * kLd;
 
-  for (int kt = tile.k_tile_begin; kt <= tile.k_tile_end; ++kt) {
-    const int k0 = kt * kBlockK;
+  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+    const int k0 = (kMasked ? live.tile(kt) : kt) * kBlockK;
+    const bool cut = kMasked && live.cut(kt);
     __syncthreads();  // every warp is done with the previous K/V tiles
     load_tile_f32<D>(sK, k + tile.kv_offset + (size_t)k0 * D,
                      min(kBlockK, s - k0));
@@ -398,7 +450,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* srow = sS + my_row * kLdS;
     float block_max = -INFINITY;
     for (int c = my_half * 32; c < my_half * 32 + 32; ++c) {
-      const float score = visible(q_pos, k0 + c, s, banded, window)
+      const float score = visible(q_pos, k0 + c, s, banded, window, cut, mask)
                               ? srow[c] * scale : -INFINITY;
       srow[c] = score;
       block_max = fmaxf(block_max, score);
@@ -439,6 +491,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncwarp();
   }
+  // an empty live list ran no iteration: the zeroed sO, sL, sM come from
+  // every thread
+  if (kMasked) __syncthreads();
 
   float* out_rows = out + tile.q_offset;
   for (int idx = lane; idx < kRowsPerWarp * D; idx += 32) {
@@ -462,7 +517,7 @@ template <typename T, typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem, const void* q, const void* k,
                    const void* v, void* out, void* lse, int b, int h,
                    int h_kv, int s, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   const BlockMask& mask, cudaStream_t stream) {
   // above 48 KB a block's shared memory needs the opt-in (per device)
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -471,8 +526,34 @@ cudaError_t launch(Kernel kernel, size_t smem, const void* q, const void* k,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), h, h_kv, s, causal, window, scale);
+      static_cast<float*>(lse), h, h_kv, s, causal, window, scale, mask);
   return cudaGetLastError();
+}
+
+template <bool kMasked>
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             void* lse, int dtype, int b, int h, int h_kv, int s, int d,
+             int causal, int window, float scale, const BlockMask& mask,
+             cudaStream_t st) {
+  // a masked block's live list follows its tiles in shared memory
+  const size_t list = kMasked ? live_list_bytes((s + kBlockK - 1) / kBlockK) : 0;
+  if (dtype == 1 && d == 64)
+    return (int)launch<__nv_bfloat16>(
+        flash_fwd_bf16_kernel<64, kMasked>, Bf16Smem<64>::kBytes + list, q, k,
+        v, out, lse, b, h, h_kv, s, causal, window, scale, mask, st);
+  if (dtype == 1 && d == 128)
+    return (int)launch<__nv_bfloat16>(
+        flash_fwd_bf16_kernel<128, kMasked>, Bf16Smem<128>::kBytes + list, q,
+        k, v, out, lse, b, h, h_kv, s, causal, window, scale, mask, st);
+  if (dtype == 0 && d == 64)
+    return (int)launch<float>(
+        flash_fwd_f32_kernel<64, kMasked>, F32Smem<64>::kBytes + list, q, k,
+        v, out, lse, b, h, h_kv, s, causal, window, scale, mask, st);
+  if (dtype == 0 && d == 128)
+    return (int)launch<float>(
+        flash_fwd_f32_kernel<128, kMasked>, F32Smem<128>::kBytes + list, q, k,
+        v, out, lse, b, h, h_kv, s, causal, window, scale, mask, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -488,22 +569,26 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   if (b < 1 || s < 1 || h_kv < 1 || h % h_kv != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && d == 64)
-    return (int)launch<__nv_bfloat16>(
-        flash_fwd_bf16_kernel<64>, Bf16Smem<64>::kBytes, q, k, v, out, lse, b,
-        h, h_kv, s, causal, window, scale, st);
-  if (dtype == 1 && d == 128)
-    return (int)launch<__nv_bfloat16>(
-        flash_fwd_bf16_kernel<128>, Bf16Smem<128>::kBytes, q, k, v, out, lse,
-        b, h, h_kv, s, causal, window, scale, st);
-  if (dtype == 0 && d == 64)
-    return (int)launch<float>(flash_fwd_f32_kernel<64>, F32Smem<64>::kBytes,
-                              q, k, v, out, lse, b, h, h_kv, s, causal,
-                              window, scale, st);
-  if (dtype == 0 && d == 128)
-    return (int)launch<float>(flash_fwd_f32_kernel<128>, F32Smem<128>::kBytes,
-                              q, k, v, out, lse, b, h, h_kv, s, causal,
-                              window, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, out, lse, dtype, b, h, h_kv, s, d, causal,
+                         window, scale, BlockMask{},
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The block-sparse forward: the arguments of flash_fwd_launch (window must
+// be 0) and the mask's: bits [s / block_q, n_kblocks] uint8 (nonzero keeps
+// the block), block_q, block_k.
+extern "C" int flash_fwd_block_sparse_launch(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    const void* bits, int n_kblocks, int block_q, int block_k, int dtype,
+    int b, int h, int h_kv, int s, int d, int causal, int window, float scale,
+    void* stream) {
+  BlockMask mask;
+  if (b < 1 || s < 1 || h_kv < 1 || h % h_kv != 0 ||
+      !make_block_mask(bits, n_kblocks, block_q, block_k, s, window,
+                       &mask)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return dispatch<true>(q, k, v, out, lse, dtype, b, h, h_kv, s, d, causal,
+                        window, scale, mask,
+                        static_cast<cudaStream_t>(stream));
 }

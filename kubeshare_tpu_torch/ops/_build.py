@@ -37,13 +37,25 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # dtype, b, h, h_kv, s, d, causal, window, scale, stream
 _SHAPE_ARGS = [_I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+# the block-sparse launchers' mask arguments before those: mask bytes,
+# mask columns, block_q, block_k
+_MASK_ARGS = [_P, _I, _I, _I]
 SIGNATURES = {
     # flash_fwd_launch(q, k, v, out, lse, ...)
-    "flash_fwd": {"flash_fwd_launch": [_P] * 5 + _SHAPE_ARGS},
+    "flash_fwd": {
+        "flash_fwd_launch": [_P] * 5 + _SHAPE_ARGS,
+        "flash_fwd_block_sparse_launch": [_P] * 5 + _MASK_ARGS + _SHAPE_ARGS,
+    },
     # flash_bwd_dkv_launch(q, k, v, dout, lse, delta, dk, dv, ...)
     # flash_bwd_dq_launch(q, k, v, dout, lse, delta, dq, ...)
-    "flash_bwd": {"flash_bwd_dkv_launch": [_P] * 8 + _SHAPE_ARGS,
-                  "flash_bwd_dq_launch": [_P] * 7 + _SHAPE_ARGS},
+    "flash_bwd": {
+        "flash_bwd_dkv_launch": [_P] * 8 + _SHAPE_ARGS,
+        "flash_bwd_dq_launch": [_P] * 7 + _SHAPE_ARGS,
+        "flash_bwd_dkv_block_sparse_launch":
+            [_P] * 8 + _MASK_ARGS + _SHAPE_ARGS,
+        "flash_bwd_dq_block_sparse_launch":
+            [_P] * 7 + _MASK_ARGS + _SHAPE_ARGS,
+    },
 }
 
 _lock = threading.Lock()

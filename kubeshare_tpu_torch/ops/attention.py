@@ -1,23 +1,34 @@
-"""Attention ops, port of kubeshare_tpu/ops/attention.py (dense mode).
+"""Attention ops, port of kubeshare_tpu/ops/attention.py (dense and
+block-sparse modes).
 
 Plain PyTorch versions with deliberately different numerics:
 
 - :func:`attention_reference` mirrors the JAX ``attention_reference``:
   scores in the input dtype, masked with ``finfo(dtype).min``, softmax in
   f32.  It is the model's ``attention="reference"`` path.
+  :func:`block_sparse_reference` is its block-mask counterpart, with the
+  JAX oracle's numerics (masked with ``finfo(f32).min`` after the f32
+  cast, fully-masked rows zeroed).
 - :func:`flash_forward_reference` mirrors the flash kernel: f32 scores,
   ``-inf`` masking, p cast to v's dtype before the p . v product, f32
   accumulation, and the per-row logsumexp.
 - :func:`flash_backward_reference` mirrors the two backward kernels:
   p recomputed from the saved logsumexp, f32 products with p and ds
   rounded to the input dtype before their matmuls.
+- :func:`block_sparse_forward_reference` and
+  :func:`block_sparse_backward_reference` are the same two under a block
+  mask: a pair is visible when its (query block, key block) entry is
+  nonzero and, if causal, the key is not after the query.
 
 :func:`flash_attention` is a ``torch.autograd.Function``
 (:class:`FlashAttention`): on a CUDA tensor its forward launches the
 hand-written Hopper kernel (``csrc/flash_fwd.cu``) and its backward the
 dK/dV and dQ kernels (``csrc/flash_bwd.cu``); on a CPU tensor both take
-the plain versions.  There is no fallback between the two: a CUDA tensor
-the kernels do not take raises.
+the plain versions.  :func:`block_sparse_attention`
+(:class:`BlockSparseFlashAttention`) does the same with the masked
+instantiations of the three kernels, which visit only the tiles that
+hold a visible pair.  There is no fallback between kernel and plain
+version: a CUDA tensor the kernels do not take raises.
 
 Shapes: q is [batch, heads, seq, head_dim]; k, v are
 [batch, kv_heads, seq, head_dim] (GQA when kv_heads < heads).
@@ -92,12 +103,19 @@ def flash_forward_reference(
     ``-inf`` on a row with no visible key (whose ``out`` is zero).
     """
     _check_window(window)
+    mask = (_band_mask(q.shape[2], k.shape[2], window, q.device)
+            if causal or window is not None else None)
+    return _flash_forward_plain(q, k, v, mask)
+
+
+def _flash_forward_plain(q, k, v, mask: Optional[torch.Tensor]):
+    """The flash forward's numerics with the visible pairs given as an
+    [s_q, s_k] bool ``mask`` (None: every pair)."""
     k, v = _repeat_kv(q, k, v)
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) * scale
-    if causal or window is not None:
-        mask = _band_mask(scores.shape[-2], scores.shape[-1], window, q.device)
+    if mask is not None:
         scores = scores.masked_fill(~mask, float("-inf"))
     m = scores.amax(dim=-1, keepdim=True)
     safe_m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -129,14 +147,22 @@ def flash_backward_reference(
     each query-head group in f32, then rounded once to k's / v's dtype.
     """
     _check_window(window)
+    mask = (_band_mask(q.shape[2], q.shape[2], window, q.device)
+            if causal or window is not None else None)
+    return _flash_backward_plain(q, k, v, out, lse, dout, mask)
+
+
+def _flash_backward_plain(q, k, v, out, lse, dout,
+                          mask: Optional[torch.Tensor]):
+    """The backward kernels' numerics with the visible pairs given as an
+    [s, s] bool ``mask`` (None: every pair)."""
     b, h, s, d = q.shape
     h_kv = k.shape[1]
     k_full, v_full = _repeat_kv(q, k, v)
     scale = d ** -0.5
     f32 = torch.float32
     scores = torch.einsum("bhqd,bhkd->bhqk", q.to(f32), k_full.to(f32)) * scale
-    if causal or window is not None:
-        mask = _band_mask(s, s, window, q.device)
+    if mask is not None:
         scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.exp(scores - lse)
     probs = torch.where(torch.isfinite(scores), probs, torch.zeros_like(probs))
@@ -366,3 +392,264 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous layout the kernels read."""
     return FlashAttention.apply(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal, window)
+
+
+# ---------------------------------------------------------------------------
+# block-sparse attention: an arbitrary [s // block_q, s // block_k] mask
+# ---------------------------------------------------------------------------
+
+
+def _element_mask(block_mask: torch.Tensor, block_q: int, block_k: int,
+                  s: int, causal: bool) -> torch.Tensor:
+    """[s, s] bool: pair (i, j) is visible when block_mask[i // block_q,
+    j // block_k] is nonzero and, if causal, j <= i."""
+    elem = ((block_mask != 0).repeat_interleave(block_q, 0)
+            .repeat_interleave(block_k, 1))
+    if causal:
+        elem = elem & _band_mask(s, s, None, block_mask.device)
+    return elem
+
+
+def block_sparse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           block_mask: torch.Tensor, causal: bool,
+                           block_q: int, block_k: int) -> torch.Tensor:
+    """Plain attention under a block mask with the JAX oracle's numerics
+    (kubeshare_tpu/ops/attention.py:block_sparse_reference): scores in
+    the input dtype, cast to f32, masked with ``finfo(f32).min``, softmax
+    in f32, and zeros for a row with no visible key."""
+    k, v = _repeat_kv(q, k, v)
+    elem = _element_mask(block_mask, block_q, block_k, q.shape[2], causal)
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
+    scores = scores.masked_fill(~elem, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    row_live = elem.any(dim=-1, keepdim=True)  # all-masked rows: zeros
+    probs = torch.where(row_live, probs, torch.zeros_like(probs))
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+
+
+def block_sparse_forward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    block_mask: torch.Tensor, causal: bool, block_q: int, block_k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the masked flash forward: (out, lse) with
+    :func:`flash_forward_reference`'s numerics under the block mask
+    (``lse`` is ``-inf`` and ``out`` zero on a row with no visible key)."""
+    mask = _element_mask(block_mask, block_q, block_k, q.shape[2], causal)
+    return _flash_forward_plain(q, k, v, mask)
+
+
+def block_sparse_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, block_mask: torch.Tensor,
+    causal: bool, block_q: int, block_k: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the masked backward kernels: (dq, dk, dv) with
+    :func:`flash_backward_reference`'s numerics, p = 0 on every masked
+    pair (so a row with no visible key, lse = -inf, gets zeros)."""
+    mask = _element_mask(block_mask, block_q, block_k, q.shape[2], causal)
+    return _flash_backward_plain(q, k, v, out, lse, dout, mask)
+
+
+def _check_block_mask(q: torch.Tensor, block_mask, block_q: int,
+                      block_k: int) -> None:
+    """Raise on a mask the masked kernels do not take: int32 or bool,
+    [s // block_q, s // block_k], on q's device, contiguous."""
+    if not isinstance(block_mask, torch.Tensor) or block_mask.dtype not in (
+            torch.int32, torch.bool):
+        raise TypeError("block_mask must be an int32 or bool tensor, got "
+                        f"{getattr(block_mask, 'dtype', type(block_mask))}")
+    s = q.shape[2]
+    if block_q < 1 or block_k < 1 or s % block_q or s % block_k:
+        raise ValueError(
+            f"seq {s} must tile block_q={block_q}, block_k={block_k}")
+    expected = (s // block_q, s // block_k)
+    if tuple(block_mask.shape) != expected:
+        raise ValueError(f"block_mask shape {tuple(block_mask.shape)} != "
+                         f"{expected} for seq {s} with blocks "
+                         f"({block_q}, {block_k})")
+    if block_mask.device != q.device:
+        raise ValueError(f"block_mask is on {block_mask.device}, q on "
+                         f"{q.device}")
+    if not block_mask.is_contiguous():
+        raise ValueError("the masked kernels need a contiguous block_mask")
+
+
+def _mask_args(q: torch.Tensor, block_mask: torch.Tensor, block_q: int,
+               block_k: int):
+    """(mask bytes, launch arguments) of the masked launchers, after the
+    mask's checks: the mask as one byte per block (nonzero keeps it; a
+    bool mask is read in place), its columns, block_q, block_k.  The
+    caller holds the bytes until the launch is queued."""
+    _check_block_mask(q, block_mask, block_q, block_k)
+    bits = (block_mask if block_mask.dtype == torch.bool
+            else block_mask != 0).view(torch.uint8)
+    return bits, (bits.data_ptr(), bits.shape[1], block_q, block_k)
+
+
+def _block_sparse_forward_cuda(q, k, v, block_mask, causal: bool,
+                               block_q: int, block_k: int):
+    """Launch the masked csrc/flash_fwd.cu on q's current stream; returns
+    (out, lse)."""
+    from . import _build
+
+    _check_kernel_inputs(q, k, v)
+    bits, mask_args = _mask_args(q, block_mask, block_q, block_k)
+    b, h, s, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_fwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_fwd_block_sparse_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), *mask_args,
+            *_launch_args(q, k, causal, None, stream))
+    if err != 0:
+        raise RuntimeError(
+            f"flash_fwd_block_sparse launch failed: CUDA error {err}")
+    block_sparse_forward.launches += 1
+    return out, lse
+
+
+def block_sparse_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    block_mask: torch.Tensor, causal: bool, block_q: int, block_k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) under the block mask: the masked Hopper kernel for a
+    CUDA tensor, the plain version for a CPU tensor.
+    ``block_sparse_forward.launches`` counts kernel launches."""
+    if q.device.type != "cuda":
+        return block_sparse_forward_reference(q, k, v, block_mask, causal,
+                                              block_q, block_k)
+    return _block_sparse_forward_cuda(q, k, v, block_mask, causal, block_q,
+                                      block_k)
+
+
+block_sparse_forward.launches = 0
+
+
+def _block_sparse_bwd_dkv_cuda(q, k, v, dout, lse, delta, block_mask,
+                               causal: bool, block_q: int, block_k: int):
+    """Launch the masked dK/dV kernel; returns (dk, dv)."""
+    from . import _build
+
+    bits, mask_args = _mask_args(q, block_mask, block_q, block_k)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _build.load("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_bwd_dkv_block_sparse_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *mask_args, *_launch_args(q, k, causal, None, stream))
+    if err != 0:
+        raise RuntimeError(
+            f"flash_bwd_dkv_block_sparse launch failed: CUDA error {err}")
+    block_sparse_backward.launches_dkv += 1
+    return dk, dv
+
+
+def _block_sparse_bwd_dq_cuda(q, k, v, dout, lse, delta, block_mask,
+                              causal: bool, block_q: int, block_k: int):
+    """Launch the masked dQ kernel; returns dq."""
+    from . import _build
+
+    bits, mask_args = _mask_args(q, block_mask, block_q, block_k)
+    dq = torch.empty_like(q)
+    lib = _build.load("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_bwd_dq_block_sparse_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *mask_args,
+            *_launch_args(q, k, causal, None, stream))
+    if err != 0:
+        raise RuntimeError(
+            f"flash_bwd_dq_block_sparse launch failed: CUDA error {err}")
+    block_sparse_backward.launches_dq += 1
+    return dq
+
+
+def block_sparse_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, block_mask: torch.Tensor,
+    causal: bool, block_q: int, block_k: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) under the block mask: the masked dK/dV and dQ Hopper
+    kernels for a CUDA tensor, :func:`block_sparse_backward_reference` for
+    a CPU tensor.  ``block_sparse_backward.launches_dkv`` /
+    ``launches_dq`` count launches."""
+    if q.device.type != "cuda":
+        return block_sparse_backward_reference(q, k, v, out, lse, dout,
+                                               block_mask, causal, block_q,
+                                               block_k)
+    _check_backward_inputs(q, k, v, out, lse, dout)
+    delta = _backward_delta(out, dout)
+    args = (block_mask, causal, block_q, block_k)
+    dk, dv = _block_sparse_bwd_dkv_cuda(q, k, v, dout, lse, delta, *args)
+    dq = _block_sparse_bwd_dq_cuda(q, k, v, dout, lse, delta, *args)
+    return dq, dk, dv
+
+
+block_sparse_backward.launches_dkv = 0
+block_sparse_backward.launches_dq = 0
+
+
+class BlockSparseFlashAttention(torch.autograd.Function):
+    """Block-sparse flash attention with its flash backward (the
+    counterpart of JAX's ``_block_sparse_flash`` custom_vjp): the forward
+    saves q, k, v, the mask, out and the logsumexp; the mask gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, block_mask, causal: bool, block_q: int,
+                block_k: int):
+        out, lse = block_sparse_forward(q, k, v, block_mask, causal, block_q,
+                                        block_k)
+        ctx.save_for_backward(q, k, v, block_mask, out, lse)
+        ctx.args = (causal, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, block_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = block_sparse_backward(q, k, v, out, lse,
+                                           dout.contiguous(), block_mask,
+                                           *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           block_mask, causal: bool = False,
+                           block_q: int = 512,
+                           block_k: int = 1024) -> torch.Tensor:
+    """Attention under an arbitrary block mask (document masking,
+    prefix-LM, strided sparsity, ...), differentiable.
+
+    ``block_mask`` is [seq // block_q, seq // block_k] (int or bool, a
+    tensor or an array): entry 0 masks the whole (query block, key block)
+    tile, and the kernels skip every tile of theirs that holds no visible
+    pair, so the cost follows the mask's density.  ``causal=True`` also
+    masks keys after the query.  Query rows with no visible key yield
+    zeros.  The blocks are the mask's granularity, not the kernels' tiles:
+    any divisors of seq (each capped at seq) will do.  The masked Hopper
+    kernels on CUDA, their plain versions on the CPU."""
+    s = q.shape[2]
+    block_q = min(block_q, s)
+    block_k = min(block_k, s)
+    if s % block_q != 0 or s % block_k != 0:
+        raise ValueError(
+            f"seq {s} must tile block_q={block_q}, block_k={block_k}")
+    block_mask = torch.as_tensor(block_mask, device=q.device)
+    expected = (s // block_q, s // block_k)
+    if tuple(block_mask.shape) != expected:
+        raise ValueError(f"block_mask shape {tuple(block_mask.shape)} != "
+                         f"{expected} for seq {s} with blocks "
+                         f"({block_q}, {block_k})")
+    if block_mask.dtype != torch.bool:
+        block_mask = block_mask.to(torch.int32)
+    return BlockSparseFlashAttention.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        block_mask.contiguous(), causal, block_q, block_k)
