@@ -11,10 +11,12 @@ Phases (any failure raises and the script exits non-zero):
    (one nvcc per source, all at once).
 3. kernels: the flash forward and the two flash backward kernels (dK/dV,
    dQ) against their plain PyTorch versions on the card, at the main
-   paths' shapes and a few more (GQA, window, ragged, d=128, f32), with
-   the tolerances below; then each kernel's time beside the plain
-   version's, one library call's, and the bound the card sets, at the
-   serving flagship's attention shape and at the training shape.
+   paths' shapes and a few more (GQA, window, ragged, d=128, f32, and
+   the edges of the bf16 forward's 128-row tiles), with the tolerances
+   below; then each kernel's time beside the plain version's, one
+   library call's, and the bound the card sets, at the serving
+   flagship's attention shape and at the training shape, with the
+   achieved TFLOP/s and the ratio to the library call.
 4. block_sparse: the masked instantiations of the three kernels against
    their plain versions at eight masks (documents, prefix-LM, dead rows,
    mask blocks straddling the kernels' tiles, JAX's default blocks, GQA,
@@ -171,6 +173,20 @@ def flash_bound(shape, h_kv, dtype_name, causal, window, pairs=None):
     return _bound(nbytes, flops, dtype_name)
 
 
+# FLOPs per visible query-key pair and unit of head_dim: the forward's two
+# products, dK/dV's four, dQ's three
+PAIR_FLOPS = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}
+
+
+def achieved(name, shape, ms, library_ms, pairs):
+    """A timing's achieved TFLOP/s (the visible pairs' operations over the
+    kernel time) and its ratio to the library call, for the timing lines."""
+    b, h, s, d = shape
+    kernel = name.removesuffix("_block_sparse")
+    tflops = PAIR_FLOPS[kernel] * d * pairs * b * h / (ms * 1e-3) / 1e12
+    return tflops, ms / library_ms
+
+
 def flash_bwd_bound(kernel, shape, h_kv, dtype_name, causal, window,
                     pairs=None):
     """(bound_ms, bound_by) of one backward kernel.  dkv reads q, k, v,
@@ -225,6 +241,43 @@ def kernel_resources(log: str):
             rows.append((name, int(used.group(1)), spill))
             name = None
     return rows
+
+
+SASS_OPS = ("HGMMA", "WARPGROUP.DEPBAR", "UTMALDG", "UTMASTG")
+
+
+def forward_sass_counts(sass: str):
+    """{"<D>" or "<D, masked>": {op: count}} of the bf16 forward's
+    instantiations in cuobjdump's SASS of a library: wgmma (HGMMA), its
+    serialising waits (WARPGROUP.DEPBAR), TMA loads and stores."""
+    import re
+
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(r"flash_fwd_bf16_kernelILi(\d+)ELb(\d)", line)
+            name = None
+            if found:
+                masked = ", masked" if found.group(2) == "1" else ""
+                name = f"<{found.group(1)}{masked}>"
+                counts[name] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        if name:
+            for op in SASS_OPS:
+                if op in line:
+                    counts[name][op] += 1
+    return counts
+
+
+def library_sass(library) -> str:
+    """cuobjdump -sass of a built library (cuobjdump beside nvcc)."""
+    from pathlib import Path
+
+    from kubeshare_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(library)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
 
 
 def reset_counts():
@@ -364,21 +417,23 @@ def time_shape(torch, shape, gen):
         ("flash_bwd_dq", dq_ms, bwd_plain_ms, bwd_library_ms,
          flash_bwd_bound("dq", shape, h, "bfloat16", True, None)),
     ):
+        tflops, ratio = achieved(name, shape, ms, library_ms,
+                                  visible_pairs(s, True, None))
         rows[name] = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": bound[0],
-                      "bound_by": bound[1]}
+                      "bound_by": bound[1], "tflops": tflops,
+                      "library_ratio": ratio}
         print(f"kernel {name} timing at {shape} bf16 causal: "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {library_ms:.4f} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]})")
+              f"({bound[1]}); {tflops:.1f} TFLOP/s, {ratio:.3f}x library")
     return rows
 
 
-def kernel_phase(torch, device):
-    from kubeshare_tpu_torch.ops.attention import flash_forward, flash_forward_reference
-
-    cases = [
-        # name, (b, h, s, d), h_kv, dtype, causal, window
+def dense_cases(torch):
+    """(name, (b, h, s, d), h_kv, dtype, causal, window) of the kernel
+    phase."""
+    return [
         ("flagship", (4, 8, 1024, 64), 8, torch.bfloat16, True, None),
         ("prefill_896", (4, 8, PROMPT_LEN, 64), 8, torch.bfloat16, True, None),
         ("gqa_hkv2", (4, 8, 1024, 64), 2, torch.bfloat16, True, None),
@@ -388,13 +443,24 @@ def kernel_phase(torch, device):
         ("f32_ragged_500", (2, 4, 500, 64), 2, torch.float32, True, None),
         ("f32_d128_window", (1, 4, 512, 128), 4, torch.float32, True, 100),
         ("train", (TRAIN_BATCH, 8, TRAIN_SEQ, 128), 8, torch.bfloat16, True, None),
+        # the edges of the bf16 forward's 128-row tiles and TMA boxes:
+        # ragged across a tile (TMA's zero fill) with GQA, less than one
+        # tile, and a window edge that no tile boundary meets
+        ("gqa_ragged_1000_d128", (2, 8, 1000, 128), 2, torch.bfloat16, True, None),
+        ("noncausal_77", (2, 4, 77, 64), 4, torch.bfloat16, False, None),
+        ("window_100_d128", (2, 4, 1024, 128), 4, torch.bfloat16, True, 100),
     ]
+
+
+def kernel_phase(torch, device):
+    from kubeshare_tpu_torch.ops.attention import flash_forward, flash_forward_reference
+
     gen = torch.Generator(device=device).manual_seed(1234)
     # worst (relative, absolute) error of each kernel over the shapes; the
     # forward's relative error is not computed (its check is per element)
     worst = {"flash_fwd": [None, 0.0], "flash_bwd_dkv": [0.0, 0.0],
              "flash_bwd_dq": [0.0, 0.0]}
-    for name, shape, h_kv, dtype, causal, window in cases:
+    for name, shape, h_kv, dtype, causal, window in dense_cases(torch):
         b, h, s, d = shape
         q = torch.randn(shape, generator=gen, device=device, dtype=dtype)
         k = torch.randn((b, h_kv, s, d), generator=gen, device=device, dtype=dtype)
@@ -518,13 +584,15 @@ def time_block_sparse(torch, shape, mask, block, gen):
         ("flash_bwd_dq_block_sparse", dq_ms, bwd_plain_ms, bwd_library_ms,
          flash_bwd_bound("dq", shape, h, "bfloat16", True, None, pairs)),
     ):
+        tflops, ratio = achieved(name, shape, ms, library_ms, pairs)
         rows[name] = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": bound[0],
-                      "bound_by": bound[1], "visible_pairs": pairs}
+                      "bound_by": bound[1], "visible_pairs": pairs,
+                      "tflops": tflops, "library_ratio": ratio}
         print(f"kernel {name} timing at {shape} bf16 causal doc mask: "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {library_ms:.4f} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]})")
+              f"({bound[1]}); {tflops:.1f} TFLOP/s, {ratio:.3f}x library")
     return rows
 
 
@@ -912,6 +980,17 @@ def main() -> int:
         for kernel, registers, spill in kernel_resources(log):
             print(f"build {source}.cu {kernel}: {registers} registers, "
                   f"{spill} bytes spilled")
+        for line in log.splitlines():
+            if "Potential Performance Loss" in line:
+                print(f"build {source}.cu ptxas: {line.split('info    : ')[-1]}")
+    # the bf16 forward runs on wgmma and TMA: its SASS must hold them
+    sass = forward_sass_counts(library_sass(_build.library_path("flash_fwd")))
+    for kernel, ops in sorted(sass.items()):
+        print(f"build flash_fwd.cu flash_fwd_bf16_kernel{kernel} SASS: "
+              + ", ".join(f"{op} {n}" for op, n in ops.items()))
+        check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["UTMASTG"] > 0,
+              f"flash_fwd_bf16_kernel{kernel} issues no wgmma or TMA")
+    check(len(sass) == 4, f"bf16 forward instantiations in the SASS: {sorted(sass)}")
 
     if "--profile-train" in sys.argv[1:]:
         result = profile_train(torch, device)

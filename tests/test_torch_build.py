@@ -1,0 +1,141 @@
+"""The CUDA build's contract, checked without nvcc: every extern "C"
+launcher in kubeshare_tpu_torch/csrc matches its ctypes signature in
+ops/_build.py (a ctypes int where the C side takes a pointer truncates
+the pointer on the card, and no launch on the CPU would show it), the
+build targets sm_90a (wgmma and setmaxnreg exist only there), the Hopper
+helpers stay out of the backward's source, and chip_smoke.py reads the
+registers and spills of every kernel instantiation from ptxas's lines
+and the bf16 forward's wgmma and TMA instructions from its SASS."""
+
+import ctypes
+import importlib.util
+import re
+from pathlib import Path
+
+import pytest
+
+from kubeshare_tpu_torch.ops import _build
+
+REPO = Path(__file__).resolve().parent.parent
+
+_LAUNCHER = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
+
+
+def _launchers():
+    """(source stem, launcher, [C parameter declarations]) per launcher."""
+    found = []
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        for name, params in _LAUNCHER.findall(path.read_text()):
+            decls = [" ".join(p.split()) for p in params.split(",")]
+            found.append((path.stem, name, decls))
+    return found
+
+
+def _ctype_of(decl: str):
+    """The ctypes type a C parameter declaration must be passed as."""
+    if "*" in decl:
+        return ctypes.c_void_p
+    kind = decl.rsplit(" ", 1)[0]
+    return {"int": ctypes.c_int, "float": ctypes.c_float}[kind]
+
+
+LAUNCHERS = _launchers()
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it needs no card to import)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_launchers_are_found():
+    # the forward's two and the backward's four
+    assert sorted(name for _, name, _ in LAUNCHERS) == sorted(
+        name for table in _build.SIGNATURES.values() for name in table)
+
+
+@pytest.mark.parametrize("stem,name,decls", LAUNCHERS,
+                         ids=[name for _, name, _ in LAUNCHERS])
+def test_launcher_matches_its_ctypes_signature(stem, name, decls):
+    argtypes = _build.SIGNATURES[stem][name]
+    assert len(argtypes) == len(decls), (name, decls)
+    for i, (decl, argtype) in enumerate(zip(decls, argtypes)):
+        assert argtype is _ctype_of(decl), (name, i, decl, argtype)
+    # every launcher takes the stream last, as a pointer
+    assert decls[-1] == "void* stream"
+
+
+def test_nvcc_targets_sm90a():
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    # the tensor maps come from the driver's entry point, not a link
+    assert "-lcuda" not in _build.NVCC_FLAGS
+
+
+def test_hopper_helpers_only_in_the_forward():
+    # the backward's code must not change with the forward's helpers
+    includes = {
+        path.stem: re.findall(r'#include "(\w+\.cuh)"', path.read_text())
+        for path in _build.CSRC.glob("*.cu")}
+    assert "hopper_common.cuh" in includes["flash_fwd"]
+    assert "hopper_common.cuh" not in includes["flash_bwd"]
+    assert "flash_common.cuh" in includes["flash_bwd"]
+
+
+# ptxas -v lines as nvcc prints them for the two sources' instantiations
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi128ELb1EEEv14CUtensorMap_stS1_S1_S1_Pfiiiiif9BlockMask' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi128ELb1EEEv14CUtensorMap_stS1_S1_S1_Pfiiiiif9BlockMask
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 48 bytes smem, 944 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi64ELb0EEEv14CUtensorMap_stS1_S1_S1_Pfiiiiif9BlockMask' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi64ELb0EEEv14CUtensorMap_stS1_S1_S1_Pfiiiiif9BlockMask
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers, 944 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124flash_bwd_dkv_bf16_kernelILi128ELb0EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_iiiiif9BlockMask' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_124flash_bwd_dkv_bf16_kernelILi128ELb0EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_iiiiif9BlockMask
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 240 registers, 544 bytes cmem[0]
+"""
+
+
+def test_chip_smoke_reads_every_instantiation():
+    chip_smoke = _chip_smoke()
+    assert chip_smoke.kernel_resources(_PTXAS_LOG) == [
+        ("flash_fwd_bf16_kernel<128, masked>", 168, 0),
+        ("flash_fwd_bf16_kernel<64>", 168, 12),
+        ("flash_bwd_dkv_bf16_kernel<128>", 240, 0),
+    ]
+    # the forward's kernels keep the <D, kMasked> template that regex reads
+    source = (_build.CSRC / "flash_fwd.cu").read_text()
+    assert re.search(r"template <int D, bool kMasked>\s*__global__ void "
+                     r"__launch_bounds__\(kHThreads, 1\)\s*"
+                     r"flash_fwd_bf16_kernel\(", source)
+
+
+# cuobjdump -sass lines of two bf16 forward instantiations and an f32 one
+_SASS = """\
+\t\tFunction : _ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi128ELb0EEEv14CUtensorMap_stS1_S1_S1_PfiiiiifNS_9BlockMaskE
+        /*0a50*/                   UTMALDG.3D [UR8], [UR4] ;
+        /*0b00*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0b10*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24 ;
+        /*0c00*/                   WARPGROUP.DEPBAR.LE gsb0, 0x1 ;
+        /*0d00*/                   UTMASTG.3D [UR4], [UR6] ;
+\t\tFunction : _ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi64ELb1EEEv14CUtensorMap_stS1_S1_S1_PfiiiiifNS_9BlockMaskE
+        /*0100*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+\t\tFunction : _ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi64ELb0EEEvPKfS2_S2_PfS3_iiiiifNS_9BlockMaskE
+        /*0100*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+"""
+
+
+def test_chip_smoke_counts_wgmma_and_tma_in_the_sass():
+    chip_smoke = _chip_smoke()
+    assert chip_smoke.forward_sass_counts(_SASS) == {
+        "<128>": {"HGMMA": 2, "WARPGROUP.DEPBAR": 1, "UTMALDG": 1,
+                  "UTMASTG": 1},
+        "<64, masked>": {"HGMMA": 1, "WARPGROUP.DEPBAR": 0, "UTMALDG": 0,
+                         "UTMASTG": 0},
+    }
