@@ -12,7 +12,7 @@ Phases (any failure raises and the script exits non-zero):
 3. kernels: the flash forward and the two flash backward kernels (dK/dV,
    dQ) against their plain PyTorch versions on the card, at the main
    paths' shapes and a few more (GQA, window, ragged, d=128, f32, and
-   the edges of the bf16 forward's 128-row tiles), with the tolerances
+   the edges of the bf16 kernels' tiles), with the tolerances
    below; then each kernel's time beside the plain version's, one
    library call's, and the bound the card sets, at the serving
    flagship's attention shape and at the training shape, with the
@@ -244,22 +244,27 @@ def kernel_resources(log: str):
 
 
 SASS_OPS = ("HGMMA", "WARPGROUP.DEPBAR", "UTMALDG", "UTMASTG")
+# the bf16 kernels, which run on wgmma and TMA
+SASS_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
+                "flash_bwd_dq_bf16_kernel")
 
 
-def forward_sass_counts(sass: str):
-    """{"<D>" or "<D, masked>": {op: count}} of the bf16 forward's
-    instantiations in cuobjdump's SASS of a library: wgmma (HGMMA), its
-    serialising waits (WARPGROUP.DEPBAR), TMA loads and stores."""
+def sass_counts(sass: str):
+    """{"<kernel><D>" or "<kernel><D, masked>": {op: count}} of the bf16
+    kernels' instantiations in cuobjdump's SASS of a library: wgmma
+    (HGMMA), its serialising waits (WARPGROUP.DEPBAR), TMA loads and
+    stores."""
     import re
 
+    kernels = "|".join(SASS_KERNELS)
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            found = re.search(r"flash_fwd_bf16_kernelILi(\d+)ELb(\d)", line)
+            found = re.search(rf"\d({kernels})ILi(\d+)ELb(\d)", line)
             name = None
             if found:
-                masked = ", masked" if found.group(2) == "1" else ""
-                name = f"<{found.group(1)}{masked}>"
+                masked = ", masked" if found.group(3) == "1" else ""
+                name = f"{found.group(1)}<{found.group(2)}{masked}>"
                 counts[name] = dict.fromkeys(SASS_OPS, 0)
             continue
         if name:
@@ -449,6 +454,11 @@ def dense_cases(torch):
         ("gqa_ragged_1000_d128", (2, 8, 1000, 128), 2, torch.bfloat16, True, None),
         ("noncausal_77", (2, 4, 77, 64), 4, torch.bfloat16, False, None),
         ("window_100_d128", (2, 4, 1024, 128), 4, torch.bfloat16, True, 100),
+        # the edges of the bf16 backward's tiles: a window narrower than a
+        # Q step, s ragged across a 64-row step and a 128-row tile, a
+        # group of 4
+        ("gqa4_ragged_200_window48", (1, 8, 200, 64), 2, torch.bfloat16,
+         True, 48),
     ]
 
 
@@ -983,14 +993,19 @@ def main() -> int:
         for line in log.splitlines():
             if "Potential Performance Loss" in line:
                 print(f"build {source}.cu ptxas: {line.split('info    : ')[-1]}")
-    # the bf16 forward runs on wgmma and TMA: its SASS must hold them
-    sass = forward_sass_counts(library_sass(_build.library_path("flash_fwd")))
-    for kernel, ops in sorted(sass.items()):
-        print(f"build flash_fwd.cu flash_fwd_bf16_kernel{kernel} SASS: "
-              + ", ".join(f"{op} {n}" for op, n in ops.items()))
-        check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["UTMASTG"] > 0,
-              f"flash_fwd_bf16_kernel{kernel} issues no wgmma or TMA")
-    check(len(sass) == 4, f"bf16 forward instantiations in the SASS: {sorted(sass)}")
+    # the bf16 kernels run on wgmma and TMA: their SASS must hold them
+    sass = {}
+    for source in ("flash_fwd", "flash_bwd"):
+        counts = sass_counts(library_sass(_build.library_path(source)))
+        for kernel, ops in sorted(counts.items()):
+            print(f"build {source}.cu {kernel} SASS: "
+                  + ", ".join(f"{op} {n}" for op, n in ops.items()))
+            check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0
+                  and ops["UTMASTG"] > 0,
+                  f"{kernel} issues no wgmma or TMA")
+        sass.update(counts)
+    check(len(sass) == 4 * len(SASS_KERNELS),
+          f"bf16 instantiations in the SASS: {sorted(sass)}")
 
     if "--profile-train" in sys.argv[1:]:
         result = profile_train(torch, device)

@@ -21,40 +21,56 @@
 // 42.2 MB, 12.6 us.  Both are bound by operations.
 //
 // What the design does about it.  The s x s scores and probabilities never
-// reach device memory: each block recomputes its tiles of p from lse.
-//   dK/dV: one block per (batch, KV head, 64-row K tile) keeps its K and V
-//   tiles and the dk, dv accumulators on chip while it sweeps, in order,
-//   every query head of its GQA group and every Q tile the band lets it
-//   see (from the diagonal for causal, up to k_end + window - 1 for a
-//   window).  The group's sum happens in the accumulator, so dk/dv are
-//   written once at KV-head resolution: no atomics, no group-sum pass, and
-//   the result does not depend on scheduling.
-//   dQ: one block per (batch, head, 64-row Q tile) sweeps the K tiles of
-//   its band (the Pallas grid's sequential innermost axis becomes a loop
-//   inside the block, since Hopper runs blocks in parallel and in no
-//   order).
-// bf16 (the model's path): four warps, each owning 16 rows of the block's
-// tile, run every product on the tensor cores with mma.sync m16n8k16 (f32
-// accumulate).  dK/dV computes S^T = K . Q^T and dP^T = V . dO^T, so p^T
-// and ds^T come out in the accumulator layout, which is the A-operand
-// layout of p^T . dO and ds^T . Q: they go from one product to the next in
-// registers.  dQ computes S and dP the forward's way and feeds ds straight
-// into ds . K.  The B operands that are read along the key axis (dO, Q in
-// dK/dV; K in dQ) come through ldmatrix.trans.  The swept tiles are
-// double-buffered with cp.async.
-// Registers: each lane holds D/8 x 4 f32 of dk and as many of dv.  At
-// head_dim 128 that is 128 registers, so dK/dV sweeps 32-query tiles there
-// (64 at head_dim 64): the score and dP tiles then take 32 more, and the
-// K/V A fragments are re-read from shared memory for each product rather
-// than held, which keeps the kernel under the 255-register cap without
-// spilling.  wgmma, TMA and warp specialisation are left for later work.
+// reach device memory: each block recomputes its tiles of p from lse, and
+// every product runs on the tensor cores by wgmma.  The Pallas grid's
+// sequential innermost axis becomes a loop inside the block, since Hopper
+// runs blocks in parallel and in no order.
+//
+// bf16 (the model's path) is warp-specialised like the forward
+// (flash_fwd.cu), 384 threads: warpgroup 0 is the producer (setmaxnreg 24;
+// one thread issues every TMA copy into 128B-swizzled tiles guarded by
+// full / empty mbarriers), warpgroups 1 and 2 are consumers (setmaxnreg
+// 240) that own 64 rows each of the block's 128-row tile.  Rows past s
+// arrive as zeros from TMA's bounds check, their pairs are masked, and the
+// TMA store of the results drops them.
+//   dK/dV: one block per (batch, KV head, 128-key K tile) keeps its K and
+//   V tiles in shared memory and its dk, dv accumulators in registers
+//   while it sweeps every (query head of its GQA group, 64-query Q step)
+//   item: Q and dO of a step come through a two-stage ring by TMA, lse
+//   and delta by the producer warp's loads.  Per step a consumer issues
+//   S^T = K . Q^T and dP^T = V . dO^T (both operands from shared memory,
+//   K-major), so p^T and ds^T come out in the accumulator layout, which
+//   is the register-A layout of the next two products, dV += p^T . dO and
+//   dK += ds^T . Q, which read the same Q and dO tiles MN-major (the
+//   descriptor's transpose bit).  Each consumer waits for its own
+//   products; the other consumer's products run under its elementwise
+//   work.  The group is summed in the accumulators, so dk and dv are
+//   written once at KV-head resolution: no atomics, no group-sum pass,
+//   and the result does not depend on scheduling.  dk is scaled by d^-1/2
+//   once, at the end, and both go out through shared memory (the
+//   consumer's rows of the K and V tiles) and a TMA store.
+//   dQ: one block per (batch, head, 128-row Q tile) loads Q and dO once
+//   and streams 64-key K/V tiles through a two-stage ring (the forward's
+//   skeleton): S = Q . K^T and dP = dO . V^T from shared memory, ds in
+//   registers feeds dQ += ds . K with K read MN-major; the two consumers
+//   take turns to issue (ping-pong, named barriers); dq is scaled at the
+//   end and stored by TMA.
+// Registers: the score accumulators are declared inside the sweep's body,
+// so between their products they hold none.  At head_dim 128 a dK/dV
+// consumer keeps 128 accumulator floats of dk and dv, plus 64 of S^T and
+// dP^T or 32 registers of bf16 p^T and ds^T; a dQ consumer 64 of dq,
+// plus 64 of S and dP or 16 registers of bf16 ds.  No instantiation
+// spills.  p comes from exp2 with d^-1/2 log2(e) folded into the scores
+// and log2(e) into lse.
+// Order: blocks start the longest sweeps first across all heads (dK/dV:
+// every head's K tile 0 first, dense and masked; dQ: the forward's order,
+// every head's last Q tile first when dense, head by head when masked).
+// The tensor maps are encoded by the launchers (hopper_common.cuh); a map
+// that cuTensorMapEncodeTiled refuses returns cudaErrorInvalidValue.
 //
 // f32: the products run on the CUDA cores (the tensor cores would round
 // f32 to TF32) over shared-memory tiles and accumulators; this path exists
 // for f32 configs and is not tuned.
-//
-// Ragged lengths: rows past the sequence end are loaded as zeros, their
-// pairs are masked (p = 0), and they are never written.
 //
 // Block-sparse mode (kMasked = true; the same Pallas kernels with
 // has_mask=True, launched for block_sparse_attention's gradient): a pair
@@ -63,17 +79,18 @@
 // mask to its backward blocks by repetition; here the mask's blocks and
 // the kernels' tiles are independent, so each block first lists, in
 // shared memory, the tiles that hold a visible pair (BlockMask::
-// tile_state, build_live_tiles) and sweeps that list: dK/dV the (query
-// head, live Q step) items of its K tile, dQ the live K tiles of its Q
-// tile, each prefetching the next listed one.  A tile the
-// mask cuts through takes the pair-by-pair test in visible(), so p = 0 on
-// every masked pair and a row with no visible key (lse = -inf) never
-// reaches exp().  The dense instantiations read no mask and compile as
-// before.
+// tile_state, build_live_tiles, all threads before the roles split) and
+// sweeps that list: dK/dV the (query head, live Q step) items of its K
+// tile, dQ the live K tiles of its Q tile.  A tile the mask cuts through
+// takes the pair-by-pair test in visible(), so p = 0 on every masked pair
+// and a row with no visible key (lse = -inf) never reaches exp().  A block
+// with an empty list loads nothing and writes zeros.  The dense
+// instantiations read no mask.
 //
 // Layout: q, dO, dq [b, h, s, d]; k, v, dk, dv [b, h_kv, s, d]; lse, delta
 // [b, h, s, 1] f32; all contiguous.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -81,12 +98,13 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kBlockK = 64;  // K rows of a dK/dV block; K tile of the dQ sweep
-constexpr int kBlockQ = 64;  // Q rows of a dQ block
-constexpr int kWarps = 4;    // warp w owns rows [16w, 16w + 16) of the block
+constexpr int kBlockK = 64;  // f32: dK/dV block rows, dQ K tile
+constexpr int kBlockQ = 64;  // f32: dQ block rows
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
 // `cut`: the tile straddles mask blocks, so the mask is tested too
@@ -121,424 +139,621 @@ struct KSweep {
 };
 
 // A masked dK/dV block's live list of Q steps (`rows` queries each) for
-// its K tile at k0, built in the shared memory at `list`
+// its BK-key tile at k0, built by all THREADS threads in the shared
+// memory at `list`
+template <int THREADS = kThreads, int BK = kBlockK>
 __device__ __forceinline__ LiveTiles live_q_steps(unsigned char* list,
                                                   int rows, int k0, int s,
                                                   bool causal,
                                                   const BlockMask& mask) {
-  return build_live_tiles<kThreads>(
+  return build_live_tiles<THREADS>(
       reinterpret_cast<int*>(list), (s + rows - 1) / rows, [&](int step) {
-        return mask.tile_state(step * rows, (step + 1) * rows, k0,
-                               k0 + kBlockK, s, causal);
+        return mask.tile_state(step * rows, (step + 1) * rows, k0, k0 + BK,
+                               s, causal);
       });
 }
 
-// A masked dQ block's live list of K tiles for its Q tile at q0
+// A masked dQ block's live list of BK-key tiles for its BQ-row Q tile at
+// q0
+template <int THREADS = kThreads, int BQ = kBlockQ, int BK = kBlockK>
 __device__ __forceinline__ LiveTiles live_k_tiles(unsigned char* list,
                                                   int q0, int s, bool causal,
                                                   const BlockMask& mask) {
-  return build_live_tiles<kThreads>(
-      reinterpret_cast<int*>(list), (s + kBlockK - 1) / kBlockK, [&](int kt) {
-        return mask.tile_state(q0, q0 + kBlockQ, kt * kBlockK,
-                               (kt + 1) * kBlockK, s, causal);
+  return build_live_tiles<THREADS>(
+      reinterpret_cast<int*>(list), (s + BK - 1) / BK, [&](int kt) {
+        return mask.tile_state(q0, q0 + BQ, kt * BK, (kt + 1) * BK, s,
+                               causal);
       });
 }
 
-// [ROWS] f32 row values (lse or delta) into shared memory; rows at or past
-// `valid` are zeros (their pairs are masked).
-template <int ROWS>
-__device__ __forceinline__ void load_vec_async(float* dst, const float* src,
-                                               int valid) {
-  for (int i = threadIdx.x; i < ROWS; i += kThreads) {
-    const bool in = i < valid;
-    cp_async_4(dst + i, src + (in ? i : 0), in ? 4 : 0);
+// ------------------------------------------------------------------------
+// bf16: TMA producer, two wgmma consumer warpgroups
+// ------------------------------------------------------------------------
+
+constexpr int kConsumers = 2;  // consumer warpgroups, 64 rows of the tile each
+constexpr int kHThreads = 128 * (1 + kConsumers);
+// registers a thread after the hand-over: 128 x 24 + 256 x 240 = 168 x 384
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kStages = 2;    // ring depth of the swept tiles
+constexpr int kHRows = 128;   // K rows of a dK/dV block, Q rows of a dQ block
+constexpr int kDkvStep = 64;  // queries of a dK/dV step: S^T is m64n64
+constexpr int kDqStep = 64;   // keys of a dQ step: S is m64n64
+constexpr float kLog2e = 1.4426950408889634f;
+// named barriers: 1 + cw closes consumer cw's sweep before its epilogue;
+// kTurnBarrier + cw is its turn to issue dQ products (ping-pong)
+constexpr int kTurnBarrier = 3;
+
+// Where a dK/dV block's 128-key tile lies, and its GQA group's heads.
+// Blocks go longest causal sweep first across all heads: every head's K
+// tile 0 first, then every head's tile 1, and so on.  Masked blocks too:
+// at the document mask this order measured faster than head by head
+// (flash_bwd_ablations.py), though the masked forward's did not.  This
+// is TileOf's order (flash_common.cuh) and relies, as it does, on the
+// H100 starting blocks in the order of their linear index, measured but
+// not documented.
+struct KvTile {
+  int k0, k_rows;
+  int kv_row;   // row of the [b * h_kv] heads
+  int q_head0;  // row of the [b * h] heads: the group's first query head
+
+  __device__ KvTile(int h, int h_kv, int s) {
+    const int heads = gridDim.y * gridDim.z;  // b * h_kv
+    const int lin =
+        blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+    kv_row = lin % heads;
+    q_head0 = (kv_row / h_kv) * h + (kv_row % h_kv) * (h / h_kv);
+    k0 = lin / heads * kHRows;
+    k_rows = min(kHRows, s - k0);
+  }
+};
+
+// A consumer's 64 x D accumulator (rows r0 and r0 + 8 of this lane) times
+// `scale`, in bf16, into the 128B-swizzled rows at `rows` (64-column boxes
+// `box` bytes apart), for a TMA store
+template <int D>
+__device__ __forceinline__ void stage_rows(uint32_t rows, uint32_t box,
+                                           const float* acc, int r0, int t,
+                                           float scale) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    // columns 8j + 2t, + 1: box j / 8, 16-byte chunk j % 8, swizzled
+    const uint32_t at =
+        rows + (j / 8) * box + r0 * 128 + (((j % 8) ^ (r0 % 8)) * 16) + t * 4;
+    const uint32_t lo = pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+    const uint32_t hi =
+        pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at), "r"(lo) : "memory");
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at + 8 * 128), "r"(hi)
+                 : "memory");
   }
 }
 
-// ------------------------------------------------------------------------
-// bf16 dK/dV
-// ------------------------------------------------------------------------
+// f32 accumulator fragments (8-column chunks 2kk, 2kk + 1 of rows r0 and
+// r0 + 8) in bf16 as the A operand of k16 step kk
+template <int STEPS>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[STEPS][4],
+                                       const float* acc) {
+#pragma unroll
+  for (int kk = 0; kk < STEPS; ++kk) {
+    a[kk][0] = pack_bf16(acc[8 * kk], acc[8 * kk + 1]);
+    a[kk][1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
+    a[kk][2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
+    a[kk][3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
+  }
+}
 
 template <int D>
-struct DkvBf16 {
-  static constexpr int kBQ = D == 64 ? 64 : 32;  // query columns per step
-  // rows padded by 16 bytes: fragment loads of 8 rows x 16 bytes then fall
-  // on 32 distinct banks
-  static constexpr int kLd = D + 8;
-  static constexpr int kKTile = kBlockK * kLd;
-  static constexpr int kQTile = kBQ * kLd;
-  // K, V, then Q[2], dO[2] (bf16), then lse[2], delta[2] (f32)
-  static constexpr size_t kHalfBytes =
-      sizeof(__nv_bfloat16) * (2 * kKTile + 4 * kQTile);
-  static constexpr size_t kBytes = kHalfBytes + sizeof(float) * 4 * kBQ;
+struct DkvSmem {
+  // byte offsets from the 1024-aligned base: K, V, Q[kStages],
+  // dO[kStages], lse[kStages], delta[kStages], then the mbarriers and
+  // (masked) the live list
+  static constexpr uint32_t kKBox = kHRows * 128;  // one 64-column box
+  static constexpr uint32_t kQBox = kDkvStep * 128;
+  static constexpr uint32_t kKBytes = kKBox * (D / kBoxCols);
+  static constexpr uint32_t kQBytes = kQBox * (D / kBoxCols);
+  static constexpr uint32_t kVecBytes = kDkvStep * 4;
+  static constexpr uint32_t kK = 0;
+  static constexpr uint32_t kV = kK + kKBytes;
+  static constexpr uint32_t kQ = kV + kKBytes;
+  static constexpr uint32_t kDO = kQ + kStages * kQBytes;
+  static constexpr uint32_t kLse = kDO + kStages * kQBytes;
+  static constexpr uint32_t kDelta = kLse + kStages * kVecBytes;
+  // kv_full, q_full[], q_empty[]
+  static constexpr uint32_t kBars = kDelta + kStages * kVecBytes;
+  static constexpr uint32_t kList = kBars + 8 * (1 + 2 * kStages);
+  // + 1024: the dynamic shared memory is aligned up to 1024 in the kernel
+  static constexpr size_t kBytes = kList + 1024;
 };
 
 template <int D, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kHThreads, 1)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_dout,
+                          const __grid_constant__ CUtensorMap tm_dk,
+                          const __grid_constant__ CUtensorMap tm_dv,
                           const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int h, int h_kv,
+                          const float* __restrict__ delta, int h, int h_kv,
                           int s, int causal, int window, float scale,
                           const BlockMask mask) {
-  using G = DkvBf16<D>;
-  constexpr int kBQ = G::kBQ;
-  constexpr int kLd = G::kLd;
-  constexpr int kNTiles = kBQ / 8;  // score n-tiles (query columns)
-  constexpr int kDTiles = D / 8;    // accumulator n-tiles
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + G::kKTile;
-  __nv_bfloat16* sQ = sV + G::kKTile;       // two buffers
-  __nv_bfloat16* sdO = sQ + 2 * G::kQTile;  // two buffers
-  float* sLse = reinterpret_cast<float*>(smem_raw + G::kHalfBytes);  // two
-  float* sDelta = sLse + 2 * kBQ;                                    // two
+  using G = DkvSmem<D>;
+  constexpr int kBoxes = D / kBoxCols;
+  extern __shared__ unsigned char smem_raw[];
+  // 128B-swizzled tiles start 1024-aligned
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t sK = base + G::kK;
+  const uint32_t sV = base + G::kV;
+  auto sQ = [&](int st) { return base + G::kQ + st * G::kQBytes; };
+  auto sdO = [&](int st) { return base + G::kDO + st * G::kQBytes; };
+  auto sLse = [&](int st) {
+    return reinterpret_cast<float*>(smem + G::kLse + st * G::kVecBytes);
+  };
+  auto sDelta = [&](int st) {
+    return reinterpret_cast<float*>(smem + G::kDelta + st * G::kVecBytes);
+  };
+  const uint32_t kv_full = base + G::kBars;
+  auto q_full = [&](int st) { return kv_full + 8 * (1 + st); };
+  auto q_empty = [&](int st) { return kv_full + 8 * (1 + kStages + st); };
 
-  const int kv_head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const int group = h / h_kv;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      // the TMA bytes and one arrive from each lane of the producer warp,
+      // plus its lane 0's arrive with the byte count
+      mbar_init(q_full(st), 33);
+      mbar_init(q_empty(st), kConsumers * 4);  // one arrive per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
   const bool banded = causal || window > 0;
-  const int k0 = blockIdx.x * kBlockK;  // tile 0, with the longest sweep, first
-  const int k_rows = min(kBlockK, s - k0);
+  const int group = h / h_kv;
+  const KvTile tile(h, h_kv, s);
   // the Q steps of each query head: the band's (dense), or the live list
   // of this K tile (masked)
-  const QSweep sweep(k0, k0 + k_rows - 1, s, kBQ, banded, window);
+  const QSweep sweep(tile.k0, tile.k0 + tile.k_rows - 1, s, kDkvStep, banded,
+                     window);
   const LiveTiles live =
-      kMasked ? live_q_steps(smem_raw + G::kBytes, kBQ, k0, s, banded, mask)
+      kMasked ? live_q_steps<kHThreads, kHRows>(smem + G::kList, kDkvStep,
+                                                tile.k0, s, banded, mask)
               : LiveTiles();
   const int steps = kMasked ? live.count : sweep.count;
-  const int n_items = group * steps;  // (query head, Q tile) pairs
-  const size_t kv_offset = ((size_t)(batch * h_kv + kv_head) * s + k0) * D;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row group
-  const int t = lane % 4;  // fragment column pair
-  const int krow0 = warp * 16 + g;  // this lane's K rows: krow0, krow0 + 8
-  const int k_pos0 = k0 + krow0;
-  const int k_pos1 = k_pos0 + 8;
-
-  auto item_q0 = [&](int it) {
-    return (kMasked ? live.tile(it % steps) : sweep.begin + it % steps) * kBQ;
-  };
-  auto load_item = [&](int it, int buf) {
-    const int head = kv_head * group + it / steps;
-    const int q0 = item_q0(it);
-    const size_t row = (size_t)(batch * h + head) * s + q0;
-    const int valid = min(kBQ, s - q0);
-    load_rows_async<D, kBQ, kLd, kThreads>(sQ + buf * G::kQTile, q + row * D,
-                                           valid);
-    load_rows_async<D, kBQ, kLd, kThreads>(sdO + buf * G::kQTile,
-                                           dout + row * D, valid);
-    load_vec_async<kBQ>(sLse + buf * kBQ, lse + row, valid);
-    load_vec_async<kBQ>(sDelta + buf * kBQ, delta + row, valid);
+  const int n_items = group * steps;  // (query head, Q step) pairs
+  // Q step i of the sweep: step sweep.begin + i of the band (dense), or
+  // entry i of the live list (masked)
+  auto step_q0 = [&](int i) {
+    return (kMasked ? live.tile(i) : sweep.begin + i) * kDkvStep;
   };
 
-  load_rows_async<D, kBlockK, kLd, kThreads>(sK, k + kv_offset, k_rows);
-  load_rows_async<D, kBlockK, kLd, kThreads>(sV, v + kv_offset, k_rows);
-  if (n_items > 0) load_item(0, 0);
-  cp_async_commit();
-
-  float dk_acc[kDTiles][4], dv_acc[kDTiles][4];
-#pragma unroll
-  for (int n = 0; n < kDTiles; ++n) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk_acc[n][c] = dv_acc[n][c] = 0.f;
-  }
-
-  for (int it = 0; it < n_items; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_items) {  // prefetch the next item into the other buffer
-      load_item(it + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const int q0 = item_q0(it);
-    const bool cut = kMasked && live.cut(it % steps);
-    const __nv_bfloat16* sQb = sQ + buf * G::kQTile;
-    const __nv_bfloat16* sdOb = sdO + buf * G::kQTile;
-    const float* lse_b = sLse + buf * kBQ;
-    const float* delta_b = sDelta + buf * kBQ;
-
-    // ---- S^T = K . Q^T and dP^T = V . dO^T: 16 K rows x kBQ queries ----
-    float st[kNTiles][4], dpt[kNTiles][4];
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) st[j][c] = dpt[j][c] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < D / 16; ++e) {
-      uint32_t ka[4], va[4];
-      load_a_frag(ka, sK + krow0 * kLd + t * 2 + e * 16, kLd);
-      load_a_frag(va, sV + krow0 * kLd + t * 2 + e * 16, kLd);
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j) {
-        const __nv_bfloat16* qr = sQb + (j * 8 + g) * kLd + t * 2 + e * 16;
-        mma_bf16(st[j], ka, ld_u32(qr), ld_u32(qr + 8));
-        const __nv_bfloat16* dr = sdOb + (j * 8 + g) * kLd + t * 2 + e * 16;
-        mma_bf16(dpt[j], va, ld_u32(dr), ld_u32(dr + 8));
+  if (threadIdx.x < 128) {
+    // ---- producer: warp 0; its lane 0 issues every TMA copy ----
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 32 && n_items > 0) {  // an empty list loads nothing
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * G::kKBytes);
+        for (int c = 0; c < kBoxes; ++c) {
+          tma_load_3d(sK + c * G::kKBox, &tm_k, c * kBoxCols, tile.k0,
+                      tile.kv_row, kv_full);
+          tma_load_3d(sV + c * G::kKBox, &tm_v, c * kBoxCols, tile.k0,
+                      tile.kv_row, kv_full);
+        }
+      }
+      // item it = (query head g, Q step i), it = g * steps + i
+      for (int g = 0, it = 0; g < group; ++g) {
+        const int q_head = tile.q_head0 + g;
+        const float* lse_head = lse + (size_t)q_head * s;
+        const float* delta_head = delta + (size_t)q_head * s;
+        for (int i = 0; i < steps; ++i, ++it) {
+          const int st = it % kStages;
+          const int q0 = step_q0(i);
+          mbar_wait(q_empty(st), ((it / kStages) & 1) ^ 1);
+          if (lane == 0) {
+            mbar_arrive_expect_tx(q_full(st), 2 * G::kQBytes);
+            for (int c = 0; c < kBoxes; ++c) {
+              tma_load_3d(sQ(st) + c * G::kQBox, &tm_q, c * kBoxCols, q0,
+                          q_head, q_full(st));
+              tma_load_3d(sdO(st) + c * G::kQBox, &tm_dout, c * kBoxCols,
+                          q0, q_head, q_full(st));
+            }
+          }
+          // lse and delta of the step's queries by plain loads: a step's
+          // rows start at any element of the [b * h * s] vectors, not on
+          // the 16-byte boundaries of TMA.  Rows past s read nothing
+          // (their pairs are masked).  Each lane's arrive releases its
+          // stores to the consumers.
+          for (int r = lane; r < kDkvStep; r += 32) {
+            const bool in = q0 + r < s;
+            sLse(st)[r] = in ? lse_head[q0 + r] : 0.f;
+            sDelta(st)[r] = in ? delta_head[q0 + r] : 0.f;
+          }
+          mbar_arrive(q_full(st));
+        }
       }
     }
+  } else {
+    // ---- consumers: warpgroup cw owns keys [64 cw, 64 cw + 64) ----
+    setmaxnreg_inc<kConsumerRegs>();
+    constexpr int kSAcc = kDkvStep / 2;    // S^T or dP^T floats a thread
+    constexpr int kAcc = D / 2;            // dk or dv floats a thread
+    constexpr int kPSteps = kDkvStep / 16;  // k16 steps of dV, dK
+    const int cw = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int t = lane % 4;  // accumulator column pair
+    const int r0 = 16 * warp + lane / 4;  // this lane's keys: r0, r0 + 8
+    const int wk0 = tile.k0 + 64 * cw;    // the warpgroup's first key
+    const int k_pos0 = wk0 + r0;
+    const int k_pos1 = k_pos0 + 8;
+    const float scale_log2 = scale * kLog2e;  // d^-1/2 log2(e)
+    const uint32_t k_rows = sK + cw * 64 * 128;
+    const uint32_t v_rows = sV + cw * 64 * 128;
 
-    // ---- p^T = exp(S^T scale - lse), ds^T = p^T o (dP^T - delta) ----
+    float dk[kAcc], dv[kAcc];
 #pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
+    for (int i = 0; i < kAcc; ++i) dk[i] = dv[i] = 0.f;
+    if (n_items > 0) mbar_wait(kv_full, 0);
+    // item it = (query head it / steps, Q step i = it % steps)
+    for (int it = 0, i = 0; it < n_items; ++it, i = i + 1 < steps ? i + 1 : 0) {
+      const int st = it % kStages;
+      // fresh each step: between the products they hold no register
+      float sc[kSAcc], dp[kSAcc];  // S^T, dP^T; then p^T, ds^T in f32
+      uint32_t pa[kPSteps][4], da[kPSteps][4];  // p^T, ds^T in bf16
+      const int q0 = step_q0(i);
+      mbar_wait(q_full(st), (it / kStages) & 1);
+
+      // ---- S^T = K . Q^T, dP^T = V . dO^T (64 keys x 64 queries) ----
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = j * 8 + t * 2 + c;
-        const int q_pos = q0 + col;
-        const float l = lse_b[col];
-        const float dl = delta_b[col];
-        const float p0 = visible(q_pos, k_pos0, s, banded, window, cut, mask)
-                             ? expf(st[j][c] * scale - l) : 0.f;
-        const float p1 = visible(q_pos, k_pos1, s, banded, window, cut, mask)
-                             ? expf(st[j][2 + c] * scale - l) : 0.f;
-        st[j][c] = p0;
-        st[j][2 + c] = p1;
-        dpt[j][c] = p0 * (dpt[j][c] - dl);
-        dpt[j][2 + c] = p1 * (dpt[j][2 + c] - dl);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t box = kk / 4, col = (kk % 4) * 32;  // 16 bf16 = 32 B
+        wgmma_ss<kDkvStep>(
+            sc, wgmma_desc(k_rows + box * G::kKBox + col, 16, 1024),
+            wgmma_desc(sQ(st) + box * G::kQBox + col, 16, 1024), kk > 0);
       }
-    }
-
-    // ---- dV += p^T . dO, dK += ds^T . Q: A operands straight from above ----
 #pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      pa[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-      pa[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-      pa[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-      pa[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-      da[0] = pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
-      da[1] = pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
-      da[2] = pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-      da[3] = pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-      // lane i addresses row i % 8 of matrix i / 8: query rows
-      // kk*16 + (m % 2)*8, columns (m / 2)*8 of each 16-column pair
-      const int row = kk * 16 + ((lane / 8) % 2) * 8 + lane % 8;
-      const int col = (lane / 16) * 8;
-#pragma unroll
-      for (int np = 0; np < kDTiles / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, sdOb + row * kLd + np * 16 + col);
-        mma_bf16(dv_acc[2 * np], pa, b[0], b[1]);
-        mma_bf16(dv_acc[2 * np + 1], pa, b[2], b[3]);
-        ldmatrix_x4_trans(b, sQb + row * kLd + np * 16 + col);
-        mma_bf16(dk_acc[2 * np], da, b[0], b[1]);
-        mma_bf16(dk_acc[2 * np + 1], da, b[2], b[3]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t box = kk / 4, col = (kk % 4) * 32;
+        wgmma_ss<kDkvStep>(
+            dp, wgmma_desc(v_rows + box * G::kKBox + col, 16, 1024),
+            wgmma_desc(sdO(st) + box * G::kQBox + col, 16, 1024), kk > 0);
       }
-    }
-    __syncthreads();  // this buffer is refilled two iterations on
-  }
-  if (kMasked) cp_async_wait<0>();  // a K tile with no live item: K, V
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
 
-  // ---- dk = scale * acc, dv = acc, rows of the tile inside the sequence ----
-  __nv_bfloat16* dk_rows = dk + kv_offset;
-  __nv_bfloat16* dv_rows = dv + kv_offset;
-  const bool w0 = krow0 < k_rows, w1 = krow0 + 8 < k_rows;
+      // ---- p^T = exp(S^T d^-1/2 - lse), ds^T = p^T o (dP^T - delta) ----
+      const bool cut = kMasked && live.cut(i);
+      // a tile needs the element mask only where the band, the end or the
+      // block mask cuts it
+      const bool edge = q0 + kDkvStep > s || wk0 + 64 > s ||
+                        (banded && q0 < wk0 + 63) ||
+                        (window > 0 && q0 + kDkvStep - 1 - wk0 >= window) ||
+                        cut;
+      const float* lse_s = sLse(st);
+      const float* delta_s = sDelta(st);
 #pragma unroll
-  for (int n = 0; n < kDTiles; ++n) {
-    const int col = n * 8 + t * 2;
-    if (w0) {
-      *reinterpret_cast<uint32_t*>(dk_rows + (size_t)krow0 * D + col) =
-          pack_bf16(dk_acc[n][0] * scale, dk_acc[n][1] * scale);
-      *reinterpret_cast<uint32_t*>(dv_rows + (size_t)krow0 * D + col) =
-          pack_bf16(dv_acc[n][0], dv_acc[n][1]);
+      for (int j = 0; j < kDkvStep / 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+        const float2 dl =
+            *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float lse_log2 = (c ? l.y : l.x) * kLog2e;
+          const float dlc = c ? dl.y : dl.x;
+          float p0 = exp2_approx(fmaf(sc[4 * j + c], scale_log2, -lse_log2));
+          float p1 =
+              exp2_approx(fmaf(sc[4 * j + 2 + c], scale_log2, -lse_log2));
+          if (edge) {
+            const int q_pos = q0 + 8 * j + 2 * t + c;
+            if (!visible(q_pos, k_pos0, s, banded, window, cut, mask)) p0 = 0.f;
+            if (!visible(q_pos, k_pos1, s, banded, window, cut, mask)) p1 = 0.f;
+          }
+          sc[4 * j + c] = p0;
+          sc[4 * j + 2 + c] = p1;
+          dp[4 * j + c] = p0 * (dp[4 * j + c] - dlc);
+          dp[4 * j + 2 + c] = p1 * (dp[4 * j + 2 + c] - dlc);
+        }
+      }
+      pack_a(pa, sc);
+      pack_a(da, dp);
+
+      // ---- dV += p^T . dO, dK += ds^T . Q: Q, dO read MN-major ----
+      fence_regs(dk);
+      fence_regs(dv);
+#pragma unroll
+      for (int kk = 0; kk < kPSteps; ++kk) {
+        fence_regs(pa[kk]);
+        fence_regs(da[kk]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kPSteps; ++kk) {
+        // queries [16 kk, 16 kk + 16): two 8-row groups of 128-byte rows
+        wgmma_rs<D>(dv, pa[kk],
+                    wgmma_desc(sdO(st) + kk * 16 * 128, G::kQBox, 1024));
+        wgmma_rs<D>(dk, da[kk],
+                    wgmma_desc(sQ(st) + kk * 16 * 128, G::kQBox, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+#pragma unroll
+      for (int kk = 0; kk < kPSteps; ++kk) {
+        fence_regs(pa[kk]);
+        fence_regs(da[kk]);
+      }
+      if (lane == 0) mbar_arrive(q_empty(st));
     }
-    if (w1) {
-      *reinterpret_cast<uint32_t*>(dk_rows + (size_t)(krow0 + 8) * D + col) =
-          pack_bf16(dk_acc[n][2] * scale, dk_acc[n][3] * scale);
-      *reinterpret_cast<uint32_t*>(dv_rows + (size_t)(krow0 + 8) * D + col) =
-          pack_bf16(dv_acc[n][2], dv_acc[n][3]);
+
+    // ---- dk = d^-1/2 acc, dv = acc through this warpgroup's K, V rows ----
+    // the rows are free once all its warps are past their last product
+    named_barrier_sync(1 + cw, 128);
+    stage_rows<D>(k_rows, G::kKBox, dk, r0, t, scale);
+    stage_rows<D>(v_rows, G::kKBox, dv, r0, t, 1.f);
+    fence_proxy_async();
+    named_barrier_sync(1 + cw, 128);
+    if (tid == 0 && wk0 < s) {
+      for (int c = 0; c < kBoxes; ++c) {
+        tma_store_3d(&tm_dk, k_rows + c * G::kKBox, c * kBoxCols, wk0,
+                     tile.kv_row);
+        tma_store_3d(&tm_dv, v_rows + c * G::kKBox, c * kBoxCols, wk0,
+                     tile.kv_row);
+      }
+      tma_store_commit_and_wait();
     }
   }
 }
 
-// ------------------------------------------------------------------------
-// bf16 dQ
-// ------------------------------------------------------------------------
-
 template <int D>
-struct DqBf16 {
-  static constexpr int kLd = D + 8;
-  static constexpr int kTile = kBlockK * kLd;  // kBlockQ == kBlockK rows
-  // Q, dO, then K[2], V[2]
-  static constexpr size_t kBytes = sizeof(__nv_bfloat16) * 6 * kTile;
+struct DqSmem {
+  // byte offsets from the 1024-aligned base: Q, dO, K[kStages],
+  // V[kStages], then the mbarriers and (masked) the live list
+  static constexpr uint32_t kQBox = kHRows * 128;  // one 64-column box
+  static constexpr uint32_t kKBox = kDqStep * 128;
+  static constexpr uint32_t kQBytes = kQBox * (D / kBoxCols);
+  static constexpr uint32_t kKBytes = kKBox * (D / kBoxCols);
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kDO = kQ + kQBytes;
+  static constexpr uint32_t kK = kDO + kQBytes;
+  static constexpr uint32_t kV = kK + kStages * kKBytes;
+  // q_full, k_full[], k_empty[], v_full[], v_empty[]
+  static constexpr uint32_t kBars = kV + kStages * kKBytes;
+  static constexpr uint32_t kList = kBars + 8 * (1 + 4 * kStages);
+  static constexpr size_t kBytes = kList + 1024;
 };
 
 template <int D, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kHThreads, 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_dout,
+                         const __grid_constant__ CUtensorMap tm_dq,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int h, int h_kv,
+                         const float* __restrict__ delta, int h, int h_kv,
                          int s, int causal, int window, float scale,
                          const BlockMask mask) {
-  using G = DqBf16<D>;
-  constexpr int kLd = G::kLd;
-  constexpr int kNTiles = kBlockK / 8;  // score n-tiles (keys)
-  constexpr int kDTiles = D / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sdO = sQ + G::kTile;
-  __nv_bfloat16* sK = sdO + G::kTile;     // two buffers
-  __nv_bfloat16* sV = sK + 2 * G::kTile;  // two buffers
+  using G = DqSmem<D>;
+  constexpr int kBoxes = D / kBoxCols;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t sQ = base + G::kQ;
+  const uint32_t sdO = base + G::kDO;
+  auto sK = [&](int st) { return base + G::kK + st * G::kKBytes; };
+  auto sV = [&](int st) { return base + G::kV + st * G::kKBytes; };
+  const uint32_t q_full = base + G::kBars;
+  auto k_full = [&](int st) { return q_full + 8 * (1 + st); };
+  auto k_empty = [&](int st) { return q_full + 8 * (1 + kStages + st); };
+  auto v_full = [&](int st) { return q_full + 8 * (1 + 2 * kStages + st); };
+  auto v_empty = [&](int st) { return q_full + 8 * (1 + 3 * kStages + st); };
 
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const int kv_head = head / (h / h_kv);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), kConsumers * 4);
+      mbar_init(v_empty(st), kConsumers * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
   const bool banded = causal || window > 0;
-  const int q_tile = gridDim.x - 1 - blockIdx.x;  // longest rows first
-  const int q0 = q_tile * kBlockQ;
-  const int q_rows = min(kBlockQ, s - q0);
+  // the forward's blocks and order: longest causal rows first, across all
+  // heads when dense, head by head when masked
+  const TileOf<kHRows, kDqStep> tile(h, h_kv, s, D, banded, window,
+                                     !kMasked);
   // the K tiles to visit, kt in [kt_begin, kt_end]: tile kt of the band
   // (dense), or entry kt of this Q tile's live list (masked)
-  const KSweep sweep(q0, q0 + q_rows - 1, s, banded, window);
   const LiveTiles live =
-      kMasked ? live_k_tiles(smem_raw + G::kBytes, q0, s, banded, mask)
+      kMasked ? live_k_tiles<kHThreads, kHRows, kDqStep>(
+                    smem + G::kList, tile.q0, s, banded, mask)
               : LiveTiles();
-  const int kt_begin = kMasked ? 0 : sweep.begin;
-  const int kt_end = kMasked ? live.count - 1 : sweep.end;
-  auto k_start = [&](int kt) { return (kMasked ? live.tile(kt) : kt) * kBlockK; };
-  const size_t q_row = (size_t)(batch * h + head) * s + q0;
-  const __nv_bfloat16* k_head = k + (size_t)(batch * h_kv + kv_head) * s * D;
-  const __nv_bfloat16* v_head = v + (size_t)(batch * h_kv + kv_head) * s * D;
+  const int kt_begin = kMasked ? 0 : tile.k_tile_begin;
+  const int kt_end = kMasked ? live.count - 1 : tile.k_tile_end;
+  const int n = kt_end - kt_begin + 1;
+  auto k_start = [&](int kt) {
+    return (kMasked ? live.tile(kt) : kt) * kDqStep;
+  };
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int row0 = warp * 16 + g;  // this lane's rows: row0, row0 + 8
-  const int q_pos0 = q0 + row0;
-  const int q_pos1 = q_pos0 + 8;
-  // rows past the end are masked; read nothing for them
-  const float l0 = q_pos0 < s ? lse[q_row + row0] : 0.f;
-  const float l1 = q_pos1 < s ? lse[q_row + row0 + 8] : 0.f;
-  const float dl0 = q_pos0 < s ? delta[q_row + row0] : 0.f;
-  const float dl1 = q_pos1 < s ? delta[q_row + row0 + 8] : 0.f;
-
-  if (!kMasked || live.count > 0) {  // an empty live list loads nothing
-    load_rows_async<D, kBlockQ, kLd, kThreads>(sQ, q + q_row * D, q_rows);
-    load_rows_async<D, kBlockQ, kLd, kThreads>(sdO, dout + q_row * D, q_rows);
-    {
-      const int k0 = k_start(kt_begin);
-      load_rows_async<D, kBlockK, kLd, kThreads>(sK, k_head + (size_t)k0 * D,
-                                                 min(kBlockK, s - k0));
-      load_rows_async<D, kBlockK, kLd, kThreads>(sV, v_head + (size_t)k0 * D,
-                                                 min(kBlockK, s - k0));
-    }
-    cp_async_commit();
-  }
-
-  float dq_acc[kDTiles][4];
-#pragma unroll
-  for (int n = 0; n < kDTiles; ++n) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dq_acc[n][c] = 0.f;
-  }
-
-  for (int kt = kt_begin; kt <= kt_end; ++kt) {
-    const int buf = (kt - kt_begin) & 1;
-    const int k0 = k_start(kt);
-    const bool cut = kMasked && live.cut(kt);
-    if (kt < kt_end) {  // prefetch the next K/V tiles into the other buffer
-      const int k1 = kMasked ? k_start(kt + 1) : k0 + kBlockK;
-      load_rows_async<D, kBlockK, kLd, kThreads>(
-          sK + (buf ^ 1) * G::kTile, k_head + (size_t)k1 * D,
-          min(kBlockK, s - k1));
-      load_rows_async<D, kBlockK, kLd, kThreads>(
-          sV + (buf ^ 1) * G::kTile, v_head + (size_t)k1 * D,
-          min(kBlockK, s - k1));
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const __nv_bfloat16* sKb = sK + buf * G::kTile;
-    const __nv_bfloat16* sVb = sV + buf * G::kTile;
-
-    // ---- S = Q . K^T and dP = dO . V^T: 16 query rows x 64 keys ----
-    float sc[kNTiles][4], dp[kNTiles][4];
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sc[j][c] = dp[j][c] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < D / 16; ++e) {
-      uint32_t qa[4], da[4];
-      load_a_frag(qa, sQ + row0 * kLd + t * 2 + e * 16, kLd);
-      load_a_frag(da, sdO + row0 * kLd + t * 2 + e * 16, kLd);
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j) {
-        const __nv_bfloat16* kr = sKb + (j * 8 + g) * kLd + t * 2 + e * 16;
-        mma_bf16(sc[j], qa, ld_u32(kr), ld_u32(kr + 8));
-        const __nv_bfloat16* vr = sVb + (j * 8 + g) * kLd + t * 2 + e * 16;
-        mma_bf16(dp[j], da, ld_u32(vr), ld_u32(vr + 8));
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread issues every copy ----
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0 && n > 0) {  // an empty list loads nothing
+      mbar_arrive_expect_tx(q_full, 2 * G::kQBytes);
+      for (int c = 0; c < kBoxes; ++c) {
+        tma_load_3d(sQ + c * G::kQBox, &tm_q, c * kBoxCols, tile.q0,
+                    tile.q_head, q_full);
+        tma_load_3d(sdO + c * G::kQBox, &tm_dout, c * kBoxCols, tile.q0,
+                    tile.q_head, q_full);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int st = i % kStages;
+        const uint32_t free_parity = ((i / kStages) & 1) ^ 1;
+        const int k0 = k_start(kt_begin + i);
+        mbar_wait(k_empty(st), free_parity);
+        mbar_arrive_expect_tx(k_full(st), G::kKBytes);
+        for (int c = 0; c < kBoxes; ++c) {
+          tma_load_3d(sK(st) + c * G::kKBox, &tm_k, c * kBoxCols, k0,
+                      tile.kv_head, k_full(st));
+        }
+        mbar_wait(v_empty(st), free_parity);
+        mbar_arrive_expect_tx(v_full(st), G::kKBytes);
+        for (int c = 0; c < kBoxes; ++c) {
+          tma_load_3d(sV(st) + c * G::kKBox, &tm_v, c * kBoxCols, k0,
+                      tile.kv_head, v_full(st));
+        }
       }
     }
+  } else {
+    // ---- consumers: warpgroup cw owns Q rows [64 cw, 64 cw + 64) ----
+    setmaxnreg_inc<kConsumerRegs>();
+    constexpr int kSAcc = kDqStep / 2;     // S or dP floats a thread
+    constexpr int kAcc = D / 2;            // dq floats a thread
+    constexpr int kDsSteps = kDqStep / 16;  // k16 steps of dQ += ds . K
+    const int cw = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int t = lane % 4;
+    const int r0 = 16 * warp + lane / 4;  // this lane's rows: r0, r0 + 8
+    const int wq0 = tile.q0 + 64 * cw;    // the warpgroup's first query
+    const int q_pos0 = wq0 + r0;
+    const int q_pos1 = q_pos0 + 8;
+    const float scale_log2 = scale * kLog2e;
+    // rows past the end are masked; read nothing for them
+    const size_t row = (size_t)tile.q_head * s;
+    const float l0 = q_pos0 < s ? lse[row + q_pos0] * kLog2e : 0.f;
+    const float l1 = q_pos1 < s ? lse[row + q_pos1] * kLog2e : 0.f;
+    const float dl0 = q_pos0 < s ? delta[row + q_pos0] : 0.f;
+    const float dl1 = q_pos1 < s ? delta[row + q_pos1] : 0.f;
+    const uint32_t q_rows = sQ + cw * 64 * 128;
+    const uint32_t do_rows = sdO + cw * 64 * 128;
 
-    // ---- p = exp(S scale - lse), ds = p o (dP - delta), into sc ----
+    float dq[kAcc];
 #pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int k_pos = k0 + j * 8 + t * 2 + c;
-        const float p0 = visible(q_pos0, k_pos, s, banded, window, cut, mask)
-                             ? expf(sc[j][c] * scale - l0) : 0.f;
-        const float p1 = visible(q_pos1, k_pos, s, banded, window, cut, mask)
-                             ? expf(sc[j][2 + c] * scale - l1) : 0.f;
-        sc[j][c] = p0 * (dp[j][c] - dl0);
-        sc[j][2 + c] = p1 * (dp[j][2 + c] - dl1);
+    for (int i = 0; i < kAcc; ++i) dq[i] = 0.f;
+    // Ping-pong: the two warpgroups take turns to issue their products
+    // (two turns a step), so one's elementwise work runs under the
+    // other's products.  Warpgroup cw waits at barrier kTurnBarrier + cw
+    // until the other has issued; each barrier counts the owner's 128
+    // syncs and the other's 128 arrives, so warpgroup 1 opens warpgroup
+    // 0's first turn and leaves out its own last arrive.
+    auto my_turn = [&]() { named_barrier_sync(kTurnBarrier + cw, 256); };
+    auto their_turn = [&](bool last) {
+      if (cw == 0 || !last) {
+        named_barrier_arrive(kTurnBarrier + (cw ^ 1), 256);
       }
-    }
+    };
 
-    // ---- dQ += ds . K: ds in bf16 as the A operand, straight from sc ----
+    if (n > 0) {
+      mbar_wait(q_full, 0);
+      if (cw == 1) their_turn(false);
+    }
+    for (int i = 0; i < n; ++i) {
+      const int st = i % kStages;
+      const uint32_t parity = (i / kStages) & 1;
+      // fresh each step: between the products they hold no register
+      float sc[kSAcc], dp[kSAcc];  // S, dP; then ds in f32
+      uint32_t ds[kDsSteps][4];    // ds in bf16
+      const int kt = kt_begin + i;
+      const int k0 = k_start(kt);
+      mbar_wait(k_full(st), parity);
+      mbar_wait(v_full(st), parity);
+      my_turn();
+
+      // ---- S = Q . K^T, dP = dO . V^T (64 queries x 64 keys) ----
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-      a[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-      a[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      a[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-      const int key = kk * 16 + ((lane / 8) % 2) * 8 + lane % 8;
-      const int col = (lane / 16) * 8;
-#pragma unroll
-      for (int np = 0; np < kDTiles / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, sKb + key * kLd + np * 16 + col);
-        mma_bf16(dq_acc[2 * np], a, b[0], b[1]);
-        mma_bf16(dq_acc[2 * np + 1], a, b[2], b[3]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t box = kk / 4, col = (kk % 4) * 32;
+        wgmma_ss<kDqStep>(
+            sc, wgmma_desc(q_rows + box * G::kQBox + col, 16, 1024),
+            wgmma_desc(sK(st) + box * G::kKBox + col, 16, 1024), kk > 0);
       }
-    }
-    __syncthreads();  // this buffer is refilled two iterations on
-  }
-
-  __nv_bfloat16* dq_rows = dq + q_row * D;
-  const bool w0 = row0 < q_rows, w1 = row0 + 8 < q_rows;
 #pragma unroll
-  for (int n = 0; n < kDTiles; ++n) {
-    const int col = n * 8 + t * 2;
-    if (w0) {
-      *reinterpret_cast<uint32_t*>(dq_rows + (size_t)row0 * D + col) =
-          pack_bf16(dq_acc[n][0] * scale, dq_acc[n][1] * scale);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t box = kk / 4, col = (kk % 4) * 32;
+        wgmma_ss<kDqStep>(
+            dp, wgmma_desc(do_rows + box * G::kQBox + col, 16, 1024),
+            wgmma_desc(sV(st) + box * G::kKBox + col, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      their_turn(false);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      if (lane == 0) mbar_arrive(v_empty(st));
+
+      // ---- p = exp(S d^-1/2 - lse), ds = p o (dP - delta), into sc ----
+      const bool cut = kMasked && live.cut(kt);
+      const bool edge = wq0 + 64 > s || k0 + kDqStep > s ||
+                        (banded && k0 + kDqStep - 1 > wq0) ||
+                        (window > 0 && wq0 + 63 - k0 >= window) || cut;
+#pragma unroll
+      for (int j = 0; j < kDqStep / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float p0 = exp2_approx(fmaf(sc[4 * j + c], scale_log2, -l0));
+          float p1 = exp2_approx(fmaf(sc[4 * j + 2 + c], scale_log2, -l1));
+          if (edge) {
+            const int k_pos = k0 + 8 * j + 2 * t + c;
+            if (!visible(q_pos0, k_pos, s, banded, window, cut, mask)) p0 = 0.f;
+            if (!visible(q_pos1, k_pos, s, banded, window, cut, mask)) p1 = 0.f;
+          }
+          sc[4 * j + c] = p0 * (dp[4 * j + c] - dl0);
+          sc[4 * j + 2 + c] = p1 * (dp[4 * j + 2 + c] - dl1);
+        }
+      }
+      pack_a(ds, sc);
+
+      // ---- dQ += ds . K: K read MN-major ----
+      fence_regs(dq);
+#pragma unroll
+      for (int kk = 0; kk < kDsSteps; ++kk) fence_regs(ds[kk]);
+      my_turn();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDsSteps; ++kk) {
+        wgmma_rs<D>(dq, ds[kk],
+                    wgmma_desc(sK(st) + kk * 16 * 128, G::kKBox, 1024));
+      }
+      wgmma_commit();
+      their_turn(i + 1 == n);
+      wgmma_wait<0>();
+      fence_regs(dq);
+#pragma unroll
+      for (int kk = 0; kk < kDsSteps; ++kk) fence_regs(ds[kk]);
+      if (lane == 0) mbar_arrive(k_empty(st));
     }
-    if (w1) {
-      *reinterpret_cast<uint32_t*>(dq_rows + (size_t)(row0 + 8) * D + col) =
-          pack_bf16(dq_acc[n][2] * scale, dq_acc[n][3] * scale);
+
+    // ---- dq = d^-1/2 acc through this warpgroup's Q rows ----
+    named_barrier_sync(1 + cw, 128);
+    stage_rows<D>(q_rows, G::kQBox, dq, r0, t, scale);
+    fence_proxy_async();
+    named_barrier_sync(1 + cw, 128);
+    if (tid == 0 && wq0 < s) {
+      for (int c = 0; c < kBoxes; ++c) {
+        tma_store_3d(&tm_dq, q_rows + c * G::kQBox, c * kBoxCols, wq0,
+                     tile.q_head);
+      }
+      tma_store_commit_and_wait();
     }
   }
 }
@@ -802,40 +1017,101 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, typename Kernel>
-cudaError_t launch_dkv(Kernel kernel, size_t smem, const void* q,
-                       const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, void* dk, void* dv,
-                       int b, int h, int h_kv, int s, int causal, int window,
-                       float scale, const BlockMask& mask,
-                       cudaStream_t stream) {
+template <typename Kernel>
+cudaError_t launch_dkv_f32(Kernel kernel, size_t smem, const void* q,
+                           const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dk,
+                           void* dv, int b, int h, int h_kv, int s,
+                           int causal, int window, float scale,
+                           const BlockMask& mask, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kBlockK - 1) / kBlockK, h_kv, b);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), h, h_kv, s, causal, window,
-      scale, mask);
+      static_cast<float*>(dk), static_cast<float*>(dv), h, h_kv, s, causal,
+      window, scale, mask);
   return cudaGetLastError();
 }
 
-template <typename T, typename Kernel>
-cudaError_t launch_dq(Kernel kernel, size_t smem, const void* q,
-                      const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dq, int b,
-                      int h, int h_kv, int s, int causal, int window,
-                      float scale, const BlockMask& mask,
-                      cudaStream_t stream) {
+template <typename Kernel>
+cudaError_t launch_dq_f32(Kernel kernel, size_t smem, const void* q,
+                          const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, void* dq, int b,
+                          int h, int h_kv, int s, int causal, int window,
+                          float scale, const BlockMask& mask,
+                          cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kBlockQ - 1) / kBlockQ, h, b);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), h, h_kv, s, causal, window, scale, mask);
+      static_cast<float*>(dq), h, h_kv, s, causal, window, scale, mask);
+  return cudaGetLastError();
+}
+
+template <int D, bool kMasked>
+cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv, int b,
+                            int h, int h_kv, int s, int causal, int window,
+                            float scale, const BlockMask& mask,
+                            cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_dout, tm_dk, tm_dv;
+  if (!encode_map(&tm_q, q, b * h, s, D, kDkvStep) ||
+      !encode_map(&tm_k, k, b * h_kv, s, D, kHRows) ||
+      !encode_map(&tm_v, v, b * h_kv, s, D, kHRows) ||
+      !encode_map(&tm_dout, dout, b * h, s, D, kDkvStep) ||
+      !encode_map(&tm_dk, dk, b * h_kv, s, D, kHRows / kConsumers) ||
+      !encode_map(&tm_dv, dv, b * h_kv, s, D, kHRows / kConsumers)) {
+    return cudaErrorInvalidValue;
+  }
+  // a masked block's live list of Q steps follows its barriers
+  const size_t smem =
+      DkvSmem<D>::kBytes +
+      (kMasked ? live_list_bytes((s + kDkvStep - 1) / kDkvStep) : 0);
+  auto kernel = flash_bwd_dkv_bf16_kernel<D, kMasked>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s + kHRows - 1) / kHRows, h_kv, b);
+  kernel<<<grid, kHThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_dout, tm_dk, tm_dv, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), h, h_kv, s, causal, window, scale,
+      mask);
+  return cudaGetLastError();
+}
+
+template <int D, bool kMasked>
+cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, int b, int h,
+                           int h_kv, int s, int causal, int window,
+                           float scale, const BlockMask& mask,
+                           cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_dout, tm_dq;
+  if (!encode_map(&tm_q, q, b * h, s, D, kHRows) ||
+      !encode_map(&tm_k, k, b * h_kv, s, D, kDqStep) ||
+      !encode_map(&tm_v, v, b * h_kv, s, D, kDqStep) ||
+      !encode_map(&tm_dout, dout, b * h, s, D, kHRows) ||
+      !encode_map(&tm_dq, dq, b * h, s, D, kHRows / kConsumers)) {
+    return cudaErrorInvalidValue;
+  }
+  // a masked block's live list of K tiles follows its barriers
+  const size_t smem =
+      DqSmem<D>::kBytes +
+      (kMasked ? live_list_bytes((s + kDqStep - 1) / kDqStep) : 0);
+  auto kernel = flash_bwd_dq_bf16_kernel<D, kMasked>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s + kHRows - 1) / kHRows, h, b);
+  kernel<<<grid, kHThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_dout, tm_dq, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), h, h_kv, s, causal, window, scale,
+      mask);
   return cudaGetLastError();
 }
 
@@ -849,28 +1125,26 @@ int dispatch_dkv(const void* q, const void* k, const void* v,
                  void* dk, void* dv, int dtype, int b, int h, int h_kv, int s,
                  int d, int causal, int window, float scale,
                  const BlockMask& mask, cudaStream_t st) {
-  // a masked block's live list of Q steps follows its tiles in shared
+  // a masked f32 block's live list of Q steps follows its tiles in shared
   // memory
   auto list = [&](int rows) {
     return kMasked ? live_list_bytes((s + rows - 1) / rows) : 0;
   };
   if (dtype == 1 && d == 64)
-    return (int)launch_dkv<__nv_bfloat16>(
-        flash_bwd_dkv_bf16_kernel<64, kMasked>,
-        DkvBf16<64>::kBytes + list(DkvBf16<64>::kBQ), q, k, v, dout, lse,
-        delta, dk, dv, b, h, h_kv, s, causal, window, scale, mask, st);
+    return (int)launch_dkv_bf16<64, kMasked>(q, k, v, dout, lse, delta, dk,
+                                             dv, b, h, h_kv, s, causal,
+                                             window, scale, mask, st);
   if (dtype == 1 && d == 128)
-    return (int)launch_dkv<__nv_bfloat16>(
-        flash_bwd_dkv_bf16_kernel<128, kMasked>,
-        DkvBf16<128>::kBytes + list(DkvBf16<128>::kBQ), q, k, v, dout, lse,
-        delta, dk, dv, b, h, h_kv, s, causal, window, scale, mask, st);
+    return (int)launch_dkv_bf16<128, kMasked>(q, k, v, dout, lse, delta, dk,
+                                              dv, b, h, h_kv, s, causal,
+                                              window, scale, mask, st);
   if (dtype == 0 && d == 64)
-    return (int)launch_dkv<float>(
+    return (int)launch_dkv_f32(
         flash_bwd_dkv_f32_kernel<64, kMasked>,
         DkvF32<64>::kBytes + list(DkvF32<64>::kBQ), q, k, v, dout, lse,
         delta, dk, dv, b, h, h_kv, s, causal, window, scale, mask, st);
   if (dtype == 0 && d == 128)
-    return (int)launch_dkv<float>(
+    return (int)launch_dkv_f32(
         flash_bwd_dkv_f32_kernel<128, kMasked>,
         DkvF32<128>::kBytes + list(DkvF32<128>::kBQ), q, k, v, dout, lse,
         delta, dk, dv, b, h, h_kv, s, causal, window, scale, mask, st);
@@ -883,26 +1157,24 @@ int dispatch_dq(const void* q, const void* k, const void* v,
                 void* dq, int dtype, int b, int h, int h_kv, int s, int d,
                 int causal, int window, float scale, const BlockMask& mask,
                 cudaStream_t st) {
-  // a masked block's live list of K tiles follows its tiles in shared
+  // a masked f32 block's live list of K tiles follows its tiles in shared
   // memory
   const size_t list = kMasked ? live_list_bytes((s + kBlockK - 1) / kBlockK) : 0;
   if (dtype == 1 && d == 64)
-    return (int)launch_dq<__nv_bfloat16>(
-        flash_bwd_dq_bf16_kernel<64, kMasked>, DqBf16<64>::kBytes + list, q,
-        k, v, dout, lse, delta, dq, b, h, h_kv, s, causal, window, scale, mask,
-        st);
+    return (int)launch_dq_bf16<64, kMasked>(q, k, v, dout, lse, delta, dq, b,
+                                            h, h_kv, s, causal, window, scale,
+                                            mask, st);
   if (dtype == 1 && d == 128)
-    return (int)launch_dq<__nv_bfloat16>(
-        flash_bwd_dq_bf16_kernel<128, kMasked>, DqBf16<128>::kBytes + list, q,
-        k, v, dout, lse, delta, dq, b, h, h_kv, s, causal, window, scale, mask,
-        st);
+    return (int)launch_dq_bf16<128, kMasked>(q, k, v, dout, lse, delta, dq,
+                                             b, h, h_kv, s, causal, window,
+                                             scale, mask, st);
   if (dtype == 0 && d == 64)
-    return (int)launch_dq<float>(
+    return (int)launch_dq_f32(
         flash_bwd_dq_f32_kernel<64, kMasked>, DqF32<64>::kBytes + list, q, k,
         v, dout, lse, delta, dq, b, h, h_kv, s, causal, window, scale, mask,
         st);
   if (dtype == 0 && d == 128)
-    return (int)launch_dq<float>(
+    return (int)launch_dq_f32(
         flash_bwd_dq_f32_kernel<128, kMasked>, DqF32<128>::kBytes + list, q,
         k, v, dout, lse, delta, dq, b, h, h_kv, s, causal, window, scale, mask,
         st);
@@ -914,7 +1186,8 @@ int dispatch_dq(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.  scale
 // is d^-1/2 as the caller rounds it to f32.  Each returns
 // cudaErrorInvalidValue for a dtype, head_dim or head count the kernel
-// does not take, else the launch's cudaGetLastError().
+// does not take or a tensor map cuTensorMapEncodeTiled refuses, else the
+// launch's cudaGetLastError().
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* v, const void* dout,

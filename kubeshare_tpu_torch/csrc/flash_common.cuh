@@ -1,8 +1,8 @@
 // Building blocks shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): cp.async copies into shared memory, the bf16 tensor-core
-// product mma.sync m16n8k16 with f32 accumulation, ldmatrix, bf16
-// packing, and the block mask and tile sweep of the block-sparse mode.
-// Each including source gets its own copy (anonymous namespace).
+// flash_bwd.cu): shared-memory addresses, bf16 packing, the f32 kernels'
+// tile loads, the Q tile a block owns (TileOf), and the block mask and
+// tile sweep of the block-sparse mode.  Each including source gets its
+// own copy (anonymous namespace).
 
 #pragma once
 
@@ -17,82 +17,9 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte global->shared copy; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-// 4-byte global->shared copy; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// c += a . b for one 16x8x16 tile (A row-major, B column-major)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* row_addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(row_addr)));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The A fragment of a 16x16 bf16 tile whose row `g` (this lane's row
-// group) starts at `row`, `ld` elements between rows, columns from `col`
-// (t * 2 for this lane): rows g and g + 8, column pairs col and col + 8.
-__device__ __forceinline__ void load_a_frag(uint32_t* a,
-                                            const __nv_bfloat16* row, int ld) {
-  a[0] = ld_u32(row);
-  a[1] = ld_u32(row + 8 * ld);
-  a[2] = ld_u32(row + 8);
-  a[3] = ld_u32(row + 8 * ld + 8);
-}
-
-// Start the 16-byte copies of one [ROWS, D] bf16 tile into rows of LD
-// elements; rows at or past `valid` are zero-filled (their source address
-// is clamped to row 0).
-template <int D, int ROWS, int LD, int THREADS>
-__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                int valid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const bool in = r < valid;
-    cp_async_16(dst + r * LD + c * 8, src + (size_t)(in ? r : 0) * D + c * 8,
-                in ? 16 : 0);
-  }
 }
 
 // [ROWS, D] f32 tile into rows of LD floats, synchronously; rows at or
@@ -110,6 +37,50 @@ __device__ __forceinline__ void load_rows_f32(float* dst,
     reinterpret_cast<float4*>(dst + r * LD)[c] = val;
   }
 }
+
+// Where a (batch, head, Q tile) block of BQ query rows starts and which
+// BK-key tiles it visits.
+template <int BQ, int BK>
+struct TileOf {
+  int q0, q_rows, k_tile_begin, k_tile_end;
+  int q_head, kv_head;         // rows of the [b * h] and [b * h_kv] heads
+  size_t q_offset, kv_offset;  // element offsets of the Q rows, the KV head
+
+  // across_heads: order the blocks longest causal rows first over all
+  // heads (the bf16 dense sweep); else over each head in turn.
+  __device__ TileOf(int h, int h_kv, int s, int d, bool banded, int window,
+                    bool across_heads = false) {
+    int q_tile, head;
+    if (across_heads) {
+      // Walk every head's last Q tile first, then every head's last but
+      // one, so the short tiles fill the last wave's gaps.  This relies on
+      // blocks starting in the order of their linear index (x fastest,
+      // then y, z), which the H100 was measured to do but which no
+      // documentation guarantees; another GPU or driver may lose the gain
+      // (never correctness).  A persistent kernel with an atomic tile
+      // counter would make the order explicit.
+      const int heads = gridDim.y * gridDim.z;  // b * h
+      const int lin =
+          blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+      q_tile = gridDim.x - 1 - lin / heads;
+      q_head = lin % heads;  // batch * h + head
+      head = q_head % h;
+    } else {
+      q_tile = gridDim.x - 1 - blockIdx.x;  // longest rows first
+      head = blockIdx.y;
+      q_head = blockIdx.z * h + head;
+    }
+    const int batch = q_head / h;
+    kv_head = batch * h_kv + head / (h / h_kv);
+    q0 = q_tile * BQ;
+    q_rows = min(BQ, s - q0);
+    q_offset = ((size_t)q_head * s + q0) * d;
+    kv_offset = (size_t)kv_head * s * d;
+    // K tiles that can hold a visible key for some row of this Q tile
+    k_tile_end = (banded ? q0 + q_rows - 1 : s - 1) / BK;
+    k_tile_begin = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
+  }
+};
 
 // ------------------------------------------------------------------------
 // Block-sparse mode (kernels instantiated with kMasked = true)

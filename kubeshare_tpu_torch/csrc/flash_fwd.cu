@@ -79,7 +79,6 @@
 // Layout: q, out [b, h, s, d]; k, v [b, h_kv, s, d]; all contiguous.
 
 #include <cuda.h>
-#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -97,49 +96,6 @@ constexpr int kWarps = 4;  // warp w owns Q rows [16w, 16w + 16)
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kBlockQ / kWarps;
 
-// Where a (batch, head, Q tile) block of BQ query rows starts and which
-// BK-key tiles it visits.
-template <int BQ, int BK>
-struct TileOf {
-  int q0, q_rows, k_tile_begin, k_tile_end;
-  int q_head, kv_head;         // rows of the [b * h] and [b * h_kv] heads
-  size_t q_offset, kv_offset;  // element offsets of the Q rows, the KV head
-
-  // across_heads: order the blocks longest causal rows first over all
-  // heads (the bf16 dense sweep); else over each head in turn.
-  __device__ TileOf(int h, int h_kv, int s, int d, bool banded, int window,
-                    bool across_heads = false) {
-    int q_tile, head;
-    if (across_heads) {
-      // Walk every head's last Q tile first, then every head's last but
-      // one, so the short tiles fill the last wave's gaps.  This relies on
-      // blocks starting in the order of their linear index (x fastest,
-      // then y, z), which the H100 was measured to do but which no
-      // documentation guarantees; another GPU or driver may lose the gain
-      // (never correctness).  A persistent kernel with an atomic tile
-      // counter would make the order explicit.
-      const int heads = gridDim.y * gridDim.z;  // b * h
-      const int lin =
-          blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-      q_tile = gridDim.x - 1 - lin / heads;
-      q_head = lin % heads;  // batch * h + head
-      head = q_head % h;
-    } else {
-      q_tile = gridDim.x - 1 - blockIdx.x;  // longest rows first
-      head = blockIdx.y;
-      q_head = blockIdx.z * h + head;
-    }
-    const int batch = q_head / h;
-    kv_head = batch * h_kv + head / (h / h_kv);
-    q0 = q_tile * BQ;
-    q_rows = min(BQ, s - q0);
-    q_offset = ((size_t)q_head * s + q0) * d;
-    kv_offset = (size_t)kv_head * s * d;
-    // K tiles that can hold a visible key for some row of this Q tile
-    k_tile_end = (banded ? q0 + q_rows - 1 : s - 1) / BK;
-    k_tile_begin = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
-  }
-};
 using Tile = TileOf<kBlockQ, kBlockK>;  // the f32 kernel's 64 x 64 tiles
 
 // `cut`: the tile straddles mask blocks, so the mask is tested too
@@ -176,7 +132,6 @@ constexpr int kHBlockK = 128;  // keys per K / V tile: S is one m64n128 wgmma
 constexpr int kStages = 2;     // K / V ring depth
 constexpr int kConsumers = 2;  // consumer warpgroups
 constexpr int kHThreads = 128 * (1 + kConsumers);
-constexpr int kBoxCols = 64;   // bf16 columns of one 128-byte swizzled box
 // registers a thread after the hand-over: 128 x 24 + 256 x 240 = 168 x 384
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
@@ -708,45 +663,6 @@ cudaError_t launch(Kernel kernel, size_t smem, const void* q, const void* k,
       static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse), h, h_kv, s, causal, window, scale, mask);
   return cudaGetLastError();
-}
-
-// The driver's cuTensorMapEncodeTiled, looked up once through the runtime
-// (no link against libcuda); null if the driver does not have it.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-    }
-  }
-  return encode;
-}
-
-// A 3-D map over a contiguous bf16 [heads, s, d] tensor whose boxes are
-// 64 columns x `rows` rows of one head, 128B-swizzled; reads out of
-// bounds give zeros, writes out of bounds are dropped.
-bool encode_map(CUtensorMap* map, const void* ptr, int heads, int s, int d,
-                int rows) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kBoxCols, (cuuint32_t)rows, 1};
-  const cuuint32_t steps[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, steps,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D, bool kMasked>

@@ -1,23 +1,29 @@
-// Hopper (sm_90a) building blocks of the bf16 flash forward
-// (flash_fwd.cu): mbarriers, TMA tensor loads and stores, wgmma with its
-// shared-memory descriptors, register hand-over between warpgroups
-// (setmaxnreg) and named barriers, all as inline PTX.  Only flash_fwd.cu
-// includes it; each including source gets its own copy (anonymous
-// namespace).
+// Hopper (sm_90a) building blocks of the bf16 flash kernels (flash_fwd.cu
+// and flash_bwd.cu): mbarriers, TMA tensor loads and stores, wgmma with
+// its shared-memory descriptors, register hand-over between warpgroups
+// (setmaxnreg) and named barriers, all as inline PTX, and on the host the
+// encoding of the TMA tensor maps.  Each including source gets its own
+// copy (anonymous namespace).
 //
 // Shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B:
 // a box of 64 bf16 columns (128 bytes a row) and R rows, row r at byte
 // r * 128, its 16-byte chunk c stored at chunk c ^ (r % 8).  Every box
 // starts 1024-byte aligned, so the swizzle phase is 0 at its first row.
+// wgmma reads such a tile K-major (the 16 columns of a k16 step are 32
+// bytes of every row) or MN-major with the transpose bit (a k16 step is
+// 16 rows, 2048 bytes).
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (types only: nothing links libcuda)
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
 namespace {
+
+constexpr int kBoxCols = 64;  // bf16 columns of one 128-byte swizzled box
 
 // ---- mbarriers ----------------------------------------------------------
 
@@ -173,6 +179,31 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// acc[0:32] (+)= A . B for one m64n64k16 step, A and B from shared
+// memory (both K-major); scale_d = 0 overwrites acc
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float* acc, uint64_t desc_a,
+                                                 uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]),
+        "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7]),
+        "+f"(acc[8]), "+f"(acc[9]), "+f"(acc[10]), "+f"(acc[11]),
+        "+f"(acc[12]), "+f"(acc[13]), "+f"(acc[14]), "+f"(acc[15]),
+        "+f"(acc[16]), "+f"(acc[17]), "+f"(acc[18]), "+f"(acc[19]),
+        "+f"(acc[20]), "+f"(acc[21]), "+f"(acc[22]), "+f"(acc[23]),
+        "+f"(acc[24]), "+f"(acc[25]), "+f"(acc[26]), "+f"(acc[27]),
+        "+f"(acc[28]), "+f"(acc[29]), "+f"(acc[30]), "+f"(acc[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // acc[0:64] (+)= A . B for one m64n128k16 step, A and B from shared
 // memory (both K-major); scale_d = 0 overwrites acc
 __device__ __forceinline__ void wgmma_ss_m64n128k16(float* acc, uint64_t desc_a,
@@ -272,8 +303,20 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float* acc, const uint32_t* 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// an SS step by the tile width N (the keys or queries of a score tile)
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* acc, uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (N == 64) {
+    wgmma_ss_m64n64k16(acc, desc_a, desc_b, scale_d);
+  } else {
+    static_assert(N == 128, "wgmma_ss: N is 64 or 128");
+    wgmma_ss_m64n128k16(acc, desc_a, desc_b, scale_d);
+  }
+}
 
-// the O += P . V step by the tile width N (head_dim)
+// an RS step by the tile width N (head_dim): O += P . V in the forward,
+// dV += p^T . dO, dK += ds^T . Q and dQ += ds . K in the backward
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* acc, const uint32_t* a,
                                          uint64_t desc_b) {
@@ -283,6 +326,47 @@ __device__ __forceinline__ void wgmma_rs(float* acc, const uint32_t* a,
     static_assert(N == 128, "wgmma_rs: N is 64 or 128");
     wgmma_rs_m64n128k16(acc, a, desc_b);
   }
+}
+
+// ---- tensor maps (host) ---------------------------------------------------
+
+// The driver's cuTensorMapEncodeTiled, looked up once through the runtime
+// (no link against libcuda); null if the driver does not have it.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+    }
+  }
+  return encode;
+}
+
+// A 3-D map over a contiguous bf16 [heads, s, d] tensor whose boxes are
+// 64 columns x `rows` rows of one head, 128B-swizzled; reads out of
+// bounds give zeros, writes out of bounds are dropped.
+bool encode_map(CUtensorMap* map, const void* ptr, int heads, int s, int d,
+                int rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kBoxCols, (cuuint32_t)rows, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -74,6 +74,9 @@ CASES = [
     (4, 200, True, None),
     (2, 200, False, None),
     (1, 200, True, 8),
+    # ragged across the Hopper kernels' 64-row steps and 128-row tiles, a
+    # window narrower than a step, GQA (s tiles block_q: the Pallas path)
+    (2, 144, True, 48),
 ]
 
 

@@ -2,11 +2,14 @@
 launcher in kubeshare_tpu_torch/csrc matches its ctypes signature in
 ops/_build.py (a ctypes int where the C side takes a pointer truncates
 the pointer on the card, and no launch on the CPU would show it), the
-build targets sm_90a (wgmma and setmaxnreg exist only there), the Hopper
-helpers stay out of the backward's source, and chip_smoke.py reads the
-registers and spills of every kernel instantiation from ptxas's lines
-and the bf16 forward's wgmma and TMA instructions from its SASS."""
+build targets sm_90a (wgmma and setmaxnreg exist only there), both
+sources share one copy of the Hopper helpers and of the tensor-map
+encoder, chip_smoke.py reads the registers and spills of every kernel
+instantiation from ptxas's lines and the bf16 kernels' wgmma and TMA
+instructions from their SASS, and flash_bwd_ablations.py's edits still
+apply to the backward's source."""
 
+import ast
 import ctypes
 import importlib.util
 import re
@@ -76,13 +79,19 @@ def test_nvcc_targets_sm90a():
 
 
 def test_hopper_helpers_only_in_the_forward():
-    # the backward's code must not change with the forward's helpers
+    """Both sources include the Hopper helpers (the name predates the
+    backward's use of them), and the host-side tensor-map encoder is
+    defined once, in the shared header, for both."""
     includes = {
         path.stem: re.findall(r'#include "(\w+\.cuh)"', path.read_text())
         for path in _build.CSRC.glob("*.cu")}
-    assert "hopper_common.cuh" in includes["flash_fwd"]
-    assert "hopper_common.cuh" not in includes["flash_bwd"]
-    assert "flash_common.cuh" in includes["flash_bwd"]
+    for stem in ("flash_fwd", "flash_bwd"):
+        assert "hopper_common.cuh" in includes[stem], stem
+        assert "flash_common.cuh" in includes[stem], stem
+    sources = sorted(_build.CSRC.glob("*.cu*"))
+    for encoder in (r"\btensor_map_encoder\(\)\s*\{", r"\bbool encode_map\("):
+        defined = [p.name for p in sources if re.search(encoder, p.read_text())]
+        assert defined == ["hopper_common.cuh"], (encoder, defined)
 
 
 # ptxas -v lines as nvcc prints them for the two sources' instantiations
@@ -95,10 +104,18 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121flash_fwd_bf16_kern
 ptxas info    : Function properties for _ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi64ELb0EEEv14CUtensorMap_stS1_S1_S1_Pfiiiiif9BlockMask
     8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 168 registers, used 3 barriers, 944 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124flash_bwd_dkv_bf16_kernelILi128ELb0EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_iiiiif9BlockMask' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_124flash_bwd_dkv_bf16_kernelILi128ELb0EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_iiiiif9BlockMask
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124flash_bwd_dkv_f32_kernelILi128ELb0EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiiifNS_9BlockMaskE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_124flash_bwd_dkv_f32_kernelILi128ELb0EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiiifNS_9BlockMaskE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 240 registers, 544 bytes cmem[0]
+ptxas info    : Used 40 registers, 544 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125flash_bwd_dkv_bf16_kernelILi128ELb0EEEv14CUtensorMap_stS1_S1_S1_S1_S1_PKfS3_iiiiifNS_9BlockMaskE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125flash_bwd_dkv_bf16_kernelILi128ELb0EEEv14CUtensorMap_stS1_S1_S1_S1_S1_PKfS3_iiiiifNS_9BlockMaskE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124flash_bwd_dq_bf16_kernelILi64ELb1EEEv14CUtensorMap_stS1_S1_S1_S1_PKfS3_iiiiifNS_9BlockMaskE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_124flash_bwd_dq_bf16_kernelILi64ELb1EEEv14CUtensorMap_stS1_S1_S1_S1_PKfS3_iiiiifNS_9BlockMaskE
+    16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers, 720 bytes cmem[0]
 """
 
 
@@ -107,7 +124,9 @@ def test_chip_smoke_reads_every_instantiation():
     assert chip_smoke.kernel_resources(_PTXAS_LOG) == [
         ("flash_fwd_bf16_kernel<128, masked>", 168, 0),
         ("flash_fwd_bf16_kernel<64>", 168, 12),
-        ("flash_bwd_dkv_bf16_kernel<128>", 240, 0),
+        ("flash_bwd_dkv_f32_kernel<128>", 40, 0),
+        ("flash_bwd_dkv_bf16_kernel<128>", 168, 0),
+        ("flash_bwd_dq_bf16_kernel<64, masked>", 168, 24),
     ]
     # the forward's kernels keep the <D, kMasked> template that regex reads
     source = (_build.CSRC / "flash_fwd.cu").read_text()
@@ -116,7 +135,22 @@ def test_chip_smoke_reads_every_instantiation():
                      r"flash_fwd_bf16_kernel\(", source)
 
 
-# cuobjdump -sass lines of two bf16 forward instantiations and an f32 one
+def test_backward_kernels_keep_the_names_the_parsers_read():
+    # kernel_resources and sass_counts find the bf16 backward kernels by
+    # these names and their <D, kMasked> template arguments
+    chip_smoke = _chip_smoke()
+    source = (_build.CSRC / "flash_bwd.cu").read_text()
+    for name in ("flash_bwd_dkv_bf16_kernel", "flash_bwd_dq_bf16_kernel"):
+        assert name in chip_smoke.SASS_KERNELS
+        assert re.search(r"template <int D, bool kMasked>\s*__global__ void "
+                         r"__launch_bounds__\(kHThreads, 1\)\s*"
+                         + name + r"\(", source), name
+        # the launcher instantiates it per (D, kMasked)
+        assert f"{name}<D, kMasked>" in source, name
+
+
+# cuobjdump -sass lines of two bf16 forward instantiations, an f32 one,
+# and one of each bf16 backward kernel
 _SASS = """\
 \t\tFunction : _ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi128ELb0EEEv14CUtensorMap_stS1_S1_S1_PfiiiiifNS_9BlockMaskE
         /*0a50*/                   UTMALDG.3D [UR8], [UR4] ;
@@ -128,14 +162,45 @@ _SASS = """\
         /*0100*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
 \t\tFunction : _ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi64ELb0EEEvPKfS2_S2_PfS3_iiiiifNS_9BlockMaskE
         /*0100*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+\t\tFunction : _ZN12_GLOBAL__N_125flash_bwd_dkv_bf16_kernelILi128ELb1EEEv14CUtensorMap_stS1_S1_S1_S1_S1_PKfS3_iiiiifNS_9BlockMaskE
+        /*0200*/                   UTMALDG.3D [UR8], [UR4] ;
+        /*0300*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0310*/                   HGMMA.64x128x16.F32.BF16 R88, R152, gdesc[UR8], R88 ;
+        /*0400*/                   UTMASTG.3D [UR4], [UR6] ;
+\t\tFunction : _ZN12_GLOBAL__N_124flash_bwd_dq_bf16_kernelILi64ELb0EEEv14CUtensorMap_stS1_S1_S1_S1_PKfS3_iiiiifNS_9BlockMaskE
+        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;
+        /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, R100, gdesc[UR8], R24 ;
+        /*0300*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+\t\tFunction : _ZN12_GLOBAL__N_124flash_bwd_dq_f32_kernelILi64ELb0EEEvPKfS2_S2_S2_S2_S2_PfiiiiifNS_9BlockMaskE
+        /*0100*/                   UTMALDG.3D [UR8], [UR4] ;
 """
 
 
 def test_chip_smoke_counts_wgmma_and_tma_in_the_sass():
     chip_smoke = _chip_smoke()
-    assert chip_smoke.forward_sass_counts(_SASS) == {
-        "<128>": {"HGMMA": 2, "WARPGROUP.DEPBAR": 1, "UTMALDG": 1,
-                  "UTMASTG": 1},
-        "<64, masked>": {"HGMMA": 1, "WARPGROUP.DEPBAR": 0, "UTMALDG": 0,
-                         "UTMASTG": 0},
+    none = dict.fromkeys(chip_smoke.SASS_OPS, 0)
+    assert chip_smoke.sass_counts(_SASS) == {
+        "flash_fwd_bf16_kernel<128>": {"HGMMA": 2, "WARPGROUP.DEPBAR": 1,
+                                       "UTMALDG": 1, "UTMASTG": 1},
+        "flash_fwd_bf16_kernel<64, masked>": {**none, "HGMMA": 1},
+        "flash_bwd_dkv_bf16_kernel<128, masked>": {
+            "HGMMA": 2, "WARPGROUP.DEPBAR": 0, "UTMALDG": 1, "UTMASTG": 1},
+        "flash_bwd_dq_bf16_kernel<64>": {"HGMMA": 1, "WARPGROUP.DEPBAR": 1,
+                                         "UTMALDG": 1, "UTMASTG": 0},
     }
+
+
+def test_ablation_edits_apply_to_the_backward():
+    # flash_bwd_ablations.py builds its variants by text edits of
+    # flash_bwd.cu; each edit must still find its text exactly once.  The
+    # VARIANTS literal is read without running the script.
+    script = ast.parse((REPO / "flash_bwd_ablations.py").read_text())
+    variants = next(ast.literal_eval(node.value) for node in script.body
+                    if isinstance(node, ast.Assign)
+                    and node.targets[0].id == "VARIANTS")
+    source = (_build.CSRC / "flash_bwd.cu").read_text()
+    assert variants
+    for name, (_, edits) in variants.items():
+        for old, new in edits:
+            assert source.count(old) == 1, (name, old)
+            assert old != new, name
