@@ -6,9 +6,13 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. device: the card's name and power limit; TF32 off for f32 products.
+1. device: the card's name and power limit; TF32 off for f32 products
+   and convolutions.
 2. build: compile every kernel under kubeshare_tpu_torch/csrc with nvcc
    (one nvcc per source, all at once).
+   hbm_cap: in a child process at TPUSHARE_MEM_FRACTION=0.5,
+   isolation.apply_hbm_cap returns 0.5, 0.4 of the card allocates and
+   0.6 raises torch.OutOfMemoryError.
 3. kernels: the flash forward and the two flash backward kernels (dK/dV,
    dQ) against their plain PyTorch versions on the card, at the main
    paths' shapes and a few more (GQA, window, ragged, d=128, f32, and
@@ -34,15 +38,28 @@ Phases (any failure raises and the script exits non-zero):
    AdamW steps on a fixed batch of 2 x 2048 tokens through
    parallel.train.make_train_step.  Step 1's loss and every gradient are
    held against attention="reference"; the loss must fall; the median
-   step time gives tokens/s and the share of the bf16 peak.
+   step time gives tokens/s and the share of the bf16 peak.  Then the
+   same 10 steps from the same state through make_train_step(...,
+   capture=True) (one CUDA graph a step), held against the eager run
+   (losses and parameters), each step's CUDA-event time beside its host
+   enqueue time.
+7. mnist: the co-run's MNIST at batch 512 from weights converted from a
+   numpy tree: its logits against the CPU's, and 8 captured train steps
+   against 8 eager ones, timed.
+8. corun: corun_bench.py's four phases (solo A, solo B, the co-run of
+   two MNIST pods under tpushare-tokend, the adversarial pair) at 3 s
+   windows; every phase must produce a result and every pod must be
+   granted tokens.  The ratio and the adversarial flags are reported.
 
-The launch counters are zeroed before each path and read after it.  The
+The launch counters are zeroed before each path and read after it (the
+captured path's around its capture: a replay bumps no counter).  The
 last lines are the card (nvidia-smi), a JSON ``kernels`` line, and
 ``{"ok": true, "device": {...}}``.
 
 ``--profile-train`` builds the kernels and runs only the train path's
-steady steps under ``torch.profiler``: the host's enqueue time and the
-wall time per step, the device's busy share, and device time by kernel.
+steady steps under ``torch.profiler``, eager and then captured: the
+host's enqueue time and the wall time per step, the device's busy share,
+and device time by kernel.
 
 Without a CUDA device, or without the rest of the repository beside it,
 the script fails before printing any result.
@@ -111,6 +128,49 @@ TRAIN_TIMED_FROM = 3  # median over steps 3..10 (1-based): past warm-up
 PROMPT_LEN = 896
 NEW_TOKENS = 128
 N_REQUESTS = 4
+
+# the captured train step against two eager runs from the same state and
+# batches.  (1) An eager step with the same optimizer (AdamW switched to
+# its capturable mode, as the captured step switches it):
+# the graph replays that step's kernels on the same inputs in the same
+# order, so the two agree up to the library kernels' run-to-run
+# nondeterminism (none seen on the flagship, equal to the bit; ~1e-6 of
+# MNIST's update, from its convolution gradients).  (2) The default eager
+# step (AdamW with its bias corrections in Python floats, where the
+# capturable one computes them in f32 on the device): the parameters
+# differ in their last bits after step 1; in bf16 some weights then round
+# to the neighbouring bf16 value, and Adam's normalised step turns small
+# gradient differences into whole steps of lr, so the two runs drift
+# apart over the steps (first card runs: a loss 9.5e-3 apart at step 10
+# of the flagship, 1.7e-2 of its update; 7.8e-5 and 2.3e-4 on MNIST in
+# f32).  Step 1's loss precedes any update and is held to (1)'s limit;
+# the flagship's drift to the bounds of the train phase's
+# kernel-vs-reference check, MNIST's (f32, no bf16 rounding to amplify)
+# to a few times its readings.  On the card these comparisons with the
+# default run are the only check that capturable AdamW computes optax's
+# update.  Loss: absolute.  Parameters: per tensor, the norm of the
+# difference of two runs over the norm of the eager run's whole update.
+CAPTURE_SAME_LOSS_ATOL = 1e-5
+CAPTURE_SAME_UPDATE_RTOL = 1e-4
+CAPTURE_DRIFT_LOSS_ATOL = TRAIN_LOSS_ATOL
+CAPTURE_DRIFT_UPDATE_RTOL = TRAIN_GRAD_RTOL
+MNIST_DRIFT_LOSS_ATOL = 5e-4
+MNIST_DRIFT_UPDATE_RTOL = 1e-3
+# the captured flagship step gated by an ExecutionGuard and returning only
+# its state (a TrainState): the guard's charge must cover the device's
+# burst, at least this share of the step's CUDA-event median (charging
+# the enqueue alone would read ~0.01)
+GUARD_STEPS = 5
+GUARD_MIN_SHARE = 0.9
+# MNIST on the card, f32 with TF32 off: the card's logits vs the CPU's on
+# the same weights and images, f32 summed in another order, ~1e-6 of
+# logits of a few units (TF32 would show ~1e-2)
+MNIST_BATCH = 512
+MNIST_STEPS = 8
+MNIST_LOGITS_ATOL = 1e-4
+# the co-run's measured windows here (corun_bench.py's own default is
+# 10 s): four phases in about 90 s
+CORUN_SECONDS = 3.0
 
 
 def check(condition: bool, message: str) -> None:
@@ -882,15 +942,13 @@ def train_phase(torch, device):
     torch.cuda.synchronize()
     losses = [float(x) for x in losses]
     step_ms = [a.elapsed_time(b) for a, b in events]
-    timed = sorted(step_ms[TRAIN_TIMED_FROM - 1:])
-    median_ms = (timed[(len(timed) - 1) // 2] + timed[len(timed) // 2]) / 2
+    median_ms = steady_median(step_ms)
     tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
     flops = train_flops_per_token(TRAIN_DIMS, TRAIN_SEQ) * tokens_per_step
     share = flops / (median_ms * 1e-3) / PEAK_FLOPS["bfloat16"]
     # the host's time to enqueue a step (it never waits for the device):
     # close to the step's device time means the host sets the pace
-    host_ms = sorted(enqueue_ms[TRAIN_TIMED_FROM - 1:])
-    host_median_ms = (host_ms[(len(host_ms) - 1) // 2] + host_ms[len(host_ms) // 2]) / 2
+    host_median_ms = steady_median(enqueue_ms)
     print(f"train losses: " + " ".join(f"{x:.4f}" for x in losses))
     print(f"train host enqueue ms per step: "
           + " ".join(f"{x:.2f}" for x in enqueue_ms)
@@ -911,12 +969,314 @@ def train_phase(torch, device):
     check(abs(losses[0] - float(loss)) <= TRAIN_LOSS_ATOL,
           f"train step 1 loss {losses[0]} differs from the checked {float(loss)}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    return launches
+    eager = {"losses": losses, "params": tree_leaves(state.params),
+             "median_ms": median_ms, "host_median_ms": host_median_ms}
+    return launches, eager
 
 
-def profile_train(torch, device, warmup: int = 3, steps: int = 5):
-    """Steady train steps under torch.profiler: host enqueue and wall
-    time per step, device busy share, and device time by kernel."""
+def steady_median(values):
+    """The median of steps TRAIN_TIMED_FROM.. (1-based): past warm-up."""
+    tail = sorted(values[TRAIN_TIMED_FROM - 1:])
+    return (tail[(len(tail) - 1) // 2] + tail[len(tail) // 2]) / 2
+
+
+def timed_steps(torch, train_step, state, batches):
+    """Run ``train_step`` over ``batches`` ((inputs, targets) pairs);
+    returns (state, losses, CUDA-event ms per step, host enqueue ms per
+    step).  The host never waits for the device inside the loop."""
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in batches]
+    losses, enqueue_ms = [], []
+    for (start, end), (inputs, targets) in zip(events, batches):
+        t0 = time.perf_counter()
+        start.record()
+        state, loss = train_step(state, inputs, targets)
+        end.record()
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    return (state, [float(x) for x in losses],
+            [a.elapsed_time(b) for a, b in events], enqueue_ms)
+
+
+def update_errors(final, reference, initial):
+    """Per tensor, |final - reference| / |reference - initial| (norms:
+    the difference of two runs over the reference run's whole update),
+    the worst of them, and the largest element difference."""
+    worst, max_abs = 0.0, 0.0
+    for got, ref, first in zip(final, reference, initial):
+        diff = (got.detach().float() - ref.detach().float())
+        update = (ref.detach().float() - first.float()).norm()
+        worst = max(worst, float(diff.norm() / update.clamp_min(1e-30)))
+        max_abs = max(max_abs, float(diff.abs().max()))
+    return worst, max_abs
+
+
+def capturable_adamw(device):
+    """adamw(1e-3) switched to its capturable mode, as the captured step
+    switches it: the optimizer of the eager run held to the captured."""
+    from kubeshare_tpu_torch.parallel.train import _make_capturable, adamw
+
+    def make(leaves):
+        optimizer = adamw(1e-3)(leaves)
+        _make_capturable(optimizer, device)
+        return optimizer
+    return make
+
+
+def hold_captured(label, captured, same, default, initial,
+                  drift_loss_atol, drift_update_rtol):
+    """The captured run's (losses, parameters) against the eager run with
+    the same optimizer (limits at CAPTURE_SAME_*) and against the default
+    eager run (step 1 at CAPTURE_SAME_LOSS_ATOL, then the drift limits)."""
+    rows = {}
+    for name, other in (("same optimizer", same), ("default AdamW", default)):
+        loss_err = max(abs(a - b) for a, b in zip(captured[0], other[0]))
+        update_err, max_abs = update_errors(captured[1], other[1], initial)
+        rows[name] = (abs(captured[0][0] - other[0][0]), loss_err, update_err)
+        limits = ((CAPTURE_SAME_LOSS_ATOL, CAPTURE_SAME_UPDATE_RTOL)
+                  if name == "same optimizer"
+                  else (drift_loss_atol, drift_update_rtol))
+        print(f"{label} captured vs eager with the {name}: loss max abs "
+              f"err {loss_err:.3e} (tol {limits[0]:g}), params worst "
+              f"|diff| / |eager update| {update_err:.3e} (tol "
+              f"{limits[1]:g}), max abs diff {max_abs:.3e}")
+    check(all(math.isfinite(x) for x in captured[0]),
+          f"{label}: non-finite loss {captured[0]}")
+    _, loss_err, update_err = rows["same optimizer"]
+    check(loss_err <= CAPTURE_SAME_LOSS_ATOL
+          and update_err <= CAPTURE_SAME_UPDATE_RTOL,
+          f"{label}: the captured step differs from the eager step with the "
+          f"same optimizer (loss {loss_err}, update {update_err})")
+    first, loss_err, update_err = rows["default AdamW"]
+    check(first <= CAPTURE_SAME_LOSS_ATOL,
+          f"{label}: step 1's loss differs from the default eager step's "
+          f"by {first}")
+    check(loss_err <= drift_loss_atol and update_err <= drift_update_rtol,
+          f"{label}: the captured run drifted from the default eager run "
+          f"(loss {loss_err}, update {update_err})")
+
+
+def capture_phase(torch, device, eager):
+    """The train-step flagship's 10 steps through make_train_step(...,
+    capture=True) from the train phase's initial state and batch, held
+    against an eager run with the same optimizer and the train phase's
+    default eager run; the launch counters read around the capture
+    (replays do not bump them)."""
+    from kubeshare_tpu_torch.models.transformer import transformer_apply
+    from kubeshare_tpu_torch.parallel.train import (
+        CAPTURE_WARMUP_STEPS, make_train_step, tree_leaves)
+
+    def setup(capture):
+        config, params, tokens, targets = train_setup(torch, device)
+        init_state, train_step = make_train_step(
+            lambda p, t: transformer_apply(p, t, config),
+            optimizer=None if capture else capturable_adamw(device),
+            capture=capture)
+        return (config, init_state(params), train_step,
+                [(tokens, targets)] * TRAIN_STEPS)
+
+    config, state, train_step, batches = setup(capture=False)
+    initial = [leaf.detach().clone() for leaf in tree_leaves(state.params)]
+    state, same_losses, _, _ = timed_steps(torch, train_step, state, batches)
+    same = (same_losses, tree_leaves(state.params))
+    del state, train_step
+    config, state, train_step, batches = setup(capture=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state, losses, step_ms, enqueue_ms = timed_steps(torch, train_step,
+                                                     state, batches)
+    launches = read_counts()
+    passes = (CAPTURE_WARMUP_STEPS + 1) * config.n_layers
+    check(launches == {name: n * passes for name, n in
+                       only("flash_fwd", "flash_bwd_dkv",
+                            "flash_bwd_dq").items()},
+          f"captured train path launched {launches}, expected {passes} of "
+          f"each kernel ({CAPTURE_WARMUP_STEPS} warm-up passes and the "
+          f"capture, {config.n_layers} layers; replays bump no counter)")
+    median_ms, host_ms = steady_median(step_ms), steady_median(enqueue_ms)
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    print(f"train captured losses: " + " ".join(f"{x:.4f}" for x in losses))
+    print(f"train captured {TRAIN_STEPS} steps (step 1 = {CAPTURE_WARMUP_STEPS} "
+          f"warm-up steps + capture + replay): launches {launches}, step ms "
+          + " ".join(f"{x:.2f}" for x in step_ms)
+          + f"; host enqueue ms " + " ".join(f"{x:.3f}" for x in enqueue_ms))
+    print(f"train step, median of steps {TRAIN_TIMED_FROM}-{TRAIN_STEPS}: "
+          f"captured {median_ms:.3f} ms (CUDA events), enqueue "
+          f"{host_ms:.3f} ms, {tokens_per_step / (median_ms * 1e-3):.0f} "
+          f"tokens/s; eager {eager['median_ms']:.3f} ms, enqueue "
+          f"{eager['host_median_ms']:.3f} ms; captured / eager "
+          f"{median_ms / eager['median_ms']:.4f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    hold_captured("train", (losses, tree_leaves(state.params)), same,
+                  (eager["losses"], eager["params"]), initial,
+                  CAPTURE_DRIFT_LOSS_ATOL, CAPTURE_DRIFT_UPDATE_RTOL)
+    guard_check(torch, train_step, state, batches[0], median_ms)
+    return launches, {"median_ms": median_ms, "host_median_ms": host_ms}
+
+
+def guard_check(torch, train_step, state, batch, step_ms):
+    """GUARD_STEPS captured steps through an ExecutionGuard, the step
+    returning only its TrainState: the guard must charge at least
+    GUARD_MIN_SHARE of the step's CUDA-event time ``step_ms`` a step."""
+    from kubeshare_tpu_torch.isolation import ExecutionGuard
+
+    class GrantAll:
+        """A broker that grants every request in full."""
+
+        def acquire(self, estimate_ms):
+            return 1e9
+
+        def release(self, used_ms):
+            pass
+
+    guard = ExecutionGuard(client=GrantAll(), from_env=False,
+                           idle_release_ms=0)
+    gated = guard(lambda s: train_step(s, *batch)[0])
+    torch.cuda.synchronize()
+    for _ in range(GUARD_STEPS):
+        state = gated(state)
+    charged_ms = guard.total_gated_ms / GUARD_STEPS
+    print(f"guard around the captured step returning its state: charged "
+          f"{charged_ms:.3f} ms a step, {charged_ms / step_ms:.4f} of the "
+          f"step's {step_ms:.3f} ms (tol >= {GUARD_MIN_SHARE})")
+    check(charged_ms >= GUARD_MIN_SHARE * step_ms,
+          f"the guard charged {charged_ms} ms a step for a {step_ms} ms "
+          "device burst: it did not wait for the step's device")
+
+
+def mnist_phase(torch, device):
+    """MNIST (the co-run's workload, batch 512, weights converted from a
+    numpy tree) on the card: its logits against the CPU's, and
+    MNIST_STEPS captured train steps against eager ones, timed."""
+    import numpy as np
+
+    from kubeshare_tpu_torch.convert import params_from_jax
+    from kubeshare_tpu_torch.models.mnist import mnist_apply, mnist_init
+    from kubeshare_tpu_torch.parallel.train import (
+        cross_entropy_loss, make_train_step, tree_leaves)
+
+    tree = mnist_init(torch.Generator().manual_seed(0), device="cpu")
+    weights = {layer: {name: leaf.numpy() for name, leaf in leaves.items()}
+               for layer, leaves in tree.items()}
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.standard_normal(
+        (8192, 28, 28, 1), dtype=np.float32))
+    labels = torch.from_numpy(rng.integers(0, 10, (8192,), dtype=np.int64))
+    starts = [torch.tensor(int(s), device=device) for s in
+              rng.integers(0, 8192 - MNIST_BATCH, MNIST_STEPS)]
+
+    with torch.no_grad():
+        cpu_logits = mnist_apply(tree, images[:MNIST_BATCH])
+        logits = mnist_apply(params_from_jax(weights, device),
+                             images[:MNIST_BATCH].to(device)).cpu()
+    logits_err = float((logits - cpu_logits).abs().max())
+    print(f"mnist logits {tuple(logits.shape)} on the card vs the CPU: max "
+          f"abs err {logits_err:.3e} (tol {MNIST_LOGITS_ATOL}; |logits| up "
+          f"to {float(cpu_logits.abs().max()):.2f})")
+    check(logits_err <= MNIST_LOGITS_ATOL,
+          f"MNIST logits on the card differ from the CPU's by {logits_err}")
+
+    images, labels = images.to(device), labels.to(device)
+    rows = torch.arange(MNIST_BATCH, device=device)
+
+    def run(capture=False, optimizer=None):
+        init_state, train_step = make_train_step(
+            lambda p, start: mnist_apply(
+                p, images.index_select(0, start + rows)),
+            loss_fn=lambda logits, start: cross_entropy_loss(
+                logits, labels.index_select(0, start + rows)),
+            optimizer=optimizer, capture=capture)
+        state = init_state(params_from_jax(weights, device))
+        state, losses, step_ms, enqueue_ms = timed_steps(
+            torch, train_step, state, [(s, s) for s in starts])
+        return (losses, tree_leaves(state.params)), step_ms, enqueue_ms
+
+    default, eager_ms, eager_enqueue = run()
+    same, _, _ = run(optimizer=capturable_adamw(device))
+    captured, step_ms, enqueue_ms = run(capture=True)
+    print(f"mnist {MNIST_STEPS} steps of batch {MNIST_BATCH}: captured "
+          "losses " + " ".join(f"{x:.5f}" for x in captured[0]))
+    print(f"mnist step, median of steps {TRAIN_TIMED_FROM}-{MNIST_STEPS}: "
+          f"captured {steady_median(step_ms):.4f} ms (CUDA events), "
+          f"enqueue {steady_median(enqueue_ms):.4f} ms; eager "
+          f"{steady_median(eager_ms):.4f} ms, enqueue "
+          f"{steady_median(eager_enqueue):.4f} ms")
+    hold_captured("mnist", captured, same, default,
+                  [torch.from_numpy(leaf).to(device)
+                   for leaf in tree_leaves(weights)],
+                  MNIST_DRIFT_LOSS_ATOL, MNIST_DRIFT_UPDATE_RTOL)
+
+
+def hbm_cap_phase():
+    """apply_hbm_cap at TPUSHARE_MEM_FRACTION=0.5 in a child process (the
+    fraction is process-wide): 0.4 of the card allocates, 0.6 raises
+    torch.OutOfMemoryError."""
+    import os
+    import textwrap
+
+    code = textwrap.dedent("""
+        import json, torch
+        from kubeshare_tpu_torch.isolation import apply_hbm_cap
+        fraction = apply_hbm_cap()
+        total = torch.cuda.get_device_properties(0).total_memory
+        held = torch.empty(int(0.4 * total), dtype=torch.uint8, device="cuda")
+        del held
+        try:
+            torch.empty(int(0.6 * total), dtype=torch.uint8, device="cuda")
+            refused = None
+        except torch.OutOfMemoryError as e:
+            refused = str(e).splitlines()[0]
+        print(json.dumps({"fraction": fraction, "total": total,
+                          "refused": refused}))
+    """)
+    env = dict(os.environ, TPUSHARE_MEM_FRACTION="0.5")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0,
+          f"HBM cap child failed (rc {proc.returncode}): {proc.stderr[-2000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"hbm cap at TPUSHARE_MEM_FRACTION=0.5: apply_hbm_cap returned "
+          f"{result['fraction']}; 0.4 of {result['total'] / 2**30:.2f} GiB "
+          f"allocated; 0.6 refused: {result['refused']}")
+    check(result["fraction"] == 0.5,
+          f"apply_hbm_cap returned {result['fraction']}, expected 0.5")
+    check(result["refused"] is not None,
+          "0.6 of the card was allocated under a 0.5 cap")
+
+
+def corun_phase():
+    """corun_bench.py's four phases (solo A, solo B, the co-run, the
+    adversarial pair) at CORUN_SECONDS windows: each phase must produce
+    a result and every pod must be granted tokens.  The ratio and the
+    adversarial flags are reported, not gated."""
+    import corun_bench
+
+    t0 = time.perf_counter()
+    result = corun_bench.run_suite(corun_bench.ensure_tokend(),
+                                   seconds=CORUN_SECONDS)
+    detail = result["detail"]
+    tokens = detail["tokens"]
+    print(f"corun ratio {result['value']:.4f} ({CORUN_SECONDS:g} s windows, "
+          f"{time.perf_counter() - t0:.1f} s in all): solo steps/s "
+          f"{detail['solo_a_steps_per_s']:.2f} + "
+          f"{detail['solo_b_steps_per_s']:.2f}, co-run "
+          + " + ".join(f"{r:.2f}" for r in detail["corun_steps_per_s"])
+          + f" = {detail['corun_aggregate_steps_per_s']:.2f}; solo step ms "
+          f"{detail['solo_step_ms']}; tokens {json.dumps(tokens)}; "
+          f"breakdown_ms {json.dumps(detail['breakdown_ms'])}; adversarial "
+          f"{json.dumps(detail['adversarial'])}")
+    granted = [tokens["solo_a"], tokens["solo_b"], *tokens["corun"],
+               *tokens["adversarial"]]
+    check(all(n > 0 for n in granted), f"a pod was granted no token: {tokens}")
+
+
+def profile_train(torch, device, capture: bool, warmup: int = 3,
+                  steps: int = 5):
+    """Steady train steps (eager, or captured: one graph replay a step)
+    under torch.profiler: host enqueue and wall time per step, device
+    busy share, and device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from kubeshare_tpu_torch.models.transformer import transformer_apply
@@ -924,8 +1284,9 @@ def profile_train(torch, device, warmup: int = 3, steps: int = 5):
 
     config, params, tokens, targets = train_setup(torch, device)
     init_state, train_step = make_train_step(
-        lambda p, t: transformer_apply(p, t, config))
+        lambda p, t: transformer_apply(p, t, config), capture=capture)
     state = init_state(params)
+    mode = "captured" if capture else "eager"
     for _ in range(warmup):
         state, _ = train_step(state, tokens, targets)
     torch.cuda.synchronize()
@@ -954,14 +1315,14 @@ def profile_train(torch, device, warmup: int = 3, steps: int = 5):
     device_ms = sum(r[0] for r in rows) / 1e3 / steps
     launches = sum(r[1] for r in rows) / steps
     wall_ms = wall_s * 1e3 / steps
-    print(f"profile train step ({steps} steps after {warmup} warm-up, "
+    print(f"profile {mode} train step ({steps} steps after {warmup} warm-up, "
           f"profiler on): wall {wall_ms:.3f} ms per step, host enqueue "
           + " ".join(f"{x * 1e3:.2f}" for x in enqueue_s) + " ms, device "
           f"busy {device_ms:.3f} ms per step = {device_ms / wall_ms:.4f} "
           f"of wall, {launches:.0f} device kernels and copies per step")
     check(device_ms > 0, "the profiler saw no device time")
     for device_us, count, name in rows[:40]:
-        print(f"profile kernel {device_us / 1e3 / steps:9.4f} ms/step "
+        print(f"profile {mode} kernel {device_us / 1e3 / steps:9.4f} ms/step "
               f"{count // steps:5d} calls/step  {name[:110]}")
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "launches_per_step": launches,
@@ -1008,17 +1369,24 @@ def main() -> int:
           f"bf16 instantiations in the SASS: {sorted(sass)}")
 
     if "--profile-train" in sys.argv[1:]:
-        result = profile_train(torch, device)
+        result = {mode: profile_train(torch, device, capture)
+                  for mode, capture in (("eager", False), ("captured", True))}
         print(card)
         print(json.dumps({"profile_train": result}))
         return 0
 
+    hbm_cap_phase()
     worst, timings = kernel_phase(torch, device)
     bs_worst, bs_timing, bs_launches = block_sparse_phase(torch, device)
     worst.update(bs_worst)
     launches = slice_phase(torch, device)
-    launches["train"] = train_phase(torch, device)
+    launches["train"], eager = train_phase(torch, device)
+    launches["train_captured"], _ = capture_phase(torch, device, eager)
     launches["block_sparse"] = bs_launches
+    del eager
+    torch.cuda.empty_cache()
+    mnist_phase(torch, device)
+    corun_phase()
 
     fwd_src = "kubeshare_tpu_torch/csrc/flash_fwd.cu"
     bwd_src = "kubeshare_tpu_torch/csrc/flash_bwd.cu"

@@ -7,6 +7,7 @@ from .decoding import (
     sample_decode,
     sample_decode_with_cache,
 )
+from .mnist import MnistConfig, mnist_apply, mnist_init
 from .transformer import (
     Transformer,
     TransformerConfig,
@@ -15,11 +16,14 @@ from .transformer import (
 )
 
 __all__ = [
+    "MnistConfig",
     "Transformer",
     "TransformerConfig",
     "greedy_decode",
     "greedy_decode_with_cache",
     "init_kv_cache",
+    "mnist_apply",
+    "mnist_init",
     "prefill",
     "prefill_chunked",
     "sample_decode",

@@ -1,4 +1,5 @@
 from .train import (
+    CapturedTrainStep,
     TrainState,
     adamw,
     cross_entropy_loss,
@@ -8,6 +9,7 @@ from .train import (
 )
 
 __all__ = [
+    "CapturedTrainStep",
     "TrainState",
     "adamw",
     "cross_entropy_loss",

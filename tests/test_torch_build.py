@@ -78,7 +78,7 @@ def test_nvcc_targets_sm90a():
     assert "-lcuda" not in _build.NVCC_FLAGS
 
 
-def test_hopper_helpers_only_in_the_forward():
+def test_both_sources_share_the_hopper_helpers():
     """Both sources include the Hopper helpers (the name predates the
     backward's use of them), and the host-side tensor-map encoder is
     defined once, in the shared header, for both."""

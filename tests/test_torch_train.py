@@ -216,3 +216,104 @@ def test_adamw_defaults_are_optax_defaults():
 def test_mesh_is_not_ported(kwargs):
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         port_train.make_train_step(lambda p, t: None, **kwargs)
+
+
+def test_captured_step_refuses_the_cpu():
+    _, cfg = _configs(positional="rope")
+    init_state, train_step = port_train.make_train_step(
+        lambda p, t: transformer_apply(p, t, cfg), capture=True)
+    assert isinstance(train_step, port_train.CapturedTrainStep)
+    params = Transformer.init(cfg, torch.Generator().manual_seed(0),
+                              device="cpu").tree()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        init_state(params)
+    # a state built by the eager path does not get past the capture either
+    eager_init, _ = port_train.make_train_step(
+        lambda p, t: transformer_apply(p, t, cfg))
+    tokens, targets = (torch.from_numpy(a) for a in _batch(seed=7))
+    with pytest.raises(RuntimeError, match="capture=False"):
+        train_step(eager_init(params), tokens, targets)
+
+
+def test_eager_path_is_unchanged_by_the_capture_option():
+    _, cfg = _configs(positional="learned", attention="flash")
+    tokens, targets = (torch.from_numpy(a) for a in _batch(seed=8))
+    runs = []
+    for kwargs in ({}, {"capture": False}):
+        init_state, train_step = port_train.make_train_step(
+            lambda p, t: transformer_apply(p, t, cfg), **kwargs)
+        assert not isinstance(train_step, port_train.CapturedTrainStep)
+        state = init_state(Transformer.init(
+            cfg, torch.Generator().manual_seed(4), device="cpu").tree())
+        assert not state.opt_state.param_groups[0]["capturable"]
+        losses = []
+        for _ in range(2):
+            state, loss = train_step(state, tokens, targets)
+            losses.append(float(loss))
+        runs.append((losses, [p.detach().clone() for p in
+                              port_train.tree_leaves(state.params)]))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+
+
+def test_capturable_adamw_keeps_optax_defaults():
+    # the captured step switches the default optimizer to its capturable
+    # mode and leaves optax's hyperparameters as they are
+    opt = port_train.adamw()([torch.zeros(2, requires_grad=True)])
+    group = opt.param_groups[0]
+    assert not group["capturable"]
+    port_train._make_capturable(opt, torch.device("cpu"))
+    assert group["capturable"]
+    assert group["lr"] == 1e-3 and group["betas"] == (0.9, 0.999)
+    assert group["eps"] == 1e-8 and group["weight_decay"] == 1e-4
+
+
+def _adamw_run(leaves, opt, steps, seed):
+    gen = torch.Generator().manual_seed(seed)
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        sum((leaf * torch.randn(leaf.shape, generator=gen)).sum()
+            for leaf in leaves).backward()
+        opt.step()
+
+
+@pytest.mark.parametrize("steps_before", [0, 2])
+def test_warmup_is_undone_before_the_captured_steps(steps_before):
+    # the captured step snapshots the state, trains on its warm-up steps,
+    # and puts the state back: the next step must be the one an untouched
+    # state takes, whether the optimizer had state (a run carried on) or
+    # none yet (a fresh run, whose lazily created moments go back to 0)
+    def fresh():
+        gen = torch.Generator().manual_seed(0)
+        leaves = [torch.randn((3, 4), generator=gen).requires_grad_(),
+                  torch.randn((5,), generator=gen).requires_grad_()]
+        opt = port_train.adamw()(leaves)
+        _adamw_run(leaves, opt, steps_before, seed=1)
+        return leaves, opt
+
+    leaves, opt = fresh()
+    saved = port_train._snapshot(leaves, opt)
+    _adamw_run(leaves, opt, 3, seed=2)  # the warm-up
+    port_train._restore(leaves, opt, saved)
+    _adamw_run(leaves, opt, 1, seed=3)
+    ref_leaves, ref_opt = fresh()
+    _adamw_run(ref_leaves, ref_opt, 1, seed=3)
+    for got, want in zip(leaves, ref_leaves):
+        assert torch.equal(got, want)
+        for key, value in ref_opt.state[want].items():
+            assert torch.equal(opt.state[got][key], value), key
+
+
+def test_make_capturable_takes_a_state_carried_over_from_jax():
+    jax_cfg, _ = _configs()
+    params = jax.device_get(jax_init(jax.random.PRNGKey(0), jax_cfg))
+    zeros = jax.tree.map(np.zeros_like, params)
+    state = train_state_from_jax(params, zeros, zeros, 5, device="cpu")
+    port_train._make_capturable(state.opt_state, torch.device("cpu"))
+    assert state.opt_state.param_groups[0]["capturable"]
+    steps = [entry["step"] for entry in state.opt_state.state.values()]
+    assert steps and all(float(s) == 5 for s in steps)
+    sgd = torch.optim.SGD([torch.zeros(2, requires_grad=True)], lr=0.1)
+    with pytest.raises(TypeError, match="no capturable mode"):
+        port_train._make_capturable(sgd, torch.device("cpu"))
