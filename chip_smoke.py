@@ -21,7 +21,9 @@ Phases (any failure raises and the script exits non-zero):
    below; then each kernel's time beside the plain version's, one
    library call's, and the bound the card sets, at the serving
    flagship's attention shape and at the training shape, with the
-   achieved TFLOP/s and the ratio to the library call.
+   achieved TFLOP/s and the ratio to the library call; and the f32
+   instantiations' times at (4, 8, 1024, 64) beside SDPA at f32 (TF32
+   off) and the bound at the f32 CUDA-core peak.
 4. block_sparse: the masked instantiations of the three kernels against
    their plain versions at eight masks (documents, prefix-LM, dead rows,
    mask blocks straddling the kernels' tiles, JAX's default blocks, GQA,
@@ -52,6 +54,24 @@ Phases (any failure raises and the script exits non-zero):
    steps_per_launch=4 and a third behind an ExecutionGuard must emit the
    same streams; the guard must charge >= GUARD_MIN_SHARE of the
    dispatches' CUDA-event time.
+   speculative: the dense draft-model decoders on the serving flagship,
+   4 requests of 892 + 128 greedy tokens at draft_len 4, with a
+   self-draft and with a truncated draft (the target's first layer,
+   final norm and lm_head), every round one CUDA graph replay
+   (speculative_greedy_decode(capture=True)): rounds, tokens a round,
+   serve ms, a round's CUDA-event ms beside its host enqueue; the
+   captured tokens must equal the eager rounds', every token must lie
+   within ENGINE_TOKEN_MARGIN of its row's maximum in the dense forward,
+   and the self-draft must take fewer rounds than tokens.  Then
+   speculative_sample_decode once (T 0.9, top_k 50).
+   engine speculative: the engine with self-drafted speculation
+   (ENGINE_SPEC) over the same trace, steps_per_launch 1 (verify and
+   mixed_verify dispatches), then 4 with an admission ring of 2 (the
+   speculative loop), then the first behind a guard: the engine lines
+   above plus acceptance, its per-round histogram, the loops' exit
+   reasons and realised depth, ring activations, the teacher-forced
+   check, the share of streams equal to speculation off; 0 captures
+   after warm-up and guarded streams equal unguarded are required.
 6. train: the repo's train-step flagship (benchmarks/kernel_bench.py
    MODEL_SIZES["flagship"], rope, bf16, full width and depth) takes 10
    AdamW steps on a fixed batch of 2 x 2048 tokens through
@@ -72,8 +92,9 @@ Phases (any failure raises and the script exits non-zero):
 
 The launch counters are zeroed before each path and read after it (the
 captured path's around its capture: a replay bumps no counter).  The
-engine's path launches none of the kernels (its attention is the paged
-einsums, as in the JAX engine), so its counts read 0.  The
+engine's paths launch none of the kernels (their attention is the paged
+einsums, as in the JAX engine), so their counts read 0; the speculative
+path's prefills launch the flash forward.  The
 last lines are the card (nvidia-smi), a JSON ``kernels`` line, and
 ``{"ok": true, "device": {...}}``.
 
@@ -148,6 +169,8 @@ TRAIN_STEPS = 10
 TRAIN_TIMED_FROM = 3  # median over steps 3..10 (1-based): past warm-up
 
 PROMPT_LEN = 896
+# the f32 kernels' timing shape (serving's attention shape)
+F32_TIMED_SHAPE = (4, 8, 1024, 64)
 NEW_TOKENS = 128
 N_REQUESTS = 4
 
@@ -222,6 +245,31 @@ ENGINE_POOL = dict(num_slots=8, block_size=16, num_blocks=513,
 # f32): up to SLICE_LOGITS_ATOL on either side, so an emitted token can
 # trail the dense row's maximum by twice that where two logits nearly tie
 ENGINE_TOKEN_MARGIN = 2 * SLICE_LOGITS_ATOL
+# speculative: the dense draft-model decoders on the serving flagship,
+# SPEC_REQUESTS prompts of SPEC_PROMPT tokens and SPEC_NEW new tokens
+# (prompt + new + draft_len must fit max_seq_len 1024), and the engine
+# with self-drafted speculation over engine_trace
+SPEC_REQUESTS = 4
+SPEC_PROMPT = 892
+SPEC_NEW = 128
+SPEC_DRAFT_LEN = 4
+SPEC_TIMED_ROUNDS = 32
+# speculative_sample_decode's filters, and its check: teacher-forced
+# through the dense forward, each sampled token's logit reaches its row's
+# SPEC_TOP_K-th largest less ENGINE_TOKEN_MARGIN; its log-probability
+# under the filtered distribution at SPEC_TEMPERATURE over the tokens
+# within that margin stays above SPEC_LOGP_FLOOR (a correct sampler goes
+# below it with probability under 512 draws x 50 tokens x 1e-7 = 0.003);
+# and the sum over tokens of the scaled logit less its mean under the
+# row's top-k distribution lies within SPEC_LOGIT_Z standard errors of 0
+# (a sum of martingale differences, its variance the sum of each row's;
+# logits rather than log-probabilities, so that a token swapped across
+# the top-k boundary by bf16 rounding moves the sum by its tiny logit gap)
+SPEC_TEMPERATURE = 0.9
+SPEC_TOP_K = 50
+SPEC_LOGP_FLOOR = math.log(1e-7)
+SPEC_LOGIT_Z = 5.0
+ENGINE_SPEC = dict(speculative=True, draft_len=4, draft_ngram=3)
 
 
 def check(condition: bool, message: str) -> None:
@@ -494,16 +542,18 @@ def check_backward(torch, name, q, k, v, out, lse, causal, window, gen):
     return check_grads(torch, f"kernel flash_bwd {name}", grads, ref)
 
 
-def time_shape(torch, shape, gen):
-    """Times of the forward and both backward kernels at one bf16 causal
-    MHA shape, beside the plain versions, the library calls and the
-    bounds."""
+def time_shape(torch, shape, gen, dtype_name="bfloat16"):
+    """Times of the forward and both backward kernels at one causal MHA
+    shape, beside the plain versions, the library calls and the bounds
+    (at f32: the CUDA-core instantiations, SDPA with TF32 off, and the
+    bound at the f32 CUDA-core peak)."""
     import torch.nn.functional as F
     from kubeshare_tpu_torch.ops import attention as A
 
     b, h, s, d = shape
+    dtype = getattr(torch, dtype_name)
     q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda",
-                                 dtype=torch.bfloat16) for _ in range(4))
+                                 dtype=dtype) for _ in range(4))
     out, lse = A.flash_forward(q, k, v, True)
     delta = A._backward_delta(out, dout)
     fwd_ms = time_ms(lambda: A.flash_forward(q, k, v, True))
@@ -527,19 +577,19 @@ def time_shape(torch, shape, gen):
     rows = {}
     for name, ms, plain_ms, library_ms, bound in (
         ("flash_fwd", fwd_ms, fwd_plain_ms, fwd_library_ms,
-         flash_bound(shape, h, "bfloat16", True, None)),
+         flash_bound(shape, h, dtype_name, True, None)),
         ("flash_bwd_dkv", dkv_ms, bwd_plain_ms, bwd_library_ms,
-         flash_bwd_bound("dkv", shape, h, "bfloat16", True, None)),
+         flash_bwd_bound("dkv", shape, h, dtype_name, True, None)),
         ("flash_bwd_dq", dq_ms, bwd_plain_ms, bwd_library_ms,
-         flash_bwd_bound("dq", shape, h, "bfloat16", True, None)),
+         flash_bwd_bound("dq", shape, h, dtype_name, True, None)),
     ):
         tflops, ratio = achieved(name, shape, ms, library_ms,
                                   visible_pairs(s, True, None))
-        rows[name] = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "bound_ms": bound[0],
-                      "bound_by": bound[1], "tflops": tflops,
-                      "library_ratio": ratio}
-        print(f"kernel {name} timing at {shape} bf16 causal: "
+        rows[name] = {"shape": list(shape), "dtype": dtype_name, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bound[0], "bound_by": bound[1],
+                      "tflops": tflops, "library_ratio": ratio}
+        print(f"kernel {name} timing at {shape} {dtype_name} causal: "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {library_ms:.4f} ms, bound {bound[0]:.4f} ms "
               f"({bound[1]}); {tflops:.1f} TFLOP/s, {ratio:.3f}x library")
@@ -552,6 +602,9 @@ def dense_cases(torch):
     return [
         ("flagship", (4, 8, 1024, 64), 8, torch.bfloat16, True, None),
         ("prefill_896", (4, 8, PROMPT_LEN, 64), 8, torch.bfloat16, True, None),
+        # the speculative path's prefills: ragged across a 128-row tile
+        ("prefill_892", (4, 8, SPEC_PROMPT, 64), 8, torch.bfloat16, True,
+         None),
         ("gqa_hkv2", (4, 8, 1024, 64), 2, torch.bfloat16, True, None),
         ("window_256", (4, 8, 1024, 64), 8, torch.bfloat16, True, 256),
         ("ragged_333_noncausal", (2, 8, 333, 64), 8, torch.bfloat16, False, None),
@@ -600,9 +653,12 @@ def kernel_phase(torch, device):
             worst[kernel] = [max(a, b) for a, b in zip(worst[kernel], errs)]
         del q, k, v, out, lse, ref_out, ref_lse
 
-    # times at the serving flagship's attention shape and the training shape
+    # times at the serving flagship's attention shape and the training
+    # shape, then the f32 instantiations (CUDA-core products) at the
+    # serving shape, beside SDPA at f32 (TF32 is off for the whole run)
     timings = [time_shape(torch, shape, gen)
                for shape in ((4, 8, 1024, 64), (TRAIN_BATCH, 8, TRAIN_SEQ, 128))]
+    timings.append(time_shape(torch, F32_TIMED_SHAPE, gen, "float32"))
     return worst, timings
 
 
@@ -1028,6 +1084,18 @@ def engine_pass(torch, device, params, config, trace, guard=None,
         "mixed_steps": engine.mixed_steps,
         "loop_launches": engine.loop_launches,
         "loop_units": engine.loop_units,
+        "verify_steps": engine.verify_steps,
+        "mixed_verify_steps": engine.mixed_verify_steps,
+        "spec_loop_launches": engine.spec_loop_launches,
+        "spec_loop_units": engine.spec_loop_units,
+        "spec_drafted": sum(engine.spec_drafted.values()),
+        "spec_accepted": sum(engine.spec_accepted.values()),
+        "spec_accept_hist": [sum(c) for c in zip(
+            *(h[0] for h in engine._spec_accept.values()))],
+        "loop_exit_reasons": dict(engine.loop_exit_reasons),
+        "loop_depth": (engine.loop_depth_sum
+                       / max(engine.loop_depth_count, 1)),
+        "ring_activations": engine.ring_activations,
         "peak_mem_gib": (torch.cuda.max_memory_allocated(device)
                          - base_mem) / 2 ** 30,
         "launches": launches,
@@ -1151,6 +1219,233 @@ def engine_phase(torch, device):
     check(share >= GUARD_MIN_SHARE,
           f"the guard charged {share} of the dispatches' device time")
     check(guarded_streams == streams, "guarded streams differ")
+    return stats["launches"], streams
+
+
+def truncated_draft(config, params):
+    """The speculative phase's cheap draft: the target's embedding, its
+    first layer, its final norm and its lm_head — a one-layer model of
+    the same width, with no weights of its own."""
+    draft = {name: value for name, value in params.items()
+             if name != "layers"}
+    draft["layers"] = params["layers"][:1]
+    return dataclasses.replace(config, n_layers=1), draft
+
+
+def sampled_forced(torch, params, config, prompts, sampled):
+    """Teacher-force speculative_sample_decode's streams through the
+    dense forward: (the worst shortfall of a token's logit below its
+    row's SPEC_TOP_K-th largest, the least log-probability, z of the
+    tokens' scaled logits against their top-k means)."""
+    from kubeshare_tpu_torch.models.transformer import transformer_apply
+
+    n = prompts.shape[1]
+    with torch.no_grad():
+        seqs = torch.cat([prompts, sampled[:, :-1]], dim=1)
+        scaled = (transformer_apply(params, seqs, config)[:, n - 1:].float()
+                  / SPEC_TEMPERATURE)
+    margin = ENGINE_TOKEN_MARGIN / SPEC_TEMPERATURE
+    kth = scaled.topk(SPEC_TOP_K, dim=-1).values[..., -1:]
+    picked = scaled.gather(-1, sampled[..., None])[..., 0]
+    shortfall = float((kth[..., 0] - picked).max()) * SPEC_TEMPERATURE
+    relaxed = scaled.masked_fill(scaled < kth - margin, float("-inf"))
+    least = float((picked - relaxed.logsumexp(dim=-1)).min())
+    p = scaled.masked_fill(scaled < kth, float("-inf")).softmax(dim=-1)
+    kept = scaled.masked_fill(p == 0, 0.0)
+    mean = (p * kept).sum(dim=-1)
+    variance = (p * kept * kept).sum(dim=-1) - mean ** 2
+    z = float((picked - mean).sum() / variance.sum().sqrt())
+    return shortfall, least, z
+
+
+def speculative_phase(torch, device):
+    """Dense draft-model speculation on the serving flagship: SPEC_REQUESTS
+    prompts of SPEC_PROMPT tokens, SPEC_NEW greedy tokens each, draft_len
+    SPEC_DRAFT_LEN, with a self-draft and with the truncated draft, each
+    round one CUDA graph replay; then speculative_sample_decode once.
+    Held to the eager rounds (equal tokens) and teacher-forced against
+    the dense forward.  Returns the kernel launches of the path."""
+    from kubeshare_tpu_torch.entry import entry, flagship_config
+    from kubeshare_tpu_torch.models import decoding
+
+    config = flagship_config()
+    _, (params, _) = entry()
+    gen = torch.Generator().manual_seed(11)
+    prompts = torch.randint(0, config.vocab_size,
+                            (SPEC_REQUESTS, SPEC_PROMPT), generator=gen
+                            ).to(device)
+    drafts = {"self": (config, params),
+              "truncated": truncated_draft(config, params)}
+    runs = {}
+    reset_counts()
+    for name, (dconfig, dparams) in drafts.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens, stats = decoding.speculative_greedy_decode(
+            params, config, dparams, dconfig, prompts, SPEC_NEW,
+            draft_len=SPEC_DRAFT_LEN, return_stats=True, capture=True)
+        torch.cuda.synchronize()
+        runs[name] = (tokens, stats["rounds"], time.perf_counter() - t0)
+    sgen = torch.Generator(device=device).manual_seed(12)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampled, sample_stats = decoding.speculative_sample_decode(
+        params, config, drafts["truncated"][1], drafts["truncated"][0],
+        prompts, sgen, SPEC_NEW, draft_len=SPEC_DRAFT_LEN,
+        temperature=SPEC_TEMPERATURE, top_k=SPEC_TOP_K, return_stats=True)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches = read_counts()
+    flash = launches["flash_fwd"]
+    # both prefills of all three calls run the flash forward a layer
+    # each: the self-draft's, then the truncated draft's twice
+    expected = 2 * config.n_layers + 2 * (config.n_layers + 1)
+    check(flash == expected,
+          f"the speculative path launched the flash forward {flash} times, "
+          f"expected {expected}")
+    check(tuple(sampled.shape) == (SPEC_REQUESTS, SPEC_NEW)
+          and bool(((sampled >= 0) & (sampled < config.vocab_size)).all()),
+          "speculative sampling's tokens are out of shape or range")
+
+    trace = [(f"spec{i}", prompts[i].tolist(), SPEC_NEW)
+             for i in range(SPEC_REQUESTS)]
+    for name, (dconfig, dparams) in drafts.items():
+        tokens, rounds, serve_s = runs[name]
+        # the captured round's device time beside its host enqueue
+        state = decoding.speculative_state(params, config, dparams, dconfig,
+                                           prompts, SPEC_NEW, SPEC_DRAFT_LEN)
+        step = decoding.make_speculative_round(
+            params, config, dparams, dconfig, state, SPEC_NEW,
+            SPEC_DRAFT_LEN, capture=True)
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(SPEC_TIMED_ROUNDS)]
+        enqueue = []
+        torch.cuda.synchronize()
+        for start, end in events:
+            t0 = time.perf_counter()
+            start.record()
+            step()
+            end.record()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        round_ms = steady_median([a.elapsed_time(b) for a, b in events])
+        del state, step
+        eager, eager_stats = decoding.speculative_greedy_decode(
+            params, config, dparams, dconfig, prompts, SPEC_NEW,
+            draft_len=SPEC_DRAFT_LEN, return_stats=True)
+        same = bool(torch.equal(eager, tokens))
+        streams = {rid: tokens[i].tolist() for i, (rid, _, _) in
+                   enumerate(trace)}
+        worst = teacher_forced(torch, params, config, trace, streams, device)
+        print(f"speculative {name} draft ({dconfig.n_layers} layer(s)), "
+              f"{SPEC_REQUESTS} x ({SPEC_PROMPT} + {SPEC_NEW}), draft_len "
+              f"{SPEC_DRAFT_LEN}: {rounds} rounds = "
+              f"{(SPEC_NEW - 1) / rounds:.3f} tokens a round after the "
+              f"first; serve {serve_s * 1e3:.1f} ms captured; round "
+              f"{round_ms:.4f} ms (CUDA events, median of "
+              f"{SPEC_TIMED_ROUNDS}) / enqueue {steady_median(enqueue):.4f} "
+              f"ms (host); eager rounds {eager_stats['rounds']}, captured "
+              f"tokens equal eager: {same}; teacher-forced worst "
+              f"{worst:.4f} (tol {ENGINE_TOKEN_MARGIN})")
+        check(same, f"the {name} draft's captured tokens differ from eager")
+        check(worst <= ENGINE_TOKEN_MARGIN,
+              f"a speculative token lies {worst} under its row's max")
+    check(runs["self"][1] < SPEC_NEW,
+          f"the self-draft took {runs['self'][1]} rounds for {SPEC_NEW} "
+          "tokens")
+    shortfall, least, z = sampled_forced(torch, params, config, prompts,
+                                         sampled)
+    print(f"speculative sample (truncated draft, T {SPEC_TEMPERATURE}, "
+          f"top_k {SPEC_TOP_K}): {sample_stats['rounds']} rounds, "
+          f"{sample_s * 1e3:.1f} ms eager; teacher-forced: worst shortfall "
+          f"below the row's top_k-th logit {shortfall:.4f} (tol "
+          f"{ENGINE_TOKEN_MARGIN}), least log-probability {least:.3f} "
+          f"(floor {SPEC_LOGP_FLOOR:.3f}), scaled logits against their "
+          f"top-k means z = {z:.3f} (tol {SPEC_LOGIT_Z}); flash "
+          f"forward launches on the path {flash}")
+    check(shortfall <= ENGINE_TOKEN_MARGIN,
+          f"a sampled token lies {shortfall} under its row's top_k-th logit")
+    check(least >= SPEC_LOGP_FLOOR,
+          f"a sampled token has log-probability {least}")
+    check(abs(z) <= SPEC_LOGIT_Z,
+          f"the sampled tokens' logits sum {z} standard errors from their "
+          "top-k means")
+    return launches
+
+
+def engine_spec_phase(torch, device, plain_streams):
+    """The speculative ServingEngine on the flagship over engine_trace:
+    speculative with steps_per_launch 1 (verify and mixed_verify), then
+    steps_per_launch 4 with an admission ring of 2 (the speculative
+    loop), then the first behind an ExecutionGuard."""
+    from kubeshare_tpu_torch.entry import entry, flagship_config
+    from kubeshare_tpu_torch.isolation import ExecutionGuard
+
+    config = flagship_config()
+    _, (params, _) = entry()
+    trace = engine_trace(config)
+    passes = {}
+    for label, overrides in (
+            ("speculative", ENGINE_SPEC),
+            ("speculative steps_per_launch=4 admission_ring=2",
+             dict(ENGINE_SPEC, steps_per_launch=4, admission_ring=2))):
+        streams, stats = engine_pass(torch, device, params, config, trace,
+                                     **overrides)
+        passes[label] = (streams, stats)
+        engine_report(label, stats)
+        worst = teacher_forced(torch, params, config, trace, streams, device)
+        equal = sum(streams[rid] == plain_streams[rid] for rid, _, _ in trace)
+        drafted, accepted = stats["spec_drafted"], stats["spec_accepted"]
+        print(f"engine {label} speculation: verify steps "
+              f"{stats['verify_steps']} ({stats['mixed_verify_steps']} "
+              f"mixed), accepted/drafted {accepted}/{drafted} = "
+              f"{accepted / max(drafted, 1):.4f}, per-round acceptance "
+              f"histogram (le 0.125 .. 1, +Inf) {stats['spec_accept_hist']}; "
+              f"spec loop launches {stats['spec_loop_launches']} "
+              f"({stats['spec_loop_units']} units, realised depth "
+              f"{stats['loop_depth']:.3f}), exit reasons "
+              + json.dumps(stats["loop_exit_reasons"])
+              + f", ring activations {stats['ring_activations']}; "
+              f"teacher-forced worst {worst:.4f} (tol "
+              f"{ENGINE_TOKEN_MARGIN}); streams equal to speculation off: "
+              f"{equal}/{len(trace)} = {equal / len(trace):.4f}")
+        check(stats["new_captures"] == 0,
+              f"{label}: {stats['new_captures']} captures after warm-up")
+        check(worst <= ENGINE_TOKEN_MARGIN,
+              f"{label}: an emitted token lies {worst} under its row's max")
+        check(all(len(streams[rid]) == new for rid, _, new in trace),
+              f"{label}: a stream has the wrong length")
+        check(stats["verify_steps"] > 0, f"{label}: no verify dispatch ran")
+    loop_stats = passes["speculative steps_per_launch=4 admission_ring=2"][1]
+    check(loop_stats["spec_loop_launches"] > 0,
+          "the speculative loop never launched")
+
+    class GrantAll:
+        """A broker that grants every request in full."""
+
+        def acquire(self, estimate_ms):
+            return 1e9
+
+        def release(self, used_ms):
+            pass
+
+    guard = ExecutionGuard(client=GrantAll(), from_env=False,
+                           idle_release_ms=0)
+    guarded_streams, guarded = engine_pass(torch, device, params, config,
+                                           trace, guard=guard, **ENGINE_SPEC)
+    streams, stats = passes["speculative"]
+    device_total = sum(ms for _, ms in guarded["device_ms"].values())
+    print(f"engine speculative under an ExecutionGuard: "
+          f"{guarded['tokens_per_s']:.1f} tokens/s; charged "
+          f"{guard.total_gated_ms:.1f} ms for {device_total:.1f} ms of "
+          f"dispatches by CUDA events = "
+          f"{guard.total_gated_ms / device_total:.4f}; {guarded['new_captures']}"
+          f" captures after warm-up; streams equal the unguarded run: "
+          f"{guarded_streams == streams}")
+    check(guarded["new_captures"] == 0,
+          "the guarded speculative engine captured after warm-up")
+    check(guarded_streams == streams, "guarded speculative streams differ")
     return stats["launches"]
 
 
@@ -1739,7 +2034,10 @@ def main() -> int:
     worst.update(bs_worst)
     launches = slice_phase(torch, device)
     launches["decode_capture"] = decode_capture_phase(torch, device)
-    launches["engine"] = engine_phase(torch, device)
+    launches["engine"], engine_streams = engine_phase(torch, device)
+    launches["speculative"] = speculative_phase(torch, device)
+    launches["engine_spec"] = engine_spec_phase(torch, device,
+                                                engine_streams)
     launches["train"], eager = train_phase(torch, device)
     launches["train_captured"], _ = capture_phase(torch, device, eager)
     launches["block_sparse"] = bs_launches

@@ -8,6 +8,8 @@ from .decoding import (
     prefill_incremental,
     sample_decode,
     sample_decode_with_cache,
+    speculative_greedy_decode,
+    speculative_sample_decode,
 )
 from .mnist import MnistConfig, mnist_apply, mnist_init
 from .transformer import (
@@ -32,6 +34,8 @@ __all__ = [
     "prefill_incremental",
     "sample_decode",
     "sample_decode_with_cache",
+    "speculative_greedy_decode",
+    "speculative_sample_decode",
     "transformer_apply",
     "transformer_init",
 ]

@@ -24,8 +24,13 @@ its seeds only, not on the batch it rides in, and the draw can be
 captured; the serving engine uses the same schedule, so a single-slot
 engine reproduces :func:`sample_decode_with_cache` token for token.
 
-The entry points run without autograd (``torch.no_grad``).  Not ported
-yet (ROADMAP.md queue A item 5): the speculative decoders.
+The speculative decoders (:func:`speculative_greedy_decode`,
+:func:`speculative_sample_decode`) run a draft model's width-1 steps and
+one width-``draft_len`` verify chunk of the target a round, rewinding
+both caches' device ``length`` to the accepted prefix; the greedy one can
+record a round in one CUDA graph (``capture=True``).
+
+The entry points run without autograd (``torch.no_grad``).
 """
 
 from __future__ import annotations
@@ -135,18 +140,25 @@ def _attend_cached(q: torch.Tensor, cache_k: torch.Tensor,
 
 def _decode_chunk(params: Dict, config: TransformerConfig, cache: Dict,
                   tokens: torch.Tensor, head_last_only: bool = False,
-                  head_row: Optional[int] = None):
+                  head_row: Optional[int] = None,
+                  write: Optional[torch.Tensor] = None):
     """A width-C cached step: tokens [batch, C] at positions
     ``length .. length+C-1`` -> (logits [batch, C, vocab], cache).
 
     The chunk's K/V are written into the cache (in place) first, then its
     queries attend the whole cache under the per-query causal band.
     ``head_last_only`` projects the final row only ([batch, 1, vocab]);
-    ``head_row`` selects one other row instead."""
+    ``head_row`` selects one other row instead.  ``write`` (a 0-d bool
+    tensor) gates the K/V write: where it is false the cache keeps its
+    rows and the positions are clamped to the cache, so a step past the
+    cache's end (a captured speculative round after completion) stays in
+    bounds and changes nothing but ``length``."""
     dtype = config.dtype
     length = cache["length"]
     chunk = tokens.shape[1]
     positions = length + torch.arange(chunk, device=tokens.device)
+    if write is not None:
+        positions = positions.clamp(max=cache["k"].shape[3] - 1)
     x = params["embed"][tokens].to(dtype)  # [b,C,d]
     use_rope = config.positional == "rope"
     if not use_rope:
@@ -162,6 +174,9 @@ def _decode_chunk(params: Dict, config: TransformerConfig, cache: Dict,
             k = apply_rope(k, positions)
         cache_k = cache["k"][layer_idx]
         cache_v = cache["v"][layer_idx]
+        if write is not None:
+            k = torch.where(write, k, cache_k.index_select(2, positions))
+            v = torch.where(write, v, cache_v.index_select(2, positions))
         cache_k.index_copy_(2, positions, k)
         cache_v.index_copy_(2, positions, v)
         o = _attend_cached(q, cache_k, cache_v, positions,
@@ -385,16 +400,20 @@ def sampling_seeds(generator: torch.Generator, rows: int,
                          device=generator.device, dtype=torch.int64)
 
 
-def gumbel_noise(seeds: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Standard Gumbel noise [..., vocab] f32, a pure function of
-    (seed, vocabulary index): a counter-based hash of the two, 23 bits
-    of it as a uniform in (0, 1), then -log(-log(u))."""
+def hash_uniform(seeds: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Uniforms in (0, 1) [..., vocab] f32, a pure function of (seed,
+    index): a counter-based hash of the two, 23 bits of it."""
     index = torch.arange(vocab, dtype=torch.int64, device=seeds.device)
     low = (seeds & _MASK32)[..., None]
     high = ((seeds >> 32) & _MASK32)[..., None]
     bits = _hash32(_hash32(low ^ index) ^ high)
-    uniform = ((bits >> 9).to(torch.float32) * 2 + 1) * 2.0 ** -24
-    return -torch.log(-torch.log(uniform))
+    return ((bits >> 9).to(torch.float32) * 2 + 1) * 2.0 ** -24
+
+
+def gumbel_noise(seeds: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Standard Gumbel noise [..., vocab] f32, a pure function of
+    (seed, vocabulary index): -log(-log(u)) of :func:`hash_uniform`."""
+    return -torch.log(-torch.log(hash_uniform(seeds, vocab)))
 
 
 def pick_rows(logits: torch.Tensor, temps: torch.Tensor,
@@ -554,3 +573,291 @@ class CapturedDecodeStep:
             lambda: _decode_one(self.params, self.config, cache, self.token),
             device, after_warmup=lambda: length.copy_(saved))
         self.bound = (cache["k"], cache["v"], length)
+
+
+def _check_speculative_args(config: TransformerConfig,
+                            draft_config: TransformerConfig,
+                            prompt_len: int, max_new_tokens: int,
+                            draft_len: int) -> None:
+    """Shared validation for both speculative decoders: generation
+    length, draft width, vocabulary match, and ``draft_len`` slots of
+    cache headroom in BOTH models."""
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if draft_len < 2:
+        raise ValueError(f"draft_len must be >= 2, got {draft_len}")
+    if config.vocab_size != draft_config.vocab_size:
+        raise ValueError(
+            f"target and draft vocabularies differ "
+            f"({config.vocab_size} vs {draft_config.vocab_size})")
+    total = prompt_len + max_new_tokens + draft_len
+    for name, c in (("target", config), ("draft", draft_config)):
+        if total > c.max_seq_len:
+            raise ValueError(
+                f"prompt + max_new_tokens + draft_len = {total} exceeds "
+                f"the {name} max_seq_len {c.max_seq_len} (speculation "
+                f"needs draft_len slots of cache headroom)")
+
+
+def speculative_acceptance(proposal: torch.Tensor,
+                           targets: torch.Tensor) -> torch.Tensor:
+    """The exact-match acceptance rule every speculative decoder here
+    shares: the number of leading proposed tokens ``proposal`` [..., k]
+    that the target's own picks ``targets`` [..., >= k] agree with, in
+    ``0..k`` (int64 [...]).  The emitted round is then
+    ``targets[..., :m + 1]``, which is why speculative streams equal the
+    non-speculative ones.  Unused proposal slots must carry an
+    impossible token (-1), so a pad never matches."""
+    k = proposal.shape[-1]
+    matches = torch.cumprod((proposal == targets[..., :k]).to(torch.int64),
+                            dim=-1)
+    return matches.sum(dim=-1)
+
+
+def _speculative_round(params: Dict, config: TransformerConfig,
+                       draft_params: Dict, draft_config: TransformerConfig,
+                       state: Dict, max_new_tokens: int,
+                       draft_len: int) -> None:
+    """One greedy speculative round, in place on ``state``'s device
+    tensors, reading nothing back: the draft's ``draft_len`` width-1
+    steps (the last feeds p_{k-1}, so the draft cache covers a full
+    accept), the target's width-``draft_len`` verify chunk, the batch-min
+    acceptance, the stream write at the device offset ``n_done`` and both
+    caches' rewind to ``length + m + 1``.  A round entered with
+    ``n_done >= max_new_tokens`` changes nothing: every write is gated."""
+    cache, dcache = state["cache"], state["dcache"]
+    out, n_done, last = state["out"], state["n_done"], state["last"]
+    go = n_done < max_new_tokens
+    start = cache["length"].clone()
+    tok, steps = last, []
+    for _ in range(draft_len):
+        logits, _ = _decode_chunk(draft_params, draft_config, dcache,
+                                  tok[:, None], write=go)
+        tok = torch.argmax(logits[:, 0], dim=-1)
+        steps.append(tok)
+    proposal = torch.stack(steps[: draft_len - 1], dim=1)  # [b, k-1]
+    chunk = torch.cat([last[:, None], proposal], dim=1)
+    logits, _ = _decode_chunk(params, config, cache, chunk, write=go)
+    targets = torch.argmax(logits, dim=-1)  # [b, k]
+    m = speculative_acceptance(proposal, targets).min()
+    idx = torch.arange(draft_len, device=out.device)
+    stream = torch.where(idx[None, :] < m, F.pad(proposal, (0, 1)), targets)
+    cols = (n_done + idx).clamp(max=out.shape[1] - 1)
+    out.index_copy_(1, cols, torch.where(go, stream,
+                                         out.index_select(1, cols)))
+    emitted = (m + 1) * go
+    cache["length"].copy_(start + emitted)
+    dcache["length"].copy_(start + emitted)
+    picked = torch.gather(stream, 1, m.expand(stream.shape[0], 1))[:, 0]
+    last.copy_(torch.where(go, picked, last))
+    n_done.add_(emitted)
+    state["rounds"].add_(go.to(torch.int64))
+
+
+@torch.no_grad()
+def speculative_state(params: Dict, config: TransformerConfig,
+                      draft_params: Dict, draft_config: TransformerConfig,
+                      prompt: torch.Tensor, max_new_tokens: int,
+                      draft_len: int) -> Dict:
+    """A greedy speculative decode's device state after both prefills:
+    the two caches, the stream ``out`` [batch, max_new + draft_len] with
+    the first token written, ``last``, ``n_done`` (1) and ``rounds``
+    (0), each round updating them in place (:func:`_speculative_round`)."""
+    batch, prompt_len = prompt.shape
+    _check_speculative_args(config, draft_config, prompt_len,
+                            max_new_tokens, draft_len)
+    cache, logits = prefill(params, config, prompt)
+    dcache, _ = prefill(draft_params, draft_config, prompt)
+    first = torch.argmax(logits, dim=-1)
+    out = torch.zeros((batch, max_new_tokens + draft_len), dtype=torch.int64,
+                      device=prompt.device)
+    out[:, 0] = first
+    return {"cache": cache, "dcache": dcache, "out": out, "last": first,
+            "n_done": torch.ones((), dtype=torch.int64, device=prompt.device),
+            "rounds": torch.zeros((), dtype=torch.int64,
+                                  device=prompt.device)}
+
+
+@torch.no_grad()
+def make_speculative_round(params: Dict, config: TransformerConfig,
+                           draft_params: Dict,
+                           draft_config: TransformerConfig, state: Dict,
+                           max_new_tokens: int, draft_len: int,
+                           capture: bool = False) -> Callable[[], None]:
+    """One greedy speculative round on ``state`` as a call: eager, or
+    (``capture=True``) one CUDA graph replay.  The capture's warm-up
+    passes run with ``n_done`` at the end, so every write is gated off
+    and the state is left as it was."""
+
+    def one_round():
+        _speculative_round(params, config, draft_params, draft_config, state,
+                           max_new_tokens, draft_len)
+
+    if not capture:
+        return one_round
+    device = state["out"].device
+    if device.type != "cuda":
+        raise RuntimeError(
+            "capture=True records a speculative round in a CUDA graph and "
+            f"needs CUDA tensors, got {device}")
+    n_done = state["n_done"]
+    saved = n_done.clone()
+    n_done.fill_(max_new_tokens)
+    graph, _ = capture_graph(one_round, device)
+    n_done.copy_(saved)
+    return graph.replay
+
+
+@torch.no_grad()
+def speculative_greedy_decode(params: Dict, config: TransformerConfig,
+                              draft_params: Dict,
+                              draft_config: TransformerConfig,
+                              prompt: torch.Tensor, max_new_tokens: int,
+                              draft_len: int = 4, return_stats: bool = False,
+                              capture: bool = False):
+    """Greedy generation with draft-model speculation: the token stream
+    of :func:`greedy_decode` (up to floating-point argmax ties: the
+    width-``draft_len`` verify chunk reduces in another order than
+    width-1 steps) in fewer target passes.
+
+    Each round the draft proposes ``draft_len - 1`` tokens one at a time,
+    the target scores ``[last, proposal]`` in one cached chunk, and the
+    longest matching prefix plus the target's own next pick is emitted
+    (:func:`speculative_acceptance`; the batch shares one cache length,
+    so acceptance is the minimum over rows).  Rejected positions' K/V are
+    masked by the rewound length and overwritten by the next round.
+
+    ``capture=True`` records one round in a CUDA graph
+    (:func:`make_speculative_round`).  Either way the host runs
+    ``ceil(remaining / draft_len)`` rounds (never more than are needed:
+    a round emits at most ``draft_len``) and reads ``n_done`` between
+    batches.  With ``return_stats`` the result is ``(tokens, {"rounds":
+    r})``, r counting target verify passes."""
+    state = speculative_state(params, config, draft_params, draft_config,
+                              prompt, max_new_tokens, draft_len)
+    one_round = make_speculative_round(
+        params, config, draft_params, draft_config, state, max_new_tokens,
+        draft_len, capture)
+    while True:
+        remaining = max_new_tokens - int(state["n_done"])
+        if remaining <= 0:
+            break
+        for _ in range(-(-remaining // draft_len)):
+            one_round()
+    tokens = state["out"][:, :max_new_tokens]
+    if return_stats:
+        return tokens, {"rounds": int(state["rounds"])}
+    return tokens
+
+
+@torch.no_grad()
+def speculative_sample_decode(params: Dict, config: TransformerConfig,
+                              draft_params: Dict,
+                              draft_config: TransformerConfig,
+                              prompt: torch.Tensor,
+                              generator: torch.Generator,
+                              max_new_tokens: int, draft_len: int = 4,
+                              temperature: float = 1.0,
+                              top_k: Optional[int] = None,
+                              top_p: Optional[float] = None,
+                              return_stats: bool = False):
+    """Sampled generation with draft-model speculation: the emitted
+    stream has the target model's sampling distribution (accept draft
+    token x with probability min(1, p(x)/q(x)); on rejection resample
+    from norm(max(p - q, 0)); a fully accepted round earns a bonus token
+    from the target's next position).  ``p`` and ``q`` are the
+    temperature / top-k / top-p filtered distributions, so the output is
+    distributed as :func:`sample_decode`'s with the same filters.
+
+    The round structure is :func:`speculative_greedy_decode`'s.  The
+    randomness is the port's seed scheme: one int64 seed a draw from
+    ``generator`` (:func:`sampling_seeds`, 2 x ``draft_len`` a round and
+    row), each categorical draw the Gumbel-max under its seed and each
+    acceptance uniform :func:`hash_uniform` of its seed, so the same
+    generator seed gives the same stream (not JAX's: its PRNG differs).
+    Eager: the host reads each round's acceptance.  ``temperature == 0``
+    delegates to the greedy decoder."""
+    batch, prompt_len = prompt.shape
+    _check_speculative_args(config, draft_config, prompt_len,
+                            max_new_tokens, draft_len)
+    _check_sampling_args(temperature, top_k, top_p)
+    if temperature == 0.0:
+        return speculative_greedy_decode(
+            params, config, draft_params, draft_config, prompt,
+            max_new_tokens, draft_len, return_stats=return_stats)
+    k = draft_len
+    device = prompt.device
+    vocab = config.vocab_size
+
+    def log_dist(logits):
+        flat = logits.reshape(-1, logits.shape[-1])
+        filtered = _filter_logits(flat / temperature, top_k, top_p)
+        return torch.log_softmax(filtered, dim=-1).reshape(logits.shape)
+
+    def draw(logp, seeds):
+        return torch.argmax(logp + gumbel_noise(seeds, vocab), dim=-1)
+
+    def gather(dist, tok):  # [k-1, b, vocab], [b, k-1] -> [k-1, b]
+        return torch.gather(dist, 2, tok.T[..., None])[..., 0]
+
+    cache, logits = prefill(params, config, prompt)
+    dcache, _ = prefill(draft_params, draft_config, prompt)
+    first_seeds = sampling_seeds(generator, batch, 1).to(device)
+    last = draw(log_dist(logits), first_seeds[:, 0])
+    out = torch.zeros((batch, max_new_tokens + k), dtype=torch.int64,
+                      device=device)
+    out[:, 0] = last
+    n_done, rounds = 1, 0
+    rows = torch.arange(batch, device=device)
+    while n_done < max_new_tokens:
+        # columns [0, k): the draft's draws; [k, 2k-1): the acceptance
+        # uniforms; 2k-1: the correction / bonus draw
+        seeds = sampling_seeds(generator, batch, 2 * k).to(device)
+        tok, props, logqs = last, [], []
+        for j in range(k):
+            step_logits, _ = _decode_one(draft_params, draft_config, dcache,
+                                         tok)
+            logq = log_dist(step_logits)
+            tok = draw(logq, seeds[:, j])
+            props.append(tok)
+            logqs.append(logq)
+        proposal = torch.stack(props[: k - 1], dim=1)  # [b, k-1]
+        logq = torch.stack(logqs[: k - 1])  # [k-1, b, vocab]
+        chunk = torch.cat([last[:, None], proposal], dim=1)
+        start = cache["length"].clone()
+        chunk_logits, _ = _decode_chunk(params, config, cache, chunk)
+        logp = log_dist(chunk_logits).transpose(0, 1)  # [k, b, vocab]
+
+        ratio = gather(logp[: k - 1], proposal) - gather(logq, proposal)
+        u = hash_uniform(seeds[:, k: 2 * k - 1], 1)[..., 0].T  # [k-1, b]
+        accepted = torch.log(u) < ratio.clamp(max=0.0)
+        row_accepts = torch.cumprod(accepted.T.to(torch.int64),
+                                    dim=1).sum(dim=1)  # [b]
+        m = int(row_accepts.min())
+
+        bonus = m == k - 1
+        pos = min(m, k - 2)
+        p_m = logp[k - 1 if bonus else pos]
+        if bonus:
+            fix_dist = p_m
+        else:
+            residual = (p_m.exp() - logq[pos].exp()).clamp(min=0.0)
+            # a numerically empty residual (p == q): acceptance almost
+            # surely fired first; fall back to p
+            empty = residual.sum(dim=-1, keepdim=True) <= 1e-9
+            fix_dist = torch.where(empty, p_m, torch.log(torch.where(
+                residual > 0, residual, torch.full_like(residual, 1e-38))))
+        fix = draw(fix_dist, seeds[:, 2 * k - 1])
+        if bonus:
+            nxt = fix
+        else:
+            nxt = torch.where(row_accepts > m, proposal[rows, pos], fix)
+        out[:, n_done: n_done + m] = proposal[:, :m]
+        out[:, n_done + m] = nxt
+        cache["length"].copy_(start + m + 1)
+        dcache["length"].copy_(start + m + 1)
+        last = nxt
+        n_done += m + 1
+        rounds += 1
+    tokens = out[:, :max_new_tokens]
+    return (tokens, {"rounds": rounds}) if return_stats else tokens

@@ -5,28 +5,33 @@ of the single-device core of kubeshare_tpu/serving:
   and its refcounted free-list allocator with tenant quotas;
 - :mod:`paged` — the paged twins of the dense cached model steps:
   chunked prefill into a slot's blocks, the batched decode step, the
-  decode span, the device-resident decode loop and the mixed step;
+  decode span, the device-resident decode loop, the mixed step, and the
+  speculative verify span, mixed verify step and device loop;
+- :mod:`drafter` — the n-gram (prompt-lookup) drafter, on the host and
+  vectorised for the device loop;
 - :mod:`engine` — the continuous-batching engine: admission into freed
   slots mid-flight, bucketed chunked prefill, decode spans and loops,
-  stall-free mixed batching, every dispatch shape a CUDA graph captured
+  stall-free mixed batching, self-drafted speculative decoding with its
+  device loop and admission ring, every dispatch shape a CUDA graph captured
   at warm-up, and every dispatch chargeable through the
   :class:`~kubeshare_tpu_torch.isolation.ExecutionGuard`;
 - :mod:`prefix_index` — the radix-tree prefix cache over the pool;
 - :mod:`qos` — tenants, classes and the token-weighted fair queue;
 - :mod:`metrics_view` — readers over the engine's metric families.
 
-Not ported yet (ROADMAP.md queue A): the drafter and speculative
-dispatches, the KV tiers, autotuning and chaos, disaggregated pools and
-fleets, and tensor-parallel serving.
+Not ported yet (ROADMAP.md queue A): the KV tiers, autotuning and
+chaos, disaggregated pools and fleets, and tensor-parallel serving.
 """
 
+from .drafter import NGramDrafter, ngram_propose_rows
 from .engine import (EngineConfig, Request, RequestResult, ServingEngine,
                      plan_prefill_chunks)
 from .kv_blocks import (BlockAllocator, BlockExhausted, PagedKVPool,
                         QuotaExceeded, chain_token_runs, init_paged_pool)
 from .paged import (paged_copy_block, paged_decode_loop, paged_decode_span,
                     paged_decode_step, paged_gather_kv, paged_mixed_step,
-                    paged_prefill_step, paged_upload_block)
+                    paged_mixed_verify_step, paged_prefill_step,
+                    paged_spec_loop, paged_upload_block, paged_verify_span)
 from .prefix_index import PrefixIndex
 from .qos import (DEFAULT_TENANT, QOS_GUARANTEE, QOS_OPPORTUNISTIC,
                   FairQueue, TenantRegistry, TenantSpec)
@@ -37,6 +42,7 @@ __all__ = [
     "DEFAULT_TENANT",
     "EngineConfig",
     "FairQueue",
+    "NGramDrafter",
     "PagedKVPool",
     "PrefixIndex",
     "QOS_GUARANTEE",
@@ -49,13 +55,17 @@ __all__ = [
     "TenantSpec",
     "chain_token_runs",
     "init_paged_pool",
+    "ngram_propose_rows",
     "paged_copy_block",
     "paged_decode_loop",
     "paged_decode_span",
     "paged_decode_step",
     "paged_gather_kv",
     "paged_mixed_step",
+    "paged_mixed_verify_step",
     "paged_prefill_step",
+    "paged_spec_loop",
     "paged_upload_block",
+    "paged_verify_span",
     "plan_prefill_chunks",
 ]

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over the paged KV pool, port of the
-single-device, non-speculative core of kubeshare_tpu/serving/engine.py.
+single-device core of kubeshare_tpu/serving/engine.py.
 
 The engine schedules at TOKEN granularity:
 
@@ -30,7 +30,19 @@ The engine schedules at TOKEN granularity:
   (``paged.paged_copy_block``) when a prompt diverges mid-block;
 - multi-tenant QoS (qos.py): a token-weighted fair queue, per-tenant
   KV block quotas, and cache-backed preemption of Opportunistic decode
-  slots for a starved Guarantee admission, resumed bit-exactly.
+  slots for a starved Guarantee admission, resumed bit-exactly;
+- speculative decoding (``speculative``): decode lanes draft by n-gram
+  lookup over their own history (drafter.py) and one width-W verify
+  dispatch (``paged.paged_verify_span``) scores every lane's drafts,
+  emitting the accepted prefix plus the correction pick; each lane's
+  draft width adapts to its acceptance.  Verification is exact-match
+  against the engine's own pick (each column under its emission's
+  seed), so streams equal speculation off, greedy and sampled.  With
+  ``steps_per_launch`` K > 1 drafted rounds run in the speculative device
+  loop (``paged.paged_spec_loop``: up to K draft-verify units in one
+  launch), and ``admission_ring`` R > 0 stages up to R queued requests,
+  admitted and prefilled, which the loop activates into lanes that retire
+  inside it.
 
 Every dispatch shape is static — slot count, block tables, chunk widths
 — and on the card each one is a CUDA graph, the counterpart of the JAX
@@ -51,8 +63,8 @@ a preemption — and a single-slot engine reproduces
 ``sample_decode_with_cache`` token for token.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): speculative decoding and the admission ring, the host and disk KV
-tiers, the autotuner, tensor-parallel serving and disaggregated pools.
+item): the host and disk KV tiers, the autotuner, tensor-parallel serving
+and disaggregated pools.
 """
 
 from __future__ import annotations
@@ -70,10 +82,12 @@ from ..models.decoding import (_filter_logits, bucket_width, capture_graph,
 from ..models.transformer import TransformerConfig, check_config
 from ..parallel.train import tree_leaves
 from ..utils.promtext import MetricFamily, Sample, _format_value
+from .drafter import NGramDrafter
 from .kv_blocks import (BlockAllocator, BlockExhausted, QuotaExceeded,
                         init_paged_pool)
 from .paged import (paged_copy_block, paged_decode_loop, paged_decode_span,
-                    paged_mixed_step, paged_prefill_step)
+                    paged_mixed_step, paged_mixed_verify_step,
+                    paged_prefill_step, paged_spec_loop, paged_verify_span)
 from .prefix_index import PrefixIndex
 from .qos import (DEFAULT_TENANT, QOS_GUARANTEE, QOS_OPPORTUNISTIC,
                   FairQueue, TenantRegistry, TenantSpec)
@@ -87,8 +101,19 @@ TTFT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
 TBT_BUCKETS = (0.0002, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
                0.1, 0.25, 0.5, 1.0)
 
+# speculative acceptance-ratio bucket bounds: per verify round, accepted
+# drafts / drafted, always in [0, 1]
+SPEC_ACCEPT_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+# the speculative device loop's statics: each lane carries its newest
+# SPEC_LOOP_HIST tokens as its device drafting window (drafts move the
+# acceptance rate, never a stream), and a unit whose drafting lanes
+# accept below SPEC_LOOP_REDRAFT of their aggregate proposals ends the
+# launch, so the host's adaptive width sees the collapse
+SPEC_LOOP_HIST = 64
+SPEC_LOOP_REDRAFT = 0.25
+
 # the dispatch kinds, as the JAX engine's compile_counts names them; the
-# speculative and tier kinds stay at 0 until their slices land
+# tier kind stays at 0 until its slice lands
 DISPATCH_KINDS = ("decode", "prefill", "mixed", "verify", "mixed_verify",
                   "copy", "upload", "loop", "spec_loop")
 
@@ -193,9 +218,13 @@ class EngineConfig:
     # per-step cap on the prefill tokens fused into a mixed dispatch;
     # None = prefill_chunk
     mixed_prefill_budget: Optional[int] = None
-    # speculative decoding (not ported: ROADMAP.md queue A item 5)
+    # self-drafted speculative decoding; streams are bit-exact either way
     speculative: bool = False
+    # max drafted tokens per lane per verify round, a power of two: the
+    # per-lane adaptive width doubles/halves within {1, 2, .., draft_len},
+    # so warm-up captures O(log draft_len) verify shapes
     draft_len: int = 4
+    # the drafter's maximum n-gram order
     draft_ngram: int = 3
     # disaggregated serving role (not ported: ROADMAP.md queue A item 8)
     pool_role: str = "both"
@@ -205,7 +234,10 @@ class EngineConfig:
     # online autotuning (not ported: ROADMAP.md queue A item 7b)
     autotune: bool = False
     autotune_interval: int = 32
-    # the speculative loop's admission ring (not ported: item 5)
+    # the speculative device loop's admission ring: queued requests
+    # admitted and prefilled ahead of a launch, activated inside it into
+    # lanes that retire; 0 = off.  Requires speculative and
+    # steps_per_launch > 1
     admission_ring: int = 0
 
 
@@ -233,12 +265,6 @@ def _config_rows(ec: EngineConfig, config: TransformerConfig,
     todo = NotImplementedError
     bad = ValueError
     return [
-        (ec.speculative, todo,
-         "speculative decoding is not ported yet (ROADMAP.md queue A "
-         "item 5, the speculative slice)"),
-        (ec.admission_ring > 0, todo,
-         "admission_ring is not ported yet (ROADMAP.md queue A item 5, "
-         "the speculative slice)"),
         (ec.host_tier_bytes is not None, todo,
          "host_tier_bytes: the KV host tier is not ported yet "
          "(ROADMAP.md queue A item 7a, kv_tier.py)"),
@@ -297,6 +323,11 @@ def _config_rows(ec: EngineConfig, config: TransformerConfig,
          f"autotune_interval must be >= 1, got {ec.autotune_interval}"),
         (ec.admission_ring < 0, bad,
          f"admission_ring must be >= 0, got {ec.admission_ring}"),
+        (ec.admission_ring > 0 and (not ec.speculative
+                                    or ec.steps_per_launch <= 1), bad,
+         f"admission_ring {ec.admission_ring} requires speculative=True "
+         f"and steps_per_launch > 1 — the ring is consumed only inside "
+         f"the speculative device loop"),
     ]
 
 
@@ -380,15 +411,21 @@ class RequestResult:
 
 @dataclass
 class _StepPlan:
-    """ONE scheduling decision: which lanes prefill / decode this step
-    and at what widths.  ``kind`` selects the dispatch — "prefill" (one
-    standalone chunk), "decode" (the span), "loop" (the device-resident
-    multi-span loop) or "mixed" (prefill chunk + decode span)."""
+    """ONE scheduling decision: which lanes prefill / decode / verify this
+    step and at what widths.  ``kind`` selects the dispatch — "prefill"
+    (one standalone chunk), "decode" (the span), "loop" (the
+    device-resident multi-span loop), "verify" (the draft-verify chunk),
+    "spec_loop" (the speculative device loop), "mixed" / "mixed_verify"
+    (a prefill chunk fused with the span / the verify chunk).  ``drafts``
+    maps a slot index to its proposed tokens; ``verify_width`` is the
+    dispatch width 1 + the power-of-two-bucketed longest draft."""
 
     kind: str
     prefill_slot: Optional["_Slot"] = None
     chunk: Optional[Tuple[int, int, int]] = None
     decode_slots: List["_Slot"] = field(default_factory=list)
+    drafts: Dict[int, List[int]] = field(default_factory=dict)
+    verify_width: int = 0
 
 
 class _Slot:
@@ -396,7 +433,7 @@ class _Slot:
         "idx", "state", "rid", "blocks", "table", "length", "generated",
         "prompt", "plan", "max_new", "temperature", "first_seed",
         "step_seeds", "result", "tenant", "emitted_prefix",
-        "last_token_at",
+        "last_token_at", "drafter", "draft_width", "accept_rate",
     )
 
     def __init__(self, idx: int, table_width: int) -> None:
@@ -424,6 +461,13 @@ class _Slot:
         self.emitted_prefix: List[int] = []
         # wall time the slot's newest token became host-visible
         self.last_token_at: Optional[float] = None
+        # speculative state: the lane's drafter, its adaptive draft width
+        # (a power of two in 1..draft_len) and the acceptance-rate EMA
+        # driving it; rebuilt at (re-)admission from the prompt, which
+        # for a resumed request is prompt + generated
+        self.drafter: Optional[NGramDrafter] = None
+        self.draft_width = 0
+        self.accept_rate = 0.5
 
 
 _NUMPY_DTYPES = {torch.int64: np.int64, torch.float32: np.float32,
@@ -574,21 +618,39 @@ class ServingEngine:
         # the one dispatch whose host-side effects are still pending
         # (read when consumed — see _consume_inflight)
         self._inflight = None
+        # the admission ring: requests admitted and prefilled into
+        # detached _Slot objects (idx -1) for activation inside the
+        # speculative loop; entries it does not activate are bound to free
+        # slots by _admit
+        self._ring_staged: List[_Slot] = []
         self._warmed_widths = _warmed_prefill_widths(ec)
         self._queue = FairQueue(self.tenants)
         self._results: Dict[str, RequestResult] = {}
-        # counters: prefill_chunks / decode_steps count WORK UNITS
-        # (chunks processed, spans run — standalone or fused);
-        # mixed_steps counts fused dispatches; loop_launches the device
-        # loop's launches and loop_units the span-units they ran (each
-        # absorbed into decode_steps)
+        # counters: prefill_chunks / decode_steps / verify_steps count
+        # WORK UNITS (chunks processed, spans and verify chunks run —
+        # standalone or fused); mixed_steps / mixed_verify_steps count
+        # fused dispatches; loop_launches / spec_loop_launches the device
+        # loops' launches and loop_units / spec_loop_units the units they
+        # ran (absorbed into decode_steps / verify_steps)
         self.decode_steps = 0
         self.prefill_chunks = 0
         self.mixed_steps = 0
+        self.verify_steps = 0
+        self.mixed_verify_steps = 0
         self.loop_launches = 0
         self.loop_units = 0
+        self.spec_loop_launches = 0
+        self.spec_loop_units = 0
         self.loop_exit_reasons: Dict[str, int] = {
-            "retire": 0, "budget": 0, "stop": 0}
+            "retire": 0, "budget": 0, "stop": 0, "redraft": 0,
+            "ring_empty": 0}
+        # speculation per tenant: drafts scored, drafts that reached the
+        # stream, and the per-round acceptance histogram [counts, sum]
+        self.spec_drafted: Dict[str, int] = {}
+        self.spec_accepted: Dict[str, int] = {}
+        self._spec_accept: Dict[str, list] = {}
+        # activations of ring entries inside the speculative loop
+        self.ring_activations = 0
         self.loop_depth_sum = 0
         self.loop_depth_count = 0
         self.host_seconds: Dict[str, float] = {
@@ -639,19 +701,21 @@ class ServingEngine:
 
         return pick
 
-    def _program(self, kind: str, width: int = 0) -> _Program:
+    def _program(self, kind: str, width: int = 0,
+                 verify_width: int = 0) -> _Program:
         """The program of one dispatch shape, built on first use:
-        ``width`` is the prefill chunk of "prefill" / "mixed", the depth
-        K of "loop"."""
-        key = (kind, width)
+        ``width`` is the prefill chunk of "prefill" / "mixed" /
+        "mixed_verify", the depth K of "loop" / "spec_loop";
+        ``verify_width`` the chunk width W of "verify" / "mixed_verify"."""
+        key = (kind, width, verify_width)
         program = self._programs.get(key)
         if program is None:
-            fn, specs = self._program_spec(kind, width)
+            fn, specs = self._program_spec(kind, width, verify_width)
             program = _Program(kind, fn, specs, self.device, self._graph_pool)
             self._programs[key] = program
         return program
 
-    def _program_spec(self, kind: str, width: int):
+    def _program_spec(self, kind: str, width: int, verify_width: int):
         """(function, input specs) of one dispatch shape."""
         ec = self.engine_config
         params, cfg, pick = self.params, self.model_config, self._pick
@@ -704,6 +768,49 @@ class ServingEngine:
                     p_tokens, p_last_row, p_temp, p_seed, tables, lengths,
                     active, tokens, temps, seeds, budgets)
             return mixed, prefill_specs + lane_specs(span)
+        verify_specs = [
+            ("tables", (s, t), i64), ("lengths", (s,), i64),
+            ("active", (s,), b), ("tokens", (s, verify_width), i64),
+            ("widths", (s,), i64), ("temps", (s,), f32),
+            ("seeds", (s, verify_width), i64)]
+        if kind == "verify":
+            def verify(tables, lengths, active, tokens, widths, temps,
+                       seeds):
+                return paged_verify_span(
+                    params, cfg, pick, pk, pv, tables, lengths, active,
+                    tokens, widths, temps, seeds)
+            return verify, verify_specs
+        if kind == "mixed_verify":
+            def mixed_verify(p_table, p_start, p_tokens, p_last_row, p_temp,
+                             p_seed, tables, lengths, active, tokens, widths,
+                             temps, seeds):
+                return paged_mixed_verify_step(
+                    params, cfg, pick, pk, pv, p_table, p_start, p_tokens,
+                    p_last_row, p_temp, p_seed, tables, lengths, active,
+                    tokens, widths, temps, seeds)
+            return mixed_verify, prefill_specs + verify_specs
+        if kind == "spec_loop":
+            w, r, h = 1 + ec.draft_len, ec.admission_ring, SPEC_LOOP_HIST
+            n_seeds = width * w
+
+            def spec_loop(tables, lengths, active, tokens, temps, seeds,
+                          budgets, hist, hist_len, dcaps, r_tables,
+                          r_lengths, r_tokens, r_temps, r_seeds, r_budgets,
+                          r_hist, r_hist_len, r_caps, r_count):
+                return paged_spec_loop(
+                    params, cfg, pick, width, eos, ec.draft_ngram,
+                    SPEC_LOOP_REDRAFT, w, pk, pv, tables, lengths, active,
+                    tokens, temps, seeds, budgets, hist, hist_len, dcaps,
+                    r_tables, r_lengths, r_tokens, r_temps, r_seeds,
+                    r_budgets, r_hist, r_hist_len, r_caps, r_count)
+            return spec_loop, lane_specs(n_seeds) + [
+                ("hist", (s, h), i64), ("hist_len", (s,), i64),
+                ("dcaps", (s,), i64), ("r_tables", (r, t), i64),
+                ("r_lengths", (r,), i64), ("r_tokens", (r,), i64),
+                ("r_temps", (r,), f32), ("r_seeds", (r, n_seeds), i64),
+                ("r_budgets", (r,), i64), ("r_hist", (r, h), i64),
+                ("r_hist_len", (r,), i64), ("r_caps", (r,), i64),
+                ("r_count", (), i64)]
         if kind == "copy":
             def copy(src, dst):
                 paged_copy_block(pk, pv, src, dst)
@@ -804,8 +911,8 @@ class ServingEngine:
         (and ``mixed`` is on) ONE fused dispatch advances every decode
         lane AND consumes one budget-bounded prefill chunk; with
         ``mixed`` off, prefill has strict priority.  Filling slots rotate
-        round-robin.  A pure-decode step runs the device loop when
-        ``steps_per_launch > 1``."""
+        round-robin.  The decode phase is the span, a verify chunk or a
+        device loop (:meth:`_plan_decode_phase`)."""
         self.host_planner_invocations += 1
         prefill = [s for s in self._slots if s.state == "prefill"]
         decode = [s for s in self._slots if s.state == "decode"]
@@ -817,23 +924,71 @@ class ServingEngine:
                 # an unsliceable pad-forward tail over the budget: the one
                 # shape that still stalls decode, for a single dispatch
                 return _StepPlan("prefill", prefill_slot=slot, chunk=chunk)
-            return _StepPlan("mixed", prefill_slot=slot, chunk=chunk,
-                             decode_slots=decode)
+            plan = self._plan_decode_phase(decode, fused=True)
+            plan.kind = ("mixed_verify" if plan.kind == "verify"
+                         else "mixed")
+            plan.prefill_slot, plan.chunk = slot, chunk
+            return plan
         if prefill:
             slot = self._next_prefill_slot(prefill)
             return _StepPlan("prefill", prefill_slot=slot,
                              chunk=slot.plan.pop(0))
         if decode:
-            kind = "loop" if ec.steps_per_launch > 1 else "decode"
-            return _StepPlan(kind, decode_slots=decode)
+            return self._plan_decode_phase(decode)
         return None
+
+    def _plan_decode_phase(self, decode: List[_Slot],
+                           fused: bool = False) -> _StepPlan:
+        """The decode phase's dispatch.  Speculative: when any lane
+        drafted, every decode lane rides ONE verify chunk (a lane without
+        a draft rides at width 1, a decode step); when nobody drafted, the
+        span is better (it emits up to ``decode_span`` a dispatch).  With
+        ``steps_per_launch > 1`` an unfused drafted step runs the
+        speculative loop, which re-drafts on the device every unit (the
+        host draft only arms it, so drafts stay scheduling-only), and an
+        undrafted one the decode loop."""
+        ec = self.engine_config
+        looping = ec.steps_per_launch > 1 and not fused
+        if ec.speculative:
+            drafts = self._plan_drafts(decode)
+            if drafts:
+                if looping:
+                    return _StepPlan("spec_loop", decode_slots=decode,
+                                     drafts=drafts)
+                # bucketed like prefill chunks (draft_len is a power of
+                # two), so ragged drafts hit warmed verify widths
+                width = 1 + bucket_width(
+                    max(len(d) for d in drafts.values()), ec.draft_len)
+                return _StepPlan("verify", decode_slots=decode,
+                                 drafts=drafts, verify_width=width)
+        return _StepPlan("loop" if looping else "decode", decode_slots=decode)
+
+    def _plan_drafts(self, decode: List[_Slot]) -> Dict[int, List[int]]:
+        """Each decode lane's proposal, at most ``min(adaptive width,
+        remaining budget - 1)`` tokens: a round emits at most k + 1, so a
+        wider draft would only write dead K/V rows."""
+        drafts: Dict[int, List[int]] = {}
+        for slot in decode:
+            k = min(slot.draft_width, slot.max_new - len(slot.generated) - 1)
+            if k < 1:
+                continue
+            proposal = slot.drafter.propose(k)
+            if proposal:
+                drafts[slot.idx] = proposal
+        return drafts
 
     def _dispatch_plan(self, plan: _StepPlan) -> None:
         if plan.kind == "mixed":
             self._run_mixed_step(plan.decode_slots, plan.prefill_slot,
                                  plan.chunk)
+        elif plan.kind == "mixed_verify":
+            self._run_mixed_verify_step(plan)
         elif plan.kind == "prefill":
             self._run_prefill_chunk(plan.prefill_slot, plan.chunk)
+        elif plan.kind == "verify":
+            self._run_verify_step(plan)
+        elif plan.kind == "spec_loop":
+            self._run_spec_loop_step(plan)
         elif plan.kind == "loop":
             self._run_loop_step(plan.decode_slots)
         else:
@@ -853,23 +1008,44 @@ class ServingEngine:
     def result(self, rid: str) -> RequestResult:
         return self._results[rid]
 
+    def _verify_ks(self) -> List[int]:
+        """Every draft width the adaptive controller can reach: powers of
+        two from 1 up to ``draft_len`` (the verify chunk is 1 + k wide)."""
+        ks, k = [], 1
+        while k <= self.engine_config.draft_len:
+            ks.append(k)
+            k *= 2
+        return ks
+
     def warmup(self) -> None:
         """Build (on the card: capture) every program the engine can
         dispatch: one prefill chunk per bucketed width, one MIXED shape
         per width within the fused budget (a sliced chunk is always a
         power-of-two piece at or under it), the decode span, the loop
         (``steps_per_launch > 1``) and the copy-on-write copy (prefix
-        cache on).  Every warm-up pass and capture runs on all-zero
-        inputs, which write only the scratch block.  After this, serving
-        captures nothing new (:meth:`capture_counts` stays fixed)."""
+        cache on).  Speculative adds one verify chunk per reachable draft
+        width, the mixed-verify cross product with the fused prefill
+        widths, and the speculative loop.  Every warm-up pass and capture
+        runs on all-zero inputs (no lane active, every table at the
+        scratch block), which write only the scratch block.  After this,
+        serving captures nothing new (:meth:`capture_counts` stays
+        fixed)."""
         ec = self.engine_config
+        verify_widths = ([1 + k for k in self._verify_ks()]
+                         if ec.speculative else [])
         for width in sorted(self._warmed_widths):
             self._program("prefill", width)
             if ec.mixed and width <= self._mixed_budget:
                 self._program("mixed", width)
+                for w in verify_widths:
+                    self._program("mixed_verify", width, w)
         self._program("decode")
+        for w in verify_widths:
+            self._program("verify", 0, w)
         if ec.steps_per_launch > 1:
             self._program("loop", ec.steps_per_launch)
+            if ec.speculative:
+                self._program("spec_loop", ec.steps_per_launch)
         if self.prefix_index is not None:
             self._program("copy")
         if self.device.type == "cuda":
@@ -880,7 +1056,7 @@ class ServingEngine:
         ``compile_counts`` keys); on the card each one is one captured
         CUDA graph — the zero-new-captures assertion's raw data."""
         counts = {kind: 0 for kind in DISPATCH_KINDS}
-        for kind, _ in self._programs:
+        for kind, _, _ in self._programs:
             counts[kind] += 1
         return counts
 
@@ -920,26 +1096,40 @@ class ServingEngine:
         dispatches = MetricFamily(
             "kubeshare_serving_dispatches_total",
             "Device dispatches by kind (mixed = one fused prefill chunk + "
-            "decode span, loop = one device-resident multi-step launch "
-            "covering loop_units span-units; the standalone kinds exclude "
-            "fused work).", "counter")
+            "decode span, mixed_verify = prefill chunk + verify chunk, "
+            "loop / spec_loop = one device-resident multi-unit launch; the "
+            "standalone kinds exclude fused work).", "counter")
         dispatches.add({"kind": "prefill_chunk"},
-                       self.prefill_chunks - self.mixed_steps)
+                       self.prefill_chunks - self.mixed_steps
+                       - self.mixed_verify_steps)
         dispatches.add({"kind": "decode_span"},
                        self.decode_steps - self.mixed_steps - self.loop_units)
         dispatches.add({"kind": "mixed"}, self.mixed_steps)
+        dispatches.add({"kind": "verify_span"},
+                       self.verify_steps - self.mixed_verify_steps
+                       - self.spec_loop_units)
+        dispatches.add({"kind": "mixed_verify"}, self.mixed_verify_steps)
         dispatches.add({"kind": "loop"}, self.loop_launches)
+        dispatches.add({"kind": "spec_loop"}, self.spec_loop_launches)
         dispatches.add({"kind": "cow_copy"}, self.cow_copies)
         loop_units = MetricFamily(
             "kubeshare_serving_loop_units_total",
             "Decode span-units executed inside device-resident loop "
             "launches.", "counter")
         loop_units.add({}, self.loop_units)
+        spec_loop_units = MetricFamily(
+            "kubeshare_serving_spec_loop_units_total",
+            "Draft-verify units executed inside speculative device-loop "
+            "launches (each absorbed into verify_steps).", "counter")
+        spec_loop_units.add({}, self.spec_loop_units)
         exit_reason = MetricFamily(
             "kubeshare_serving_loop_exit_reason_total",
-            "Device-resident loop launches by exit reason: retire = a "
-            "lane exhausted its budget, stop = a lane hit EOS, budget = "
-            "all K units ran.", "counter")
+            "Device-resident loop launches by exit reason (both loop "
+            "kinds): retire = a lane exhausted its budget unrefilled, "
+            "stop = a lane hit EOS unrefilled, budget = all K units ran, "
+            "redraft = in-loop acceptance collapsed below the re-draft "
+            "threshold, ring_empty = a lane died with the admission ring "
+            "configured but drained.", "counter")
         for reason in sorted(self.loop_exit_reasons):
             exit_reason.add({"reason": reason},
                             self.loop_exit_reasons[reason])
@@ -1025,10 +1215,30 @@ class ServingEngine:
             _histogram_samples(
                 tbt, "kubeshare_serving_tbt_seconds", {"qos": cls}, counts,
                 total, TBT_BUCKETS)
-        return [req, blocks, tokens, dispatches, loop_units, exit_reason,
-                depth_summary, host_s, planner, prefix, hit_tokens,
-                evicted, ttft, t_depth, t_blocks, t_tokens, preempt,
-                cls_ttft, tbt]
+        spec_tokens = MetricFamily(
+            "kubeshare_serving_spec_tokens_total",
+            "Speculative decoding volume per tenant: drafted = proposal "
+            "tokens scored by verify dispatches, accepted = drafted tokens "
+            "that reached the stream (the correction pick is not "
+            "counted).", "counter")
+        for name in self.tenants.names():
+            spec_tokens.add({"tenant": name, "kind": "drafted"},
+                            self.spec_drafted.get(name, 0))
+            spec_tokens.add({"tenant": name, "kind": "accepted"},
+                            self.spec_accepted.get(name, 0))
+        spec_accept = MetricFamily(
+            "kubeshare_serving_spec_acceptance_ratio",
+            "Per-verify-round draft acceptance rate (accepted prefix / "
+            "drafted) by tenant.", "histogram")
+        for name, (counts, total) in sorted(self._spec_accept.items()):
+            _histogram_samples(
+                spec_accept, "kubeshare_serving_spec_acceptance_ratio",
+                {"tenant": name}, counts, total, SPEC_ACCEPT_BUCKETS)
+        return [req, blocks, tokens, dispatches, loop_units,
+                spec_loop_units, exit_reason, depth_summary, host_s,
+                planner, prefix, hit_tokens, evicted, ttft, t_depth,
+                t_blocks, t_tokens, preempt, cls_ttft, tbt, spec_tokens,
+                spec_accept]
 
     def _observe_ttft(self, seconds: float, tenant: str) -> None:
         self._ttft_sum += seconds
@@ -1083,7 +1293,21 @@ class ServingEngine:
         tenant blocked on its OWN quota is skipped so the rest keeps
         flowing.  A Guarantee head the POOL cannot fund preempts
         Opportunistic decode slots (cache-backed: see :meth:`_preempt`)
-        until it fits or no victims remain."""
+        until it fits or no victims remain.
+
+        Ring-staged requests the speculative loop did not activate enter
+        first, by a field copy into a free lane (they are admitted and
+        prefilled already) — but not while a speculative loop is still in
+        flight: its consume may yet activate them."""
+        if self._ring_staged and (self._inflight is None
+                                  or self._inflight[0] != "spec_loop"):
+            for staged in list(self._ring_staged):
+                slot = next((s for s in self._slots if s.state == "free"),
+                            None)
+                if slot is None:
+                    break
+                self._bind_staged(staged, slot)
+                self._ring_staged.remove(staged)
         while True:
             order = self._queue.order()
             if not order:
@@ -1122,6 +1346,16 @@ class ServingEngine:
                 return
             if not progressed:
                 return
+
+    def _bind_staged(self, staged: _Slot, slot: _Slot) -> None:
+        """Bind one ring-staged (admitted + prefilled) request into an
+        engine lane: a field copy — the allocator, results, counters and
+        queue were charged when it passed :meth:`_try_admit` and its
+        prefill."""
+        for name in _Slot.__slots__:
+            if name not in ("idx", "table"):
+                setattr(slot, name, getattr(staged, name))
+        slot.table[:] = staged.table
 
     def _quota_blocked(self, pending: _Pending, spec: TenantSpec) -> bool:
         """Would admitting ``pending`` fail on its tenant's OWN quota both
@@ -1227,6 +1461,22 @@ class ServingEngine:
         slot.result = self._results[pending.rid]
         if slot.result.admitted_at is None:
             slot.result.admitted_at = time.monotonic()
+        ec = self.engine_config
+        if ec.speculative:
+            # the lookup window starts as the prompt (for a resumed
+            # request: prompt + generated, the window an unpreempted lane
+            # would hold); the width starts at draft_len and the EMA of
+            # acceptance halves it on lanes whose drafts miss
+            slot.drafter = NGramDrafter(ec.draft_ngram, pending.prompt)
+            slot.draft_width = ec.draft_len
+            slot.accept_rate = 0.5
+            if self.prefix_index is not None:
+                # a cache hit's trie continuation is a second window: a
+                # previous request's generation predicts a re-run's
+                cont = self.prefix_index.continuation(pending.prompt,
+                                                      4 * ec.draft_len)
+                if cont:
+                    slot.drafter.hint(list(pending.prompt) + cont)
         self.peak_blocks_in_use = max(
             self.peak_blocks_in_use, self.allocator.blocks_in_use)
         return "admitted"
@@ -1411,11 +1661,19 @@ class ServingEngine:
             lanes["tokens"][i] = slot.generated[-1]
             lanes["temps"][i] = slot.temperature
             lanes["budgets"][i] = slot.max_new - len(slot.generated)
-            if slot.temperature > 0.0:
-                offset = len(slot.generated) - 1
-                window = slot.step_seeds[offset: offset + steps]
-                lanes["seeds"][i, : len(window)] = window
+            lanes["seeds"][i] = self._seed_window(slot, steps)
         return lanes
+
+    @staticmethod
+    def _seed_window(slot: _Slot, n: int) -> np.ndarray:
+        """The seeds of a lane's next ``n`` emissions, zeros past its
+        schedule (and for greedy lanes)."""
+        seeds = np.zeros((n,), np.int64)
+        if slot.temperature > 0.0:
+            offset = len(slot.generated) - 1
+            window = slot.step_seeds[offset: offset + n]
+            seeds[: len(window)] = window
+        return seeds
 
     def _run_prefill_chunk(self, slot: _Slot,
                            chunk: Tuple[int, int, int]) -> None:
@@ -1466,6 +1724,195 @@ class ServingEngine:
                                     lanes["budgets"]),
                           (p_slot, fetch) if final else None)
 
+    def _verify_lanes(self, decode_slots: List[_Slot],
+                      drafts: Dict[int, List[int]], width: int):
+        """(inputs, k_lanes, budgets) of a verify chunk over the slot
+        pool.  Columns a lane does not fill carry -1, which the acceptance
+        can never count.  Each lane's seed window is the slice
+        ``step_seeds[offset: offset + width]`` a width-``width`` span would
+        take: accepted picks consume their seeds at the same emissions,
+        and a rejected column's seed is consumed again next round."""
+        s = self.engine_config.num_slots
+        lanes = {
+            "tables": np.zeros((s, self._table_width), np.int64),
+            "lengths": np.zeros((s,), np.int64),
+            "active": np.zeros((s,), bool),
+            "tokens": np.full((s, width), -1, np.int64),
+            "widths": np.ones((s,), np.int64),
+            "temps": np.zeros((s,), np.float32),
+            "seeds": np.zeros((s, width), np.int64),
+        }
+        lanes["tokens"][:, 0] = 0
+        k_lanes = np.zeros((s,), np.int64)
+        budgets = np.zeros((s,), np.int64)
+        for slot in decode_slots:
+            i = slot.idx
+            lanes["tables"][i] = slot.table
+            lanes["lengths"][i] = slot.length
+            lanes["active"][i] = True
+            lanes["tokens"][i, 0] = slot.generated[-1]
+            proposal = drafts.get(i, [])
+            k_lanes[i] = len(proposal)
+            lanes["widths"][i] = 1 + len(proposal)
+            lanes["tokens"][i, 1: 1 + len(proposal)] = proposal
+            lanes["temps"][i] = slot.temperature
+            lanes["seeds"][i] = self._seed_window(slot, width)
+            budgets[i] = slot.max_new - len(slot.generated)
+        return lanes, k_lanes, budgets
+
+    def _run_verify_step(self, plan: _StepPlan) -> None:
+        """One draft-verify chunk: every decode lane scores its proposal
+        (a lane without one rides as a decode step) in ONE dispatch."""
+        lanes, k_lanes, budgets = self._verify_lanes(
+            plan.decode_slots, plan.drafts, plan.verify_width)
+        picked, accepts = self._dispatch(
+            self._program("verify", 0, plan.verify_width), lanes)
+        self.verify_steps += 1
+        self._inflight = ("verify", (_Fetch(picked, accepts),
+                                     list(plan.decode_slots), k_lanes,
+                                     budgets), None)
+
+    def _run_mixed_verify_step(self, plan: _StepPlan) -> None:
+        """The speculative fused dispatch: every decode lane rides one
+        verify chunk AND the filling slot consumes one budget-bounded
+        prefill chunk, in ONE program."""
+        p_slot, chunk = plan.prefill_slot, plan.chunk
+        final, inputs = self._prefill_lane(p_slot, chunk)
+        lanes, k_lanes, budgets = self._verify_lanes(
+            plan.decode_slots, plan.drafts, plan.verify_width)
+        outputs = self._dispatch(
+            self._program("mixed_verify", chunk[1], plan.verify_width),
+            {**inputs, **lanes})
+        self.prefill_chunks += 1
+        self.verify_steps += 1
+        self.mixed_verify_steps += 1
+        self._queue.charge(p_slot.tenant, chunk[1])
+        fetch = _Fetch(*outputs)
+        self._inflight = ("verify", (fetch, list(plan.decode_slots),
+                                     k_lanes, budgets),
+                          (p_slot, fetch) if final else None)
+
+    @staticmethod
+    def _drafting_window(slot: _Slot) -> Tuple[np.ndarray, int]:
+        """(hist [SPEC_LOOP_HIST], hist_len): a lane's newest tokens,
+        right-aligned — its device drafting window in the speculative
+        loop."""
+        toks = np.concatenate([slot.prompt, np.asarray(
+            slot.generated, np.int64)])[-SPEC_LOOP_HIST:]
+        hist = np.zeros((SPEC_LOOP_HIST,), np.int64)
+        hist[SPEC_LOOP_HIST - toks.size:] = toks
+        return hist, toks.size
+
+    def _spec_loop_lanes(self, decode_slots: List[_Slot], k_depth: int):
+        """Inputs of a speculative loop launch: the decode-lane marshal
+        with a flat seed window of K verify units (unit u of a lane reads
+        seeds ``done .. done+W-1``, ``done`` its in-loop emissions: the
+        seeds K separate verify dispatches would read), plus each lane's
+        device drafting window and draft cap."""
+        n_seeds = k_depth * (1 + self.engine_config.draft_len)
+        lanes = self._decode_lanes(decode_slots, n_seeds)
+        s = self.engine_config.num_slots
+        lanes["hist"] = np.zeros((s, SPEC_LOOP_HIST), np.int64)
+        lanes["hist_len"] = np.zeros((s,), np.int64)
+        lanes["dcaps"] = np.zeros((s,), np.int64)
+        for slot in decode_slots:
+            i = slot.idx
+            lanes["hist"][i], lanes["hist_len"][i] = \
+                self._drafting_window(slot)
+            lanes["dcaps"][i] = slot.draft_width
+        return lanes
+
+    def _ring_lanes(self, k_depth: int):
+        """The admission ring's inputs from the staged admissions, in
+        ring order (rows past the count are zeros the device never
+        activates), and the staged slots they came from."""
+        ec = self.engine_config
+        r = ec.admission_ring
+        n_seeds = k_depth * (1 + ec.draft_len)
+        ring = {
+            "r_tables": np.zeros((r, self._table_width), np.int64),
+            "r_lengths": np.zeros((r,), np.int64),
+            "r_tokens": np.zeros((r,), np.int64),
+            "r_temps": np.zeros((r,), np.float32),
+            "r_seeds": np.zeros((r, n_seeds), np.int64),
+            "r_budgets": np.zeros((r,), np.int64),
+            "r_hist": np.zeros((r, SPEC_LOOP_HIST), np.int64),
+            "r_hist_len": np.zeros((r,), np.int64),
+            "r_caps": np.zeros((r,), np.int64),
+        }
+        staged = list(self._ring_staged[:r])
+        for j, slot in enumerate(staged):
+            ring["r_tables"][j] = slot.table
+            ring["r_lengths"][j] = slot.length
+            ring["r_tokens"][j] = slot.generated[-1]
+            ring["r_temps"][j] = slot.temperature
+            ring["r_budgets"][j] = slot.max_new - len(slot.generated)
+            ring["r_seeds"][j] = self._seed_window(slot, n_seeds)
+            ring["r_hist"][j], ring["r_hist_len"][j] = \
+                self._drafting_window(slot)
+            ring["r_caps"][j] = slot.draft_width
+        ring["r_count"] = np.array(len(staged), np.int64)
+        return ring, staged
+
+    def _fill_admission_ring(self) -> None:
+        """Top the admission ring up from the queue: each entry runs the
+        full admission path (fair order, quota, prefix cache, reservation)
+        into a detached ``_Slot``, then prefills its prompt synchronously
+        through the standalone chunk programs, so its blocks, charges and
+        first token are a normal admission's.  The fill never preempts
+        and never touches the in-flight dispatch."""
+        room = self.engine_config.admission_ring - len(self._ring_staged)
+        while room > 0:
+            staged = None
+            for tenant in self._queue.order():
+                spec = self.tenants.get(tenant)
+                pending = self._queue.peek(tenant)
+                if self._quota_blocked(pending, spec):
+                    continue
+                cand = _Slot(-1, self._table_width)
+                outcome = self._try_admit(pending, spec, cand)
+                if outcome == "admitted":
+                    self._queue.pop(tenant)
+                    staged = cand
+                    break
+                if outcome == "quota":
+                    continue
+                return  # pool exhausted
+            if staged is None:
+                return
+            while staged.plan:
+                chunk = staged.plan.pop(0)
+                final, inputs = self._prefill_lane(staged, chunk)
+                (picked,) = self._dispatch(
+                    self._program("prefill", chunk[1]), inputs)
+                self.prefill_chunks += 1
+                self._queue.charge(staged.tenant, chunk[1])
+                if final:
+                    self._finish_prefill(staged,
+                                         int(_Fetch(picked).get()[0][0]))
+            # a request done at its first token retired in _finish_prefill
+            if staged.state == "decode":
+                self._ring_staged.append(staged)
+                room -= 1
+
+    def _run_spec_loop_step(self, plan: _StepPlan) -> None:
+        """Launch the speculative device loop: up to ``steps_per_launch``
+        draft-verify units, with ring activations at unit boundaries, in
+        ONE dispatch.  The host draft that armed the plan is dropped (the
+        device drafts every unit itself); all unit-proportional
+        bookkeeping waits for :meth:`_consume_inflight`."""
+        k_depth = self.engine_config.steps_per_launch
+        if self.engine_config.admission_ring:
+            self._fill_admission_ring()
+        lanes = self._spec_loop_lanes(plan.decode_slots, k_depth)
+        ring, staged = self._ring_lanes(k_depth)
+        outputs = self._dispatch(self._program("spec_loop", k_depth),
+                                 {**lanes, **ring})
+        self.spec_loop_launches += 1
+        self._inflight = ("spec_loop", (_Fetch(*outputs),
+                                        list(plan.decode_slots), staged),
+                          None)
+
     def _consume_inflight(self) -> bool:
         """Apply the previous dispatch's host-side effects: read its
         emitted tokens (the only wait for the device in the unguarded hot
@@ -1479,8 +1926,17 @@ class ServingEngine:
             slot, fetch = prefill_part
             self._finish_prefill(slot, int(fetch.get()[0][0]))
         if decode_part is not None:
-            fetch, slots, budgets = decode_part
-            if kind == "loop":
+            if kind == "verify":
+                fetch, slots, k_lanes, budgets = decode_part
+                picked, accepts = fetch.get()[-2:]
+                self._accept_verify(slots, picked, accepts, k_lanes, budgets)
+            elif kind == "spec_loop":
+                fetch, slots, staged = decode_part
+                out_p, out_a, out_d, units, head = fetch.get()
+                self._accept_spec_loop(slots, staged, out_p, out_a, out_d,
+                                       int(units), int(head))
+            elif kind == "loop":
+                fetch, slots, budgets = decode_part
                 ring, units = fetch.get()
                 units = int(units)
                 span = self.engine_config.decode_span
@@ -1494,6 +1950,7 @@ class ServingEngine:
                 self._accept_decode(slots, emitted, budgets,
                                     n_steps=units * span)
             else:
+                fetch, slots, budgets = decode_part
                 self._accept_decode(slots, fetch.get()[-1], budgets)
         if self.device.type == "cuda":
             self._drain_timings()
@@ -1518,8 +1975,36 @@ class ServingEngine:
         self.tenant_tokens[slot.tenant] = \
             self.tenant_tokens.get(slot.tenant, 0) + 1
         self._queue.charge(slot.tenant, 1)
+        if slot.drafter is not None:
+            slot.drafter.extend([first])
         slot.state = "decode"
         self._maybe_retire(slot, first)
+
+    def _emit(self, slot: _Slot, tokens, now: float) -> Tuple[int, bool]:
+        """Append ``tokens`` to a lane's stream, stopping after an EOS
+        (inclusive), and account for them; returns (emitted, hit EOS)."""
+        eos = self.engine_config.eos_token
+        accepted, hit_eos = 0, False
+        for tok in tokens:
+            tok = int(tok)
+            slot.length += 1
+            slot.generated.append(tok)
+            self.tokens_generated += 1
+            accepted += 1
+            if eos is not None and tok == eos:
+                hit_eos = True
+                break
+        if accepted:
+            if slot.drafter is not None:
+                slot.drafter.extend(slot.generated[-accepted:])
+            self.tenant_tokens[slot.tenant] = \
+                self.tenant_tokens.get(slot.tenant, 0) + accepted
+            self._queue.charge(slot.tenant, accepted)
+            gap = now - (slot.last_token_at
+                         if slot.last_token_at is not None else now)
+            self._observe_tbt(gap / accepted, accepted, slot.tenant)
+            slot.last_token_at = now
+        return accepted, hit_eos
 
     def _accept_decode(self, decode_slots: List[_Slot],
                        emitted: np.ndarray, budgets: np.ndarray,
@@ -1528,30 +2013,123 @@ class ServingEngine:
         units*span, for a loop's ring.  Mirrors the device's
         lane-deactivation rule: accept min(budget, span) tokens,
         truncated at EOS (inclusive)."""
-        ec = self.engine_config
-        span = ec.decode_span if n_steps is None else n_steps
+        span = self.engine_config.decode_span if n_steps is None else n_steps
         now = time.monotonic()
         for slot in decode_slots:
             i = slot.idx
             take = min(int(budgets[i]), span)
-            accepted = 0
-            for t in range(take):
-                tok = int(emitted[t, i])
-                slot.length += 1
-                slot.generated.append(tok)
-                self.tokens_generated += 1
-                accepted += 1
-                if ec.eos_token is not None and tok == ec.eos_token:
-                    break
-            if accepted:
-                self.tenant_tokens[slot.tenant] = \
-                    self.tenant_tokens.get(slot.tenant, 0) + accepted
-                self._queue.charge(slot.tenant, accepted)
-                gap = now - (slot.last_token_at
-                             if slot.last_token_at is not None else now)
-                self._observe_tbt(gap / accepted, accepted, slot.tenant)
-                slot.last_token_at = now
+            self._emit(slot, emitted[:take, i], now)
             self._maybe_retire(slot, slot.generated[-1])
+
+    def _learn_round(self, slot: _Slot, k: int, m: int,
+                     accepted: int) -> None:
+        """One verify round's speculative bookkeeping for a lane that
+        drafted ``k`` tokens and had ``m`` accepted (``accepted`` tokens
+        reached the stream): the acceptance EMA doubles the adaptive width
+        at >= 0.75 and halves it at <= 0.25 (powers of two only, so every
+        reachable width is a warmed shape), and the counters and the
+        acceptance histogram."""
+        rate = m / k
+        slot.accept_rate = 0.5 * slot.accept_rate + 0.5 * rate
+        if slot.accept_rate >= 0.75:
+            slot.draft_width = min(slot.draft_width * 2,
+                                   self.engine_config.draft_len)
+        elif slot.accept_rate <= 0.25:
+            slot.draft_width = max(slot.draft_width // 2, 1)
+        tenant = slot.tenant
+        self.spec_drafted[tenant] = self.spec_drafted.get(tenant, 0) + k
+        # an EOS may cut the emission short of the accepted prefix: count
+        # only drafts that reached the stream
+        self.spec_accepted[tenant] = \
+            self.spec_accepted.get(tenant, 0) + min(m, accepted)
+        hist = self._spec_accept.setdefault(
+            tenant, [[0] * (len(SPEC_ACCEPT_BUCKETS) + 1), 0.0])
+        hist[1] += rate
+        _bucket_observe(hist[0], rate, SPEC_ACCEPT_BUCKETS)
+
+    def _accept_verify(self, decode_slots: List[_Slot], picked: np.ndarray,
+                       accepts: np.ndarray, k_lanes: np.ndarray,
+                       budgets: np.ndarray) -> None:
+        """Host acceptance for one verify chunk: each lane emits its
+        accepted draft prefix plus the correction pick (what sequential
+        decoding would have emitted), truncated at its remaining budget
+        and at EOS; lanes that drafted learn their next width."""
+        now = time.monotonic()
+        for slot in decode_slots:
+            i = slot.idx
+            k = int(k_lanes[i])
+            m = min(int(accepts[i]), k)
+            emit = min(m + 1, int(budgets[i]))
+            accepted, _ = self._emit(slot, picked[i, :emit], now)
+            if k:
+                self._learn_round(slot, k, m, accepted)
+            self._maybe_retire(slot, slot.generated[-1])
+
+    def _accept_spec_loop(self, decode_slots: List[_Slot],
+                          staged: List[_Slot], out_p: np.ndarray,
+                          out_a: np.ndarray, out_d: np.ndarray, units: int,
+                          head: int) -> None:
+        """Host replay of a speculative loop launch: unit u's lane i
+        emitted ``min(accepted + 1, remaining budget)`` tokens of
+        ``out_p[u, i]``, truncated at EOS, exactly as K separate verify
+        rounds would have.  A lane that retires is rebound to the next
+        staged entry in the device's order (ascending lanes within a unit
+        boundary, entries head first); activated entries alive at the end
+        are bound into their lane's engine slot, which retired.  Also the
+        unit-proportional counters and the adaptive widths, round for
+        round as :meth:`_accept_verify`, and the exit reason."""
+        ec = self.engine_config
+        self.verify_steps += units
+        self.spec_loop_units += units
+        self.loop_depth_sum += units
+        self.loop_depth_count += 1
+        owner: Dict[int, _Slot] = {s.idx: s for s in decode_slots}
+        dead: Dict[int, bool] = {s.idx: False for s in decode_slots}
+        next_staged = 0
+        unrefilled = None  # "stop" / "retire" of a death with no refill
+        for u in range(units):
+            now = time.monotonic()
+            died: List[int] = []
+            for i in sorted(owner):
+                if dead[i]:
+                    continue
+                own = owner[i]
+                k, m = int(out_d[u, i]), int(out_a[u, i])
+                emit = min(m + 1, own.max_new - len(own.generated))
+                accepted, hit_eos = self._emit(own, out_p[u, i, :emit], now)
+                if k:
+                    self._learn_round(own, k, m, accepted)
+                if hit_eos or len(own.generated) >= own.max_new:
+                    self._maybe_retire(own, own.generated[-1])
+                    died.append(i)
+                    if next_staged >= head:
+                        # unrefilled: the device exits after this unit
+                        # (an EOS death outranks a budget death)
+                        unrefilled = ("stop" if hit_eos or unrefilled == "stop"
+                                      else "retire")
+            for i in died:
+                if next_staged < head:
+                    owner[i] = staged[next_staged]
+                    next_staged += 1
+                else:
+                    dead[i] = True
+        if next_staged != head:
+            raise RuntimeError(
+                f"spec-loop replay diverged: the device activated {head} "
+                f"ring entries, the host replay {next_staged}")
+        self.ring_activations += head
+        for i, own in owner.items():
+            if own.idx == -1 and own.state == "decode":
+                self._bind_staged(own, self._slots[i])
+        for entry in staged[:next_staged]:
+            self._ring_staged.remove(entry)
+        if unrefilled is not None:
+            reason = "ring_empty" if ec.admission_ring > 0 else unrefilled
+        elif units < ec.steps_per_launch:
+            reason = "redraft"
+        else:
+            reason = "budget"
+        self.loop_exit_reasons[reason] += 1
 
     def _observe_loop_exit(self, slots: List[_Slot], emitted: np.ndarray,
                            budgets: np.ndarray, units: int,

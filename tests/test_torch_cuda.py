@@ -127,3 +127,61 @@ def test_captured_engine_equals_dense_greedy(card, steps_per_launch):
         assert out[rid].tokens == want[0].tolist(), rid
     timed = engine.dispatch_device_ms()
     assert timed["mixed"][0] >= 1 and timed["mixed"][1] > 0
+
+
+def test_captured_speculative_round_equals_eager(card):
+    device, config, params = card
+    draft_config = TransformerConfig(**{**MODEL, "n_layers": 1,
+                                        "d_model": 16, "n_heads": 2,
+                                        "n_kv_heads": 1})
+    draft = transformer_init(draft_config, torch.Generator().manual_seed(9),
+                             device)
+    prompt = torch.randint(0, 64, (3, 9), generator=torch.Generator()
+                           .manual_seed(4)).to(device)
+    runs = [decoding.speculative_greedy_decode(
+        params, config, draft, draft_config, prompt, 20, draft_len=4,
+        return_stats=True, capture=capture) for capture in (False, True)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert runs[0][1] == runs[1][1]
+    want = decoding.greedy_decode(params, config, prompt, 20)
+    assert torch.equal(runs[1][0], want)
+    # a replay past completion changes nothing
+    state = decoding.speculative_state(params, config, params, config,
+                                       prompt, 9, 4)
+    step = decoding.make_speculative_round(params, config, params, config,
+                                           state, 9, 4, capture=True)
+    while int(state["n_done"]) < 9:
+        step()
+    saved = {k: state[k].clone() for k in ("out", "last", "n_done",
+                                             "rounds")}
+    cache_k = state["cache"]["k"].clone()
+    step()
+    for k, v in saved.items():
+        assert torch.equal(state[k], v), k
+    assert torch.equal(state["cache"]["k"], cache_k)
+
+
+def test_speculative_engine_captures_nothing_after_warmup(card):
+    device, config, params = card
+    rng = np.random.default_rng(5)
+    cycle = rng.integers(0, 64, 5)
+    trace = [("r0", np.tile(cycle, 4), 12), ("r1", rng.integers(0, 64, 9), 7),
+             ("r2", np.tile(cycle[:3], 5), 15), ("r3", rng.integers(0, 64, 4), 9),
+             ("r4", np.tile(cycle, 3), 10)]
+    engine = ServingEngine(params, config, EngineConfig(
+        num_slots=3, block_size=4, num_blocks=41, max_request_len=48,
+        prefill_chunk=8, speculative=True, steps_per_launch=4,
+        admission_ring=2), device=device)
+    engine.warmup()
+    counts = engine.capture_counts()
+    assert counts["verify"] == 3 and counts["mixed_verify"] == 12
+    assert counts["spec_loop"] == 1
+    for rid, prompt, new in trace:
+        engine.submit(Request(rid, prompt, new))
+    out = engine.run()
+    assert engine.capture_counts() == counts
+    assert engine.verify_steps > 0
+    for rid, prompt, new in trace:
+        want = decoding.greedy_decode(
+            params, config, torch.from_numpy(prompt)[None].to(device), new)
+        assert out[rid].tokens == want[0].tolist(), rid

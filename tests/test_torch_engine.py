@@ -248,8 +248,6 @@ def test_metrics_count_the_trace(model):
 
 
 @pytest.mark.parametrize("overrides,kwargs", [
-    (dict(speculative=True), {}),
-    (dict(admission_ring=2), {}),
     (dict(host_tier_bytes=1 << 20), {}),
     (dict(disk_tier_bytes=1 << 20), {}),
     (dict(autotune=True), {}),
@@ -280,3 +278,252 @@ def test_submit_validates_and_the_engine_needs_a_device(model, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(tp, cfg, EngineConfig(**POOL))
+
+
+# -- speculative decoding ---------------------------------------------------
+#
+# Two models: the random one above (drafts are mostly rejected) and a copy
+# model whose greedy pick is a fixed function of its input token (the
+# layers' projections scaled to 1e-3, lm_head = embed.T with its columns
+# permuted, rope), so its streams cycle with period 3 and its drafts are
+# accepted (all but those a random prompt's own n-grams propose).  Each JAX run first asserts its premise: the copy model's
+# drafts are accepted and its loop launches, the random model's rejected.
+# The trace's prompts are multiples of the 8-token chunk, so the JAX
+# engines compile few shapes; s4 and s6 share s0's first 14 tokens (hits
+# with a copy-on-write divergence), and with three slots the queue backs
+# up enough for the admission ring to activate entries.
+
+SPEC = dict(speculative=True)
+SPEC_LOOP = dict(speculative=True, steps_per_launch=4, admission_ring=2)
+
+
+def _spec_trace():
+    rng = np.random.default_rng(13)
+    base = rng.integers(0, 63, 16)
+
+    def shared():
+        return np.concatenate([base[:14], rng.integers(0, 63, 8)])
+
+    return [("s0", np.concatenate([base, rng.integers(0, 63, 8)]), 4),
+            ("s1", rng.integers(0, 63, 8), 13),
+            ("s2", rng.integers(0, 63, 16), 17),
+            ("s3", rng.integers(0, 63, 8), 9),
+            ("s4", shared(), 6),
+            ("s5", rng.integers(0, 63, 8), 11),
+            ("s6", shared(), 7)]
+
+
+SPEC_TRACE = _spec_trace()
+
+
+def _copy_params(jp):
+    """The copy model: greedy picks t -> t's successor in its group of
+    three (63 repeats)."""
+    def scale(tree):
+        return {k: scale(v) if isinstance(v, dict) else v * 1e-3
+                for k, v in tree.items()}
+
+    nxt = np.arange(64)
+    nxt[:63] = 3 * (nxt[:63] // 3) + (nxt[:63] % 3 + 1) % 3
+    layers = [{**layer, "attn": scale(layer["attn"]),
+               "mlp": scale(layer["mlp"])} for layer in jp["layers"]]
+    return {**jp, "layers": layers,
+            "lm_head": jp["embed"][np.argsort(nxt)].T}
+
+
+@pytest.fixture(scope="module")
+def spec_models(model):
+    jax_cfg, jp, cfg, tp = model
+    copy = _copy_params(jax.device_get(jp))
+    return {"random": (jax_cfg, jp, cfg, tp),
+            "copy": (jax_cfg, copy, cfg, params_from_jax(copy, "cpu"))}
+
+
+def _spec_counters(engine):
+    return {"verify_steps": engine.verify_steps,
+            "mixed_verify_steps": engine.mixed_verify_steps,
+            "spec_loop_launches": engine.spec_loop_launches,
+            "spec_loop_units": engine.spec_loop_units,
+            "drafted": dict(engine.spec_drafted),
+            "accepted": dict(engine.spec_accepted),
+            "exit_reasons": dict(engine.loop_exit_reasons),
+            "dispatches": engine.decode_steps + engine.verify_steps}
+
+
+@pytest.fixture(scope="module")
+def jax_spec_runs(spec_models):
+    """The JAX engine over SPEC_TRACE: (streams, counters) by (model,
+    configuration), run once each."""
+    runs = {}
+
+    def run(name, overrides):
+        key = (name, tuple(sorted(overrides.items())))
+        if key not in runs:
+            jax_cfg, jp, _, _ = spec_models[name]
+            engine = JaxServingEngine(jp, jax_cfg,
+                                      JaxEngineConfig(**POOL, **overrides))
+            for rid, prompt, new in SPEC_TRACE:
+                engine.submit(JaxRequest(rid, prompt.astype(np.int32), new))
+            out = engine.run()
+            counters = _spec_counters(engine)
+            drafted = sum(counters["drafted"].values())
+            accepted = sum(counters["accepted"].values())
+            # the premise of every comparison below: the copy model's
+            # drafts are accepted (all but those a random prompt's n-grams
+            # propose) and its loop launches, the random model's rejected
+            assert drafted > 0
+            if name == "copy":
+                assert 2 * accepted > drafted
+                assert (counters["spec_loop_launches"] > 0) == (
+                    overrides.get("steps_per_launch", 1) > 1)
+            else:
+                assert accepted < drafted
+            runs[key] = ({rid: out[rid].tokens for rid, _, _ in SPEC_TRACE},
+                         counters)
+        return runs[key]
+
+    return run
+
+
+def _spec_engine(spec_models, name, **overrides):
+    _, _, cfg, tp = spec_models[name]
+    return ServingEngine(tp, cfg, EngineConfig(**{**POOL, **overrides}),
+                         device="cpu")
+
+
+@pytest.mark.parametrize("name,overrides", [
+    ("copy", SPEC), ("copy", SPEC_LOOP), ("random", SPEC)],
+    ids=["copy", "copy_loop_ring", "random"])
+def test_speculative_streams_and_counters_equal_jax(
+        spec_models, jax_spec_runs, name, overrides):
+    want, want_counters = jax_spec_runs(name, overrides)
+    engine = _spec_engine(spec_models, name, **overrides)
+    assert _serve(engine, SPEC_TRACE) == want
+    assert _spec_counters(engine) == want_counters
+    plain = _serve(_spec_engine(spec_models, name), SPEC_TRACE)
+    assert plain == want  # speculation never changes a stream
+    if overrides.get("admission_ring"):
+        assert engine.ring_activations > 0
+    if name == "copy":
+        assert engine.prefix_hit_requests >= 1 and engine.cow_copies >= 1
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(mixed=False),
+    dict(steps_per_launch=4),
+    dict(steps_per_launch=4, admission_ring=2, mixed=False),
+    dict(steps_per_launch=2, decode_span=1, prefix_cache=False),
+], ids=["mixed_off", "loop_no_ring", "loop_ring_mixed_off", "loop_span_1"])
+def test_speculative_copy_streams_equal_spec_off(spec_models, jax_spec_runs,
+                                                 overrides):
+    want, _ = jax_spec_runs("copy", SPEC)
+    engine = _spec_engine(spec_models, "copy", speculative=True, **overrides)
+    assert _serve(engine, SPEC_TRACE) == want
+    assert 2 * engine.spec_accepted["default"] > engine.spec_drafted["default"]
+    if overrides.get("steps_per_launch", 1) > 1:
+        assert engine.spec_loop_launches > 0
+        assert engine.spec_loop_units >= engine.spec_loop_launches
+
+
+def test_speculation_needs_fewer_dispatches_on_the_copy_model(spec_models):
+    counts = {}
+    for spec in (True, False):
+        engine = _spec_engine(spec_models, "copy", speculative=spec,
+                              decode_span=1, draft_len=8)
+        _serve(engine, SPEC_TRACE)
+        counts[spec] = engine.decode_steps + engine.verify_steps
+    assert counts[True] < counts[False]
+
+
+@pytest.mark.parametrize("overrides", [SPEC, SPEC_LOOP], ids=["spec", "loop"])
+def test_speculative_sampled_streams_equal_spec_off(spec_models, overrides):
+    temps = (0.7, 1.0, 1.3, 0.0, 0.9)
+    outs = []
+    for spec in (overrides, {}):
+        engine = _spec_engine(spec_models, "copy", top_k=12, top_p=0.9,
+                              **spec)
+        for (rid, prompt, new), t, seed in zip(SPEC_TRACE, temps, range(5)):
+            engine.submit(Request(rid, prompt, new, temperature=t,
+                                  rng=torch.Generator().manual_seed(seed)))
+        outs.append({rid: r.tokens for rid, r in engine.run().items()})
+        if spec:
+            assert engine.spec_drafted["default"] > 0
+            assert engine.spec_accepted["default"] > 0
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_speculative_preempted_then_resumed_equals_the_dense_stream(
+        spec_models, temperature):
+    _, _, cfg, tp = spec_models["copy"]
+    engine = ServingEngine(tp, cfg, EngineConfig(**{
+        **POOL, "num_slots": 2, "num_blocks": 13, "max_request_len": 32,
+        **SPEC}), tenants=_registry(), device="cpu")
+    engine.warmup()
+    counts = engine.capture_counts()
+    rng = np.random.default_rng(21)
+    p_batch, p_gold = rng.integers(0, 64, 17), rng.integers(0, 64, 18)
+    engine.submit(Request("victim", p_batch, 14, temperature=temperature,
+                          rng=torch.Generator().manual_seed(13),
+                          tenant="batch"))
+    _drive_to_decode(engine, "victim")
+    engine.submit(Request("gold", p_gold, 6, tenant="gold"))
+    out = engine.run()
+    assert engine.preemptions.get("batch", 0) >= 1
+    assert engine.spec_drafted["batch"] > 0
+    want = decoding.sample_decode(
+        tp, cfg, torch.from_numpy(p_batch)[None],
+        torch.Generator().manual_seed(13), 14, temperature=temperature)
+    assert out["victim"].tokens == want[0].tolist()
+    gold = decoding.greedy_decode(tp, cfg, torch.from_numpy(p_gold)[None], 6)
+    assert out["gold"].tokens == gold[0].tolist()
+    assert engine.allocator.blocks_in_use == 0
+    assert engine.capture_counts() == counts
+
+
+def test_speculative_warmup_builds_every_shape_once(spec_models):
+    engine = _spec_engine(spec_models, "copy", **SPEC_LOOP)
+    engine.warmup()
+    counts = engine.capture_counts()
+    # prefill widths 1, 2, 4, 8, their mixed twins, each with the verify
+    # widths 2, 3, 5 (draft widths 1, 2, 4), the span, the two loops and
+    # the copy-on-write copy
+    assert counts == {"decode": 1, "prefill": 4, "mixed": 4, "verify": 3,
+                      "mixed_verify": 12, "copy": 1, "upload": 0, "loop": 1,
+                      "spec_loop": 1}
+    engine.warmup()
+    assert engine.capture_counts() == counts
+    assert not engine.pool.k[:, 1:].any() and not engine.pool.v[:, 1:].any()
+
+
+def test_speculative_metrics_count_the_trace(spec_models):
+    engine = _spec_engine(spec_models, "copy", **SPEC_LOOP)
+    _serve(engine, SPEC_TRACE)
+    metrics = flatten_metrics(engine.collect_metrics())
+    assert metric_value(metrics, "kubeshare_serving_spec_tokens_total",
+                        tenant="default", kind="accepted") \
+        == engine.spec_accepted["default"] > 0
+    assert metric_value(metrics, "kubeshare_serving_spec_loop_units_total") \
+        == engine.spec_loop_units > 0
+    assert metric_value(metrics, "kubeshare_serving_dispatches_total",
+                        kind="spec_loop") == engine.spec_loop_launches
+    assert metric_value(
+        metrics, "kubeshare_serving_spec_acceptance_ratio_count",
+        tenant="default") > 0
+    assert metric_value(metrics, "kubeshare_serving_loop_exit_reason_total",
+                        reason="ring_empty") \
+        == engine.loop_exit_reasons["ring_empty"]
+
+
+@pytest.mark.parametrize("overrides,match", [
+    (dict(admission_ring=2), "admission_ring 2 requires"),
+    (dict(admission_ring=2, speculative=True), "admission_ring 2 requires"),
+    (dict(speculative=True, draft_len=3), "draft_len must be a power of two"),
+], ids=["ring_without_speculation", "ring_without_loop", "draft_len_3"])
+def test_speculative_config_rows_raise_like_jax(model, overrides, match):
+    jax_cfg, jp, cfg, tp = model
+    with pytest.raises(ValueError, match=match):
+        JaxServingEngine(jp, jax_cfg, JaxEngineConfig(**POOL, **overrides))
+    with pytest.raises(ValueError, match=match):
+        ServingEngine(tp, cfg, EngineConfig(**{**POOL, **overrides}),
+                      device="cpu")

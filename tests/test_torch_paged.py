@@ -320,3 +320,234 @@ def test_block_allocator_quota_drains_own_cache_then_raises():
     assert alloc.tenant_usage("t") == 4 and alloc.evicted_blocks == 2
     with pytest.raises(kv_blocks.QuotaExceeded, match="quota"):
         alloc.reserve(2, "c", tenant="t", quota=4)
+
+
+# -- the speculative entries ------------------------------------------------
+
+JAX_VERIFY = jitted(jax_paged.paged_verify_span, 1, 2)
+JAX_MIXED_VERIFY = jitted(jax_paged.paged_mixed_verify_step, 1, 2)
+JAX_SPEC_LOOP = jitted(jax_paged.paged_spec_loop, 1, 2, 3, 4, 5, 6, 7)
+
+
+def cycle3(t):
+    """The copy model's next token: t's successor in its group of three
+    (t = 63, alone in its group, repeats)."""
+    t = np.asarray(t)
+    return np.where(t < 63, 3 * (t // 3) + (t % 3 + 1) % 3, t)
+
+
+def copy_params(jp):
+    """A model whose greedy pick is :func:`cycle3` of its input token: the
+    layers' projections scaled to 1e-3 and lm_head = embed.T with its
+    columns permuted (rope).  Its streams repeat with period 3, so every
+    self-drafted token is accepted and drafts reach their full width (a
+    constant stream would draft one token a round: the most recent
+    earlier occurrence of a run's suffix has a single follower)."""
+    def scale(tree):
+        return {k: scale(v) if isinstance(v, dict) else v * 1e-3
+                for k, v in tree.items()}
+
+    layers = [{**layer, "attn": scale(layer["attn"]),
+               "mlp": scale(layer["mlp"])} for layer in jp["layers"]]
+    inverse = np.argsort(cycle3(np.arange(jp["embed"].shape[0])))
+    return {**jp, "layers": layers, "lm_head": jp["embed"][inverse].T}
+
+
+class CopyCase(Case):
+    """The rope GQA variant with :func:`copy_params` weights."""
+
+    def __init__(self, seed=1):
+        super().__init__(VARIANTS[1], seed)
+        self.jp = copy_params(self.jp)
+        self.tp = params_from_jax(jax.device_get(self.jp), "cpu")
+
+
+def verify_tokens(case, widths, accept):
+    """[3, W] verify inputs: a random last token per lane, then drafts of
+    ``widths - 1`` tokens whose first ``accept`` equal the greedy picks
+    (found by running the port's verify), -1 past each lane's width."""
+    w = int(max(widths))
+    tokens = np.full((3, w), -1, np.int64)
+    tokens[:, 0] = case.tokens(3)
+    for s in range(3):
+        tokens[s, 1: widths[s]] = case.tokens(widths[s] - 1)
+    for i in range(accept):
+        _, _, tk, tv = case.pools()
+        picked, _ = paged.paged_verify_span(
+            case.tp, case.cfg, port_greedy, tk, tv, t64(TABLES), t64(LENGTHS),
+            torch.from_numpy(ACTIVE), t64(tokens), t64(widths),
+            torch.zeros(3), torch.zeros((3, w), dtype=torch.int64))
+        for s in range(3):
+            if i + 1 < widths[s]:
+                tokens[s, i + 1] = int(picked[s, i])
+    return tokens
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_verify_span_matches_jax(variant):
+    case = Case(variant)
+    widths = np.array([5, 3, 1])
+    tokens = verify_tokens(case, widths, accept=2)
+    jk, jv, tk, tv = case.pools()
+    want_p, want_a, jk, jv = JAX_VERIFY(
+        case.jp, case.jax_cfg, jax_greedy, jk, jv, j32(TABLES), j32(LENGTHS),
+        jnp.asarray(ACTIVE), j32(tokens), j32(widths),
+        jnp.zeros((3,), jnp.float32), jnp.zeros((3, 5, 2), jnp.uint32))
+    picked, accepts = paged.paged_verify_span(
+        case.tp, case.cfg, port_greedy, tk, tv, t64(TABLES), t64(LENGTHS),
+        torch.from_numpy(ACTIVE), t64(tokens), t64(widths), torch.zeros(3),
+        torch.zeros((3, 5), dtype=torch.int64))
+    np.testing.assert_array_equal(accepts.numpy(), np.asarray(want_a))
+    assert accepts.tolist()[:2] == [2, 2]
+    for s, width in enumerate(widths[:2]):
+        np.testing.assert_array_equal(picked.numpy()[s, :width],
+                                      np.asarray(want_p)[s, :width])
+    assert_pools_close(jk, jv, tk, tv)
+
+
+def test_verify_columns_use_their_emissions_seeds():
+    # a verify whose drafts are a sampled span's emissions picks exactly
+    # those emissions: column i consumes the seed of emission i
+    from kubeshare_tpu_torch.models.decoding import pick_rows
+
+    case = Case(VARIANTS[1])
+    _, _, tk, tv = case.pools()
+    gen = torch.Generator().manual_seed(5)
+    seeds = torch.randint(0, 2 ** 62, (3, 4), generator=gen)
+    temps = torch.tensor([0.9, 1.2, 0.0])
+    last = t64(case.tokens(3))
+    emitted = paged.paged_decode_span(
+        case.tp, case.cfg, pick_rows, 4, None, tk.clone(), tv.clone(),
+        t64(TABLES), t64(LENGTHS), torch.from_numpy(ACTIVE), last, temps,
+        seeds, t64([9, 9, 0]))
+    tokens = torch.cat([last[:, None], emitted[:3].T], dim=1)
+    picked, accepts = paged.paged_verify_span(
+        case.tp, case.cfg, pick_rows, tk, tv, t64(TABLES), t64(LENGTHS),
+        torch.from_numpy(ACTIVE), tokens, t64([4, 4, 1]), temps, seeds)
+    assert accepts.tolist()[:2] == [3, 3]
+    assert torch.equal(picked[:2], emitted.T[:2])
+
+
+def test_mixed_verify_step_matches_jax():
+    case = Case(VARIANTS[1])
+    widths = np.array([4, 2, 1])
+    tokens = verify_tokens(case, widths, accept=1)
+    jk, jv, tk, tv = case.pools()
+    p_table = np.array([[17, 18, 19, 20, 21, 22, 23, 0]])
+    p_common = (np.array([8]), case.tokens(1, 8), np.array([7]))
+    want_p, want_v, want_a, jk, jv = JAX_MIXED_VERIFY(
+        case.jp, case.jax_cfg, jax_greedy, jk, jv, j32(p_table),
+        *(j32(a) for a in p_common), jnp.zeros((1,), jnp.float32),
+        jnp.zeros((1, 2), jnp.uint32), j32(TABLES), j32(LENGTHS),
+        jnp.asarray(ACTIVE), j32(tokens), j32(widths),
+        jnp.zeros((3,), jnp.float32), jnp.zeros((3, 4, 2), jnp.uint32))
+    got_p, got_v, got_a = paged.paged_mixed_verify_step(
+        case.tp, case.cfg, port_greedy, tk, tv, t64(p_table),
+        *(t64(a) for a in p_common), torch.zeros((1,)),
+        torch.zeros((1,), dtype=torch.int64), t64(TABLES), t64(LENGTHS),
+        torch.from_numpy(ACTIVE), t64(tokens), t64(widths), torch.zeros(3),
+        torch.zeros((3, 4), dtype=torch.int64))
+    assert int(got_p[0]) == int(want_p[0])
+    np.testing.assert_array_equal(got_a.numpy(), np.asarray(want_a))
+    np.testing.assert_array_equal(got_v.numpy()[:2, :2],
+                                  np.asarray(want_v)[:2, :2])
+    assert_pools_close(jk, jv, tk, tv)
+
+
+HIST = 16
+# two staged requests for the admission ring, on blocks the lanes and
+# the prefill tests never touch
+RING_TABLES = np.array([[17, 18, 19, 20, 21, 22, 23, 0],
+                        [24, 25, 26, 27, 28, 29, 30, 31]], np.int64)
+
+
+def spec_loop_args(case, budgets, ring_count, eos_free=True):
+    """Both packages' arguments for a 4-unit, width-5 spec loop: lanes 0
+    and 1 occupied (lane 2 free), drafting windows of each lane's own
+    past, two ring entries of which ``ring_count`` are real."""
+    k_units, width = 4, 5
+    lens = np.array([13, 5, 0])
+    hist = np.zeros((3, HIST), np.int64)
+    hist_len = np.array([HIST, 9, 0])
+    toks = case.tokens(3) % 63
+
+    def run(t, n):  # n tokens of t's cycle, ending at t
+        out = [t]
+        for _ in range(n - 1):
+            out.insert(0, int(cycle3(cycle3(out[0]))))
+        return out
+
+    for s in range(2):
+        real = np.concatenate([case.tokens(hist_len[s] - 5),
+                               run(toks[s], 5)])
+        hist[s, HIST - hist_len[s]:] = real
+    r_hist = np.zeros((2, HIST), np.int64)
+    r_tok = case.tokens(2) % 63
+    for j in range(2):
+        r_hist[j, -4:] = run(r_tok[j], 4)
+    arrays = dict(
+        tables=TABLES, lengths=lens, active=ACTIVE, tokens=toks,
+        temps=np.zeros(3, np.float32),
+        seeds=np.zeros((3, k_units * width)), budgets=np.array(budgets),
+        hist=hist, hist_len=hist_len, draft_caps=np.array([4, 2, 0]),
+        ring_tables=RING_TABLES, ring_lengths=np.array([7, 3]),
+        ring_tokens=r_tok, ring_temps=np.zeros(2, np.float32),
+        ring_seeds=np.zeros((2, k_units * width)),
+        ring_budgets=np.array([4, 30]), ring_hist=r_hist,
+        ring_hist_len=np.array([4, 4]), ring_caps=np.array([4, 4]),
+        ring_count=np.array(ring_count))
+
+    def jax_value(name, a):
+        if name.endswith("seeds"):
+            return jnp.zeros(a.shape + (2,), jnp.uint32)
+        if a.dtype == np.bool_ or a.dtype == np.float32:
+            return jnp.asarray(a)
+        return j32(a)
+
+    def port_value(a):
+        if a.dtype == np.bool_ or a.dtype == np.float32:
+            return torch.from_numpy(np.asarray(a))
+        return t64(a)
+
+    jargs = [jax_value(n, np.asarray(a)) for n, a in arrays.items()]
+    targs = [port_value(np.asarray(a)) for a in arrays.values()]
+    return (k_units, width), jargs, targs
+
+
+@pytest.mark.parametrize("copy,budgets,ring_count,units,head", [
+    # the copy model accepts every draft: lane 0 emits its 3 tokens in
+    # unit 0 and retires, ring entry 0 takes its lane and retires in
+    # unit 1, entry 1 then runs to the end of the launch
+    (True, [3, 30, 0], 2, 4, 2),
+    # one ring entry: the second retirement has no refill — exit
+    (True, [3, 30, 0], 1, 2, 1),
+    # no ring: the first retirement ends the launch
+    (True, [3, 30, 0], 0, 1, 0),
+    # the random model rejects its drafts: the re-draft flag exits
+    (False, [30, 30, 0], 2, 1, 0),
+], ids=["ring_2", "ring_1_exit", "retire_exit", "redraft_exit"])
+def test_spec_loop_matches_jax(copy, budgets, ring_count, units, head):
+    case = CopyCase() if copy else Case(VARIANTS[1])
+    NBIG = 32
+    shape = (case.cfg.n_layers, NBIG, case.cfg.kv_heads, BS,
+             case.cfg.head_dim)
+    rng = np.random.default_rng(7)
+    case.pool = [rng.standard_normal(shape).astype(np.float32)
+                 for _ in range(2)]
+    (k_units, width), jargs, targs = spec_loop_args(case, budgets,
+                                                    ring_count)
+    jk, jv, tk, tv = case.pools()
+    want = JAX_SPEC_LOOP(case.jp, case.jax_cfg, jax_greedy, k_units, None,
+                         3, 0.25, width, jk, jv, *jargs)
+    got = paged.paged_spec_loop(case.tp, case.cfg, port_greedy, k_units,
+                                None, 3, 0.25, width, tk, tv, *targs)
+    assert (int(got[3]), int(got[4])) == (units, head)
+    assert (int(want[3]), int(want[4])) == (units, head)
+    for ours, theirs in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+    drafted, accepted = got[2].sum(), got[1].sum()
+    assert drafted > 0
+    assert (accepted == drafted) if copy else (accepted < drafted)
+    # after the exit every unit wrote only the scratch block: the pools
+    # equal JAX's, whose loop stopped
+    assert_pools_close(want[5], want[6], tk, tv)
