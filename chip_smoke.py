@@ -72,6 +72,22 @@ Phases (any failure raises and the script exits non-zero):
    reasons and realised depth, ring activations, the teacher-forced
    check, the share of streams equal to speculation off; 0 captures
    after warm-up and guarded streams equal unguarded are required.
+   engine_tier: the KV tiers and the autotuner on the flagship.  56
+   requests, each one of 8 distinct 384-token prefixes + a private tail
+   (benchmarks/serving_bench.py's tiered workload at the flagship's
+   context), served (a) on a pool the size of HBM, (b) on a 193-block
+   pool with no tier, (c) on it over a 32 MiB host tier, (d) over a 4 MiB
+   host tier cascading to a 64 MiB disk arena; then (e) the autotuner
+   over engine_trace at steps_per_launch=4.  Each pass prints the engine
+   line, the tier counters, the upload dispatches' CUDA-event ms, the
+   demotion and promotion host seconds, TTFT and tokens/s, and the streams
+   equal to (a) (to the untuned loop pass for (e)).  Required: (c) and (d)
+   demote and promote, (c) serves more requests from a cached prefix and
+   runs fewer prefill chunks than (b), (d) promotes from disk, one upload
+   graph in (c) and (d), 0 captures after warm-up, every stream at its
+   length and teacher-forced within ENGINE_TOKEN_MARGIN, a tuning round in
+   (e), and random bf16 rows demoted and promoted through the captured
+   upload equal as int16 words.
 6. train: the repo's train-step flagship (benchmarks/kernel_bench.py
    MODEL_SIZES["flagship"], rope, bf16, full width and depth) takes 10
    AdamW steps on a fixed batch of 2 x 2048 tokens through
@@ -92,8 +108,9 @@ Phases (any failure raises and the script exits non-zero):
 
 The launch counters are zeroed before each path and read after it (the
 captured path's around its capture: a replay bumps no counter).  The
-engine's paths launch none of the kernels (their attention is the paged
-einsums, as in the JAX engine), so their counts read 0; the speculative
+engine's paths (engine, engine_spec, engine_tier) launch none of the
+kernels (their attention is the paged einsums, as in the JAX engine), so
+their counts read 0; the speculative
 path's prefills launch the flash forward.  The
 last lines are the card (nvidia-smi), a JSON ``kernels`` line, and
 ``{"ok": true, "device": {...}}``.
@@ -270,6 +287,38 @@ SPEC_TOP_K = 50
 SPEC_LOGP_FLOOR = math.log(1e-7)
 SPEC_LOGIT_Z = 5.0
 ENGINE_SPEC = dict(speculative=True, draft_len=4, draft_ngram=3)
+# engine_tier: benchmarks/serving_bench.py's tiered_settings /
+# build_tiered_workload scaled to the flagship's context: TIER_REQUESTS
+# greedy requests from TIER_SEED, all submitted at once, each opening with
+# one of TIER_PREFIXES distinct TIER_PREFIX_LEN-token prefixes chosen
+# uniformly (reuses interleave, so a small pool churns between them), then
+# a private tail of TIER_TAIL tokens and TIER_NEW new tokens.  The working
+# set is 8 x 24 = 192 blocks of 16 rows; one block is 2 x 4 layers x 8
+# heads x 16 rows x 64 x 2 B = 131,072 B of K/V.  Passes: (a) a pool the
+# size of HBM (TIER_HBM_BLOCKS: nothing is evicted); (b) TIER_SMALL_BLOCKS,
+# no tier (the live lanes' tails and new tokens take up to 104 of its 192
+# usable blocks, leaving under half the working set, so evicted prefixes
+# are prefilled again); (c) the same pool over a host tier holding the
+# whole working set; (d) the same over a host tier of about 32 blocks
+# cascading to a disk arena; (e) autotune over engine_trace, held to the
+# steps_per_launch=4 pass
+TIER_REQUESTS = 56
+TIER_SEED = 0
+TIER_PREFIXES = 8
+TIER_PREFIX_LEN = 384
+TIER_TAIL = (8, 64)
+TIER_NEW = (16, 128)
+TIER_POOL = dict(num_slots=8, block_size=16, max_request_len=1024,
+                 prefill_chunk=64, decode_span=4)
+TIER_HBM_BLOCKS = 513
+TIER_SMALL_BLOCKS = 193
+TIER_HOST_BYTES = 32 << 20
+TIER_CASCADE_HOST_BYTES = 4 << 20
+TIER_DISK_BYTES = 64 << 20
+# the demotion read compared both ways over this many blocks (a
+# prefix's), in turns, the best of each kept
+TIER_READ_BLOCKS = 24
+TIER_READ_TURNS = 5
 
 
 def check(condition: bool, message: str) -> None:
@@ -1029,9 +1078,11 @@ def engine_trace(config):
 
 
 def engine_pass(torch, device, params, config, trace, guard=None,
-                **overrides):
+                pool=ENGINE_POOL, after=None, **overrides):
     """One ServingEngine run over ``trace``: warm-up, then every request
-    submitted at once and served.  Returns (streams, stats)."""
+    submitted at once and served.  ``after(engine)``, when given, runs on
+    the drained engine and its dict joins the stats.  Returns (streams,
+    stats)."""
     from kubeshare_tpu_torch.serving import EngineConfig, Request, ServingEngine
     from kubeshare_tpu_torch.serving.metrics_view import (
         flatten_metrics, hist_quantile, metric_histogram)
@@ -1040,7 +1091,7 @@ def engine_pass(torch, device, params, config, trace, guard=None,
     torch.cuda.reset_peak_memory_stats(device)
     base_mem = torch.cuda.memory_allocated(device)
     engine = ServingEngine(params, config,
-                           EngineConfig(**ENGINE_POOL, **overrides),
+                           EngineConfig(**{**pool, **overrides}),
                            guard=guard, device=device)
     t0 = time.perf_counter()
     engine.warmup()
@@ -1099,11 +1150,45 @@ def engine_pass(torch, device, params, config, trace, guard=None,
         "peak_mem_gib": (torch.cuda.max_memory_allocated(device)
                          - base_mem) / 2 ** 30,
         "launches": launches,
+        "prefill_chunks": engine.prefill_chunks,
+        "tier": tier_stats(engine),
+        "tuner": (None if engine._tuner is None else {
+            "rounds": engine._tuner._rounds,
+            "decisions": {f"{knob} {way}": n for (knob, way), n
+                          in sorted(engine._tuner.decisions.items())},
+            "trajectory": engine._tuner.trajectory}),
     }
     check(all(r.done for r in results.values()), "a request did not finish")
+    try:
+        if after is not None:
+            stats.update(after(engine))
+    finally:
+        if engine.disk_tier is not None:
+            engine.disk_tier.close()
     del engine
     torch.cuda.empty_cache()
     return {rid: r.tokens for rid, r in results.items()}, stats
+
+
+def tier_stats(engine):
+    """The KV tiers' counters of one engine (zeros without a tier)."""
+    host, disk = engine.host_tier, engine.disk_tier
+    return {
+        "demoted": engine.tier_demoted_blocks,
+        "promoted": engine.tier_promoted_blocks,
+        "dropped": engine.tier_dropped_blocks,
+        "host_evicted": host.evicted_blocks if host is not None else 0,
+        "hit_requests": engine.tier_hit_requests,
+        "hit_tokens": engine.tier_hit_tokens,
+        "disk_stored": disk.stored_blocks if disk is not None else 0,
+        "disk_promoted": disk.promoted_blocks if disk is not None else 0,
+        "disk_evicted": disk.evicted_blocks if disk is not None else 0,
+        "corrupt": engine.tier_corrupt_blocks,
+        "demotion_s": engine.tier_demotion_s,
+        "promotion_stall_s": engine.tier_promotion_stall_s,
+        "host_peak_bytes": host.peak_bytes if host is not None else 0,
+        "disk_peak_bytes": disk.peak_bytes if disk is not None else 0,
+    }
 
 
 def engine_report(label, stats):
@@ -1219,7 +1304,207 @@ def engine_phase(torch, device):
     check(share >= GUARD_MIN_SHARE,
           f"the guard charged {share} of the dispatches' device time")
     check(guarded_streams == streams, "guarded streams differ")
-    return stats["launches"], streams
+    return stats["launches"], streams, (loop_streams, loop_stats)
+
+
+def tier_trace(config):
+    """TIER_REQUESTS (rid, prompt, new_tokens) from TIER_SEED, in
+    build_tiered_workload's draw order (all submitted at once, so no
+    arrival times are drawn)."""
+    import numpy as np
+
+    rng = np.random.default_rng(TIER_SEED)
+    prefixes = [rng.integers(0, config.vocab_size, TIER_PREFIX_LEN)
+                for _ in range(TIER_PREFIXES)]
+    trace = []
+    for i in range(TIER_REQUESTS):
+        prefix = prefixes[int(rng.integers(TIER_PREFIXES))]
+        tail = rng.integers(0, config.vocab_size,
+                            int(rng.integers(TIER_TAIL[0], TIER_TAIL[1] + 1)))
+        new = int(rng.integers(TIER_NEW[0], TIER_NEW[1] + 1))
+        trace.append((f"req{i}", np.concatenate([prefix, tail]), new))
+    return trace
+
+
+def tier_round_trip(torch, engine):
+    """The demotion and promotion paths' bytes on the card: random bf16
+    rows written into one pool block, read back as a demotion reads them
+    (_read_block_payload: a gather and a device-to-host copy, then
+    pack_block), unpacked, and uploaded into another block by the captured
+    upload program; the two blocks must be equal as int16 words.  Then
+    the demotion read of TIER_READ_BLOCKS cached blocks, one gather for
+    all (as a subtree walk reads them) against one read a block."""
+    import types
+
+    from kubeshare_tpu_torch.serving.kv_tier import pack_block, unpack_block
+
+    cfg, pool = engine.model_config, engine.pool
+    src, dst = engine.allocator.reserve(2, "round-trip")
+    gen = torch.Generator(device=pool.k.device).manual_seed(0)
+    shape = (cfg.n_layers, cfg.kv_heads, pool.block_size, cfg.head_dim)
+    for slab in (pool.k, pool.v):
+        slab[:, src] = torch.randn(shape, generator=gen, device=slab.device,
+                                   dtype=torch.float32).to(slab.dtype)
+    node = types.SimpleNamespace(block=src,
+                                 tokens=tuple(range(pool.block_size)))
+    uploads = engine.device_dispatches["upload"]
+    _, k, v = unpack_block(engine._read_block_payload(node))
+    engine._upload(dst, k, v)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(slab[:, src].view(torch.int16),
+                            slab[:, dst].view(torch.int16))
+                for slab in (pool.k, pool.v))
+    engine.allocator.reclaim([src, dst])
+    engine.dispatch_device_ms()
+    check(engine.device_dispatches["upload"] == uploads + 1,
+          "the round trip's upload did not run the upload program")
+
+    blocks = list(range(1, 1 + TIER_READ_BLOCKS))
+    tokens = tuple(range(pool.block_size))
+
+    def gathered():
+        k_rows, v_rows = engine._read_blocks(blocks)
+        return [pack_block(tokens, k_rows[i], v_rows[i])
+                for i in range(len(blocks))]
+
+    def per_block():
+        return [engine._read_block_payload(
+            types.SimpleNamespace(block=b, tokens=tokens)) for b in blocks]
+
+    times, payloads = {"gathered": [], "per_block": []}, {}
+    for _ in range(TIER_READ_TURNS):
+        for label, fn in (("gathered", gathered), ("per_block", per_block)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payloads[label] = fn()
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    same = payloads["gathered"] == payloads["per_block"]
+    return {"round_trip_equal": equal, "read_same_bytes": same,
+            "read_ms": {k: min(v) for k, v in times.items()}}
+
+
+def engine_tier_phase(torch, device, loop_pass):
+    """The KV tiers and the autotuner on the flagship: passes (a)-(d) over
+    tier_trace, (e) autotune over engine_trace against the engine phase's
+    steps_per_launch=4 pass (``loop_pass``: its streams and stats)."""
+    from kubeshare_tpu_torch.entry import entry, flagship_config
+
+    config = flagship_config()
+    _, (params, _) = entry()
+    trace = tier_trace(config)
+    small = dict(TIER_POOL, num_blocks=TIER_SMALL_BLOCKS)
+    arms = [
+        ("(a) HBM-sized pool", dict(TIER_POOL, num_blocks=TIER_HBM_BLOCKS),
+         {}),
+        ("(b) small pool, tier off", small, {}),
+        ("(c) small pool, host tier", small,
+         dict(host_tier_bytes=TIER_HOST_BYTES)),
+        ("(d) small pool, host tier cascading to disk", small,
+         dict(host_tier_bytes=TIER_CASCADE_HOST_BYTES,
+              disk_tier_bytes=TIER_DISK_BYTES)),
+    ]
+    passes, launches = {}, []
+    for label, pool, overrides in arms:
+        after = (lambda engine: tier_round_trip(torch, engine)) \
+            if label.startswith("(c)") else None
+        streams, stats = engine_pass(torch, device, params, config, trace,
+                                     pool=pool, after=after, **overrides)
+        passes[label[:3]] = (streams, stats)
+        launches.append(stats["launches"])
+        engine_report(f"tier {label}", stats)
+        tier_report(label, stats, streams, passes["(a)"][0], trace)
+        worst = teacher_forced(torch, params, config, trace, streams, device)
+        print(f"engine tier {label} teacher-forced: worst emitted token "
+              f"{worst:.4f} under its row's max (tol {ENGINE_TOKEN_MARGIN})")
+        check(stats["new_captures"] == 0,
+              f"{label}: {stats['new_captures']} captures after warm-up")
+        check(worst <= ENGINE_TOKEN_MARGIN,
+              f"{label}: an emitted token lies {worst} under its row's max")
+        check(all(len(streams[rid]) == new for rid, _, new in trace),
+              f"{label}: a stream has the wrong length")
+    b, c, d = (passes[k][1] for k in ("(b)", "(c)", "(d)"))
+    for label, stats in (("(c)", c), ("(d)", d)):
+        check(stats["tier"]["demoted"] > 0 and stats["tier"]["promoted"] > 0,
+              f"{label} demoted or promoted no block")
+        check(stats["captures_by_kind"].get("upload") == 1,
+              f"{label} has {stats['captures_by_kind'].get('upload')} upload "
+              "graphs, not one")
+    check(c["prefix_hit_requests"] > b["prefix_hit_requests"],
+          f"the host tier served {c['prefix_hit_requests']} requests from a "
+          f"cached prefix, tier off {b['prefix_hit_requests']}")
+    check(c["prefill_chunks"] < b["prefill_chunks"],
+          f"the host tier ran {c['prefill_chunks']} prefill chunks, tier "
+          f"off {b['prefill_chunks']}")
+    check(d["tier"]["disk_promoted"] > 0, "(d) promoted nothing from disk")
+    check(c["round_trip_equal"],
+          "the demote -> promote round trip changed the block's bytes")
+    check(c["read_same_bytes"],
+          "the gathered demotion read packs other bytes than a per-block read")
+    print(f"engine tier round trip: random bf16 rows through "
+          f"_read_block_payload -> pack_block -> unpack_block -> the "
+          f"captured upload equal as int16 words: {c['round_trip_equal']}; "
+          f"demotion read of {TIER_READ_BLOCKS} blocks (gather + copy + "
+          f"pack): one gather {c['read_ms']['gathered']:.3f} ms, one read a "
+          f"block {c['read_ms']['per_block']:.3f} ms (host clock, best of "
+          f"{TIER_READ_TURNS} turns each), same bytes: "
+          f"{c['read_same_bytes']}")
+
+    loop_streams, loop_stats = loop_pass
+    etrace = engine_trace(config)
+    streams, stats = engine_pass(torch, device, params, config, etrace,
+                                 steps_per_launch=4, autotune=True)
+    launches.append(stats["launches"])
+    engine_report("tier (e) autotune steps_per_launch=4", stats)
+    tuner = stats["tuner"]
+    worst = teacher_forced(torch, params, config, etrace, streams, device)
+    equal = sum(streams[rid] == loop_streams[rid] for rid, _, _ in etrace)
+    print(f"engine tier (e) autotune: {tuner['rounds']} tuning rounds, "
+          f"decisions {json.dumps(tuner['decisions'])}, trajectory "
+          f"(round, knob, old, new) {json.dumps(tuner['trajectory'][:24])}"
+          f"{' ...' if len(tuner['trajectory']) > 24 else ''}; "
+          f"{stats['tokens_per_s']:.1f} tokens/s against "
+          f"{loop_stats['tokens_per_s']:.1f} for steps_per_launch=4 without "
+          f"the tuner ({loop_stats['captures']} graphs, warm-up "
+          f"{loop_stats['warmup_s']:.2f} s); teacher-forced worst "
+          f"{worst:.4f}; streams equal to steps_per_launch=4: "
+          f"{equal}/{len(etrace)}")
+    check(stats["new_captures"] == 0,
+          f"(e): {stats['new_captures']} captures after warm-up")
+    check(tuner["rounds"] > 0, "(e): the tuner ran no tuning round")
+    check(worst <= ENGINE_TOKEN_MARGIN,
+          f"(e): an emitted token lies {worst} under its row's max")
+    check(all(len(streams[rid]) == new for rid, _, new in etrace),
+          "(e): a stream has the wrong length")
+    return {name: sum(counts[name] for counts in launches)
+            for name in launches[0]}
+
+
+def tier_report(label, stats, streams, hbm_streams, trace):
+    """The tier counters, prefill chunks, the upload dispatches' CUDA-event
+    time, the demotion and promotion host seconds, and the streams equal
+    to the HBM-sized pass."""
+    tier = stats["tier"]
+    n_up, up_ms = stats["device_ms"].get("upload", (0, 0.0))
+    equal = sum(streams[rid] == hbm_streams[rid] for rid, _, _ in trace)
+    per_block = tier["demotion_s"] * 1e3 / max(tier["demoted"]
+                                               + tier["dropped"], 1)
+    print(f"engine tier {label} tiers: demoted {tier['demoted']}, promoted "
+          f"{tier['promoted']}, dropped {tier['dropped']}, host-evicted "
+          f"{tier['host_evicted']}, tier hits {tier['hit_requests']} requests "
+          f"/ {tier['hit_tokens']} tokens, disk stored {tier['disk_stored']} "
+          f"promoted {tier['disk_promoted']} evicted {tier['disk_evicted']}, "
+          f"corruptions {tier['corrupt']}; peak host {tier['host_peak_bytes']}"
+          f" B, disk {tier['disk_peak_bytes']} B; cached-prefix requests "
+          f"{stats['prefix_hit_requests']} (device and tier) / "
+          f"{stats['prefix_hit_tokens']} tokens; prefill chunks "
+          f"{stats['prefill_chunks']}; upload {n_up} x "
+          f"{up_ms / max(n_up, 1):.4f} ms (CUDA events); demotion host "
+          f"{tier['demotion_s']:.4f} s ({per_block:.4f} ms a block: read + "
+          f"pack), promotion stall {tier['promotion_stall_s']:.4f} s; TTFT "
+          f"p50 {stats['ttft_p50_s'] * 1e3:.1f} ms p95 "
+          f"{stats['ttft_p95_s'] * 1e3:.1f} ms; "
+          f"{stats['tokens_per_s']:.1f} tokens/s; streams equal to (a): "
+          f"{equal}/{len(trace)}")
 
 
 def truncated_draft(config, params):
@@ -1980,6 +2265,7 @@ def profile_train(torch, device, capture: bool, warmup: int = 3,
 def main() -> int:
     import torch
 
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2034,10 +2320,15 @@ def main() -> int:
     worst.update(bs_worst)
     launches = slice_phase(torch, device)
     launches["decode_capture"] = decode_capture_phase(torch, device)
-    launches["engine"], engine_streams = engine_phase(torch, device)
+    launches["engine"], engine_streams, loop_pass = engine_phase(torch,
+                                                                 device)
     launches["speculative"] = speculative_phase(torch, device)
     launches["engine_spec"] = engine_spec_phase(torch, device,
                                                 engine_streams)
+    t0 = time.perf_counter()
+    launches["engine_tier"] = engine_tier_phase(torch, device, loop_pass)
+    print(f"engine tier phase: {time.perf_counter() - t0:.1f} s")
+    del loop_pass
     launches["train"], eager = train_phase(torch, device)
     launches["train_captured"], _ = capture_phase(torch, device, eager)
     launches["block_sparse"] = bs_launches
@@ -2087,6 +2378,7 @@ def main() -> int:
             "timed_shape": main_timing["shape"],
             "timings": [t[name] for t in kernel_timings],
         })
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,45 +17,81 @@ of the single-device core of kubeshare_tpu/serving:
   :class:`~kubeshare_tpu_torch.isolation.ExecutionGuard`;
 - :mod:`prefix_index` — the radix-tree prefix cache over the pool;
 - :mod:`qos` — tenants, classes and the token-weighted fair queue;
-- :mod:`metrics_view` — readers over the engine's metric families.
+- :mod:`metrics_view` — readers over the engine's metric families;
+- :mod:`kv_tier` — the KV wire format and the host and disk tiers below
+  the prefix cache (the engine demotes evicted prefix blocks into them
+  and promotes matches back through one captured upload);
+- :mod:`autotune` — the online autotuner over the engine's capture-free
+  knobs, with a sandboxed pluggable policy;
+- :mod:`chaos` — the seeded fault plan and its virtual clock, consulted
+  through the engine's and the tiers' ``fault_clock`` seams.
 
-Not ported yet (ROADMAP.md queue A): the KV tiers, autotuning and
-chaos, disaggregated pools and fleets, and tensor-parallel serving.
+Not ported yet (ROADMAP.md queue A): disaggregated pools and fleets, and
+tensor-parallel serving.
 """
 
+from .autotune import (AnalyticPolicy, AutoTuner, CostModel, FittedTracePolicy,
+                       Knob, KnobSpec, KnobView, TuningPolicy)
+from .chaos import FaultClock, FaultPlan, ReplicaKilled
 from .drafter import NGramDrafter, ngram_propose_rows
 from .engine import (EngineConfig, Request, RequestResult, ServingEngine,
                      plan_prefill_chunks)
 from .kv_blocks import (BlockAllocator, BlockExhausted, PagedKVPool,
                         QuotaExceeded, chain_token_runs, init_paged_pool)
+from .kv_tier import (KV_CHAIN_VERSION, KV_WIRE_VERSION, DiskTier, HostTier,
+                      LRUTierPolicy, QoSTierPolicy, TierPolicy, WireCorruption,
+                      adopt_into, pack_block, pack_chain, unpack_block,
+                      unpack_chain, wire_block_bytes)
 from .paged import (paged_copy_block, paged_decode_loop, paged_decode_span,
                     paged_decode_step, paged_gather_kv, paged_mixed_step,
                     paged_mixed_verify_step, paged_prefill_step,
                     paged_spec_loop, paged_upload_block, paged_verify_span)
 from .prefix_index import PrefixIndex
-from .qos import (DEFAULT_TENANT, QOS_GUARANTEE, QOS_OPPORTUNISTIC,
-                  FairQueue, TenantRegistry, TenantSpec)
+from .qos import (DEFAULT_TENANT, QOS_GUARANTEE, QOS_OPPORTUNISTIC, FairQueue,
+                  TenantRegistry, TenantSpec)
 
 __all__ = [
+    "AnalyticPolicy",
+    "AutoTuner",
     "BlockAllocator",
     "BlockExhausted",
+    "CostModel",
     "DEFAULT_TENANT",
+    "DiskTier",
     "EngineConfig",
     "FairQueue",
+    "FaultClock",
+    "FaultPlan",
+    "FittedTracePolicy",
+    "HostTier",
+    "KV_CHAIN_VERSION",
+    "KV_WIRE_VERSION",
+    "Knob",
+    "KnobSpec",
+    "KnobView",
+    "LRUTierPolicy",
     "NGramDrafter",
     "PagedKVPool",
     "PrefixIndex",
     "QOS_GUARANTEE",
     "QOS_OPPORTUNISTIC",
+    "QoSTierPolicy",
     "QuotaExceeded",
+    "ReplicaKilled",
     "Request",
     "RequestResult",
     "ServingEngine",
     "TenantRegistry",
     "TenantSpec",
+    "TierPolicy",
+    "TuningPolicy",
+    "WireCorruption",
+    "adopt_into",
     "chain_token_runs",
     "init_paged_pool",
     "ngram_propose_rows",
+    "pack_block",
+    "pack_chain",
     "paged_copy_block",
     "paged_decode_loop",
     "paged_decode_span",
@@ -68,4 +104,7 @@ __all__ = [
     "paged_upload_block",
     "paged_verify_span",
     "plan_prefill_chunks",
+    "unpack_block",
+    "unpack_chain",
+    "wire_block_bytes",
 ]

@@ -62,9 +62,20 @@ depends on the seeds only — not on the slot, the span, the loop depth or
 a preemption — and a single-slot engine reproduces
 ``sample_decode_with_cache`` token for token.
 
+KV tiering (``host_tier_bytes``, ``disk_tier_bytes``, kv_tier.py): the
+allocator's eviction callback serializes evicted prefix blocks into a
+byte-budgeted host store instead of destroying them (one gather and one
+device-to-host copy a subtree walk), host-budget evictions cascade into
+an mmap-backed disk arena, and admission promotes matched blocks back
+into fresh device blocks through ONE captured ``upload`` program.  The
+online autotuner (``autotune``, autotune.py) retunes the capture-free
+knobs — the fused budget, the loop depth, the draft-width caps — between
+consume and plan.  The chaos seams (chaos.py) are plain attributes:
+``fault_clock`` is consulted at the top of :meth:`ServingEngine.step`
+and before every dispatch.  Streams are bit-exact with each of them off.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the host and disk KV tiers, the autotuner, tensor-parallel serving
-and disaggregated pools.
+item): tensor-parallel serving and disaggregated pools.
 """
 
 from __future__ import annotations
@@ -82,12 +93,17 @@ from ..models.decoding import (_filter_logits, bucket_width, capture_graph,
 from ..models.transformer import TransformerConfig, check_config
 from ..parallel.train import tree_leaves
 from ..utils.promtext import MetricFamily, Sample, _format_value
+from .autotune import AnalyticPolicy, AutoTuner
 from .drafter import NGramDrafter
 from .kv_blocks import (BlockAllocator, BlockExhausted, QuotaExceeded,
                         init_paged_pool)
+from .kv_tier import (DiskTier, HostTier, LRUTierPolicy, QoSTierPolicy,
+                      WireCorruption, pack_block, slab_words, unpack_block,
+                      wire_block_bytes)
 from .paged import (paged_copy_block, paged_decode_loop, paged_decode_span,
                     paged_mixed_step, paged_mixed_verify_step,
-                    paged_prefill_step, paged_spec_loop, paged_verify_span)
+                    paged_prefill_step, paged_spec_loop, paged_upload_block,
+                    paged_verify_span)
 from .prefix_index import PrefixIndex
 from .qos import (DEFAULT_TENANT, QOS_GUARANTEE, QOS_OPPORTUNISTIC,
                   FairQueue, TenantRegistry, TenantSpec)
@@ -112,8 +128,7 @@ SPEC_ACCEPT_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
 SPEC_LOOP_HIST = 64
 SPEC_LOOP_REDRAFT = 0.25
 
-# the dispatch kinds, as the JAX engine's compile_counts names them; the
-# tier kind stays at 0 until its slice lands
+# the dispatch kinds, as the JAX engine's compile_counts names them
 DISPATCH_KINDS = ("decode", "prefill", "mixed", "verify", "mixed_verify",
                   "copy", "upload", "loop", "spec_loop")
 
@@ -210,10 +225,22 @@ class EngineConfig:
     prefix_cache: bool = True
     # stall-free mixed batching; streams are bit-exact either way
     mixed: bool = True
-    # KV cache tiering (not ported: ROADMAP.md queue A item 7a)
+    # KV cache tiering (kv_tier.py): a host-RAM byte budget for demoted
+    # prefix blocks.  None = off (evicted prefixes are destroyed); set, the
+    # allocator's eviction path serializes victims into the host tier, the
+    # trie keeps their nodes HOST-resident, and admission promotes matched
+    # host blocks back through one captured upload program.  Streams are
+    # bit-exact either way.  Requires prefix_cache
     host_tier_bytes: Optional[int] = None
+    # the TierPolicy: "lru" (demote all, evict coldest) or "qos"
+    # (Guarantee-charged host bytes protected from Opportunistic pressure)
     tier_policy: str = "lru"
+    # the DISK tier below host RAM: a byte budget for the mmap arena that
+    # host-budget evictions cascade into; admission stages a matched disk
+    # block back up (crc-validated) before its upload.  Requires
+    # host_tier_bytes
     disk_tier_bytes: Optional[int] = None
+    # the disk arena's file (None = an anonymous unlinked temporary file)
     disk_tier_path: Optional[str] = None
     # per-step cap on the prefill tokens fused into a mixed dispatch;
     # None = prefill_chunk
@@ -231,7 +258,12 @@ class EngineConfig:
     # tensor-parallel serving (not ported: ROADMAP.md queue A item 9)
     mesh_spec: Optional[object] = None
     long_context_threshold: Optional[int] = None
-    # online autotuning (not ported: ROADMAP.md queue A item 7b)
+    # online autotuning (autotune.py): retune the capture-free knobs (the
+    # fused budget, the loop depth, the draft-width caps) every
+    # autotune_interval scheduler steps; under autotune warm-up captures
+    # every fused width and every power-of-two loop depth up to
+    # steps_per_launch, so a retuned knob only selects among captured
+    # shapes.  Streams are bit-exact tuner-on vs tuner-off
     autotune: bool = False
     autotune_interval: int = 32
     # the speculative device loop's admission ring: queued requests
@@ -262,21 +294,13 @@ def _config_rows(ec: EngineConfig, config: TransformerConfig,
     ``ValueError`` rows."""
     widths = _warmed_prefill_widths(ec)
     min_piece = min(widths)
+    wire = (wire_block_bytes(
+        ec.block_size, config.n_layers, config.kv_heads, ec.block_size,
+        config.head_dim, torch.empty((), dtype=config.dtype).element_size())
+        if ec.host_tier_bytes is not None else None)
     todo = NotImplementedError
     bad = ValueError
     return [
-        (ec.host_tier_bytes is not None, todo,
-         "host_tier_bytes: the KV host tier is not ported yet "
-         "(ROADMAP.md queue A item 7a, kv_tier.py)"),
-        (ec.disk_tier_bytes is not None, todo,
-         "disk_tier_bytes: the KV disk tier is not ported yet "
-         "(ROADMAP.md queue A item 7a, kv_tier.py)"),
-        (shared_host_tier is not None, todo,
-         "shared_host_tier: the KV host tier is not ported yet "
-         "(ROADMAP.md queue A item 7a, kv_tier.py)"),
-        (ec.autotune, todo,
-         "autotune is not ported yet (ROADMAP.md queue A item 7b, "
-         "autotune.py)"),
         (ec.pool_role != "both", todo,
          f"pool_role {ec.pool_role!r}: disaggregated pools are not "
          "ported yet (ROADMAP.md queue A item 8, disagg.py)"),
@@ -310,17 +334,45 @@ def _config_rows(ec: EngineConfig, config: TransformerConfig,
          f"smallest warmed chunk piece ({min_piece}) — no fused chunk "
          f"could ever be sliced to fit, so prefill would silently starve "
          f"behind decode"),
+        (ec.host_tier_bytes is not None and not ec.prefix_cache, bad,
+         "host_tier_bytes requires prefix_cache=True — the tier "
+         "spills the radix index; there is nothing to spill "
+         "without it"),
+        (ec.host_tier_bytes is not None and wire is not None
+         and ec.host_tier_bytes < wire, bad,
+         f"host_tier_bytes {ec.host_tier_bytes} is below one "
+         f"block's wire size ({wire}) — the tier could "
+         f"never hold a single block"),
         (ec.tier_policy not in ("lru", "qos"), bad,
          f"tier_policy must be 'lru' or 'qos', got {ec.tier_policy!r}"),
+        (ec.disk_tier_bytes is not None and ec.host_tier_bytes is None, bad,
+         "disk_tier_bytes requires host_tier_bytes — the disk tier "
+         "is the cascade target of host-budget evictions; there is "
+         "no HOST→DISK demotion without a host tier above it"),
+        (ec.disk_tier_bytes is not None and wire is not None
+         and ec.disk_tier_bytes < wire, bad,
+         f"disk_tier_bytes {ec.disk_tier_bytes} is below one "
+         f"block's wire size ({wire}) — the disk tier could "
+         f"never hold a single block"),
         (ec.disk_tier_path is not None and ec.disk_tier_bytes is None, bad,
          "disk_tier_path without disk_tier_bytes — a named arena file "
          "needs a disk tier to fill it"),
+        (shared_host_tier is not None and ec.host_tier_bytes is not None, bad,
+         "shared_host_tier and host_tier_bytes are mutually "
+         "exclusive — the disagg router owns the shared tier's "
+         "budget"),
+        (shared_host_tier is not None and not ec.prefix_cache, bad,
+         "shared_host_tier requires prefix_cache=True — the tier "
+         "spills the radix index; there is nothing to spill "
+         "without it"),
         (ec.draft_len < 1 or bool(ec.draft_len & (ec.draft_len - 1)), bad,
          f"draft_len must be a power of two >= 1, got {ec.draft_len}"),
         (ec.draft_ngram < 1, bad,
          f"draft_ngram must be >= 1, got {ec.draft_ngram}"),
         (ec.autotune_interval < 1, bad,
-         f"autotune_interval must be >= 1, got {ec.autotune_interval}"),
+         f"autotune_interval must be >= 1, got "
+         f"{ec.autotune_interval} — the tuner ticks once per "
+         f"scheduler step and retunes every interval-th tick"),
         (ec.admission_ring < 0, bad,
          f"admission_ring must be >= 0, got {ec.admission_ring}"),
         (ec.admission_ring > 0 and (not ec.speculative
@@ -375,17 +427,26 @@ class _Pending:
 
 @dataclass
 class _PrefixHit:
-    """One admission's prefix-cache match: ``start`` is the first token
-    that must prefill; ``shared`` are fully matched blocks (retained and
-    mapped for the request's lifetime); ``cow_src`` a partially matched
-    tail block to copy-on-write; ``needed`` the fresh blocks to
-    reserve."""
+    """One admission's prefix-cache match, tier-aware.  ``start`` is the
+    first token that must prefill; ``shared`` are DEVICE-resident fully
+    matched blocks (retained and mapped for the request's lifetime);
+    ``promote`` are HOST-resident fully matched trie nodes whose payloads
+    upload into the leading freshly reserved blocks; at most one of
+    ``cow_src`` (device partial match: the copy-on-write dispatch) and
+    ``host_cow`` (host partial match: the payload uploaded straight into
+    the private tail block, the entry staying host-side) is set.
+    ``needed`` counts the reservation (promoted + private tail + fresh
+    suffix blocks); ``host_tokens`` the prompt tokens recovered from
+    host-resident blocks."""
 
     start: int
     shared: List[int]
     cow_src: Optional[int]
+    promote: List
+    host_cow: Optional[object]
     plan: List[Tuple[int, int, int]]
     needed: int
+    host_tokens: int
 
 
 @dataclass
@@ -470,8 +531,11 @@ class _Slot:
         self.accept_rate = 0.5
 
 
+# the host staging views of a program's inputs; a bf16 input (the upload
+# program's slabs) is staged as its raw int16 words, which numpy holds
 _NUMPY_DTYPES = {torch.int64: np.int64, torch.float32: np.float32,
-                 torch.bool: np.bool_}
+                 torch.bool: np.bool_, torch.bfloat16: np.int16,
+                 torch.float16: np.float16}
 
 
 class _Program:
@@ -577,8 +641,10 @@ class ServingEngine:
         guard=None,
         tenants: Optional[TenantRegistry] = None,
         device=None,
-        shared_host_tier=None,
+        shared_host_tier: Optional[HostTier] = None,
         mesh_devices=None,
+        tier_ledger_hook=None,
+        tuning_policy=None,
     ) -> None:
         ec = engine_config or EngineConfig()
         for failed, error, message in _config_rows(
@@ -603,7 +669,31 @@ class ServingEngine:
                                     self.device)
         self.prefix_index = (PrefixIndex(ec.block_size)
                              if ec.prefix_cache else None)
+        # the tenant registry must exist before the tier policy (the QoS
+        # policy reads class membership from it)
         self.tenants = tenants or TenantRegistry.default()
+        self.host_tier: Optional[HostTier] = None
+        self.disk_tier: Optional[DiskTier] = None
+        if ec.host_tier_bytes is not None:
+            policy = (LRUTierPolicy() if ec.tier_policy == "lru"
+                      else QoSTierPolicy(self.tenants))
+            self.host_tier = HostTier(ec.host_tier_bytes, policy,
+                                      on_drop=self._spill_host_entry,
+                                      ledger_hook=tier_ledger_hook)
+            # the index purges a detached host descendant's tier entry
+            # through this hook
+            self.prefix_index.host_drop = self.host_tier.forget
+            if ec.disk_tier_bytes is not None:
+                self.disk_tier = DiskTier(ec.disk_tier_bytes,
+                                          path=ec.disk_tier_path,
+                                          on_drop=self._drop_disk_entry)
+                self.prefix_index.disk_drop = self.disk_tier.forget
+        elif shared_host_tier is not None:
+            # a tier shared with another pool: its owner sets on_drop
+            # (it must route an entry to whichever trie holds its node);
+            # this engine wires forget so its own detach paths purge
+            self.host_tier = shared_host_tier
+            self.prefix_index.host_drop = self.host_tier.forget
         self.allocator = BlockAllocator(
             ec.num_blocks, ec.block_size,
             evictor=(self._evict_blocks if self.prefix_index is not None
@@ -624,6 +714,23 @@ class ServingEngine:
         # slots by _admit
         self._ring_staged: List[_Slot] = []
         self._warmed_widths = _warmed_prefill_widths(ec)
+        # autotuner-owned scheduling state: the effective loop depth
+        # (starts at the configured ceiling; the tuner moves it among the
+        # captured depths), the per-lane draft-width cap and the
+        # speculative loop's in-loop draft cap (data to its one graph)
+        self._loop_k = ec.steps_per_launch
+        self._draft_width_cap = ec.draft_len
+        self._loop_draft_cap = ec.draft_len
+        # the loop depths warm-up captures: the configured K, or under
+        # autotune every power of two from 2 up to it (K = 1 is the plain
+        # span); the speculative loop's the same set
+        loop_ks: List[int] = []
+        if ec.steps_per_launch > 1:
+            loop_ks = ([k for k in (2 ** i for i in range(1, 32))
+                        if k <= ec.steps_per_launch] if ec.autotune
+                       else [ec.steps_per_launch])
+        self._loop_steps = set(loop_ks)
+        self._spec_loops = set(loop_ks) if ec.speculative else set()
         self._queue = FairQueue(self.tenants)
         self._results: Dict[str, RequestResult] = {}
         # counters: prefill_chunks / decode_steps / verify_steps count
@@ -653,8 +760,10 @@ class ServingEngine:
         self.ring_activations = 0
         self.loop_depth_sum = 0
         self.loop_depth_count = 0
+        # host wall seconds by step() phase; "tune" stays 0 without a tuner
         self.host_seconds: Dict[str, float] = {
-            "admit": 0.0, "plan": 0.0, "dispatch": 0.0, "consume": 0.0}
+            "admit": 0.0, "plan": 0.0, "dispatch": 0.0, "consume": 0.0,
+            "tune": 0.0}
         self.host_planner_invocations = 0
         self.tokens_generated = 0
         self.peak_blocks_in_use = 0
@@ -663,8 +772,37 @@ class ServingEngine:
         self.prefix_hit_requests = 0
         self.prefix_hit_tokens = 0  # prompt tokens whose prefill was skipped
         self.cow_copies = 0
+        # eviction outcome by reason: reservation_pressure / quota_drain
+        # name the trigger when evicted K/V is destroyed, tier_demote /
+        # tier_drop the tier's verdict when it is consulted instead
         self.evictions_by_reason: Dict[str, int] = {
-            "reservation_pressure": 0, "quota_drain": 0}
+            "reservation_pressure": 0, "quota_drain": 0,
+            "tier_demote": 0, "tier_drop": 0}
+        # KV tier counters: blocks spilled host-side, dropped, copied back
+        # into device blocks (private partial copies included), admissions
+        # that recovered tiered prefix rows and the tokens they recovered,
+        # the host seconds spent staging promotions (payload validation,
+        # disk reads, upload enqueue) and demoting (the device-to-host
+        # read and the packing), and wire blocks that failed their crc32
+        # (each dropped and re-prefilled, never attended)
+        self.tier_demoted_blocks = 0
+        self.tier_dropped_blocks = 0
+        self.tier_promoted_blocks = 0
+        self.tier_hit_requests = 0
+        self.tier_hit_tokens = 0
+        self.tier_promotion_stall_s = 0.0
+        self.tier_demotion_s = 0.0
+        self.tier_hit_requests_by_origin: Dict[str, int] = {
+            "local": 0, "remote": 0}
+        self.tier_corrupt_blocks = 0
+        # seams for a disaggregated pair's router (ROADMAP.md queue A item
+        # 8): on_tier_demote(node, payload, tenant) mirrors a demoted
+        # block into a peer pool's trie.  None here
+        self.on_tier_demote = None
+        # chaos seam (chaos.py): a FaultClock consulted at the top of
+        # step() (replica kill) and before every dispatch (slow dispatch);
+        # None outside chaos runs
+        self.fault_clock = None
         self._ttft_counts = [0] * (len(TTFT_BUCKETS) + 1)  # +Inf tail
         self._ttft_sum = 0.0
         self.preemptions: Dict[str, int] = {}
@@ -689,6 +827,11 @@ class ServingEngine:
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.device.type == "cuda" else None)
         self._pick = self._make_pick()
+        # the online autotuner, ticked by step() between consume and plan;
+        # its policy is pluggable and sandboxed to the captured shapes
+        self._tuner = (AutoTuner.for_engine(
+            self, policy=tuning_policy or AnalyticPolicy(),
+            interval=ec.autotune_interval) if ec.autotune else None)
 
     # ------------------------------------------------------------------
     # the device programs
@@ -816,6 +959,15 @@ class ServingEngine:
                 paged_copy_block(pk, pv, src, dst)
                 return ()
             return copy, [("src", (1,), i64), ("dst", (1,), i64)]
+        if kind == "upload":
+            # the KV tier's promotion: one block's slabs, staged in the
+            # program's arena like every input, into pool block dst
+            def upload(dst, k_slab, v_slab):
+                paged_upload_block(pk, pv, dst, k_slab, v_slab)
+                return ()
+            slab = (cfg.n_layers, cfg.kv_heads, ec.block_size, cfg.head_dim)
+            return upload, [("dst", (1,), i64), ("k_slab", slab, pk.dtype),
+                            ("v_slab", slab, pk.dtype)]
         raise ValueError(f"unknown dispatch kind {kind!r}")
 
     # ------------------------------------------------------------------
@@ -888,18 +1040,29 @@ class ServingEngine:
         it.  Admission (host work) runs before the previous dispatch's
         results are read, so on an unguarded engine it overlaps the
         device.  Returns False when the engine is fully idle.  Every
-        phase is wall-timed into ``host_seconds``."""
+        phase is wall-timed into ``host_seconds``; the autotuner ticks
+        between consume and plan, in its own "tune" phase."""
+        if self.fault_clock is not None:
+            # chaos seam: a planned kill raises ReplicaKilled HERE, before
+            # any host state of this step mutates
+            self.fault_clock.on_engine_step(self)
         hs = self.host_seconds
         t0 = time.monotonic()
         self._admit()
         t1 = time.monotonic()
         consumed = self._consume_inflight()
         t2 = time.monotonic()
+        if self._tuner is not None:
+            self._tuner.tick()
+            t2t = time.monotonic()
+        else:
+            t2t = t2  # no tuner: the "tune" phase stays exactly zero
         plan = self._plan_step()
         t3 = time.monotonic()
         hs["admit"] += t1 - t0
         hs["consume"] += t2 - t1
-        hs["plan"] += t3 - t2
+        hs["tune"] += t2t - t2
+        hs["plan"] += t3 - t2t
         if plan is None:
             return consumed
         self._dispatch_plan(plan)
@@ -948,11 +1111,12 @@ class ServingEngine:
         host draft only arms it, so drafts stay scheduling-only), and an
         undrafted one the decode loop."""
         ec = self.engine_config
-        looping = ec.steps_per_launch > 1 and not fused
+        # the EFFECTIVE depth: the autotuner may have lowered it
+        looping = self._loop_k > 1 and not fused
         if ec.speculative:
             drafts = self._plan_drafts(decode)
             if drafts:
-                if looping:
+                if looping and self._spec_loops:
                     return _StepPlan("spec_loop", decode_slots=decode,
                                      drafts=drafts)
                 # bucketed like prefill chunks (draft_len is a power of
@@ -1025,29 +1189,33 @@ class ServingEngine:
         (``steps_per_launch > 1``) and the copy-on-write copy (prefix
         cache on).  Speculative adds one verify chunk per reachable draft
         width, the mixed-verify cross product with the fused prefill
-        widths, and the speculative loop.  Every warm-up pass and capture
-        runs on all-zero inputs (no lane active, every table at the
-        scratch block), which write only the scratch block.  After this,
-        serving captures nothing new (:meth:`capture_counts` stays
-        fixed)."""
+        widths, and the speculative loop.  A KV tier adds the upload.
+        Under autotune every fused width and every loop depth up to
+        ``steps_per_launch`` is captured, so a retuned knob only selects
+        among captured shapes.  Every warm-up pass and capture runs on
+        all-zero inputs (no lane active, every table at the scratch block),
+        which write only the scratch block.  After this, serving captures
+        nothing new (:meth:`capture_counts` stays fixed)."""
         ec = self.engine_config
         verify_widths = ([1 + k for k in self._verify_ks()]
                          if ec.speculative else [])
         for width in sorted(self._warmed_widths):
             self._program("prefill", width)
-            if ec.mixed and width <= self._mixed_budget:
+            if ec.mixed and (ec.autotune or width <= self._mixed_budget):
                 self._program("mixed", width)
                 for w in verify_widths:
                     self._program("mixed_verify", width, w)
         self._program("decode")
         for w in verify_widths:
             self._program("verify", 0, w)
-        if ec.steps_per_launch > 1:
-            self._program("loop", ec.steps_per_launch)
-            if ec.speculative:
-                self._program("spec_loop", ec.steps_per_launch)
+        for k_depth in sorted(self._loop_steps):
+            self._program("loop", k_depth)
+        for k_depth in sorted(self._spec_loops):
+            self._program("spec_loop", k_depth)
         if self.prefix_index is not None:
             self._program("copy")
+        if self.host_tier is not None:
+            self._program("upload")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -1165,11 +1333,14 @@ class ServingEngine:
         hit_tokens.add({}, self.prefix_hit_tokens)
         evicted = MetricFamily(
             "kubeshare_serving_prefix_evicted_blocks_total",
-            "Cached blocks evicted to fund reservations, by reason.",
-            "counter")
+            "Cached blocks evicted to fund reservations, by reason "
+            "(reservation_pressure / quota_drain name the trigger when "
+            "the K/V is destroyed; tier_demote / tier_drop name the "
+            "host tier's verdict when tiering is on).", "counter")
         for reason in sorted(self.evictions_by_reason):
             evicted.add({"reason": reason},
                         self.evictions_by_reason[reason])
+        tier_families = self._tier_metric_families()
         ttft = MetricFamily(
             "kubeshare_serving_ttft_seconds",
             "Time to first token (submit to first emitted token).",
@@ -1234,11 +1405,101 @@ class ServingEngine:
             _histogram_samples(
                 spec_accept, "kubeshare_serving_spec_acceptance_ratio",
                 {"tenant": name}, counts, total, SPEC_ACCEPT_BUCKETS)
+        tuner = MetricFamily(
+            "kubeshare_serving_tuner_decisions_total",
+            "Autotuner knob decisions by knob and direction (up / down = "
+            "an in-envelope value applied; rejected = the central sandbox "
+            "refused an out-of-envelope proposal).  Empty with autotune "
+            "off.", "counter")
+        if self._tuner is not None:
+            for (knob, direction), n in sorted(
+                    self._tuner.decisions.items()):
+                tuner.add({"knob": knob, "direction": direction}, n)
         return [req, blocks, tokens, dispatches, loop_units,
                 spec_loop_units, exit_reason, depth_summary, host_s,
-                planner, prefix, hit_tokens, evicted, ttft, t_depth,
-                t_blocks, t_tokens, preempt, cls_ttft, tbt, spec_tokens,
-                spec_accept]
+                planner, prefix, hit_tokens, evicted, *tier_families, ttft,
+                t_depth, t_blocks, t_tokens, preempt, cls_ttft, tbt,
+                spec_tokens, spec_accept, tuner]
+
+    def _tier_metric_families(self) -> List[MetricFamily]:
+        """The host and disk tiers' families, the JAX engine's."""
+        host, disk = self.host_tier, self.disk_tier
+        tier_blocks = MetricFamily(
+            "kubeshare_serving_tier_blocks_total",
+            "Host-tier block movement: demoted (device -> host), "
+            "promoted (host -> device, private partial copies "
+            "included), dropped (policy/budget refused the spill), "
+            "host_evicted (host entries evicted for host-budget room).",
+            "counter")
+        tier_blocks.add({"event": "demoted"}, self.tier_demoted_blocks)
+        tier_blocks.add({"event": "promoted"}, self.tier_promoted_blocks)
+        tier_blocks.add({"event": "dropped"}, self.tier_dropped_blocks)
+        tier_blocks.add({"event": "host_evicted"},
+                        host.evicted_blocks if host is not None else 0)
+        tier_req = MetricFamily(
+            "kubeshare_serving_tier_requests_total",
+            "Admitted requests by host-tier outcome (hit = at least "
+            "one prompt block recovered from host RAM).", "counter")
+        tier_req.add({"result": "hit"}, self.tier_hit_requests)
+        tier_req.add({"result": "miss"},
+                     self.requests_admitted - self.tier_hit_requests)
+        tier_tokens = MetricFamily(
+            "kubeshare_serving_tier_hit_tokens_total",
+            "Prompt tokens recovered from host-resident blocks.",
+            "counter")
+        tier_tokens.add({}, self.tier_hit_tokens)
+        tier_bytes = MetricFamily(
+            "kubeshare_serving_tier_host_bytes",
+            "Host-tier occupancy vs budget (serialized wire bytes).",
+            "gauge")
+        tier_bytes.add({"kind": "used"},
+                       host.used_bytes if host is not None else 0)
+        tier_bytes.add({"kind": "budget"},
+                       host.budget_bytes if host is not None else 0)
+        tier_stall = MetricFamily(
+            "kubeshare_serving_tier_promotion_stall_seconds_total",
+            "Host wall time staging promotions (validation, disk reads, "
+            "upload enqueue; the device copy-in itself overlaps the "
+            "pipelined dispatch on an unguarded engine).", "counter")
+        tier_stall.add({}, self.tier_promotion_stall_s)
+        tier_corrupt = MetricFamily(
+            "kubeshare_serving_tier_corruptions_total",
+            "Wire blocks that failed their v2 crc32 at consumption — "
+            "each was dropped and re-prefilled, never attended into a "
+            "stream.", "counter")
+        tier_corrupt.add({}, self.tier_corrupt_blocks)
+        tier_origin = MetricFamily(
+            "kubeshare_serving_tier_hit_origin_requests_total",
+            "Tier-hit admissions split by payload origin: local = this "
+            "engine's own demotions, remote = at least one consumed "
+            "payload arrived from another replica.", "counter")
+        for org in ("local", "remote"):
+            tier_origin.add({"origin": org},
+                            self.tier_hit_requests_by_origin[org])
+        disk_bytes = MetricFamily(
+            "kubeshare_serving_disk_tier_bytes",
+            "Disk-tier occupancy vs budget (serialized wire bytes live in "
+            "the mmap arena; fragmentation can grow the file past used, "
+            "never used past budget).", "gauge")
+        disk_bytes.add({"kind": "used"},
+                       disk.used_bytes if disk is not None else 0)
+        disk_bytes.add({"kind": "budget"},
+                       disk.budget_bytes if disk is not None else 0)
+        disk_blocks = MetricFamily(
+            "kubeshare_serving_disk_tier_blocks_total",
+            "Disk-tier lifetime events: demoted = HOST→DISK cascades in, "
+            "promoted = DISK→HOST stagings out, evicted = disk-budget LRU "
+            "drops, refused = puts that found no room, corrupt_read = "
+            "payloads whose crc32 failed after a disk read (dropped, "
+            "re-prefilled cold).", "counter")
+        events = (("demoted", "stored_blocks"), ("promoted", "promoted_blocks"),
+                  ("evicted", "evicted_blocks"), ("refused", "refused_blocks"),
+                  ("corrupt_read", "corrupt_reads"))
+        for event, attr in events:
+            disk_blocks.add({"event": event},
+                            getattr(disk, attr) if disk is not None else 0)
+        return [tier_blocks, tier_req, tier_tokens, tier_bytes, tier_stall,
+                tier_corrupt, tier_origin, disk_bytes, disk_blocks]
 
     def _observe_ttft(self, seconds: float, tenant: str) -> None:
         self._ttft_sum += seconds
@@ -1255,35 +1516,298 @@ class ServingEngine:
         cls[1] += per_token * count
         _bucket_observe(cls[0], per_token, TBT_BUCKETS, count)
 
+    # ------------------------------------------------------------------
+    # KV tiering internals (kv_tier.py owns the stores; the engine owns the
+    # glue between allocator eviction, the trie and the pool)
+    # ------------------------------------------------------------------
     def _evict_blocks(self, victim: int, reason: str) -> List[int]:
-        """The allocator's eviction callback: detach the victim's subtree
-        from the trie (its K/V is destroyed) and count the trigger.  Runs
-        under the allocator's lock."""
-        removed = self.prefix_index.evict(victim)
-        self.evictions_by_reason[reason] += len(removed)
-        return removed
+        """The allocator's eviction callback.  Tiering off: detach the
+        victim's subtree from the trie (its K/V is destroyed) and count the
+        trigger.  Tiering on: walk the subtree through the TierPolicy — each
+        node is DEMOTED (serialized into the host tier, its trie node kept
+        HOST-resident) or DROPPED (subtree detached).  Either way every
+        device block of the subtree returns to the allocator, which
+        uncharges its tenant; promotion charges again.  Runs under the
+        allocator's lock: no locking allocator method may be called."""
+        if self.host_tier is None:
+            removed = self.prefix_index.evict(victim)
+            self.evictions_by_reason[reason] += len(removed)
+            return removed
+        released: List[int] = []
+        # entries demoted within this walk stay pinned until it returns: the
+        # walk goes parent-first, so a just-demoted ancestor transiently has
+        # device children, and the tier must not evict it to fund them
+        walk_pins: List[int] = []
+        t0 = time.monotonic()
+        try:
+            self._tier_visit(self.prefix_index.node_of(victim), released,
+                             walk_pins)
+        finally:
+            for k in walk_pins:
+                self.host_tier.unpin(k)
+            self.tier_demotion_s += time.monotonic() - t0
+        return released
 
-    def _match_prefix(self, pending: _Pending) -> Optional[_PrefixHit]:
+    def _read_blocks(self, blocks: List[int]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The K and V rows of pool ``blocks`` on the host, [len(blocks),
+        n_layers, kv_heads, block_size, head_dim] each (every block's slab
+        contiguous, ready to pack): one gather and one device-to-host copy
+        per pool, into pinned memory on the card.  The copy is ordered on
+        the stream after every dispatch that wrote the blocks, and it
+        completes before the caller returns them to the allocator."""
+        idx = torch.tensor(blocks, dtype=torch.int64, device=self.device)
+        rows = []
+        for pool in (self.pool.k, self.pool.v):
+            gathered = pool.index_select(1, idx).transpose(0, 1)
+            host = torch.empty(gathered.shape, dtype=gathered.dtype,
+                               pin_memory=gathered.is_cuda)
+            rows.append(host.copy_(gathered))
+        return rows[0], rows[1]
+
+    def _read_block_payload(self, node) -> bytes:
+        """Serialize one device block's K/V rows and token run."""
+        k, v = self._read_blocks([node.block])
+        return pack_block(node.tokens, k[0], v[0])
+
+    def _tier_visit(self, root, released: List[int],
+                    walk_pins: List[int]) -> None:
+        """Demote-or-drop every device-resident node in ``root``'s subtree,
+        parent-first (host children are already spilled).  A dropped node
+        takes its whole subtree with it.  Demoted keys are pinned into
+        ``walk_pins`` (released by the caller).  The subtree's device
+        blocks are read to the host in one copy first; each node is packed
+        from it as the walk reaches it, the bytes a per-node read would
+        give.  Iterative: subtree depth is bounded only by
+        ``max_request_len / block_size``."""
+        if root is None:
+            return
+        subtree, stack = [], [root]
+        while stack:
+            node = stack.pop()
+            subtree.append(node.block)
+            stack.extend(child for child in
+                         list(node.children.values()) + node.partials
+                         if child.block >= 0)
+        k_rows, v_rows = self._read_blocks(subtree)
+        column = {block: i for i, block in enumerate(subtree)}
+        stack = [root]
+        while stack:
+            node = stack.pop()
+            # under the allocator lock: read the charge ledger directly
+            tenant = self.allocator._tenant_of.get(node.block)
+            i = column[node.block]
+            payload = pack_block(node.tokens, k_rows[i], v_rows[i])
+            key = self.host_tier.put(payload, tenant, node)
+            if key is None:
+                device, host_keys, disk_keys = \
+                    self.prefix_index.detach(node)
+                for hk in host_keys:
+                    self.host_tier.forget(hk)
+                for dk in disk_keys:
+                    self.disk_tier.forget(dk)
+                released.extend(device)
+                self.tier_dropped_blocks += len(device)
+                self.evictions_by_reason["tier_drop"] += len(device)
+                continue
+            self.host_tier.pin(key)
+            walk_pins.append(key)
+            released.append(node.block)
+            self.prefix_index.demote(node.block, key)
+            self.tier_demoted_blocks += 1
+            self.evictions_by_reason["tier_demote"] += 1
+            if self.on_tier_demote is not None:
+                self.on_tier_demote(node, payload, tenant)
+            stack.extend(
+                child
+                for child in list(node.children.values()) + node.partials
+                if child.block >= 0)
+
+    def _spill_host_entry(self, entry) -> None:
+        """HostTier's budget-eviction hook.  With a disk tier below, the
+        evicted payload CASCADES (HOST→DISK): the bytes move into the mmap
+        arena and the trie node becomes DISK-resident, still matchable.
+        Without one (or when the disk refuses), the entry is destroyed."""
+        if self.disk_tier is not None and entry.node is not None:
+            dkey = self.disk_tier.put(entry.payload, entry.tenant,
+                                      entry.node, origin=entry.origin)
+            if dkey is not None:
+                self.prefix_index.to_disk(entry.node, dkey)
+                self.host_tier.forget(entry.key)
+                return
+        self._drop_host_entry(entry)
+
+    def _drop_tier_subtree(self, entry, tier: str) -> None:
+        """Detach a tier entry's trie node and its all-non-device subtree,
+        purging every tier copy in it."""
+        device, host_keys, disk_keys = self.prefix_index.detach(entry.node)
+        if device:  # non-device-below-device invariant violated
+            raise RuntimeError(
+                f"{tier} entry {entry.key}'s subtree held device blocks "
+                f"{device} — index/tier state diverged")
+        for hk in host_keys:
+            self.host_tier.forget(hk)
+        for dk in disk_keys:
+            self.disk_tier.forget(dk)
+
+    def _drop_host_entry(self, entry) -> None:
+        """Destroy a host entry with its trie subtree.  The corrupt-payload
+        path calls this directly (rotted bytes must not be parked on
+        disk)."""
+        self._drop_tier_subtree(entry, "host")
+
+    def _drop_disk_entry(self, entry) -> None:
+        """DiskTier's budget-eviction hook: the end of the cascade."""
+        self._drop_tier_subtree(entry, "disk")
+
+    def _validate_host_hit(self, hit: _PrefixHit):
+        """Unpack (and crc-check) every host payload ``hit`` will consume:
+        ``{host_key: (tokens, k_slab, v_slab)}``, or None after dropping the
+        corrupt entries (counted in ``tier_corrupt_blocks``), in which case
+        the caller retries the admission cold.  Validation comes before any
+        upload, so a corrupt middle block leaves no half-promoted slot."""
+        slabs, bad = {}, []
+        nodes = list(hit.promote)
+        if hit.host_cow is not None:
+            nodes.append(hit.host_cow)
+        for node in nodes:
+            entry = self.host_tier.probe(node.host_key)
+            try:
+                slabs[node.host_key] = unpack_block(entry.payload)
+            except WireCorruption:
+                bad.append(entry)
+        if not bad:
+            return slabs
+        for entry in bad:
+            self.tier_corrupt_blocks += 1
+            if self.host_tier.probe(entry.key) is not None:
+                # a corrupt ancestor's detach may already have cascaded
+                # this entry out of the tier
+                self._drop_host_entry(entry)
+        return None
+
+    def _match_prefix(self, pending: _Pending,
+                      limit: Optional[int] = None) -> Optional[_PrefixHit]:
         """Admission-time prefix lookup for one queued request (None =
-        cold).  Fully matched blocks map as shared; a partial tail match
-        routes to the copy-on-write copy.  The match is capped at
-        prompt - 1 tokens, keeping one real token in the prefill plan
-        (its logits row IS the first output token)."""
+        cold).  The tier-aware walk may cross HOST- and DISK-resident nodes:
+        device full matches map as shared blocks, tiered full matches become
+        promotions (disk ones are staged to host first,
+        :meth:`_stage_disk_hit`), and a partial tail match routes to the
+        copy-on-write copy (device) or a private payload upload (tiered).
+        The match is capped at prompt - 1 tokens, keeping one real token in
+        the prefill plan (its logits row IS the first output token);
+        ``limit`` caps it further (the disk-staging retry)."""
         ec = self.engine_config
         prompt = pending.prompt
-        matched, chain = self.prefix_index.match(prompt)
+        matched, chain = self.prefix_index.match_tiered(prompt)
         matched = min(matched, prompt.size - 1)
+        if limit is not None:
+            matched = min(matched, limit)
         if matched <= 0:
             return None
         chain = chain[: self.allocator.blocks_for_tokens(matched)]
         n_full = matched // ec.block_size
-        shared = list(chain[:n_full])
-        cow_src = chain[n_full] if matched % ec.block_size else None
+        partial = matched % ec.block_size
+        shared: List[int] = []
+        promote: List = []
+        for node in chain[:n_full]:
+            if node.block >= 0:
+                if promote:  # non-device-ness is downward-closed
+                    raise RuntimeError(
+                        "device-resident node below a tiered one in a match "
+                        "chain — index/tier state diverged")
+                shared.append(node.block)
+            else:
+                promote.append(node)
+        cow_src = host_cow = None
+        if partial:
+            tail = chain[n_full]
+            if tail.block >= 0:
+                cow_src = tail.block
+            else:
+                host_cow = tail
         plan, cover = plan_prefill_chunks(
             prompt.size, ec.prefill_chunk, ec.max_request_len, matched)
         total_rows = max(cover, prompt.size + pending.max_new)
         needed = self.allocator.blocks_for_tokens(total_rows) - len(shared)
-        return _PrefixHit(matched, shared, cow_src, plan, needed)
+        host_tokens = (len(promote) * ec.block_size
+                       + (partial if host_cow is not None else 0))
+        return _PrefixHit(matched, shared, cow_src, promote, host_cow,
+                          plan, needed, host_tokens)
+
+    def _stage_disk_hit(self, pending: _Pending) -> Optional[_PrefixHit]:
+        """Match + DISK→HOST staging: re-home every disk-resident node the
+        hit would consume into the host tier (read, crc-validate, put, pin)
+        so the promotion path sees only host payloads.  A corrupt disk read
+        drops the node's subtree and re-matches (a shorter or cold
+        admission, never wrong tokens); a host tier that cannot take a
+        staged payload truncates the match just before that block."""
+        limit: Optional[int] = None
+        staged_pins: List[int] = []
+        try:
+            hit = self._match_prefix(pending, limit)
+            while hit is not None:
+                nodes = list(hit.promote)
+                if hit.host_cow is not None:
+                    nodes.append(hit.host_cow)
+                disk_nodes = [n for n in nodes if n.disk_key is not None]
+                if not disk_nodes:
+                    return hit
+                # the hit's host-resident nodes stay pinned through the
+                # staging too: a staged put must not spill them (to disk,
+                # or out of the trie) from under the hit it belongs to
+                for node in nodes:
+                    if node.host_key is not None:
+                        self.host_tier.pin(node.host_key)
+                        staged_pins.append(node.host_key)
+                t0 = time.monotonic()
+                clean = True
+                for node in disk_nodes:
+                    dkey = node.disk_key
+                    entry = self.disk_tier.probe(dkey)
+                    payload = self.disk_tier.read(dkey)
+                    try:
+                        unpack_block(payload)
+                    except WireCorruption:
+                        self.disk_tier.corrupt_reads += 1
+                        self.tier_corrupt_blocks += 1
+                        self._drop_disk_entry(entry)
+                        clean = False
+                        break
+                    hkey = self.host_tier.put(payload, entry.tenant, node,
+                                              origin=entry.origin)
+                    if hkey is None:
+                        before = (len(self.prefix_index.path_tokens(node))
+                                  - len(node.tokens))
+                        limit = before if limit is None else min(limit,
+                                                                 before)
+                        clean = False
+                        break
+                    # pinned through the rest of staging: a later put must
+                    # not cascade this one straight back to disk
+                    self.host_tier.pin(hkey)
+                    staged_pins.append(hkey)
+                    self.prefix_index.stage_to_host(node, hkey)
+                    self.disk_tier.forget(dkey)
+                    self.disk_tier.promoted_blocks += 1
+                self.tier_promotion_stall_s += time.monotonic() - t0
+                if clean:
+                    return hit
+                hit = self._match_prefix(pending, limit)
+            return None
+        finally:
+            # _try_admit re-pins what the hit consumes
+            for k in staged_pins:
+                self.host_tier.unpin(k)
+
+    def _upload(self, dst: int, k_slab: torch.Tensor,
+                v_slab: torch.Tensor) -> None:
+        """Dispatch the upload program: one block's slabs into ``dst``,
+        staged as raw words (a bf16 slab as int16, no float conversion)."""
+        self._dispatch(self._program("upload"), {
+            "dst": np.array([dst], np.int64),
+            "k_slab": slab_words(k_slab)[1],
+            "v_slab": slab_words(v_slab)[1]})
 
     def _admit(self) -> None:
         """QoS admission: walk tenants in fair-queue order (Guarantee
@@ -1382,8 +1906,12 @@ class ServingEngine:
         (global shortfall).  A failed attempt rolls back every retained
         block."""
         plan, needed = pending.plan, pending.needed
-        hit = (self._match_prefix(pending)
-               if self.prefix_index is not None else None)
+        if self.prefix_index is None:
+            hit = None
+        elif self.disk_tier is not None:
+            hit = self._stage_disk_hit(pending)
+        else:
+            hit = self._match_prefix(pending)
         if hit is not None:
             plan, needed = hit.plan, hit.needed
         evict_first = (set(self.tenants.opportunistic())
@@ -1392,6 +1920,16 @@ class ServingEngine:
             shared = hit.shared if hit is not None else []
             cow_src = hit.cow_src if hit is not None else None
             retained = shared + ([cow_src] if cow_src is not None else [])
+            pinned: List[int] = []
+            if hit is not None and self.host_tier is not None:
+                # the reserve below may demote more blocks into the host
+                # tier, whose budget eviction must not take the entries
+                # this admission is about to promote
+                pinned = [n.host_key for n in hit.promote]
+                if hit.host_cow is not None:
+                    pinned.append(hit.host_cow.host_key)
+                for k in pinned:
+                    self.host_tier.pin(k)
             if retained:
                 self.allocator.retain(retained)
             try:
@@ -1399,8 +1937,26 @@ class ServingEngine:
                     needed, pending.rid, tenant=spec.name,
                     quota=spec.kv_block_quota,
                     evict_tenants_first=evict_first)
+                # every host payload is unpacked (and crc-checked) BEFORE
+                # any of them uploads: a corrupt block is dropped from tier
+                # and trie and the admission retries cold
+                slabs = (self._validate_host_hit(hit)
+                         if hit is not None
+                         and (hit.promote or hit.host_cow is not None)
+                         else {})
+                if slabs is None:
+                    for k in pinned:
+                        self.host_tier.unpin(k)
+                    self.allocator.reclaim(blocks)
+                    if retained:
+                        self.allocator.reclaim(retained)
+                    hit = None
+                    plan, needed = pending.plan, pending.needed
+                    continue
                 break
             except QuotaExceeded:
+                for k in pinned:
+                    self.host_tier.unpin(k)
                 if retained:
                     self.allocator.reclaim(retained)
                 if hit is not None:
@@ -1412,22 +1968,31 @@ class ServingEngine:
                     continue
                 return "quota"
             except BlockExhausted:
+                for k in pinned:
+                    self.host_tier.unpin(k)
                 if retained:
                     self.allocator.reclaim(retained)
                 return "pool"
         slot.state = "prefill"
         slot.rid = pending.rid
         slot.tenant = spec.name
-        # table order: [shared prefix | CoW copy (when the match ends
-        # mid-block) | fresh suffix blocks]
+        # table order: [device shared prefix | promoted tier blocks
+        # (blocks[:n_promote], chain order) | CoW / tier-partial copy
+        # (blocks[n_promote], when the match ends mid-block) | fresh
+        # suffix blocks]
+        n_promote = len(hit.promote) if hit is not None else 0
         slot.blocks = shared + blocks
         slot.table[:] = 0
         slot.table[: len(slot.blocks)] = slot.blocks
         slot.length = 0
+        if n_promote or (hit is not None and hit.host_cow is not None):
+            self._promote(hit, blocks, slabs)
+        for k in pinned:
+            self.host_tier.unpin(k)
         if cow_src is not None:
             self._dispatch(self._program("copy"),
                            {"src": np.array([cow_src], np.int64),
-                            "dst": np.array([blocks[0]], np.int64)})
+                            "dst": np.array([blocks[n_promote]], np.int64)})
             self.allocator.reclaim([cow_src])  # transient read ref
             self.cow_copies += 1
         if hit is not None:
@@ -1465,10 +2030,11 @@ class ServingEngine:
         if ec.speculative:
             # the lookup window starts as the prompt (for a resumed
             # request: prompt + generated, the window an unpreempted lane
-            # would hold); the width starts at draft_len and the EMA of
-            # acceptance halves it on lanes whose drafts miss
+            # would hold); the width starts at draft_len (under the tuned
+            # cap) and the EMA of acceptance halves it on lanes whose
+            # drafts miss
             slot.drafter = NGramDrafter(ec.draft_ngram, pending.prompt)
-            slot.draft_width = ec.draft_len
+            slot.draft_width = min(ec.draft_len, self._draft_width_cap)
             slot.accept_rate = 0.5
             if self.prefix_index is not None:
                 # a cache hit's trie continuation is a second window: a
@@ -1480,6 +2046,45 @@ class ServingEngine:
         self.peak_blocks_in_use = max(
             self.peak_blocks_in_use, self.allocator.blocks_in_use)
         return "admitted"
+
+    def _promote(self, hit: _PrefixHit, blocks: List[int],
+                 slabs: Dict) -> None:
+        """PROMOTION: the hit's host payloads back into the leading fresh
+        blocks, each one dispatch of the upload program through the
+        pipelined path (on an unguarded engine the copy-in overlaps the
+        in-flight dispatch).  A partial host match uploads straight into
+        the request's private tail block and leaves its entry host-side."""
+        t0 = time.monotonic()
+        n_promote = len(hit.promote)
+        tail = [hit.host_cow] if hit.host_cow is not None else []
+        # a hit is "remote" when any payload it consumes came from another
+        # replica (probe before the takes below surrender the entries)
+        origin = "local"
+        for node in hit.promote + tail:
+            entry = self.host_tier.probe(node.host_key)
+            if entry is not None and entry.origin == "remote":
+                origin = "remote"
+                break
+        for node, dst in zip(hit.promote, blocks[:n_promote]):
+            self.host_tier.take(node.host_key)
+            _, k_slab, v_slab = slabs[node.host_key]
+            self._upload(dst, k_slab, v_slab)
+            self.prefix_index.promote(node, dst)
+        if n_promote:
+            # trie-referenced again: park idle-cached at release, like any
+            # indexed block (the reserve already charged them)
+            self.allocator.mark_cached(blocks[:n_promote])
+        if tail:
+            entry = self.host_tier.peek(hit.host_cow.host_key)
+            _, k_slab, v_slab = slabs[hit.host_cow.host_key]
+            self._upload(blocks[n_promote], k_slab, v_slab)
+            # peek leaves the entry host-side: meter the copy-out here
+            self.host_tier.meter(entry.nbytes, "promote")
+        self.tier_promoted_blocks += n_promote + len(tail)
+        self.tier_promotion_stall_s += time.monotonic() - t0
+        self.tier_hit_requests += 1
+        self.tier_hit_requests_by_origin[origin] += 1
+        self.tier_hit_tokens += hit.host_tokens
 
     def _preempt_victim(self) -> bool:
         """Pick and preempt one Opportunistic DECODE slot for a starved
@@ -1552,6 +2157,10 @@ class ServingEngine:
         token-gated shape of the run-to-completion path); unguarded, the
         dispatch stays asynchronous and its results are read one step
         later (:meth:`_consume_inflight`)."""
+        if self.fault_clock is not None:
+            # chaos seam: a planned slow dispatch advances the fault
+            # clock's virtual time here
+            self.fault_clock.on_dispatch(self)
         if self.guard is None:
             return self._launch(program, values)
         self.guard.acquire()
@@ -1699,7 +2308,7 @@ class ServingEngine:
         are read when consumed, so all unit-proportional bookkeeping
         happens in :meth:`_consume_inflight`."""
         ec = self.engine_config
-        k_depth = ec.steps_per_launch
+        k_depth = self._loop_k  # the effective depth, a captured one
         lanes = self._decode_lanes(decode_slots, k_depth * ec.decode_span)
         ring, units = self._dispatch(self._program("loop", k_depth), lanes)
         self.loop_launches += 1
@@ -1819,7 +2428,7 @@ class ServingEngine:
             i = slot.idx
             lanes["hist"][i], lanes["hist_len"][i] = \
                 self._drafting_window(slot)
-            lanes["dcaps"][i] = slot.draft_width
+            lanes["dcaps"][i] = min(slot.draft_width, self._loop_draft_cap)
         return lanes
 
     def _ring_lanes(self, k_depth: int):
@@ -1850,7 +2459,7 @@ class ServingEngine:
             ring["r_seeds"][j] = self._seed_window(slot, n_seeds)
             ring["r_hist"][j], ring["r_hist_len"][j] = \
                 self._drafting_window(slot)
-            ring["r_caps"][j] = slot.draft_width
+            ring["r_caps"][j] = min(slot.draft_width, self._loop_draft_cap)
         ring["r_count"] = np.array(len(staged), np.int64)
         return ring, staged
 
@@ -1901,7 +2510,7 @@ class ServingEngine:
         ONE dispatch.  The host draft that armed the plan is dropped (the
         device drafts every unit itself); all unit-proportional
         bookkeeping waits for :meth:`_consume_inflight`."""
-        k_depth = self.engine_config.steps_per_launch
+        k_depth = self._loop_k
         if self.engine_config.admission_ring:
             self._fill_admission_ring()
         lanes = self._spec_loop_lanes(plan.decode_slots, k_depth)
@@ -2027,11 +2636,15 @@ class ServingEngine:
         drafted ``k`` tokens and had ``m`` accepted (``accepted`` tokens
         reached the stream): the acceptance EMA doubles the adaptive width
         at >= 0.75 and halves it at <= 0.25 (powers of two only, so every
-        reachable width is a warmed shape), and the counters and the
-        acceptance histogram."""
+        reachable width is a warmed shape) — under autotune the tuner's
+        cost-model argmax over the widths up to its cap replaces that rule
+        — and the counters and the acceptance histogram."""
         rate = m / k
         slot.accept_rate = 0.5 * slot.accept_rate + 0.5 * rate
-        if slot.accept_rate >= 0.75:
+        if self._tuner is not None:
+            slot.draft_width = self._tuner.lane_draft_width(
+                slot.accept_rate, self._draft_width_cap)
+        elif slot.accept_rate >= 0.75:
             slot.draft_width = min(slot.draft_width * 2,
                                    self.engine_config.draft_len)
         elif slot.accept_rate <= 0.25:
@@ -2125,7 +2738,7 @@ class ServingEngine:
             self._ring_staged.remove(entry)
         if unrefilled is not None:
             reason = "ring_empty" if ec.admission_ring > 0 else unrefilled
-        elif units < ec.steps_per_launch:
+        elif units < self._loop_k:
             reason = "redraft"
         else:
             reason = "budget"

@@ -96,13 +96,19 @@ def paged_copy_block(pool_k: torch.Tensor, pool_v: torch.Tensor,
 
 
 def paged_upload_block(pool_k: torch.Tensor, pool_v: torch.Tensor,
-                       dst: int, k_slab: torch.Tensor,
+                       dst, k_slab: torch.Tensor,
                        v_slab: torch.Tensor) -> None:
-    """Write ONE block's rows (all layers, K and V) from host slabs
-    [n_layers, kv_heads, block_size, head_dim], in place — the KV tier's
-    promotion primitive (the tier itself is not ported yet)."""
-    pool_k[:, dst] = k_slab.to(pool_k.device, pool_k.dtype)
-    pool_v[:, dst] = v_slab.to(pool_v.device, pool_v.dtype)
+    """Write ONE block's rows (all layers, K and V) from slabs [n_layers,
+    kv_heads, block_size, head_dim], in place — the KV tier's promotion
+    primitive.  ``dst`` is a block id or a [1] int64 tensor on the pool's
+    device; the engine's upload program passes the tensor and its slabs
+    as device inputs, so one captured upload serves every block (the
+    ``.to`` is then a no-op: nothing is read from host memory inside the
+    graph)."""
+    if not isinstance(dst, torch.Tensor):
+        dst = torch.tensor([dst], dtype=torch.int64, device=pool_k.device)
+    pool_k.index_copy_(1, dst, k_slab.to(pool_k.device, pool_k.dtype)[:, None])
+    pool_v.index_copy_(1, dst, v_slab.to(pool_v.device, pool_v.dtype)[:, None])
 
 
 def _layer_views(pk_layer: torch.Tensor, pv_layer: torch.Tensor,

@@ -18,7 +18,7 @@ from kubeshare_tpu_torch.models import decoding
 from kubeshare_tpu_torch.models.transformer import (TransformerConfig,
                                                     transformer_init)
 from kubeshare_tpu_torch.serving import (EngineConfig, Request,
-                                         ServingEngine, paged)
+                                         ServingEngine, kv_tier, paged)
 
 pytestmark = pytest.mark.cuda
 
@@ -185,3 +185,71 @@ def test_speculative_engine_captures_nothing_after_warmup(card):
         want = decoding.greedy_decode(
             params, config, torch.from_numpy(prompt)[None].to(device), new)
         assert out[rid].tokens == want[0].tolist(), rid
+
+
+def test_bf16_demote_promote_round_trip_through_the_upload_graph(card):
+    """Random bf16 rows in one pool block come back bit for bit in another
+    through the demotion read (a gather and a device-to-host copy),
+    pack_block / unpack_block, and the captured upload program."""
+    device, _, _ = card
+    config = TransformerConfig(**{**MODEL, "dtype": torch.bfloat16})
+    params = transformer_init(config, torch.Generator().manual_seed(0), device)
+    engine = ServingEngine(params, config, EngineConfig(
+        num_slots=2, block_size=4, num_blocks=9, max_request_len=16,
+        prefill_chunk=8, host_tier_bytes=1 << 20), device=device)
+    engine.warmup()
+    counts = engine.capture_counts()
+    assert counts["upload"] == 1
+    pool = engine.pool
+    # warm-up and capture wrote only scratch block 0
+    assert not pool.k[:, 1:].any() and not pool.v[:, 1:].any()
+    src, dst = 3, 6
+    gen = torch.Generator(device=device).manual_seed(1)
+    for slab in (pool.k, pool.v):
+        slab[:, src] = torch.randn(slab[:, src].shape, generator=gen,
+                                   device=device).to(torch.bfloat16)
+
+    class Node:
+        block, tokens = src, (1, 2, 3, 4)
+
+    tokens, k, v = kv_tier.unpack_block(engine._read_block_payload(Node))
+    assert k.dtype == torch.bfloat16 and list(tokens) == [1, 2, 3, 4]
+    engine._upload(dst, k, v)
+    torch.cuda.synchronize(device)
+    for slab in (pool.k, pool.v):
+        assert torch.equal(slab[:, dst].view(torch.int16),
+                           slab[:, src].view(torch.int16))
+    assert engine.capture_counts() == counts
+    assert engine.dispatch_device_ms()["upload"][0] == 1
+
+
+def test_tiered_engine_captures_nothing_after_warmup(card):
+    """A demote -> promote trace through the host tier and the disk
+    cascade on the card: dense greedy streams, one upload graph, no
+    capture after warm-up."""
+    device, config, params = card
+    rng = np.random.default_rng(7)
+    shared = rng.integers(0, 64, 13)
+    trace = [("r0", shared, 3), ("f1", rng.integers(0, 64, 29), 3),
+             ("f2", rng.integers(0, 64, 29), 3),
+             ("hit", np.concatenate([shared, rng.integers(0, 64, 4)]), 3)]
+    wire = kv_tier.wire_block_bytes(4, config.n_layers, config.kv_heads, 4,
+                                    config.head_dim, 4)
+    engine = ServingEngine(params, config, EngineConfig(
+        num_slots=1, block_size=4, num_blocks=13, max_request_len=32,
+        prefill_chunk=8, host_tier_bytes=3 * wire, disk_tier_bytes=1 << 20),
+        device=device)
+    try:
+        engine.warmup()
+        counts = engine.capture_counts()
+        for rid, prompt, new in trace:
+            engine.submit(Request(rid, prompt, new))
+            out = engine.run()
+            want = decoding.greedy_decode(
+                params, config, torch.from_numpy(prompt)[None].to(device), new)
+            assert out[rid].tokens == want[0].tolist(), rid
+        assert engine.capture_counts() == counts and counts["upload"] == 1
+        assert engine.tier_promoted_blocks > 0
+        assert engine.disk_tier.promoted_blocks > 0
+    finally:
+        engine.disk_tier.close()

@@ -248,13 +248,9 @@ def test_metrics_count_the_trace(model):
 
 
 @pytest.mark.parametrize("overrides,kwargs", [
-    (dict(host_tier_bytes=1 << 20), {}),
-    (dict(disk_tier_bytes=1 << 20), {}),
-    (dict(autotune=True), {}),
     (dict(mesh_spec=object()), {}),
     (dict(long_context_threshold=64), {}),
     (dict(pool_role="decode", mixed=False), {}),
-    ({}, dict(shared_host_tier=object())),
     ({}, dict(mesh_devices=[0])),
 ])
 def test_unported_options_raise(model, overrides, kwargs):
@@ -262,6 +258,40 @@ def test_unported_options_raise(model, overrides, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
         ServingEngine(tp, cfg, EngineConfig(**{**POOL, **overrides}),
                       device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("overrides,shared_tier", [
+    (dict(host_tier_bytes=1 << 20, prefix_cache=False), False),
+    (dict(host_tier_bytes=100), False),
+    (dict(disk_tier_bytes=1 << 20), False),
+    (dict(host_tier_bytes=1 << 20, disk_tier_bytes=100), False),
+    (dict(disk_tier_path="kv.arena"), False),
+    (dict(host_tier_bytes=1 << 20), True),
+    (dict(prefix_cache=False), True),
+    (dict(autotune=True, autotune_interval=0), False),
+], ids=["host_needs_prefix_cache", "host_below_one_block",
+        "disk_needs_host", "disk_below_one_block", "path_needs_disk",
+        "shared_and_host_budget", "shared_needs_prefix_cache",
+        "autotune_interval"])
+def test_tier_and_tuner_rows_raise_like_jax(model, overrides, shared_tier):
+    """Each validation row of the tier and tuner options raises the JAX
+    engine's error with the JAX engine's message."""
+    from kubeshare_tpu.serving import HostTier as JaxHostTier
+    from kubeshare_tpu.serving import LRUTierPolicy as JaxLRU
+    from kubeshare_tpu_torch.serving import HostTier, LRUTierPolicy
+
+    jax_cfg, jp, cfg, tp = model
+    with pytest.raises(ValueError) as want:
+        JaxServingEngine(jp, jax_cfg, JaxEngineConfig(**{**POOL, **overrides}),
+                         shared_host_tier=(JaxHostTier(1 << 20, JaxLRU())
+                                           if shared_tier else None))
+    with pytest.raises(ValueError) as got:
+        ServingEngine(tp, cfg, EngineConfig(**{**POOL, **overrides}),
+                      device="cpu",
+                      shared_host_tier=(HostTier(1 << 20, LRUTierPolicy())
+                                        if shared_tier else None))
+    assert type(got.value) is type(want.value)
+    assert str(got.value) == str(want.value)
 
 
 def test_submit_validates_and_the_engine_needs_a_device(model, monkeypatch):
