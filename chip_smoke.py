@@ -88,6 +88,27 @@ Phases (any failure raises and the script exits non-zero):
    length and teacher-forced within ENGINE_TOKEN_MARGIN, a tuning round in
    (e), and random bf16 rows demoted and promoted through the captured
    upload equal as int16 words.
+   engine_disagg: disaggregated prefill/decode serving on the flagship.
+   96 requests from benchmarks/serving_bench.py's disagg_settings /
+   build_mixed_workload (one in eight a 192-288-token ingest prompt with
+   8-16 new tokens, the rest 16-48-token streamers with 96-128), 16-row
+   blocks, 64-token chunks, spans of 2, the settings' 120-block KV budget,
+   served by (a0) a monolithic engine with mixed=False and the decode
+   pool's 6 slots (the bit-exact oracle), (a1) it with mixed=True, (b) the
+   two-cell DisaggRouter (prefill pool 2 slots / 41 blocks, decode pool 6
+   / 81, 6 pending handoffs), (c) (b) with its tickets over a loopback
+   fabric, (d) (a0) and (b) with every fourth request sampled (T 0.8,
+   top_k 50), (e) (a1) and (b) under Poisson arrivals offering 0.7 of
+   (a1)'s tokens/s.  Each pass prints tokens/s, TTFT, TBT (the decode
+   pool's, from the pool-labelled histograms), dispatches, each pool's
+   busy share by CUDA events, and for the router migrations, migrated
+   bytes, the migration stall, the uploads' CUDA-event ms, the stage /
+   pack / deliver host seconds and the handoff retries.  Required: no
+   capture after warm-up in any pool, every migration packed delivered,
+   (b) and (c) streams equal to (a0)'s and (d)'s router streams to its
+   engine's, (a1), (b), (c) and (e) teacher-forced within
+   ENGINE_TOKEN_MARGIN, and one migrated chain's bytes in the decode pool
+   equal to the prefill pool's.
 6. train: the repo's train-step flagship (benchmarks/kernel_bench.py
    MODEL_SIZES["flagship"], rope, bf16, full width and depth) takes 10
    AdamW steps on a fixed batch of 2 x 2048 tokens through
@@ -108,8 +129,8 @@ Phases (any failure raises and the script exits non-zero):
 
 The launch counters are zeroed before each path and read after it (the
 captured path's around its capture: a replay bumps no counter).  The
-engine's paths (engine, engine_spec, engine_tier) launch none of the
-kernels (their attention is the paged einsums, as in the JAX engine), so
+engine's paths (engine, engine_spec, engine_tier, engine_disagg) launch
+none of the kernels (their attention is the paged einsums, as in the JAX engine), so
 their counts read 0; the speculative
 path's prefills launch the flash forward.  The
 last lines are the card (nvidia-smi), a JSON ``kernels`` line, and
@@ -319,6 +340,36 @@ TIER_DISK_BYTES = 64 << 20
 # prefix's), in turns, the best of each kept
 TIER_READ_BLOCKS = 24
 TIER_READ_TURNS = 5
+# engine_disagg: benchmarks/serving_bench.py's disagg_settings /
+# build_mixed_workload on the flagship (its vocab_size 4096 cut to the
+# model's 2048): DISAGG_REQUESTS greedy requests from DISAGG_SEED, one in
+# eight (DISAGG_LONG_FRACTION) an ingest request (DISAGG_LONG_PROMPT
+# tokens, DISAGG_LONG_NEW new), the rest streamers (DISAGG_SHORT_PROMPT,
+# DISAGG_SHORT_NEW).  The KV budget is the settings' 120 allocatable
+# blocks: monolithic 121, prefill 41 + decode 81 (scratch block included
+# in each); every pool DISAGG_SHARED.  The monolithic engine with
+# mixed=False and the decode pool's 6 slots runs decode spans of the
+# decode pool's shape: the bit-exact oracle.  Pass (d) samples every
+# DISAGG_SAMPLE_EVERY-th request; pass (e) draws Poisson arrivals from
+# the trace's own unit exponentials, scaled so the offered tokens/s is
+# DISAGG_LOAD of the back-to-back mixed pass's
+DISAGG_REQUESTS = 96
+DISAGG_SEED = 0
+DISAGG_LONG_FRACTION = 0.125
+DISAGG_LONG_PROMPT = (192, 288)
+DISAGG_LONG_NEW = (8, 16)
+DISAGG_SHORT_PROMPT = (16, 48)
+DISAGG_SHORT_NEW = (96, 128)
+DISAGG_SHARED = dict(block_size=16, max_request_len=320, prefill_chunk=64,
+                     decode_span=2)
+DISAGG_MONO = dict(num_slots=6, num_blocks=121)
+DISAGG_PREFILL = dict(num_slots=2, num_blocks=41)
+DISAGG_DECODE = dict(num_slots=6, num_blocks=81)
+DISAGG_PENDING = 6
+DISAGG_SAMPLE_EVERY = 4
+DISAGG_TEMPERATURE = 0.8
+DISAGG_TOP_K = 50
+DISAGG_LOAD = 0.7
 
 
 def check(condition: bool, message: str) -> None:
@@ -1507,6 +1558,314 @@ def tier_report(label, stats, streams, hbm_streams, trace):
           f"{equal}/{len(trace)}")
 
 
+def disagg_trace(config):
+    """DISAGG_REQUESTS (rid, prompt, new_tokens, unit_arrival) in
+    build_mixed_workload's draw order: the arrival is the running sum of
+    unit-mean exponentials (scale it by a mean inter-arrival)."""
+    import numpy as np
+
+    rng = np.random.default_rng(DISAGG_SEED)
+    trace, t = [], 0.0
+    for i in range(DISAGG_REQUESTS):
+        t += float(rng.exponential(1.0))
+        if rng.random() < DISAGG_LONG_FRACTION:
+            length = int(rng.integers(DISAGG_LONG_PROMPT[0],
+                                      DISAGG_LONG_PROMPT[1] + 1))
+            new = int(rng.integers(DISAGG_LONG_NEW[0], DISAGG_LONG_NEW[1] + 1))
+        else:
+            length = int(rng.integers(DISAGG_SHORT_PROMPT[0],
+                                      DISAGG_SHORT_PROMPT[1] + 1))
+            new = int(rng.integers(DISAGG_SHORT_NEW[0],
+                                   DISAGG_SHORT_NEW[1] + 1))
+        trace.append((f"req{i}", rng.integers(0, config.vocab_size, length),
+                      new, t))
+    return trace
+
+
+def disagg_request(torch, i, rid, prompt, new, sampled):
+    """Request i of the trace; sampled ones (every DISAGG_SAMPLE_EVERY-th
+    when ``sampled``) draw their seed schedule from a generator seeded
+    with i, so both engines of a pass get the same schedule."""
+    from kubeshare_tpu_torch.serving import Request
+
+    if sampled and i % DISAGG_SAMPLE_EVERY == 0:
+        return Request(rid, prompt, new, temperature=DISAGG_TEMPERATURE,
+                       rng=torch.Generator().manual_seed(DISAGG_SEED + i))
+    return Request(rid, prompt, new)
+
+
+def chain_round_trip(torch, router):
+    """Hold one migrated chain to the bytes the prefill pool wrote: at the
+    handoff of the first request with a prompt over 128 tokens its blocks
+    are read (after a synchronize) before the pack; right after the
+    delivery that admits it, the decode pool's blocks of the chain are
+    read back.  Returns a dict filled by the run."""
+    seen = {}
+    handoff, deliver = router.prefill.on_handoff, router.migrator.deliver
+
+    def read(pool, blocks):
+        torch.cuda.synchronize()
+        return [slab[:, blocks].view(torch.int16).cpu()
+                for slab in (pool.k, pool.v)]
+
+    def on_handoff(slot):
+        if "rid" not in seen and slot.prompt.size > 128:
+            n = -(-slot.prompt.size // router.prefill.pool.block_size)
+            seen.update(rid=slot.rid, blocks=n, want=read(
+                router.prefill.pool, [int(b) for b in slot.table[:n]]))
+        handoff(slot)
+
+    def on_deliver(ticket):
+        ok = deliver(ticket)
+        if ok and ticket.rid == seen.get("rid") and "equal" not in seen:
+            slot = next(s for s in router.decode._slots
+                        if s.state == "decode" and s.rid == ticket.rid)
+            got = read(router.decode.pool, slot.blocks[:seen["blocks"]])
+            seen["equal"] = all(torch.equal(g, w)
+                                for g, w in zip(got, seen["want"]))
+        return ok
+
+    router.prefill.on_handoff = on_handoff
+    router.migrator.deliver = on_deliver
+    return seen
+
+
+def disagg_pass(torch, device, params, config, trace, disagg, mixed=False,
+                sampled=False, fabric=False, mean_gap=None, top_k=None):
+    """One pass over ``trace``: the monolithic ServingEngine (``mixed``) or
+    the two-cell DisaggRouter (over a LoopbackTransport fabric when
+    ``fabric``), warmed up, then every request submitted at once or, with
+    ``mean_gap``, at its arrival scaled by it (open loop).  Returns
+    (streams, stats)."""
+    from kubeshare_tpu_torch.serving import (DisaggRouter, EngineConfig,
+                                             LoopbackTransport, ServingEngine)
+    from kubeshare_tpu_torch.serving.metrics_view import (
+        flatten_metrics, hist_quantile, metric_histogram)
+
+    shared = dict(DISAGG_SHARED, top_k=top_k)
+    torch.cuda.synchronize()
+    if disagg:
+        engine = DisaggRouter(
+            params, config, EngineConfig(**shared, **DISAGG_PREFILL),
+            EngineConfig(**shared, **DISAGG_DECODE),
+            max_pending_handoffs=DISAGG_PENDING,
+            fabric=LoopbackTransport() if fabric else None, device=device)
+        pools = {"prefill": engine.prefill, "decode": engine.decode}
+        round_trip = chain_round_trip(torch, engine) if not fabric else None
+    else:
+        engine = ServingEngine(params, config, EngineConfig(
+            **shared, **DISAGG_MONO, mixed=mixed), device=device)
+        pools = {"mono": engine}
+        round_trip = None
+    t0 = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    captures = {name: dict(pool.capture_counts())
+                for name, pool in pools.items()}
+    reset_counts()
+    requests = [(disagg_request(torch, i, rid, prompt, new, sampled),
+                 0.0 if mean_gap is None else arrival * mean_gap)
+                for i, (rid, prompt, new, arrival) in enumerate(trace)]
+    steps = 0
+    t0 = time.perf_counter()
+    while requests or not engine.idle:
+        now = time.perf_counter() - t0
+        while requests and requests[0][1] <= now:
+            engine.submit(requests.pop(0)[0])
+        if engine.step():
+            steps += 1
+        elif requests:
+            time.sleep(min(0.001, max(requests[0][1] - now, 0.0)))
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = read_counts()
+    metrics = flatten_metrics(engine.collect_metrics())
+
+    def quantile(name, q, pool=None):
+        view = {key: v for key, v in metrics.items()
+                if pool is None or dict(key[1]).get("pool") == pool}
+        return hist_quantile(metric_histogram(view, name), q)
+
+    tbt_pool = "decode" if disagg else None
+    ttft_pool = "prefill" if disagg else None
+    results = {rid: engine.result(rid) for rid, _, _, _ in trace}
+    check(all(r.done for r in results.values()), "a request did not finish")
+    tokens = sum(len(r.tokens) for r in results.values())
+    device_ms = {name: pool.dispatch_device_ms()
+                 for name, pool in pools.items()}
+    stats = {
+        "warmup_s": warmup_s, "serve_s": serve_s, "steps": steps,
+        "tokens": tokens, "tokens_per_s": tokens / serve_s,
+        "captures": {name: sum(c.values()) for name, c in captures.items()},
+        "new_captures": {
+            name: sum(pool.capture_counts().values())
+            - sum(captures[name].values()) for name, pool in pools.items()},
+        "ttft_p50_s": quantile("kubeshare_serving_ttft_seconds", 0.5,
+                               ttft_pool),
+        "ttft_p95_s": quantile("kubeshare_serving_ttft_seconds", 0.95,
+                               ttft_pool),
+        "tbt_p50_s": quantile("kubeshare_serving_tbt_seconds", 0.5, tbt_pool),
+        "tbt_p99_s": quantile("kubeshare_serving_tbt_seconds", 0.99,
+                              tbt_pool),
+        "busy": {name: sum(ms for _, ms in dev.values()) / (serve_s * 1e3)
+                 for name, dev in device_ms.items()},
+        "dispatches": {name: {k: n for k, (n, _) in dev.items() if n}
+                       for name, dev in device_ms.items()},
+        "launches": launches,
+    }
+    if disagg:
+        mig = engine.migrator
+        n_up, up_ms = device_ms["decode"]["upload"]
+        stats.update({
+            "migrations": mig.migrations, "delivered": mig.delivered,
+            "migrated_bytes": mig.migrated_bytes,
+            "stall_sum_s": metrics[
+                ("kubeshare_serving_migration_stall_seconds_sum", ())],
+            "stall_count": metrics[
+                ("kubeshare_serving_migration_stall_seconds_count", ())],
+            "uploads": n_up, "upload_ms": up_ms,
+            "host_s": dict(mig.host_seconds),
+            "retries": {k: n for k, n in engine.handoff_retries.items()
+                        if n},
+            "round_trip": (None if round_trip is None
+                           else round_trip.get("equal")),
+        })
+        if fabric:
+            pf = engine._fabric_pf
+            stats["fabric"] = {f"{kind} {outcome}": n for (kind, outcome), n
+                               in sorted(pf.messages.items())}
+    del engine, pools
+    torch.cuda.empty_cache()
+    return {rid: r.tokens for rid, r in results.items()}, stats
+
+
+def disagg_report(label, stats):
+    busy = ", ".join(f"{name} {share:.4f}"
+                     for name, share in stats["busy"].items())
+    line = (f"engine disagg {label}: warm-up {stats['warmup_s']:.2f} s, "
+            f"captures {json.dumps(stats['captures'])}, after warm-up "
+            f"{json.dumps(stats['new_captures'])}; {stats['tokens']} tokens "
+            f"in {stats['serve_s']:.3f} s = {stats['tokens_per_s']:.1f} "
+            f"tokens/s over {stats['steps']} steps; TTFT p50 "
+            f"{stats['ttft_p50_s'] * 1e3:.1f} ms p95 "
+            f"{stats['ttft_p95_s'] * 1e3:.1f} ms; TBT p50 "
+            f"{stats['tbt_p50_s'] * 1e3:.3f} ms p99 "
+            f"{stats['tbt_p99_s'] * 1e3:.3f} ms"
+            + (" (decode pool)" if "migrations" in stats else "")
+            + f"; dispatches {json.dumps(stats['dispatches'])}; busy share "
+            f"over the serve (CUDA events): {busy}")
+    if "migrations" in stats:
+        line += (f"; migrations {stats['migrations']} packed / "
+                 f"{stats['delivered']} delivered, {stats['migrated_bytes']} "
+                 f"bytes; migration stall sum {stats['stall_sum_s']:.4f} s "
+                 f"over {stats['stall_count']:.0f}; upload "
+                 f"{stats['uploads']} x "
+                 f"{stats['upload_ms'] / max(stats['uploads'], 1):.4f} ms "
+                 f"(CUDA events); host s stage "
+                 f"{stats['host_s']['stage']:.4f}, pack "
+                 f"{stats['host_s']['pack']:.4f}, deliver "
+                 f"{stats['host_s']['deliver']:.4f}; handoff retries "
+                 f"{json.dumps(stats['retries'])}")
+        if "fabric" in stats:
+            line += f"; fabric {json.dumps(stats['fabric'])}"
+    print(line)
+
+
+def engine_disagg_phase(torch, device):
+    """Disaggregated prefill/decode serving on the flagship: passes (a0)
+    monolithic mixed=False (the oracle), (a1) monolithic mixed=True,
+    (b) the two-cell router, (c) it over a loopback fabric, (d) (a0) and
+    (b) with every fourth request sampled, (e) (a1) and (b) under Poisson
+    arrivals at DISAGG_LOAD of (a1)'s tokens/s."""
+    from kubeshare_tpu_torch.entry import entry, flagship_config
+
+    config = flagship_config()
+    _, (params, _) = entry()
+    trace = disagg_trace(config)
+    forced = [(rid, prompt, new) for rid, prompt, new, _ in trace]
+    passes, launches = {}, []
+
+    def run(label, *args, **kwargs):
+        streams, stats = disagg_pass(torch, device, params, config, trace,
+                                     *args, **kwargs)
+        passes[label] = (streams, stats)
+        launches.append(stats["launches"])
+        disagg_report(label, stats)
+        check(all(n == 0 for n in stats["new_captures"].values()),
+              f"{label}: captures after warm-up {stats['new_captures']}")
+        check(all(len(streams[rid]) == new for rid, _, new in forced),
+              f"{label}: a stream has the wrong length")
+        if "migrations" in stats:
+            check(stats["migrations"] == stats["delivered"] > 0,
+                  f"{label}: {stats['migrations']} migrations packed, "
+                  f"{stats['delivered']} delivered")
+        return streams, stats
+
+    def forced_check(label, streams):
+        worst = teacher_forced(torch, params, config, forced, streams, device)
+        print(f"engine disagg {label} teacher-forced: worst emitted token "
+              f"{worst:.4f} under its row's max (tol {ENGINE_TOKEN_MARGIN})")
+        check(worst <= ENGINE_TOKEN_MARGIN,
+              f"{label}: an emitted token lies {worst} under its row's max")
+
+    def equal(label, streams, oracle_label):
+        oracle = passes[oracle_label][0]
+        same = sum(streams[rid] == oracle[rid] for rid, _, _ in forced)
+        print(f"engine disagg {label}: streams equal to {oracle_label}: "
+              f"{same}/{len(forced)}")
+        return same == len(forced)
+
+    a0, _ = run("(a0) monolithic mixed=False", False)
+    a1, a1_stats = run("(a1) monolithic mixed=True", False, mixed=True)
+    forced_check("(a1)", a1)
+    b, b_stats = run("(b) two-cell router", True)
+    forced_check("(b)", b)
+    check(equal("(b)", b, "(a0) monolithic mixed=False"),
+          "(b): the router's streams differ from the mixed=False engine's")
+    check(b_stats["round_trip"] is True,
+          f"(b): the migrated chain's bytes round trip: "
+          f"{b_stats['round_trip']}")
+    print("engine disagg (b) chain round trip: the decode pool's blocks of "
+          "a migrated chain equal the prefill pool's as int16 words: True")
+    c, _ = run("(c) two-cell router over a loopback fabric", True,
+               fabric=True)
+    forced_check("(c)", c)
+    check(equal("(c)", c, "(a0) monolithic mixed=False"),
+          "(c): the fabric router's streams differ from the mixed=False "
+          "engine's")
+    d0, _ = run("(d) monolithic mixed=False, sampled", False, sampled=True,
+                top_k=DISAGG_TOP_K)
+    d1, _ = run("(d) two-cell router, sampled", True, sampled=True,
+                top_k=DISAGG_TOP_K)
+    check(equal("(d) router, sampled", d1,
+                "(d) monolithic mixed=False, sampled"),
+          "(d): the sampled router's streams differ from the engine's")
+    total_new = sum(new for _, _, new, _ in trace)
+    mean_gap = total_new / (DISAGG_LOAD * a1_stats["tokens_per_s"]
+                            * DISAGG_REQUESTS)
+    print(f"engine disagg (e): mean inter-arrival {mean_gap * 1e3:.3f} ms = "
+          f"{total_new} tokens / ({DISAGG_LOAD} x "
+          f"{a1_stats['tokens_per_s']:.1f} tokens/s of (a1) x "
+          f"{DISAGG_REQUESTS} requests)")
+    e1, e1_stats = run("(e) monolithic mixed=True, Poisson", False,
+                       mixed=True, mean_gap=mean_gap)
+    forced_check("(e) monolithic", e1)
+    e2, e2_stats = run("(e) two-cell router, Poisson", True,
+                       mean_gap=mean_gap)
+    forced_check("(e) router", e2)
+    equal("(e) router", e2, "(a0) monolithic mixed=False")
+    print(f"engine disagg (e) decode tail: TBT p99 {e2_stats['tbt_p99_s'] * 1e3:.3f}"
+          f" ms on the decode pool against {e1_stats['tbt_p99_s'] * 1e3:.3f} "
+          f"ms monolithic mixed (ratio "
+          f"{e2_stats['tbt_p99_s'] / e1_stats['tbt_p99_s']:.4f}); tokens/s "
+          f"{e2_stats['tokens_per_s']:.1f} against "
+          f"{e1_stats['tokens_per_s']:.1f}; back to back TBT p99 "
+          f"{b_stats['tbt_p99_s'] * 1e3:.3f} ms against "
+          f"{a1_stats['tbt_p99_s'] * 1e3:.3f} ms")
+    return {name: sum(counts[name] for counts in launches)
+            for name in launches[0]}
+
+
 def truncated_draft(config, params):
     """The speculative phase's cheap draft: the target's embedding, its
     first layer, its final norm and its lm_head — a one-layer model of
@@ -2329,6 +2688,9 @@ def main() -> int:
     launches["engine_tier"] = engine_tier_phase(torch, device, loop_pass)
     print(f"engine tier phase: {time.perf_counter() - t0:.1f} s")
     del loop_pass
+    t0 = time.perf_counter()
+    launches["engine_disagg"] = engine_disagg_phase(torch, device)
+    print(f"engine disagg phase: {time.perf_counter() - t0:.1f} s")
     launches["train"], eager = train_phase(torch, device)
     launches["train_captured"], _ = capture_phase(torch, device, eager)
     launches["block_sparse"] = bs_launches

@@ -24,18 +24,37 @@ of the single-device core of kubeshare_tpu/serving:
 - :mod:`autotune` — the online autotuner over the engine's capture-free
   knobs, with a sandboxed pluggable policy;
 - :mod:`chaos` — the seeded fault plan and its virtual clock, consulted
-  through the engine's and the tiers' ``fault_clock`` seams.
+  through the engine's, the tiers', the router's and the fabric's
+  ``fault_clock`` seams;
+- :mod:`fabric` — the cluster KV fabric: a versioned, crc-framed
+  message envelope over loopback or socket transports, at-least-once
+  :class:`FabricEndpoint` delivery (ack, dedup, TTL, bounded-backoff
+  redelivery), the :class:`FabricDirectory` of prefix owners and the
+  exportable prefix store served across a process boundary;
+- :mod:`disagg` — disaggregated prefill/decode serving: a
+  :class:`PrefillPool` and a :class:`DecodePool` on one card, a
+  :class:`KVMigrator` moving each prompt's KV chain between them as wire
+  frames (read on a side stream as the prompt prefills), and a
+  :class:`DisaggRouter` in front whose streams equal the monolithic
+  engine's.
 
-Not ported yet (ROADMAP.md queue A): disaggregated pools and fleets, and
-tensor-parallel serving.
+Not ported yet (ROADMAP.md queue A): fleets and tensor-parallel serving.
 """
 
 from .autotune import (AnalyticPolicy, AutoTuner, CostModel, FittedTracePolicy,
                        Knob, KnobSpec, KnobView, TuningPolicy)
 from .chaos import FaultClock, FaultPlan, ReplicaKilled
+from .disagg import (DecodePool, DisaggRouter, DisaggTopology, KVMigrator,
+                     PrefillPool)
 from .drafter import NGramDrafter, ngram_propose_rows
 from .engine import (EngineConfig, Request, RequestResult, ServingEngine,
                      plan_prefill_chunks)
+from .fabric import (FabricDirectory, FabricEndpoint, FabricTransport,
+                     LoopbackTransport, PrefixStoreClient, SocketTransport,
+                     export_prefix_store, fabric_metric_families,
+                     load_prefix_store, pack_message, pack_ticket,
+                     prefix_fabric_key, recv_frame, send_frame,
+                     serve_prefix_store, unpack_message, unpack_ticket)
 from .kv_blocks import (BlockAllocator, BlockExhausted, PagedKVPool,
                         QuotaExceeded, chain_token_runs, init_paged_pool)
 from .kv_tier import (KV_CHAIN_VERSION, KV_WIRE_VERSION, DiskTier, HostTier,
@@ -57,22 +76,32 @@ __all__ = [
     "BlockExhausted",
     "CostModel",
     "DEFAULT_TENANT",
+    "DecodePool",
+    "DisaggRouter",
+    "DisaggTopology",
     "DiskTier",
     "EngineConfig",
+    "FabricDirectory",
+    "FabricEndpoint",
+    "FabricTransport",
     "FairQueue",
     "FaultClock",
     "FaultPlan",
     "FittedTracePolicy",
     "HostTier",
+    "KVMigrator",
     "KV_CHAIN_VERSION",
     "KV_WIRE_VERSION",
     "Knob",
     "KnobSpec",
     "KnobView",
     "LRUTierPolicy",
+    "LoopbackTransport",
     "NGramDrafter",
     "PagedKVPool",
+    "PrefillPool",
     "PrefixIndex",
+    "PrefixStoreClient",
     "QOS_GUARANTEE",
     "QOS_OPPORTUNISTIC",
     "QoSTierPolicy",
@@ -81,6 +110,7 @@ __all__ = [
     "Request",
     "RequestResult",
     "ServingEngine",
+    "SocketTransport",
     "TenantRegistry",
     "TenantSpec",
     "TierPolicy",
@@ -88,10 +118,15 @@ __all__ = [
     "WireCorruption",
     "adopt_into",
     "chain_token_runs",
+    "export_prefix_store",
+    "fabric_metric_families",
     "init_paged_pool",
+    "load_prefix_store",
     "ngram_propose_rows",
     "pack_block",
     "pack_chain",
+    "pack_message",
+    "pack_ticket",
     "paged_copy_block",
     "paged_decode_loop",
     "paged_decode_span",
@@ -104,7 +139,13 @@ __all__ = [
     "paged_upload_block",
     "paged_verify_span",
     "plan_prefill_chunks",
+    "prefix_fabric_key",
+    "recv_frame",
+    "send_frame",
+    "serve_prefix_store",
     "unpack_block",
     "unpack_chain",
+    "unpack_message",
+    "unpack_ticket",
     "wire_block_bytes",
 ]

@@ -74,8 +74,17 @@ consume and plan.  The chaos seams (chaos.py) are plain attributes:
 ``fault_clock`` is consulted at the top of :meth:`ServingEngine.step`
 and before every dispatch.  Streams are bit-exact with each of them off.
 
+Disaggregation (``pool_role``, disagg.py): a "prefill" pool runs only
+prefill chunks and reserves only a prompt's cover, handing each finished
+prompt to its router through ``on_handoff``; a "decode" pool runs only
+decode and verify dispatches and admits only through
+:meth:`ServingEngine.admit_migrated`, which uploads the migrated chain
+through the captured ``upload`` program.  ``admission_gate`` and
+``on_preempt_requeue`` are the router's other seams, and ``pool_label`` /
+``replica_label`` label the engine's metric families.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): tensor-parallel serving and disaggregated pools.
+item): tensor-parallel serving.
 """
 
 from __future__ import annotations
@@ -253,7 +262,11 @@ class EngineConfig:
     draft_len: int = 4
     # the drafter's maximum n-gram order
     draft_ngram: int = 3
-    # disaggregated serving role (not ported: ROADMAP.md queue A item 8)
+    # disaggregated serving role (disagg.py): "both" is the monolithic
+    # engine; "prefill" runs only prefill chunks, reserves only the
+    # prompt's cover and hands finished prompts to a decode pool; "decode"
+    # runs only decode/verify dispatches and admits only through
+    # admit_migrated().  Streams are bit-exact with the monolithic engine
     pool_role: str = "both"
     # tensor-parallel serving (not ported: ROADMAP.md queue A item 9)
     mesh_spec: Optional[object] = None
@@ -275,8 +288,10 @@ class EngineConfig:
 
 def _warmed_prefill_widths(ec: EngineConfig) -> set:
     """The prefill-chunk bucket universe warmup captures: the configured
-    chunk plus every smaller power of two, capped at the slot row
-    bound."""
+    chunk plus every smaller power of two, capped at the slot row bound.
+    Empty on a decode-role pool: no prefill shape ever dispatches there."""
+    if ec.pool_role == "decode":
+        return set()
     widths = {ec.prefill_chunk}
     w = 1
     while w < ec.prefill_chunk:
@@ -293,7 +308,7 @@ def _config_rows(ec: EngineConfig, config: TransformerConfig,
     naming their ROADMAP.md item; the rest are the JAX engine's
     ``ValueError`` rows."""
     widths = _warmed_prefill_widths(ec)
-    min_piece = min(widths)
+    min_piece = min(widths) if widths else 1
     wire = (wire_block_bytes(
         ec.block_size, config.n_layers, config.kv_heads, ec.block_size,
         config.head_dim, torch.empty((), dtype=config.dtype).element_size())
@@ -301,9 +316,6 @@ def _config_rows(ec: EngineConfig, config: TransformerConfig,
     todo = NotImplementedError
     bad = ValueError
     return [
-        (ec.pool_role != "both", todo,
-         f"pool_role {ec.pool_role!r}: disaggregated pools are not "
-         "ported yet (ROADMAP.md queue A item 8, disagg.py)"),
         (ec.mesh_spec is not None, todo,
          "mesh_spec: tensor-parallel serving is not ported yet "
          "(ROADMAP.md queue A item 9, sharded.py over torch.distributed)"),
@@ -324,6 +336,11 @@ def _config_rows(ec: EngineConfig, config: TransformerConfig,
          or bool(ec.steps_per_launch & (ec.steps_per_launch - 1)), bad,
          f"steps_per_launch must be a power of two >= 1, got "
          f"{ec.steps_per_launch}"),
+        (ec.steps_per_launch > 1 and ec.pool_role == "prefill", bad,
+         f"steps_per_launch {ec.steps_per_launch} is meaningless "
+         f"on a prefill-role pool — it never runs decode plans, "
+         f"so the device loop would silently never fire; set "
+         f"steps_per_launch=1"),
         (ec.mixed_prefill_budget is not None
          and ec.mixed_prefill_budget < 1, bad,
          f"mixed_prefill_budget must be >= 1 or None, got "
@@ -369,6 +386,13 @@ def _config_rows(ec: EngineConfig, config: TransformerConfig,
          f"draft_len must be a power of two >= 1, got {ec.draft_len}"),
         (ec.draft_ngram < 1, bad,
          f"draft_ngram must be >= 1, got {ec.draft_ngram}"),
+        (ec.pool_role not in ("both", "prefill", "decode"), bad,
+         f"pool_role must be 'both', 'prefill' or 'decode', got "
+         f"{ec.pool_role!r}"),
+        (ec.pool_role != "both" and ec.mixed, bad,
+         f"pool_role {ec.pool_role!r} excludes mixed batching — "
+         f"a single-phase pool has no prefill+decode coexistence "
+         f"to fuse; set mixed=False"),
         (ec.autotune_interval < 1, bad,
          f"autotune_interval must be >= 1, got "
          f"{ec.autotune_interval} — the tuner ticks once per "
@@ -376,10 +400,13 @@ def _config_rows(ec: EngineConfig, config: TransformerConfig,
         (ec.admission_ring < 0, bad,
          f"admission_ring must be >= 0, got {ec.admission_ring}"),
         (ec.admission_ring > 0 and (not ec.speculative
-                                    or ec.steps_per_launch <= 1), bad,
-         f"admission_ring {ec.admission_ring} requires speculative=True "
-         f"and steps_per_launch > 1 — the ring is consumed only inside "
-         f"the speculative device loop"),
+                                    or ec.steps_per_launch <= 1
+                                    or ec.pool_role != "both"), bad,
+         f"admission_ring {ec.admission_ring} requires "
+         f"speculative=True, steps_per_launch > 1 and "
+         f"pool_role='both' — the ring is consumed only inside the "
+         f"speculative device loop, and its host-side fill runs this "
+         f"pool's own prefill path"),
     ]
 
 
@@ -645,6 +672,8 @@ class ServingEngine:
         mesh_devices=None,
         tier_ledger_hook=None,
         tuning_policy=None,
+        pool_label: Optional[str] = None,
+        replica_label: Optional[str] = None,
     ) -> None:
         ec = engine_config or EngineConfig()
         for failed, error, message in _config_rows(
@@ -730,7 +759,8 @@ class ServingEngine:
                         if k <= ec.steps_per_launch] if ec.autotune
                        else [ec.steps_per_launch])
         self._loop_steps = set(loop_ks)
-        self._spec_loops = set(loop_ks) if ec.speculative else set()
+        self._spec_loops = (set(loop_ks) if ec.speculative
+                            and ec.pool_role != "prefill" else set())
         self._queue = FairQueue(self.tenants)
         self._results: Dict[str, RequestResult] = {}
         # counters: prefill_chunks / decode_steps / verify_steps count
@@ -795,10 +825,25 @@ class ServingEngine:
         self.tier_hit_requests_by_origin: Dict[str, int] = {
             "local": 0, "remote": 0}
         self.tier_corrupt_blocks = 0
-        # seams for a disaggregated pair's router (ROADMAP.md queue A item
-        # 8): on_tier_demote(node, payload, tenant) mirrors a demoted
-        # block into a peer pool's trie.  None here
+        # disaggregation surface (disagg.py): pool_label labels this
+        # engine's latency and dispatch families, replica_label a fleet
+        # replica's.  The hooks are router-installed seams:
+        # on_handoff(slot) fires at prefill completion in place of
+        # entering decode, on_preempt_requeue(tenant, pending) reroutes a
+        # preemption's resume (the router re-plans it with the PREFILL
+        # pool's geometry), on_tier_demote(node, payload, tenant) mirrors
+        # a demoted block into the peer pool's trie, and admission_gate()
+        # -> bool is consulted before each queue pop (the router's
+        # handoff backpressure).  None outside a router
+        self.pool_label = pool_label
+        self.replica_label = replica_label
+        self.on_handoff = None
+        self.on_preempt_requeue = None
         self.on_tier_demote = None
+        self.admission_gate = None
+        # the event recorded after this engine's newest dispatch (on the
+        # card): a reader of the pool on another stream waits on it
+        self.last_dispatch_event: Optional[torch.cuda.Event] = None
         # chaos seam (chaos.py): a FaultClock consulted at the top of
         # step() (replica kill) and before every dispatch (slow dispatch);
         # None outside chaos runs
@@ -973,9 +1018,21 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
+    def _lifetime_rows(self, prompt_len: int, max_new: int,
+                       cover: int) -> int:
+        """Cache rows a request occupies over its life in THIS pool: a
+        prefill-role pool writes only the prompt's K/V (decode rows land
+        in the decode pool after migration), so it reserves just the
+        chunk plan's cover; every other pool the full lifetime.  The
+        max_request_len check stays on the full rows (:meth:`submit`)."""
+        if self.engine_config.pool_role == "prefill":
+            return cover
+        return max(cover, prompt_len + max_new)
+
     def submit(self, request: Request) -> RequestResult:
         """Queue a request; validation failures raise HERE (loudly), a
-        merely-busy pool queues."""
+        merely-busy pool queues.  A decode-role pool refuses: it admits
+        only through :meth:`admit_migrated`."""
         prompt = np.asarray(request.prompt, np.int64)
         if prompt.ndim != 1 or prompt.size < 1:
             raise ValueError(f"prompt must be a non-empty 1-D token array, "
@@ -1000,6 +1057,10 @@ class ServingEngine:
         except KeyError as exc:
             raise ValueError(str(exc)) from None
         ec = self.engine_config
+        if ec.pool_role == "decode":
+            raise RuntimeError(
+                "a decode-role pool admits only through admit_migrated() "
+                "— submit to the DisaggRouter (or the prefill pool)")
         plan, cover = plan_prefill_chunks(
             prompt.size, ec.prefill_chunk, ec.max_request_len)
         total_rows = max(cover, prompt.size + request.max_new_tokens)
@@ -1010,7 +1071,8 @@ class ServingEngine:
                 f"{total_rows} cache rows, over max_request_len "
                 f"{ec.max_request_len}"
             )
-        needed = self.allocator.blocks_for_tokens(total_rows)
+        needed = self.allocator.blocks_for_tokens(
+            self._lifetime_rows(prompt.size, request.max_new_tokens, cover))
         if needed > self.allocator.num_blocks - 1:
             raise BlockExhausted(
                 f"request {request.rid!r} needs {needed} blocks but the "
@@ -1033,6 +1095,102 @@ class ServingEngine:
             temperature=request.temperature, plan=plan, needed=needed,
             rng=request.rng))
         return result
+
+    def admit_migrated(
+        self, *,
+        rid: str,
+        tenant: str,
+        prompt: np.ndarray,
+        first_token: int,
+        max_new: int,
+        temperature: float,
+        step_seeds: np.ndarray,
+        payloads: List[bytes],
+        result: RequestResult,
+        emitted_prefix: List[int],
+        last_token_at: Optional[float],
+        hint: Optional[List[int]] = None,
+    ) -> bool:
+        """Admit a request that finished prefill in ANOTHER pool: the
+        disaggregated router's decode-side entry point.  Every migrated
+        wire frame is crc-checked before anything is reserved; then the
+        full decode lifetime's blocks are reserved, each frame uploads
+        through the captured ``upload`` program (pipelined: the copy-in
+        overlaps the in-flight decode dispatch), and the slot is built as
+        :meth:`_finish_prefill` would leave it: ``length`` is the prompt,
+        ``generated`` the prefill pool's first token, the seed schedule
+        continues at ``step_seeds[0]``, and the drafter's window is
+        ``prompt + [first_token]`` with the prefill side's trie hint —
+        so every later emission equals the monolithic engine's.
+
+        Returns False (reserving nothing) when no slot is free or the
+        reservation cannot be funded; the router keeps the ticket and
+        retries (or preempts).  Raises :class:`WireCorruption` on a
+        rotted frame, with nothing reserved."""
+        ec = self.engine_config
+        if ec.pool_role == "prefill":
+            raise RuntimeError(
+                "a prefill-role pool cannot admit migrated requests")
+        spec = self.tenants.get(tenant)
+        slot = next((s for s in self._slots if s.state == "free"), None)
+        if slot is None:
+            return False
+        prompt = np.asarray(prompt, np.int64)
+        needed = self.allocator.blocks_for_tokens(prompt.size + max_new)
+        if len(payloads) > needed:
+            raise ValueError(
+                f"migrated chain has {len(payloads)} blocks but the "
+                f"decode lifetime only spans {needed}")
+        try:
+            frames = [unpack_block(p) for p in payloads]
+        except WireCorruption:
+            self.tier_corrupt_blocks += 1
+            raise
+        slab = self.pool.k[:, 0].shape
+        for _, k_slab, _ in frames:
+            if k_slab.shape != slab or k_slab.dtype != self.pool.k.dtype:
+                raise ValueError(
+                    f"migrated block {tuple(k_slab.shape)}/{k_slab.dtype} "
+                    f"does not fit this pool's {tuple(slab)}/"
+                    f"{self.pool.k.dtype} blocks")
+        evict_first = (set(self.tenants.opportunistic())
+                       if spec.is_guarantee else None)
+        try:
+            blocks = self.allocator.reserve(
+                needed, rid, tenant=spec.name, quota=spec.kv_block_quota,
+                evict_tenants_first=evict_first)
+        except (BlockExhausted, QuotaExceeded):
+            return False
+        for (_, k_slab, v_slab), dst in zip(frames, blocks):
+            self._upload(dst, k_slab, v_slab)
+        slot.state = "decode"
+        slot.rid = rid
+        slot.tenant = spec.name
+        slot.blocks = list(blocks)
+        slot.table[:] = 0
+        slot.table[: len(blocks)] = blocks
+        slot.length = prompt.size
+        slot.generated = [int(first_token)]
+        slot.emitted_prefix = list(emitted_prefix)
+        slot.last_token_at = last_token_at
+        slot.prompt = prompt
+        slot.plan = []
+        slot.max_new = max_new
+        slot.temperature = temperature
+        slot.first_seed = 0  # consumed by the prefill pool's pick
+        slot.step_seeds = np.asarray(step_seeds, np.int64).reshape(-1)
+        slot.result = result
+        self._results[rid] = result
+        if ec.speculative:
+            slot.drafter = NGramDrafter(ec.draft_ngram, prompt)
+            if hint:
+                slot.drafter.hint(hint)
+            slot.drafter.extend([int(first_token)])
+            slot.draft_width = min(ec.draft_len, self._draft_width_cap)
+            slot.accept_rate = 0.5
+        self.peak_blocks_in_use = max(
+            self.peak_blocks_in_use, self.allocator.blocks_in_use)
+        return True
 
     def step(self) -> bool:
         """One scheduling iteration: admit what fits, consume the
@@ -1169,8 +1327,40 @@ class ServingEngine:
                 self.guard.finish()
         return dict(self._results)
 
+    @property
+    def idle(self) -> bool:
+        return (not self._queue and self._inflight is None
+                and not self._ring_staged
+                and all(s.state == "free" for s in self._slots))
+
     def result(self, rid: str) -> RequestResult:
         return self._results[rid]
+
+    def pop_finished(self) -> Dict[str, RequestResult]:
+        """Remove and return every completed result — the eviction point
+        of a caller driving :meth:`step` forever, whose result map would
+        otherwise grow with every request served."""
+        done = {rid: r for rid, r in self._results.items() if r.done}
+        for rid in done:
+            del self._results[rid]
+        return done
+
+    def prefix_match_len(self, tokens) -> int:
+        """Tokens of ``tokens`` this engine's radix trie covers (device or
+        tier) — 0 when prefix caching is off.  Read-only."""
+        if self.prefix_index is None:
+            return 0
+        return self.prefix_index.match_len(tokens)
+
+    def load_probe(self) -> Dict[str, int]:
+        """A cheap load snapshot for routing: queue depth, free slots and
+        allocatable blocks (free + cached-idle).  Read-only."""
+        return {
+            "queue_depth": len(self._queue),
+            "free_slots": sum(1 for s in self._slots if s.state == "free"),
+            "free_blocks": (self.allocator.free_blocks
+                            + self.allocator.cached_idle_blocks),
+        }
 
     def _verify_ks(self) -> List[int]:
         """Every draft width the adaptive controller can reach: powers of
@@ -1189,8 +1379,10 @@ class ServingEngine:
         (``steps_per_launch > 1``) and the copy-on-write copy (prefix
         cache on).  Speculative adds one verify chunk per reachable draft
         width, the mixed-verify cross product with the fused prefill
-        widths, and the speculative loop.  A KV tier adds the upload.
-        Under autotune every fused width and every loop depth up to
+        widths, and the speculative loop.  A KV tier adds the upload.  A
+        prefill-role pool captures no decode shape; a decode-role pool no
+        prefill chunk and no copy, but the upload its migrations arrive
+        through.  Under autotune every fused width and every loop depth up to
         ``steps_per_launch`` is captured, so a retuned knob only selects
         among captured shapes.  Every warm-up pass and capture runs on
         all-zero inputs (no lane active, every table at the scratch block),
@@ -1205,16 +1397,17 @@ class ServingEngine:
                 self._program("mixed", width)
                 for w in verify_widths:
                     self._program("mixed_verify", width, w)
-        self._program("decode")
-        for w in verify_widths:
-            self._program("verify", 0, w)
+        if ec.pool_role != "prefill":
+            self._program("decode")
+            for w in verify_widths:
+                self._program("verify", 0, w)
         for k_depth in sorted(self._loop_steps):
             self._program("loop", k_depth)
         for k_depth in sorted(self._spec_loops):
             self._program("spec_loop", k_depth)
-        if self.prefix_index is not None:
+        if self.prefix_index is not None and ec.pool_role != "decode":
             self._program("copy")
-        if self.host_tier is not None:
+        if self.host_tier is not None or ec.pool_role == "decode":
             self._program("upload")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -1261,35 +1454,43 @@ class ServingEngine:
             "kubeshare_serving_tokens_generated_total",
             "Tokens emitted across all requests.", "counter")
         tokens.add({}, self.tokens_generated)
+        # a disaggregated pool labels its latency and dispatch families
+        # with its `pool`, a fleet replica with its `replica`; a
+        # monolithic engine adds no label
+        plabel = {"pool": self.pool_label} if self.pool_label else {}
+        if self.replica_label:
+            plabel["replica"] = self.replica_label
         dispatches = MetricFamily(
             "kubeshare_serving_dispatches_total",
             "Device dispatches by kind (mixed = one fused prefill chunk + "
             "decode span, mixed_verify = prefill chunk + verify chunk, "
             "loop / spec_loop = one device-resident multi-unit launch; the "
             "standalone kinds exclude fused work).", "counter")
-        dispatches.add({"kind": "prefill_chunk"},
+        dispatches.add({"kind": "prefill_chunk", **plabel},
                        self.prefill_chunks - self.mixed_steps
                        - self.mixed_verify_steps)
-        dispatches.add({"kind": "decode_span"},
+        dispatches.add({"kind": "decode_span", **plabel},
                        self.decode_steps - self.mixed_steps - self.loop_units)
-        dispatches.add({"kind": "mixed"}, self.mixed_steps)
-        dispatches.add({"kind": "verify_span"},
+        dispatches.add({"kind": "mixed", **plabel}, self.mixed_steps)
+        dispatches.add({"kind": "verify_span", **plabel},
                        self.verify_steps - self.mixed_verify_steps
                        - self.spec_loop_units)
-        dispatches.add({"kind": "mixed_verify"}, self.mixed_verify_steps)
-        dispatches.add({"kind": "loop"}, self.loop_launches)
-        dispatches.add({"kind": "spec_loop"}, self.spec_loop_launches)
-        dispatches.add({"kind": "cow_copy"}, self.cow_copies)
+        dispatches.add({"kind": "mixed_verify", **plabel},
+                       self.mixed_verify_steps)
+        dispatches.add({"kind": "loop", **plabel}, self.loop_launches)
+        dispatches.add({"kind": "spec_loop", **plabel},
+                       self.spec_loop_launches)
+        dispatches.add({"kind": "cow_copy", **plabel}, self.cow_copies)
         loop_units = MetricFamily(
             "kubeshare_serving_loop_units_total",
             "Decode span-units executed inside device-resident loop "
             "launches.", "counter")
-        loop_units.add({}, self.loop_units)
+        loop_units.add(dict(plabel), self.loop_units)
         spec_loop_units = MetricFamily(
             "kubeshare_serving_spec_loop_units_total",
             "Draft-verify units executed inside speculative device-loop "
             "launches (each absorbed into verify_steps).", "counter")
-        spec_loop_units.add({}, self.spec_loop_units)
+        spec_loop_units.add(dict(plabel), self.spec_loop_units)
         exit_reason = MetricFamily(
             "kubeshare_serving_loop_exit_reason_total",
             "Device-resident loop launches by exit reason (both loop "
@@ -1299,27 +1500,27 @@ class ServingEngine:
             "threshold, ring_empty = a lane died with the admission ring "
             "configured but drained.", "counter")
         for reason in sorted(self.loop_exit_reasons):
-            exit_reason.add({"reason": reason},
+            exit_reason.add({"reason": reason, **plabel},
                             self.loop_exit_reasons[reason])
         depth_summary = MetricFamily(
             "kubeshare_serving_loop_realized_depth",
             "Realized fusion depth per device-loop launch.", "summary")
         depth_summary.samples.append(Sample(
-            "kubeshare_serving_loop_realized_depth_sum", {},
+            "kubeshare_serving_loop_realized_depth_sum", dict(plabel),
             self.loop_depth_sum))
         depth_summary.samples.append(Sample(
-            "kubeshare_serving_loop_realized_depth_count", {},
+            "kubeshare_serving_loop_realized_depth_count", dict(plabel),
             self.loop_depth_count))
         host_s = MetricFamily(
             "kubeshare_serving_host_seconds_total",
             "Host wall seconds inside the engine's step loop, by "
             "scheduling phase.", "counter")
         for phase in sorted(self.host_seconds):
-            host_s.add({"phase": phase}, self.host_seconds[phase])
+            host_s.add({"phase": phase, **plabel}, self.host_seconds[phase])
         planner = MetricFamily(
             "kubeshare_serving_host_planner_invocations_total",
             "Scheduler planner invocations (_plan_step calls).", "counter")
-        planner.add({}, self.host_planner_invocations)
+        planner.add(dict(plabel), self.host_planner_invocations)
         prefix = MetricFamily(
             "kubeshare_serving_prefix_cache_requests_total",
             "Admitted requests by prefix-cache outcome.", "counter")
@@ -1345,8 +1546,8 @@ class ServingEngine:
             "kubeshare_serving_ttft_seconds",
             "Time to first token (submit to first emitted token).",
             "histogram")
-        _histogram_samples(ttft, "kubeshare_serving_ttft_seconds", {},
-                           self._ttft_counts, self._ttft_sum)
+        _histogram_samples(ttft, "kubeshare_serving_ttft_seconds",
+                           dict(plabel), self._ttft_counts, self._ttft_sum)
         t_depth = MetricFamily(
             "kubeshare_serving_tenant_queue_depth",
             "Queued (unadmitted) requests per tenant.", "gauge")
@@ -1376,7 +1577,7 @@ class ServingEngine:
         for cls, (counts, total) in sorted(self._ttft_class.items()):
             _histogram_samples(
                 cls_ttft, "kubeshare_serving_ttft_by_class_seconds",
-                {"qos": cls}, counts, total)
+                {"qos": cls, **plabel}, counts, total)
         tbt = MetricFamily(
             "kubeshare_serving_tbt_seconds",
             "Inter-token latency by QoS class: wall time between "
@@ -1384,8 +1585,8 @@ class ServingEngine:
             "burst is attributed evenly across its tokens).", "histogram")
         for cls, (counts, total) in sorted(self._tbt_class.items()):
             _histogram_samples(
-                tbt, "kubeshare_serving_tbt_seconds", {"qos": cls}, counts,
-                total, TBT_BUCKETS)
+                tbt, "kubeshare_serving_tbt_seconds", {"qos": cls, **plabel},
+                counts, total, TBT_BUCKETS)
         spec_tokens = MetricFamily(
             "kubeshare_serving_spec_tokens_total",
             "Speculative decoding volume per tenant: drafted = proposal "
@@ -1414,7 +1615,8 @@ class ServingEngine:
         if self._tuner is not None:
             for (knob, direction), n in sorted(
                     self._tuner.decisions.items()):
-                tuner.add({"knob": knob, "direction": direction}, n)
+                tuner.add({"knob": knob, "direction": direction, **plabel},
+                          n)
         return [req, blocks, tokens, dispatches, loop_units,
                 spec_loop_units, exit_reason, depth_summary, host_s,
                 planner, prefix, hit_tokens, evicted, *tier_families, ttft,
@@ -1728,7 +1930,7 @@ class ServingEngine:
                 host_cow = tail
         plan, cover = plan_prefill_chunks(
             prompt.size, ec.prefill_chunk, ec.max_request_len, matched)
-        total_rows = max(cover, prompt.size + pending.max_new)
+        total_rows = self._lifetime_rows(prompt.size, pending.max_new, cover)
         needed = self.allocator.blocks_for_tokens(total_rows) - len(shared)
         host_tokens = (len(promote) * ec.block_size
                        + (partial if host_cow is not None else 0))
@@ -1833,6 +2035,9 @@ class ServingEngine:
                 self._bind_staged(staged, slot)
                 self._ring_staged.remove(staged)
         while True:
+            if self.admission_gate is not None \
+                    and not self.admission_gate():
+                return
             order = self._queue.order()
             if not order:
                 return
@@ -2139,13 +2344,19 @@ class ServingEngine:
         else:
             first_seed = 0
             step_seeds = np.zeros((0,), np.int64)
-        self._queue.requeue_front(slot.tenant, _Pending(
+        pending = _Pending(
             rid=slot.rid, tenant=slot.tenant, prompt=resume_prompt,
             max_new=remaining, temperature=slot.temperature,
             plan=plan, needed=needed, first_seed=first_seed,
             step_seeds=step_seeds,
             emitted=slot.emitted_prefix + slot.generated,
-            last_token_at=slot.last_token_at))
+            last_token_at=slot.last_token_at)
+        if self.on_preempt_requeue is not None:
+            # disaggregated: the resume re-prefills in the PREFILL pool,
+            # whose router re-plans the entry with that pool's geometry
+            self.on_preempt_requeue(slot.tenant, pending)
+        else:
+            self._queue.requeue_front(slot.tenant, pending)
         self.preemptions[slot.tenant] = \
             self.preemptions.get(slot.tenant, 0) + 1
         slot._clear()
@@ -2183,6 +2394,7 @@ class ServingEngine:
         out = program.run(values)
         end.record()
         self._timings.append((program.kind, start, end))
+        self.last_dispatch_event = end
         return out
 
     def _drain_timings(self) -> None:
@@ -2472,6 +2684,9 @@ class ServingEngine:
         and never touches the in-flight dispatch."""
         room = self.engine_config.admission_ring - len(self._ring_staged)
         while room > 0:
+            if self.admission_gate is not None \
+                    and not self.admission_gate():
+                return
             staged = None
             for tenant in self._queue.order():
                 spec = self.tenants.get(tenant)
@@ -2587,7 +2802,35 @@ class ServingEngine:
         if slot.drafter is not None:
             slot.drafter.extend([first])
         slot.state = "decode"
+        eos = self.engine_config.eos_token
+        if (self.on_handoff is not None and len(slot.generated) < slot.max_new
+                and not (eos is not None and first == eos)):
+            # disaggregated handoff: the request still owes tokens and this
+            # pool's role ends at prefill — the router packs the slot's
+            # chain for the decode pool; a request already done (max_new
+            # 1, or an EOS first token) retires here like any other
+            self.on_handoff(slot)
+            self._retire_handoff(slot)
+            return
         self._maybe_retire(slot, first)
+
+    def _retire_handoff(self, slot: _Slot) -> None:
+        """Free a slot whose request just migrated out: index its prompt
+        blocks as :meth:`_maybe_retire` does (the NEXT prompt sharing the
+        prefix hits here, where prefill happens), reclaim the chain and
+        clear the slot.  The request is not finished: no finished_at, no
+        requests_finished — the decode pool emits the rest."""
+        if self.prefix_index is not None:
+            n_prompt = self.allocator.blocks_for_tokens(slot.prompt.size)
+            prompt_blocks = [int(b) for b in slot.table[:n_prompt]]
+            newly_cached, displaced = self.prefix_index.insert(
+                slot.prompt, prompt_blocks)
+            self.allocator.mark_cached(newly_cached)
+            for b in displaced:
+                self.allocator.uncache(b)
+        self.allocator.reclaim(slot.blocks[::-1])
+        slot._clear()
+        slot.state = "free"
 
     def _emit(self, slot: _Slot, tokens, now: float) -> Tuple[int, bool]:
         """Append ``tokens`` to a lane's stream, stopping after an EOS

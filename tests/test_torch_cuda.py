@@ -17,7 +17,7 @@ import torch
 from kubeshare_tpu_torch.models import decoding
 from kubeshare_tpu_torch.models.transformer import (TransformerConfig,
                                                     transformer_init)
-from kubeshare_tpu_torch.serving import (EngineConfig, Request,
+from kubeshare_tpu_torch.serving import (DisaggRouter, EngineConfig, Request,
                                          ServingEngine, kv_tier, paged)
 
 pytestmark = pytest.mark.cuda
@@ -253,3 +253,101 @@ def test_tiered_engine_captures_nothing_after_warmup(card):
         assert engine.disk_tier.promoted_blocks > 0
     finally:
         engine.disk_tier.close()
+
+
+# the disaggregated pools at the serving flagship's width, two layers deep
+FLAGSHIP = dict(vocab_size=2048, d_model=512, n_heads=8, n_layers=2,
+                d_ff=1408, max_seq_len=1024, dtype=torch.bfloat16)
+DISAGG = dict(block_size=16, max_request_len=320, prefill_chunk=64,
+              decode_span=2, mixed=False)
+
+
+def _disagg_trace(n, vocab):
+    rng = np.random.default_rng(3)
+    return [(f"r{i}", rng.integers(0, vocab, int(rng.integers(17, 150))),
+             int(rng.integers(6, 24))) for i in range(n)]
+
+
+def _flagship(device):
+    config = TransformerConfig(**FLAGSHIP)
+    return config, transformer_init(config, torch.Generator().manual_seed(0),
+                                    device)
+
+
+def _two_cell(params, config, device, **overrides):
+    return DisaggRouter(
+        params, config,
+        EngineConfig(num_slots=2, num_blocks=41, **DISAGG, **overrides),
+        EngineConfig(num_slots=4, num_blocks=81, **DISAGG, **overrides),
+        max_pending_handoffs=4, device=device)
+
+
+def _served(engine, trace):
+    for rid, prompt, new in trace:
+        engine.submit(Request(rid, prompt, new))
+    out = engine.run()
+    return {rid: out[rid].tokens for rid, _, _ in trace}
+
+
+def test_two_cell_router_on_the_flagship_equals_the_monolithic_engine(card):
+    """Both pools capture at warm-up and nothing after; the streams equal
+    a mixed=False monolithic engine's whose decode spans have the decode
+    pool's shape (4 slots), token for token in bf16."""
+    device, _, _ = card
+    config, params = _flagship(device)
+    trace = _disagg_trace(10, config.vocab_size)
+    mono = ServingEngine(params, config, EngineConfig(
+        num_slots=4, num_blocks=121, **DISAGG), device=device)
+    mono.warmup()
+    want = _served(mono, trace)
+    router = _two_cell(params, config, device)
+    router.warmup()
+    base = router.capture_counts()
+    assert base["prefill.prefill"] == 7 and base["decode.decode"] == 1
+    assert base["decode.upload"] == 1 and base["prefill.decode"] == 0
+    assert _served(router, trace) == want
+    assert router.capture_counts() == base
+    assert router.migrator.delivered == router.migrator.migrations \
+        == len(trace)
+    assert router.decode.dispatch_device_ms()["upload"][0] > 0
+
+
+def test_a_chain_rewritten_right_after_its_handoff_keeps_its_bytes(card):
+    """The handoff packs a chain and the prefill pool reclaims it at once:
+    a write enqueued on the main stream the moment pack returns (what the
+    next dispatch into the reclaimed blocks does) must not reach the
+    migrated bytes, which equal the chain as the prefill pool wrote it.
+    Prefix caching is off, so the reclaimed blocks are free for reuse."""
+    device, _, _ = card
+    config, params = _flagship(device)
+    trace = _disagg_trace(8, config.vocab_size)
+    router = _two_cell(params, config, device, prefix_cache=False)
+    router.warmup()
+    pool = router.prefill.pool
+    checked = []
+    handoff = router._handoff
+
+    def rewrite_after_pack(slot):
+        n = -(-slot.prompt.size // pool.block_size)
+        blocks = [int(b) for b in slot.table[:n]]
+        torch.cuda.synchronize(device)
+        want = (pool.k[:, blocks].cpu(), pool.v[:, blocks].cpu())
+        handoff(slot)
+        for slab in (pool.k, pool.v):  # no synchronize: enqueued at once
+            slab[:, blocks] = torch.randn(
+                slab[:, blocks].shape, device=device).to(slab.dtype)
+        frames = kv_tier.unpack_chain(router._tickets[-1].payload)
+        got = [kv_tier.unpack_block(f)[1:] for f in frames]
+        for j in range(n):
+            assert torch.equal(got[j][0].view(torch.int16),
+                               want[0][:, j].view(torch.int16))
+            assert torch.equal(got[j][1].view(torch.int16),
+                               want[1][:, j].view(torch.int16))
+        checked.append(slot.rid)
+
+    router.prefill.on_handoff = rewrite_after_pack
+    mono = ServingEngine(params, config, EngineConfig(
+        num_slots=4, num_blocks=121, **{**DISAGG, "prefix_cache": False}),
+        device=device)
+    assert _served(router, trace) == _served(mono, trace)
+    assert len(checked) == len(trace)

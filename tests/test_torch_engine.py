@@ -250,7 +250,6 @@ def test_metrics_count_the_trace(model):
 @pytest.mark.parametrize("overrides,kwargs", [
     (dict(mesh_spec=object()), {}),
     (dict(long_context_threshold=64), {}),
-    (dict(pool_role="decode", mixed=False), {}),
     ({}, dict(mesh_devices=[0])),
 ])
 def test_unported_options_raise(model, overrides, kwargs):
@@ -258,6 +257,37 @@ def test_unported_options_raise(model, overrides, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
         ServingEngine(tp, cfg, EngineConfig(**{**POOL, **overrides}),
                       device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(pool_role="prefill"),
+    dict(pool_role="decode"),
+    dict(pool_role="prefill", mixed=False, steps_per_launch=4),
+    dict(pool_role="both_ways", mixed=False),
+    dict(pool_role="decode", mixed=False, speculative=True,
+         steps_per_launch=2, admission_ring=2),
+], ids=["prefill_mixed", "decode_mixed", "prefill_loop", "unknown_role",
+        "ring_on_a_decode_pool"])
+def test_pool_role_rows_raise_like_jax(model, overrides):
+    """Each validation row of the disaggregated roles raises the JAX
+    engine's ValueError with its message."""
+    jax_cfg, jp, cfg, tp = model
+    with pytest.raises(ValueError) as want:
+        JaxServingEngine(jp, jax_cfg, JaxEngineConfig(**{**POOL, **overrides}))
+    with pytest.raises(ValueError) as got:
+        ServingEngine(tp, cfg, EngineConfig(**{**POOL, **overrides}),
+                      device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+def test_a_decode_pool_admits_only_migrations(model):
+    _, _, cfg, tp = model
+    engine = _engine(model, pool_role="decode", mixed=False)
+    with pytest.raises(RuntimeError, match="admit_migrated"):
+        engine.submit(Request("r", np.arange(4), 2))
+    engine.warmup()
+    counts = {k: n for k, n in engine.capture_counts().items() if n}
+    assert counts == {"decode": 1, "upload": 1}
 
 
 @pytest.mark.parametrize("overrides,shared_tier", [

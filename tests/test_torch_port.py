@@ -45,7 +45,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "runtime.launcher", "models.mnist",
                      "serving.kv_blocks", "serving.paged",
                      "serving.engine", "serving.prefix_index",
-                     "serving.qos", "serving.metrics_view"):
+                     "serving.qos", "serving.metrics_view",
+                     "serving.fabric", "serving.disagg"):
             assert "kubeshare_tpu_torch." + name in names, name
         import chip_smoke, corun_bench
         assert len(names) >= 20, names
