@@ -109,6 +109,28 @@ Phases (any failure raises and the script exits non-zero):
    engine's, (a1), (b), (c) and (e) teacher-forced within
    ENGINE_TOKEN_MARGIN, and one migrated chain's bytes in the decode pool
    equal to the prefill pool's.
+   engine_fleet: the replica fleet on the flagship.  48 requests from
+   benchmarks/serving_bench.py's fleet_settings / build_fleet_workload
+   (80% in 6 families of a 256-token prefix + an 8-16-token tail, the
+   rest 8-192 tokens, 4-32 new), replicas of 6 slots / 81 blocks, served
+   by (a0) one engine of 12 slots / 161 blocks (the equal-budget
+   control), (a1) one engine of a replica's geometry, (b) a 2-replica
+   ReplicaFleet with prefix affinity, back to back; (c) (a0), the
+   affinity fleet and a round-robin fleet under Poisson arrivals offering
+   0.5 of (a0)'s tokens/s; (d) chaos_settings (41 blocks a replica over a
+   16 MiB shared host tier, every fourth request sampled) fault-free,
+   with r1 killed halfway through its fault-free steps, and the kill
+   replayed; (e) r0 drained a third into the trace and a scale-up once
+   it retired, over the shared tier; (f) (e) over a loopback fabric.
+   Each pass prints tokens/s, TTFT, prefix-hit tokens, dispatches and
+   busy share per replica and the routing decisions; (d) the recovery
+   (fault clock and host), salvage and orphans; (e), (f) the drain, the
+   handoff's blocks and host seconds, r1's promotions after the handoff,
+   r2's warm-up and (f)'s chain messages.  Required: 0 captures after
+   each replica's own warm-up, affinity's prefix-hit tokens at least
+   round robin's, the replay equal to the kill, one liveness failure and
+   orphans readmitted, (f) equal to (e), and (b), (c), (d)'s greedy
+   streams, (e), (f) teacher-forced within ENGINE_TOKEN_MARGIN.
 6. train: the repo's train-step flagship (benchmarks/kernel_bench.py
    MODEL_SIZES["flagship"], rope, bf16, full width and depth) takes 10
    AdamW steps on a fixed batch of 2 x 2048 tokens through
@@ -129,7 +151,8 @@ Phases (any failure raises and the script exits non-zero):
 
 The launch counters are zeroed before each path and read after it (the
 captured path's around its capture: a replay bumps no counter).  The
-engine's paths (engine, engine_spec, engine_tier, engine_disagg) launch
+engine's paths (engine, engine_spec, engine_tier, engine_disagg,
+engine_fleet) launch
 none of the kernels (their attention is the paged einsums, as in the JAX engine), so
 their counts read 0; the speculative
 path's prefills launch the flash forward.  The
@@ -370,6 +393,38 @@ DISAGG_SAMPLE_EVERY = 4
 DISAGG_TEMPERATURE = 0.8
 DISAGG_TOP_K = 50
 DISAGG_LOAD = 0.7
+# engine_fleet: benchmarks/serving_bench.py's fleet_settings /
+# build_fleet_workload on the flagship (its vocab_size 4096 cut to the
+# model's 2048), in the workload's draw order: FLEET_REQUESTS greedy
+# requests from FLEET_SEED, FLEET_SHARED of them in FLEET_GROUPS families
+# (a FLEET_PREFIX-token prefix + a FLEET_TAIL-token tail), the rest
+# FLEET_PROMPT-token prompts, FLEET_NEW new tokens each, unit-mean
+# exponential gaps.  FLEET_REPLICAS replicas of FLEET_REPLICA against the
+# monolithic control FLEET_MONO at the bench's equal aggregate KV budget
+# (2 x 80 allocatable blocks) and against a monolithic engine with one
+# replica's geometry, the oracle with the same dispatch shapes.  Pass (c)
+# offers FLEET_LOAD of the control's back-to-back tokens/s; pass (d) is
+# the settings' chaos_settings (FLEET_CHAOS_BLOCKS per replica over a
+# FLEET_CHAOS_TIER shared host tier, replica r1 killed by
+# FaultPlan(FLEET_CHAOS_SEED) halfway through its fault-free steps) with
+# requests sampled as in engine_disagg (d); passes (e) and (f) drain
+# r0 a third into the trace and scale up once it retired
+FLEET_REQUESTS = 48
+FLEET_SEED = 0
+FLEET_SHARED = 0.8
+FLEET_GROUPS = 6
+FLEET_PREFIX = 256
+FLEET_TAIL = (8, 16)
+FLEET_PROMPT = (8, 192)
+FLEET_NEW = (4, 32)
+FLEET_REPLICAS = 2
+FLEET_REPLICA = dict(num_slots=6, block_size=16, num_blocks=81,
+                     max_request_len=320, prefill_chunk=64, decode_span=4)
+FLEET_MONO = dict(FLEET_REPLICA, num_slots=12, num_blocks=161)
+FLEET_LOAD = 0.5
+FLEET_CHAOS_BLOCKS = 41
+FLEET_CHAOS_TIER = 16 << 20
+FLEET_CHAOS_SEED = 7
 
 
 def check(condition: bool, message: str) -> None:
@@ -1630,6 +1685,34 @@ def chain_round_trip(torch, router):
     return seen
 
 
+def serve(torch, engine, trace, mean_gap=None, sampled=False, release=None,
+          script=None):
+    """Submit ``trace`` to ``engine`` — every request at once or, with
+    ``mean_gap``, at its arrival scaled by it (open loop); with
+    ``release(engine, i)`` request i also waits until that returns True —
+    and step it until it is idle, running ``script(engine)`` after every
+    step.  Returns (steps that worked, serve seconds up to a
+    synchronize)."""
+    requests = [(i, disagg_request(torch, i, rid, prompt, new, sampled),
+                 0.0 if mean_gap is None else arrival * mean_gap)
+                for i, (rid, prompt, new, arrival) in enumerate(trace)]
+    steps = 0
+    t0 = time.perf_counter()
+    while requests or not engine.idle:
+        now = time.perf_counter() - t0
+        while requests and requests[0][2] <= now and (
+                release is None or release(engine, requests[0][0])):
+            engine.submit(requests.pop(0)[1])
+        if engine.step():
+            steps += 1
+        elif requests:
+            time.sleep(min(0.001, max(requests[0][2] - now, 0.0)))
+        if script is not None:
+            script(engine)
+    torch.cuda.synchronize()
+    return steps, time.perf_counter() - t0
+
+
 def disagg_pass(torch, device, params, config, trace, disagg, mixed=False,
                 sampled=False, fabric=False, mean_gap=None, top_k=None):
     """One pass over ``trace``: the monolithic ServingEngine (``mixed``) or
@@ -1663,21 +1746,7 @@ def disagg_pass(torch, device, params, config, trace, disagg, mixed=False,
     captures = {name: dict(pool.capture_counts())
                 for name, pool in pools.items()}
     reset_counts()
-    requests = [(disagg_request(torch, i, rid, prompt, new, sampled),
-                 0.0 if mean_gap is None else arrival * mean_gap)
-                for i, (rid, prompt, new, arrival) in enumerate(trace)]
-    steps = 0
-    t0 = time.perf_counter()
-    while requests or not engine.idle:
-        now = time.perf_counter() - t0
-        while requests and requests[0][1] <= now:
-            engine.submit(requests.pop(0)[0])
-        if engine.step():
-            steps += 1
-        elif requests:
-            time.sleep(min(0.001, max(requests[0][1] - now, 0.0)))
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
+    steps, serve_s = serve(torch, engine, trace, mean_gap, sampled)
     launches = read_counts()
     metrics = flatten_metrics(engine.collect_metrics())
 
@@ -1862,6 +1931,310 @@ def engine_disagg_phase(torch, device):
           f"{e1_stats['tokens_per_s']:.1f}; back to back TBT p99 "
           f"{b_stats['tbt_p99_s'] * 1e3:.3f} ms against "
           f"{a1_stats['tbt_p99_s'] * 1e3:.3f} ms")
+    return {name: sum(counts[name] for counts in launches)
+            for name in launches[0]}
+
+
+def fleet_trace(config):
+    """FLEET_REQUESTS (rid, prompt, new_tokens, unit_arrival) in
+    build_fleet_workload's draw order (the family prefixes first, then per
+    request its gap, its budget, and its family tail or its own prompt)."""
+    import numpy as np
+
+    rng = np.random.default_rng(FLEET_SEED)
+    prefixes = [rng.integers(0, config.vocab_size, FLEET_PREFIX)
+                for _ in range(FLEET_GROUPS)]
+    trace, t = [], 0.0
+    for i in range(FLEET_REQUESTS):
+        t += float(rng.exponential(1.0))
+        new = int(rng.integers(FLEET_NEW[0], FLEET_NEW[1] + 1))
+        if rng.random() < FLEET_SHARED:
+            g = int(rng.integers(0, FLEET_GROUPS))
+            tail = rng.integers(0, config.vocab_size, int(
+                rng.integers(FLEET_TAIL[0], FLEET_TAIL[1] + 1)))
+            prompt = np.concatenate([prefixes[g], tail])
+        else:
+            prompt = rng.integers(0, config.vocab_size, int(
+                rng.integers(FLEET_PROMPT[0], FLEET_PROMPT[1] + 1)))
+        trace.append((f"req{i}", prompt, new, t))
+    return trace
+
+
+def fleet_pass(torch, trace, build, mean_gap=None, sampled=False,
+               release=None, script=None):
+    """One pass over ``trace``: ``build()`` makes a ServingEngine or a
+    ReplicaFleet, warmed up, then :func:`serve` drives it;
+    ``script(engine, base)`` runs after every step (passes (e) and (f): a
+    replica the script adds records the captures of its own warm-up into
+    ``base``).  Returns (streams, stats, engine)."""
+    from kubeshare_tpu_torch.serving import ReplicaFleet
+    from kubeshare_tpu_torch.serving.metrics_view import (
+        flatten_metrics, hist_quantile, metric_histogram, metric_value)
+
+    torch.cuda.synchronize()
+    engine = build()
+    t0 = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    base = dict(engine.capture_counts())
+    reset_counts()
+    steps, serve_s = serve(
+        torch, engine, trace, mean_gap, sampled, release,
+        None if script is None else lambda eng: script(eng, base))
+    launches = read_counts()
+    metrics = flatten_metrics(engine.collect_metrics())
+    results = {rid: engine.result(rid) for rid, _, _, _ in trace}
+    check(all(r.done for r in results.values()), "a request did not finish")
+    tokens = sum(len(r.tokens) for r in results.values())
+    fleet = isinstance(engine, ReplicaFleet)
+    pools = ({h.name: h.engine for h in engine.replicas} if fleet
+             else {"mono": engine})
+    device_ms = {name: pool.dispatch_device_ms()
+                 for name, pool in pools.items()}
+    counts = engine.capture_counts()
+
+    def quantile(name, q):
+        return hist_quantile(metric_histogram(metrics, name), q)
+
+    stats = {
+        "warmup_s": warmup_s, "serve_s": serve_s, "steps": steps,
+        "tokens": tokens, "tokens_per_s": tokens / serve_s,
+        "captures": sum(base.values()),
+        "new_captures": {k: n - base.get(k, 0) for k, n in counts.items()
+                         if n != base.get(k, 0)},
+        "ttft_p50_s": quantile("kubeshare_serving_ttft_seconds", 0.5),
+        "ttft_p95_s": quantile("kubeshare_serving_ttft_seconds", 0.95),
+        "prefix_hit_tokens": metric_value(
+            metrics, "kubeshare_serving_prefix_hit_tokens_total"),
+        "busy": {name: sum(ms for _, ms in dev.values()) / (serve_s * 1e3)
+                 for name, dev in device_ms.items()},
+        "dispatches": {name: sum(n for n, _ in dev.values())
+                       for name, dev in device_ms.items()},
+        "launches": launches,
+    }
+    if fleet:
+        stats["routing"] = {k: n for k, n in engine.routing_decisions.items()
+                            if n}
+        stats["owners"] = {h.name: sum(engine.owner_of(rid) == h.name
+                                       for rid in results)
+                           for h in engine.replicas}
+    return {rid: r.tokens for rid, r in results.items()}, stats, engine
+
+
+def fleet_report(label, stats):
+    busy = ", ".join(f"{name} {share:.4f}"
+                     for name, share in stats["busy"].items())
+    line = (f"engine fleet {label}: warm-up {stats['warmup_s']:.2f} s, "
+            f"{stats['captures']} captures, after warm-up "
+            f"{json.dumps(stats['new_captures'])}; {stats['tokens']} tokens "
+            f"in {stats['serve_s']:.3f} s = {stats['tokens_per_s']:.1f} "
+            f"tokens/s over {stats['steps']} steps; TTFT p50 "
+            f"{stats['ttft_p50_s'] * 1e3:.1f} ms p95 "
+            f"{stats['ttft_p95_s'] * 1e3:.1f} ms; prefix-hit tokens "
+            f"{stats['prefix_hit_tokens']:.0f}; dispatches "
+            f"{json.dumps(stats['dispatches'])}; busy share over the serve "
+            f"(CUDA events): {busy}")
+    if "routing" in stats:
+        line += (f"; routing {json.dumps(stats['routing'])}, requests by "
+                 f"replica {json.dumps(stats['owners'])}")
+    print(line)
+
+
+def drain_then_scale(trace):
+    """(release, script, record) of passes (e) and (f): the first third of
+    the trace arrives at once; r0 drains once half of it is done, the
+    second third arrives while r0 drains (so only r1 takes it), and once
+    r0 retired (its trie handed to r1) the fleet scales up and the last
+    third arrives.  ``record`` keeps r1's tier promotions at r0's
+    retirement, the scale-up's seconds and r2's warm-up captures."""
+    third = len(trace) // 3
+    record = {}
+
+    def release(engine, i):
+        if i < third:
+            return True
+        if i < 2 * third:
+            return engine._handle("r0").state != "active"
+        return len(engine.replicas) > 2
+
+    def script(engine, base):
+        r0 = engine._handle("r0")
+        if r0.state == "active":
+            done = sum(engine.result(rid).done
+                       for rid, _, _, _ in trace[:third])
+            if done >= third // 2:
+                engine.drain("r0")
+        elif r0.state == "retired" and len(engine.replicas) == 2:
+            r1 = engine._handle("r1").engine
+            record["r1_at_retire"] = (r1.tier_promoted_blocks,
+                                      r1.tier_hit_requests)
+            t0 = time.perf_counter()
+            handle = engine.scale_up()
+            record["scale_up_s"] = time.perf_counter() - t0
+            record["r2_captures"] = dict(handle.engine.capture_counts())
+            base.update({f"{handle.name}.{k}": n
+                         for k, n in record["r2_captures"].items()})
+
+    return release, script, record
+
+
+def engine_fleet_phase(torch, device):
+    """The replica fleet on the flagship: (a) monolithic engines back to
+    back, (b) the affinity fleet back to back, (c) the control, the
+    affinity and the round-robin fleet under Poisson arrivals, (d) a
+    replica kill and its replay, (e) a drain then a scale-up over the
+    shared tier, (f) (e) over a loopback fabric."""
+    from kubeshare_tpu_torch.entry import entry, flagship_config
+    from kubeshare_tpu_torch.serving import (EngineConfig, LoopbackTransport,
+                                             ReplicaFleet, RoundRobinPolicy,
+                                             ServingEngine)
+    from kubeshare_tpu_torch.serving.chaos import FaultClock, FaultPlan
+
+    config = flagship_config()
+    _, (params, _) = entry()
+    trace = fleet_trace(config)
+    forced = [(rid, prompt, new) for rid, prompt, new, _ in trace]
+    greedy = {rid for i, (rid, _, _) in enumerate(forced)
+              if i % DISAGG_SAMPLE_EVERY}
+    launches = []
+
+    def mono(pool):
+        return lambda: ServingEngine(params, config, EngineConfig(**pool),
+                                     device=device)
+
+    def fleet(pool=FLEET_REPLICA, top_k=None, **kwargs):
+        return lambda: ReplicaFleet(
+            params, config, EngineConfig(**pool, top_k=top_k),
+            replicas=FLEET_REPLICAS, device=device, **kwargs)
+
+    def run(label, build, **kwargs):
+        streams, stats, engine = fleet_pass(torch, trace, build, **kwargs)
+        launches.append(stats["launches"])
+        fleet_report(label, stats)
+        check(not stats["new_captures"],
+              f"{label}: captures after warm-up {stats['new_captures']}")
+        check(all(len(streams[rid]) == new for rid, _, new in forced),
+              f"{label}: a stream has the wrong length")
+        return streams, stats, engine
+
+    def forced_check(label, streams, rids=None):
+        rows = [r for r in forced if rids is None or r[0] in rids]
+        worst = teacher_forced(torch, params, config, rows, streams, device)
+        print(f"engine fleet {label} teacher-forced: worst emitted token "
+              f"{worst:.4f} under its row's max over {len(rows)} greedy "
+              f"streams (tol {ENGINE_TOKEN_MARGIN})")
+        check(worst <= ENGINE_TOKEN_MARGIN,
+              f"{label}: an emitted token lies {worst} under its row's max")
+
+    def equal(label, streams, oracle, oracle_label):
+        same = sum(streams[rid] == oracle[rid] for rid, _, _ in forced)
+        print(f"engine fleet {label}: streams equal to {oracle_label}: "
+              f"{same}/{len(forced)}")
+
+    a0, a0_stats, _ = run("(a0) monolithic 12 slots / 161 blocks",
+                          mono(FLEET_MONO))
+    a1, _, _ = run("(a1) monolithic 6 slots / 81 blocks", mono(FLEET_REPLICA))
+    b, _, _ = run("(b) fleet of 2 x (6 slots / 81 blocks), prefix affinity",
+                  fleet())
+    forced_check("(b)", b)
+    equal("(b)", b, a0, "(a0)")
+    equal("(b)", b, a1, "(a1)")
+
+    total_new = sum(new for _, _, new, _ in trace)
+    mean_gap = total_new / (FLEET_LOAD * a0_stats["tokens_per_s"]
+                            * FLEET_REQUESTS)
+    print(f"engine fleet (c): mean inter-arrival {mean_gap * 1e3:.3f} ms = "
+          f"{total_new} tokens / ({FLEET_LOAD} x "
+          f"{a0_stats['tokens_per_s']:.1f} tokens/s of (a0) x "
+          f"{FLEET_REQUESTS} requests)")
+    run("(c) monolithic 12 slots / 161 blocks, Poisson", mono(FLEET_MONO),
+        mean_gap=mean_gap)
+    c_aff, c_aff_stats, _ = run("(c) fleet, prefix affinity, Poisson",
+                                fleet(), mean_gap=mean_gap)
+    forced_check("(c) affinity", c_aff)
+    _, c_rr_stats, _ = run("(c) fleet, round robin, Poisson",
+                           fleet(routing=RoundRobinPolicy()),
+                           mean_gap=mean_gap)
+    check(c_aff_stats["prefix_hit_tokens"]
+          >= c_rr_stats["prefix_hit_tokens"],
+          "(c): prefix affinity recovered fewer prefix tokens than round "
+          "robin")
+
+    def chaos_fleet(plan):
+        return fleet(dict(FLEET_REPLICA, num_blocks=FLEET_CHAOS_BLOCKS),
+                     top_k=DISAGG_TOP_K, shared_tier_bytes=FLEET_CHAOS_TIER,
+                     fault_clock=FaultClock(plan))
+
+    d0, _, ref = run("(d) fault-free", chaos_fleet(
+        FaultPlan(seed=FLEET_CHAOS_SEED)), sampled=True)
+    check(not ref.replica_failures,
+          f"(d): the fault-free run failed {ref.replica_failures}")
+    r1_steps = ref.fault_clock._steps["r1"]
+    kill_at = r1_steps // 2
+    print(f"engine fleet (d): r1 took {r1_steps} steps fault-free; the "
+          f"kill lands at its step {kill_at}")
+    kills = []
+    for label in ("(d) kill", "(d) kill replayed"):
+        streams, _, killed = run(label, chaos_fleet(
+            FaultPlan(seed=FLEET_CHAOS_SEED).kill("r1", at_step=kill_at)),
+            sampled=True)
+        kills.append(streams)
+        check(killed.replica_failures == {"liveness": 1},
+              f"{label}: failures {killed.replica_failures}")
+        check(killed.orphans_readmitted > 0,
+              f"{label}: no orphan was readmitted")
+        print(f"engine fleet {label}: failures "
+              f"{json.dumps(killed.replica_failures)}, orphans readmitted "
+              f"{killed.orphans_readmitted}, salvaged "
+              f"{killed.salvaged_tokens} of "
+              f"{killed.salvage_candidate_tokens} candidate prefix tokens, "
+              f"recovery {killed.recovery_durations[0] * 1e3:.3f} ms on the "
+              f"fault clock, {killed.recovery_host_s * 1e3:.3f} ms host in "
+              f"_recover_replica")
+    check(kills[1] == kills[0],
+          "(d): the replayed kill's streams differ from the kill's")
+    equal("(d) kill", kills[0], d0, "(d) fault-free")
+    forced_check("(d) kill", kills[0], greedy)
+
+    drained = {}
+    for label, fabric in (("(e) drain, scale up", False),
+                          ("(f) drain, scale up, loopback fabric", True)):
+        release, script, record = drain_then_scale(trace)
+        streams, _, eng = run(label, fleet(
+            shared_tier_bytes=FLEET_CHAOS_TIER,
+            fabric=LoopbackTransport() if fabric else None),
+            release=release, script=script)
+        check(eng._handle("r0").state == "retired"
+              and len(eng.replicas) == 3,
+              f"{label}: r0 did not retire or the fleet did not grow")
+        check(sum(record["r2_captures"].values()) > 0,
+              f"{label}: r2 captured nothing at its warm-up")
+        r1 = eng._handle("r1").engine
+        promoted, hits = record["r1_at_retire"]
+        line = (f"engine fleet {label}: drain {eng._drain_sum:.3f} s; "
+                f"handoff {eng.handoff_blocks} device blocks in "
+                f"{eng.handoff_host_s * 1e3:.3f} ms host; after r0 retired "
+                f"r1 promoted {r1.tier_promoted_blocks - promoted} tier "
+                f"blocks for {r1.tier_hit_requests - hits} requests "
+                f"(r1's tier hits by origin over the pass "
+                f"{json.dumps(r1.tier_hit_requests_by_origin)}); r2 warm-up "
+                f"{record['scale_up_s']:.2f} s, "
+                f"{sum(record['r2_captures'].values())} captures")
+        if fabric:
+            eps = list(eng._endpoints.values()) + [eng._fleet_ep]
+            chains = {outcome: sum(ep.messages.get(("chain", outcome), 0)
+                                   for ep in eps)
+                      for outcome in ("sent", "delivered", "expired")}
+            line += (f"; chain messages {json.dumps(chains)} (live "
+                     f"endpoints and the fleet's), adopted "
+                     f"{eng.fabric_adopted_tokens} tokens, expired chains "
+                     f"{eng.fabric_expired_chains}")
+        print(line)
+        forced_check(label, streams)
+        drained[fabric] = streams
+    check(drained[True] == drained[False],
+          "(f): the fabric fleet's streams differ from (e)'s")
+    print("engine fleet (f): streams equal to (e): True")
     return {name: sum(counts[name] for counts in launches)
             for name in launches[0]}
 
@@ -2691,6 +3064,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["engine_disagg"] = engine_disagg_phase(torch, device)
     print(f"engine disagg phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["engine_fleet"] = engine_fleet_phase(torch, device)
+    print(f"engine fleet phase: {time.perf_counter() - t0:.1f} s")
     launches["train"], eager = train_phase(torch, device)
     launches["train_captured"], _ = capture_phase(torch, device, eager)
     launches["block_sparse"] = bs_launches

@@ -1,3 +1,4 @@
+from .mesh import MeshSpec
 from .train import (
     CapturedTrainStep,
     TrainState,
@@ -10,6 +11,7 @@ from .train import (
 
 __all__ = [
     "CapturedTrainStep",
+    "MeshSpec",
     "TrainState",
     "adamw",
     "cross_entropy_loss",

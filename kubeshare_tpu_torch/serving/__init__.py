@@ -36,9 +36,15 @@ of the single-device core of kubeshare_tpu/serving:
   :class:`KVMigrator` moving each prompt's KV chain between them as wire
   frames (read on a side stream as the prompt prefills), and a
   :class:`DisaggRouter` in front whose streams equal the monolithic
-  engine's.
+  engine's;
+- :mod:`fleet` — the replica fleet: N engines (or disagg pairs) behind a
+  prefix-affinity :class:`ReplicaFleet` router, with drain-then-retire
+  cache inheritance over a shared host tier, an autoscaler with
+  hysteresis, and crash recovery (salvage + orphan re-admission) under a
+  health monitor; :mod:`sharded`'s :func:`carve_replica_groups` splits a
+  dp x tp mesh spec into the replicas' device groups.
 
-Not ported yet (ROADMAP.md queue A): fleets and tensor-parallel serving.
+Not ported yet (ROADMAP.md queue A item 9): tensor-parallel serving.
 """
 
 from .autotune import (AnalyticPolicy, AutoTuner, CostModel, FittedTracePolicy,
@@ -55,6 +61,9 @@ from .fabric import (FabricDirectory, FabricEndpoint, FabricTransport,
                      load_prefix_store, pack_message, pack_ticket,
                      prefix_fabric_key, recv_frame, send_frame,
                      serve_prefix_store, unpack_message, unpack_ticket)
+from .fleet import (DRAIN_BUCKETS, RECOVERY_BUCKETS, PrefixAffinityPolicy,
+                    ReplicaFleet, ReplicaHandle, RoundRobinPolicy,
+                    RoutingPolicy, ScalingPolicy, TTFTBreachPolicy)
 from .kv_blocks import (BlockAllocator, BlockExhausted, PagedKVPool,
                         QuotaExceeded, chain_token_runs, init_paged_pool)
 from .kv_tier import (KV_CHAIN_VERSION, KV_WIRE_VERSION, DiskTier, HostTier,
@@ -68,6 +77,7 @@ from .paged import (paged_copy_block, paged_decode_loop, paged_decode_span,
 from .prefix_index import PrefixIndex
 from .qos import (DEFAULT_TENANT, QOS_GUARANTEE, QOS_OPPORTUNISTIC, FairQueue,
                   TenantRegistry, TenantSpec)
+from .sharded import carve_replica_groups
 
 __all__ = [
     "AnalyticPolicy",
@@ -76,6 +86,7 @@ __all__ = [
     "BlockExhausted",
     "CostModel",
     "DEFAULT_TENANT",
+    "DRAIN_BUCKETS",
     "DecodePool",
     "DisaggRouter",
     "DisaggTopology",
@@ -100,23 +111,32 @@ __all__ = [
     "NGramDrafter",
     "PagedKVPool",
     "PrefillPool",
+    "PrefixAffinityPolicy",
     "PrefixIndex",
     "PrefixStoreClient",
     "QOS_GUARANTEE",
     "QOS_OPPORTUNISTIC",
     "QoSTierPolicy",
     "QuotaExceeded",
+    "RECOVERY_BUCKETS",
+    "ReplicaFleet",
+    "ReplicaHandle",
     "ReplicaKilled",
     "Request",
     "RequestResult",
+    "RoundRobinPolicy",
+    "RoutingPolicy",
+    "ScalingPolicy",
     "ServingEngine",
     "SocketTransport",
+    "TTFTBreachPolicy",
     "TenantRegistry",
     "TenantSpec",
     "TierPolicy",
     "TuningPolicy",
     "WireCorruption",
     "adopt_into",
+    "carve_replica_groups",
     "chain_token_runs",
     "export_prefix_store",
     "fabric_metric_families",

@@ -268,6 +268,8 @@ class EngineConfig:
     # runs only decode/verify dispatches and admits only through
     # admit_migrated().  Streams are bit-exact with the monolithic engine
     pool_role: str = "both"
+    # a parallel.mesh.MeshSpec: dp > 1 is a fleet's replica axis
+    # (fleet.ReplicaFleet carves it); tp > 1 within one engine is
     # tensor-parallel serving (not ported: ROADMAP.md queue A item 9)
     mesh_spec: Optional[object] = None
     long_context_threshold: Optional[int] = None
@@ -303,10 +305,12 @@ def _warmed_prefill_widths(ec: EngineConfig) -> set:
 def _config_rows(ec: EngineConfig, config: TransformerConfig,
                  mesh_devices=None, shared_host_tier=None):
     """The engine-config validation table: ``(failed, error, message)``
-    rows checked in order by :class:`ServingEngine`.  The options of
-    slices not yet ported come first and raise ``NotImplementedError``
+    rows checked in order by :class:`ServingEngine`.  The two mesh rows
+    the JAX engine raises for a fleet's axis come first, then the
+    options of slices not yet ported, which raise ``NotImplementedError``
     naming their ROADMAP.md item; the rest are the JAX engine's
-    ``ValueError`` rows."""
+    ``ValueError`` rows.  The spec is read duck-typed, so any object
+    with no dp/ep/sp reaches the unported row."""
     widths = _warmed_prefill_widths(ec)
     min_piece = min(widths) if widths else 1
     wire = (wire_block_bytes(
@@ -315,8 +319,24 @@ def _config_rows(ec: EngineConfig, config: TransformerConfig,
         if ec.host_tier_bytes is not None else None)
     todo = NotImplementedError
     bad = ValueError
+    spec = ec.mesh_spec
     return [
-        (ec.mesh_spec is not None, todo,
+        (spec is not None and (getattr(spec, "dp", 1) != 1
+                               or getattr(spec, "ep", 1) != 1
+                               or getattr(spec, "sp", 1) != 1), bad,
+         f"a SINGLE engine shards tensor-parallel only: "
+         f"mesh_spec must have dp=ep=sp=1 (slots are the batch "
+         f"axis inside one engine), got {spec} — dp > 1 is "
+         f"the replica axis: hand this spec to "
+         f"serving/fleet.ReplicaFleet, which carves it into "
+         f"per-replica tp device groups via "
+         f"carve_replica_groups and runs one engine per group"),
+        (mesh_devices is not None and spec is None, bad,
+         "mesh_devices requires mesh_spec — an unsharded engine "
+         "has no mesh to pin onto a device group; pin it with "
+         "device= instead (the fleet's tp=1 build path does exactly "
+         "that)"),
+        (spec is not None, todo,
          "mesh_spec: tensor-parallel serving is not ported yet "
          "(ROADMAP.md queue A item 9, sharded.py over torch.distributed)"),
         (ec.long_context_threshold is not None, todo,
@@ -790,6 +810,10 @@ class ServingEngine:
         self.ring_activations = 0
         self.loop_depth_sum = 0
         self.loop_depth_count = 0
+        # span-units the most recent launch may cover: the fleet's
+        # dispatch watchdog scales its hang budget by it, so a healthy
+        # K-unit loop launch is never flagged hung
+        self.last_launch_units = 1
         # host wall seconds by step() phase; "tune" stays 0 without a tuner
         self.host_seconds: Dict[str, float] = {
             "admit": 0.0, "plan": 0.0, "dispatch": 0.0, "consume": 0.0,
@@ -1300,6 +1324,9 @@ class ServingEngine:
         return drafts
 
     def _dispatch_plan(self, plan: _StepPlan) -> None:
+        self.last_launch_units = (self._loop_k
+                                  if plan.kind in ("loop", "spec_loop")
+                                  else 1)
         if plan.kind == "mixed":
             self._run_mixed_step(plan.decode_slots, plan.prefill_slot,
                                  plan.chunk)

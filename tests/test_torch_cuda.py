@@ -17,8 +17,10 @@ import torch
 from kubeshare_tpu_torch.models import decoding
 from kubeshare_tpu_torch.models.transformer import (TransformerConfig,
                                                     transformer_init)
-from kubeshare_tpu_torch.serving import (DisaggRouter, EngineConfig, Request,
+from kubeshare_tpu_torch.serving import (DisaggRouter, EngineConfig,
+                                         ReplicaFleet, Request,
                                          ServingEngine, kv_tier, paged)
+from kubeshare_tpu_torch.serving.chaos import FaultClock, FaultPlan
 
 pytestmark = pytest.mark.cuda
 
@@ -351,3 +353,126 @@ def test_a_chain_rewritten_right_after_its_handoff_keeps_its_bytes(card):
         device=device)
     assert _served(router, trace) == _served(mono, trace)
     assert len(checked) == len(trace)
+
+
+# -- the replica fleet ------------------------------------------------------
+
+FLEET_POOL = dict(num_slots=3, block_size=4, num_blocks=21,
+                  max_request_len=48, prefill_chunk=8)
+
+
+def _fleet_trace(n):
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, 64, 12)
+    return [(f"r{i}", np.concatenate([shared, rng.integers(0, 64, 4)])
+             if i % 2 == 0 else rng.integers(0, 64, 10), 6 + i % 3)
+            for i in range(n)]
+
+
+def test_fleet_replicas_share_params_and_capture_nothing_after_warmup(card):
+    """Two replicas on one card run on the caller's parameter tensors,
+    capture every graph at warm-up and nothing after, and their f32
+    streams equal a monolithic engine's at the same aggregate budget."""
+    device, config, params = card
+    trace = _fleet_trace(8)
+    mono = ServingEngine(params, config, EngineConfig(
+        **{**FLEET_POOL, "num_blocks": 41}), device=device)
+    mono.warmup()
+    want = _served(mono, trace)
+    fleet = ReplicaFleet(params, config, EngineConfig(**FLEET_POOL),
+                         replicas=2, shared_tier_bytes=1 << 20,
+                         device=device)
+    assert all(h.engine.params is params for h in fleet.replicas)
+    fleet.warmup()
+    base = fleet.capture_counts()
+    assert base["r0.decode"] == base["r1.decode"] == 1
+    assert _served(fleet, trace) == want
+    assert fleet.capture_counts() == base
+    fleet.drain(fleet.owner_of("r0"))
+    fleet.run()
+    assert fleet.handoff_blocks > 0
+    assert fleet.capture_counts() == base
+
+
+def test_scale_up_while_a_sibling_dispatch_is_in_flight(card):
+    """scale_up() warms the new replica (capturing its graphs) while r0's
+    newest dispatch is still in flight: the capture succeeds, r0's
+    capture counts stay put, and r0's streams equal a fleet that never
+    scaled."""
+    device, config, params = card
+    trace = _fleet_trace(6)
+
+    def fleet():
+        f = ReplicaFleet(params, config, EngineConfig(**FLEET_POOL),
+                         replicas=1, device=device)
+        f.warmup()
+        return f
+
+    want = _served(fleet(), trace)
+    grown = fleet()
+    for rid, prompt, new in trace:
+        grown.submit(Request(rid, prompt, new))
+    r0 = grown.replicas[0].engine
+    while r0._inflight is None or r0._inflight[0] == "span" \
+            and r0._inflight[1] is None:
+        assert grown.step()
+    assert r0._inflight is not None
+    before = grown.capture_counts()
+    handle = grown.scale_up()
+    after = grown.capture_counts()
+    assert {k: v for k, v in after.items() if k.startswith("r0.")} == before
+    assert after["r1.decode"] == 1 and handle.engine.params is params
+    out = grown.run()
+    assert {rid: out[rid].tokens for rid, _, _ in trace} == want
+    assert grown.capture_counts() == after
+
+
+def test_kill_consumes_the_dead_replicas_inflight_fetch_first(card):
+    """A kill lands while r0 has a dispatch in flight: recovery consumes
+    that dispatch (waiting on its fetch) before the orphans are
+    re-admitted, so they resume from the post-dispatch position, and
+    every stream equals the fault-free fleet's."""
+    device, config, params = card
+    trace = _fleet_trace(8)
+
+    class PinFirst:
+        def route(self, fleet, request, candidates):
+            return candidates[0], "least_loaded"
+
+    def fleet(clock):
+        f = ReplicaFleet(params, config, EngineConfig(**FLEET_POOL),
+                         replicas=2, routing=PinFirst(),
+                         shared_tier_bytes=1 << 20, fault_clock=clock,
+                         device=device)
+        f.warmup()
+        return f
+
+    want = _served(fleet(FaultClock(FaultPlan(seed=3))), trace)
+    plan = FaultPlan(seed=3)
+    clock = FaultClock(plan)
+    doomed = fleet(clock)
+    for rid, prompt, new in trace:
+        doomed.submit(Request(rid, prompt, new))
+    eng = doomed.replicas[0].engine
+    while not (eng._inflight is not None and eng._inflight[1] is not None
+               and any(s.state == "decode" for s in eng._slots)):
+        assert doomed.step()
+    plan.kill("r0", at_step=clock._steps.get("r0", 0))
+    seen = []
+    readmit = doomed._readmit_orphans
+
+    def spy(handle):
+        seen.append((handle.engine._inflight,
+                     {s.rid: len(s.generated) for s in handle.engine._slots
+                      if s.state != "free"}))
+        return readmit(handle)
+
+    doomed._readmit_orphans = spy
+    emitted = {s.rid: len(s.generated) for s in eng._slots
+               if s.state == "decode"}
+    out = doomed.run()
+    assert doomed.replica_failures == {"liveness": 1}
+    assert seen and seen[0][0] is None
+    # the consumed dispatch moved every decoding orphan forward
+    assert any(seen[0][1].get(rid, 6) > n for rid, n in emitted.items())
+    assert {rid: out[rid].tokens for rid, _, _ in trace} == want

@@ -27,6 +27,7 @@ from kubeshare_tpu_torch.convert import params_from_jax
 from kubeshare_tpu_torch.isolation import ExecutionGuard
 from kubeshare_tpu_torch.models import decoding
 from kubeshare_tpu_torch.models.transformer import TransformerConfig
+from kubeshare_tpu_torch.parallel.mesh import MeshSpec
 from kubeshare_tpu_torch.serving import (QOS_OPPORTUNISTIC, EngineConfig,
                                          Request, ServingEngine,
                                          TenantRegistry, TenantSpec)
@@ -250,7 +251,8 @@ def test_metrics_count_the_trace(model):
 @pytest.mark.parametrize("overrides,kwargs", [
     (dict(mesh_spec=object()), {}),
     (dict(long_context_threshold=64), {}),
-    ({}, dict(mesh_devices=[0])),
+    (dict(mesh_spec=MeshSpec(dp=1, tp=2)), dict(mesh_devices=[0])),
+    (dict(mesh_spec=MeshSpec(dp=1, tp=2)), {}),
 ])
 def test_unported_options_raise(model, overrides, kwargs):
     _, _, cfg, tp = model

@@ -46,7 +46,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "serving.kv_blocks", "serving.paged",
                      "serving.engine", "serving.prefix_index",
                      "serving.qos", "serving.metrics_view",
-                     "serving.fabric", "serving.disagg"):
+                     "serving.fabric", "serving.disagg",
+                     "serving.fleet", "serving.sharded", "parallel.mesh"):
             assert "kubeshare_tpu_torch." + name in names, name
         import chip_smoke, corun_bench
         assert len(names) >= 20, names
