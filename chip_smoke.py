@@ -141,6 +141,30 @@ Phases (any failure raises and the script exits non-zero):
    capture=True) (one CUDA graph a step), held against the eager run
    (losses and parameters), each step's CUDA-event time beside its host
    enqueue time.
+   moe: the repo's MoE model (benchmarks/kernel_bench.py
+   MODEL_SIZES["moe"]: the train flagship with every 2nd MLP an 8-expert
+   top-2 mixture at capacity factor 1.25; rope, bf16, full width and
+   depth, weights from seed 0).  (a) ops.moe.moe_apply at x (2, 2048,
+   1024) bf16 in both routings and both dispatches against the same call
+   on the CPU in f32 routed by the card's router probabilities, scatter
+   against einsum, a second run's output and gradients equal to the bit;
+   the forwards profiled by kernel and timed beside the dense MLP of the
+   same width and the experts' MLP alone.  (b) transformer_apply_with_aux
+   at tokens (2, 2048) with the flash kernel against attention=
+   "reference": the rows that router near-ties send to other experts are
+   counted (each must be a near-tie, MOE_ROUTE_MARGIN) and the others'
+   logits held at SLICE_LOGITS_ATOL.  (c) 4 requests of 896 + 128 greedy
+   tokens, bulk prefill then the dense decode eager and captured (equal
+   streams), every token teacher-forced against the dense forward with
+   the experts' capacity pinned (rows within a routing near-tie
+   excused).  (d) ServingEngine(ENGINE_POOL) over engine_trace: 0
+   captures after warm-up, teacher-forced likewise.  (e) 10 AdamW steps
+   on the train phase's batch, loss = cross entropy + MOE_AUX_COEF x aux:
+   step 1 held against attention="reference" routed alike, eager,
+   captured (equal to an eager run with the same AdamW to the bit, the
+   default AdamW's first update at the drift limits) and captured with
+   einsum dispatch, with step ms, tokens/s and the share of the bf16
+   peak.
 7. mnist: the co-run's MNIST at batch 512 from weights converted from a
    numpy tree: its logits against the CPU's, and 8 captured train steps
    against 8 eager ones, timed.
@@ -152,7 +176,7 @@ Phases (any failure raises and the script exits non-zero):
 The launch counters are zeroed before each path and read after it (the
 captured path's around its capture: a replay bumps no counter).  The
 engine's paths (engine, engine_spec, engine_tier, engine_disagg,
-engine_fleet) launch
+engine_fleet, moe_engine) launch
 none of the kernels (their attention is the paged einsums, as in the JAX engine), so
 their counts read 0; the speculative
 path's prefills launch the flash forward.  The
@@ -163,7 +187,8 @@ last lines are the card (nvidia-smi), a JSON ``kernels`` line, and
 steady steps under ``torch.profiler``, eager and then captured: the
 host's enqueue time and the wall time per step, the device's busy share,
 and device time by kernel.  ``--profile-engine`` does the same for the
-engine phase's default pass over its trace.
+engine phase's default pass over its trace, on the serving flagship and
+then on the MoE model.
 
 Without a CUDA device, or without the rest of the repository beside it,
 the script fails before printing any result.
@@ -425,6 +450,44 @@ FLEET_LOAD = 0.5
 FLEET_CHAOS_BLOCKS = 41
 FLEET_CHAOS_TIER = 16 << 20
 FLEET_CHAOS_SEED = 7
+# moe: benchmarks/kernel_bench.py MODEL_SIZES["moe"], the repo's MoE model:
+# the train-step flagship's dims with every 2nd MLP an 8-expert top-2
+# mixture at capacity factor 1.25, rope and bf16 as suite_model /
+# suite_moe build it, full width and depth, weights from seed 0
+MOE_DIMS = dict(TRAIN_DIMS, moe_every=2, moe_num_experts=8, moe_top_k=2,
+                moe_capacity_factor=1.25)
+# the load-balancing loss's weight in the train loss (the coefficient
+# transformer_apply_with_aux's docstring names)
+MOE_AUX_COEF = 1e-2
+# (a) moe_apply on the card in bf16 against the same call on the CPU in
+# f32, both routed by the card's router probabilities (routed_apply), so
+# that both take the same experts where a near-tie could go either way.
+# bf16 rounds x, the expert weights, the hidden activations and the
+# outputs (2^-9 relative each) and sums the 1,024- and 4,096-term
+# products in another order: max |card - CPU| / max |CPU| of a few 2^-9.
+# The router's probabilities are f32 on both (only the summation order
+# differs), and the aux is computed from them
+MOE_OP_RTOL = 2e-2
+MOE_PROBS_ATOL = 1e-5
+# scatter against einsum dispatch on the card: the expert buffers are the
+# same bits (a 0/1 product adds one nonzero term), so are the experts'
+# outputs; the combine rounds each gated output to bf16 before summing
+# the choices (scatter) or sums the products in f32 and rounds once
+# (einsum): a bf16 ulp or two of the largest output
+MOE_DISPATCH_RTOL = 1e-2
+# routing near-ties.  Two bf16 computations of one model (flash against
+# reference attention, the cached or paged steps against the dense
+# forward) differ in their router logits by round-off carried from the
+# attention and the hidden states (~1e-3, 1e-2 at most); a token whose gap
+# between neighbouring ranks of its router log-probabilities (at the
+# top-k boundary, or among the top k + 1 where the capacity can drop) is
+# under this margin may take another expert in one of them, which moves
+# that token's own output by a whole expert's contribution.  Such rows
+# are counted and excused from the elementwise limits; a routing
+# difference at a larger gap fails the run
+MOE_ROUTE_MARGIN = 0.05
+# (a) forwards under torch.profiler, device time by kernel a call
+MOE_PROFILED_CALLS = 5
 
 
 def check(condition: bool, message: str) -> None:
@@ -525,13 +588,20 @@ def flash_bwd_bound(kernel, shape, h_kv, dtype_name, causal, window,
 
 
 def train_flops_per_token(dims, seq):
-    """benchmarks/kernel_bench.py:_train_flops_per_token for a dense
-    model: per layer forward 2*(4 d^2) attention projections + 2*(2 d ff)
-    MLP + 2*2*(seq/2)*d causal attention, plus the lm_head's 2 d vocab;
-    a train step is 3x the forward."""
+    """benchmarks/kernel_bench.py:_train_flops_per_token: per layer
+    forward 2*(4 d^2) attention projections + 2*(2 d ff) MLP + 2*2*(seq/2)*d
+    causal attention, plus the lm_head's 2 d vocab; a train step is 3x the
+    forward.  An MoE layer (every moe_every-th) credits top_k MLPs: a
+    routed token runs top_k experts of the MLP's shape; the router and the
+    dispatch are not credited."""
     d, ff, vocab = dims["d_model"], dims["d_ff"], dims["vocab_size"]
-    layer = 2 * 4 * d * d + 2 * seq * d + 2 * 2 * d * ff
-    return 3 * (2 * d * vocab + dims["n_layers"] * layer)
+    every = dims.get("moe_every")
+    forward = 2 * d * vocab
+    for i in range(dims["n_layers"]):
+        k = (dims["moe_top_k"] if every is not None and i % every == every - 1
+             else 1)
+        forward += 2 * 4 * d * d + 2 * seq * d + 2 * 2 * d * ff * k
+    return 3 * forward
 
 
 def kernel_resources(log: str):
@@ -767,6 +837,9 @@ def dense_cases(torch):
         ("f32_ragged_500", (2, 4, 500, 64), 2, torch.float32, True, None),
         ("f32_d128_window", (1, 4, 512, 128), 4, torch.float32, True, 100),
         ("train", (TRAIN_BATCH, 8, TRAIN_SEQ, 128), 8, torch.bfloat16, True, None),
+        # the MoE model's serving prefill: head_dim 128 at s = 896
+        ("moe_prefill_896_d128", (N_REQUESTS, 8, PROMPT_LEN, 128), 8,
+         torch.bfloat16, True, None),
         # the edges of the bf16 forward's 128-row tiles and TMA boxes:
         # ragged across a tile (TMA's zero fill) with GQA, less than one
         # tile, and a window edge that no tile boundary meets
@@ -810,10 +883,12 @@ def kernel_phase(torch, device):
 
     # times at the serving flagship's attention shape and the training
     # shape, then the f32 instantiations (CUDA-core products) at the
-    # serving shape, beside SDPA at f32 (TF32 is off for the whole run)
+    # serving shape, beside SDPA at f32 (TF32 is off for the whole run),
+    # then the MoE model's serving prefill shape
     timings = [time_shape(torch, shape, gen)
                for shape in ((4, 8, 1024, 64), (TRAIN_BATCH, 8, TRAIN_SEQ, 128))]
     timings.append(time_shape(torch, F32_TIMED_SHAPE, gen, "float32"))
+    timings.append(time_shape(torch, (N_REQUESTS, 8, PROMPT_LEN, 128), gen))
     return worst, timings
 
 
@@ -1111,18 +1186,14 @@ def serve_prompts(torch, config, device):
                          generator=gen).to(device)
 
 
-def decode_capture_phase(torch, device):
-    """The slice phase's 4 requests of PROMPT_LEN + NEW_TOKENS greedy
-    tokens served eager and captured: equal streams, each serve's time,
-    and a decode step's CUDA-event ms beside its host enqueue ms."""
-    from kubeshare_tpu_torch.entry import entry, flagship_config
+def serve_both_ways(torch, params, config, prompts):
+    """``prompts`` served by bulk prefill + greedy decode of NEW_TOKENS,
+    eager and with every decode step one CUDA graph replay; returns the
+    two token streams (by capture) and a line per way: the serve time and
+    a decode step's CUDA-event median beside its host enqueue."""
     from kubeshare_tpu_torch.models.decoding import (
         greedy_decode_with_cache, make_decode_step, prefill)
 
-    config = flagship_config()
-    _, (params, _) = entry()
-    prompts = serve_prompts(torch, config, device)
-    reset_counts()
     streams, lines = {}, []
     for capture in (False, True):
         torch.cuda.synchronize()
@@ -1135,7 +1206,8 @@ def decode_capture_phase(torch, device):
         # the step alone: its first call (the capture) untimed, then
         # DECODE_TIMED_STEPS steps, each between two events
         cache, last = prefill(params, config, prompts)
-        step = make_decode_step(params, config, N_REQUESTS, capture=capture)
+        step = make_decode_step(params, config, prompts.shape[0],
+                                capture=capture)
         token = torch.argmax(step(cache, torch.argmax(last, dim=-1)), dim=-1)
         events = [(torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True))
@@ -1154,6 +1226,20 @@ def decode_capture_phase(torch, device):
                      f"{serve_ms:.1f} ms, decode step {step_ms:.4f} ms "
                      f"(CUDA events, median) / enqueue "
                      f"{steady_median(enqueue):.4f} ms (host)")
+    return streams, lines
+
+
+def decode_capture_phase(torch, device):
+    """The slice phase's 4 requests of PROMPT_LEN + NEW_TOKENS greedy
+    tokens served eager and captured: equal streams, each serve's time,
+    and a decode step's CUDA-event ms beside its host enqueue ms."""
+    from kubeshare_tpu_torch.entry import entry, flagship_config
+
+    config = flagship_config()
+    _, (params, _) = entry()
+    prompts = serve_prompts(torch, config, device)
+    reset_counts()
+    streams, lines = serve_both_ways(torch, params, config, prompts)
     launches = read_counts()
     same = bool(torch.equal(streams[False], streams[True]))
     print(f"decode_capture {N_REQUESTS} x ({PROMPT_LEN} + {NEW_TOKENS}): "
@@ -2466,13 +2552,15 @@ def engine_spec_phase(torch, device, plain_streams):
     return stats["launches"]
 
 
-def train_setup(torch, device):
-    """The train-step flagship's config, params (seed 0) and fixed batch."""
+def train_setup(torch, device, dims=TRAIN_DIMS, **overrides):
+    """The train-step flagship's (or another ``dims``') config, params
+    (seed 0) and fixed batch (seed 11)."""
     from kubeshare_tpu_torch.models.transformer import (
         TransformerConfig, transformer_init)
 
-    config = TransformerConfig(**TRAIN_DIMS, positional="rope",
-                               dtype=torch.bfloat16, attention="flash")
+    config = TransformerConfig(**{**dims, "positional": "rope",
+                                  "dtype": torch.bfloat16,
+                                  "attention": "flash", **overrides})
     params = transformer_init(config, torch.Generator().manual_seed(0), device)
     gen = torch.Generator().manual_seed(11)
     shape = (TRAIN_BATCH, TRAIN_SEQ)
@@ -2912,17 +3000,14 @@ def device_rows(prof):
     return sorted(rows, reverse=True)
 
 
-def profile_engine(torch, device):
+def profile_engine(torch, device, label, config, params):
     """The engine phase's default pass (after its warm-up) under
     torch.profiler: wall time, the device's busy share, and device time
     by kernel over the whole trace."""
     from torch.profiler import ProfilerActivity, profile
 
-    from kubeshare_tpu_torch.entry import entry, flagship_config
     from kubeshare_tpu_torch.serving import EngineConfig, Request, ServingEngine
 
-    config = flagship_config()
-    _, (params, _) = entry()
     trace = engine_trace(config)
     engine = ServingEngine(params, config, EngineConfig(**ENGINE_POOL),
                            device=device)
@@ -2938,13 +3023,13 @@ def profile_engine(torch, device):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = device_rows(prof)
     device_ms = sum(r[0] for r in rows) / 1e3
-    print(f"profile engine ({len(trace)} requests, {steps} steps, profiler "
+    print(f"profile engine {label} ({len(trace)} requests, {steps} steps, profiler "
           f"on): wall {wall_ms:.1f} ms, device busy {device_ms:.1f} ms = "
           f"{device_ms / wall_ms:.4f} of wall, "
           f"{sum(r[1] for r in rows)} device kernels and copies")
     check(device_ms > 0, "the profiler saw no device time")
     for device_us, count, name in rows[:40]:
-        print(f"profile engine kernel {device_us / 1e3:9.3f} ms {count:7d} "
+        print(f"profile engine {label} kernel {device_us / 1e3:9.3f} ms {count:7d} "
               f"calls  {name[:110]}")
     return {"wall_ms": wall_ms, "device_ms": device_ms, "steps": steps}
 
@@ -2994,6 +3079,542 @@ def profile_train(torch, device, capture: bool, warmup: int = 3,
             "enqueue_ms": [x * 1e3 for x in enqueue_s]}
 
 
+class MoERoutes:
+    """Each MoE layer's router probabilities in the transformer forwards
+    run inside the block: a spy on models.transformer._moe_or_mlp (put
+    back on exit), which the dense forward calls.  ``layers``: (probs
+    [n, e] f32, capacity) per MoE layer call, in order.
+
+    ``replay`` (another run's ``layers``): each MoE layer is routed by
+    that run's probabilities instead of its own, the same values going
+    into the routing and the gates, while the gradient flows through the
+    layer's own router (``own + (replayed - own).detach()``), so two runs
+    that differ elsewhere (attention) take the same experts."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        import torch
+        from kubeshare_tpu_torch.models import transformer
+        from kubeshare_tpu_torch.ops.moe import (moe_capacity, routed_apply,
+                                                 router_probs)
+
+        self.layers = []
+        self._module, self._inner = transformer, transformer._moe_or_mlp
+
+        def spy(layer, config, y, capacity=None):
+            if "moe" not in layer:
+                return self._inner(layer, config, y, capacity)
+            e, d, f = layer["moe"]["w_in"].shape
+            moe_config = transformer._moe_config(config, d, f, e)
+            tokens = y.reshape(-1, d)
+            capacity = moe_capacity(moe_config, tokens.shape[0], capacity)
+            if self.replay is None:
+                with torch.no_grad():
+                    probs = router_probs(layer["moe"], tokens.detach())
+                self.layers.append((probs, capacity))
+                return self._inner(layer, config, y, capacity)
+            probs = router_probs(layer["moe"], tokens)
+            probs = probs + (self.replay[len(self.layers)][0]
+                             - probs).detach()
+            self.layers.append((probs.detach(), capacity))
+            out, aux = routed_apply(layer["moe"], y, probs, moe_config,
+                                    capacity)
+            return out.to(config.dtype), aux
+
+        transformer._moe_or_mlp = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._module._moe_or_mlp = self._inner
+
+
+def route_summary(torch, probs, k, capacity):
+    """(expert order [n, k], kept experts [n, e], margin [n]) of top-k
+    routing: the margin is the smallest log-probability gap between
+    neighbouring ranks among the top k + 1 where the capacity can drop a
+    choice (the order claims the slots), else the gap at the top-k
+    boundary (only the set matters)."""
+    from kubeshare_tpu_torch.ops.moe import tokens_choose_routing
+
+    n, e = probs.shape
+    _, index, _, kept, _ = tokens_choose_routing(probs, k, capacity)
+    top = torch.sort(torch.log(probs), dim=-1,
+                     descending=True).values[:, :k + 1]
+    gaps = top[:, :-1] - top[:, 1:]
+    margin = gaps.min(dim=-1).values if capacity < n else gaps[:, k - 1]
+    return index, kept.reshape(k, n, e).any(dim=0), margin
+
+
+def routing_differences(torch, run_a, run_b, k):
+    """Two forwards' routing compared layer by layer: (touched [n], rows
+    whose kept experts or expert order differ at some layer; moved, rows
+    first moved; unexplained, rows first moved where both runs' margins
+    were at least MOE_ROUTE_MARGIN, plus keep differences in a layer where
+    no row moved, which a capacity cascade cannot explain; widest, the
+    largest margin at which a row first moved)."""
+    touched, moved_rows, unexplained, widest = None, 0, 0, 0.0
+    for (pa, cap), (pb, _) in zip(run_a, run_b, strict=True):
+        ia, ka, ma = route_summary(torch, pa, k, cap)
+        ib, kb, mb = route_summary(torch, pb, k, cap)
+        if touched is None:
+            touched = torch.zeros(pa.shape[0], dtype=torch.bool,
+                                  device=pa.device)
+        kept = (ka != kb).any(dim=-1)
+        moved = kept if cap >= pa.shape[0] else (ia != ib).any(dim=-1)
+        new = moved & ~touched
+        moved_rows += int(new.sum())
+        margin = torch.minimum(ma, mb)
+        unexplained += int((new & (margin >= MOE_ROUTE_MARGIN)).sum())
+        if bool(new.any()):
+            widest = max(widest, float(margin[new].max()))
+        if not bool(moved.any()):
+            unexplained += int(kept.sum())
+        touched |= moved | kept
+    return touched, moved_rows, unexplained, widest
+
+
+def moe_teacher_forced(torch, params, config, trace, streams, device):
+    """teacher_forced for an MoE model: the dense forward over prompt +
+    emitted tokens with the experts' capacity pinned to the sequence (the
+    prefill's contract, as every cached path routes).  Each emitted
+    token's shortfall from its row's maximum; a row whose routing margin
+    at some MoE layer is under MOE_ROUTE_MARGIN is undecided.  Returns
+    (worst over decided rows, worst over all rows, rows, undecided rows,
+    undecided rows over ENGINE_TOKEN_MARGIN)."""
+    from kubeshare_tpu_torch.models.transformer import (_forward,
+                                                        _select_attention)
+
+    attention = _select_attention(config, device)
+    worst, worst_all, rows_n, undecided_n, excused = 0.0, 0.0, 0, 0, 0
+    with torch.no_grad():
+        for rid, prompt, _ in trace:
+            emitted = streams[rid]
+            seq = torch.tensor(list(prompt) + emitted[:-1], device=device)
+            with MoERoutes() as routes:
+                logits, _ = _forward(params, seq[None], config, attention, 0,
+                                     kv_sink=[])
+            start = len(prompt) - 1
+            rows = logits[0, start:]
+            picked = rows.gather(
+                1, torch.tensor(emitted, device=device)[:, None])[:, 0]
+            short = rows.max(dim=1).values - picked
+            margin = torch.stack([
+                route_summary(torch, probs, config.moe_top_k, cap)[2]
+                for probs, cap in routes.layers]).min(dim=0).values[start:]
+            undecided = margin < MOE_ROUTE_MARGIN
+            if bool((~undecided).any()):
+                worst = max(worst, float(short[~undecided].max()))
+            worst_all = max(worst_all, float(short.max()))
+            rows_n += len(emitted)
+            undecided_n += int(undecided.sum())
+            excused += int((undecided & (short > ENGINE_TOKEN_MARGIN)).sum())
+    return worst, worst_all, rows_n, undecided_n, excused
+
+
+def moe_forced_report(label, forced):
+    worst, worst_all, rows, undecided, excused = forced
+    print(f"moe {label} teacher-forced (capacity pinned): worst emitted "
+          f"token {worst:.4f} under its row's max over the {rows - undecided} "
+          f"rows whose routing margin is >= {MOE_ROUTE_MARGIN} (tol "
+          f"{ENGINE_TOKEN_MARGIN}); {undecided}/{rows} rows within the "
+          f"margin of a routing tie, {excused} of them over the tolerance "
+          f"(worst over all rows {worst_all:.4f})")
+    check(worst <= ENGINE_TOKEN_MARGIN,
+          f"moe {label}: an emitted token of a decided row lies {worst} "
+          "under its row's max in the pinned dense forward")
+
+
+def clone_tree(tree):
+    """A copy of a parameter tree (nested dicts and lists of tensors)."""
+    if isinstance(tree, dict):
+        return {key: clone_tree(value) for key, value in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(value) for value in tree]
+    return tree.detach().clone()
+
+
+def moe_op_check(torch, device):
+    """(a) moe_apply at the MoE model's layer shape, x (2, 2048, 1024)
+    bf16: both routings x both dispatches against the same call on the
+    CPU in f32 (routed by the card's probabilities), scatter against
+    einsum, a second run's forward and gradient equal to the first to the
+    bit; then the scatter and einsum forwards timed beside the dense MLP
+    of the same width and the experts' MLP alone."""
+    from kubeshare_tpu_torch.models.transformer import _mlp
+    from kubeshare_tpu_torch.ops import moe
+
+    d, f, e = MOE_DIMS["d_model"], MOE_DIMS["d_ff"], MOE_DIMS["moe_num_experts"]
+    base = moe.MoEConfig(d_model=d, d_ff=f, num_experts=e,
+                         capacity_factor=MOE_DIMS["moe_capacity_factor"],
+                         top_k=MOE_DIMS["moe_top_k"])
+    params = moe.moe_init(base, torch.Generator().manual_seed(0), device)
+    cpu_params = {name: t.cpu() for name, t in params.items()}
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, d),
+                    generator=torch.Generator().manual_seed(1)).to(
+                        device, torch.bfloat16)
+    x_cpu = x.float().cpu()
+    n = TRAIN_BATCH * TRAIN_SEQ
+    probs = moe.router_probs(params, x.reshape(n, d))
+    probs_err = float((probs.cpu() - moe.router_probs(
+        cpu_params, x_cpu.reshape(n, d))).abs().max())
+    print(f"moe op router probs vs the CPU (f32): max abs err {probs_err:.3e} "
+          f"(tol {MOE_PROBS_ATOL})")
+    check(probs_err <= MOE_PROBS_ATOL,
+          f"moe router probabilities differ from the CPU's by {probs_err}")
+    outs = {}
+    for routing in ("tokens_choose", "experts_choose"):
+        for dispatch in ("scatter", "einsum"):
+            cfg = dataclasses.replace(base, routing=routing, dispatch=dispatch)
+            runs = []
+            for _ in range(2):
+                leaves = {name: t.clone().requires_grad_()
+                          for name, t in params.items()}
+                xx = x.clone().requires_grad_()
+                out, aux = moe.moe_apply(leaves, xx, cfg)
+                (out.float().square().mean() + MOE_AUX_COEF * aux).backward()
+                runs.append([out.detach(), aux.detach(), xx.grad]
+                            + [leaves[name].grad for name in sorted(leaves)])
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(*runs))
+            out, aux = runs[0][0], runs[0][1]
+            del runs
+            capacity = moe.moe_capacity(cfg, n)
+            ref, ref_aux = moe.routed_apply(cpu_params, x_cpu, probs.cpu(),
+                                            cfg, capacity)
+            err = rel_err(out.cpu(), ref)
+            aux_err = abs(float(aux) - float(ref_aux))
+            outs[dispatch] = out
+            print(f"moe op {routing} {dispatch} at x {tuple(x.shape)} bf16, "
+                  f"capacity {capacity}: out max-abs-err/max-ref vs the CPU "
+                  f"f32 {err:.3e} (tol {MOE_OP_RTOL}), aux {float(aux):.6f} "
+                  f"vs {float(ref_aux):.6f}; second run equal to the bit "
+                  f"(out and every gradient): {same}")
+            check(bool(torch.isfinite(out).all()), "non-finite moe output")
+            check(same, f"moe {routing} {dispatch}: a second run's output or "
+                        "gradient differs from the first's")
+            check(err <= MOE_OP_RTOL,
+                  f"moe {routing} {dispatch} differs from the CPU by {err}")
+            check(aux_err <= MOE_PROBS_ATOL,
+                  f"moe {routing} {dispatch} aux differs by {aux_err}")
+        d_err = rel_err(outs["scatter"], outs["einsum"])
+        print(f"moe op {routing}: scatter vs einsum on the card "
+              f"max-abs-err/max-ref {d_err:.3e} (tol {MOE_DISPATCH_RTOL})")
+        check(d_err <= MOE_DISPATCH_RTOL,
+              f"moe {routing}: scatter and einsum dispatch differ by {d_err}")
+    del outs
+
+    gen = torch.Generator().manual_seed(2)
+    mlp = {"w_in": (torch.randn((d, f), generator=gen) * d ** -0.5).to(device),
+           "w_out": (torch.randn((f, d), generator=gen) * f ** -0.5).to(device)}
+    capacity = moe.moe_capacity(base, n)
+    buf = torch.randn((e, capacity, d), generator=gen).to(device,
+                                                          torch.bfloat16)
+    times = {
+        "dense_mlp": time_ms(lambda: _mlp(x, mlp)),
+        "experts_mlp": time_ms(lambda: moe._expert_ffn(params, buf,
+                                                       torch.bfloat16)),
+        "scatter": time_ms(lambda: moe.moe_apply(params, x, base)),
+        "einsum": time_ms(lambda: moe.moe_apply(
+            params, x, dataclasses.replace(base, dispatch="einsum"))),
+    }
+    from torch.profiler import ProfilerActivity, profile
+
+    for dispatch in ("scatter", "einsum"):
+        cfg = dataclasses.replace(base, dispatch=dispatch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(MOE_PROFILED_CALLS):
+                moe.moe_apply(params, x, cfg)
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        total = sum(r[0] for r in rows) / MOE_PROFILED_CALLS / 1e3
+        print(f"moe op profile {dispatch} forward: {total:.4f} ms of device "
+              f"time a call over {sum(r[1] for r in rows) // MOE_PROFILED_CALLS}"
+              f" kernels; the largest: " + "; ".join(
+                  f"{us / MOE_PROFILED_CALLS / 1e3:.4f} ms {name[:60]}"
+                  for us, _, name in rows[:8]))
+    flops = {"dense_mlp": 4 * n * d * f, "experts_mlp": 4 * e * capacity * d * f}
+    flops["scatter"] = flops["experts_mlp"]
+    flops["einsum"] = flops["experts_mlp"] + 2 * 2 * n * e * capacity * d
+    print(f"moe op timing at x {tuple(x.shape)} bf16, forward, CUDA events: "
+          + "; ".join(f"{name} {ms:.4f} ms ({flops[name] / (ms * 1e-3) / 1e12:.1f}"
+                      f" TFLOP/s)" for name, ms in times.items())
+          + f"; routing + dispatch = scatter - experts_mlp "
+          f"{times['scatter'] - times['experts_mlp']:.4f} ms; scatter / "
+          f"dense_mlp {times['scatter'] / times['dense_mlp']:.3f}x, einsum "
+          f"/ scatter {times['einsum'] / times['scatter']:.3f}x")
+    return times
+
+
+def moe_forward_check(torch, config, params, tokens):
+    """(b) transformer_apply_with_aux at tokens (2, 2048) with the flash
+    kernel against attention="reference": rows routed alike held at the
+    slice phase's logits limit, rows moved by a routing near-tie
+    counted."""
+    from kubeshare_tpu_torch.models.transformer import transformer_apply_with_aux
+
+    plain = dataclasses.replace(config, attention="reference")
+    reset_counts()
+    with torch.no_grad(), MoERoutes() as routes:
+        logits, aux = transformer_apply_with_aux(params, tokens, config)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches == {**only(), "flash_fwd": config.n_layers},
+          f"the moe forward launched {launches}")
+    with torch.no_grad(), MoERoutes() as plain_routes:
+        plain_logits, plain_aux = transformer_apply_with_aux(params, tokens,
+                                                             plain)
+    touched, moved, unexplained, widest = routing_differences(
+        torch, routes.layers, plain_routes.layers, config.moe_top_k)
+    n = tokens.numel()
+    row_err = (logits - plain_logits).abs().reshape(n, -1).max(dim=1).values
+    err = float(row_err[~touched].max())
+    print(f"moe forward {tuple(tokens.shape)}: launches {launches}; aux "
+          f"{float(aux):.6f} (reference {float(plain_aux):.6f}); "
+          f"{int(touched.sum())}/{n} rows routed differently from "
+          f"attention=reference ({moved} moved first, the widest at a "
+          f"margin of {widest:.4f}, {unexplained} at a margin >= "
+          f"{MOE_ROUTE_MARGIN}); the other rows' logits max abs "
+          f"err {err:.3e} (tol {SLICE_LOGITS_ATOL}), all rows "
+          f"{float(row_err.max()):.3e}")
+    check(tuple(logits.shape) == (*tokens.shape, config.vocab_size),
+          f"moe logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()) and math.isfinite(float(aux)),
+          "non-finite moe forward")
+    check(unexplained == 0,
+          f"{unexplained} rows routed differently at a margin >= "
+          f"{MOE_ROUTE_MARGIN}")
+    check(err <= SLICE_LOGITS_ATOL,
+          f"moe forward logits differ from the plain path by {err}")
+    return launches
+
+
+def moe_loss(out, targets):
+    """Cross entropy + MOE_AUX_COEF x the load-balancing aux."""
+    from kubeshare_tpu_torch.parallel.train import cross_entropy_loss
+
+    logits, aux = out
+    return cross_entropy_loss(logits, targets) + MOE_AUX_COEF * aux
+
+
+def moe_grad_check(torch, config, params, tokens, targets):
+    """(e) step 1's loss and gradients against attention="reference" at
+    the train phase's limits, the reference run routed by the flash run's
+    router probabilities (MoERoutes' replay): otherwise the rows that a
+    routing near-tie sends to other experts (the moe forward line counts
+    them on this batch) carry whole experts' differences into every
+    expert's, the router's and their embedding rows' gradients, and the
+    comparison would measure the ties rather than the kernels."""
+    from kubeshare_tpu_torch.models.transformer import transformer_apply_with_aux
+    from kubeshare_tpu_torch.parallel.train import tree_leaves
+
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+
+    def loss_and_grads(cfg, replay=None):
+        with MoERoutes(replay) as routes:
+            out = transformer_apply_with_aux(params, tokens, cfg)
+        loss = moe_loss(out, targets)
+        return loss.detach(), torch.autograd.grad(loss, leaves), routes.layers
+
+    loss, grads, routes = loss_and_grads(config)
+    plain_loss, plain_grads, _ = loss_and_grads(
+        dataclasses.replace(config, attention="reference"), routes)
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    grad_err = max(rel_err(g, r) for g, r in zip(grads, plain_grads))
+    cosine = min(float(torch.nn.functional.cosine_similarity(
+        g.float().flatten(), r.float().flatten(), dim=0))
+        for g, r in zip(grads, plain_grads))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    loss_err = abs(float(loss) - float(plain_loss))
+    print(f"moe train grads vs attention=reference routed alike "
+          f"({len(leaves)} tensors): loss {float(loss):.5f} vs "
+          f"{float(plain_loss):.5f} (abs err {loss_err:.3e}), worst grad "
+          f"max-abs-err/max-ref {grad_err:.3e}, lowest cosine {cosine:.6f}")
+    check(finite, "non-finite gradients on the moe train path")
+    check(loss_err <= TRAIN_LOSS_ATOL,
+          f"moe train loss differs from the plain path by {loss_err}")
+    check(grad_err <= TRAIN_GRAD_RTOL,
+          f"moe train gradients differ from the plain path by {grad_err}")
+    check(cosine >= TRAIN_GRAD_MIN_COSINE,
+          f"a moe train gradient points elsewhere (cosine {cosine})")
+
+
+def moe_train_run(torch, device, params, tokens, targets, capture=False,
+                  optimizer=None, steps=TRAIN_STEPS, **overrides):
+    """``steps`` steps of the MoE model from ``params`` (a copy is
+    trained) through make_train_step: (losses, final parameters, step
+    CUDA-event ms, host enqueue ms, launches, config)."""
+    from kubeshare_tpu_torch.models.transformer import (
+        TransformerConfig, transformer_apply_with_aux)
+    from kubeshare_tpu_torch.parallel.train import make_train_step, tree_leaves
+
+    config = TransformerConfig(**{**MOE_DIMS, "positional": "rope",
+                                  "dtype": torch.bfloat16,
+                                  "attention": "flash", **overrides})
+    init_state, train_step = make_train_step(
+        lambda p, t: transformer_apply_with_aux(p, t, config),
+        optimizer=optimizer, loss_fn=moe_loss, capture=capture)
+    state = init_state(clone_tree(params))
+    torch.cuda.synchronize()
+    reset_counts()
+    state, losses, step_ms, enqueue_ms = timed_steps(
+        torch, train_step, state, [(tokens, targets)] * steps)
+    return (losses, tree_leaves(state.params), step_ms, enqueue_ms,
+            read_counts(), config)
+
+
+def moe_train_check(torch, device, config, params, tokens, targets):
+    """(e) the MoE model's 10 AdamW steps on the train phase's batch,
+    eager, then captured, then the einsum dispatch's captured step timed
+    beside the scatter's.  The captured run is held to the eager run with
+    the same capturable AdamW at CAPTURE_SAME_* over the 10 steps, and to
+    the default AdamW through step 1's loss and first update at the
+    drift limits: past a few steps the two AdamW forms' last-bit
+    differences move bf16 weights across rounding boundaries, tokens
+    across router near-ties, and the MoE model's two trajectories apart
+    (the 10-step drift is printed as a reading)."""
+    from kubeshare_tpu_torch.parallel.train import CAPTURE_WARMUP_STEPS, tree_leaves
+
+    moe_grad_check(torch, config, params, tokens, targets)
+    initial = [leaf.detach().clone() for leaf in tree_leaves(params)]
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops_per_token(MOE_DIMS, TRAIN_SEQ) * tokens_per_step
+    launches, runs = {}, {}
+    for name, capture, optimizer, overrides in (
+            ("eager", False, None, {}),
+            ("eager_capturable", False, capturable_adamw(device), {}),
+            ("captured", True, None, {}),
+            ("einsum_captured", True, None, {"moe_dispatch": "einsum"})):
+        losses, final, step_ms, enqueue_ms, counts, cfg = moe_train_run(
+            torch, device, params, tokens, targets, capture, optimizer,
+            **overrides)
+        passes = ((CAPTURE_WARMUP_STEPS + 1) if capture
+                  else TRAIN_STEPS) * cfg.n_layers
+        check(counts == {kernel: k * passes for kernel, k in only(
+            "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq").items()},
+              f"moe train {name} launched {counts}, expected {passes} of "
+              "each kernel")
+        check(all(math.isfinite(x) for x in losses),
+              f"moe train {name}: non-finite loss {losses}")
+        median_ms = steady_median(step_ms)
+        runs[name] = (losses, final, median_ms, steady_median(enqueue_ms))
+        if name != "eager_capturable":
+            launches[{"eager": "moe_train", "captured": "moe_train_captured",
+                      "einsum_captured": "moe_train_einsum"}[name]] = counts
+        print(f"moe train {name} {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} tokens: launches {counts}, losses "
+              + " ".join(f"{x:.4f}" for x in losses) + "; step ms "
+              + " ".join(f"{x:.2f}" for x in step_ms)
+              + f"; median of steps {TRAIN_TIMED_FROM}-{TRAIN_STEPS} "
+              f"{median_ms:.3f} ms (CUDA events), enqueue "
+              f"{runs[name][3]:.3f} ms, "
+              f"{tokens_per_step / (median_ms * 1e-3):.0f} tokens/s, "
+              f"{flops / 1e12:.3f} TFLOP per step = "
+              f"{flops / (median_ms * 1e-3) / PEAK_FLOPS['bfloat16']:.4f} of "
+              f"989 TFLOP/s")
+        del final
+    check(runs["eager"][0][-1] < runs["eager"][0][0],
+          f"moe train loss did not fall: {runs['eager'][0]}")
+
+    captured, same = runs["captured"], runs["eager_capturable"]
+    loss_err = max(abs(a - b) for a, b in zip(captured[0], same[0]))
+    update_err, max_abs = update_errors(captured[1], same[1], initial)
+    print(f"moe train captured vs eager with the same optimizer: loss max abs "
+          f"err {loss_err:.3e} (tol {CAPTURE_SAME_LOSS_ATOL:g}), params worst "
+          f"|diff| / |eager update| {update_err:.3e} (tol "
+          f"{CAPTURE_SAME_UPDATE_RTOL:g}), max abs diff {max_abs:.3e}")
+    check(loss_err <= CAPTURE_SAME_LOSS_ATOL
+          and update_err <= CAPTURE_SAME_UPDATE_RTOL,
+          f"moe train: the captured step differs from the eager step with the "
+          f"same optimizer (loss {loss_err}, update {update_err})")
+    first = {name: moe_train_run(torch, device, params, tokens, targets,
+                                 optimizer=optimizer, steps=1)
+             for name, optimizer in (("default", None),
+                                     ("capturable", capturable_adamw(device)))}
+    first_loss = abs(first["capturable"][0][0] - first["default"][0][0])
+    first_update, _ = update_errors(first["capturable"][1],
+                                    first["default"][1], initial)
+    drift_loss = max(abs(a - b) for a, b in zip(captured[0], runs["eager"][0]))
+    drift_update, _ = update_errors(captured[1], runs["eager"][1], initial)
+    print(f"moe train capturable vs default AdamW: step 1 loss abs err "
+          f"{first_loss:.3e} (tol {CAPTURE_SAME_LOSS_ATOL:g}), first update "
+          f"worst |diff| / |update| {first_update:.3e} (tol "
+          f"{CAPTURE_DRIFT_UPDATE_RTOL:g}); after {TRAIN_STEPS} steps the "
+          f"captured run is {drift_loss:.3e} in loss and {drift_update:.3e} "
+          f"of the update from the default eager run (a reading)")
+    check(first_loss <= CAPTURE_SAME_LOSS_ATOL
+          and first_update <= CAPTURE_DRIFT_UPDATE_RTOL,
+          f"moe train: capturable AdamW's first update differs from the "
+          f"default's (loss {first_loss}, update {first_update})")
+    del first
+    first_einsum = abs(runs["einsum_captured"][0][0] - captured[0][0])
+    print(f"moe train step, median: eager {runs['eager'][2]:.3f} ms, captured "
+          f"{captured[2]:.3f} ms (scatter dispatch), einsum dispatch "
+          f"captured {runs['einsum_captured'][2]:.3f} ms = "
+          f"{runs['einsum_captured'][2] / captured[2]:.3f}x; einsum "
+          f"step 1 loss vs scatter's abs err {first_einsum:.3e} (tol "
+          f"{TRAIN_LOSS_ATOL})")
+    check(first_einsum <= TRAIN_LOSS_ATOL,
+          f"the einsum dispatch's step 1 loss differs from scatter's by "
+          f"{first_einsum}")
+    return launches
+
+
+def moe_phase(torch, device):
+    """The repo's MoE model (MOE_DIMS) at full width on the card: (a) the
+    op, (b) the forward, (c) serving 4 requests eager and captured, (d)
+    the engine, (e) training eager and captured.  Returns the launches by
+    path."""
+
+    t0 = time.perf_counter()
+    moe_op_check(torch, device)
+    config, params, tokens, targets = train_setup(torch, device, MOE_DIMS)
+    launches = {"moe_forward": moe_forward_check(torch, config, params,
+                                                 tokens)}
+
+    prompts = serve_prompts(torch, config, device)
+    reset_counts()
+    streams, lines = serve_both_ways(torch, params, config, prompts)
+    launches["moe_serve"] = read_counts()
+    check(launches["moe_serve"] == {**only(),
+                                    "flash_fwd": 4 * config.n_layers},
+          f"the moe serve launched {launches['moe_serve']}")
+    same = bool(torch.equal(streams[False], streams[True]))
+    print(f"moe serve {N_REQUESTS} x ({PROMPT_LEN} + {NEW_TOKENS}): "
+          + "; ".join(lines) + f"; captured tokens equal eager: {same}")
+    check(same, "the moe model's captured decode differs from the eager")
+    serve_trace = [(f"s{i}", prompts[i].tolist(), NEW_TOKENS)
+                   for i in range(N_REQUESTS)]
+    moe_forced_report("serve", moe_teacher_forced(
+        torch, params, config, serve_trace,
+        {rid: streams[True][i].tolist()
+         for i, (rid, _, _) in enumerate(serve_trace)}, device))
+
+    trace = engine_trace(config)
+    engine_streams, stats = engine_pass(torch, device, params, config, trace)
+    launches["moe_engine"] = stats["launches"]
+    engine_report("moe", stats)
+    check(stats["new_captures"] == 0,
+          f"the moe engine captured {stats['new_captures']} graphs after "
+          "warm-up")
+    check(all(len(engine_streams[rid]) == new for rid, _, new in trace),
+          "a moe engine stream has the wrong length")
+    check(all(0 <= t < config.vocab_size for s in engine_streams.values()
+              for t in s), "moe engine token ids out of range")
+    moe_forced_report("engine", moe_teacher_forced(
+        torch, params, config, trace, engine_streams, device))
+
+    launches.update(moe_train_check(torch, device, config, params, tokens,
+                                    targets))
+    print(f"moe phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3041,7 +3662,14 @@ def main() -> int:
         print(json.dumps({"profile_train": result}))
         return 0
     if "--profile-engine" in sys.argv[1:]:
-        result = profile_engine(torch, device)
+        from kubeshare_tpu_torch.entry import entry, flagship_config
+
+        _, (params, _) = entry()
+        result = {"flagship": profile_engine(torch, device, "flagship",
+                                             flagship_config(), params)}
+        del params
+        config, params, _, _ = train_setup(torch, device, MOE_DIMS)
+        result["moe"] = profile_engine(torch, device, "moe", config, params)
         print(card)
         print(json.dumps({"profile_engine": result}))
         return 0
@@ -3071,6 +3699,8 @@ def main() -> int:
     launches["train_captured"], _ = capture_phase(torch, device, eager)
     launches["block_sparse"] = bs_launches
     del eager
+    torch.cuda.empty_cache()
+    launches.update(moe_phase(torch, device))
     torch.cuda.empty_cache()
     mnist_phase(torch, device)
     corun_phase()

@@ -16,6 +16,7 @@ from .transformer import (
     Transformer,
     TransformerConfig,
     transformer_apply,
+    transformer_apply_with_aux,
     transformer_init,
 )
 
@@ -37,5 +38,6 @@ __all__ = [
     "speculative_greedy_decode",
     "speculative_sample_decode",
     "transformer_apply",
+    "transformer_apply_with_aux",
     "transformer_init",
 ]

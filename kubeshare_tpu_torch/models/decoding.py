@@ -45,12 +45,37 @@ from ..parallel.train import CAPTURE_WARMUP_STEPS
 from .transformer import (
     TransformerConfig,
     _forward,
-    _mlp,
+    _moe_or_mlp,
     _project,
     _rms_norm,
     _select_attention,
     check_config,
 )
+
+
+def _check_moe_decodable(config: TransformerConfig) -> None:
+    """The routing contract every cached path shares (decode step, both
+    prefills, the paged steps)."""
+    if config.moe_routing == "experts_choose":
+        raise ValueError(
+            "expert-choice routing cannot be replayed token-by-token (an "
+            "expert's choices depend on the whole sequence); decode "
+            "requires moe_routing='tokens_choose'"
+        )
+    if config.moe_routing != "tokens_choose":
+        raise ValueError(f"unknown moe_routing {config.moe_routing!r}")
+
+
+def _cached_ffn(layer: Dict, config: TransformerConfig,
+                y: torch.Tensor) -> torch.Tensor:
+    """The feed-forward of a cached step over y [rows, C, d]: an MoE
+    layer's capacity is pinned to the rows x C tokens of the call, so no
+    choice ever drops (a token routes to an expert at most once) and a
+    token's output depends on no other row or position of the call."""
+    if "moe" in layer:
+        _check_moe_decodable(config)
+    out, _ = _moe_or_mlp(layer, config, y, capacity=y.shape[0] * y.shape[1])
+    return out
 
 
 def _check_cache_headroom(cache: Dict, max_new_tokens: int,
@@ -184,7 +209,7 @@ def _decode_chunk(params: Dict, config: TransformerConfig, cache: Dict,
         x = x + torch.einsum("bhsk,hkd->bsd", o,
                              layer["attn"]["wo"].to(dtype))
         y = _rms_norm(x, layer["norm2"]["scale"])
-        x = x + _mlp(y, layer["mlp"])
+        x = x + _cached_ffn(layer, config, y)
 
     x = _rms_norm(x, params["final_norm"]["scale"])
     if head_last_only:
@@ -216,10 +241,13 @@ def prefill(params: Dict, config: TransformerConfig,
     check_config(config)
     batch, prompt_len = prompt.shape
     _check_prompt_fits(config, prompt_len)
+    # the same refusal as the decode step: the cache this prefill feeds
+    # could never be decoded from
+    _check_moe_decodable(config)
     kv_sink: list = []
-    hidden = _forward(params, prompt, config,
-                      _select_attention(config, prompt.device), 0,
-                      apply_head=False, kv_sink=kv_sink)
+    hidden, _ = _forward(params, prompt, config,
+                         _select_attention(config, prompt.device), 0,
+                         apply_head=False, kv_sink=kv_sink)
     cache = init_kv_cache(config, batch, prompt.device)
     for layer_idx, (k, v) in enumerate(kv_sink):
         cache["k"][layer_idx, :, :, :prompt_len] = k
@@ -258,6 +286,7 @@ def prefill_chunked(params: Dict, config: TransformerConfig,
     check_config(config)
     batch, prompt_len = prompt.shape
     _check_prompt_fits(config, prompt_len)
+    _check_moe_decodable(config)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     cache = init_kv_cache(config, batch, prompt.device)

@@ -1,5 +1,5 @@
-"""Flagship decoder-only Transformer LM, port of the dense core of
-kubeshare_tpu/models/transformer.py.
+"""Flagship decoder-only Transformer LM, port of
+kubeshare_tpu/models/transformer.py (one device).
 
 Parameters are a nested dict of f32 tensors with the JAX tree's layout
 (``params["layers"][i]["attn"]["wq"]``...), so a JAX checkpoint converts
@@ -9,8 +9,16 @@ tree paths (``layers.0.attn.wq``, ``final_norm.scale``).  Compute casts
 to ``config.dtype`` at the points the JAX code does: the embedding after
 its gather, every weight at its matmul, the logits back to f32.
 
-Not in this port yet (ROADMAP.md queue A): MoE layers (item 10), and the
-ring / Ulysses / pipelined entries (item 11).
+With ``moe_every`` set, every ``moe_every``-th layer's MLP is a routed
+expert mixture (:mod:`kubeshare_tpu_torch.ops.moe`); the training
+forward derives the experts' capacity from the factor and may drop
+tokens, every cached path pins it to the call's token count (prefill
+here through ``kv_sink``, the decode and paged steps in their own
+modules).  :func:`transformer_apply_with_aux` also returns the MoE
+load-balancing loss.
+
+Not in this port yet (ROADMAP.md queue A): the ring / Ulysses /
+pipelined entries (item 11).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..ops.attention import attention_reference, flash_attention, use_kernel_default
+from ..ops.moe import MoEConfig, moe_apply, moe_init
 from ..ops.rope import apply_rope, rope_positions
 
 
@@ -44,8 +53,22 @@ class TransformerConfig:
     n_kv_heads: Optional[int] = None
     positional: str = "learned"  # learned | rope
     remat: bool = False  # recompute each layer in the backward (memory for FLOPs)
-    # MoE layers are not ported yet; a config that sets this raises
+    # MoE: every Nth layer's MLP becomes a top-k-routed expert mixture
+    # (ops.moe); None = all-dense
     moe_every: Optional[int] = None
+    moe_num_experts: int = 8
+    moe_capacity_factor: float = 1.25
+    moe_top_k: int = 1
+    # "tokens_choose" (top-k) or "experts_choose" (balanced by
+    # construction; training-time only: the cached paths refuse it)
+    moe_routing: str = "tokens_choose"
+    # "scatter" (permutation dispatch, no dispatch FLOPs) or "einsum"
+    # (dense one-hot dispatch); see ops.moe
+    moe_dispatch: str = "scatter"
+
+    def layer_is_moe(self, layer_idx: int) -> bool:
+        return (self.moe_every is not None
+                and layer_idx % self.moe_every == self.moe_every - 1)
 
     @property
     def head_dim(self) -> int:
@@ -59,10 +82,8 @@ class TransformerConfig:
 
 def check_config(config: TransformerConfig) -> None:
     """Refuse what this port does not run (loudly, never approximated)."""
-    if config.moe_every is not None:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP.md queue A item 10, "
-            "ops/moe.py)")
+    if config.moe_every is not None and config.moe_every < 1:
+        raise ValueError(f"moe_every must be >= 1, got {config.moe_every}")
     if config.attention in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention={config.attention!r} is not ported yet (ROADMAP.md "
@@ -108,8 +129,8 @@ def transformer_init(config: TransformerConfig, generator: torch.Generator,
     }
     if config.positional == "learned":
         params["pos_embed"] = dense((config.max_seq_len, d), d)
-    for _ in range(config.n_layers):
-        params["layers"].append({
+    for i in range(config.n_layers):
+        layer = {
             "attn": {
                 "wq": dense((d, h, hd), d),
                 "wk": dense((d, h_kv, hd), d),
@@ -118,11 +139,17 @@ def transformer_init(config: TransformerConfig, generator: torch.Generator,
             },
             "norm1": {"scale": ones()},
             "norm2": {"scale": ones()},
-            "mlp": {
+        }
+        if config.layer_is_moe(i):
+            layer["moe"] = moe_init(_moe_config(config, d, f,
+                                                config.moe_num_experts),
+                                    generator, device)
+        else:
+            layer["mlp"] = {
                 "w_in": dense((d, f), d),
                 "w_out": dense((f, d), f),
-            },
-        })
+            }
+        params["layers"].append(layer)
     return params
 
 
@@ -163,11 +190,37 @@ def _mlp(y: torch.Tensor, mlp: Dict) -> torch.Tensor:
     return hidden @ mlp["w_out"].to(y.dtype)
 
 
+def _moe_config(config: TransformerConfig, d: int, f: int,
+                e: int) -> MoEConfig:
+    return MoEConfig(d_model=d, d_ff=f, num_experts=e,
+                     capacity_factor=config.moe_capacity_factor,
+                     top_k=config.moe_top_k, routing=config.moe_routing,
+                     dispatch=config.moe_dispatch)
+
+
+def _moe_or_mlp(layer: Dict, config: TransformerConfig, y: torch.Tensor,
+                capacity: Optional[int] = None):
+    """The post-attention feed-forward of every path: (out in
+    ``config.dtype``, aux) with aux the MoE load-balancing loss, None for
+    a dense MLP.  ``capacity`` overrides the factor-derived expert buffer
+    (the cached paths pin it to the call's token count, so no choice
+    drops and a token's routing depends on nothing else in the call)."""
+    if "moe" in layer:
+        e, d, f = layer["moe"]["w_in"].shape
+        out, aux = moe_apply(layer["moe"], y, _moe_config(config, d, f, e),
+                             capacity=capacity)
+        return out.to(config.dtype), aux
+    return _mlp(y, layer["mlp"]), None
+
+
 def _layer_forward(layer: Dict, x: torch.Tensor, attention_fn: AttentionFn,
-                   dtype: torch.dtype,
-                   rope_positions_or_none: Optional[torch.Tensor]):
-    """One layer; returns (x, (k, v)) with the roped k/v projections (the
-    bulk prefill writes them straight into the decode cache)."""
+                   config: TransformerConfig,
+                   rope_positions_or_none: Optional[torch.Tensor],
+                   moe_capacity: Optional[int] = None):
+    """One layer; returns (x, aux, (k, v)): aux is the MoE
+    load-balancing loss (None for a dense MLP), k/v the roped projections
+    (the bulk prefill writes them straight into the decode cache)."""
+    dtype = config.dtype
     y = _rms_norm(x, layer["norm1"]["scale"])
     q = _project(y, layer["attn"]["wq"])
     k = _project(y, layer["attn"]["wk"])
@@ -178,19 +231,22 @@ def _layer_forward(layer: Dict, x: torch.Tensor, attention_fn: AttentionFn,
     o = attention_fn(q, k, v).to(dtype)
     x = x + torch.einsum("bhsk,hkd->bsd", o, layer["attn"]["wo"].to(dtype))
     y = _rms_norm(x, layer["norm2"]["scale"])
-    x = x + _mlp(y, layer["mlp"])
-    return x, (k, v)
+    out, aux = _moe_or_mlp(layer, config, y, moe_capacity)
+    return x + out, aux, (k, v)
 
 
 def _forward(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
              attention_fn: AttentionFn,
              pos_offset: Union[int, torch.Tensor] = 0,
              apply_head: bool = True,
-             kv_sink: Optional[List] = None) -> torch.Tensor:
-    """Shared forward body.  ``pos_offset``: a scalar offset, or a [seq]
-    tensor of global positions.  ``apply_head=False`` returns the
-    final-normed hidden states instead of logits.  ``kv_sink`` (a list)
-    collects each layer's (k, v) projections."""
+             kv_sink: Optional[List] = None):
+    """Shared forward body; returns (logits, aux) with aux the summed MoE
+    load-balancing loss (a 0-d f32 tensor, 0 for all-dense configs).
+    ``pos_offset``: a scalar offset, or a [seq] tensor of global
+    positions.  ``apply_head=False`` returns the final-normed hidden
+    states in place of the logits.  ``kv_sink`` (a list) collects each
+    layer's (k, v) projections and pins the MoE capacity to the token
+    count (the prefill's contract with the cached steps)."""
     check_config(config)
     dtype = config.dtype
     seq = tokens.shape[1]
@@ -206,22 +262,31 @@ def _forward(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
         offset = int(pos_offset)
         x = x + params["pos_embed"][offset: offset + seq].to(dtype)
 
+    # prefill (kv_sink set) pins the expert buffers to the token count:
+    # no choice drops, so routing is position- and batch-independent, as
+    # in the cached steps
+    moe_capacity = (tokens.shape[0] * tokens.shape[1]
+                    if kv_sink is not None else None)
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for layer in params["layers"]:
         if config.remat and kv_sink is None:
             # keep only each layer's input; its activations are recomputed
             # in the backward (the JAX model's jax.checkpoint per layer)
-            x, _ = torch.utils.checkpoint.checkpoint(
-                _layer_forward, layer, x, attention_fn, dtype, positions,
+            x, aux, _ = torch.utils.checkpoint.checkpoint(
+                _layer_forward, layer, x, attention_fn, config, positions,
                 use_reentrant=False)
-            continue
-        x, kv = _layer_forward(layer, x, attention_fn, dtype, positions)
-        if kv_sink is not None:
-            kv_sink.append(kv)
+        else:
+            x, aux, kv = _layer_forward(layer, x, attention_fn, config,
+                                        positions, moe_capacity)
+            if kv_sink is not None:
+                kv_sink.append(kv)
+        if aux is not None:
+            aux_total = aux_total + aux
 
     x = _rms_norm(x, params["final_norm"]["scale"])
     if not apply_head:
-        return x
-    return (x @ params["lm_head"].to(dtype)).to(torch.float32)
+        return x, aux_total
+    return (x @ params["lm_head"].to(dtype)).to(torch.float32), aux_total
 
 
 def transformer_apply(params: Dict, tokens: torch.Tensor,
@@ -230,6 +295,16 @@ def transformer_apply(params: Dict, tokens: torch.Tensor,
 
     Differentiable: on CUDA with attention ``auto``/``flash`` the
     backward runs the flash backward kernels."""
+    logits, _ = _forward(params, tokens, config,
+                         _select_attention(config, tokens.device), 0)
+    return logits
+
+
+def transformer_apply_with_aux(params: Dict, tokens: torch.Tensor,
+                               config: TransformerConfig):
+    """Like :func:`transformer_apply` but also returns the summed MoE
+    load-balancing auxiliary loss (0 for all-dense configs): add it to
+    the training loss with a small coefficient (conventionally 1e-2)."""
     return _forward(params, tokens, config,
                     _select_attention(config, tokens.device), 0)
 
@@ -237,13 +312,15 @@ def transformer_apply(params: Dict, tokens: torch.Tensor,
 class _Layer(nn.Module):
     def __init__(self, layer: Dict):
         super().__init__()
-        for name in ("attn", "norm1", "norm2", "mlp"):
+        # a dense layer has "mlp", an MoE layer "moe", as in the tree
+        self.names = [name for name in ("attn", "norm1", "norm2", "mlp", "moe")
+                      if name in layer]
+        for name in self.names:
             setattr(self, name, nn.ParameterDict(
                 {k: nn.Parameter(t) for k, t in layer[name].items()}))
 
     def tree(self) -> Dict:
-        return {name: dict(getattr(self, name).items())
-                for name in ("attn", "norm1", "norm2", "mlp")}
+        return {name: dict(getattr(self, name).items()) for name in self.names}
 
 
 class Transformer(nn.Module):

@@ -55,8 +55,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..models.decoding import _attend_cached, speculative_acceptance
-from ..models.transformer import TransformerConfig, _mlp, _project, _rms_norm
+from ..models.decoding import _attend_cached, _cached_ffn, speculative_acceptance
+from ..models.transformer import TransformerConfig, _project, _rms_norm
 from ..ops.rope import apply_rope
 from .drafter import ngram_propose_rows
 
@@ -161,7 +161,9 @@ def _paged_layers(params: Dict, config: TransformerConfig,
                            window=config.attention_window).to(dtype)
         x = x + torch.einsum("bhsk,hkd->bsd", o, layer["attn"]["wo"].to(dtype))
         y = _rms_norm(x, layer["norm2"]["scale"])
-        x = x + _mlp(y, layer["mlp"])
+        # MoE capacity pinned to the dispatch's tokens: a co-batched lane
+        # cannot perturb another's outputs through expert collisions
+        x = x + _cached_ffn(layer, config, y)
     return _rms_norm(x, params["final_norm"]["scale"])
 
 

@@ -476,3 +476,54 @@ def test_kill_consumes_the_dead_replicas_inflight_fetch_first(card):
     # the consumed dispatch moved every decoding orphan forward
     assert any(seen[0][1].get(rid, 6) > n for rid, n in emitted.items())
     assert {rid: out[rid].tokens for rid, _, _ in trace} == want
+
+
+MOE = dict(moe_every=2, moe_num_experts=4, moe_top_k=2)
+
+
+@pytest.mark.parametrize("routing,dispatch", [
+    ("tokens_choose", "scatter"), ("tokens_choose", "einsum"),
+    ("experts_choose", "scatter"), ("experts_choose", "einsum")])
+def test_moe_bits_equal_run_to_run(card, routing, dispatch):
+    # bf16 at a width where repeated indices would meet in atomic adds (a
+    # token's two choices, a token picked by several experts): the op's
+    # forward and gradient must come out the same bits every run
+    from kubeshare_tpu_torch.ops.moe import MoEConfig, moe_apply, moe_init
+
+    device = card[0]
+    config = MoEConfig(d_model=256, d_ff=512, num_experts=8, top_k=2,
+                       routing=routing, dispatch=dispatch)
+    params = moe_init(config, torch.Generator().manual_seed(3), device)
+    x = torch.randn((2, 512, 256), generator=torch.Generator().manual_seed(4)
+                    ).to(device, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        xx = x.clone().requires_grad_()
+        out, aux = moe_apply(leaves, xx, config)
+        (out.float().square().mean() + 0.01 * aux).backward()
+        runs.append([out, xx.grad] + [leaves[k].grad for k in sorted(leaves)])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_captured_moe_decode_step_equals_eager(card):
+    device, _, _ = card
+    config = TransformerConfig(**{**MODEL, **MOE})
+    params = transformer_init(config, torch.Generator().manual_seed(5), device)
+    prompt = torch.randint(0, 64, (3, 9), generator=torch.Generator()
+                           .manual_seed(6)).to(device)
+    outs = []
+    for capture in (False, True):
+        cache, logits = decoding.prefill(params, config, prompt)
+        outs.append(decoding.greedy_decode_with_cache(
+            params, config, cache, logits, 20, capture=capture))
+    torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=0)
+    cache, logits = decoding.prefill(params, config, prompt)
+    eager_cache = {k: v.clone() for k, v in cache.items()}
+    token = torch.argmax(logits, dim=-1)
+    got = decoding.make_decode_step(params, config, 3, capture=True)(
+        cache, token)
+    want = decoding.make_decode_step(params, config, 3, capture=False)(
+        eager_cache, token)
+    torch.testing.assert_close(got, want, rtol=LOGITS_TOL, atol=LOGITS_TOL)

@@ -51,6 +51,9 @@ VARIANTS = [
     dict(positional="rope"),
     dict(positional="rope", n_kv_heads=2),
     dict(positional="learned", n_kv_heads=1, attention_window=6),
+    # JAX's MoE case: layer 1's MLP an expert mixture, capacity pinned by
+    # every cached path
+    dict(positional="rope", moe_every=2, moe_num_experts=4, moe_top_k=2),
 ]
 
 

@@ -37,10 +37,10 @@ torch.set_num_threads(1)
 
 MODEL = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
              max_seq_len=64, attention="reference")
-# TestDisagg's configurations; its "moe" case waits for the port's MoE
-# layers (ROADMAP.md queue A item 10)
+# TestDisagg's configurations
 CASES = {"gqa_rope": dict(n_kv_heads=2, positional="rope"),
-         "windowed": dict(attention_window=6)}
+         "windowed": dict(attention_window=6),
+         "moe": dict(moe_every=2, moe_num_experts=4, moe_top_k=2)}
 MONO = dict(num_slots=3, block_size=4, num_blocks=41, max_request_len=48,
             prefill_chunk=8, mixed=False)
 PREFILL = dict(num_slots=2, block_size=4, num_blocks=17, max_request_len=48,

@@ -121,6 +121,42 @@ def test_greedy_streams_equal_jax_engine(model, jax_streams, overrides):
         assert engine.loop_units >= engine.loop_launches
 
 
+# JAX's MoE case (tests/test_serving.py): layer 1's MLP a top-2 mixture of
+# 4 experts; the engine holds no MoE code of its own, its paged steps pin
+# the capacity to each dispatch's tokens
+MOE = dict(moe_every=2, moe_num_experts=4, moe_top_k=2)
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    jax_cfg = JaxConfig(dtype=jnp.float32, **MODEL, **MOE)
+    params = jax_init(jax.random.PRNGKey(0), jax_cfg)
+    return jax_cfg, params, TransformerConfig(dtype=torch.float32, **MODEL,
+                                              **MOE), \
+        params_from_jax(jax.device_get(params), "cpu")
+
+
+@pytest.fixture(scope="module")
+def moe_jax_streams(moe_model):
+    # JAX's streams do not depend on mixed batching (its engine is
+    # bit-exact across it); mixed=False compiles fewer shapes
+    jax_cfg, jp, _, _ = moe_model
+    engine = JaxServingEngine(jp, jax_cfg, JaxEngineConfig(**POOL,
+                                                           mixed=False))
+    for rid, prompt, new in TRACE:
+        engine.submit(JaxRequest(rid, prompt.astype(np.int32), new))
+    out = engine.run()
+    return {rid: out[rid].tokens for rid, _, _ in TRACE}
+
+
+@pytest.mark.parametrize("overrides", [{}, dict(steps_per_launch=4),
+                                       dict(mixed=False)],
+                         ids=["default", "steps_per_launch_4", "mixed_off"])
+def test_moe_greedy_streams_equal_jax_engine(moe_model, moe_jax_streams,
+                                             overrides):
+    assert _serve(_engine(moe_model, **overrides)) == moe_jax_streams
+
+
 def test_warmup_builds_every_shape_once(model):
     engine = _engine(model, steps_per_launch=4)
     engine.warmup()

@@ -33,6 +33,8 @@ VARIANTS = [
     dict(positional="learned"),
     dict(positional="rope", n_kv_heads=2),
     dict(positional="learned", n_kv_heads=1, attention_window=6),
+    # JAX's MoE case: the paged steps pin the capacity to their tokens
+    dict(positional="rope", moe_every=2, moe_num_experts=4, moe_top_k=2),
 ]
 # lanes 0 and 1 own eight distinct blocks each; lane 2 is inactive, its
 # table all scratch

@@ -124,7 +124,6 @@ def test_same_seed_same_weights():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"moe_every": 2}, "MoE"),
     ({"attention": "ring"}, "long context"),
     ({"attention": "ulysses"}, "long context"),
 ])
