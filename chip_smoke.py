@@ -131,6 +131,29 @@ Phases (any failure raises and the script exits non-zero):
    round robin's, the replay equal to the kill, one liveness failure and
    orphans readmitted, (f) equal to (e), and (b), (c), (d)'s greedy
    streams, (e), (f) teacher-forced within ENGINE_TOKEN_MARGIN.
+   engine_sharded: tensor-parallel serving (serving/sharded.py) on the
+   one card, every device group naming cuda:0 tp times, so the shards'
+   bodies run in turn on its stream.  First one 64-token prefill chunk
+   through the paged step and through the tp=2 and tp=4 twins on fresh
+   pools: the first layer whose K/V differ and the logits' difference;
+   the same for tests/test_torch_cuda.py's tiny f32 GQA model at tp=2
+   (one KV head a shard), and the attention score product of one (lane,
+   KV head) matrix alone against inside a batch, at f32 and bf16.
+   Then (a) the flagship at tp=2 over engine_trace (ENGINE_POOL), (b) at
+   tp=4 with long_context_threshold=64 (every full chunk takes the
+   Ulysses route), then a GQA variant (2 KV heads, seed 0) at tp=4 in the
+   replicated-KV fallback over the trace's first 16 requests against its
+   own single-device engine, (c) the MoE model at tp=2 over its first 16
+   requests against its single-device engine, (d) a ReplicaFleet of
+   dp=2 x tp=2 over [cuda:0] * 4 on the first 16 requests.  Each pass
+   prints the engine line, describe() and the estimated collective bytes
+   by kind; (a) prints its tokens/s beside the single-device engine's.
+   Required: 0 captures after warm-up, collective bytes counted, every
+   stream bit-equal to the single-device engine's or teacher-forced
+   within ENGINE_TOKEN_MARGIN (the count of each is printed; the MoE
+   model's near-tie rows excused as in the moe phase), (a) and (b)
+   head-sharded, (b)'s GQA variant replicated.  One card cannot show a
+   tensor-parallel speed-up.
 6. train: the repo's train-step flagship (benchmarks/kernel_bench.py
    MODEL_SIZES["flagship"], rope, bf16, full width and depth) takes 10
    AdamW steps on a fixed batch of 2 x 2048 tokens through
@@ -176,7 +199,7 @@ Phases (any failure raises and the script exits non-zero):
 The launch counters are zeroed before each path and read after it (the
 captured path's around its capture: a replay bumps no counter).  The
 engine's paths (engine, engine_spec, engine_tier, engine_disagg,
-engine_fleet, moe_engine) launch
+engine_fleet, engine_sharded, moe_engine) launch
 none of the kernels (their attention is the paged einsums, as in the JAX engine), so
 their counts read 0; the speculative
 path's prefills launch the flash forward.  The
@@ -450,6 +473,15 @@ FLEET_LOAD = 0.5
 FLEET_CHAOS_BLOCKS = 41
 FLEET_CHAOS_TIER = 16 << 20
 FLEET_CHAOS_SEED = 7
+# engine_sharded: tensor-parallel engines on one card, every group naming
+# it tp times; (a) at SHARDED_TP, (b) at SHARDED_ULYSSES_TP with the
+# Ulysses route on each full prefill chunk and a GQA variant whose KV heads
+# are below tp (the replicated-KV fallback); the GQA variant, the MoE model
+# and the fleet serve the first SHARDED_SHORT requests of engine_trace
+SHARDED_TP = 2
+SHARDED_ULYSSES_TP = 4
+SHARDED_GQA_KV_HEADS = 2
+SHARDED_SHORT = 16
 # moe: benchmarks/kernel_bench.py MODEL_SIZES["moe"], the repo's MoE model:
 # the train-step flagship's dims with every 2nd MLP an 8-expert top-2
 # mixture at capacity factor 1.25, rope and bf16 as suite_model /
@@ -1270,10 +1302,12 @@ def engine_trace(config):
 
 
 def engine_pass(torch, device, params, config, trace, guard=None,
-                pool=ENGINE_POOL, after=None, **overrides):
+                pool=ENGINE_POOL, after=None, mesh_devices=None,
+                **overrides):
     """One ServingEngine run over ``trace``: warm-up, then every request
     submitted at once and served.  ``after(engine)``, when given, runs on
-    the drained engine and its dict joins the stats.  Returns (streams,
+    the drained engine and its dict joins the stats; ``mesh_devices``
+    is a tensor-parallel engine's device group.  Returns (streams,
     stats)."""
     from kubeshare_tpu_torch.serving import EngineConfig, Request, ServingEngine
     from kubeshare_tpu_torch.serving.metrics_view import (
@@ -1284,7 +1318,8 @@ def engine_pass(torch, device, params, config, trace, guard=None,
     base_mem = torch.cuda.memory_allocated(device)
     engine = ServingEngine(params, config,
                            EngineConfig(**{**pool, **overrides}),
-                           guard=guard, device=device)
+                           guard=guard, device=device,
+                           mesh_devices=mesh_devices)
     t0 = time.perf_counter()
     engine.warmup()
     warmup_s = time.perf_counter() - t0
@@ -1496,7 +1531,7 @@ def engine_phase(torch, device):
     check(share >= GUARD_MIN_SHARE,
           f"the guard charged {share} of the dispatches' device time")
     check(guarded_streams == streams, "guarded streams differ")
-    return stats["launches"], streams, (loop_streams, loop_stats)
+    return stats["launches"], streams, stats, (loop_streams, loop_stats)
 
 
 def tier_trace(config):
@@ -2321,6 +2356,218 @@ def engine_fleet_phase(torch, device):
     check(drained[True] == drained[False],
           "(f): the fabric fleet's streams differ from (e)'s")
     print("engine fleet (f): streams equal to (e): True")
+    return {name: sum(counts[name] for counts in launches)
+            for name in launches[0]}
+
+
+def sharded_first_difference(torch, params, config, tp, device, prompt,
+                             bs):
+    """``prompt`` as one prefill chunk (blocks of ``bs`` rows) through the
+    single-device paged step and through a tp-way context's twin over
+    ``[device] * tp``, on fresh pools: the first layer whose K/V rows
+    differ (None: none), the K/V max |difference| there, and the logits'
+    max |difference| (0 and none where the card computes every product's
+    output elements alike whatever the product's width or batch)."""
+    from kubeshare_tpu_torch.parallel.mesh import MeshSpec
+    from kubeshare_tpu_torch.serving import ShardedServingContext
+    from kubeshare_tpu_torch.serving.kv_blocks import init_paged_pool
+    from kubeshare_tpu_torch.serving.paged import paged_prefill_step
+
+    chunk = len(prompt)
+    blocks = -(-chunk // bs)
+    pool = init_paged_pool(config, blocks + 1, bs, device)
+    ctx = ShardedServingContext(config, MeshSpec(dp=1, tp=tp), params,
+                                devices=[device] * tp)
+    ctx.place_params(params)
+    pk, pv = ctx.place_pool(pool.k, pool.v)
+    tables = torch.arange(1, blocks + 1, device=device)[None]
+    tokens = torch.as_tensor(prompt, device=device)[None]
+    one = torch.ones(1, dtype=torch.bool, device=device)
+    start = torch.zeros(1, dtype=torch.int64, device=device)
+    last = torch.full((1,), chunk - 1, dtype=torch.int64, device=device)
+    with torch.no_grad():
+        want = paged_prefill_step(params, config, pool.k, pool.v, tables,
+                                  start, one, tokens, last)
+        got = ctx.prefill_step(pk, pv, tables, start, one, tokens, last)
+        k_got, v_got = pk.gather(), pv.gather()
+    for layer in range(config.n_layers):
+        diff = max(float((k_got[layer] - pool.k[layer]).abs().max()),
+                   float((v_got[layer] - pool.v[layer]).abs().max()))
+        if diff > 0:
+            return layer, diff, float((got - want).abs().max())
+    return None, 0.0, float((got - want).abs().max())
+
+
+def batch_of_one_difference(torch, device, dtype):
+    """The attention score product ``einsum("bhgqd,bhkd->bhgqk")`` of one
+    (lane, KV head) matrix alone against the same matrix inside batches of
+    two KV heads, and of two lanes against four: max |difference| of
+    each (the products are equal in exact arithmetic)."""
+    gen = torch.Generator().manual_seed(0)
+    out = []
+    for lanes in (1, 2):
+        q = torch.randn(lanes, 2, 2, 8, 8, generator=gen).to(device, dtype)
+        k = torch.randn(lanes, 2, 16, 8, generator=gen).to(device, dtype)
+        whole = torch.einsum("bhgqd,bhkd->bhgqk", q, k)
+        head = torch.einsum("bhgqd,bhkd->bhgqk", q[:, :1].contiguous(),
+                            k[:, :1].contiguous())
+        out.append(float((head - whole[:, :1]).abs().max()))
+    return out
+
+
+def engine_sharded_phase(torch, device, single_streams, single_stats):
+    """Tensor-parallel serving on one card, every group naming it more
+    than once: (a) the flagship at tp=2 over engine_trace, (b) tp=4 with
+    the Ulysses route on every full prefill chunk, then a GQA variant
+    (2 KV heads) in the replicated-KV fallback, (c) the MoE model at
+    tp=2, (d) a dp=2 x tp=2 fleet.  Streams are held to the single-device
+    engine's: bit-equal counted, every token teacher-forced within
+    ENGINE_TOKEN_MARGIN (the MoE model's near-tie rows excused).
+    Returns the path's kernel launches."""
+    import numpy as np
+
+    from kubeshare_tpu_torch.entry import entry, flagship_config
+    from kubeshare_tpu_torch.models.transformer import transformer_init
+    from kubeshare_tpu_torch.parallel.mesh import MeshSpec
+    from kubeshare_tpu_torch.serving import EngineConfig, ReplicaFleet
+
+    config = flagship_config()
+    _, (params, _) = entry()
+    trace = engine_trace(config)
+    short = trace[:SHARDED_SHORT]
+    launches = []
+
+    def describe(engine):
+        return {"describe": engine._sharded.describe(),
+                "collective_bytes": dict(engine.collective_bytes)}
+
+    def held(label, streams, oracle, rows, params, config, moe=False):
+        same = sum(streams[rid] == oracle[rid] for rid, _, _ in rows)
+        if moe:
+            forced = moe_teacher_forced(torch, params, config, rows, streams,
+                                        device)
+            print(f"engine sharded {label}: streams bit-equal to the "
+                  f"single-device engine's {same}/{len(rows)}, the other "
+                  f"{len(rows) - same} held teacher-forced:")
+            moe_forced_report(f"sharded {label}", forced)
+            return
+        worst = teacher_forced(torch, params, config, rows, streams, device)
+        print(f"engine sharded {label}: streams bit-equal to the "
+              f"single-device engine's {same}/{len(rows)}, the other "
+              f"{len(rows) - same} held teacher-forced; worst emitted token "
+              f"{worst:.4f} under its row's max in the dense forward (tol "
+              f"{ENGINE_TOKEN_MARGIN})")
+        check(worst <= ENGINE_TOKEN_MARGIN,
+              f"sharded {label}: an emitted token lies {worst} under its "
+              "row's max")
+
+    def sharded(label, params, config, rows, tp, oracle, moe=False,
+                **overrides):
+        streams, stats = engine_pass(
+            torch, device, params, config, rows, after=describe,
+            mesh_devices=[device] * tp, mesh_spec=MeshSpec(dp=1, tp=tp),
+            **overrides)
+        launches.append(stats["launches"])
+        engine_report(f"sharded {label}", stats)
+        print(f"engine sharded {label}: describe "
+              f"{json.dumps(stats['describe'])}; estimated collective bytes "
+              f"by kind {json.dumps(stats['collective_bytes'])}")
+        check(stats["new_captures"] == 0,
+              f"sharded {label}: {stats['new_captures']} captures after "
+              "warm-up")
+        check(all(len(streams[rid]) == new for rid, _, new in rows),
+              f"sharded {label}: a stream has the wrong length")
+        check(all(0 <= t < config.vocab_size for s in streams.values()
+                  for t in s), f"sharded {label}: token ids out of range")
+        check(stats["collective_bytes"]["prefill_chunk"] > 0
+              and stats["collective_bytes"]["decode_span"] > 0,
+              f"sharded {label}: no collective bytes counted")
+        held(label, streams, oracle, rows, params, config, moe)
+        return streams, stats
+
+    def first_difference(label, params, config, tp, prompt,
+                         bs=ENGINE_POOL["block_size"]):
+        first, kv, logits = sharded_first_difference(
+            torch, params, config, tp, device, prompt, bs)
+        print(f"engine sharded {label} first difference: one "
+              f"{len(prompt)}-token prefill chunk through the paged step "
+              f"and the tp={tp} twin, K/V "
+              + ("equal in every layer" if first is None
+                 else f"first differ at layer {first} of {config.n_layers} "
+                      f"(max |difference| {kv:.3e})")
+              + f"; logits max |difference| {logits:.3e}")
+
+    chunk = ENGINE_POOL["prefill_chunk"]
+    for tp in (SHARDED_TP, SHARDED_ULYSSES_TP):
+        first_difference(f"tp={tp}", params, config, tp, trace[0][1][:chunk])
+    # the limit at f32: tests/test_torch_cuda.py's tiny GQA model (one KV
+    # head a shard at tp=2), one 8-token chunk
+    tiny = dataclasses.replace(config, vocab_size=64, d_model=32, n_heads=4,
+                               n_layers=2, d_ff=64, max_seq_len=64,
+                               n_kv_heads=2, positional="rope",
+                               dtype=torch.float32, attention="reference")
+    tiny_params = transformer_init(tiny, torch.Generator().manual_seed(0),
+                                   device)
+    first_difference("f32 tiny GQA tp=2", tiny_params, tiny, 2,
+                     np.arange(8) * 7 % 64, bs=4)
+    for dtype in (torch.float32, torch.bfloat16):
+        alone, pairs = batch_of_one_difference(torch, device, dtype)
+        print(f"engine sharded batch-of-one check at {dtype}: one (lane, "
+              f"KV head) score product alone vs inside a batch of two KV "
+              f"heads, max |difference| {alone:.3e}; two lanes vs four "
+              f"{pairs:.3e}")
+    del tiny_params
+
+    _, a = sharded(f"(a) flagship tp={SHARDED_TP}", params, config, trace,
+                   SHARDED_TP, single_streams)
+    print(f"engine sharded (a): {a['tokens_per_s']:.1f} tokens/s at "
+          f"tp={SHARDED_TP} against {single_stats['tokens_per_s']:.1f} "
+          f"single-device on the same card (ratio "
+          f"{a['tokens_per_s'] / single_stats['tokens_per_s']:.4f}); both "
+          f"shards run on this one card in turn, so no tensor-parallel "
+          f"speed-up can show here")
+    check(a["describe"]["attn_sharded"], "(a): attention is not sharded")
+
+    _, b = sharded(f"(b) flagship tp={SHARDED_ULYSSES_TP}, "
+                   f"long_context_threshold={ENGINE_POOL['prefill_chunk']}",
+                   params, config, trace, SHARDED_ULYSSES_TP, single_streams,
+                   long_context_threshold=ENGINE_POOL["prefill_chunk"])
+    check(b["describe"]["attn_sharded"], "(b): attention is not sharded")
+    gqa = dataclasses.replace(config, n_kv_heads=SHARDED_GQA_KV_HEADS)
+    gqa_params = transformer_init(gqa, torch.Generator().manual_seed(0),
+                                  device)
+    gqa_single, _ = engine_pass(torch, device, gqa_params, gqa, short)
+    _, b2 = sharded(f"(b) GQA {SHARDED_GQA_KV_HEADS} KV heads at "
+                    f"tp={SHARDED_ULYSSES_TP}", gqa_params, gqa, short,
+                    SHARDED_ULYSSES_TP, gqa_single)
+    check(not b2["describe"]["attn_sharded"],
+          "(b) GQA: kv_heads < tp did not take the replicated-KV fallback")
+    del gqa_params
+
+    fleet_rows = [(rid, prompt, new, 0.0) for rid, prompt, new in short]
+    streams, stats, _ = fleet_pass(
+        torch, fleet_rows,
+        lambda: ReplicaFleet(
+            params, config, EngineConfig(**ENGINE_POOL, mesh_spec=MeshSpec(
+                dp=2, tp=SHARDED_TP, sp=1)),
+            replicas=2, device=device, devices=[device] * (2 * SHARDED_TP)))
+    launches.append(stats["launches"])
+    fleet_report(f"sharded (d) dp=2 x tp={SHARDED_TP}", stats)
+    check(not stats["new_captures"],
+          f"sharded (d): captures after warm-up {stats['new_captures']}")
+    check(all(len(streams[rid]) == new for rid, _, new in short),
+          "sharded (d): a stream has the wrong length")
+    held("(d) fleet", streams, single_streams, short, params, config)
+    del params
+
+    moe_config, moe_params, _, _ = train_setup(torch, device, MOE_DIMS)
+    moe_short = engine_trace(moe_config)[:SHARDED_SHORT]
+    moe_single, _ = engine_pass(torch, device, moe_params, moe_config,
+                                moe_short)
+    sharded(f"(c) moe tp={SHARDED_TP}", moe_params, moe_config, moe_short,
+            SHARDED_TP, moe_single, moe=True)
+    del moe_params
+    torch.cuda.empty_cache()
     return {name: sum(counts[name] for counts in launches)
             for name in launches[0]}
 
@@ -3680,8 +3927,8 @@ def main() -> int:
     worst.update(bs_worst)
     launches = slice_phase(torch, device)
     launches["decode_capture"] = decode_capture_phase(torch, device)
-    launches["engine"], engine_streams, loop_pass = engine_phase(torch,
-                                                                 device)
+    launches["engine"], engine_streams, engine_stats, loop_pass = \
+        engine_phase(torch, device)
     launches["speculative"] = speculative_phase(torch, device)
     launches["engine_spec"] = engine_spec_phase(torch, device,
                                                 engine_streams)
@@ -3695,6 +3942,11 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["engine_fleet"] = engine_fleet_phase(torch, device)
     print(f"engine fleet phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["engine_sharded"] = engine_sharded_phase(
+        torch, device, engine_streams, engine_stats)
+    print(f"engine sharded phase: {time.perf_counter() - t0:.1f} s")
+    del engine_stats
     launches["train"], eager = train_phase(torch, device)
     launches["train_captured"], _ = capture_phase(torch, device, eager)
     launches["block_sparse"] = bs_launches

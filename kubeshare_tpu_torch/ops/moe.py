@@ -33,7 +33,7 @@ to bf16 would pick other experts).  The gates are cast to the activation
 dtype where JAX casts them.
 
 ``moe_sharding_rules`` (expert parallelism over a mesh) waits for the
-mesh, ROADMAP.md queue A item 9.
+training half of the mesh, ROADMAP.md queue A item 9b.
 """
 
 from __future__ import annotations

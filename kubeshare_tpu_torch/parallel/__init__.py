@@ -1,4 +1,4 @@
-from .mesh import MeshSpec
+from .mesh import MeshSpec, make_mesh, replicated, serving_mesh, shard_params
 from .train import (
     CapturedTrainStep,
     TrainState,
@@ -15,7 +15,11 @@ __all__ = [
     "TrainState",
     "adamw",
     "cross_entropy_loss",
+    "make_mesh",
     "make_train_step",
+    "replicated",
+    "serving_mesh",
+    "shard_params",
     "tree_leaves",
     "tree_leaves_with_paths",
 ]

@@ -1,5 +1,7 @@
-"""The logical device-mesh shape, port of kubeshare_tpu/parallel/mesh.py's
-:class:`MeshSpec`.
+"""Device meshes and sharding helpers, port of kubeshare_tpu/parallel/mesh.py
+(the serving half: :class:`MeshSpec`, :func:`make_mesh`,
+:func:`serving_mesh`, :func:`replicated`, :func:`shard_params`,
+:func:`param_spec_tree`).
 
 Axis vocabulary, as in the JAX package:
   dp  data parallel (the replica axis of a serving fleet)
@@ -7,20 +9,25 @@ Axis vocabulary, as in the JAX package:
   tp  tensor parallel (head/feature split inside layers)
   sp  sequence parallel
 
-Only the spec and its resolution are ported: the serving fleet carves a
-``dp`` x ``tp`` spec into per-replica device groups
-(``serving.sharded.carve_replica_groups``).  Building a mesh over
-``torch.distributed`` and the sharding helpers (JAX's ``make_mesh``,
-``serving_mesh`` and friends) wait for tensor-parallel serving
-(ROADMAP.md queue A item 9).
+The JAX package hands a ``jax.sharding.Mesh`` to XLA, which compiles
+the collectives into one program.  Here one controller drives every
+device of a group itself: a :class:`Mesh` is a numpy array of
+``torch.device``s on named axes, and one device may appear more than
+once (a group that names ``cuda:0`` twice runs both shards on one card,
+in turn, on its one stream — the port's counterpart of JAX's forced
+host-platform device count).  :func:`shard_params` returns, for every
+leaf, a :class:`ShardedTensor`: its per-device shards and its
+:class:`PartitionSpec`.  ``batch_sharding`` and the training use of the
+mesh wait for ROADMAP.md queue A item 9b.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True, kw_only=True)
@@ -74,3 +81,279 @@ class MeshSpec:
                     f"mesh {self} spans {prod} devices != available "
                     f"{n_devices}")
         return tuple((fill if d == -1 else d) for d in axes)
+
+
+class PartitionSpec(tuple):
+    """How a tensor splits over mesh axes, JAX's ``PartitionSpec``: one
+    entry a dimension — an axis name, a tuple of names, or None (not
+    split); dimensions past the last entry are not split.  ``P()``
+    replicates."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return "PartitionSpec" + tuple.__repr__(self)
+
+
+P = PartitionSpec
+
+
+class Mesh:
+    """Devices on named axes: ``devices`` a numpy object array of
+    ``torch.device`` whose shape is the axes' sizes.  A device may
+    appear more than once."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+        if devices.ndim != len(axis_names):
+            raise ValueError(
+                f"a {devices.ndim}-d device array needs as many axis "
+                f"names, got {tuple(axis_names)}")
+        self.devices = devices
+        self.axis_names = tuple(axis_names)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A :class:`PartitionSpec` over a :class:`Mesh`."""
+
+    mesh: Mesh
+    spec: PartitionSpec
+
+
+def _as_device(device) -> torch.device:
+    """A torch.device with its index: a bare ``"cuda"`` names the
+    current CUDA device, so shards placed there compare equal to it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _device_array(devices: Sequence, shape: Tuple[int, ...]) -> np.ndarray:
+    array = np.empty(len(devices), dtype=object)
+    array[:] = [_as_device(d) for d in devices]
+    return array.reshape(shape)
+
+
+def _visible_cuda_devices() -> List[torch.device]:
+    """Every visible CUDA device; raises when there is none (a mesh
+    never falls back to the CPU — pass the devices explicitly)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass the mesh's devices "
+            "explicitly (e.g. [torch.device('cpu')] * n)")
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
+
+
+def make_mesh(spec: MeshSpec = MeshSpec(),
+              devices: Optional[Sequence] = None) -> Mesh:
+    """The mesh of ``spec`` over ``devices`` (None: every visible CUDA
+    device), shaped (dp, tp, sp), or (dp, ep, tp, sp) when ep > 1."""
+    devices = list(devices if devices is not None
+                   else _visible_cuda_devices())
+    dp, ep, tp, sp = spec.resolve(len(devices))
+    if ep > 1:
+        return Mesh(_device_array(devices, (dp, ep, tp, sp)),
+                    ("dp", "ep", "tp", "sp"))
+    return Mesh(_device_array(devices, (dp, tp, sp)), ("dp", "tp", "sp"))
+
+
+def serving_mesh(tp: int, dp: int = 1,
+                 devices: Optional[Sequence] = None) -> Mesh:
+    """The serving engine's mesh preset: ``tp``-way tensor parallelism
+    (heads/features split inside each dispatch), optional ``dp`` replica
+    groups for a fleet front-end.  Uses the leading ``dp * tp`` devices
+    so a host with more devices than the serving pod needs still builds
+    the exact requested shape instead of failing the strict
+    :meth:`MeshSpec.resolve` product check."""
+    if tp < 1 or dp < 1:
+        raise ValueError(
+            f"serving_mesh needs tp >= 1 and dp >= 1, got tp={tp} dp={dp}")
+    need = dp * tp
+    avail = list(devices if devices is not None
+                 else _visible_cuda_devices())
+    if len(avail) < need:
+        raise ValueError(
+            f"serving_mesh(tp={tp}, dp={dp}) needs {need} devices, "
+            f"only {len(avail)} available")
+    return make_mesh(MeshSpec(dp=dp, tp=tp, sp=1), devices=avail[:need])
+
+
+def replicated(mesh: Mesh) -> NamedSharding:
+    return NamedSharding(mesh, P())
+
+
+def _split_names(axes) -> Tuple[str, ...]:
+    if axes is None:
+        return ()
+    return axes if isinstance(axes, tuple) else (axes,)
+
+
+def _shard_slices(shape: Sequence[int], spec: PartitionSpec,
+                  mesh: Mesh) -> List[Tuple[slice, ...]]:
+    """For every device of ``mesh`` (flat order), the slice of a tensor of
+    ``shape`` that it holds under ``spec``."""
+    position = {name: i for i, name in enumerate(mesh.axis_names)}
+    sizes = mesh.devices.shape
+    out = []
+    for index in np.ndindex(*sizes):
+        slices = []
+        for dim, size in enumerate(shape):
+            names = _split_names(spec[dim] if dim < len(spec) else None)
+            degree, at = 1, 0
+            for name in names:  # mixed radix, the first name outermost
+                degree *= sizes[position[name]]
+                at = at * sizes[position[name]] + index[position[name]]
+            piece = size // degree
+            slices.append(slice(at * piece, (at + 1) * piece))
+        out.append(tuple(slices))
+    return out
+
+
+class ShardedTensor:
+    """One tensor laid out over a :class:`Mesh`: ``shards[i]`` is what
+    device ``i`` (the mesh's flat order) holds under ``spec``, the
+    port's counterpart of a sharded ``jax.Array``.  Shards live on
+    their own devices and are updated in place where the tensor is
+    state (the serving pool).  Reads that cross shards gather them
+    (:meth:`gather`, :meth:`index_select`) — data movement only."""
+
+    def __init__(self, shards: List[torch.Tensor], spec: PartitionSpec,
+                 mesh: Mesh, shape: Sequence[int]) -> None:
+        self.shards = list(shards)
+        self.spec = PartitionSpec(*spec)
+        self.mesh = mesh
+        self.shape = torch.Size(shape)
+        slices = _shard_slices(self.shape, self.spec, mesh)
+        # the first shard holding each distinct slice: a read writes each
+        # element once even where the spec replicates
+        seen: Dict[Tuple, int] = {}
+        for i, s in enumerate(slices):
+            seen.setdefault(tuple((x.start, x.stop) for x in s), i)
+        self._owners = [(i, slices[i]) for i in sorted(seen.values())]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        """The lead device (the mesh's first), where gathers land."""
+        return self.shards[0].device
+
+    def element_size(self) -> int:
+        return self.shards[0].element_size()
+
+    @property
+    def is_fully_replicated(self) -> bool:
+        return len(self._owners) == 1
+
+    def gather(self) -> torch.Tensor:
+        """The whole tensor on the lead device."""
+        out = torch.empty(self.shape, dtype=self.dtype, device=self.device)
+        for i, slices in self._owners:
+            out[slices] = self.shards[i].to(self.device, non_blocking=True)
+        return out
+
+    def index_select(self, dim: int, index: torch.Tensor) -> torch.Tensor:
+        """``torch.index_select`` of the whole tensor along an unsplit
+        ``dim``, each shard selecting its own rows, gathered on the lead
+        device."""
+        if any(s[dim] != slice(0, self.shape[dim]) for _, s in self._owners):
+            raise ValueError(
+                f"index_select along dim {dim}, which {self.spec} splits")
+        shape = list(self.shape)
+        shape[dim] = index.numel()
+        out = torch.empty(shape, dtype=self.dtype, device=self.device)
+        for i, slices in self._owners:
+            shard = self.shards[i]
+            rows = shard.index_select(dim, index.to(shard.device))
+            out[slices[:dim] + (slice(None),) + slices[dim + 1:]] = rows.to(
+                self.device, non_blocking=True)
+        return out
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor(shape={tuple(self.shape)}, "
+                f"dtype={self.dtype}, spec={self.spec!r}, "
+                f"shards={len(self.shards)})")
+
+
+def shard_tensor(x: torch.Tensor, spec: PartitionSpec, mesh: Mesh,
+                 copy: bool = False) -> ShardedTensor:
+    """Split ``x`` over ``mesh`` under ``spec``: each device receives its
+    slice, contiguous, on its own device.  ``copy`` gives every shard its
+    own storage (state updated in place); otherwise a replicated shard
+    already on its device is ``x`` itself."""
+    shards = []
+    for device, slices in zip(mesh.devices.flat,
+                              _shard_slices(x.shape, spec, mesh)):
+        piece = x[slices]
+        if copy or piece.device != device or not piece.is_contiguous():
+            piece = torch.empty(piece.shape, dtype=x.dtype,
+                                device=device).copy_(piece)
+        shards.append(piece)
+    return ShardedTensor(shards, spec, mesh, x.shape)
+
+
+def _keystr(path: Tuple) -> str:
+    """A leaf's path as ``jax.tree_util.keystr`` writes it, e.g.
+    ``['layers'][0]['attn']['wq']`` — the string the rules match."""
+    return "".join(f"[{key!r}]" for key in path)
+
+
+def _map_with_paths(tree, fn, path: Tuple = ()):
+    if isinstance(tree, dict):
+        return {k: _map_with_paths(v, fn, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_paths(v, fn, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(_keystr(path), tree)
+
+
+def _spec_for(path: str, ordered) -> PartitionSpec:
+    for needle, spec in ordered:
+        if needle in path:
+            return spec
+    return P()
+
+
+def shard_params(params, rules: Dict[str, PartitionSpec], mesh: Mesh):
+    """Place a param tree by path-matching rules; unmatched -> replicated
+    onto every device of the mesh.
+
+    Rules map a substring of the flattened path (e.g. "attn']['wq") to a
+    PartitionSpec.  First match wins, most-specific (longest) first.
+    Returns the tree with a :class:`ShardedTensor` at every leaf."""
+    ordered = sorted(rules.items(), key=lambda kv: -len(kv[0]))
+
+    def place(path: str, x):
+        spec = _spec_for(path, ordered)
+        # name the parameter and axis up front (JAX's message)
+        for dim, axes in enumerate(spec):
+            names = _split_names(axes)
+            if not names:
+                continue
+            degree = 1
+            for name in names:
+                degree *= mesh.shape[name]
+            if x.shape[dim] % degree != 0:
+                raise ValueError(
+                    f"cannot shard {path}: axis {dim} (size "
+                    f"{x.shape[dim]}) does not divide mesh "
+                    f"{'x'.join(names)}={degree}")
+        return shard_tensor(x, spec, mesh)
+
+    return _map_with_paths(params, place)
+
+
+def param_spec_tree(params, rules: Dict[str, PartitionSpec]):
+    """Like :func:`shard_params` but returns the PartitionSpec tree."""
+    ordered = sorted(rules.items(), key=lambda kv: -len(kv[0]))
+    return _map_with_paths(params, lambda path, _: _spec_for(path, ordered))

@@ -19,7 +19,7 @@ step is one device burst instead of ~1,500 eager launches paced by the
 host.  It needs CUDA tensors and raises on the CPU.
 
 The mesh and its ``param_rules`` (multi-device sharding) are not ported
-yet: ROADMAP.md queue A item 9.
+yet: ROADMAP.md queue A item 9b.
 """
 
 from __future__ import annotations
@@ -107,7 +107,7 @@ def make_train_step(
     if mesh is not None or param_rules is not None:
         raise NotImplementedError(
             "mesh / param_rules sharding is not ported yet (ROADMAP.md "
-            "queue A item 9, parallel/mesh.py over torch.distributed)")
+            "queue A item 9b, the training half of the mesh)")
     optimizer = optimizer or adamw(1e-3)
 
     def init_state(params) -> TrainState:

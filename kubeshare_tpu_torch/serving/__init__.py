@@ -42,9 +42,14 @@ of the single-device core of kubeshare_tpu/serving:
   cache inheritance over a shared host tier, an autoscaler with
   hysteresis, and crash recovery (salvage + orphan re-admission) under a
   health monitor; :mod:`sharded`'s :func:`carve_replica_groups` splits a
-  dp x tp mesh spec into the replicas' device groups.
-
-Not ported yet (ROADMAP.md queue A item 9): tensor-parallel serving.
+  dp x tp mesh spec into the replicas' device groups;
+- :mod:`sharded` — tensor-parallel serving: a
+  :class:`ShardedServingContext` splits the params Megatron-style with no
+  partial sums and head-shards the pool over a device group, and the
+  engine runs every dispatch through its twins (streams bit-exact with
+  the single-device engine where products do not depend on their
+  output's width); :func:`plan_sharding` is the policy, with the
+  replicated-KV fallback and the Ulysses route for long chunks.
 """
 
 from .autotune import (AnalyticPolicy, AutoTuner, CostModel, FittedTracePolicy,
@@ -77,7 +82,9 @@ from .paged import (paged_copy_block, paged_decode_loop, paged_decode_span,
 from .prefix_index import PrefixIndex
 from .qos import (DEFAULT_TENANT, QOS_GUARANTEE, QOS_OPPORTUNISTIC, FairQueue,
                   TenantRegistry, TenantSpec)
-from .sharded import carve_replica_groups
+from .sharded import (ShardDecision, ShardedServingContext,
+                      carve_replica_groups, plan_sharding,
+                      serving_sharding_rules)
 
 __all__ = [
     "AnalyticPolicy",
@@ -128,6 +135,8 @@ __all__ = [
     "RoutingPolicy",
     "ScalingPolicy",
     "ServingEngine",
+    "ShardDecision",
+    "ShardedServingContext",
     "SocketTransport",
     "TTFTBreachPolicy",
     "TenantRegistry",
@@ -159,10 +168,12 @@ __all__ = [
     "paged_upload_block",
     "paged_verify_span",
     "plan_prefill_chunks",
+    "plan_sharding",
     "prefix_fabric_key",
     "recv_frame",
     "send_frame",
     "serve_prefix_store",
+    "serving_sharding_rules",
     "unpack_block",
     "unpack_chain",
     "unpack_message",

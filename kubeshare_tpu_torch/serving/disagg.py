@@ -41,8 +41,8 @@ Three pieces:
 Topology (:class:`DisaggTopology`): ``two_cell`` runs both pools in one
 process on the router's device — two fractional cells of one card.
 ``virtual_multislice`` (JAX's placement on two slices of a multislice
-mesh) raises: the port has no multislice mesh yet (ROADMAP.md queue A
-item 9).
+mesh) raises: it needs ``slice_device_mesh`` from
+``parallel/distributed.py`` (ROADMAP.md queue A item 11).
 
 Each pool keeps its OWN radix prefix index (matching happens where
 admission happens), with one HOST TIER shared underneath as the
@@ -134,7 +134,9 @@ class DisaggTopology:
     device — two fractional cells of one card, each pool chargeable
     through its own ExecutionGuard.  ``virtual_multislice``, JAX's
     placement of the pools on two slices of a multislice mesh, is not
-    ported: :meth:`place` raises."""
+    ported (it needs ``parallel/distributed.py``'s
+    ``slice_device_mesh``, ROADMAP.md queue A item 11): :meth:`place`
+    raises."""
 
     mode: str = "two_cell"
     # the multislice spec of virtual_multislice (kept so a configuration
@@ -153,9 +155,9 @@ class DisaggTopology:
         if self.mode == "two_cell":
             return device, device
         raise NotImplementedError(
-            "virtual_multislice: the port has no multislice mesh yet "
-            "(ROADMAP.md queue A item 9, parallel/mesh.py and sharded.py "
-            "over torch.distributed); use two_cell")
+            "virtual_multislice: the port has no multislice mesh yet — "
+            "it needs slice_device_mesh from parallel/distributed.py "
+            "(ROADMAP.md queue A item 11); use two_cell")
 
 
 @dataclass
@@ -234,6 +236,8 @@ class _BlockRead:
             idx = torch.tensor(self.blocks, dtype=torch.int64).pin_memory()
             idx = idx.to(engine.device, non_blocking=True)
             rows = []
+            # a sharded pool's index_select gathers its shards into the
+            # unsharded head order, as the engine's _read_blocks does
             for pool in (engine.pool.k, engine.pool.v):
                 gathered = pool.index_select(1, idx).transpose(0, 1)
                 host = torch.empty(gathered.shape, dtype=gathered.dtype,

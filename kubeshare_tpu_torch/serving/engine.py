@@ -83,14 +83,23 @@ through the captured ``upload`` program.  ``admission_gate`` and
 ``on_preempt_requeue`` are the router's other seams, and ``pool_label`` /
 ``replica_label`` label the engine's metric families.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): tensor-parallel serving.
+Tensor-parallel serving (``mesh_spec`` with tp > 1, sharded.py): a
+:class:`~.sharded.ShardedServingContext` splits the params and the pool
+over a device group and the step closures swap in its twins; nothing
+else changes.  Host reads of the pool gather its shards into the
+unsharded head order, uploads re-scatter them, and every dispatch is
+still one captured graph on the group's card.  Streams equal the
+single-device engine's wherever a product's output elements do not
+depend on the product's width or batch (the CPU; the card at bf16; at
+f32 cuBLAS gives a batch of ONE matrix other last bits).
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
+from functools import partial
+from types import SimpleNamespace
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -116,6 +125,7 @@ from .paged import (paged_copy_block, paged_decode_loop, paged_decode_span,
 from .prefix_index import PrefixIndex
 from .qos import (DEFAULT_TENANT, QOS_GUARANTEE, QOS_OPPORTUNISTIC,
                   FairQueue, TenantRegistry, TenantSpec)
+from .sharded import ShardedServingContext
 
 # TTFT histogram bucket upper bounds (seconds) for the metrics endpoint
 TTFT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
@@ -269,9 +279,14 @@ class EngineConfig:
     # admit_migrated().  Streams are bit-exact with the monolithic engine
     pool_role: str = "both"
     # a parallel.mesh.MeshSpec: dp > 1 is a fleet's replica axis
-    # (fleet.ReplicaFleet carves it); tp > 1 within one engine is
-    # tensor-parallel serving (not ported: ROADMAP.md queue A item 9)
+    # (fleet.ReplicaFleet carves it); dp=ep=sp=1 within one engine is
+    # tensor-parallel serving (sharded.py): params split Megatron-style,
+    # the pool head-sharded, every dispatch one program over the group.
+    # Streams are bit-exact with None wherever products do not depend on
+    # their output's width
     mesh_spec: Optional[object] = None
+    # prefill chunks at least this wide re-shard Ulysses-style (sequence-
+    # parallel attention inside the sharded dispatch); requires mesh_spec
     long_context_threshold: Optional[int] = None
     # online autotuning (autotune.py): retune the capture-free knobs (the
     # fused budget, the loop depth, the draft-width caps) every
@@ -305,19 +320,16 @@ def _warmed_prefill_widths(ec: EngineConfig) -> set:
 def _config_rows(ec: EngineConfig, config: TransformerConfig,
                  mesh_devices=None, shared_host_tier=None):
     """The engine-config validation table: ``(failed, error, message)``
-    rows checked in order by :class:`ServingEngine`.  The two mesh rows
-    the JAX engine raises for a fleet's axis come first, then the
-    options of slices not yet ported, which raise ``NotImplementedError``
-    naming their ROADMAP.md item; the rest are the JAX engine's
-    ``ValueError`` rows.  The spec is read duck-typed, so any object
-    with no dp/ep/sp reaches the unported row."""
+    rows checked in order by :class:`ServingEngine`, the JAX engine's
+    rows.  The two mesh rows the JAX engine raises for a fleet's axis
+    come first (the spec is read duck-typed; the sharded context reads
+    it again)."""
     widths = _warmed_prefill_widths(ec)
     min_piece = min(widths) if widths else 1
     wire = (wire_block_bytes(
         ec.block_size, config.n_layers, config.kv_heads, ec.block_size,
         config.head_dim, torch.empty((), dtype=config.dtype).element_size())
         if ec.host_tier_bytes is not None else None)
-    todo = NotImplementedError
     bad = ValueError
     spec = ec.mesh_spec
     return [
@@ -336,15 +348,6 @@ def _config_rows(ec: EngineConfig, config: TransformerConfig,
          "has no mesh to pin onto a device group; pin it with "
          "device= instead (the fleet's tp=1 build path does exactly "
          "that)"),
-        (spec is not None, todo,
-         "mesh_spec: tensor-parallel serving is not ported yet "
-         "(ROADMAP.md queue A item 9, sharded.py over torch.distributed)"),
-        (ec.long_context_threshold is not None, todo,
-         "long_context_threshold: the Ulysses route of sharded serving "
-         "is not ported yet (ROADMAP.md queue A item 9)"),
-        (mesh_devices is not None, todo,
-         "mesh_devices: tensor-parallel serving is not ported yet "
-         "(ROADMAP.md queue A item 9)"),
         (ec.max_request_len > config.max_seq_len, bad,
          f"max_request_len {ec.max_request_len} exceeds the model's "
          f"max_seq_len {config.max_seq_len}"),
@@ -402,6 +405,10 @@ def _config_rows(ec: EngineConfig, config: TransformerConfig,
          "shared_host_tier requires prefix_cache=True — the tier "
          "spills the radix index; there is nothing to spill "
          "without it"),
+        (ec.long_context_threshold is not None and spec is None, bad,
+         "long_context_threshold requires mesh_spec — the "
+         "Ulysses route is a re-shard inside the sharded "
+         "program; a single-device engine has nothing to route"),
         (ec.draft_len < 1 or bool(ec.draft_len & (ec.draft_len - 1)), bad,
          f"draft_len must be a power of two >= 1, got {ec.draft_len}"),
         (ec.draft_ngram < 1, bad,
@@ -671,6 +678,21 @@ class _Fetch:
         return [host.numpy() for host in self.host]
 
 
+def _paged_steps(params, config: TransformerConfig) -> SimpleNamespace:
+    """The single-device paged steps under the sharded twins' names and
+    signatures (paged's, less ``params`` and ``config``)."""
+    return SimpleNamespace(
+        prefill_step=partial(paged_prefill_step, params, config),
+        decode_span=partial(paged_decode_span, params, config),
+        decode_loop=partial(paged_decode_loop, params, config),
+        mixed_step=partial(paged_mixed_step, params, config),
+        verify_span=partial(paged_verify_span, params, config),
+        mixed_verify_step=partial(paged_mixed_verify_step, params, config),
+        spec_loop=partial(paged_spec_loop, params, config),
+        copy_block=paged_copy_block,
+        upload_block=paged_upload_block)
+
+
 class ServingEngine:
     """Continuous-batching engine; see the module docstring.
 
@@ -678,7 +700,10 @@ class ServingEngine:
     :meth:`step` (one scheduling iteration).  ``device`` is the CUDA
     device unless the caller names another (``"cpu"`` runs the programs
     eagerly); ``params`` must live there.  Without a card and without
-    ``device="cpu"`` the constructor raises."""
+    ``device="cpu"`` the constructor raises.  With a ``mesh_spec`` the
+    engine runs over ``mesh_devices`` (None: the CPU tp times when
+    ``device="cpu"``, else the leading tp CUDA devices), its device is the
+    group's first, and the params are placed from wherever they live."""
 
     def __init__(
         self,
@@ -704,18 +729,46 @@ class ServingEngine:
         check_config(config)
         # fail fast on a bad filter set, like the dense sampling entries
         _filter_logits(torch.zeros((1, 2)), ec.top_k, ec.top_p)
-        self.device = resolve_device(device)
-        devices = {leaf.device for leaf in tree_leaves(params)}
-        if devices != {self.device}:
-            raise ValueError(
-                f"params live on {sorted(map(str, devices))}, the engine "
-                f"runs on {self.device}")
+        # tensor-parallel mode: the context owns the mesh, the sharding
+        # decision, parameter placement, and the twins the step closures
+        # swap in.  On the CPU the group names the CPU tp times; the
+        # engine's device is the group's first (inputs, picks, reads)
+        if (ec.mesh_spec is not None and mesh_devices is None
+                and device is not None
+                and torch.device(device).type == "cpu"):
+            mesh_devices = [torch.device(device)] * ec.mesh_spec.tp
+        self._sharded = (ShardedServingContext(
+            config, ec.mesh_spec, params,
+            long_context_threshold=ec.long_context_threshold,
+            devices=mesh_devices)
+            if ec.mesh_spec is not None else None)
+        if self._sharded is not None:
+            group = self._sharded.devices
+            self.device = group[0]
+            if self.device.type == "cuda" and len(set(group)) > 1:
+                raise ValueError(
+                    f"mesh_devices {[str(d) for d in group]}: a group of "
+                    f"distinct CUDA devices is not supported — each "
+                    f"dispatch is one CUDA graph captured on one card's "
+                    f"stream; name one card for every shard (e.g. "
+                    f"[cuda:0] * tp)")
+            params = self._sharded.place_params(params)
+        else:
+            self.device = resolve_device(device)
+            devices = {leaf.device for leaf in tree_leaves(params)}
+            if devices != {self.device}:
+                raise ValueError(
+                    f"params live on {sorted(map(str, devices))}, the "
+                    f"engine runs on {self.device}")
         self.params = params
         self.model_config = config
         self.engine_config = ec
         self.guard = guard
         self.pool = init_paged_pool(config, ec.num_blocks, ec.block_size,
                                     self.device)
+        if self._sharded is not None:
+            k, v = self._sharded.place_pool(self.pool.k, self.pool.v)
+            self.pool = replace(self.pool, k=k, v=v)
         self.prefix_index = (PrefixIndex(ec.block_size)
                              if ec.prefix_cache else None)
         # the tenant registry must exist before the tier policy (the QoS
@@ -826,6 +879,12 @@ class ServingEngine:
         self.prefix_hit_requests = 0
         self.prefix_hit_tokens = 0  # prompt tokens whose prefill was skipped
         self.cow_copies = 0
+        # sharded serving: ESTIMATED group-total bytes moved by the
+        # collectives inside each dispatch kind (the shard-shape model of
+        # sharded.dispatch_collective_bytes) — all zero on a single-device
+        # engine, exported as kubeshare_serving_collective_bytes_total
+        self.collective_bytes: Dict[str, int] = {
+            "prefill_chunk": 0, "decode_span": 0, "verify_span": 0}
         # eviction outcome by reason: reservation_pressure / quota_drain
         # name the trigger when evicted K/V is destroyed, tier_demote /
         # tier_drop the tier's verdict when it is consulted instead
@@ -928,9 +987,13 @@ class ServingEngine:
         return program
 
     def _program_spec(self, kind: str, width: int, verify_width: int):
-        """(function, input specs) of one dispatch shape."""
+        """(function, input specs) of one dispatch shape.  The closures
+        call the single-device paged steps or, on a sharded engine, the
+        context's twins (the same signatures less params and config)."""
         ec = self.engine_config
-        params, cfg, pick = self.params, self.model_config, self._pick
+        cfg, pick = self.model_config, self._pick
+        steps = (self._sharded if self._sharded is not None
+                 else _paged_steps(self.params, cfg))
         pk, pv = self.pool.k, self.pool.v
         span, eos = ec.decode_span, ec.eos_token
         s, t = ec.num_slots, self._table_width
@@ -951,8 +1014,8 @@ class ServingEngine:
                         p_seed):
                 # one lane a chunk; the first-token pick rides fused (only
                 # a prompt's final chunk consumes it)
-                logits = paged_prefill_step(
-                    params, cfg, pk, pv, p_table, p_start,
+                logits = steps.prefill_step(
+                    pk, pv, p_table, p_start,
                     torch.ones_like(p_start, dtype=torch.bool), p_tokens,
                     p_last_row)
                 return (pick(logits, p_temp, p_seed),)
@@ -960,23 +1023,23 @@ class ServingEngine:
         if kind == "decode":
             def decode(tables, lengths, active, tokens, temps, seeds,
                        budgets):
-                return (paged_decode_span(
-                    params, cfg, pick, span, eos, pk, pv, tables, lengths,
-                    active, tokens, temps, seeds, budgets),)
+                return (steps.decode_span(
+                    pick, span, eos, pk, pv, tables, lengths, active,
+                    tokens, temps, seeds, budgets),)
             return decode, lane_specs(span)
         if kind == "loop":
             def loop(tables, lengths, active, tokens, temps, seeds,
                      budgets):
-                return paged_decode_loop(
-                    params, cfg, pick, span, width, eos, pk, pv, tables,
-                    lengths, active, tokens, temps, seeds, budgets)
+                return steps.decode_loop(
+                    pick, span, width, eos, pk, pv, tables, lengths, active,
+                    tokens, temps, seeds, budgets)
             return loop, lane_specs(width * span)
         if kind == "mixed":
             def mixed(p_table, p_start, p_tokens, p_last_row, p_temp,
                       p_seed, tables, lengths, active, tokens, temps, seeds,
                       budgets):
-                return paged_mixed_step(
-                    params, cfg, pick, span, eos, pk, pv, p_table, p_start,
+                return steps.mixed_step(
+                    pick, span, eos, pk, pv, p_table, p_start,
                     p_tokens, p_last_row, p_temp, p_seed, tables, lengths,
                     active, tokens, temps, seeds, budgets)
             return mixed, prefill_specs + lane_specs(span)
@@ -988,16 +1051,16 @@ class ServingEngine:
         if kind == "verify":
             def verify(tables, lengths, active, tokens, widths, temps,
                        seeds):
-                return paged_verify_span(
-                    params, cfg, pick, pk, pv, tables, lengths, active,
-                    tokens, widths, temps, seeds)
+                return steps.verify_span(
+                    pick, pk, pv, tables, lengths, active, tokens, widths,
+                    temps, seeds)
             return verify, verify_specs
         if kind == "mixed_verify":
             def mixed_verify(p_table, p_start, p_tokens, p_last_row, p_temp,
                              p_seed, tables, lengths, active, tokens, widths,
                              temps, seeds):
-                return paged_mixed_verify_step(
-                    params, cfg, pick, pk, pv, p_table, p_start, p_tokens,
+                return steps.mixed_verify_step(
+                    pick, pk, pv, p_table, p_start, p_tokens,
                     p_last_row, p_temp, p_seed, tables, lengths, active,
                     tokens, widths, temps, seeds)
             return mixed_verify, prefill_specs + verify_specs
@@ -1009,8 +1072,8 @@ class ServingEngine:
                           budgets, hist, hist_len, dcaps, r_tables,
                           r_lengths, r_tokens, r_temps, r_seeds, r_budgets,
                           r_hist, r_hist_len, r_caps, r_count):
-                return paged_spec_loop(
-                    params, cfg, pick, width, eos, ec.draft_ngram,
+                return steps.spec_loop(
+                    pick, width, eos, ec.draft_ngram,
                     SPEC_LOOP_REDRAFT, w, pk, pv, tables, lengths, active,
                     tokens, temps, seeds, budgets, hist, hist_len, dcaps,
                     r_tables, r_lengths, r_tokens, r_temps, r_seeds,
@@ -1025,14 +1088,14 @@ class ServingEngine:
                 ("r_count", (), i64)]
         if kind == "copy":
             def copy(src, dst):
-                paged_copy_block(pk, pv, src, dst)
+                steps.copy_block(pk, pv, src, dst)
                 return ()
             return copy, [("src", (1,), i64), ("dst", (1,), i64)]
         if kind == "upload":
             # the KV tier's promotion: one block's slabs, staged in the
             # program's arena like every input, into pool block dst
             def upload(dst, k_slab, v_slab):
-                paged_upload_block(pk, pv, dst, k_slab, v_slab)
+                steps.upload_block(pk, pv, dst, k_slab, v_slab)
                 return ()
             slab = (cfg.n_layers, cfg.kv_heads, ec.block_size, cfg.head_dim)
             return upload, [("dst", (1,), i64), ("k_slab", slab, pk.dtype),
@@ -1170,7 +1233,8 @@ class ServingEngine:
         except WireCorruption:
             self.tier_corrupt_blocks += 1
             raise
-        slab = self.pool.k[:, 0].shape
+        shape = self.pool.k.shape
+        slab = shape[:1] + shape[2:]
         for _, k_slab, _ in frames:
             if k_slab.shape != slab or k_slab.dtype != self.pool.k.dtype:
                 raise ValueError(
@@ -1482,9 +1546,12 @@ class ServingEngine:
             "Tokens emitted across all requests.", "counter")
         tokens.add({}, self.tokens_generated)
         # a disaggregated pool labels its latency and dispatch families
-        # with its `pool`, a fleet replica with its `replica`; a
-        # monolithic engine adds no label
+        # with its `pool`, a tensor-parallel engine with its `tp` (the
+        # group's size), a fleet replica with its `replica`; a monolithic
+        # single-device engine adds no label
         plabel = {"pool": self.pool_label} if self.pool_label else {}
+        if self._sharded is not None:
+            plabel["tp"] = str(self._sharded.tp)
         if self.replica_label:
             plabel["replica"] = self.replica_label
         dispatches = MetricFamily(
@@ -1614,6 +1681,15 @@ class ServingEngine:
             _histogram_samples(
                 tbt, "kubeshare_serving_tbt_seconds", {"qos": cls, **plabel},
                 counts, total, TBT_BUCKETS)
+        coll_bytes = MetricFamily(
+            "kubeshare_serving_collective_bytes_total",
+            "ESTIMATED fleet-total bytes moved by the collectives "
+            "inside sharded dispatches, by kind (shard-shape model, "
+            "not a transport measurement; all-zero on a single-device "
+            "engine).", "counter")
+        for kind in sorted(self.collective_bytes):
+            coll_bytes.add({"kind": kind, **plabel},
+                           self.collective_bytes[kind])
         spec_tokens = MetricFamily(
             "kubeshare_serving_spec_tokens_total",
             "Speculative decoding volume per tenant: drafted = proposal "
@@ -1648,7 +1724,7 @@ class ServingEngine:
                 spec_loop_units, exit_reason, depth_summary, host_s,
                 planner, prefix, hit_tokens, evicted, *tier_families, ttft,
                 t_depth, t_blocks, t_tokens, preempt, cls_ttft, tbt,
-                spec_tokens, spec_accept, tuner]
+                coll_bytes, spec_tokens, spec_accept, tuner]
 
     def _tier_metric_families(self) -> List[MetricFamily]:
         """The host and disk tiers' families, the JAX engine's."""
@@ -2523,12 +2599,26 @@ class ServingEngine:
             seeds[: len(window)] = window
         return seeds
 
+    def _charge_collectives(self, family: str, kind: str, *, lanes: int,
+                            chunk: int = 0, span: int = 0,
+                            width: int = 0) -> None:
+        """Account one sharded dispatch's estimated collective traffic
+        (no-op on a single-device engine: the counters stay zero)."""
+        if self._sharded is None:
+            return
+        self.collective_bytes[family] += \
+            self._sharded.dispatch_collective_bytes(
+                kind, lanes=lanes, chunk=chunk, span=span, width=width,
+                view_rows=self._table_width * self.engine_config.block_size)
+
     def _run_prefill_chunk(self, slot: _Slot,
                            chunk: Tuple[int, int, int]) -> None:
         # ONE lane per prefill dispatch; the first-token pick rides fused
         final, inputs = self._prefill_lane(slot, chunk)
         (picked,) = self._dispatch(self._program("prefill", chunk[1]), inputs)
         self.prefill_chunks += 1
+        self._charge_collectives("prefill_chunk", "prefill", lanes=1,
+                                 chunk=chunk[1])
         # fair-share service: the prefill width actually dispatched
         self._queue.charge(slot.tenant, chunk[1])
         if final:
@@ -2538,6 +2628,9 @@ class ServingEngine:
         lanes = self._decode_lanes(decode_slots)
         (emitted,) = self._dispatch(self._program("decode"), lanes)
         self.decode_steps += 1
+        self._charge_collectives(
+            "decode_span", "decode", lanes=self.engine_config.num_slots,
+            span=self.engine_config.decode_span)
         self._inflight = ("span", (_Fetch(emitted), list(decode_slots),
                                    lanes["budgets"]), None)
 
@@ -2566,6 +2659,11 @@ class ServingEngine:
         self.prefill_chunks += 1
         self.decode_steps += 1
         self.mixed_steps += 1
+        self._charge_collectives("prefill_chunk", "prefill", lanes=1,
+                                 chunk=chunk[1])
+        self._charge_collectives(
+            "decode_span", "decode", lanes=self.engine_config.num_slots,
+            span=self.engine_config.decode_span)
         self._queue.charge(p_slot.tenant, chunk[1])
         fetch = _Fetch(picked, emitted)
         self._inflight = ("mixed", (fetch, list(decode_slots),
@@ -2616,6 +2714,9 @@ class ServingEngine:
         picked, accepts = self._dispatch(
             self._program("verify", 0, plan.verify_width), lanes)
         self.verify_steps += 1
+        self._charge_collectives(
+            "verify_span", "verify", lanes=self.engine_config.num_slots,
+            width=plan.verify_width)
         self._inflight = ("verify", (_Fetch(picked, accepts),
                                      list(plan.decode_slots), k_lanes,
                                      budgets), None)
@@ -2634,6 +2735,11 @@ class ServingEngine:
         self.prefill_chunks += 1
         self.verify_steps += 1
         self.mixed_verify_steps += 1
+        self._charge_collectives("prefill_chunk", "prefill", lanes=1,
+                                 chunk=chunk[1])
+        self._charge_collectives(
+            "verify_span", "verify", lanes=self.engine_config.num_slots,
+            width=plan.verify_width)
         self._queue.charge(p_slot.tenant, chunk[1])
         fetch = _Fetch(*outputs)
         self._inflight = ("verify", (fetch, list(plan.decode_slots),
@@ -2737,6 +2843,8 @@ class ServingEngine:
                 (picked,) = self._dispatch(
                     self._program("prefill", chunk[1]), inputs)
                 self.prefill_chunks += 1
+                self._charge_collectives("prefill_chunk", "prefill",
+                                         lanes=1, chunk=chunk[1])
                 self._queue.charge(staged.tenant, chunk[1])
                 if final:
                     self._finish_prefill(staged,
@@ -2793,6 +2901,9 @@ class ServingEngine:
                 span = self.engine_config.decode_span
                 self.decode_steps += units
                 self.loop_units += units
+                self._charge_collectives(
+                    "decode_span", "decode",
+                    lanes=self.engine_config.num_slots, span=units * span)
                 emitted = ring[: units * span]
                 # exit reason + realized depth BEFORE acceptance retires
                 # the slots the derivation reads
@@ -2964,6 +3075,10 @@ class ServingEngine:
         ec = self.engine_config
         self.verify_steps += units
         self.spec_loop_units += units
+        for _ in range(units):
+            self._charge_collectives(
+                "verify_span", "verify", lanes=ec.num_slots,
+                width=1 + ec.draft_len)
         self.loop_depth_sum += units
         self.loop_depth_count += 1
         owner: Dict[int, _Slot] = {s.idx: s for s in decode_slots}

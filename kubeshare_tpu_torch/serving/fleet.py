@@ -42,8 +42,8 @@ card.  ``EngineConfig.mesh_spec`` with dp > 1 is carved by
 :func:`~kubeshare_tpu_torch.serving.sharded.carve_replica_groups` over
 ``devices`` (every visible card by default) into per-replica groups; a
 tp = 1 replica runs on its group's device with one copy of the
-parameters per device, and a tp > 1 group raises (tensor-parallel
-serving, ROADMAP.md queue A item 9).  A ``replica_factory`` swaps whole
+parameters per device, and a tp > 1 group runs a tensor-parallel engine
+(sharded.py) over exactly its group.  A ``replica_factory`` swaps whole
 replicas for disagg pairs or anything engine-shaped.
 
 Streams equal one monolithic engine's at equal aggregate KV budget: a
@@ -63,6 +63,7 @@ import torch
 
 from .. import resolve_device
 from ..utils.promtext import MetricFamily, Sample
+from ..parallel.mesh import MeshSpec
 from .autotune import AutoTuner
 from .chaos import ReplicaKilled
 from .engine import (EngineConfig, Request, RequestResult, ServingEngine,
@@ -678,11 +679,13 @@ class ReplicaFleet:
                                         if self.shared_tier is None
                                         else None))
         if devices is not None and len(devices) > 1:
-            raise NotImplementedError(
-                f"replica {name}: a {len(devices)}-device group is a "
-                f"tensor-parallel replica, and tensor-parallel serving is "
-                f"not ported yet (ROADMAP.md queue A item 9); carve with "
-                f"tp=1")
+            # tp-sharded replica: a private dp=1 mesh over exactly this
+            # group — the engine's sharded context places the params and
+            # splits the pool over it
+            ec = replace(base, mesh_spec=MeshSpec(
+                dp=1, tp=len(devices), sp=1))
+            return ServingEngine(self.params, self.model_config, ec,
+                                 mesh_devices=list(devices), **kwargs)
         ec = replace(base, mesh_spec=None)
         dev = (self.device if devices is None
                else torch.device(devices[0]))

@@ -10,6 +10,8 @@ At f32 with TF32 off a graph replays the eager step's kernels on the same
 inputs, so captured and eager tokens are equal and the logits agree to
 round-off."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,9 +19,11 @@ import torch
 from kubeshare_tpu_torch.models import decoding
 from kubeshare_tpu_torch.models.transformer import (TransformerConfig,
                                                     transformer_init)
+from kubeshare_tpu_torch.parallel.mesh import MeshSpec
 from kubeshare_tpu_torch.serving import (DisaggRouter, EngineConfig,
                                          ReplicaFleet, Request,
-                                         ServingEngine, kv_tier, paged)
+                                         ServingEngine, ShardedServingContext,
+                                         kv_tier, paged)
 from kubeshare_tpu_torch.serving.chaos import FaultClock, FaultPlan
 
 pytestmark = pytest.mark.cuda
@@ -527,3 +531,96 @@ def test_captured_moe_decode_step_equals_eager(card):
     want = decoding.make_decode_step(params, config, 3, capture=False)(
         eager_cache, token)
     torch.testing.assert_close(got, want, rtol=LOGITS_TOL, atol=LOGITS_TOL)
+
+
+def test_captured_sharded_decode_span_equals_eager(card):
+    """The tp=2 context's decode span over ``[cuda:0, cuda:0]`` (one KV
+    head a shard), captured in one graph, equals its eager run: the
+    tokens and every shard's pool rows."""
+    device, config, params = card
+    ctx = ShardedServingContext(config, MeshSpec(dp=1, tp=2), params,
+                                devices=[device] * 2)
+    ctx.place_params(params)
+    s, t, bs, nb = 3, 8, 4, 30
+    shape = (config.n_layers, nb, config.kv_heads, bs, config.head_dim)
+    gen = torch.Generator().manual_seed(2)
+    full = [torch.randn(shape, generator=gen).to(device) for _ in range(2)]
+    tables = torch.arange(1, 1 + s * t).reshape(s, t).to(device)
+    args = (torch.tensor([13, 5, 20], device=device),
+            torch.tensor([True, True, False], device=device),
+            torch.tensor([3, 9, 0], device=device),
+            torch.tensor([0.0, 0.9, 0.0], device=device),
+            torch.randint(0, 2 ** 62, (s, 4), generator=gen).to(device),
+            torch.tensor([4, 2, 0], device=device))
+
+    def span(pools):
+        return ctx.decode_span(decoding.pick_rows, 4, None, *pools, tables,
+                               *args)
+
+    eager_pool = ctx.place_pool(*full)
+    want = span(eager_pool)
+    graph_pool = ctx.place_pool(*full)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        span(ctx.place_pool(*full))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = span(graph_pool)
+    graph.replay()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for a, b in zip(graph_pool, eager_pool):
+        torch.testing.assert_close(a.gather()[:, 1:], b.gather()[:, 1:],
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sharded_engine_streams_and_block_reads_equal_single_device(card,
+                                                                    dtype):
+    """A tp=2 engine over ``[cuda:0, cuda:0]`` (one KV head a shard)
+    captures every shape at warm-up and nothing after, its captured
+    streams equal the single-device engine's (and at f32 the dense greedy
+    decode's), and its block reads gather the shards into its own pool's
+    rows.  At bf16, the dtype the card serves, those rows are the
+    single-device engine's bytes.  At f32 cuBLAS computes a batch of one
+    (lane, KV head) matrix — a one-lane prefill on a one-head shard —
+    with other last bits than the same matrix in a batch of two
+    (ROADMAP.md queue C): layer 0's rows are equal, the later layers'
+    within f32 round-off."""
+    device, config, params = card
+    config = dataclasses.replace(config, dtype=dtype)
+    trace = _fleet_trace(6)
+    pool = dict(FLEET_POOL, num_blocks=41)
+    engines = [
+        ServingEngine(params, config, EngineConfig(**pool), device=device),
+        ServingEngine(params, config, EngineConfig(
+            **pool, mesh_spec=MeshSpec(dp=1, tp=2)),
+            mesh_devices=[device] * 2)]
+    streams = []
+    for engine in engines:
+        engine.warmup()
+        counts = engine.capture_counts()
+        streams.append(_served(engine, trace))
+        assert engine.capture_counts() == counts
+    assert streams[1] == streams[0]
+    if dtype == torch.float32:
+        for rid, prompt, new in trace:
+            want = decoding.greedy_decode(
+                params, config, torch.from_numpy(prompt)[None].to(device),
+                new)
+            assert streams[1][rid] == want[0].tolist(), rid
+    blocks = list(range(1, 17))
+    idx = torch.tensor(blocks, device=device)
+    single, sharded = (engine._read_blocks(blocks) for engine in engines)
+    assert sharded[0].is_pinned()
+    own = engines[1].pool
+    for got, pool_rows, want in zip(sharded, (own.k, own.v), single):
+        assert torch.equal(
+            got, pool_rows.gather().index_select(1, idx).transpose(0, 1).cpu())
+        assert want.abs().sum() > 0
+        if dtype == torch.bfloat16:
+            assert torch.equal(got, want)
+        else:
+            assert torch.equal(got[:, 0], want[:, 0])
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

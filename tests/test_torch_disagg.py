@@ -559,7 +559,7 @@ def test_decode_pool_refuses_submit_and_prefill_pool_migrations(models):
 
 
 def test_virtual_multislice_topology_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
+    with pytest.raises(NotImplementedError, match="queue A item 11"):
         DisaggTopology("virtual_multislice").place()
     with pytest.raises(ValueError, match="two_cell"):
         DisaggTopology("three_cell")

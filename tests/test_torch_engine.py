@@ -20,6 +20,7 @@ import torch
 
 from kubeshare_tpu.models.transformer import TransformerConfig as JaxConfig
 from kubeshare_tpu.models.transformer import transformer_init as jax_init
+from kubeshare_tpu.parallel.mesh import MeshSpec as JaxMeshSpec
 from kubeshare_tpu.serving import EngineConfig as JaxEngineConfig
 from kubeshare_tpu.serving import Request as JaxRequest
 from kubeshare_tpu.serving import ServingEngine as JaxServingEngine
@@ -290,11 +291,35 @@ def test_metrics_count_the_trace(model):
     (dict(mesh_spec=MeshSpec(dp=1, tp=2)), dict(mesh_devices=[0])),
     (dict(mesh_spec=MeshSpec(dp=1, tp=2)), {}),
 ])
-def test_unported_options_raise(model, overrides, kwargs):
-    _, _, cfg, tp = model
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+def test_unported_options_raise(model, jax_streams, overrides, kwargs):
+    """The options that raised before tensor-parallel serving was ported:
+    each now behaves as in the JAX engine.  A spec without mesh axes and
+    a group smaller than tp raise JAX's error, a threshold without a spec
+    JAX's ValueError; a tp=2 spec on the CPU builds a sharded engine whose
+    streams equal the JAX engine's (tests/test_torch_sharded.py holds the
+    rest)."""
+    jax_cfg, jp, cfg, tp = model
+    spec = overrides.get("mesh_spec")
+    if isinstance(spec, MeshSpec) and not kwargs:
+        engine = ServingEngine(tp, cfg, EngineConfig(**{**POOL, **overrides}),
+                               device="cpu")
+        assert engine._sharded.tp == 2
+        assert _serve(engine) == jax_streams
+        return
+    jax_overrides = dict(overrides)
+    if isinstance(spec, MeshSpec):
+        jax_overrides["mesh_spec"] = JaxMeshSpec(dp=spec.dp, tp=spec.tp,
+                                                 sp=spec.sp)
+    error = AttributeError if spec is not None and not isinstance(
+        spec, MeshSpec) else ValueError
+    with pytest.raises(error) as want:
+        JaxServingEngine(jp, jax_cfg, JaxEngineConfig(**POOL, **jax_overrides),
+                         **kwargs)
+    with pytest.raises(error) as got:
         ServingEngine(tp, cfg, EngineConfig(**{**POOL, **overrides}),
                       device="cpu", **kwargs)
+    if error is ValueError:
+        assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("overrides", [

@@ -551,7 +551,7 @@ def test_no_card_no_fallback(models, monkeypatch):
 
 def test_single_engine_dp_rejection_points_at_fleet(models):
     """The engine's dp row raises JAX's ValueError with its message; a
-    tp > 1 spec still reaches the unported tensor-parallel row."""
+    tp > 1 spec builds a tensor-parallel engine, as JAX's does."""
     jax_cfg, jp, cfg, tp = models["plain"]
     pool = dict(num_slots=2, block_size=4, num_blocks=13,
                 max_request_len=32, prefill_chunk=8)
@@ -564,9 +564,13 @@ def test_single_engine_dp_rejection_points_at_fleet(models):
             ServingEngine(tp, cfg, EngineConfig(
                 **pool, mesh_spec=MeshSpec(**kwargs)), device="cpu")
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        ServingEngine(tp, cfg, EngineConfig(
-            **pool, mesh_spec=MeshSpec(dp=1, tp=2)), device="cpu")
+    engine = ServingEngine(tp, cfg, EngineConfig(
+        **pool, mesh_spec=MeshSpec(dp=1, tp=2)), device="cpu")
+    want = jax_serving.ServingEngine(jp, jax_cfg, jax_serving.EngineConfig(
+        **pool, mesh_spec=JaxMeshSpec(dp=1, tp=2, sp=1)))
+    assert engine._sharded.describe()["tp"] == want._sharded.describe()["tp"]
+    assert engine._sharded.decision.attn_sharded == \
+        want._sharded.decision.attn_sharded
 
 
 def test_mesh_devices_requires_mesh_spec(models):
@@ -589,7 +593,8 @@ def test_mesh_devices_requires_mesh_spec(models):
 
 def test_fleet_refuses_more_replicas_than_groups(models):
     """A dp carve bounds the fleet; within it each tp=1 replica runs on
-    its group's device, and a tp > 1 group raises (item 9)."""
+    its group's device, and a tp > 1 group runs a tensor-parallel
+    replica over its group."""
     _, _, cfg, tp = models["plain"]
     devs = [torch.device("cpu")] * 2
     ec = EngineConfig(**REPLICA, mesh_spec=MeshSpec(dp=2, tp=1, sp=1))
@@ -604,10 +609,12 @@ def test_fleet_refuses_more_replicas_than_groups(models):
     assert not fleet.can_grow()
     fleet.submit(Request("a", np.arange(8), 3))
     assert len(fleet.run()["a"].tokens) == 3
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ReplicaFleet(tp, cfg, EngineConfig(
-            **REPLICA, mesh_spec=MeshSpec(dp=1, tp=2, sp=1)),
-            replicas=1, device="cpu", devices=devs)
+    sharded = ReplicaFleet(tp, cfg, EngineConfig(
+        **REPLICA, mesh_spec=MeshSpec(dp=1, tp=2, sp=1)),
+        replicas=1, device="cpu", devices=devs)
+    assert sharded.replicas[0].engine._sharded.devices == devs
+    sharded.submit(Request("a", np.arange(8), 3))
+    assert sharded.run()["a"].tokens == fleet.result("a").tokens
 
 
 # -- TestFleetMetrics --------------------------------------------------------
