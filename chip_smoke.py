@@ -16,11 +16,12 @@ Phases (any failure raises and the script exits non-zero):
    0.6 raises torch.OutOfMemoryError.
 3. kernels: the flash forward and the two flash backward kernels (dK/dV,
    dQ) against their plain PyTorch versions on the card, at the main
-   paths' shapes and a few more (GQA, window, ragged, d=128, f32, and
-   the edges of the bf16 kernels' tiles), with the tolerances
-   below; then each kernel's time beside the plain version's, one
-   library call's, and the bound the card sets, at the serving
-   flagship's attention shape and at the training shape, with the
+   paths' shapes and a few more (GQA, window, ragged, d=128, f32, the
+   edges of the bf16 kernels' tiles, and train_sharded's unit), with the
+   tolerances below; then each kernel's time beside the plain version's,
+   one library call's, and the bound the card sets, at the serving
+   flagship's attention shape, at the training shape and at
+   train_sharded's unit shape (1, 4, 2048, 128), with the
    achieved TFLOP/s and the ratio to the library call; and the f32
    instantiations' times at (4, 8, 1024, 64) beside SDPA at f32 (TF32
    off) and the bound at the f32 CUDA-core peak.
@@ -188,6 +189,24 @@ Phases (any failure raises and the script exits non-zero):
    default AdamW's first update at the drift limits) and captured with
    einsum dispatch, with step ms, tokens/s and the share of the bf16
    peak.
+   train_sharded: the training half of the mesh (parallel/spmd.py,
+   make_train_step(mesh=..., param_rules=...)) on the one card, the mesh
+   dp=2 x tp=2 naming cuda:0 four times, on the train phase's batch.
+   Step 1's loss and every gradient of the sharded program against one
+   device's; then (a) the train-step flagship under
+   transformer_sharding_rules, 10 steps eager and 10 captured (the whole
+   sharded step one CUDA graph); (b) the same captured under
+   transformer_fsdp_rules (embed P("tp", "dp"), wq P("dp", "tp", None),
+   a unit holding half of (a)'s bytes); (c) the MoE model captured
+   (experts over tp), after its step-1 forward against one device's with
+   rows moved by router near-ties counted and excused; (d) moe_apply
+   under moe_sharding_rules("ep") over dp=1 x ep=2 x tp=2 at x (2, 2048,
+   1024) against the unsharded op, loss and gradients.  Each run prints
+   its launches (the flash kernels per unit at (1, 4, 2048, 128)), losses,
+   step ms by CUDA events beside the host enqueue, the bytes of
+   parameters and moments a unit holds, and checks that every copy of a
+   slice is equal to the bit; the losses are held to the single-device
+   captured runs of the train and moe phases.
 7. mnist: the co-run's MNIST at batch 512 from weights converted from a
    numpy tree: its logits against the CPU's, and 8 captured train steps
    against 8 eager ones, timed.
@@ -207,7 +226,8 @@ last lines are the card (nvidia-smi), a JSON ``kernels`` line, and
 ``{"ok": true, "device": {...}}``.
 
 ``--profile-train`` builds the kernels and runs only the train path's
-steady steps under ``torch.profiler``, eager and then captured: the
+steady steps under ``torch.profiler``, eager, captured, and captured over
+train_sharded's dp=2 x tp=2 mesh: the
 host's enqueue time and the wall time per step, the device's busy share,
 and device time by kernel.  ``--profile-engine`` does the same for the
 engine phase's default pass over its trace, on the serving flagship and
@@ -520,6 +540,36 @@ MOE_DISPATCH_RTOL = 1e-2
 MOE_ROUTE_MARGIN = 0.05
 # (a) forwards under torch.profiler, device time by kernel a call
 MOE_PROFILED_CALLS = 5
+
+
+# train_sharded: the train-step flagship and the MoE model over a
+# dp=2 x tp=2 mesh that names the card four times.  A unit holds a row of
+# the batch and half the heads: the flash kernels run at this shape
+SHARDED_MESH = dict(dp=2, tp=2)
+SHARDED_UNIT_SHAPE = (TRAIN_BATCH // SHARDED_MESH["dp"],
+                      TRAIN_DIMS["n_heads"] // SHARDED_MESH["tp"], TRAIN_SEQ,
+                      TRAIN_DIMS["d_model"] // TRAIN_DIMS["n_heads"])
+# the sharded run's losses against the single-device captured run's,
+# absolute.  Step 1 precedes any update: the sharded forward rounds each
+# unit's bf16 partial product of wo and w_out before the psum adds them
+# (one device rounds the whole sum once) and adds the vocabulary pieces'
+# exponentials in another order (first card run: 8.297e-5 apart, dense;
+# 9.441e-5, MoE).  Then the gradients differ by a few bf16 ulps (step 1:
+# 2.804e-2 of max, cosine 0.999759), Adam's normalised steps turn that
+# into whole steps of lr on small gradients, and on this fixed batch,
+# whose loss falls from 10.9 to 7.8 in ten steps, the two runs part by
+# up to 0.1383 (dense, step 10) and 0.1445 (MoE) in the first card run;
+# the drift limit allows 1.8x that.  The sharded run's eager and
+# captured forms (two AdamW forms on one program) are held to each other
+# at CAPTURE_DRIFT_LOSS_ATOL, as the single-device pair is
+SHARDED_FIRST_LOSS_ATOL = 1e-3
+SHARDED_DRIFT_LOSS_ATOL = 0.25
+# (d) moe_apply over dp=1 x ep=2 x tp=2 against the unsharded op on the
+# card, bf16, the same router product on the same gathered tokens, so the
+# same routing: the output and gradients differ only where the experts'
+# batched products (4 experts a unit, 8 unsharded) and the gradient sums
+# run in another order, about a bf16 ulp of the largest value
+SHARDED_MOE_RTOL = MOE_DISPATCH_RTOL
 
 
 def check(condition: bool, message: str) -> None:
@@ -872,6 +922,10 @@ def dense_cases(torch):
         # the MoE model's serving prefill: head_dim 128 at s = 896
         ("moe_prefill_896_d128", (N_REQUESTS, 8, PROMPT_LEN, 128), 8,
          torch.bfloat16, True, None),
+        # train_sharded's unit: the train shape's rows over dp, its heads
+        # over tp
+        ("train_sharded_unit", SHARDED_UNIT_SHAPE, SHARDED_UNIT_SHAPE[1],
+         torch.bfloat16, True, None),
         # the edges of the bf16 forward's 128-row tiles and TMA boxes:
         # ragged across a tile (TMA's zero fill) with GQA, less than one
         # tile, and a window edge that no tile boundary meets
@@ -916,11 +970,12 @@ def kernel_phase(torch, device):
     # times at the serving flagship's attention shape and the training
     # shape, then the f32 instantiations (CUDA-core products) at the
     # serving shape, beside SDPA at f32 (TF32 is off for the whole run),
-    # then the MoE model's serving prefill shape
+    # then the MoE model's serving prefill shape and train_sharded's unit
     timings = [time_shape(torch, shape, gen)
                for shape in ((4, 8, 1024, 64), (TRAIN_BATCH, 8, TRAIN_SEQ, 128))]
     timings.append(time_shape(torch, F32_TIMED_SHAPE, gen, "float32"))
     timings.append(time_shape(torch, (N_REQUESTS, 8, PROMPT_LEN, 128), gen))
+    timings.append(time_shape(torch, SHARDED_UNIT_SHAPE, gen))
     return worst, timings
 
 
@@ -3070,7 +3125,8 @@ def capture_phase(torch, device, eager):
                   (eager["losses"], eager["params"]), initial,
                   CAPTURE_DRIFT_LOSS_ATOL, CAPTURE_DRIFT_UPDATE_RTOL)
     guard_check(torch, train_step, state, batches[0], median_ms)
-    return launches, {"median_ms": median_ms, "host_median_ms": host_ms}
+    return launches, {"median_ms": median_ms, "host_median_ms": host_ms,
+                      "losses": losses}
 
 
 def guard_check(torch, train_step, state, batch, step_ms):
@@ -3282,20 +3338,28 @@ def profile_engine(torch, device, label, config, params):
 
 
 def profile_train(torch, device, capture: bool, warmup: int = 3,
-                  steps: int = 5):
-    """Steady train steps (eager, or captured: one graph replay a step)
+                  steps: int = 5, sharded: bool = False):
+    """Steady train steps (eager, or captured: one graph replay a step;
+    ``sharded``: train_sharded's (a) over SHARDED_MESH on the one card)
     under torch.profiler: host enqueue and wall time per step, device
     busy share, and device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    from kubeshare_tpu_torch.models.transformer import transformer_apply
+    from kubeshare_tpu_torch.models.transformer import (
+        transformer_apply, transformer_sharding_rules)
+    from kubeshare_tpu_torch.parallel.mesh import MeshSpec, make_mesh
     from kubeshare_tpu_torch.parallel.train import make_train_step
 
     config, params, tokens, targets = train_setup(torch, device)
+    mesh = (make_mesh(MeshSpec(**SHARDED_MESH), devices=[device] * 4)
+            if sharded else None)
     init_state, train_step = make_train_step(
-        lambda p, t: transformer_apply(p, t, config), capture=capture)
+        lambda p, t: transformer_apply(p, t, config), mesh=mesh,
+        param_rules=transformer_sharding_rules() if sharded else None,
+        capture=capture)
     state = init_state(params)
-    mode = "captured" if capture else "eager"
+    mode = ("sharded " if sharded else "") + ("captured" if capture
+                                              else "eager")
     for _ in range(warmup):
         state, _ = train_step(state, tokens, targets)
     torch.cuda.synchronize()
@@ -3809,14 +3873,14 @@ def moe_train_check(torch, device, config, params, tokens, targets):
     check(first_einsum <= TRAIN_LOSS_ATOL,
           f"the einsum dispatch's step 1 loss differs from scatter's by "
           f"{first_einsum}")
-    return launches
+    return launches, captured[0]
 
 
 def moe_phase(torch, device):
     """The repo's MoE model (MOE_DIMS) at full width on the card: (a) the
     op, (b) the forward, (c) serving 4 requests eager and captured, (d)
     the engine, (e) training eager and captured.  Returns the launches by
-    path."""
+    path and the captured run's losses."""
 
     t0 = time.perf_counter()
     moe_op_check(torch, device)
@@ -3856,9 +3920,364 @@ def moe_phase(torch, device):
     moe_forced_report("engine", moe_teacher_forced(
         torch, params, config, trace, engine_streams, device))
 
-    launches.update(moe_train_check(torch, device, config, params, tokens,
-                                    targets))
+    train_launches, captured_losses = moe_train_check(
+        torch, device, config, params, tokens, targets)
+    launches.update(train_launches)
     print(f"moe phase: {time.perf_counter() - t0:.1f} s")
+    return launches, captured_losses
+
+
+class ShardedMoERoutes:
+    """MoERoutes for the sharded forward: a spy on
+    models.transformer.sharded_moe (put back on exit) recording each MoE
+    layer's router probabilities over the gathered batch, as the layer
+    computes them, and its capacity."""
+
+    def __enter__(self):
+        import torch
+        from kubeshare_tpu_torch.models import transformer
+        from kubeshare_tpu_torch.ops.moe import moe_capacity, router_probs
+
+        self.layers = []
+        self._module, self._inner = transformer, transformer.sharded_moe
+
+        def spy(units, params, ys, config, batch, capacity=None):
+            with torch.no_grad():
+                tokens = units.all_gather([y.detach() for y in ys], 0,
+                                          batch)[0]
+                tokens = tokens.reshape(-1, tokens.shape[-1])
+                router = units.local(params["router"])[0].detach()
+                self.layers.append((
+                    router_probs({"router": router}, tokens),
+                    moe_capacity(config, tokens.shape[0], capacity)))
+            return self._inner(units, params, ys, config, batch, capacity)
+
+        transformer.sharded_moe = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._module.sharded_moe = self._inner
+
+
+def unit_bytes(state):
+    """Bytes of parameters and AdamW moments that mesh device 0 holds."""
+    from kubeshare_tpu_torch.parallel.train import tree_leaves
+
+    total = 0
+    for leaf in tree_leaves(state.params):
+        shard = leaf.shards[0]
+        moments = state.opt_state.state[shard]
+        total += sum(t.numel() * t.element_size() for t in (
+            shard, moments["exp_avg"], moments["exp_avg_sq"]))
+    return total
+
+
+def replicas_equal(torch, tree):
+    """(slices held by several shards, all their copies equal to the bit)."""
+    from kubeshare_tpu_torch.parallel.train import tree_leaves
+
+    copied, equal = 0, True
+    for leaf in tree_leaves(tree):
+        for group in leaf.copies:
+            if len(group) > 1:
+                copied += 1
+                equal &= all(torch.equal(leaf.shards[i], leaf.shards[group[0]])
+                             for i in group[1:])
+    return copied, equal
+
+
+def sharded_train_run(torch, device, label, dims, rules, capture,
+                      with_aux=False):
+    """TRAIN_STEPS AdamW steps of ``dims`` (seed 0, the train phase's
+    batch) over SHARDED_MESH on [device] * 4 under ``rules``: the state,
+    losses, step CUDA-event and host enqueue medians, launches, bytes a
+    unit holds; checks the launches and the replicas."""
+    from kubeshare_tpu_torch.models.transformer import (
+        transformer_apply, transformer_apply_with_aux)
+    from kubeshare_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from kubeshare_tpu_torch.parallel.train import (
+        CAPTURE_WARMUP_STEPS, cross_entropy_loss, make_train_step,
+        tree_leaves)
+
+    config, params, tokens, targets = train_setup(torch, device, dims)
+    units = SHARDED_MESH["dp"] * SHARDED_MESH["tp"]
+    mesh = make_mesh(MeshSpec(**SHARDED_MESH), devices=[device] * units)
+    apply = transformer_apply_with_aux if with_aux else transformer_apply
+    init_state, train_step = make_train_step(
+        lambda p, t: apply(p, t, config), mesh=mesh, param_rules=rules,
+        loss_fn=moe_loss if with_aux else cross_entropy_loss,
+        capture=capture)
+    state = init_state(params)
+    del params
+    torch.cuda.synchronize()
+    reset_counts()
+    state, losses, step_ms, enqueue_ms = timed_steps(
+        torch, train_step, state, [(tokens, targets)] * TRAIN_STEPS)
+    launches = read_counts()
+    passes = ((CAPTURE_WARMUP_STEPS + 1) if capture
+              else TRAIN_STEPS) * config.n_layers * units
+    check(launches == {name: n * passes for name, n in only(
+        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq").items()},
+          f"train_sharded {label} launched {launches}, expected {passes} of "
+          f"each kernel ({config.n_layers} layers x {units} units a pass)")
+    check(all(math.isfinite(x) for x in losses),
+          f"train_sharded {label}: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"train_sharded {label}: the loss did not "
+                                  f"fall: {losses}")
+    copied, equal = replicas_equal(torch, state.params)
+    run = {"state": state, "losses": losses, "median_ms": steady_median(step_ms),
+           "host_ms": steady_median(enqueue_ms), "launches": launches,
+           "bytes": unit_bytes(state), "config": config,
+           # one device's parameters and AdamW moments, f32
+           "single_bytes": 3 * 4 * sum(leaf.shape.numel() for leaf in
+                                       tree_leaves(state.params))}
+    print(f"train_sharded {label} {TRAIN_STEPS} steps over dp="
+          f"{SHARDED_MESH['dp']} x tp={SHARDED_MESH['tp']} on {units} x "
+          f"{device}: launches {launches} ({passes // (config.n_layers * units)}"
+          f" passes x {config.n_layers} layers x {units} units), losses "
+          + " ".join(f"{x:.4f}" for x in losses) + "; step ms "
+          + " ".join(f"{x:.2f}" for x in step_ms)
+          + f"; median of steps {TRAIN_TIMED_FROM}-{TRAIN_STEPS} "
+          f"{run['median_ms']:.3f} ms (CUDA events), host enqueue "
+          f"{run['host_ms']:.3f} ms; parameters + moments a unit "
+          f"{run['bytes'] / 2**20:.1f} MiB; {copied} slices held by several "
+          f"shards, every copy equal to the bit: {equal}")
+    check(equal, f"train_sharded {label}: the copies of a slice differ")
+    return run
+
+
+def hold_trajectory(label, losses, reference, against="the single-device "
+                    "captured run", atol=SHARDED_DRIFT_LOSS_ATOL):
+    """Step 1's loss at SHARDED_FIRST_LOSS_ATOL, every step at ``atol``."""
+    first = abs(losses[0] - reference[0])
+    err = max(abs(a - b) for a, b in zip(losses, reference))
+    print(f"train_sharded {label} losses vs {against}: step 1 abs err "
+          f"{first:.3e} (tol {SHARDED_FIRST_LOSS_ATOL:g}), max over "
+          f"{len(losses)} steps {err:.3e} (tol {atol:g})")
+    check(first <= SHARDED_FIRST_LOSS_ATOL and err <= atol,
+          f"train_sharded {label}: the losses differ from {against}'s by "
+          f"{first} at step 1, {err} at most")
+
+
+def sharded_grad_check(torch, device):
+    """(a) step 1's loss and every gradient of the sharded program
+    (gathered, the copies summed) against one device's, both bf16 with
+    the flash kernels, at the train phase's kernel-vs-reference limits."""
+    from kubeshare_tpu_torch.models.transformer import (
+        transformer_apply, transformer_sharding_rules)
+    from kubeshare_tpu_torch.parallel.mesh import (MeshSpec, make_mesh,
+                                                   shard_params)
+    from kubeshare_tpu_torch.parallel.spmd import sum_copies
+    from kubeshare_tpu_torch.parallel.train import (cross_entropy_loss,
+                                                    tree_leaves)
+
+    config, params, tokens, targets = train_setup(torch, device)
+    mesh = make_mesh(MeshSpec(**SHARDED_MESH), devices=[device] * 4)
+    with torch.no_grad():
+        placed = shard_params(params, transformer_sharding_rules(), mesh,
+                              copy=True)
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    loss = cross_entropy_loss(transformer_apply(params, tokens, config),
+                              targets)
+    grads = torch.autograd.grad(loss, leaves)
+    del params, leaves
+    placed_leaves = tree_leaves(placed)
+    for leaf in placed_leaves:
+        for shard in leaf.shards:
+            shard.requires_grad_(True)
+    sharded_loss = cross_entropy_loss(transformer_apply(placed, tokens,
+                                                        config), targets)
+    sharded_loss.backward()
+    sum_copies(placed_leaves)
+    sharded = [leaf.grad.gather() for leaf in placed_leaves]
+    loss, sharded_loss = float(loss.detach()), float(sharded_loss.detach())
+    loss_err = abs(sharded_loss - loss)
+    grad_err = max(rel_err(g, r) for g, r in zip(sharded, grads))
+    cosine = min(float(torch.nn.functional.cosine_similarity(
+        g.float().flatten(), r.float().flatten(), dim=0))
+        for g, r in zip(sharded, grads))
+    print(f"train_sharded (a) step 1 vs one device ({len(grads)} tensors): "
+          f"loss {sharded_loss:.5f} vs {loss:.5f} (abs err "
+          f"{loss_err:.3e}, tol {SHARDED_FIRST_LOSS_ATOL}), worst grad "
+          f"max-abs-err/max-ref {grad_err:.3e} (tol {TRAIN_GRAD_RTOL}), "
+          f"lowest cosine {cosine:.6f} (tol {TRAIN_GRAD_MIN_COSINE})")
+    check(loss_err <= SHARDED_FIRST_LOSS_ATOL,
+          f"train_sharded: step 1's loss differs from one device's by "
+          f"{loss_err}")
+    check(grad_err <= TRAIN_GRAD_RTOL and cosine >= TRAIN_GRAD_MIN_COSINE,
+          f"train_sharded: step 1's gradients differ from one device's "
+          f"({grad_err} of max, cosine {cosine})")
+
+
+def sharded_moe_forward_check(torch, device):
+    """(c) step 1's forward of the MoE model, sharded against one device:
+    the rows that router near-ties send to other experts are counted
+    (each a near-tie, MOE_ROUTE_MARGIN), the others' logits held at
+    SLICE_LOGITS_ATOL."""
+    from kubeshare_tpu_torch.models.transformer import (
+        transformer_apply_with_aux, transformer_sharding_rules)
+    from kubeshare_tpu_torch.parallel.mesh import (MeshSpec, make_mesh,
+                                                   shard_params)
+
+    config, params, tokens, _ = train_setup(torch, device, MOE_DIMS)
+    mesh = make_mesh(MeshSpec(**SHARDED_MESH), devices=[device] * 4)
+    with torch.no_grad():
+        with MoERoutes() as routes:
+            logits, aux = transformer_apply_with_aux(params, tokens, config)
+        placed = shard_params(params, transformer_sharding_rules(), mesh)
+        with ShardedMoERoutes() as sharded_routes:
+            sharded, sharded_aux = transformer_apply_with_aux(placed, tokens,
+                                                              config)
+        sharded = sharded.gather()
+    touched, moved, unexplained, widest = routing_differences(
+        torch, routes.layers, sharded_routes.layers, config.moe_top_k)
+    n = tokens.numel()
+    row_err = (logits - sharded).abs().reshape(n, -1).max(dim=1).values
+    err = float(row_err[~touched].max())
+    print(f"train_sharded moe forward {tuple(tokens.shape)} sharded vs one "
+          f"device: aux {float(sharded_aux):.6f} vs {float(aux):.6f}; "
+          f"{int(touched.sum())}/{n} rows routed differently ({moved} moved "
+          f"first, the widest at a margin of {widest:.4f}, {unexplained} at "
+          f"a margin >= {MOE_ROUTE_MARGIN}); the other rows' logits max abs "
+          f"err {err:.3e} (tol {SLICE_LOGITS_ATOL}), all rows "
+          f"{float(row_err.max()):.3e}")
+    check(unexplained == 0, f"train_sharded moe: {unexplained} rows routed "
+                            f"differently at a margin >= {MOE_ROUTE_MARGIN}")
+    check(err <= SLICE_LOGITS_ATOL,
+          f"train_sharded moe: logits differ from one device's by {err}")
+
+
+def sharded_moe_op_check(torch, device):
+    """(d) moe_apply under moe_sharding_rules(ep_axis="ep") over dp=1 x
+    ep=2 x tp=2 against the unsharded op on the card: x (2, 2048, 1024)
+    bf16, the MoE model's experts; loss = mean(out^2) + aux coefficient x
+    aux, its value and every gradient."""
+    from kubeshare_tpu_torch.ops import moe
+    from kubeshare_tpu_torch.parallel.mesh import (MeshSpec, ShardedTensor,
+                                                   batch_sharding, device_put,
+                                                   make_mesh, shard_params)
+    from kubeshare_tpu_torch.parallel.spmd import sum_copies
+
+    d, f, e = MOE_DIMS["d_model"], MOE_DIMS["d_ff"], MOE_DIMS["moe_num_experts"]
+    config = moe.MoEConfig(d_model=d, d_ff=f, num_experts=e,
+                           capacity_factor=MOE_DIMS["moe_capacity_factor"],
+                           top_k=MOE_DIMS["moe_top_k"])
+    params = moe.moe_init(config, torch.Generator().manual_seed(0), device)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, d),
+                    generator=torch.Generator().manual_seed(1)).to(
+                        device, torch.bfloat16)
+
+    def loss_of(out, aux):
+        out = out.gather() if isinstance(out, ShardedTensor) else out
+        return out.float().square().mean() + MOE_AUX_COEF * aux
+
+    leaves = {name: t.clone().requires_grad_() for name, t in params.items()}
+    loss = loss_of(*moe.moe_apply(leaves, x, config))
+    loss.backward()
+    mesh = make_mesh(MeshSpec(dp=1, ep=2, tp=2), devices=[device] * 4)
+    with torch.no_grad():
+        placed = shard_params(params, moe.moe_sharding_rules("ep"), mesh,
+                              copy=True)
+    for leaf in placed.values():
+        for shard in leaf.shards:
+            shard.requires_grad_(True)
+    reset_counts()
+    sharded_loss = loss_of(*moe.moe_apply(
+        placed, device_put(x, batch_sharding(mesh, 3)), config))
+    sharded_loss.backward()
+    sum_copies(placed.values())
+    launches = read_counts()
+    errs = {name: rel_err(leaf.grad.gather(), leaves[name].grad)
+            for name, leaf in placed.items()}
+    loss, sharded_loss = float(loss.detach()), float(sharded_loss.detach())
+    loss_err = abs(sharded_loss - loss) / abs(loss)
+    print(f"train_sharded moe op at x {tuple(x.shape)} bf16 under "
+          f"moe_sharding_rules('ep') over dp=1 x ep=2 x tp=2: experts "
+          f"{placed['w_in'].spec}, loss {sharded_loss:.6f} vs "
+          f"unsharded {loss:.6f} (rel err {loss_err:.3e}); gradients "
+          f"max-abs-err/max-ref " + ", ".join(
+              f"{name} {err:.3e}" for name, err in sorted(errs.items()))
+          + f" (tol {SHARDED_MOE_RTOL})")
+    check(loss_err <= SHARDED_MOE_RTOL and max(errs.values()) <= SHARDED_MOE_RTOL,
+          f"train_sharded moe op differs from the unsharded op: loss "
+          f"{loss_err}, gradients {errs}")
+    return launches
+
+
+def train_sharded_phase(torch, device, dense, moe_losses):
+    """The training half of the mesh at full width on the one card: (a)
+    the train-step flagship over dp=2 x tp=2 under
+    transformer_sharding_rules, eager then captured; (b) the same captured
+    under transformer_fsdp_rules; (c) the MoE model captured (experts over
+    tp); (d) moe_apply under moe_sharding_rules('ep').  ``dense`` and
+    ``moe_losses``: the single-device captured runs of the train and moe
+    phases.  Returns the launches by path."""
+    from kubeshare_tpu_torch.models.transformer import (
+        transformer_fsdp_rules, transformer_sharding_rules)
+    from kubeshare_tpu_torch.parallel.mesh import P
+
+    t0 = time.perf_counter()
+    launches = {}
+    sharded_grad_check(torch, device)
+    torch.cuda.empty_cache()
+    eager = sharded_train_run(torch, device, "(a) eager", TRAIN_DIMS,
+                              transformer_sharding_rules(), capture=False)
+    launches["train_sharded"] = eager["launches"]
+    eager_losses = eager["losses"]
+    del eager
+    base = sharded_train_run(torch, device, "(a) captured", TRAIN_DIMS,
+                             transformer_sharding_rules(), capture=True)
+    launches["train_sharded_captured"] = base["launches"]
+    hold_trajectory("(a) eager", eager_losses, dense["losses"])
+    hold_trajectory("(a) captured", base["losses"], dense["losses"])
+    hold_trajectory("(a) captured", base["losses"], eager_losses,
+                    "the sharded eager run", CAPTURE_DRIFT_LOSS_ATOL)
+    print(f"train_sharded (a) step, median: captured {base['median_ms']:.3f} "
+          f"ms over 4 units against the single-device captured "
+          f"{dense['median_ms']:.3f} ms ({base['median_ms'] / dense['median_ms']:.3f}x); "
+          f"parameters + moments a unit {base['bytes'] / 2**20:.1f} MiB "
+          f"against one device's {base['single_bytes'] / 2**20:.1f} MiB "
+          f"({base['bytes'] / base['single_bytes']:.4f})")
+    base_bytes, base_losses = base["bytes"], base["losses"]
+    del base
+    torch.cuda.empty_cache()
+
+    fsdp = sharded_train_run(torch, device, "(b) fsdp captured", TRAIN_DIMS,
+                             transformer_fsdp_rules(), capture=True)
+    launches["train_sharded_fsdp"] = fsdp["launches"]
+    embed = fsdp["state"].params["embed"].spec
+    wq = fsdp["state"].params["layers"][0]["attn"]["wq"].spec
+    ratio = fsdp["bytes"] / base_bytes
+    print(f"train_sharded (b) placements: embed {embed}, wq {wq}; "
+          f"parameters + moments a unit {ratio:.4f} of (a)'s; step median "
+          f"{fsdp['median_ms']:.3f} ms")
+    check(embed == P("tp", "dp") and wq == P("dp", "tp", None),
+          f"train_sharded (b): embed {embed}, wq {wq}")
+    check(0.5 <= ratio <= 0.52,
+          f"train_sharded (b): a unit holds {ratio} of (a)'s bytes")
+    hold_trajectory("(b) fsdp captured", fsdp["losses"], dense["losses"])
+    # fsdp gathers whole weights before the products: (a)'s products on
+    # the same operands (equal to the bit in the first card run)
+    hold_trajectory("(b) fsdp captured", fsdp["losses"], base_losses,
+                    "(a) captured", CAPTURE_SAME_LOSS_ATOL)
+    del fsdp
+    torch.cuda.empty_cache()
+
+    sharded_moe_forward_check(torch, device)
+    torch.cuda.empty_cache()
+    moe_run = sharded_train_run(torch, device, "(c) moe captured", MOE_DIMS,
+                                transformer_sharding_rules(), capture=True,
+                                with_aux=True)
+    launches["train_sharded_moe"] = moe_run["launches"]
+    hold_trajectory("(c) moe captured", moe_run["losses"], moe_losses)
+    del moe_run
+    torch.cuda.empty_cache()
+    launches["train_sharded_moe_op"] = sharded_moe_op_check(torch, device)
+    check(launches["train_sharded_moe_op"] == only(),
+          f"moe_apply launched {launches['train_sharded_moe_op']}")
+    print(f"train sharded phase: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3905,6 +4324,8 @@ def main() -> int:
     if "--profile-train" in sys.argv[1:]:
         result = {mode: profile_train(torch, device, capture)
                   for mode, capture in (("eager", False), ("captured", True))}
+        result["sharded_captured"] = profile_train(torch, device, True,
+                                                   sharded=True)
         print(card)
         print(json.dumps({"profile_train": result}))
         return 0
@@ -3948,11 +4369,15 @@ def main() -> int:
     print(f"engine sharded phase: {time.perf_counter() - t0:.1f} s")
     del engine_stats
     launches["train"], eager = train_phase(torch, device)
-    launches["train_captured"], _ = capture_phase(torch, device, eager)
+    launches["train_captured"], captured = capture_phase(torch, device, eager)
     launches["block_sparse"] = bs_launches
     del eager
     torch.cuda.empty_cache()
-    launches.update(moe_phase(torch, device))
+    moe_launches, moe_captured = moe_phase(torch, device)
+    launches.update(moe_launches)
+    torch.cuda.empty_cache()
+    launches.update(train_sharded_phase(torch, device, captured,
+                                        moe_captured))
     torch.cuda.empty_cache()
     mnist_phase(torch, device)
     corun_phase()

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .parallel.mesh import shard_tensor
 from .parallel.train import TrainState, make_train_step, tree_leaves_with_paths
 
 
@@ -36,7 +37,8 @@ def params_from_jax(tree: Any, device=None) -> Any:
 
 
 def train_state_from_jax(params: Any, mu: Any, nu: Any, count: Any,
-                         device=None) -> TrainState:
+                         device=None, mesh=None,
+                         param_rules=None) -> TrainState:
     """A port :class:`TrainState` that carries a JAX ``optax.adamw(1e-3)``
     run on.
 
@@ -45,22 +47,42 @@ def train_state_from_jax(params: Any, mu: Any, nu: Any, count: Any,
     (``state.opt_state[0]``), as numpy.  The port's AdamW (its default,
     :func:`~kubeshare_tpu_torch.parallel.train.adamw`) starts with those
     moments and that step count, so the port's next step is the JAX
-    run's next step."""
+    run's next step.
+
+    With a ``mesh`` (a JAX sharded ``TrainState``, gathered to numpy by
+    ``jax.device_get``): the parameters are placed by ``param_rules`` as
+    ``make_train_step(..., mesh=mesh, param_rules=param_rules)`` places
+    them, and each shard's moments are the same slices of ``mu`` and
+    ``nu``; ``device`` is unused (the mesh names the devices)."""
+    if mesh is not None:
+        device = "cpu"  # converted on the host, then placed on the mesh
     tree = params_from_jax(params, device)
-    init_state, _ = make_train_step(lambda p, t: None)
+    init_state, _ = make_train_step(lambda p, t: None, mesh=mesh,
+                                    param_rules=param_rules)
     state = init_state(tree)
     moments = {"exp_avg": params_from_jax(mu, device),
                "exp_avg_sq": params_from_jax(nu, device)}
     moment_leaves = {name: dict(tree_leaves_with_paths(m))
                      for name, m in moments.items()}
     step = int(np.asarray(count))
-    for path, leaf in tree_leaves_with_paths(tree):
-        entry = {"step": torch.tensor(float(step), dtype=torch.float32)}
+    for path, leaf in tree_leaves_with_paths(state.params):
+        moment = {}
         for name, leaves in moment_leaves.items():
             if path not in leaves or leaves[path].shape != leaf.shape:
                 raise ValueError(f"{name} has no leaf of shape "
                                  f"{tuple(leaf.shape)} at {path}")
-            entry[name] = leaves[path]
-        state.opt_state.state[leaf] = entry
+            moment[name] = leaves[path]
+        if mesh is None:
+            pieces = [(leaf, moment)]
+        else:
+            placed = {name: shard_tensor(m, leaf.spec, mesh, copy=True)
+                      for name, m in moment.items()}
+            pieces = [(shard, {name: m.shards[i]
+                               for name, m in placed.items()})
+                      for i, shard in enumerate(leaf.shards)]
+        for shard, entry in pieces:
+            state.opt_state.state[shard] = {
+                "step": torch.tensor(float(step), dtype=torch.float32),
+                **entry}
     state.step = step
     return state

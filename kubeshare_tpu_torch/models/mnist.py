@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..parallel.spmd import refuse_sharded
 
 
 @dataclass(frozen=True)
@@ -67,7 +68,9 @@ def mnist_init(generator: torch.Generator, config: MnistConfig = MnistConfig(),
 
 
 def mnist_apply(params: Dict, images: torch.Tensor) -> torch.Tensor:
-    """images: [batch, 28, 28, 1] (NHWC) -> logits [batch, classes]."""
+    """images: [batch, 28, 28, 1] (NHWC) -> logits [batch, classes].
+    One device's parameters: a sharded tree raises ``TypeError``."""
+    refuse_sharded("mnist_apply", params, images)
     x = images.permute(0, 3, 1, 2)  # NCHW for conv2d
     for layer in ("conv1", "conv2"):
         w = params[layer]["w"].permute(3, 2, 0, 1)  # HWIO -> OIHW

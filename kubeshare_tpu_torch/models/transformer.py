@@ -17,14 +17,20 @@ here through ``kv_sink``, the decode and paged steps in their own
 modules).  :func:`transformer_apply_with_aux` also returns the MoE
 load-balancing loss.
 
+Both entry points are mesh-aware, as the JAX functions are under GSPMD:
+given a tree placed by ``parallel.mesh.shard_params`` (under
+:func:`transformer_sharding_rules` or :func:`transformer_fsdp_rules`)
+they run the sharded program (``parallel/spmd.py``) and return the
+logits as a ``ShardedTensor``.
+
 Not in this port yet (ROADMAP.md queue A): the ring / Ulysses /
-pipelined entries (item 11).
+pipelined entries and a batch split along the sequence (item 11).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -33,8 +39,12 @@ from torch import nn
 
 from .. import resolve_device
 from ..ops.attention import attention_reference, flash_attention, use_kernel_default
-from ..ops.moe import MoEConfig, moe_apply, moe_init
+from ..ops.moe import MoEConfig, moe_apply, moe_init, sharded_moe
 from ..ops.rope import apply_rope, rope_positions
+from ..parallel.mesh import (Mesh, P, PartitionSpec, ShardedTensor,
+                             _split_names, batch_sharding, device_put)
+from ..parallel.spmd import Units, mesh_of, place_plain, split_axis
+from ..parallel.train import tree_leaves
 
 
 @dataclass(frozen=True)
@@ -294,7 +304,13 @@ def transformer_apply(params: Dict, tokens: torch.Tensor,
     """tokens: [batch, seq] integer -> logits [batch, seq, vocab] f32.
 
     Differentiable: on CUDA with attention ``auto``/``flash`` the
-    backward runs the flash backward kernels."""
+    backward runs the flash backward kernels.  Mesh-aware: a tree of
+    ``ShardedTensor`` leaves (``parallel.mesh.shard_params``) runs the
+    sharded program (:func:`_sharded_forward`) and returns the logits as
+    a ``ShardedTensor``."""
+    mesh = mesh_of(params, tokens)
+    if mesh is not None:
+        return _sharded_forward(params, tokens, config, mesh)[0]
     logits, _ = _forward(params, tokens, config,
                          _select_attention(config, tokens.device), 0)
     return logits
@@ -305,8 +321,203 @@ def transformer_apply_with_aux(params: Dict, tokens: torch.Tensor,
     """Like :func:`transformer_apply` but also returns the summed MoE
     load-balancing auxiliary loss (0 for all-dense configs): add it to
     the training loss with a small coefficient (conventionally 1e-2)."""
+    mesh = mesh_of(params, tokens)
+    if mesh is not None:
+        return _sharded_forward(params, tokens, config, mesh)
     return _forward(params, tokens, config,
                     _select_attention(config, tokens.device), 0)
+
+
+# ---------------------------------------------------------------------------
+# the sharded program (parallel/spmd.py): one body per work unit
+# ---------------------------------------------------------------------------
+
+def transformer_sharding_rules() -> Dict[str, PartitionSpec]:
+    """Path-substring -> PartitionSpec rules over the (dp, tp, sp) mesh.
+
+    tp splits attention heads and MLP hidden; embeddings/lm_head split on
+    the vocab axis; norms replicate.  Used with parallel.mesh.shard_params
+    / param_spec_tree."""
+    return {
+        "embed": P("tp", None),
+        "pos_embed": P(),
+        "wq": P(None, "tp", None),
+        "wk": P(None, "tp", None),
+        "wv": P(None, "tp", None),
+        "wo": P("tp", None, None),
+        "w_in": P(None, "tp"),
+        "w_out": P("tp", None),
+        # MoE layers: experts sharded over tp (ep-over-tp), router
+        # replicated.  Needles are keystr substrings; the longer
+        # moe-qualified patterns beat the dense "w_in"/"w_out" ones.
+        "moe']['w_in": P("tp", None, None),
+        "moe']['w_out": P("tp", None, None),
+        "router": P(),
+        "lm_head": P(None, "tp"),
+        "norm": P(),
+        "scale": P(),
+    }
+
+
+def transformer_fsdp_rules(axis: str = "dp") -> Dict[str, PartitionSpec]:
+    """Zero-style (FSDP) parameter sharding composed WITH tensor
+    parallelism: every weight matrix additionally shards a non-tp axis
+    over ``axis`` (conventionally dp), so parameter and optimizer-state
+    memory scale down with the dp degree.  The sharded forward gathers
+    each weight's ``axis`` split at use, and autograd's transpose of the
+    gather reduce-scatters its gradient (ZeRO-3 by placement).  The
+    optimizer state follows: the training step builds every moment over
+    its parameter's shard."""
+    return {
+        "embed": P("tp", axis),
+        "pos_embed": P(),
+        "wq": P(axis, "tp", None),
+        "wk": P(axis, "tp", None),
+        "wv": P(axis, "tp", None),
+        "wo": P("tp", None, axis),
+        "w_in": P(axis, "tp"),
+        "w_out": P("tp", axis),
+        # MoE experts: expert axis over tp (as in the base rules), the
+        # feature axis over dp
+        "moe']['w_in": P("tp", axis, None),
+        "moe']['w_out": P("tp", axis, None),
+        "router": P(),
+        "lm_head": P(axis, "tp"),
+        "norm": P(),
+        "scale": P(),
+    }
+
+
+def _sharded_layer(units: Units, layer: Dict, xs: List[torch.Tensor],
+                   attention_fn: AttentionFn, config: TransformerConfig,
+                   positions: Optional[List[torch.Tensor]],
+                   batch: Tuple[str, ...]):
+    """One layer over the units: (xs, aux).  Heads split over an axis on
+    which wq / wk / wv (dim 1) and wo (dim 0) agree run per unit on the
+    unit's query and KV heads and psum the output projection; the MLP's
+    hidden likewise (w_in dim 1, w_out dim 0); every other split of a
+    weight (fsdp) is gathered at use."""
+    dtype = config.dtype
+    attn = layer["attn"]
+    heads = split_axis(batch, (attn["wq"], 1), (attn["wk"], 1),
+                       (attn["wv"], 1), (attn["wo"], 0))
+
+    def local(weight, dim, axis):
+        return units.local(weight, {dim: (axis,)} if axis else None)
+
+    wq, wk, wv = (local(attn[name], 1, heads) for name in ("wq", "wk", "wv"))
+    wo = local(attn["wo"], 0, heads)
+    norm1 = units.local(layer["norm1"]["scale"])
+    norm2 = units.local(layer["norm2"]["scale"])
+    parts = []
+    for u, x in enumerate(xs):
+        y = _rms_norm(x, norm1[u])
+        q, k, v = _project(y, wq[u]), _project(y, wk[u]), _project(y, wv[u])
+        if positions is not None:
+            q = apply_rope(q, positions[u])
+            k = apply_rope(k, positions[u])
+        o = attention_fn(q, k, v).to(dtype)
+        parts.append(torch.einsum("bhsk,hkd->bsd", o, wo[u].to(dtype)))
+    if heads:
+        parts = units.psum(parts, (heads,))
+    xs = [x + part for x, part in zip(xs, parts)]
+    ys = [_rms_norm(x, scale) for x, scale in zip(xs, norm2)]
+    if "moe" in layer:
+        e, d, f = layer["moe"]["w_in"].shape
+        outs, aux = sharded_moe(units, layer["moe"], ys,
+                                _moe_config(config, d, f, e), batch)
+        return [x + out.to(dtype) for x, out in zip(xs, outs)], aux
+    mlp = layer["mlp"]
+    hidden = split_axis(batch, (mlp["w_in"], 1), (mlp["w_out"], 0))
+    w_in = local(mlp["w_in"], 1, hidden)
+    w_out = local(mlp["w_out"], 0, hidden)
+    parts = [_mlp(y, {"w_in": a, "w_out": b})
+             for y, a, b in zip(ys, w_in, w_out)]
+    if hidden:
+        parts = units.psum(parts, (hidden,))
+    return [x + part for x, part in zip(xs, parts)], None
+
+
+def _sharded_forward(params: Dict, tokens, config: TransformerConfig,
+                     mesh: Mesh):
+    """:func:`_forward` (causal, from position 0) as the sharded program
+    over the work units of the params' and the batch's mesh; returns
+    (logits as a ``ShardedTensor`` [batch, seq, vocab] f32, aux).
+
+    Each unit takes its rows of the batch (dp, and ep as a batch axis).
+    Under tp the attention heads, the MLP hidden and the vocabulary are
+    split: attention runs per unit on ``n_heads/tp`` query and
+    ``n_kv_heads/tp`` KV heads, the products that contract a split axis
+    (``wo``, ``w_out``) are psummed over tp, the embedding lookup goes to
+    the shard that owns the token's row (the others add zeros), and the
+    logits stay split by vocabulary (the loss combines their log-softmax
+    statistics: ``parallel.spmd.sharded_cross_entropy``).  A weight's
+    other splits (fsdp) are gathered at use.  MoE layers run
+    ``ops.moe.sharded_moe``; ``config.remat`` recomputes each layer."""
+    check_config(config)
+    if not isinstance(tokens, ShardedTensor):
+        tokens = device_put(tokens, batch_sharding(mesh, tokens.ndim))
+    if any(_split_names(axes) for axes in tokens.spec[1:]):
+        raise NotImplementedError(
+            "a batch split along the sequence (sp) needs ring or Ulysses "
+            "attention, not ported yet (ROADMAP.md queue A item 11)")
+    params = place_plain(params, mesh)
+    units = Units.of(mesh, [tokens.spec]
+                     + [leaf.spec for leaf in tree_leaves(params)])
+    batch = tuple(_split_names(tokens.spec[0] if tokens.spec else None))
+    dtype = config.dtype
+    seq = tokens.shape[1]
+    toks = units.local(tokens, {0: batch})
+
+    # the embedding: the vocabulary split over one axis, each unit looks
+    # up the tokens in its rows and adds zeros for the others.  The
+    # others' lookups are clamped to an edge row, so about (1 - 1/tp) of
+    # the batch repeats one index: F.embedding's backward sums repeats by
+    # segments (indexing's backward walks each repeat in turn: 0.69 ms a
+    # unit at the train-step flagship on an H100)
+    vocab = split_axis(batch, (params["embed"], 0))
+    embed = units.local(params["embed"], {0: (vocab,)} if vocab else None)
+    xs = []
+    for u, tok in enumerate(toks):
+        rows = embed[u].shape[0]
+        first = units.coord(u, (vocab,)) * rows if vocab else 0
+        inside = (tok >= first) & (tok < first + rows)
+        picked = F.embedding((tok - first).clamp(0, rows - 1), embed[u])
+        xs.append(torch.where(inside[..., None], picked,
+                              torch.zeros((), dtype=picked.dtype,
+                                          device=picked.device)))
+    if vocab:
+        xs = units.psum(xs, (vocab,))
+    xs = [x.to(dtype) for x in xs]
+    positions = None
+    if config.positional == "rope":
+        positions = [rope_positions(seq, 0, d) for d in units.devices]
+    else:
+        pos = units.local(params["pos_embed"])
+        xs = [x + p[:seq].to(dtype) for x, p in zip(xs, pos)]
+
+    attention_fn = _select_attention(config, units.devices[0])
+    aux_total = torch.zeros((), dtype=torch.float32,
+                            device=units.devices[0])
+    for layer in params["layers"]:
+        if config.remat:
+            xs, aux = torch.utils.checkpoint.checkpoint(
+                _sharded_layer, units, layer, xs, attention_fn, config,
+                positions, batch, use_reentrant=False)
+        else:
+            xs, aux = _sharded_layer(units, layer, xs, attention_fn, config,
+                                     positions, batch)
+        if aux is not None:
+            aux_total = aux_total + aux
+
+    head = split_axis(batch, (params["lm_head"], 1))
+    lm_head = units.local(params["lm_head"], {1: (head,)} if head else None)
+    final = units.local(params["final_norm"]["scale"])
+    logits = [(_rms_norm(x, scale) @ w.to(dtype)).to(torch.float32)
+              for x, scale, w in zip(xs, final, lm_head)]
+    spec = P(tokens.spec[0] if tokens.spec else None, None, head)
+    shape = (tokens.shape[0], seq, params["lm_head"].shape[1])
+    return units.assemble(logits, spec, shape), aux_total
 
 
 class _Layer(nn.Module):

@@ -7,7 +7,7 @@ from .attention import (
     flash_forward_reference,
     use_kernel_default,
 )
-from .moe import MoEConfig, moe_apply, moe_init
+from .moe import MoEConfig, moe_apply, moe_init, moe_sharding_rules
 from .rope import apply_rope, rope_frequencies, rope_positions
 
 __all__ = [
@@ -21,6 +21,7 @@ __all__ = [
     "flash_forward_reference",
     "moe_apply",
     "moe_init",
+    "moe_sharding_rules",
     "rope_frequencies",
     "rope_positions",
     "use_kernel_default",

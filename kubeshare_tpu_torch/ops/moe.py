@@ -32,20 +32,26 @@ f32 by type promotion, so the tokens are upcast here (casting the router
 to bf16 would pick other experts).  The gates are cast to the activation
 dtype where JAX casts them.
 
-``moe_sharding_rules`` (expert parallelism over a mesh) waits for the
-training half of the mesh, ROADMAP.md queue A item 9b.
+Expert parallelism: :func:`moe_sharding_rules` places the experts over
+a mesh axis, and :func:`moe_apply` given placed parameters and a placed
+batch runs :func:`sharded_moe` (routing over the global batch, each
+unit its own experts; ``parallel/spmd.py`` holds the units and the
+collectives).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..parallel.mesh import (Mesh, P, PartitionSpec, ShardedTensor,
+                             _split_names, batch_sharding, device_put)
+from ..parallel.spmd import Units, mesh_of, place_plain
 
 
 @dataclass(frozen=True)
@@ -143,6 +149,16 @@ def moe_capacity(config: MoEConfig, n: int,
     return capacity
 
 
+def _check_moe(config: MoEConfig) -> None:
+    k = config.top_k
+    if not 1 <= k <= config.num_experts:
+        raise ValueError(f"top_k must be in [1, num_experts], got {k}")
+    if config.routing not in ("tokens_choose", "experts_choose"):
+        raise ValueError(f"unknown routing {config.routing!r}")
+    if config.dispatch not in ("scatter", "einsum"):
+        raise ValueError(f"unknown dispatch {config.dispatch!r}")
+
+
 def moe_apply(params: Dict, x: torch.Tensor, config: MoEConfig,
               capacity: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [batch, seq, d_model] -> (output in x's dtype, aux_loss f32 0-d).
@@ -154,15 +170,18 @@ def moe_apply(params: Dict, x: torch.Tensor, config: MoEConfig,
 
     ``capacity`` overrides the derived per-expert buffer
     (:func:`moe_capacity`); ``capacity=n_tokens`` guarantees no
-    token-choice is dropped, which the cached paths rely on."""
+    token-choice is dropped, which the cached paths rely on.
+
+    Mesh-aware, as the JAX function is under GSPMD: given parameters
+    placed by ``parallel.mesh.shard_params`` (e.g. under
+    :func:`moe_sharding_rules`) and ``x`` placed by ``batch_sharding``
+    (a plain ``x`` is placed so), it runs :func:`sharded_moe` and returns
+    the output as a ``ShardedTensor`` laid out like ``x``'s batch."""
+    mesh = mesh_of(params, x)
+    if mesh is not None:
+        return _moe_apply_sharded(params, x, config, capacity, mesh)
     b, s, d = x.shape
-    k = config.top_k
-    if not 1 <= k <= config.num_experts:
-        raise ValueError(f"top_k must be in [1, num_experts], got {k}")
-    if config.routing not in ("tokens_choose", "experts_choose"):
-        raise ValueError(f"unknown routing {config.routing!r}")
-    if config.dispatch not in ("scatter", "einsum"):
-        raise ValueError(f"unknown dispatch {config.dispatch!r}")
+    _check_moe(config)
     capacity = moe_capacity(config, b * s, capacity)
     probs = router_probs(params, x.reshape(b * s, d))
     return routed_apply(params, x, probs, config, capacity)
@@ -229,6 +248,53 @@ def _dispatch_experts_combine(params: Dict, tokens: torch.Tensor,
     return torch.einsum("nec,ecd->nd", combine, expert_outputs)
 
 
+def _scatter_slots(index: torch.Tensor, kept: torch.Tensor,
+                   position: torch.Tensor, capacity: int, first: int = 0,
+                   count: Optional[int] = None):
+    """(slot [k*n], keep [k*n]) in choice-rank-major order (position's
+    cumsum order): every kept choice of an expert in ``[first, first +
+    count)`` (default: every expert) owns row ``(expert - first) *
+    capacity + position`` of that range's buffers; every other choice
+    goes to the sentinel row ``count * capacity``."""
+    n, k = index.shape
+    count = kept.shape[1] if count is None else count
+    flat_expert = index.T.reshape(k * n)
+    keep = kept.any(dim=-1)  # [k*n]
+    if count != kept.shape[1]:
+        flat_expert = flat_expert - first
+        keep = keep & (flat_expert >= 0) & (flat_expert < count)
+    return torch.where(keep, flat_expert * capacity + position,
+                       count * capacity), keep
+
+
+def _scatter_dispatch(tokens: torch.Tensor, slot: torch.Tensor, k: int,
+                      rows: int, dtype: torch.dtype) -> torch.Tensor:
+    """The expert buffers [rows + 1, d] (the last the sentinel): each
+    token once per choice, added at its slot."""
+    n, d = tokens.shape
+    # each token once per choice as an expand: its backward sums a token's
+    # k rows in a fixed order, where a repeated-index gather would add
+    # them atomically
+    token_rows = tokens.expand(k, n, d).reshape(k * n, d).to(dtype)
+    return torch.zeros((rows + 1, d), dtype=dtype,
+                       device=tokens.device).index_add(0, slot, token_rows)
+
+
+def _scatter_combine(expert_outputs: torch.Tensor, slot: torch.Tensor,
+                     gates: torch.Tensor, keep: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Each token's gated sum over its k choices of the outputs at its
+    slots: expert_outputs [e, capacity, d], slot and keep [k*n] over the
+    n tokens of gates [n, k]."""
+    n, k = gates.shape
+    d = expert_outputs.shape[-1]
+    flat_out = torch.cat([expert_outputs.reshape(-1, d),
+                          expert_outputs.new_zeros((1, d))])
+    flat_gates = gates.T.reshape(k * n).to(dtype) * keep.to(dtype)
+    picked = flat_out.index_select(0, slot) * flat_gates[:, None]  # [k*n, d]
+    return picked.reshape(k, n, d).sum(dim=0)
+
+
 def _scatter_dispatch_combine(params: Dict, tokens: torch.Tensor,
                               index: torch.Tensor, gates: torch.Tensor,
                               kept: torch.Tensor, position: torch.Tensor,
@@ -238,25 +304,12 @@ def _scatter_dispatch_combine(params: Dict, tokens: torch.Tensor,
     (expert, position) buffer slot, so the dispatch is an add into zeros
     that never collides on a kept row and the combine a plain gather.
     Dropped choices route to a sentinel row that is sliced off."""
-    n, d = tokens.shape
-    k = index.shape[1]
-    # choice-rank-major flat order, matching position's cumsum order
-    flat_expert = index.T.reshape(k * n)
-    keep = kept.any(dim=-1)  # [k*n]
-    slot = torch.where(keep, flat_expert * capacity + position, e * capacity)
-    # each token once per choice as an expand: its backward sums a token's
-    # k rows in a fixed order, where a repeated-index gather would add
-    # them atomically
-    token_rows = tokens.expand(k, n, d).reshape(k * n, d).to(dtype)
-    buf = torch.zeros((e * capacity + 1, d), dtype=dtype,
-                      device=tokens.device).index_add(0, slot, token_rows)
+    d = tokens.shape[1]
+    slot, keep = _scatter_slots(index, kept, position, capacity)
+    buf = _scatter_dispatch(tokens, slot, index.shape[1], e * capacity, dtype)
     expert_outputs = _expert_ffn(params, buf[:-1].reshape(e, capacity, d),
                                  dtype)
-    flat_out = torch.cat([expert_outputs.reshape(e * capacity, d),
-                          expert_outputs.new_zeros((1, d))])
-    flat_gates = gates.T.reshape(k * n).to(dtype) * keep.to(dtype)
-    picked = flat_out.index_select(0, slot) * flat_gates[:, None]  # [k*n, d]
-    return picked.reshape(k, n, d).sum(dim=0)
+    return _scatter_combine(expert_outputs, slot, gates, keep, dtype)
 
 
 def _experts_choose(params: Dict, x: torch.Tensor, tokens: torch.Tensor,
@@ -291,3 +344,167 @@ def _experts_choose(params: Dict, x: torch.Tensor, tokens: torch.Tensor,
                                              combine, x.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return combined.reshape(b, s, d), aux
+
+
+def moe_sharding_rules(ep_axis: str = "dp") -> Dict[str, PartitionSpec]:
+    """Expert weights sharded over the expert-parallel axis (conventionally
+    laid over dp); router replicated."""
+    return {
+        "w_in": P(ep_axis, None, None),
+        "w_out": P(ep_axis, None, None),
+        "router": P(),
+    }
+
+
+def _moe_apply_sharded(params: Dict, x, config: MoEConfig,
+                       capacity: Optional[int], mesh: Mesh):
+    """:func:`moe_apply` on a placed ``x`` and placed parameters (either
+    may be plain: ``x`` is then placed by ``batch_sharding``, a weight
+    replicated)."""
+    if not isinstance(x, ShardedTensor):
+        x = device_put(x, batch_sharding(mesh, x.ndim))
+    params = place_plain(params, mesh)
+    units = Units.of(mesh, [x.spec] + [w.spec for w in params.values()])
+    batch = _split_names(x.spec[0] if x.spec else None)
+    ys = units.local(x, {0: batch})
+    outs, aux = sharded_moe(units, params, ys, config, batch, capacity)
+    return units.assemble(outs, P(x.spec[0] if x.spec else None),
+                          x.shape), aux
+
+
+def sharded_moe(units: Units, params: Dict[str, ShardedTensor],
+                ys: List[torch.Tensor], config: MoEConfig,
+                batch: Tuple[str, ...], capacity: Optional[int] = None
+                ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """:func:`moe_apply` over the work units of a mesh, the JAX function's
+    semantics on the global batch: ``ys[u]`` is unit ``u``'s rows
+    [b_u, s, d] of a batch split over the ``batch`` axes; returns each
+    unit's rows of the output and the aux loss (on the lead unit's
+    device).
+
+    Routing is a function of the whole batch — the capacity counts every
+    token, the slots follow the global row order, the aux averages over
+    all tokens and expert choice ranks them all — so every unit gathers
+    the batch's tokens (over ``batch``, dp outermost, then ep: the order
+    ``batch_sharding`` splits) and the lead unit routes once.  Each unit
+    runs its own experts (``w_in``'s axis-0 split: tp under the
+    transformer rules, the ep axis under :func:`moe_sharding_rules`)
+    over their whole buffers, the outputs are gathered over the expert
+    axis, and each unit combines its own rows.  Units that hold the same
+    experts (dp replicas of them) compute them alike."""
+    _check_moe(config)
+    expert = tuple(_split_names(params["w_in"].spec[0]
+                                if params["w_in"].spec else None))
+    out_split = tuple(_split_names(params["w_out"].spec[0]
+                                   if params["w_out"].spec else None))
+    if expert != out_split:
+        expert = ()  # the weights disagree: every unit runs every expert
+    keep = {0: expert} if expert else {}
+    router = units.local(params["router"])
+    w_in = units.local(params["w_in"], keep)
+    w_out = units.local(params["w_out"], keep)
+    e, k = config.num_experts, config.top_k
+    local_e = w_in[0].shape[0]
+    dtype = ys[0].dtype
+    tokens = [y.reshape(-1, y.shape[-1])
+              for y in units.all_gather(ys, 0, batch)]
+    n, d = tokens[0].shape
+    capacity = moe_capacity(config, n, capacity)
+    probs = router_probs({"router": router[0]}, tokens[0])
+
+    def own(u):
+        """Unit u: (device, first expert, first token, token count)."""
+        count = ys[u].shape[0] * ys[u].shape[1]
+        return (units.devices[u], units.coord(u, expert) * local_e,
+                units.coord(u, batch) * count, count)
+
+    def ffn(u, inputs):
+        return _expert_ffn({"w_in": w_in[u], "w_out": w_out[u]}, inputs,
+                           dtype)
+
+    outs = []
+    if config.routing == "experts_choose":
+        gates, picks = _top_k(probs.T, min(capacity, n))  # [e, capacity]
+        cap = picks.shape[1]
+        ran = []
+        for u in range(len(units)):
+            dev, first, _, _ = own(u)
+            mine = picks[first:first + local_e].to(dev)
+            if config.dispatch == "scatter":
+                rows = mine[..., None].expand(local_e, cap, d)
+                done = ffn(u, torch.gather(tokens[u].expand(local_e, n, d),
+                                           1, rows))
+                done = done * gates[first:first + local_e].to(
+                    dev, dtype)[..., None]
+            else:
+                token_ids = torch.arange(n, device=dev)
+                dispatch = (mine[..., None] == token_ids).permute(
+                    2, 0, 1).to(dtype)
+                done = ffn(u, torch.einsum("nec,nd->ecd", dispatch,
+                                           tokens[u]))
+            ran.append(done)
+        ran = units.all_gather(ran, 0, expert)
+        for u in range(len(units)):
+            dev, _, start, count = own(u)
+            rel = picks.to(dev) - start
+            if config.dispatch == "scatter":
+                # other units' tokens go to a sentinel row, sliced off
+                rel = torch.where((rel >= 0) & (rel < count), rel, count)
+                planes = torch.zeros((e, count + 1, d), dtype=dtype,
+                                     device=dev)
+                combined = planes.scatter(
+                    1, rel[..., None].expand(e, cap, d), ran[u]
+                ).sum(dim=0)[:count]
+            else:
+                token_ids = torch.arange(count, device=dev)
+                combine = ((rel[..., None] == token_ids).permute(2, 0, 1)
+                           .to(dtype) * gates.to(dev, dtype)[None])
+                combined = torch.einsum("nec,ecd->nd", combine, ran[u])
+            outs.append(combined.reshape(ys[u].shape))
+        aux = torch.zeros((), dtype=torch.float32, device=probs.device)
+        return outs, aux
+
+    gates, index, onehot, kept, position = tokens_choose_routing(
+        probs, k, capacity)
+    if config.dispatch == "scatter":
+        slot, keep_all = _scatter_slots(index, kept, position, capacity)
+        ran = []
+        for u in range(len(units)):
+            dev, first, _, _ = own(u)
+            mine, _ = _scatter_slots(index.to(dev), kept.to(dev),
+                                     position.to(dev), capacity, first,
+                                     local_e)
+            buf = _scatter_dispatch(tokens[u], mine, k, local_e * capacity,
+                                    dtype)
+            ran.append(ffn(u, buf[:-1].reshape(local_e, capacity, d)))
+        ran = units.all_gather(ran, 0, expert)
+        for u in range(len(units)):
+            dev, _, start, count = own(u)
+            rows = slice(start, start + count)
+            combined = _scatter_combine(
+                ran[u], slot.reshape(k, n)[:, rows].reshape(-1).to(dev),
+                gates[rows].to(dev),
+                keep_all.reshape(k, n)[:, rows].reshape(-1).to(dev), dtype)
+            outs.append(combined.reshape(ys[u].shape))
+    else:
+        slots = torch.arange(capacity, device=probs.device)
+        dispatch_k = (kept[:, :, None]
+                      & (position[:, None] == slots)[:, None, :]
+                      ).to(dtype).reshape(k, n, e, capacity)
+        dispatch = dispatch_k.sum(dim=0)  # [n, e, capacity]
+        combine = torch.einsum("kn,knec->nec", gates.T.to(dtype), dispatch_k)
+        ran = []
+        for u in range(len(units)):
+            dev, first, _, _ = own(u)
+            ran.append(ffn(u, torch.einsum(
+                "nec,nd->ecd", dispatch[:, first:first + local_e].to(dev),
+                tokens[u])))
+        ran = units.all_gather(ran, 0, expert)
+        for u in range(len(units)):
+            dev, _, start, count = own(u)
+            combined = torch.einsum(
+                "nec,ecd->nd", combine[start:start + count].to(dev), ran[u])
+            outs.append(combined.reshape(ys[u].shape))
+    assignment_fraction = onehot[:, 0, :].to(torch.float32).mean(dim=0)
+    aux = (assignment_fraction * probs.mean(dim=0)).sum() * e
+    return outs, aux

@@ -1,4 +1,5 @@
-from .mesh import MeshSpec, make_mesh, replicated, serving_mesh, shard_params
+from .mesh import (MeshSpec, batch_sharding, device_put, make_mesh, replicated,
+                   serving_mesh, shard_params)
 from .train import (
     CapturedTrainStep,
     TrainState,
@@ -14,7 +15,9 @@ __all__ = [
     "MeshSpec",
     "TrainState",
     "adamw",
+    "batch_sharding",
     "cross_entropy_loss",
+    "device_put",
     "make_mesh",
     "make_train_step",
     "replicated",

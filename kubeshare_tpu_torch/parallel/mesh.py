@@ -1,11 +1,12 @@
 """Device meshes and sharding helpers, port of kubeshare_tpu/parallel/mesh.py
-(the serving half: :class:`MeshSpec`, :func:`make_mesh`,
-:func:`serving_mesh`, :func:`replicated`, :func:`shard_params`,
+(:class:`MeshSpec`, :func:`make_mesh`, :func:`serving_mesh`,
+:func:`replicated`, :func:`batch_sharding`, :func:`shard_params`,
 :func:`param_spec_tree`).
 
 Axis vocabulary, as in the JAX package:
-  dp  data parallel (the replica axis of a serving fleet)
-  ep  expert parallel
+  dp  data parallel (batch split; the replica axis of a serving fleet)
+  fsdp parameter sharding along dp (zero-style), by the rules only
+  ep  expert parallel (batch split alongside dp; experts split over it)
   tp  tensor parallel (head/feature split inside layers)
   sp  sequence parallel
 
@@ -17,8 +18,15 @@ once (a group that names ``cuda:0`` twice runs both shards on one card,
 in turn, on its one stream — the port's counterpart of JAX's forced
 host-platform device count).  :func:`shard_params` returns, for every
 leaf, a :class:`ShardedTensor`: its per-device shards and its
-:class:`PartitionSpec`.  ``batch_sharding`` and the training use of the
-mesh wait for ROADMAP.md queue A item 9b.
+:class:`PartitionSpec`; :func:`device_put` places one tensor (a batch
+under :func:`batch_sharding`) the same way.  The sharded program that
+runs on such trees (the mesh-aware forwards, the training step) is
+built in :mod:`.spmd`.
+
+ep subdivides the batch dimension alongside dp (batch shards over
+(dp, ep); experts replicated over dp, sharded over ep): the GShard
+layout.  A mesh with ep == 1 keeps the three-axis ("dp", "tp", "sp")
+shape; ep > 1 inserts the "ep" axis between dp and tp.
 """
 
 from __future__ import annotations
@@ -189,6 +197,17 @@ def replicated(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, P())
 
 
+def batch_sharding(mesh: Mesh, ndim: int = 2,
+                   seq_axis: Optional[int] = None) -> NamedSharding:
+    """Shard axis 0 over dp (and ep, when the mesh has one); optionally a
+    sequence axis over sp."""
+    spec: list = [None] * ndim
+    spec[0] = ("dp", "ep") if mesh.shape.get("ep", 1) > 1 else "dp"
+    if seq_axis is not None and mesh.shape.get("sp", 1) > 1:
+        spec[seq_axis] = "sp"
+    return NamedSharding(mesh, P(*spec))
+
+
 def _split_names(axes) -> Tuple[str, ...]:
     if axes is None:
         return ()
@@ -231,12 +250,14 @@ class ShardedTensor:
         self.mesh = mesh
         self.shape = torch.Size(shape)
         slices = _shard_slices(self.shape, self.spec, mesh)
-        # the first shard holding each distinct slice: a read writes each
-        # element once even where the spec replicates
-        seen: Dict[Tuple, int] = {}
+        # the shards holding each distinct slice, the first of them its
+        # owner: a read writes each element once even where the spec
+        # replicates
+        held: Dict[Tuple, List[int]] = {}
         for i, s in enumerate(slices):
-            seen.setdefault(tuple((x.start, x.stop) for x in s), i)
-        self._owners = [(i, slices[i]) for i in sorted(seen.values())]
+            held.setdefault(tuple((x.start, x.stop) for x in s), []).append(i)
+        self.copies = sorted(held.values())
+        self._owners = [(group[0], slices[group[0]]) for group in self.copies]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -249,6 +270,17 @@ class ShardedTensor:
 
     def element_size(self) -> int:
         return self.shards[0].element_size()
+
+    @property
+    def grad(self) -> Optional["ShardedTensor"]:
+        """The shards' gradients laid out as the tensor (after
+        ``spmd.sum_copies``, every copy holds its slice's whole
+        gradient); None before any backward reached a shard."""
+        if all(s.grad is None for s in self.shards):
+            return None
+        return ShardedTensor([s.grad if s.grad is not None
+                              else torch.zeros_like(s) for s in self.shards],
+                             self.spec, self.mesh, self.shape)
 
     @property
     def is_fully_replicated(self) -> bool:
@@ -284,12 +316,32 @@ class ShardedTensor:
                 f"shards={len(self.shards)})")
 
 
+def _check_divides(name: str, shape: Sequence[int], spec: PartitionSpec,
+                   mesh: Mesh) -> None:
+    """Every split axis of ``shape`` divides its mesh degree (JAX's
+    message, naming the tensor and the axis)."""
+    for dim, axes in enumerate(spec):
+        names = _split_names(axes)
+        if not names:
+            continue
+        degree = 1
+        for axis in names:
+            degree *= mesh.shape[axis]
+        if shape[dim] % degree != 0:
+            raise ValueError(
+                f"cannot shard {name}: axis {dim} (size "
+                f"{shape[dim]}) does not divide mesh "
+                f"{'x'.join(names)}={degree}")
+
+
 def shard_tensor(x: torch.Tensor, spec: PartitionSpec, mesh: Mesh,
                  copy: bool = False) -> ShardedTensor:
     """Split ``x`` over ``mesh`` under ``spec``: each device receives its
     slice, contiguous, on its own device.  ``copy`` gives every shard its
     own storage (state updated in place); otherwise a replicated shard
     already on its device is ``x`` itself."""
+    _check_divides(f"a tensor of shape {tuple(x.shape)}", x.shape, spec,
+                   mesh)
     shards = []
     for device, slices in zip(mesh.devices.flat,
                               _shard_slices(x.shape, spec, mesh)):
@@ -299,6 +351,12 @@ def shard_tensor(x: torch.Tensor, spec: PartitionSpec, mesh: Mesh,
                                 device=device).copy_(piece)
         shards.append(piece)
     return ShardedTensor(shards, spec, mesh, x.shape)
+
+
+def device_put(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
+    """``jax.device_put(x, sharding)``: ``x`` split over the sharding's
+    mesh under its spec, e.g. a batch under :func:`batch_sharding`."""
+    return shard_tensor(x, sharding.spec, sharding.mesh)
 
 
 def _keystr(path: Tuple) -> str:
@@ -324,31 +382,23 @@ def _spec_for(path: str, ordered) -> PartitionSpec:
     return P()
 
 
-def shard_params(params, rules: Dict[str, PartitionSpec], mesh: Mesh):
+def shard_params(params, rules: Dict[str, PartitionSpec], mesh: Mesh,
+                 copy: bool = False):
     """Place a param tree by path-matching rules; unmatched -> replicated
     onto every device of the mesh.
 
     Rules map a substring of the flattened path (e.g. "attn']['wq") to a
     PartitionSpec.  First match wins, most-specific (longest) first.
-    Returns the tree with a :class:`ShardedTensor` at every leaf."""
+    Returns the tree with a :class:`ShardedTensor` at every leaf;
+    ``copy`` gives every shard its own storage (:func:`shard_tensor`),
+    as trained state needs."""
     ordered = sorted(rules.items(), key=lambda kv: -len(kv[0]))
 
     def place(path: str, x):
         spec = _spec_for(path, ordered)
         # name the parameter and axis up front (JAX's message)
-        for dim, axes in enumerate(spec):
-            names = _split_names(axes)
-            if not names:
-                continue
-            degree = 1
-            for name in names:
-                degree *= mesh.shape[name]
-            if x.shape[dim] % degree != 0:
-                raise ValueError(
-                    f"cannot shard {path}: axis {dim} (size "
-                    f"{x.shape[dim]}) does not divide mesh "
-                    f"{'x'.join(names)}={degree}")
-        return shard_tensor(x, spec, mesh)
+        _check_divides(path, x.shape, spec, mesh)
+        return shard_tensor(x, spec, mesh, copy=copy)
 
     return _map_with_paths(params, place)
 

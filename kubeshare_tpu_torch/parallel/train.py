@@ -1,9 +1,9 @@
-"""Training step on one device: loss, gradients and AdamW.
+"""Training step: loss, gradients and AdamW, on one device or a mesh.
 
-Port of kubeshare_tpu/parallel/train.py for a single device.  The JAX
-step's ``jax.value_and_grad`` becomes autograd through the apply
-function (the flash backward kernels on CUDA), and ``optax.adamw(1e-3)``
-becomes ``torch.optim.AdamW`` with optax's defaults.  The step updates the
+Port of kubeshare_tpu/parallel/train.py.  The JAX step's
+``jax.value_and_grad`` becomes autograd through the apply function (the
+flash backward kernels on CUDA), and ``optax.adamw(1e-3)`` becomes
+``torch.optim.AdamW`` with optax's defaults.  The step updates the
 parameters and the optimizer state in place, which is what the JAX step's
 ``donate_state=True`` buys there: the old state's buffers are reused.
 
@@ -18,8 +18,20 @@ CUDA graph and replayed per call (:class:`CapturedTrainStep`), so that a
 step is one device burst instead of ~1,500 eager launches paced by the
 host.  It needs CUDA tensors and raises on the CPU.
 
-The mesh and its ``param_rules`` (multi-device sharding) are not ported
-yet: ROADMAP.md queue A item 9b.
+With a ``mesh`` and ``param_rules`` the step trains the sharded program
+(``parallel/spmd.py``), as the JAX step trains over a mesh with GSPMD:
+the parameters are placed by the rules (every shard its own storage and
+a leaf of its own), the batch by ``batch_sharding``, the apply function
+runs the mesh-aware forward (``transformer_apply(_with_aux)``;
+``moe_apply`` inside a loss), the loss is the global mean, and after the
+backward the gradients of every slice held by several shards are summed
+and given to each (``spmd.sum_copies``), so AdamW, elementwise over the
+shards, keeps every copy of a slice equal to the bit.
+
+    mesh = make_mesh(MeshSpec(dp=2, tp=2), devices=[torch.device("cuda")] * 4)
+    init_state, train_step = make_train_step(
+        lambda p, t: transformer_apply(p, t, config), mesh=mesh,
+        param_rules=transformer_sharding_rules())
 """
 
 from __future__ import annotations
@@ -28,6 +40,9 @@ from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Iterator, List, Optional, Tuple
 
 import torch
+
+from .mesh import ShardedTensor, batch_sharding, device_put, shard_params
+from .spmd import sharded_cross_entropy, sum_copies
 
 OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
 
@@ -57,7 +72,11 @@ def tree_leaves(tree: Any) -> List[Any]:
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean token-level cross entropy; logits [..., vocab], targets int."""
+    """Mean token-level cross entropy; logits [..., vocab], targets int.
+    Sharded logits (a mesh-aware forward's) give the global mean as one
+    scalar (``spmd.sharded_cross_entropy``)."""
+    if isinstance(logits, ShardedTensor):
+        return sharded_cross_entropy(logits, targets)
     log_probs = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(log_probs, -1, targets[..., None].long())[..., 0]
     return nll.mean()
@@ -90,28 +109,48 @@ def make_train_step(
 
     - init_state_fn(params) -> TrainState: the tree's leaves become the
       optimizer's parameters (``requires_grad`` set on them, no copy);
+      with a ``mesh``, the tree placed by ``param_rules``
+      (``shard_params``, every shard its own storage) and the optimizer
+      built over the shards, each moment laid out as its parameter's
+      shard (optax's ``zeros_like`` over placed parameters);
     - train_step_fn(state, inputs, targets) -> (state, loss): forward,
       backward, the optimizer step, and the gradients cleared.  The
       parameters and moments are updated in place (the counterpart of the
       JAX step's state donation), and the returned state shares them with
       the one passed in.  The loss is a detached device tensor: the step
-      never waits for the device.
+      never waits for the device.  With a ``mesh``, ``inputs`` and
+      ``targets`` are placed by ``batch_sharding`` (a ``ShardedTensor``
+      passes as it is), ``apply_fn`` takes the sharded tree (a function
+      that cannot raises ``TypeError``) and ``loss_fn`` its sharded
+      output; the returned loss is the global mean; and the gradients of
+      a slice's copies are summed before the optimizer step.
+      ``param_rules`` without a ``mesh`` are ignored, as in JAX.
 
     ``capture=True``: the step is a :class:`CapturedTrainStep` (one CUDA
     graph), which switches the optimizer to its capturable mode (step
     counts and bias corrections on the device; the update differs from
     the eager one only by rounding).  Its parameters must be CUDA
     tensors: it raises on the CPU, where the eager step is the one to
-    use.
+    use.  Under a mesh the whole sharded step is one graph, so the mesh
+    must name one CUDA device (``[cuda:0] * n``); distinct CUDA devices
+    raise ``ValueError``.
     """
-    if mesh is not None or param_rules is not None:
-        raise NotImplementedError(
-            "mesh / param_rules sharding is not ported yet (ROADMAP.md "
-            "queue A item 9b, the training half of the mesh)")
     optimizer = optimizer or adamw(1e-3)
+    if mesh is not None and capture:
+        devices = set(mesh.devices.flat)
+        if len(devices) > 1 and all(d.type == "cuda" for d in devices):
+            raise ValueError(
+                f"mesh devices {sorted(map(str, devices))}: capture=True "
+                "records the whole sharded step in one CUDA graph on one "
+                "card's stream; name one card for every shard (e.g. "
+                "[cuda:0] * n)")
 
     def init_state(params) -> TrainState:
-        leaves = tree_leaves(params)
+        if mesh is not None:
+            with torch.no_grad():
+                params = shard_params(params, param_rules or {}, mesh,
+                                      copy=True)
+        leaves = _shards(params)
         if capture:
             _cuda_device_of(leaves)
         for leaf in leaves:
@@ -119,12 +158,16 @@ def make_train_step(
         return TrainState(params=params, opt_state=optimizer(leaves), step=0)
 
     if capture:
-        return init_state, CapturedTrainStep(apply_fn, loss_fn)
+        return init_state, CapturedTrainStep(apply_fn, loss_fn, mesh)
 
     def train_step(state: TrainState, inputs: torch.Tensor,
                    targets: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
+        if mesh is not None:
+            inputs, targets = _place_batch(mesh, inputs, targets)
         loss = loss_fn(apply_fn(state.params, inputs), targets)
         loss.backward()
+        if mesh is not None:
+            sum_copies(tree_leaves(state.params))
         state.opt_state.step()
         state.opt_state.zero_grad(set_to_none=True)
         return (TrainState(params=state.params, opt_state=state.opt_state,
@@ -132,6 +175,21 @@ def make_train_step(
                 loss.detach())
 
     return init_state, train_step
+
+
+def _shards(tree: Any) -> List[torch.Tensor]:
+    """The optimizer's parameters: every leaf, or every shard of every
+    placed leaf."""
+    out = []
+    for leaf in tree_leaves(tree):
+        out.extend(leaf.shards if isinstance(leaf, ShardedTensor) else [leaf])
+    return out
+
+
+def _place_batch(mesh, *batch) -> List[ShardedTensor]:
+    """Each tensor placed by ``batch_sharding`` (placed ones as given)."""
+    return [x if isinstance(x, ShardedTensor)
+            else device_put(x, batch_sharding(mesh, x.ndim)) for x in batch]
 
 
 # warm-up steps before the capture (PyTorch's whole-network recipe): the
@@ -217,11 +275,18 @@ class CapturedTrainStep:
     while the graph is recorded: a replay launches the kernels again but
     does not bump them.  Read them around an eager step or around the
     first call (``CAPTURE_WARMUP_STEPS`` + 1 passes).
+
+    With a ``mesh`` the graph holds the whole sharded step (every unit's
+    body, the collectives, the sum of the copies' gradients and the
+    optimizer over every shard); the static buffers are placed batches,
+    and a call's inputs are placed by ``batch_sharding`` and copied in
+    shard by shard.
     """
 
-    def __init__(self, apply_fn, loss_fn) -> None:
+    def __init__(self, apply_fn, loss_fn, mesh=None) -> None:
         self.apply_fn = apply_fn
         self.loss_fn = loss_fn
+        self.mesh = mesh
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.inputs: Optional[torch.Tensor] = None
@@ -230,6 +295,8 @@ class CapturedTrainStep:
 
     def __call__(self, state: TrainState, inputs: torch.Tensor,
                  targets: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
+        if self.mesh is not None:
+            inputs, targets = _place_batch(self.mesh, inputs, targets)
         if self.graph is None:
             self._capture(state, inputs, targets)
         else:
@@ -244,7 +311,15 @@ class CapturedTrainStep:
                         f"{name} {tuple(given.shape)} {given.dtype} differ "
                         f"from the captured {tuple(static.shape)} "
                         f"{static.dtype}")
-                static.copy_(given)
+                if isinstance(static, ShardedTensor):
+                    if given.spec != static.spec:
+                        raise ValueError(
+                            f"{name} placed as {given.spec}, captured as "
+                            f"{static.spec}")
+                    for buffer, shard in zip(static.shards, given.shards):
+                        buffer.copy_(shard)
+                else:
+                    static.copy_(given)
         self.graph.replay()
         # the graph's loss is a static tensor that the next replay
         # overwrites; hand the caller a copy, as JAX returns a fresh array
@@ -256,17 +331,26 @@ class CapturedTrainStep:
         loss = self.loss_fn(self.apply_fn(state.params, self.inputs),
                             self.targets)
         loss.backward()
+        if self.mesh is not None:
+            sum_copies(tree_leaves(state.params))
         state.opt_state.step()
         return loss
 
     def _capture(self, state: TrainState, inputs: torch.Tensor,
                  targets: torch.Tensor) -> None:
-        leaves = tree_leaves(state.params)
+        leaves = _shards(state.params)
         device = _cuda_device_of(leaves)
         optimizer = state.opt_state
         _make_capturable(optimizer, device)
-        self.inputs = inputs.to(device, copy=True)
-        self.targets = targets.to(device, copy=True)
+
+        def static(x):
+            if isinstance(x, ShardedTensor):
+                return ShardedTensor([s.to(device, copy=True)
+                                      for s in x.shards], x.spec, x.mesh,
+                                     x.shape)
+            return x.to(device, copy=True)
+
+        self.inputs, self.targets = static(inputs), static(targets)
         # warm-up must not advance the state: PyTorch's recipe trains on
         # its warm-up steps, while JAX's jitted step has no such side
         # effect and the captured step must agree with the eager one from

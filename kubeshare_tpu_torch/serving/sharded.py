@@ -18,9 +18,11 @@ ONE CONTROLLER.  The JAX module runs one host loop and one ``shard_map``
 program over a mesh of local devices.  The port keeps that shape: one
 process drives every shard of a group, there is one host loop and one
 device loop, and the collectives are plain functions over the lists of
-shards (:func:`_all_gather`, :func:`_all_to_all`, and a slice of the
-shard's own index for ``axis_index``).  They concatenate, slice and copy
-between the group's devices, and never add.  A group may name one
+shards (``parallel/spmd.py``'s ``all_gather`` and ``all_to_all``, and a
+slice of the shard's own index for ``axis_index``).  They concatenate,
+slice and copy between the group's devices, and never add: the
+training half's ``psum`` (partial sums, as JAX's training step runs
+them) is not used here.  A group may name one
 device more than once (``[cuda:0] * tp``): its shards' bodies are then
 enqueued on that device's one stream, in turn.
 
@@ -88,6 +90,8 @@ from ..ops.rope import apply_rope
 from ..parallel.mesh import (Mesh, MeshSpec, P, PartitionSpec, ShardedTensor,
                              _visible_cuda_devices, make_mesh, shard_params,
                              shard_tensor)
+from ..parallel.spmd import all_gather as _all_gather
+from ..parallel.spmd import all_to_all as _all_to_all
 from .paged import (_decode_loop_impl, _span_body, _spec_loop_impl,
                     paged_copy_block, paged_upload_block)
 
@@ -171,37 +175,14 @@ def serving_sharding_rules(decision: ShardDecision) -> Dict[str, PartitionSpec]:
 
 # ---------------------------------------------------------------------------
 # the collectives: data movement between the shards' devices, never a sum
+# (all_gather and all_to_all live in parallel/spmd.py with the training
+# half's psum, which serving never calls)
 # ---------------------------------------------------------------------------
 
 def _replicate(x: torch.Tensor, devices) -> List[torch.Tensor]:
     """A replicated input on every shard's device (no copy where the
     shard shares the input's device)."""
     return [x.to(d, non_blocking=True) for d in devices]
-
-
-def _all_gather(shards: List[torch.Tensor], dim: int,
-                devices) -> List[torch.Tensor]:
-    """``lax.all_gather(..., tiled=True)``: every shard receives the
-    shards concatenated along ``dim``, in shard order."""
-    return [torch.cat([s.to(d, non_blocking=True) for s in shards], dim=dim)
-            for d in devices]
-
-
-def _all_to_all(shards: List[torch.Tensor], split_dim: int, concat_dim: int,
-                devices) -> List[torch.Tensor]:
-    """``lax.all_to_all(..., tiled=True)``: shard ``i`` receives piece
-    ``i`` of every shard's ``split_dim``, concatenated along
-    ``concat_dim`` in source order."""
-    n = len(shards)
-    out = []
-    for i, d in enumerate(devices):
-        pieces = []
-        for s in shards:
-            size = s.shape[split_dim] // n
-            pieces.append(s.narrow(split_dim, i * size, size).to(
-                d, non_blocking=True))
-        out.append(torch.cat(pieces, dim=concat_dim))
-    return out
 
 
 @dataclass(frozen=True)

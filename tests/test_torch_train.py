@@ -211,13 +211,6 @@ def test_adamw_defaults_are_optax_defaults():
     assert not group["amsgrad"]
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()},
-                                    {"param_rules": {"wq": None}}])
-def test_mesh_is_not_ported(kwargs):
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        port_train.make_train_step(lambda p, t: None, **kwargs)
-
-
 def test_captured_step_refuses_the_cpu():
     _, cfg = _configs(positional="rope")
     init_state, train_step = port_train.make_train_step(
