@@ -10,7 +10,10 @@ Phases (any failure raises and the script exits non-zero):
 1. device: the card's name and power limit; TF32 off for f32 products
    and convolutions.
 2. build: compile every kernel under kubeshare_tpu_torch/csrc with nvcc
-   (one nvcc per source, all at once).
+   (one nvcc per source, all at once); each instantiation's registers and
+   spills, and the SASS counts: wgmma and TMA in the bf16 kernels,
+   mma.sync (HMMA) and cp.async (LDGSTS) in the f32 forward and dK/dV,
+   which must not spill.
    hbm_cap: in a child process at TPUSHARE_MEM_FRACTION=0.5,
    isolation.apply_hbm_cap returns 0.5, 0.4 of the card allocates and
    0.6 raises torch.OutOfMemoryError.
@@ -18,17 +21,21 @@ Phases (any failure raises and the script exits non-zero):
    dQ) against their plain PyTorch versions on the card, at the main
    paths' shapes and a few more (GQA, window, ragged, d=128, f32, the
    edges of the bf16 kernels' tiles, and train_sharded's unit), with the
-   tolerances below; then each kernel's time beside the plain version's,
+   tolerances below; every f32 case also at the f32 path's shapes, and
+   each f32 kernel launched once more with its outputs between guard
+   bands (check_f32_writes: it must write every element of them, to the
+   bit of its first launch, and nothing of the guards); then each kernel's time beside the plain version's,
    one library call's, and the bound the card sets, at the serving
    flagship's attention shape, at the training shape and at
    train_sharded's unit shape (1, 4, 2048, 128), with the
    achieved TFLOP/s and the ratio to the library call; and the f32
    instantiations' times at (4, 8, 1024, 64) beside SDPA at f32 (TF32
-   off) and the bound at the f32 CUDA-core peak.
+   off) and the bound at the 3xTF32 rate (165 TFLOP/s).
 4. block_sparse: the masked instantiations of the three kernels against
-   their plain versions at eight masks (documents, prefix-LM, dead rows,
+   their plain versions at nine masks (documents, prefix-LM, dead rows,
    mask blocks straddling the kernels' tiles, JAX's default blocks, GQA,
-   f32 at a ragged length and at head_dim 128); block_sparse_attention's
+   f32 at a ragged length, a document mask and a prefix-LM mask at
+   head_dim 128, the f32 ones also in guard bands); block_sparse_attention's
    forward and gradient at the document-masked training shape, held
    against the plain path; and each masked kernel's time there beside
    the plain version's, SDPA's with the expanded mask, and the bound.
@@ -41,6 +48,17 @@ Phases (any failure raises and the script exits non-zero):
    step one CUDA graph replay (greedy_decode_with_cache(capture=True)):
    the two token streams must be equal; the serve time of each, and the
    CUDA-event ms of a decode step beside the host's enqueue ms.
+   f32: the f32 path.  The flagship at f32 (entry.flagship_config(
+   torch.float32), weights from seed 0): the bulk forward at random
+   tokens (4, 1024) and a greedy serve of 4 x (896 + 128), against the
+   same model with attention="reference" at f32 (logits within
+   F32_LOGITS_ATOL, every served token teacher-forced within
+   F32_TOKEN_MARGIN of its row's maximum), with the prefill ms and a
+   decode step's ms; then the train-step flagship at f32: step 1's loss
+   and every gradient against attention="reference" (F32_TRAIN_*), and
+   3 eager AdamW steps timed by CUDA events.  Its launches are the
+   kernels line's f32_forward, f32_serve and f32_train columns: every
+   f32 kernel must run there.
    engine: serving.ServingEngine runs the flagship serving model (bf16,
    ENGINE_POOL: 8 slots, 16-row blocks, 64-token prefill chunks, spans of
    4, mixed batching and the prefix cache on) over 48 greedy requests
@@ -246,9 +264,13 @@ import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet, dense): the bound a kernel is held to
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound a kernel is held to.
+# f32: the card's fastest route to f32-accurate products is three TF32
+# passes on the tensor cores (3xTF32, what the f32 flash kernels run):
+# 495 / 3 = 165 TFLOP/s, above the 67 TFLOP/s of f32 FMAs on the CUDA
+# cores, so a kernel's least time at f32 is its operations at 165.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 
 # kernel vs its plain version, same inputs on the card.  out: both round
 # the same f32 result to the output dtype after summing in another order
@@ -298,10 +320,41 @@ TRAIN_STEPS = 10
 TRAIN_TIMED_FROM = 3  # median over steps 3..10 (1-based): past warm-up
 
 PROMPT_LEN = 896
+# check_f32_writes: sentinel floats on each side of every output of an
+# f32 kernel's launch (64 KB a side: 128 rows of a head at d = 128)
+GUARD_FLOATS = 1 << 14
+GUARD_SENTINEL = -3.0e38
 # the f32 kernels' timing shape (serving's attention shape)
 F32_TIMED_SHAPE = (4, 8, 1024, 64)
 NEW_TOKENS = 128
 N_REQUESTS = 4
+
+# the f32 phase: each model with the kernels against the same model with
+# attention="reference" at f32 (TF32 off).  Both attentions compute in
+# f32; they differ in summation order, in the kernels' 3xTF32 products
+# (the dropped small x small term, 2^-22 of each product) and in the
+# softmax's form (online with exp2 against one pass with exp), and the
+# layers carry that to the logits and gradients.  Each limit sits between
+# two readings on an H100: the shipped kernels' and one TF32 pass's
+# (flash_ablations.py runs this phase with its one_pass control).
+# Logits, absolute on logits of magnitude ~1-5: 3.6e-5 against 8.2e-4
+# (prefill) and 1.6e-3 (forward).  Gradients, max |diff| / max |ref| per
+# tensor: 1.5e-4 against 2.2e-3; their lowest cosine similarity 1 - 1e-7
+# against 1 - 1.3e-6.  Loss, absolute on a loss of 10.88 (an f32 ulp is
+# 9.5e-7): 0 against 3.8e-6; the limit is two ulps.  Tokens: each emitted
+# token within F32_TOKEN_MARGIN of its row's maximum under the reference
+# forward (the engine's teacher-forced rule); every token is its row's
+# argmax under both designs, so the margin follows the logits' limit.
+# dK/dV without its per-step partials (the no_partials control) moves none
+# of these readings: its dk, dv error (2.7e-5 of max) stays under the
+# worst tensor's gap to the reference (a query projection, whose gradient
+# comes through dQ); the kernel checks (BWD_TOLERANCES) refuse it.
+F32_LOGITS_ATOL = 2e-4
+F32_TOKEN_MARGIN = 2 * F32_LOGITS_ATOL
+F32_TRAIN_LOSS_ATOL = 2e-6
+F32_TRAIN_GRAD_RTOL = 5e-4
+F32_TRAIN_GRAD_MIN_COSINE = 0.9999995
+F32_TRAIN_STEPS = 3
 
 # the captured train step against two eager runs from the same state and
 # batches.  (1) An eager step with the same optimizer (AdamW switched to
@@ -713,16 +766,24 @@ SASS_OPS = ("HGMMA", "WARPGROUP.DEPBAR", "UTMALDG", "UTMASTG")
 # the bf16 kernels, which run on wgmma and TMA
 SASS_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
                 "flash_bwd_dq_bf16_kernel")
+# the f32 forward and dK/dV kernels run 3xTF32 products on mma.sync
+# (HMMA) fed by cp.async (LDGSTS); the f32 dQ kernel keeps CUDA-core
+# products and is not counted
+F32_SASS_OPS = ("HMMA", "LDGSTS")
+F32_SASS_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel")
 
 
 def sass_counts(sass: str):
     """{"<kernel><D>" or "<kernel><D, masked>": {op: count}} of the bf16
-    kernels' instantiations in cuobjdump's SASS of a library: wgmma
+    kernels' instantiations in cuobjdump's SASS of a library, wgmma
     (HGMMA), its serialising waits (WARPGROUP.DEPBAR), TMA loads and
-    stores."""
+    stores; and of the f32 forward and dK/dV kernels', mma.sync (HMMA)
+    and cp.async (LDGSTS)."""
     import re
 
-    kernels = "|".join(SASS_KERNELS)
+    ops_of = {**dict.fromkeys(SASS_KERNELS, SASS_OPS),
+              **dict.fromkeys(F32_SASS_KERNELS, F32_SASS_OPS)}
+    kernels = "|".join(ops_of)
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -731,10 +792,10 @@ def sass_counts(sass: str):
             if found:
                 masked = ", masked" if found.group(3) == "1" else ""
                 name = f"{found.group(1)}<{found.group(2)}{masked}>"
-                counts[name] = dict.fromkeys(SASS_OPS, 0)
+                counts[name] = dict.fromkeys(ops_of[found.group(1)], 0)
             continue
         if name:
-            for op in SASS_OPS:
+            for op in counts[name]:
                 if op in line:
                     counts[name][op] += 1
     return counts
@@ -849,11 +910,74 @@ def check_backward(torch, name, q, k, v, out, lse, causal, window, gen):
     return check_grads(torch, f"kernel flash_bwd {name}", grads, ref)
 
 
+def check_f32_writes(torch, name, q, k, v, causal, window=None,
+                     mask=None, blocks=None):
+    """The f32 kernels' writes, for a memory fault that no comparison of
+    values shows: each of the forward, dK/dV and dQ (masked when ``mask``
+    is given) is launched by its wrapper, then once more through its C
+    launcher with every output placed between GUARD_FLOATS sentinel floats
+    on each side.  Fails unless the second launch wrote its outputs to the
+    bit of the first (so every element of them) and nothing of the
+    guards."""
+    from kubeshare_tpu_torch.ops import _build
+    from kubeshare_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=q.device).manual_seed(77)
+    dout = torch.randn(q.shape, generator=gen, device=q.device,
+                       dtype=q.dtype)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tail = A._launch_args(q, k, causal, window, stream)
+    fwd, bwd = _build.load("flash_fwd"), _build.load("flash_bwd")
+    if mask is None:
+        out, lse = A.flash_forward(q, k, v, causal, window)
+        delta = A._backward_delta(out, dout)
+        dk, dv = A._flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal,
+                                       window)
+        dq = A._flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, window)
+        launchers = (fwd.flash_fwd_launch, bwd.flash_bwd_dkv_launch,
+                     bwd.flash_bwd_dq_launch)
+    else:
+        args = (mask, causal, *blocks)
+        out, lse = A.block_sparse_forward(q, k, v, *args)
+        delta = A._backward_delta(out, dout)
+        dk, dv = A._block_sparse_bwd_dkv_cuda(q, k, v, dout, lse, delta,
+                                              *args)
+        dq = A._block_sparse_bwd_dq_cuda(q, k, v, dout, lse, delta, *args)
+        bits, mask_args = A._mask_args(q, mask, *blocks)  # held to the end
+        tail = (*mask_args, *tail)
+        launchers = (fwd.flash_fwd_block_sparse_launch,
+                     bwd.flash_bwd_dkv_block_sparse_launch,
+                     bwd.flash_bwd_dq_block_sparse_launch)
+    for launcher, inputs, wrote in (
+            (launchers[0], (q, k, v), (out, lse)),
+            (launchers[1], (q, k, v, dout, lse, delta), (dk, dv)),
+            (launchers[2], (q, k, v, dout, lse, delta), (dq,))):
+        bufs = [torch.full((t.numel() + 2 * GUARD_FLOATS,), GUARD_SENTINEL,
+                           device=q.device) for t in wrote]
+        views = [buf[GUARD_FLOATS:GUARD_FLOATS + t.numel()].view(t.shape)
+                 for buf, t in zip(bufs, wrote)]
+        err = launcher(*(t.data_ptr() for t in (*inputs, *views)), *tail)
+        torch.cuda.synchronize()
+        label = f"kernel f32 writes {name}: {launcher.__name__}"
+        check(err == 0, f"{label} failed: CUDA error {err}")
+        for buf, view, first in zip(bufs, views, wrote):
+            guards = torch.cat((buf[:GUARD_FLOATS],
+                                buf[GUARD_FLOATS + view.numel():]))
+            check(bool((guards == GUARD_SENTINEL).all()),
+                  f"{label} wrote outside its output {tuple(view.shape)}")
+            check(torch.equal(view, first),
+                  f"{label}: an output differs from the first launch's "
+                  f"(or an element was left unwritten)")
+    print(f"kernel f32 writes {name}: forward, dK/dV and dQ wrote every "
+          f"element of their outputs, to the bit of their first launch, "
+          f"and none of {GUARD_FLOATS} guard floats on either side")
+
+
 def time_shape(torch, shape, gen, dtype_name="bfloat16"):
     """Times of the forward and both backward kernels at one causal MHA
     shape, beside the plain versions, the library calls and the bounds
-    (at f32: the CUDA-core instantiations, SDPA with TF32 off, and the
-    bound at the f32 CUDA-core peak)."""
+    (at f32: the f32 instantiations, SDPA with TF32 off, and the bound at
+    the 3xTF32 rate)."""
     import torch.nn.functional as F
     from kubeshare_tpu_torch.ops import attention as A
 
@@ -937,10 +1061,23 @@ def dense_cases(torch):
         # group of 4
         ("gqa4_ragged_200_window48", (1, 8, 200, 64), 2, torch.bfloat16,
          True, 48),
+        # the f32 path's shapes (the f32 phase's forward, prefill and train
+        # step; the kernels' truncation grows with a sweep's length) and
+        # the edges of the f32 tiles at d = 128 with GQA
+        ("f32_flagship", (4, 8, 1024, 64), 8, torch.float32, True, None),
+        ("f32_prefill_896", (4, 8, PROMPT_LEN, 64), 8, torch.float32, True,
+         None),
+        ("f32_train", (TRAIN_BATCH, 8, TRAIN_SEQ, 128), 8, torch.float32,
+         True, None),
+        ("f32_gqa_ragged_1000_d128", (2, 8, 1000, 128), 2, torch.float32,
+         True, None),
     ]
 
 
 def kernel_phase(torch, device):
+    """The dense kernels against their plain versions at dense_cases, the
+    f32 ones also in guard bands; returns the worst errors and the
+    timings."""
     from kubeshare_tpu_torch.ops.attention import flash_forward, flash_forward_reference
 
     gen = torch.Generator(device=device).manual_seed(1234)
@@ -965,17 +1102,23 @@ def kernel_phase(torch, device):
         for kernel, errs in (("flash_bwd_dkv", bwd["dkv"]),
                              ("flash_bwd_dq", bwd["dq"])):
             worst[kernel] = [max(a, b) for a, b in zip(worst[kernel], errs)]
+        if dtype == torch.float32:
+            check_f32_writes(torch, name, q, k, v, causal, window)
         del q, k, v, out, lse, ref_out, ref_lse
 
     # times at the serving flagship's attention shape and the training
-    # shape, then the f32 instantiations (CUDA-core products) at the
-    # serving shape, beside SDPA at f32 (TF32 is off for the whole run),
+    # shape, then the f32 instantiations (3xTF32 forward and dK/dV,
+    # CUDA-core dQ) at the serving shape, beside SDPA at f32 (TF32 is off
+    # for the whole run), and at the end at the training shape,
     # then the MoE model's serving prefill shape and train_sharded's unit
     timings = [time_shape(torch, shape, gen)
                for shape in ((4, 8, 1024, 64), (TRAIN_BATCH, 8, TRAIN_SEQ, 128))]
     timings.append(time_shape(torch, F32_TIMED_SHAPE, gen, "float32"))
     timings.append(time_shape(torch, (N_REQUESTS, 8, PROMPT_LEN, 128), gen))
     timings.append(time_shape(torch, SHARDED_UNIT_SHAPE, gen))
+    # the f32 train path's shape (the f32 phase's train-step flagship)
+    timings.append(time_shape(torch, (TRAIN_BATCH, 8, TRAIN_SEQ, 128), gen,
+                              "float32"))
     return worst, timings
 
 
@@ -1014,6 +1157,8 @@ def block_sparse_cases(torch):
          random_mask(torch, 25, 0.6, 23), True),
         ("f32_d128_doc", (1, 4, 1024, 128), 4, f32, 128, 128,
          doc_mask(torch, (384, 640), 128), True),
+        ("f32_d128_prefix_lm", (2, 8, 1024, 128), 8, f32, 64, 64, prefix_lm,
+         False),
     ]
 
 
@@ -1091,8 +1236,9 @@ def time_block_sparse(torch, shape, mask, block, gen):
 
 
 def block_sparse_phase(torch, device):
-    """The masked kernels against their plain versions at every case,
-    block_sparse_attention end to end at doc_causal, and the timings."""
+    """The masked kernels against their plain versions at every case, the
+    f32 ones also in guard bands, block_sparse_attention end to end at
+    doc_causal, and the timings."""
     from kubeshare_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device=device).manual_seed(4321)
@@ -1140,6 +1286,9 @@ def block_sparse_phase(torch, device):
         if name == "doc_causal":
             launches = block_sparse_path(torch, q, k, v, dout, args,
                                          (ref_out, ref_lse))
+        if dtype == torch.float32:
+            check_f32_writes(torch, name, q, k, v, causal, mask=mask,
+                             blocks=(bq, bk))
         del q, k, v, dout, out, lse, ref_out, ref_lse, grads, ref
     docs = doc_mask(torch, (384, 640, 256, 768), 128).to(device)
     timing = time_block_sparse(torch, (TRAIN_BATCH, 8, TRAIN_SEQ, 128), docs,
@@ -1333,6 +1482,171 @@ def decode_capture_phase(torch, device):
           + "; ".join(lines) + f"; captured tokens equal eager: {same}")
     check(same, "the captured decode's tokens differ from the eager decode's")
     return launches
+
+
+def f32_phase(torch, device, hold=True):
+    """The f32 path: (a) the serving flagship at f32 (flagship_config(
+    torch.float32)): the bulk forward at tokens (4, 1024) and a greedy
+    serve of N_REQUESTS x (PROMPT_LEN + NEW_TOKENS), each held against
+    attention="reference"; (b) the train-step flagship at f32: step 1's
+    loss and gradients against attention="reference", then
+    F32_TRAIN_STEPS eager AdamW steps timed by CUDA events.  Returns the
+    launches of the forward, the serve and the train steps, and the
+    readings held to the F32_* limits; ``hold=False`` reads them without
+    holding them (for a variant of the kernels that should fail them).
+    Launches, shapes and finite values are checked either way."""
+    within = check if hold else (lambda condition, message: None)
+    from kubeshare_tpu_torch.entry import flagship_config
+    from kubeshare_tpu_torch.models.decoding import (
+        greedy_decode_with_cache, prefill)
+    from kubeshare_tpu_torch.models.transformer import (
+        transformer_apply, transformer_init)
+    from kubeshare_tpu_torch.parallel.train import (
+        cross_entropy_loss, make_train_step, tree_leaves_with_paths)
+
+    launches = {}
+    config = flagship_config(torch.float32)
+    plain = dataclasses.replace(config, attention="reference")
+    params = transformer_init(config, torch.Generator().manual_seed(0),
+                              device)
+    gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, config.vocab_size, (4, config.max_seq_len),
+                           generator=gen).to(device)
+
+    # (a) the bulk forward, then the serve
+    with torch.no_grad():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = transformer_apply(params, tokens, config)
+        torch.cuda.synchronize()
+        forward_ms = (time.perf_counter() - t0) * 1e3
+        launches["f32_forward"] = read_counts()
+        plain_logits = transformer_apply(params, tokens, plain)
+    check(launches["f32_forward"] == {
+              **only(), "flash_fwd": config.n_layers},
+          f"the f32 forward launched {launches['f32_forward']}, expected "
+          f"{config.n_layers} forward kernels")
+    check(bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (*tokens.shape, config.vocab_size),
+          f"f32 forward logits: shape {tuple(logits.shape)} or non-finite")
+    forward_err = float((logits - plain_logits).abs().max())
+    print(f"f32 forward {tuple(tokens.shape)}: {forward_ms:.1f} ms (first "
+          f"call), logits max abs err vs attention=reference "
+          f"{forward_err:.3e} (max |logit| "
+          f"{float(plain_logits.abs().max()):.3f}, tol {F32_LOGITS_ATOL})")
+    within(forward_err <= F32_LOGITS_ATOL,
+          f"f32 forward logits differ from the reference path by "
+          f"{forward_err}")
+    del logits, plain_logits
+
+    prompts = serve_prompts(torch, config, device)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, last = prefill(params, config, prompts)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out = greedy_decode_with_cache(params, config, cache, last, NEW_TOKENS)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    launches["f32_serve"] = read_counts()
+    check(launches["f32_serve"] == {**only(), "flash_fwd": config.n_layers},
+          f"the f32 serve launched {launches['f32_serve']}, expected "
+          f"{config.n_layers} forward kernels (the prefill)")
+    _, plain_last = prefill(params, plain, prompts)
+    last_err = float((last - plain_last).abs().max())
+    trace = [(i, prompts[i].tolist(), NEW_TOKENS) for i in range(N_REQUESTS)]
+    streams = {i: out[i].tolist() for i in range(N_REQUESTS)}
+    worst = teacher_forced(torch, params, plain, trace, streams, device)
+    # greedy_decode_with_cache takes NEW_TOKENS - 1 decode steps after the
+    # prefill's token
+    step_ms = (serve_ms - prefill_ms) / (NEW_TOKENS - 1)
+    print(f"f32 serve {N_REQUESTS} x ({PROMPT_LEN} + {NEW_TOKENS} greedy): "
+          f"prefill {prefill_ms:.1f} ms, decode {step_ms:.3f} ms a step "
+          f"(host clock, eager), serve {serve_ms:.1f} ms; prefill logits "
+          f"max abs err vs attention=reference {last_err:.3e}; "
+          f"teacher-forced worst {worst:.3e} (margin {F32_TOKEN_MARGIN})")
+    check(bool(((out >= 0) & (out < config.vocab_size)).all()),
+          "f32 serve: token ids out of range")
+    within(last_err <= F32_LOGITS_ATOL,
+          f"f32 prefill logits differ from the reference path by {last_err}")
+    within(worst <= F32_TOKEN_MARGIN,
+          f"an f32 served token is {worst} below its row's maximum under "
+          f"the reference forward")
+    del cache, params
+
+    # (b) the train-step flagship at f32
+    config, params, tokens, targets = train_setup(torch, device,
+                                                  dtype=torch.float32)
+    plain = dataclasses.replace(config, attention="reference")
+    paths, leaves = zip(*tree_leaves_with_paths(params))
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+
+    def loss_and_grads(cfg):
+        loss = cross_entropy_loss(transformer_apply(params, tokens, cfg),
+                                  targets)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    loss, grads = loss_and_grads(config)
+    plain_loss, plain_grads = loss_and_grads(plain)
+    loss_err = abs(loss - plain_loss)
+    grad_err, worst_path = max(
+        ((rel_err(g, r), path) for g, r, path in zip(grads, plain_grads,
+                                                     paths)),
+        key=lambda pair: pair[0])
+    cosine = min(float(torch.nn.functional.cosine_similarity(
+        g.flatten(), r.flatten(), dim=0))
+        for g, r in zip(grads, plain_grads))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    del grads, plain_grads
+    print(f"f32 train grads vs attention=reference ({len(leaves)} "
+          f"tensors): loss {loss:.6f} vs {plain_loss:.6f} (abs err "
+          f"{loss_err:.3e}, tol {F32_TRAIN_LOSS_ATOL}), worst grad "
+          f"max-abs-err/max-ref {grad_err:.3e} (tol {F32_TRAIN_GRAD_RTOL}, "
+          f"{worst_path}), lowest cosine {cosine:.9f} (tol "
+          f"{F32_TRAIN_GRAD_MIN_COSINE})")
+    check(finite, "non-finite gradients on the f32 train path")
+    within(loss_err <= F32_TRAIN_LOSS_ATOL,
+          f"f32 train loss differs from the reference path by {loss_err}")
+    within(grad_err <= F32_TRAIN_GRAD_RTOL,
+          f"f32 train gradients differ from the reference path by "
+          f"{grad_err} of max")
+    within(cosine >= F32_TRAIN_GRAD_MIN_COSINE,
+          f"an f32 train gradient points elsewhere than the reference "
+          f"path's (cosine {cosine})")
+
+    init_state, train_step = make_train_step(
+        lambda p, t: transformer_apply(p, t, config))
+    reset_counts()
+    _, losses, step_ms, enqueue_ms = timed_steps(
+        torch, train_step, init_state(params),
+        [(tokens, targets)] * F32_TRAIN_STEPS)
+    launches["f32_train"] = read_counts()
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    print(f"f32 train {F32_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens: launches {launches['f32_train']}, losses "
+          + " ".join(f"{x:.5f}" for x in losses) + ", step ms "
+          + " ".join(f"{x:.2f}" for x in step_ms) + " (CUDA events), "
+          f"enqueue ms " + " ".join(f"{x:.2f}" for x in enqueue_ms)
+          + f"; last step {tokens_per_step / (step_ms[-1] * 1e-3):.0f} "
+          f"tokens/s")
+    check(launches["f32_train"] == {
+              name: n * F32_TRAIN_STEPS * config.n_layers
+              for name, n in only("flash_fwd", "flash_bwd_dkv",
+                                  "flash_bwd_dq").items()},
+          f"the f32 train steps launched {launches['f32_train']}, expected "
+          f"{F32_TRAIN_STEPS * config.n_layers} of each kernel")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    within(abs(losses[0] - loss) <= F32_TRAIN_LOSS_ATOL,
+          f"f32 train step 1 loss {losses[0]} differs from the checked "
+          f"{loss}")
+    check(losses[-1] < losses[0], f"f32 loss did not fall: {losses}")
+    readings = {"forward_logits": forward_err, "prefill_logits": last_err,
+                "token_gap": worst, "loss": loss_err, "grad_rel": grad_err,
+                "grad_cosine": cosine}
+    return launches, readings
 
 
 def engine_trace(config):
@@ -4304,22 +4618,29 @@ def main() -> int:
         for kernel, registers, spill in kernel_resources(log):
             print(f"build {source}.cu {kernel}: {registers} registers, "
                   f"{spill} bytes spilled")
+            check(not kernel.startswith(F32_SASS_KERNELS) or spill == 0,
+                  f"{kernel} spills {spill} bytes")
         for line in log.splitlines():
             if "Potential Performance Loss" in line:
                 print(f"build {source}.cu ptxas: {line.split('info    : ')[-1]}")
-    # the bf16 kernels run on wgmma and TMA: their SASS must hold them
+    # the bf16 kernels run on wgmma and TMA, the f32 forward and dK/dV on
+    # mma.sync and cp.async: their SASS must hold them
     sass = {}
     for source in ("flash_fwd", "flash_bwd"):
         counts = sass_counts(library_sass(_build.library_path(source)))
         for kernel, ops in sorted(counts.items()):
             print(f"build {source}.cu {kernel} SASS: "
                   + ", ".join(f"{op} {n}" for op, n in ops.items()))
-            check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0
-                  and ops["UTMASTG"] > 0,
-                  f"{kernel} issues no wgmma or TMA")
+            if kernel.startswith(F32_SASS_KERNELS):
+                check(ops["HMMA"] > 0 and ops["LDGSTS"] > 0,
+                      f"{kernel} issues no mma.sync or cp.async")
+            else:
+                check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0
+                      and ops["UTMASTG"] > 0,
+                      f"{kernel} issues no wgmma or TMA")
         sass.update(counts)
-    check(len(sass) == 4 * len(SASS_KERNELS),
-          f"bf16 instantiations in the SASS: {sorted(sass)}")
+    check(len(sass) == 4 * (len(SASS_KERNELS) + len(F32_SASS_KERNELS)),
+          f"bf16 and f32 instantiations in the SASS: {sorted(sass)}")
 
     if "--profile-train" in sys.argv[1:]:
         result = {mode: profile_train(torch, device, capture)
@@ -4348,6 +4669,11 @@ def main() -> int:
     worst.update(bs_worst)
     launches = slice_phase(torch, device)
     launches["decode_capture"] = decode_capture_phase(torch, device)
+    t0 = time.perf_counter()
+    f32_launches, _ = f32_phase(torch, device)
+    launches.update(f32_launches)
+    torch.cuda.empty_cache()
+    print(f"f32 phase: {time.perf_counter() - t0:.1f} s")
     launches["engine"], engine_streams, engine_stats, loop_pass = \
         engine_phase(torch, device)
     launches["speculative"] = speculative_phase(torch, device)

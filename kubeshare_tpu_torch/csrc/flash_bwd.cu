@@ -68,9 +68,38 @@
 // The tensor maps are encoded by the launchers (hopper_common.cuh); a map
 // that cuTensorMapEncodeTiled refuses returns cudaErrorInvalidValue.
 //
-// f32: the products run on the CUDA cores (the tensor cores would round
-// f32 to TF32) over shared-memory tiles and accumulators; this path exists
-// for f32 configs and is not tuned.
+// f32 dK/dV (f32 models): one block of 8 warps (256 threads) per
+// (batch, KV head, 128-key tile), KvTile's longest-sweep-first order;
+// warp w owns keys 16w..16w + 15.  What bounds it: at (4, 8, 1024, 64)
+// causal the four products' 8.60 GFLOP take 52 us at 165 TFLOP/s (three
+// TF32 passes at 495: the card's fastest f32-accurate rate), against
+// ~50 MB of traffic, 15 us: operations.  The previous design (CUDA-core
+// FMAs out of shared memory) ran at 6 TFLOP/s.  This one:
+//   - all four products, S^T = K . Q^T, dP^T = V . dO^T, dV += p^T . dO
+//     and dK += ds^T . Q, by mma.sync m16n8k8 in 3xTF32, as the forward
+//     (flash_fwd.cu's note says why not wgmma);
+//   - K and V load once (cp.async); the block streams (query head of its
+//     GQA group, Q step of 64 queries, 16 at d = 128) items, each
+//     bringing Q, dO, lse and delta through a two-stage cp.async ring, so
+//     item i + 1 loads under item i's products; rows padded to D + 4;
+//   - p^T and ds^T go from the S^T and dP^T accumulators to the A operand
+//     of the next two products with the forward's permutation of the k
+//     slots, applied to Q's and dO's rows in their B fragments;
+//   - the tensor cores truncate each accumulation (round toward zero), a
+//     bias that grows with a running sum's length: dk and dv sum the
+//     group's whole sweep (up to thousands of queries), which left them
+//     3.0e-5 of max off at (2, 8, 2048, 128) (the limit is 1e-5).  So
+//     each step's products go into a zeroed partial that the CUDA cores
+//     add into dk, dv with round-to-nearest (accumulate_step): 5.0e-6
+//     there, at 10% of the kernel's time (f32_ablations.py);
+//   - the group is summed in the accumulators and dk, dv written once
+//     (float2 stores): no atomics, the result independent of the
+//     schedule; dk is scaled by d^-1/2 once, at the end;
+//   - a warp skips a step none of its keys is seen in (band, window).
+//   Registers: dk and dv take 4 D / 8 floats a thread (128 at d = 128);
+//   no instantiation spills (chip_smoke.py checks it).
+// f32 dQ: CUDA-core products over shared-memory tiles; not redesigned
+// yet.
 //
 // Block-sparse mode (kMasked = true; the same Pallas kernels with
 // has_mask=True, launched for block_sparse_attention's gradient): a pair
@@ -102,8 +131,8 @@
 
 namespace {
 
-constexpr int kBlockK = 64;  // f32: dK/dV block rows, dQ K tile
-constexpr int kBlockQ = 64;  // f32: dQ block rows
+constexpr int kBlockK = 64;  // f32 dQ: keys of a K tile
+constexpr int kBlockQ = 64;  // f32 dQ: block rows
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
@@ -141,7 +170,7 @@ struct KSweep {
 // A masked dK/dV block's live list of Q steps (`rows` queries each) for
 // its BK-key tile at k0, built by all THREADS threads in the shared
 // memory at `list`
-template <int THREADS = kThreads, int BK = kBlockK>
+template <int THREADS, int BK>
 __device__ __forceinline__ LiveTiles live_q_steps(unsigned char* list,
                                                   int rows, int k0, int s,
                                                   bool causal,
@@ -759,29 +788,101 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ------------------------------------------------------------------------
-// f32 dK/dV: CUDA-core products over shared-memory tiles
+// f32 dK/dV: 3xTF32 mma.sync over a cp.async ring (the design is in the
+// note at the top)
 // ------------------------------------------------------------------------
+
+// 8 warps, warp w owns keys [16w, 16w + 16) of KvTile's 128
+constexpr int kDkvF32Warps = kHRows / 16;
+constexpr int kDkvF32Threads = 32 * kDkvF32Warps;
 
 template <int D>
 struct DkvF32 {
-  static constexpr int kBQ = 32;     // query rows per step
-  static constexpr int kLd = D + 4;  // rows padded by 16 bytes
-  static constexpr int kLdP = kBQ + 4;
+  // queries a step: 64; 16 at d = 128, where dk and dv take 128
+  // registers a thread and 32-query steps spill in the masked build
+  // (dense, they ran 13% faster: f32_ablations.py)
+  static constexpr int kStep = D == 64 ? 64 : 16;
+  // floats a row: 16-byte rows, and every fragment load of a warp on 32
+  // distinct banks (D + 4 = 4 mod 32)
+  static constexpr int kLd = D + 4;
   static constexpr size_t kK = 0;
-  static constexpr size_t kV = kK + kBlockK * kLd;
-  static constexpr size_t kDK = kV + kBlockK * kLd;
-  static constexpr size_t kDV = kDK + kBlockK * kLd;
-  static constexpr size_t kQ = kDV + kBlockK * kLd;
-  static constexpr size_t kDO = kQ + kBQ * kLd;
-  static constexpr size_t kP = kDO + kBQ * kLd;       // p^T [64, kBQ]
-  static constexpr size_t kDS = kP + kBlockK * kLdP;  // ds^T [64, kBQ]
-  static constexpr size_t kLse = kDS + kBlockK * kLdP;
-  static constexpr size_t kDelta = kLse + kBQ;
-  static constexpr size_t kBytes = sizeof(float) * (kDelta + kBQ);
+  static constexpr size_t kV = kK + kHRows * kLd;
+  // stage st of the ring at kRing + st kStage: Q, dO, lse, delta
+  static constexpr size_t kRing = kV + kHRows * kLd;
+  static constexpr int kDO = kStep * kLd;
+  static constexpr int kLse = 2 * kStep * kLd;
+  static constexpr int kDelta = kLse + kStep;
+  static constexpr int kStage = kDelta + kStep;
+  static constexpr size_t kBytes = sizeof(float) * (kRing + 2 * kStage);
 };
 
+// c = A . B^T for one step, 3xTF32: A the lane's rows r0, r0 + 8 of the
+// block's K or V tile, B the step's rows of Q or dO (both row-major in
+// shared memory, D columns); c's rows are keys, its columns 8j + 2t, +1
+// the step's queries
+template <int D, int kStep, int kLd>
+__device__ __forceinline__ void step_product(float (&c)[kStep / 8][4],
+                                             const float* a_tile,
+                                             const float* b_rows, int r0,
+                                             int g, int t) {
+#pragma unroll
+  for (int j = 0; j < kStep / 8; ++j) {
+    c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const Tf32Split<4> a = a_frag<kLd>(a_tile, r0, kk, t);
+#pragma unroll
+    for (int j = 0; j < kStep / 8; ++j) {
+      // B = rows^T: (k 8kk + t, n 8j + g) and (8kk + t + 4, 8j + g)
+      const float* at = b_rows + (8 * j + g) * kLd + 8 * kk + t;
+      Tf32Split<2> b;
+      b.set(0, at[0]);
+      b.set(1, at[4]);
+      mma_3xtf32(c[j], a, b);
+    }
+  }
+}
+
+// acc += a . B for one step: a holds the step's p^T or ds^T accumulator
+// tiles (keys by queries 8j + 2t, +1), B the step's rows of Q or dO in
+// shared memory (`rows`).  The tensor cores truncate each accumulation
+// (round toward zero), a bias that grows with the length of a running
+// sum, and dk and dv sum the group's whole sweep: so each step's product
+// goes into a zeroed partial, kChunk column tiles at a time, which the
+// CUDA cores add to acc with round-to-nearest.  A's split is redone for
+// each chunk (two at d = 128) rather than held, to spare registers.
+template <int D, int kStep, int kLd>
+__device__ __forceinline__ void accumulate_step(float (&acc)[D / 8][4],
+                                                const float (&a)[kStep / 8][4],
+                                                const float* rows, int g,
+                                                int t) {
+  constexpr int kChunk = 8;
+#pragma unroll
+  for (int n0 = 0; n0 < D / 8; n0 += kChunk) {
+    float part[kChunk][4];
+#pragma unroll
+    for (int n = 0; n < kChunk; ++n)
+      part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kStep / 8; ++j) {
+      const Tf32Split<4> aj = acc_as_a(a[j]);
+      const float* b = rows + (8 * j + 2 * t) * kLd + g;
+#pragma unroll
+      for (int n = 0; n < kChunk; ++n) {
+        mma_3xtf32(part[n], aj, b_rows_permuted<kLd>(b, n0 + n));
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kChunk; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n0 + n][c] += part[n][c];
+    }
+  }
+}
+
 template <int D, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDkvF32Threads, 1)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -792,102 +893,143 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                          int h, int h_kv, int s, int causal, int window,
                          float scale, const BlockMask mask) {
   using G = DkvF32<D>;
-  constexpr int kBQ = G::kBQ;
+  constexpr int kStep = G::kStep;
   constexpr int kLd = G::kLd;
-  constexpr int kLdP = G::kLdP;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
-  float* sK = smem + G::kK;
-  float* sV = smem + G::kV;
-  float* sDK = smem + G::kDK;
-  float* sDV = smem + G::kDV;
-  float* sQ = smem + G::kQ;
-  float* sdO = smem + G::kDO;
-  float* sP = smem + G::kP;
-  float* sDS = smem + G::kDS;
-  float* sLse = smem + G::kLse;
-  float* sDelta = smem + G::kDelta;
+  const float* sK = smem + G::kK;
+  const float* sV = smem + G::kV;
 
-  const int kv_head = blockIdx.y;
-  const int batch = blockIdx.z;
+  const KvTile tile(h, h_kv, s);  // longest sweeps first across all heads
   const int group = h / h_kv;
   const bool banded = causal || window > 0;
-  const int k0 = blockIdx.x * kBlockK;
-  const int k_rows = min(kBlockK, s - k0);
-  const QSweep sweep(k0, k0 + k_rows - 1, s, kBQ, banded, window);
+  const QSweep sweep(tile.k0, tile.k0 + tile.k_rows - 1, s, kStep, banded,
+                     window);
   const LiveTiles live =
-      kMasked ? live_q_steps(smem_raw + G::kBytes, kBQ, k0, s, banded, mask)
+      kMasked ? live_q_steps<kDkvF32Threads, kHRows>(
+                    smem_raw + G::kBytes, kStep, tile.k0, s, banded, mask)
               : LiveTiles();
   const int steps = kMasked ? live.count : sweep.count;
-  const size_t kv_offset = ((size_t)(batch * h_kv + kv_head) * s + k0) * D;
+  const int items = group * steps;  // (query head of the group, Q step)
+  const size_t kv_offset = ((size_t)tile.kv_row * s + tile.k0) * D;
+  auto q_start = [&](int it) {
+    return (kMasked ? live.tile(it % steps) : sweep.begin + it % steps) *
+           kStep;
+  };
+  // item it's Q, dO, lse and delta into ring stage it % 2
+  auto load_item = [&](int it) {
+    const int q0 = q_start(it);
+    const size_t row = (size_t)(tile.q_head0 + it / steps) * s + q0;
+    const int valid = min(kStep, s - q0);
+    float* stage = smem + G::kRing + (it % 2) * G::kStage;
+    cp_async_rows_f32<D, kStep, kLd, kDkvF32Threads>(stage, q + row * D,
+                                                     valid);
+    cp_async_rows_f32<D, kStep, kLd, kDkvF32Threads>(stage + G::kDO,
+                                                     dout + row * D, valid);
+    if (threadIdx.x < 2 * kStep) {  // lse, then delta
+      const int i = threadIdx.x % kStep;
+      const float* src = (threadIdx.x < kStep ? lse : delta) + row;
+      cp_async_4(smem_u32(stage + G::kLse + threadIdx.x),
+                 src + (i < valid ? i : 0), i < valid ? 4 : 0);
+    }
+  };
+  cp_async_rows_f32<D, kHRows, kLd, kDkvF32Threads>(smem + G::kK,
+                                                    k + kv_offset,
+                                                    tile.k_rows);
+  cp_async_rows_f32<D, kHRows, kLd, kDkvF32Threads>(smem + G::kV,
+                                                    v + kv_offset,
+                                                    tile.k_rows);
+  if (items > 0) load_item(0);
+  cp_async_commit();
 
-  load_rows_f32<D, kBlockK, kLd, kThreads>(sK, k + kv_offset, k_rows);
-  load_rows_f32<D, kBlockK, kLd, kThreads>(sV, v + kv_offset, k_rows);
-  for (int i = threadIdx.x; i < kBlockK * kLd; i += kThreads) {
-    sDK[i] = 0.f;
-    sDV[i] = 0.f;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;        // fragment row group
+  const int t = lane % 4;        // fragment column pair
+  const int r0 = 16 * warp + g;  // this lane's keys of the tile: r0, r0 + 8
+  const int kw0 = tile.k0 + 16 * warp;  // the warp's first key
+  const float scale_log2 = scale * kLog2e;
+
+  // rows r0, r0 + 8 of the tile; columns 8n + 2t, 8n + 2t + 1
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    dk_acc[n][0] = dk_acc[n][1] = dk_acc[n][2] = dk_acc[n][3] = 0.f;
+    dv_acc[n][0] = dv_acc[n][1] = dv_acc[n][2] = dv_acc[n][3] = 0.f;
   }
 
-  for (int it = 0; it < group * steps; ++it) {
-    const int head = kv_head * group + it / steps;
-    const int q0 =
-        (kMasked ? live.tile(it % steps) : sweep.begin + it % steps) * kBQ;
+  for (int it = 0; it < items; ++it) {
+    if (it + 1 < items) load_item(it + 1);
+    cp_async_commit();  // an empty group past the last item
+    cp_async_wait<1>();  // K, V and item it have landed (this thread's)
+    __syncthreads();     // ... and every thread's
+    const int q0 = q_start(it);
     const bool cut = kMasked && live.cut(it % steps);
-    const size_t row = (size_t)(batch * h + head) * s + q0;
-    const int valid = min(kBQ, s - q0);
-    __syncthreads();  // every thread is done with the previous Q tile
-    load_rows_f32<D, kBQ, kLd, kThreads>(sQ, q + row * D, valid);
-    load_rows_f32<D, kBQ, kLd, kThreads>(sdO, dout + row * D, valid);
-    for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-      sLse[i] = i < valid ? lse[row + i] : 0.f;
-      sDelta[i] = i < valid ? delta[row + i] : 0.f;
-    }
-    __syncthreads();
-
-    // p^T and ds^T for the 64 x kBQ pairs
-    for (int idx = threadIdx.x; idx < kBlockK * kBQ; idx += kThreads) {
-      const int r = idx / kBQ;  // key row
-      const int c = idx % kBQ;  // query column
-      const float* kr = sK + r * kLd;
-      const float* vr = sV + r * kLd;
-      const float* qr = sQ + c * kLd;
-      const float* dr = sdO + c * kLd;
-      float sc = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int e = 0; e < D; ++e) {
-        sc = fmaf(kr[e], qr[e], sc);
-        dp = fmaf(vr[e], dr[e], dp);
+    const float* stage = smem + G::kRing + (it % 2) * G::kStage;
+    const float* sQ = stage;
+    const float* sdO = stage + G::kDO;
+    const float* sLse = stage + G::kLse;
+    const float* sDelta = stage + G::kDelta;
+    // the warp's 16 keys are past s, or no query of the step sees them
+    const bool dead = kw0 >= s || (banded && kw0 > q0 + kStep - 1) ||
+                      (window > 0 && q0 - (kw0 + 15) >= window);
+    if (!dead) {
+      // Two halves, so that only one of S^T / dP^T and its partial are
+      // live beside dk, dv (at d = 128 they take 128 registers).
+      // S^T = K . Q^T, then p^T = exp(S^T d^-1/2 - lse) on visible
+      // pairs, else 0; every pair of a full tile is visible
+      const bool full = !cut && kw0 + 16 <= s && q0 + kStep <= s &&
+                        (!banded || q0 >= kw0 + 15) &&
+                        (window <= 0 || q0 + kStep - 1 - kw0 < window);
+      float pt[kStep / 8][4];
+      step_product<D, kStep, kLd>(pt, sK, sQ, r0, g, t);
+#pragma unroll
+      for (int j = 0; j < kStep / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int qi = 8 * j + 2 * t + (c % 2);
+          float p = 0.f;
+          if (full || visible(q0 + qi, tile.k0 + r0 + 8 * (c / 2), s, banded,
+                              window, cut, mask)) {
+            p = exp2_approx(fmaf(pt[j][c], scale_log2, -sLse[qi] * kLog2e));
+          }
+          pt[j][c] = p;
+        }
       }
-      const float p = visible(q0 + c, k0 + r, s, banded, window, cut, mask)
-                          ? expf(sc * scale - sLse[c]) : 0.f;
-      sP[r * kLdP + c] = p;
-      sDS[r * kLdP + c] = p * (dp - sDelta[c]);
-    }
-    __syncthreads();
+      // dV += p^T . dO over the step's queries
+      accumulate_step<D, kStep, kLd>(dv_acc, pt, sdO, g, t);
 
-    // dV += p^T . dO, dK += ds^T . Q
-    for (int idx = threadIdx.x; idx < kBlockK * D; idx += kThreads) {
-      const int r = idx / D;
-      const int e = idx % D;
-      float acc_v = sDV[r * kLd + e];
-      float acc_k = sDK[r * kLd + e];
-#pragma unroll 8
-      for (int c = 0; c < kBQ; ++c) {
-        acc_v = fmaf(sP[r * kLdP + c], sdO[c * kLd + e], acc_v);
-        acc_k = fmaf(sDS[r * kLdP + c], sQ[c * kLd + e], acc_k);
+      // dP^T = V . dO^T, then ds^T = p^T o (dP^T - delta); dK += ds^T . Q
+      float dst[kStep / 8][4];
+      step_product<D, kStep, kLd>(dst, sV, sdO, r0, g, t);
+#pragma unroll
+      for (int j = 0; j < kStep / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int qi = 8 * j + 2 * t + (c % 2);
+          dst[j][c] = pt[j][c] * (dst[j][c] - sDelta[qi]);
+        }
       }
-      sDV[r * kLd + e] = acc_v;
-      sDK[r * kLd + e] = acc_k;
+      accumulate_step<D, kStep, kLd>(dk_acc, dst, sQ, g, t);
     }
+    __syncthreads();  // stage it % 2 is free for item it + 2
   }
-  __syncthreads();
+  cp_async_wait<0>();  // an empty sweep left K's and V's copies in flight
 
-  for (int idx = threadIdx.x; idx < kBlockK * D; idx += kThreads) {
-    const int r = idx / D;
-    const int e = idx % D;
-    if (r < k_rows) {
-      dk[kv_offset + (size_t)r * D + e] = sDK[r * kLd + e] * scale;
-      dv[kv_offset + (size_t)r * D + e] = sDV[r * kLd + e];
+  // dk = d^-1/2 ds^T . q and dv, each written once (the whole group
+  // summed in the accumulators): rows r0, r0 + 8, columns 8n + 2t, +1
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= tile.k_rows) continue;
+    float* dk_row = dk + kv_offset + (size_t)row * D + 2 * t;
+    float* dv_row = dv + kv_offset + (size_t)row * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(dk_row + 8 * n) = make_float2(
+          dk_acc[n][2 * r] * scale, dk_acc[n][2 * r + 1] * scale);
+      *reinterpret_cast<float2*>(dv_row + 8 * n) =
+          make_float2(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
     }
   }
 }
@@ -1017,17 +1159,24 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename Kernel>
-cudaError_t launch_dkv_f32(Kernel kernel, size_t smem, const void* q,
-                           const void* k, const void* v, const void* dout,
-                           const void* lse, const void* delta, void* dk,
-                           void* dv, int b, int h, int h_kv, int s,
-                           int causal, int window, float scale,
-                           const BlockMask& mask, cudaStream_t stream) {
+template <int D, bool kMasked>
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dk, void* dv, int b,
+                           int h, int h_kv, int s, int causal, int window,
+                           float scale, const BlockMask& mask,
+                           cudaStream_t stream) {
+  // a masked block's live list of Q steps follows its tiles
+  constexpr int kStep = DkvF32<D>::kStep;
+  const size_t smem =
+      DkvF32<D>::kBytes +
+      (kMasked ? live_list_bytes((s + kStep - 1) / kStep) : 0);
+  auto kernel = flash_bwd_dkv_f32_kernel<D, kMasked>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((s + kBlockK - 1) / kBlockK, h_kv, b);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  // KvTile's order: the grid of the bf16 dK/dV kernel
+  const dim3 grid((s + kHRows - 1) / kHRows, h_kv, b);
+  kernel<<<grid, kDkvF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1125,11 +1274,6 @@ int dispatch_dkv(const void* q, const void* k, const void* v,
                  void* dk, void* dv, int dtype, int b, int h, int h_kv, int s,
                  int d, int causal, int window, float scale,
                  const BlockMask& mask, cudaStream_t st) {
-  // a masked f32 block's live list of Q steps follows its tiles in shared
-  // memory
-  auto list = [&](int rows) {
-    return kMasked ? live_list_bytes((s + rows - 1) / rows) : 0;
-  };
   if (dtype == 1 && d == 64)
     return (int)launch_dkv_bf16<64, kMasked>(q, k, v, dout, lse, delta, dk,
                                              dv, b, h, h_kv, s, causal,
@@ -1139,15 +1283,13 @@ int dispatch_dkv(const void* q, const void* k, const void* v,
                                               dv, b, h, h_kv, s, causal,
                                               window, scale, mask, st);
   if (dtype == 0 && d == 64)
-    return (int)launch_dkv_f32(
-        flash_bwd_dkv_f32_kernel<64, kMasked>,
-        DkvF32<64>::kBytes + list(DkvF32<64>::kBQ), q, k, v, dout, lse,
-        delta, dk, dv, b, h, h_kv, s, causal, window, scale, mask, st);
+    return (int)launch_dkv_f32<64, kMasked>(q, k, v, dout, lse, delta, dk,
+                                            dv, b, h, h_kv, s, causal,
+                                            window, scale, mask, st);
   if (dtype == 0 && d == 128)
-    return (int)launch_dkv_f32(
-        flash_bwd_dkv_f32_kernel<128, kMasked>,
-        DkvF32<128>::kBytes + list(DkvF32<128>::kBQ), q, k, v, dout, lse,
-        delta, dk, dv, b, h, h_kv, s, causal, window, scale, mask, st);
+    return (int)launch_dkv_f32<128, kMasked>(q, k, v, dout, lse, delta, dk,
+                                             dv, b, h, h_kv, s, causal,
+                                             window, scale, mask, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,9 @@
 // Building blocks shared by the flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu): shared-memory addresses, bf16 packing, the f32 kernels'
-// tile loads, the Q tile a block owns (TileOf), and the block mask and
-// tile sweep of the block-sparse mode.  Each including source gets its
-// own copy (anonymous namespace).
+// tile loads (synchronous, and by cp.async) and their 3xTF32 tensor-core
+// products, the Q tile a block owns (TileOf), and the block mask and tile
+// sweep of the block-sparse mode.  Each including source gets its own
+// copy (anonymous namespace).
 
 #pragma once
 
@@ -36,6 +37,136 @@ __device__ __forceinline__ void load_rows_f32(float* dst,
     if (r < valid) val = reinterpret_cast<const float4*>(src + (size_t)r * D)[c];
     reinterpret_cast<float4*>(dst + r * LD)[c] = val;
   }
+}
+
+// ---- f32: cp.async and 3xTF32 mma.sync ----------------------------------
+
+// 16 bytes from global memory at `src` into shared memory at `dst`,
+// asynchronously (cp.async, bypassing L1); with `bytes` = 0 nothing is
+// read and 16 zero bytes are written
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// the same for one float
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's newest cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// [ROWS, D] f32 tile into rows of LD floats by cp.async, 16 bytes a copy;
+// rows at or past `valid` are zero-filled and read nothing
+template <int D, int ROWS, int LD, int THREADS>
+__device__ __forceinline__ void cp_async_rows_f32(float* dst,
+                                                  const float* src,
+                                                  int valid) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
+    const int r = i / kChunks;
+    const int c = i % kChunks;
+    const bool in = r < valid;
+    cp_async_16(smem_u32(dst + r * LD + 4 * c),
+                src + (size_t)(in ? r : 0) * D + 4 * c, in ? 16 : 0);
+  }
+}
+
+// x rounded to nearest to TF32 (10 mantissa bits), as an f32 bit pattern
+// whose low 13 bits are zero
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// An mma.sync operand fragment of N f32 values, each split into a TF32
+// big part and the TF32 rounding of its remainder (x - big is exact in
+// f32), so that big + small carries 21 of x's 24 significant bits
+template <int N>
+struct Tf32Split {
+  uint32_t big[N], small[N];
+
+  __device__ __forceinline__ void set(int i, float x) {
+    big[i] = to_tf32(x);
+    small[i] = to_tf32(x - __uint_as_float(big[i]));
+  }
+};
+
+// d += a . b for one m16n8k8 tile, TF32 operands, f32 accumulation.
+// Fragments (g = lane / 4, t = lane % 4): a[0..3] hold A's (row, k) at
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b[0..1] hold B's (k, n)
+// at (t, g), (t + 4, g); d[0..3] hold (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a . b to f32 accuracy on the tensor cores (3xTF32): the two cross
+// terms first, then big . big; only small . small (2^-22 of |a| |b|) is
+// dropped
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const Tf32Split<4>& a,
+                                           const Tf32Split<2>& b) {
+  mma_tf32(d, a.small, b.big);
+  mma_tf32(d, a.big, b.small);
+  mma_tf32(d, a.big, b.big);
+}
+
+// A fragment of rows r0, r0 + 8 of a row-major f32 tile at columns
+// 8 kk + t, 8 kk + t + 4 (the m16n8k8 A layout), split for 3xTF32
+template <int LD>
+__device__ __forceinline__ Tf32Split<4> a_frag(const float* tile, int r0,
+                                               int kk, int t) {
+  const float* at = tile + r0 * LD + 8 * kk + t;
+  Tf32Split<4> a;
+  a.set(0, at[0]);
+  a.set(1, at[8 * LD]);
+  a.set(2, at[4]);
+  a.set(3, at[8 * LD + 4]);
+  return a;
+}
+
+// The accumulator of an m16n8 tile (rows g, g + 8 at columns 2t, 2t + 1)
+// as the A fragment of a product that sums over those columns: k slot t
+// takes column 2t and slot t + 4 column 2t + 1, so the B fragment must
+// read rows 2t and 2t + 1 of its 8 (b_rows_permuted)
+__device__ __forceinline__ Tf32Split<4> acc_as_a(const float (&c)[4]) {
+  Tf32Split<4> a;
+  a.set(0, c[0]);
+  a.set(1, c[2]);
+  a.set(2, c[1]);
+  a.set(3, c[3]);
+  return a;
+}
+
+// B fragment of rows 2t, 2t + 1 of a row-major tile (`rows` points at
+// row 2t, column g), column 8n + g: the permuted k slots of acc_as_a
+template <int LD>
+__device__ __forceinline__ Tf32Split<2> b_rows_permuted(const float* rows,
+                                                        int n) {
+  Tf32Split<2> b;
+  b.set(0, rows[8 * n]);
+  b.set(1, rows[LD + 8 * n]);
+  return b;
 }
 
 // Where a (batch, head, Q tile) block of BQ query rows starts and which

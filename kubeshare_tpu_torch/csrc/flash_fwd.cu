@@ -55,9 +55,41 @@
 // (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
 // nothing links libcuda) and passed as __grid_constant__ parameters.
 //
-// f32: the products run on the CUDA cores (the tensor cores would round
-// f32 to TF32) over 64 x 64 shared-memory tiles with 128 threads; this
-// path exists for f32 configs and is not tuned.
+// f32 (f32 models, e.g. entry.flagship_config(torch.float32)): the same
+// function at f32 accuracy, 128 threads, 64 query rows a block (warp w
+// owns rows 16w..16w + 15).  What bounds it: at (4, 8, 1024, 64) causal
+// the band's 4.30 GFLOP take 26 us at 165 TFLOP/s, the card's fastest
+// f32-accurate rate (three TF32 passes at 495), against 33.6 MB of
+// traffic, 10 us: operations.  The previous design (one thread per dot
+// product out of shared memory, two shared loads an FMA, no tensor core)
+// sat at 3.5 TFLOP/s, shared-memory bound.  This one:
+//   - products on the tensor cores by mma.sync m16n8k8 TF32 in 3xTF32:
+//     each operand fragment is split in registers into TF32 big and small
+//     parts, and a . b = a_small b_big + a_big b_small + a_big b_big (only
+//     small x small, 2^-22 of |a b|, is dropped), so the result keeps f32
+//     accuracy (a single TF32 pass would be off by ~5e-4).  mma.sync and
+//     not wgmma: wgmma reads its B operand (here A too) from shared
+//     memory, so the split would need big and small copies of every tile
+//     there, and TF32 wgmma takes only K-major operands where V is
+//     MN-major in P . V;
+//   - K / V tiles of 32 keys come through a two-stage ring by cp.async,
+//     so tile i + 1 loads under tile i's products; rows are padded to
+//     D + 4 floats, which puts every fragment load of a warp on 32 banks;
+//   - Q: at d = 64 each warp keeps its fragments split in registers for
+//     the whole sweep; at d = 128 that would take 128 registers, so they
+//     are read from shared memory and split at each use;
+//   - the softmax runs on the S accumulator in registers (exp2 with
+//     d^-1/2 log2(e) folded in, as bf16); P goes from the accumulator to
+//     P . V's A operand with no shuffle: the accumulator holds keys
+//     2t, 2t + 1 of an 8-key slice where the A layout wants t, t + 4, and
+//     since the product sums over keys, k slot t takes key 2t and slot
+//     t + 4 key 2t + 1 on both sides (V's B fragment reads those rows);
+//   - a warp skips a tile none of its rows sees (band, window); dense
+//     blocks go longest causal rows first across all heads.
+// The O accumulator keeps the running sum on the tensor cores: their
+// truncating accumulation leaves out 5.5e-6 off at (2, 8, 2048, 128),
+// inside the 1e-4 limit.  No instantiation spills (chip_smoke.py checks
+// it).
 //
 // GQA: query head hi reads KV head hi / (h / h_kv); KV is never repeated.
 // Ragged lengths: rows past the sequence end are loaded as zeros, masked,
@@ -90,13 +122,10 @@
 
 namespace {
 
+// the f32 kernel: 64 query rows a block, warp w owns rows [16w, 16w + 16)
 constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kWarps = 4;  // warp w owns Q rows [16w, 16w + 16)
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = kBlockQ / kWarps;
-
-using Tile = TileOf<kBlockQ, kBlockK>;  // the f32 kernel's 64 x 64 tiles
 
 // `cut`: the tile straddles mask blocks, so the mask is tested too
 __device__ __forceinline__ bool visible(int q_pos, int k_pos, int s,
@@ -489,161 +518,207 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ------------------------------------------------------------------------
-// f32: CUDA-core products over shared-memory tiles
+// f32: 3xTF32 mma.sync over a cp.async ring (the design is in the note
+// at the top)
 // ------------------------------------------------------------------------
 
 template <int D>
 struct F32Smem {
-  // rows padded by 16 bytes (keeps float4 alignment, staggers banks)
-  static constexpr int kLd = D + 4;        // q, k, v tiles and accumulator
-  static constexpr int kLdS = kBlockK + 4;  // scores / probabilities
+  // keys a K / V tile: 32 ran 3% faster than 64 at d = 64 on the card
+  // (f32_ablations.py); 52 KB of shared memory a block at d = 64, 101 KB
+  // at d = 128
+  static constexpr int kBK = 32;
+  // floats a row: 16-byte rows, and every fragment load of a warp on 32
+  // distinct banks (D + 4 = 4 mod 32)
+  static constexpr int kLd = D + 4;
+  static constexpr int kTile = kBK * kLd;
   static constexpr size_t kQ = 0;
-  static constexpr size_t kK = kQ + kBlockQ * kLd;
-  static constexpr size_t kV = kK + kBlockK * kLd;
-  static constexpr size_t kS = kV + kBlockK * kLd;
-  static constexpr size_t kO = kS + kBlockQ * kLdS;
-  static constexpr size_t kM = kO + kBlockQ * kLd;
-  static constexpr size_t kL = kM + kBlockQ;
-  static constexpr size_t kBytes = sizeof(float) * (kL + kBlockQ);
+  // stage st of the ring: K at kRing + 2 st kTile, V right after it
+  static constexpr size_t kRing = kQ + kBlockQ * kLd;
+  static constexpr size_t kBytes = sizeof(float) * (kRing + 2 * 2 * kTile);
 };
 
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst,
-                                              const float* __restrict__ src,
-                                              int valid) {
-  load_rows_f32<D, kBlockK, F32Smem<D>::kLd, kThreads>(dst, src, valid);
-}
-
+// The bounds are measured, not derived (f32_ablations.py, fwd_no_cap):
+// at d = 128 a register cap of three blocks' worth (170; shared memory
+// holds two) and at d = 64 an explicit minimum of one block (185
+// registers, against 168 without it) each ran 7-9% faster on the card
 template <int D, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, D == 128 ? 3 : 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int h, int h_kv, int s,
                      int causal, int window, float scale,
                      const BlockMask mask) {
   using G = F32Smem<D>;
+  constexpr int kBK = G::kBK;
   constexpr int kLd = G::kLd;
-  constexpr int kLdS = G::kLdS;
+  // d = 64: the warp's Q fragments stay split in registers (64 of them)
+  // for the whole sweep; d = 128 would need 128, so they are read from
+  // shared memory and split at each use
+  constexpr bool kQInRegs = D == 64;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
-  float* sQ = smem + G::kQ;
-  float* sK = smem + G::kK;
-  float* sV = smem + G::kV;
-  float* sS = smem + G::kS;
-  float* sO = smem + G::kO;
-  float* sM = smem + G::kM;
-  float* sL = smem + G::kL;
+  const float* sQ = smem + G::kQ;
 
   const bool banded = causal || window > 0;
-  const Tile tile(h, h_kv, s, D, banded, window);
+  // dense: longest causal rows first across all heads, as the bf16 sweep
+  const TileOf<kBlockQ, kBK> tile(h, h_kv, s, D, banded, window, !kMasked);
   const LiveTiles live = kMasked ? live_k_tiles(smem_raw + G::kBytes, tile,
                                                 s, banded, mask)
                                  : LiveTiles();
-  const int kt_begin = kMasked ? 0 : tile.k_tile_begin;
-  const int kt_end = kMasked ? live.count - 1 : tile.k_tile_end;
+  const int n_tiles =
+      kMasked ? live.count : tile.k_tile_end - tile.k_tile_begin + 1;
+  auto k_start = [&](int i) {
+    return (kMasked ? live.tile(i) : tile.k_tile_begin + i) * kBK;
+  };
+  // tile i's K and V into ring stage i % 2
+  auto load_kv = [&](int i) {
+    const int k0 = k_start(i);
+    const size_t at = tile.kv_offset + (size_t)k0 * D;
+    float* sK = smem + G::kRing + (i % 2) * 2 * G::kTile;
+    cp_async_rows_f32<D, kBK, kLd, kThreads>(sK, k + at, min(kBK, s - k0));
+    cp_async_rows_f32<D, kBK, kLd, kThreads>(sK + G::kTile, v + at,
+                                             min(kBK, s - k0));
+  };
+  cp_async_rows_f32<D, kBlockQ, kLd, kThreads>(smem + G::kQ,
+                                               q + tile.q_offset, tile.q_rows);
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int g = lane / 4;        // fragment row group
+  const int t = lane % 4;        // fragment column pair
+  const int r0 = 16 * warp + g;  // this lane's rows of the tile: r0, r0 + 8
+  const int qw0 = tile.q0 + 16 * warp;  // the warp's first query
+  const float scale_log2 = scale * 1.4426950408889634f;  // d^-1/2 log2(e)
 
-  load_tile_f32<D>(sQ, q + tile.q_offset, tile.q_rows);
-  for (int i = threadIdx.x; i < kBlockQ * kLd; i += kThreads) sO[i] = 0.f;
-  for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
-    sM[i] = -INFINITY;
-    sL[i] = 0.f;
-  }
+  Tf32Split<4> qf[kQInRegs ? D / 8 : 1];
+  float o[D / 8][4];  // acc of rows r0 (0, 1), r0 + 8 (2, 3), cols 8n + 2t, +1
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
+  float l[2] = {0.f, 0.f};              // this lane's share of the row sums
 
-  // softmax work split: two lanes per row, 32 columns each
-  const int my_row = warp * kRowsPerWarp + lane / 2;
-  const int my_half = lane % 2;
-  const int q_pos = tile.q0 + my_row;
-  float* s_rows = sS + warp * kRowsPerWarp * kLdS;
-  float* o_rows = sO + warp * kRowsPerWarp * kLd;
-
-  for (int kt = kt_begin; kt <= kt_end; ++kt) {
-    const int k0 = (kMasked ? live.tile(kt) : kt) * kBlockK;
-    const bool cut = kMasked && live.cut(kt);
-    __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile_f32<D>(sK, k + tile.kv_offset + (size_t)k0 * D,
-                     min(kBlockK, s - k0));
-    load_tile_f32<D>(sV, v + tile.kv_offset + (size_t)k0 * D,
-                     min(kBlockK, s - k0));
-    __syncthreads();
-
-    // scores for this warp's 16 rows
-    for (int idx = lane; idx < kRowsPerWarp * kBlockK; idx += 32) {
-      const int r = idx / kBlockK;
-      const int c = idx % kBlockK;
-      const float* qr = sQ + (warp * kRowsPerWarp + r) * kLd;
-      const float* kr = sK + c * kLd;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int e = 0; e < D; ++e) acc = fmaf(qr[e], kr[e], acc);
-      s_rows[r * kLdS + c] = acc;
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) load_kv(i + 1);
+    cp_async_commit();  // an empty group past the last tile
+    cp_async_wait<1>();  // Q and tile i have landed (this thread's copies)
+    __syncthreads();     // ... and every thread's
+    if (kQInRegs && i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) qf[kk] = a_frag<kLd>(sQ, r0, kk, t);
     }
-    __syncwarp();
-
-    // online softmax on this lane's half row
-    float* srow = sS + my_row * kLdS;
-    float block_max = -INFINITY;
-    for (int c = my_half * 32; c < my_half * 32 + 32; ++c) {
-      const float score = visible(q_pos, k0 + c, s, banded, window, cut, mask)
-                              ? srow[c] * scale : -INFINITY;
-      srow[c] = score;
-      block_max = fmaxf(block_max, score);
-    }
-    block_max = fmaxf(block_max, __shfl_xor_sync(0xffffffffu, block_max, 1));
-    const float m_prev = sM[my_row];
-    const float m_next = fmaxf(m_prev, block_max);
-    const float safe_m = isfinite(m_next) ? m_next : 0.f;
-    float row_sum = 0.f;
-    for (int c = my_half * 32; c < my_half * 32 + 32; ++c) {
-      const float p = isfinite(srow[c]) ? expf(srow[c] - safe_m) : 0.f;
-      srow[c] = p;
-      row_sum += p;
-    }
-    row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
-    const float correction = isfinite(m_prev) ? expf(m_prev - safe_m) : 0.f;
-    float* orow = sO + my_row * kLd;
-    for (int e = my_half * (D / 2); e < my_half * (D / 2) + D / 2; ++e) {
-      orow[e] *= correction;
-    }
-    __syncwarp();  // both lanes of the row have read m_prev
-    if (my_half == 0) {
-      sL[my_row] = sL[my_row] * correction + row_sum;
-      sM[my_row] = m_next;
-    }
-    __syncwarp();
-
-    // acc += P . V for this warp's 16 rows
-    for (int idx = lane; idx < kRowsPerWarp * D; idx += 32) {
-      const int r = idx / D;
-      const int e = idx % D;
-      float acc = o_rows[r * kLd + e];
-#pragma unroll 8
-      for (int c = 0; c < kBlockK; ++c) {
-        acc = fmaf(s_rows[r * kLdS + c], sV[c * kLd + e], acc);
+    const int k0 = k_start(i);
+    const bool cut = kMasked && live.cut(i);
+    const float* sK = smem + G::kRing + (i % 2) * 2 * G::kTile;
+    const float* sV = sK + G::kTile;
+    // the warp's 16 rows see no key of this tile (band or window): skip
+    const bool dead = (banded && k0 > qw0 + 15) ||
+                      (window > 0 && qw0 - (k0 + kBK - 1) >= window);
+    if (!dead) {
+      // S = Q . K^T for rows r0, r0 + 8, keys 8j + 2t, +1
+      float sc[kBK / 8][4];
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+        sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        Tf32Split<4> a;
+        if constexpr (kQInRegs) {
+          a = qf[kk];
+        } else {
+          a = a_frag<kLd>(sQ, r0, kk, t);
+        }
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+          // B = K^T: (k 8kk + t, n 8j + g) and (8kk + t + 4, 8j + g)
+          const float* kb = sK + (8 * j + g) * kLd + 8 * kk + t;
+          Tf32Split<2> b;
+          b.set(0, kb[0]);
+          b.set(1, kb[4]);
+          mma_3xtf32(sc[j], a, b);
+        }
       }
-      o_rows[r * kLd + e] = acc;
-    }
-    __syncwarp();
-  }
-  // an empty live list ran no iteration: the zeroed sO, sL, sM come from
-  // every thread
-  if (kMasked) __syncthreads();
 
-  float* out_rows = out + tile.q_offset;
-  for (int idx = lane; idx < kRowsPerWarp * D; idx += 32) {
-    const int r = warp * kRowsPerWarp + idx / D;
-    const int e = idx % D;
-    if (r < tile.q_rows) {
-      out_rows[(size_t)r * D + e] = sO[r * kLd + e] / fmaxf(sL[r], 1e-30f);
+      // mask, then the online softmax of rows r0 (c = 0, 1) and r0 + 8
+      // (c = 2, 3); every key of a full tile is visible to every row
+      const bool full = !cut && k0 + kBK <= s &&
+                        (!banded || k0 + kBK - 1 <= qw0) &&
+                        (window <= 0 || qw0 + 15 - k0 < window);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (!full && !visible(tile.q0 + r0 + 8 * (c / 2),
+                                k0 + 8 * j + 2 * t + (c % 2), s, banded,
+                                window, cut, mask)) {
+            sc[j][c] = -INFINITY;
+          }
+          mx[c / 2] = fmaxf(mx[c / 2], sc[j][c]);
+        }
+      }
+      float off[2];  // the exponent's offset in log2 units
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // a row with no visible key so far keeps m = -inf and takes
+        // offset 0, so exp2 sees -inf (p = 0), never inf - inf
+        off[r] = mx[r] == -INFINITY ? 0.f : mx[r] * scale_log2;
+        const float corr = exp2_approx(fmaf(m[r], scale_log2, -off[r]));
+        m[r] = mx[r];
+        l[r] *= corr;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[n][2 * r] *= corr;
+          o[n][2 * r + 1] *= corr;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          sc[j][c] = exp2_approx(fmaf(sc[j][c], scale_log2, -off[c / 2]));
+          l[c / 2] += sc[j][c];
+        }
+      }
+
+      // O += P . V: P's accumulator is the A fragment with its keys
+      // permuted (acc_as_a), and V's B fragment reads the same keys
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        const Tf32Split<4> a = acc_as_a(sc[j]);
+        const float* vb = sV + (8 * j + 2 * t) * kLd + g;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          mma_3xtf32(o[n], a, b_rows_permuted<kLd>(vb, n));
+        }
+      }
     }
+    __syncthreads();  // stage i % 2 is free for tile i + 2
   }
-  if (lane < kRowsPerWarp) {
-    const int r = warp * kRowsPerWarp + lane;
-    if (r < tile.q_rows) {
-      const float l = sL[r];
-      lse[tile.q_offset / D + r] =
-          l > 0.f ? sM[r] + logf(fmaxf(l, 1e-30f)) : -INFINITY;
+  cp_async_wait<0>();  // an empty live list left Q's copies in flight
+
+  // rows r0 and r0 + 8: the quad's shares of l, then out = acc / l and
+  // lse (-inf, with out = 0, on a row with no visible key)
+  float* lse_rows = lse + tile.q_offset / D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r0 + 8 * r;
+    if (row >= tile.q_rows) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    float* out_row = out + tile.q_offset + (size_t)row * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(out_row + 8 * n) =
+          make_float2(o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+    }
+    if (t == 0) {
+      lse_rows[row] = l[r] > 0.f ? m[r] * scale + logf(denom) : -INFINITY;
     }
   }
 }
@@ -698,8 +773,10 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
              void* lse, int dtype, int b, int h, int h_kv, int s, int d,
              int causal, int window, float scale, const BlockMask& mask,
              cudaStream_t st) {
-  // a masked block's live list follows its tiles in shared memory
-  const size_t list = kMasked ? live_list_bytes((s + kBlockK - 1) / kBlockK) : 0;
+  // a masked f32 block's live list follows its tiles in shared memory
+  auto list = [&](int bk) {
+    return kMasked ? live_list_bytes((s + bk - 1) / bk) : 0;
+  };
   if (dtype == 1 && d == 64)
     return (int)launch_bf16<64, kMasked>(q, k, v, out, lse, b, h, h_kv, s,
                                          causal, window, scale, mask, st);
@@ -708,11 +785,13 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
                                           causal, window, scale, mask, st);
   if (dtype == 0 && d == 64)
     return (int)launch<float>(
-        flash_fwd_f32_kernel<64, kMasked>, F32Smem<64>::kBytes + list, q, k,
+        flash_fwd_f32_kernel<64, kMasked>,
+        F32Smem<64>::kBytes + list(F32Smem<64>::kBK), q, k,
         v, out, lse, b, h, h_kv, s, causal, window, scale, mask, st);
   if (dtype == 0 && d == 128)
     return (int)launch<float>(
-        flash_fwd_f32_kernel<128, kMasked>, F32Smem<128>::kBytes + list, q, k,
+        flash_fwd_f32_kernel<128, kMasked>,
+        F32Smem<128>::kBytes + list(F32Smem<128>::kBK), q, k,
         v, out, lse, b, h, h_kv, s, causal, window, scale, mask, st);
   return (int)cudaErrorInvalidValue;
 }

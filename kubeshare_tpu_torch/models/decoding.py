@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.rope import apply_rope
-from ..parallel.train import CAPTURE_WARMUP_STEPS
+from ..parallel.train import CAPTURE_WARMUP_STEPS, graph_capture
 from .transformer import (
     TransformerConfig,
     _forward,
@@ -524,7 +524,7 @@ def capture_graph(fn: Callable[[], object], device: torch.device,
                 after_warmup()
     current.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
+    with graph_capture(graph, pool):
         outputs = fn()
     return graph, outputs
 

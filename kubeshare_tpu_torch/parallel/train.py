@@ -36,6 +36,8 @@ shards, keeps every copy of a slice equal to the bit.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Iterator, List, Optional, Tuple
 
@@ -196,6 +198,25 @@ def _place_batch(mesh, *batch) -> List[ShardedTensor]:
 # library handles, the kernels' first loads and the optimizer's lazy state
 # come into being outside the graph
 CAPTURE_WARMUP_STEPS = 3
+
+
+@contextlib.contextmanager
+def graph_capture(graph: torch.cuda.CUDAGraph, pool=None):
+    """``torch.cuda.graph(graph, pool=pool)`` with Python's cyclic garbage
+    collector off.  A collection inside the capture may free a dead
+    reference cycle that holds other CUDA graphs (a finished engine's
+    programs); destroying a graph while a stream captures is not
+    permitted, so it invalidates the capture and the next launch into it
+    fails (cuBLAS reports CUBLAS_STATUS_EXECUTION_FAILED).  Such cycles
+    are collected after the capture instead."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _cuda_device_of(leaves: List[torch.Tensor]) -> torch.device:
@@ -370,7 +391,7 @@ class CapturedTrainStep:
         # parameters, so the graph-pool addresses baked into them stay
         # valid across replays
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with graph_capture(graph):
             loss = self._pass(state)
         _restore(leaves, optimizer, saved)
         self.graph, self.optimizer, self.loss = graph, optimizer, loss.detach()

@@ -5,9 +5,10 @@ the pointer on the card, and no launch on the CPU would show it), the
 build targets sm_90a (wgmma and setmaxnreg exist only there), both
 sources share one copy of the Hopper helpers and of the tensor-map
 encoder, chip_smoke.py reads the registers and spills of every kernel
-instantiation from ptxas's lines and the bf16 kernels' wgmma and TMA
-instructions from their SASS, and flash_bwd_ablations.py's edits still
-apply to the backward's source."""
+instantiation from ptxas's lines, the bf16 kernels' wgmma and TMA
+instructions and the f32 forward and dK/dV kernels' mma.sync and cp.async
+instructions from their SASS, and flash_ablations.py's edits still
+apply to the kernels' sources."""
 
 import ast
 import ctypes
@@ -116,6 +117,14 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124flash_bwd_dq_bf16_k
 ptxas info    : Function properties for _ZN12_GLOBAL__N_124flash_bwd_dq_bf16_kernelILi64ELb1EEEv14CUtensorMap_stS1_S1_S1_S1_PKfS3_iiiiifNS_9BlockMaskE
     16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 168 registers, used 3 barriers, 720 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi64ELb0EEEvPKfS2_S2_PfS3_iiiiifNS_9BlockMaskE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi64ELb0EEEvPKfS2_S2_PfS3_iiiiifNS_9BlockMaskE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 179 registers, used 1 barriers, 16 bytes smem, 440 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124flash_bwd_dkv_f32_kernelILi64ELb1EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiiifNS_9BlockMaskE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_124flash_bwd_dkv_f32_kernelILi64ELb1EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiiifNS_9BlockMaskE
+    40 bytes stack frame, 40 bytes spill stores, 40 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 32 bytes smem, 472 bytes cmem[0]
 """
 
 
@@ -127,6 +136,8 @@ def test_chip_smoke_reads_every_instantiation():
         ("flash_bwd_dkv_f32_kernel<128>", 40, 0),
         ("flash_bwd_dkv_bf16_kernel<128>", 168, 0),
         ("flash_bwd_dq_bf16_kernel<64, masked>", 168, 24),
+        ("flash_fwd_f32_kernel<64>", 179, 0),
+        ("flash_bwd_dkv_f32_kernel<64, masked>", 255, 80),
     ]
     # the forward's kernels keep the <D, kMasked> template that regex reads
     source = (_build.CSRC / "flash_fwd.cu").read_text()
@@ -149,8 +160,9 @@ def test_backward_kernels_keep_the_names_the_parsers_read():
         assert f"{name}<D, kMasked>" in source, name
 
 
-# cuobjdump -sass lines of two bf16 forward instantiations, an f32 one,
-# and one of each bf16 backward kernel
+# cuobjdump -sass lines of two bf16 forward instantiations, an f32 one
+# (whose stray HGMMA line must not count as HMMA), one of each bf16
+# backward kernel, the f32 dQ (not counted) and two f32 dK/dV ones
 _SASS = """\
 \t\tFunction : _ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi128ELb0EEEv14CUtensorMap_stS1_S1_S1_PfiiiiifNS_9BlockMaskE
         /*0a50*/                   UTMALDG.3D [UR8], [UR4] ;
@@ -173,6 +185,16 @@ _SASS = """\
         /*0300*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
 \t\tFunction : _ZN12_GLOBAL__N_124flash_bwd_dq_f32_kernelILi64ELb0EEEvPKfS2_S2_S2_S2_S2_PfiiiiifNS_9BlockMaskE
         /*0100*/                   UTMALDG.3D [UR8], [UR4] ;
+        /*0200*/                   HMMA.1688.F32.TF32 R24, R100, R104, R24 ;
+\t\tFunction : _ZN12_GLOBAL__N_124flash_bwd_dkv_f32_kernelILi128ELb0EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiiifNS_9BlockMaskE
+        /*0100*/                   LDGSTS.E.BYPASS.LTC128B.128 [R3], desc[UR6][R4.64] ;
+        /*0110*/                   LDGSTS.E.BYPASS.LTC128B.128 [R3+0x4400], desc[UR6][R6.64] ;
+        /*0120*/                   LDGDEPBAR ;
+        /*0200*/                   HMMA.1688.F32.TF32 R24, R100, R104, R24 ;
+        /*0210*/                   HMMA.1688.F32.TF32 R24, R108, R112, R24 ;
+        /*0220*/                   HMMA.1688.F32.TF32 R24, R108, R104, R24 ;
+\t\tFunction : _ZN12_GLOBAL__N_124flash_bwd_dkv_f32_kernelILi64ELb1EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiiifNS_9BlockMaskE
+        /*0100*/                   LDGSTS.E.LTC128B [R5], desc[UR6][R8.64] ;
 """
 
 
@@ -187,20 +209,79 @@ def test_chip_smoke_counts_wgmma_and_tma_in_the_sass():
             "HGMMA": 2, "WARPGROUP.DEPBAR": 0, "UTMALDG": 1, "UTMASTG": 1},
         "flash_bwd_dq_bf16_kernel<64>": {"HGMMA": 1, "WARPGROUP.DEPBAR": 1,
                                          "UTMALDG": 1, "UTMASTG": 0},
+        "flash_fwd_f32_kernel<64>": {"HMMA": 0, "LDGSTS": 0},
+        "flash_bwd_dkv_f32_kernel<128>": {"HMMA": 3, "LDGSTS": 2},
+        "flash_bwd_dkv_f32_kernel<64, masked>": {"HMMA": 0, "LDGSTS": 1},
     }
 
 
-def test_ablation_edits_apply_to_the_backward():
-    # flash_bwd_ablations.py builds its variants by text edits of
-    # flash_bwd.cu; each edit must still find its text exactly once.  The
-    # VARIANTS literal is read without running the script.
-    script = ast.parse((REPO / "flash_bwd_ablations.py").read_text())
-    variants = next(ast.literal_eval(node.value) for node in script.body
-                    if isinstance(node, ast.Assign)
-                    and node.targets[0].id == "VARIANTS")
-    source = (_build.CSRC / "flash_bwd.cu").read_text()
-    assert variants
-    for name, (_, edits) in variants.items():
-        for old, new in edits:
-            assert source.count(old) == 1, (name, old)
-            assert old != new, name
+def test_f32_kernels_keep_the_names_the_parsers_read():
+    # kernel_resources, sass_counts and the spill check find the f32
+    # forward and dK/dV kernels by these names and their <D, kMasked>
+    # template arguments; the dQ kernel is not among them
+    chip_smoke = _chip_smoke()
+    assert chip_smoke.F32_SASS_KERNELS == ("flash_fwd_f32_kernel",
+                                           "flash_bwd_dkv_f32_kernel")
+    for stem, name in (("flash_fwd", "flash_fwd_f32_kernel"),
+                       ("flash_bwd", "flash_bwd_dkv_f32_kernel")):
+        source = (_build.CSRC / f"{stem}.cu").read_text()
+        assert re.search(r"template <int D, bool kMasked>\s*__global__ void "
+                         r"__launch_bounds__\([^)]*\)\s*" + name + r"\(",
+                         source), name
+        # they run 3xTF32 mma.sync fed by cp.async (flash_common.cuh)
+        assert "mma_3xtf32(" in source and "cp_async_rows_f32<" in source
+
+
+def _ablation_variants():
+    # flash_ablations.py's VARIANTS literal, read without running the script
+    script = ast.parse((REPO / "flash_ablations.py").read_text())
+    return next(ast.literal_eval(node.value) for node in script.body
+                if isinstance(node, ast.Assign)
+                and node.targets[0].id == "VARIANTS")
+
+
+@pytest.mark.parametrize("name", sorted(_ablation_variants()))
+def test_ablation_edits_apply(name):
+    # flash_ablations.py builds each variant by text edits of one source;
+    # each edit must still find its text exactly once, and the variant
+    # names kernels of its dtype that the edited source builds
+    _, source, dtype, kernels, control, edits = _ablation_variants()[name]
+    text = (_build.CSRC / source).read_text()
+    assert edits
+    for old, new in edits:
+        assert text.count(old) == 1, (name, old)
+        assert old != new, name
+    assert dtype in ("bfloat16", "float32") and isinstance(control, bool)
+    assert kernels and set(kernels) <= {"fwd", "dkv", "dq"}
+    stems = {"fwd": "flash_fwd", "dkv": "flash_bwd", "dq": "flash_bwd"}
+    if source.endswith(".cu"):
+        assert {stems[kernel] for kernel in kernels} == {source[:-3]}, name
+
+
+def test_chip_smoke_holds_the_f32_kernels_at_the_f32_paths_shapes():
+    # the f32 phase's attention shapes (the serving flagship's forward and
+    # prefill, the train-step flagship's step) are dense kernel cases,
+    # and an f32 mask at head_dim 128 is a block-sparse case: the f32
+    # kernels are held to their plain versions where the path runs them
+    import torch
+
+    from kubeshare_tpu_torch.entry import flagship_config
+
+    chip_smoke = _chip_smoke()
+    serve = flagship_config(torch.float32)
+    serve_d = serve.d_model // serve.n_heads
+    train = chip_smoke.TRAIN_DIMS
+    train_d = train["d_model"] // train["n_heads"]
+    path = {(chip_smoke.N_REQUESTS, serve.n_heads, serve.max_seq_len, serve_d),
+            (chip_smoke.N_REQUESTS, serve.n_heads, chip_smoke.PROMPT_LEN,
+             serve_d),
+            (chip_smoke.TRAIN_BATCH, train["n_heads"], chip_smoke.TRAIN_SEQ,
+             train_d)}
+    dense = {shape for _, shape, _, dtype, causal, _
+             in chip_smoke.dense_cases(torch)
+             if dtype == torch.float32 and causal}
+    assert path <= dense
+    assert chip_smoke.F32_TIMED_SHAPE in path
+    masks = [shape for _, shape, _, dtype, *_ in
+             chip_smoke.block_sparse_cases(torch) if dtype == torch.float32]
+    assert any(shape[3] == 128 for shape in masks)

@@ -1,5 +1,7 @@
 """The port's captured (CUDA graph) serving and sharded training paths
-against their eager forms, on the card.  Every test here skips without a CUDA device.
+against their eager forms, and the f32 flash kernels (3xTF32 on the
+tensor cores) against their plain versions, on the card.  Every test
+here skips without a CUDA device.
 
 The file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed:
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from kubeshare_tpu_torch.models import decoding
+from kubeshare_tpu_torch.ops import attention as A
 from kubeshare_tpu_torch.models.transformer import (
     TransformerConfig, transformer_apply, transformer_init,
     transformer_sharding_rules)
@@ -668,3 +671,70 @@ def test_captured_sharded_train_step_equals_eager(card):
     np.testing.assert_allclose(losses, eager_losses, rtol=0, atol=LOGITS_TOL)
     for got, want in zip(captured, eager):
         torch.testing.assert_close(got, want, rtol=0, atol=LOGITS_TOL)
+
+
+# chip_smoke.py's f32 limits for a kernel against its plain version on the
+# same inputs (TOLERANCES["float32"], BWD_TOLERANCES["float32"]): out per
+# element (absolute and relative) and lse absolute; each gradient as
+# max |kernel - plain| / max |plain|.  3xTF32 keeps f32's accuracy, so
+# only the summation order and the dropped small x small term (2^-22 of
+# each product) separate the two; one TF32 pass (~5e-4) would not pass.
+F32_OUT_TOL = 1e-4
+F32_GRAD_TOL = 1e-5
+
+
+def _doc_mask(lengths, block):
+    doc = np.repeat(np.arange(len(lengths)), np.asarray(lengths) // block)
+    return torch.tensor((doc[:, None] == doc[None, :]).astype(np.int32))
+
+
+@pytest.mark.parametrize("shape,h_kv,window,mask", [
+    ((2, 8, 333, 64), 2, None, None),
+    ((1, 4, 512, 128), 4, 100, None),
+    ((2, 4, 1024, 64), 2, None, _doc_mask((384, 256, 384), 128)),
+], ids=["gqa4_ragged_333", "window_100_d128", "doc_mask_gqa"])
+def test_f32_kernels_match_their_plain_versions(card, shape, h_kv, window,
+                                                mask):
+    """The f32 forward and dK/dV kernels (and the f32 dQ kernel beside
+    them) against flash_forward_reference / flash_backward_reference (or
+    the block-sparse pair) at a ragged GQA shape, a windowed d = 128
+    shape and a document block mask, all causal."""
+    device = card[0]
+    b, h, s, d = shape
+    rng = np.random.default_rng(15)
+    q, dout = (torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                            device=device) for _ in range(2))
+    k, v = (torch.tensor(rng.standard_normal((b, h_kv, s, d),
+                                             dtype=np.float32), device=device)
+            for _ in range(2))
+    launched = (A.flash_forward.launches, A.flash_backward.launches_dkv,
+                A.block_sparse_forward.launches,
+                A.block_sparse_backward.launches_dkv)
+    if mask is None:
+        out, lse = A.flash_forward(q, k, v, True, window)
+        grads = A.flash_backward(q, k, v, out, lse, dout, True, window)
+        ref_out, ref_lse = A.flash_forward_reference(q, k, v, True, window)
+        ref_grads = A.flash_backward_reference(q, k, v, out, lse, dout, True,
+                                               window)
+    else:
+        args = (mask.to(device), True, 128, 128)
+        out, lse = A.block_sparse_forward(q, k, v, *args)
+        grads = A.block_sparse_backward(q, k, v, out, lse, dout, *args)
+        ref_out, ref_lse = A.block_sparse_forward_reference(q, k, v, *args)
+        ref_grads = A.block_sparse_backward_reference(q, k, v, out, lse,
+                                                      dout, *args)
+    torch.cuda.synchronize()
+    now = (A.flash_forward.launches, A.flash_backward.launches_dkv,
+           A.block_sparse_forward.launches,
+           A.block_sparse_backward.launches_dkv)
+    assert [n - m for n, m in zip(now, launched)] == (
+        [1, 1, 0, 0] if mask is None else [0, 0, 1, 1])
+    torch.testing.assert_close(out, ref_out, rtol=F32_OUT_TOL,
+                               atol=F32_OUT_TOL)
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), finite)
+    torch.testing.assert_close(lse[finite], ref_lse[finite], rtol=0,
+                               atol=F32_OUT_TOL)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= F32_GRAD_TOL, (name, err)

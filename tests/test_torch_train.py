@@ -310,3 +310,54 @@ def test_make_capturable_takes_a_state_carried_over_from_jax():
     sgd = torch.optim.SGD([torch.zeros(2, requires_grad=True)], lr=0.1)
     with pytest.raises(TypeError, match="no capturable mode"):
         port_train._make_capturable(sgd, torch.device("cpu"))
+
+
+def test_graph_capture_keeps_the_cyclic_collector_off(monkeypatch):
+    # a collection inside a capture may destroy another CUDA graph held by
+    # a dead reference cycle, which invalidates the capture: graph_capture
+    # keeps the collector off for the capture alone, restores it after an
+    # error, and leaves a caller's own setting as it was
+    import contextlib
+    import gc
+
+    seen = []
+
+    @contextlib.contextmanager
+    def fake_graph(graph, pool=None):
+        seen.append((graph, pool, gc.isenabled()))
+        yield
+
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+    assert gc.isenabled()
+    with port_train.graph_capture("graph", "pool"):
+        assert not gc.isenabled()
+    assert gc.isenabled() and seen == [("graph", "pool", False)]
+    with pytest.raises(RuntimeError):
+        with port_train.graph_capture("graph"):
+            raise RuntimeError("a failed capture")
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with port_train.graph_capture("graph"):
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
+def test_every_capture_goes_through_graph_capture():
+    # the port's CUDA graph captures (the train step, capture_graph for the
+    # decode steps, speculative rounds and the engine's programs) open
+    # torch.cuda.graph only inside graph_capture
+    from pathlib import Path
+
+    package = Path(port_train.__file__).resolve().parent.parent
+    opened = sorted(str(path.relative_to(package))
+                    for path in package.rglob("*.py")
+                    if "torch.cuda.graph(" in path.read_text())
+    assert opened == ["parallel/train.py"]
+    source = Path(port_train.__file__).read_text()
+    assert source.count("with torch.cuda.graph(") == 1
+    assert "with graph_capture(graph):" in source
+    decoding = (package / "models" / "decoding.py").read_text()
+    assert "with graph_capture(graph, pool):" in decoding
