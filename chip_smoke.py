@@ -12,16 +12,17 @@ Phases (any failure raises and the script exits non-zero):
 2. build: compile every kernel under kubeshare_tpu_torch/csrc with nvcc
    (one nvcc per source, all at once); each instantiation's registers and
    spills, and the SASS counts: wgmma and TMA in the bf16 kernels,
-   mma.sync (HMMA) and cp.async (LDGSTS) in the f32 forward and dK/dV,
+   mma.sync (HMMA) and cp.async (LDGSTS) in the three f32 kernels,
    which must not spill.
    hbm_cap: in a child process at TPUSHARE_MEM_FRACTION=0.5,
    isolation.apply_hbm_cap returns 0.5, 0.4 of the card allocates and
    0.6 raises torch.OutOfMemoryError.
 3. kernels: the flash forward and the two flash backward kernels (dK/dV,
    dQ) against their plain PyTorch versions on the card, at the main
-   paths' shapes and a few more (GQA, window, ragged, d=128, f32, the
-   edges of the bf16 kernels' tiles, and train_sharded's unit), with the
-   tolerances below; every f32 case also at the f32 path's shapes, and
+   paths' shapes and a few more (GQA, window, ragged, d=128, f32 causal
+   and non-causal, the edges of the bf16 kernels' tiles, and
+   train_sharded's unit), with the tolerances below; every f32 case
+   also at the f32 path's shapes, and
    each f32 kernel launched once more with its outputs between guard
    bands (check_f32_writes: it must write every element of them, to the
    bit of its first launch, and nothing of the guards); then each kernel's time beside the plain version's,
@@ -32,10 +33,10 @@ Phases (any failure raises and the script exits non-zero):
    instantiations' times at (4, 8, 1024, 64) beside SDPA at f32 (TF32
    off) and the bound at the 3xTF32 rate (165 TFLOP/s).
 4. block_sparse: the masked instantiations of the three kernels against
-   their plain versions at nine masks (documents, prefix-LM, dead rows,
+   their plain versions at ten masks (documents, prefix-LM, dead rows,
    mask blocks straddling the kernels' tiles, JAX's default blocks, GQA,
-   f32 at a ragged length, a document mask and a prefix-LM mask at
-   head_dim 128, the f32 ones also in guard bands); block_sparse_attention's
+   f32 at a ragged length, a document mask, a prefix-LM mask and dead rows
+   at head_dim 128, the f32 ones also in guard bands); block_sparse_attention's
    forward and gradient at the document-masked training shape, held
    against the plain path; and each masked kernel's time there beside
    the plain version's, SDPA's with the expanded mask, and the bound.
@@ -766,19 +767,19 @@ SASS_OPS = ("HGMMA", "WARPGROUP.DEPBAR", "UTMALDG", "UTMASTG")
 # the bf16 kernels, which run on wgmma and TMA
 SASS_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
                 "flash_bwd_dq_bf16_kernel")
-# the f32 forward and dK/dV kernels run 3xTF32 products on mma.sync
-# (HMMA) fed by cp.async (LDGSTS); the f32 dQ kernel keeps CUDA-core
-# products and is not counted
+# the f32 forward, dK/dV and dQ kernels run 3xTF32 products on mma.sync
+# (HMMA) fed by cp.async (LDGSTS)
 F32_SASS_OPS = ("HMMA", "LDGSTS")
-F32_SASS_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel")
+F32_SASS_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel",
+                    "flash_bwd_dq_f32_kernel")
 
 
 def sass_counts(sass: str):
     """{"<kernel><D>" or "<kernel><D, masked>": {op: count}} of the bf16
     kernels' instantiations in cuobjdump's SASS of a library, wgmma
     (HGMMA), its serialising waits (WARPGROUP.DEPBAR), TMA loads and
-    stores; and of the f32 forward and dK/dV kernels', mma.sync (HMMA)
-    and cp.async (LDGSTS)."""
+    stores; and of the f32 kernels', mma.sync (HMMA) and cp.async
+    (LDGSTS)."""
     import re
 
     ops_of = {**dict.fromkeys(SASS_KERNELS, SASS_OPS),
@@ -1071,6 +1072,12 @@ def dense_cases(torch):
          True, None),
         ("f32_gqa_ragged_1000_d128", (2, 8, 1000, 128), 2, torch.float32,
          True, None),
+        # non-causal at the train shape: every row of dq sums all s keys
+        # (causal, the rows with the longest sums have the smallest dq),
+        # where dQ without its per-tile partials drifts past the limit
+        # (flash_ablations.py dq_no_partials)
+        ("f32_noncausal_2048_d128", (TRAIN_BATCH, 8, TRAIN_SEQ, 128), 8,
+         torch.float32, False, None),
     ]
 
 
@@ -1107,8 +1114,8 @@ def kernel_phase(torch, device):
         del q, k, v, out, lse, ref_out, ref_lse
 
     # times at the serving flagship's attention shape and the training
-    # shape, then the f32 instantiations (3xTF32 forward and dK/dV,
-    # CUDA-core dQ) at the serving shape, beside SDPA at f32 (TF32 is off
+    # shape, then the f32 instantiations (3xTF32 on mma.sync) at the
+    # serving shape, beside SDPA at f32 (TF32 is off
     # for the whole run), and at the end at the training shape,
     # then the MoE model's serving prefill shape and train_sharded's unit
     timings = [time_shape(torch, shape, gen)
@@ -1158,6 +1165,9 @@ def block_sparse_cases(torch):
         ("f32_d128_doc", (1, 4, 1024, 128), 4, f32, 128, 128,
          doc_mask(torch, (384, 640), 128), True),
         ("f32_d128_prefix_lm", (2, 8, 1024, 128), 8, f32, 64, 64, prefix_lm,
+         False),
+        # the f32 dQ's rows with no visible key (lse = -inf) at d = 128
+        ("f32_d128_dead_rows", (1, 4, 1024, 128), 4, f32, 64, 64, dead,
          False),
     ]
 
@@ -1273,14 +1283,14 @@ def block_sparse_phase(torch, device):
         for kernel, errs in (("flash_bwd_dkv_block_sparse", bwd["dkv"]),
                              ("flash_bwd_dq_block_sparse", bwd["dq"])):
             worst[kernel] = [max(a, b) for a, b in zip(worst[kernel], errs)]
-        if name == "dead_rows":
+        if name.endswith("dead_rows"):
             rows = slice(5 * bq, 6 * bq)
             check(bool((out[:, :, rows] == 0).all())
                   and bool(torch.isneginf(lse[:, :, rows]).all())
                   and bool((grads[0][:, :, rows] == 0).all()),
-                  "dead_rows: a query row with no visible key has a nonzero "
+                  f"{name}: a query row with no visible key has a nonzero "
                   "out or dq, or a finite lse")
-            print("kernel block_sparse dead_rows: out and dq of queries "
+            print(f"kernel block_sparse {name}: out and dq of queries "
                   f"{rows.start}-{rows.stop - 1} are 0, their lse -inf, "
                   "every gradient finite")
         if name == "doc_causal":
@@ -4623,8 +4633,8 @@ def main() -> int:
         for line in log.splitlines():
             if "Potential Performance Loss" in line:
                 print(f"build {source}.cu ptxas: {line.split('info    : ')[-1]}")
-    # the bf16 kernels run on wgmma and TMA, the f32 forward and dK/dV on
-    # mma.sync and cp.async: their SASS must hold them
+    # the bf16 kernels run on wgmma and TMA, the f32 kernels on mma.sync
+    # and cp.async: their SASS must hold them
     sass = {}
     for source in ("flash_fwd", "flash_bwd"):
         counts = sass_counts(library_sass(_build.library_path(source)))

@@ -71,18 +71,50 @@ VARIANTS = {
         "flash_bwd.cu", "float32", ("dkv",), True,
         [("mma_3xtf32(part[n], aj, b_rows_permuted<kLd>(b, n0 + n));",
           "mma_3xtf32(acc[n0 + n], aj, b_rows_permuted<kLd>(b, n0 + n));")]),
+    "dq_rows64": (
+        "dQ blocks of 64 rows (4 warps) at d = 128: 135 KB, one an SM",
+        "flash_bwd.cu", "float32", ("dq",), False,
+        [("  static constexpr int kRows = D == 64 ? 64 : 128;",
+          "  static constexpr int kRows = 64;")]),
+    "dq_keys16": (
+        "dQ blocks of 64 rows with 16-key tiles at d = 128: 101 KB, two an SM",
+        "flash_bwd.cu", "float32", ("dq",), False,
+        [("  static constexpr int kRows = D == 64 ? 64 : 128;",
+          "  static constexpr int kRows = 64;"),
+         ("  static constexpr int kBK = 32;",
+          "  static constexpr int kBK = D == 64 ? 32 : 16;")]),
+    "dq_q_shared": (
+        "dQ reading Q's fragments from shared memory at d = 64 too",
+        "flash_bwd.cu", "float32", ("dq",), False,
+        [("  constexpr bool kQInRegs = D == 64;",
+          "  constexpr bool kQInRegs = false;")]),
+    "dq_cap3": (
+        "dQ capped at three blocks' registers (170) at d = 64",
+        "flash_bwd.cu", "float32", ("dq",), False,
+        [("__launch_bounds__(DqF32<D>::kThreads, 1)",
+          "__launch_bounds__(DqF32<D>::kThreads, D == 64 ? 3 : 1)")]),
+    "dq_no_partials": (
+        "dQ accumulating every tile on the tensor cores",
+        "flash_bwd.cu", "float32", ("dq",), True,
+        [("mma_3xtf32(part[n], da[j], b_rows_permuted<kLd>(kj, n0 + n));",
+          "mma_3xtf32(dq_acc[n0 + n], da[j], "
+          "b_rows_permuted<kLd>(kj, n0 + n));")]),
     "one_pass": (
         "one TF32 pass (big x big) for every f32 product",
-        "flash_common.cuh", "float32", ("fwd", "dkv"), True,
+        "flash_common.cuh", "float32", ("fwd", "dkv", "dq"), True,
         [("  mma_tf32(d, a.small, b.big);\n  mma_tf32(d, a.big, b.small);\n",
           "")]),
 }
 LIBRARY = {"fwd": "flash_fwd", "dkv": "flash_bwd", "dq": "flash_bwd"}
-# (shape, under the document mask of chip_smoke.py), causal, per dtype
+# (shape, under the document mask of chip_smoke.py, causal), per dtype;
+# at f32 also a non-causal shape, where every row of dq sums all s keys
 SHAPES = {
-    "bfloat16": (((2, 8, 2048, 128), False), ((4, 8, 1024, 64), False),
-                 ((2, 8, 2048, 128), True)),
-    "float32": (((4, 8, 1024, 64), False), ((2, 8, 2048, 128), False)),
+    "bfloat16": (((2, 8, 2048, 128), False, True),
+                 ((4, 8, 1024, 64), False, True),
+                 ((2, 8, 2048, 128), True, True)),
+    "float32": (((4, 8, 1024, 64), False, True),
+                ((2, 8, 2048, 128), False, True),
+                ((2, 8, 2048, 128), False, False)),
 }
 
 
@@ -136,23 +168,23 @@ def use(_build, loaded):
     _build._loaded.update(loaded)
 
 
-def kernels_at(torch, A, shape, dtype, mask, gen):
-    """({kernel: call}, {kernel: errors of a call's result}) at one causal
+def kernels_at(torch, A, shape, dtype, mask, causal, gen):
+    """({kernel: call}, {kernel: errors of a call's result}) at one
     shape: each kernel's call on the same inputs, and its error against
     its plain version with whether that is within chip_smoke.py's limit."""
     q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda",
                                  dtype=dtype) for _ in range(4))
     if mask is None:
-        ref_out, _ = A.flash_forward_reference(q, k, v, True)
-        out, lse = A.flash_forward(q, k, v, True)
-        ref = A.flash_backward_reference(q, k, v, out, lse, dout, True)
-        fwd = lambda: A.flash_forward(q, k, v, True)
+        ref_out, _ = A.flash_forward_reference(q, k, v, causal)
+        out, lse = A.flash_forward(q, k, v, causal)
+        ref = A.flash_backward_reference(q, k, v, out, lse, dout, causal)
+        fwd = lambda: A.flash_forward(q, k, v, causal)
         dkv = lambda: A._flash_bwd_dkv_cuda(q, k, v, dout, lse, delta,
-                                            True, None)
-        dq = lambda: A._flash_bwd_dq_cuda(q, k, v, dout, lse, delta, True,
+                                            causal, None)
+        dq = lambda: A._flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal,
                                           None)
     else:
-        args = (mask, True, 128, 128)
+        args = (mask, causal, 128, 128)
         ref_out, _ = A.block_sparse_forward_reference(q, k, v, *args)
         out, lse = A.block_sparse_forward(q, k, v, *args)
         ref = A.block_sparse_backward_reference(q, k, v, out, lse, dout,
@@ -210,12 +242,14 @@ def main() -> int:
         if not mine:
             continue
         timed = sorted({kernel for n in mine for kernel in VARIANTS[n][3]})
-        for shape, masked in shapes:
-            label = (f"{shape} {dtype_name} causal"
+        for shape, masked, causal in shapes:
+            label = (f"{shape} {dtype_name} "
+                     + ("causal" if causal else "non-causal")
                      + (" doc mask" if masked else ""))
             calls, errors = kernels_at(torch, A, shape,
                                        getattr(torch, dtype_name),
-                                       docs if masked else None, gen)
+                                       docs if masked else None, causal,
+                                       gen)
             for name in ("shipped", *mine):
                 use(_build, shipped if name == "shipped" else libs[name])
                 for kernel in timed if name == "shipped" else VARIANTS[name][3]:

@@ -91,15 +91,40 @@
 //     3.0e-5 of max off at (2, 8, 2048, 128) (the limit is 1e-5).  So
 //     each step's products go into a zeroed partial that the CUDA cores
 //     add into dk, dv with round-to-nearest (accumulate_step): 5.0e-6
-//     there, at 10% of the kernel's time (f32_ablations.py);
+//     there, at 10% of the kernel's time (flash_ablations.py);
 //   - the group is summed in the accumulators and dk, dv written once
 //     (float2 stores): no atomics, the result independent of the
 //     schedule; dk is scaled by d^-1/2 once, at the end;
 //   - a warp skips a step none of its keys is seen in (band, window).
 //   Registers: dk and dv take 4 D / 8 floats a thread (128 at d = 128);
 //   no instantiation spills (chip_smoke.py checks it).
-// f32 dQ: CUDA-core products over shared-memory tiles; not redesigned
-// yet.
+// f32 dQ: one block of 4 warps per (batch, head, 64-query tile) at
+// d = 64, of 8 warps per 128-query tile at d = 128 (DqF32), in TileOf's
+// order (longest causal sweep first across all heads when dense); warp w
+// owns queries 16w..16w + 15.  What bounds it: at (4, 8, 1024, 64)
+// causal its three products' 6.45 GFLOP take 39 us at 165 TFLOP/s,
+// against 42.2 MB of traffic (q, k, v, dO, lse, delta read, dq written),
+// 13 us: operations.  The previous design (one thread per dot product
+// out of shared memory, CUDA-core FMAs) ran at 5 TFLOP/s.  This one is
+// the f32 forward's skeleton with a second score product:
+//   - Q and dO load once (cp.async, rows padded to D + 4), K and V tiles
+//     of 32 keys stream through a two-stage cp.async ring, so tile i + 1
+//     loads under tile i's products; each lane holds lse and delta of its
+//     rows in registers for the whole sweep;
+//   - S = Q . K^T and dP = dO . V^T by 3xTF32 mma.sync (Q's fragments
+//     split in registers for the sweep at d = 64, dO's split at each
+//     use), then p and ds = p o (dP - delta) on the accumulators, and
+//     dQ += ds . K with ds going to the A operand through the forward's
+//     permutation of the k slots and K read as the forward reads V;
+//   - each tile's ds . K goes into a zeroed partial that the CUDA cores
+//     add into dq with round-to-nearest (the truncation that dK/dV's
+//     partials answer: dq sums a row's whole key sweep).  Without them
+//     dq was 2.0e-5 of max off at (2, 8, 2048, 128) non-causal (5.1e-6
+//     with them; the limit is 1e-5); causal, where the rows with the
+//     longest sums have the smallest dq, 3.6e-6 (flash_ablations.py);
+//   - a warp skips a tile none of its rows sees (band, window); dq is
+//     scaled by d^-1/2 once, at the end, and written once (float2
+//     stores): no atomics, the result independent of the schedule.
 //
 // Block-sparse mode (kMasked = true; the same Pallas kernels with
 // has_mask=True, launched for block_sparse_attention's gradient): a pair
@@ -131,11 +156,6 @@
 
 namespace {
 
-constexpr int kBlockK = 64;  // f32 dQ: keys of a K tile
-constexpr int kBlockQ = 64;  // f32 dQ: block rows
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-
 // `cut`: the tile straddles mask blocks, so the mask is tested too
 __device__ __forceinline__ bool visible(int q_pos, int k_pos, int s,
                                         bool banded, int window, bool cut,
@@ -158,15 +178,6 @@ struct QSweep {
   }
 };
 
-// The K tiles a Q tile [q0, q_last] meets in the band.
-struct KSweep {
-  int begin, end;  // inclusive
-  __device__ KSweep(int q0, int q_last, int s, bool banded, int window) {
-    end = (banded ? q_last : s - 1) / kBlockK;
-    begin = window > 0 ? max(q0 - window + 1, 0) / kBlockK : 0;
-  }
-};
-
 // A masked dK/dV block's live list of Q steps (`rows` queries each) for
 // its BK-key tile at k0, built by all THREADS threads in the shared
 // memory at `list`
@@ -184,7 +195,7 @@ __device__ __forceinline__ LiveTiles live_q_steps(unsigned char* list,
 
 // A masked dQ block's live list of BK-key tiles for its BQ-row Q tile at
 // q0
-template <int THREADS = kThreads, int BQ = kBlockQ, int BK = kBlockK>
+template <int THREADS, int BQ, int BK>
 __device__ __forceinline__ LiveTiles live_k_tiles(unsigned char* list,
                                                   int q0, int s, bool causal,
                                                   const BlockMask& mask) {
@@ -217,7 +228,7 @@ constexpr int kTurnBarrier = 3;
 // Blocks go longest causal sweep first across all heads: every head's K
 // tile 0 first, then every head's tile 1, and so on.  Masked blocks too:
 // at the document mask this order measured faster than head by head
-// (flash_bwd_ablations.py), though the masked forward's did not.  This
+// (flash_ablations.py), though the masked forward's did not.  This
 // is TileOf's order (flash_common.cuh) and relies, as it does, on the
 // H100 starting blocks in the order of their linear index, measured but
 // not documented.
@@ -800,7 +811,7 @@ template <int D>
 struct DkvF32 {
   // queries a step: 64; 16 at d = 128, where dk and dv take 128
   // registers a thread and 32-query steps spill in the masked build
-  // (dense, they ran 13% faster: f32_ablations.py)
+  // (dense, they ran 13% faster: flash_ablations.py)
   static constexpr int kStep = D == 64 ? 64 : 16;
   // floats a row: 16-byte rows, and every fragment load of a warp on 32
   // distinct banks (D + 4 = 4 mod 32)
@@ -1035,26 +1046,37 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
 }
 
 // ------------------------------------------------------------------------
-// f32 dQ
+// f32 dQ: 3xTF32 mma.sync over a cp.async ring (the design is in the note
+// at the top)
 // ------------------------------------------------------------------------
 
 template <int D>
 struct DqF32 {
+  // query rows a block, 16 a warp: 64 at d = 64 (70 KB of shared memory,
+  // two blocks an SM); 128 at d = 128 (203 KB, 8 warps an SM), where
+  // 64-row blocks (135 KB, one of 4 warps an SM) ran 48% slower and
+  // 64-row blocks with 16-key tiles (101 KB, two an SM) 29% slower at
+  // (2, 8, 2048, 128) (flash_ablations.py dq_rows64, dq_keys16)
+  static constexpr int kRows = D == 64 ? 64 : 128;
+  static constexpr int kThreads = 2 * kRows;  // 32 threads a warp
+  // keys a K / V tile
+  static constexpr int kBK = 32;
+  // floats a row: 16-byte rows, and every fragment load of a warp on 32
+  // distinct banks (D + 4 = 4 mod 32)
   static constexpr int kLd = D + 4;
-  static constexpr int kLdS = kBlockK + 4;
+  static constexpr int kTile = kBK * kLd;
   static constexpr size_t kQ = 0;
-  static constexpr size_t kDO = kQ + kBlockQ * kLd;
-  static constexpr size_t kDQ = kDO + kBlockQ * kLd;
-  static constexpr size_t kK = kDQ + kBlockQ * kLd;
-  static constexpr size_t kV = kK + kBlockK * kLd;
-  static constexpr size_t kDS = kV + kBlockK * kLd;  // ds [64, 64]
-  static constexpr size_t kLse = kDS + kBlockQ * kLdS;
-  static constexpr size_t kDelta = kLse + kBlockQ;
-  static constexpr size_t kBytes = sizeof(float) * (kDelta + kBlockQ);
+  static constexpr size_t kDO = kQ + kRows * kLd;
+  // stage st of the ring: K at kRing + 2 st kTile, V right after it
+  static constexpr size_t kRing = kDO + kRows * kLd;
+  static constexpr size_t kBytes = sizeof(float) * (kRing + 2 * 2 * kTile);
 };
 
+// One block's bound: at d = 64 a cap of three blocks' worth (170
+// registers, against 203-217) spills and ran 28% slower
+// (flash_ablations.py dq_cap3)
 template <int D, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(DqF32<D>::kThreads, 1)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
@@ -1065,90 +1087,192 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         int causal, int window, float scale,
                         const BlockMask mask) {
   using G = DqF32<D>;
+  constexpr int kRows = G::kRows;
+  constexpr int kBK = G::kBK;
   constexpr int kLd = G::kLd;
-  constexpr int kLdS = G::kLdS;
+  // d = 64: the warp's Q fragments stay split in registers (64 of them)
+  // for the whole sweep, as in the forward (from shared memory it ran 16%
+  // slower: flash_ablations.py dq_q_shared); d = 128 would need 128, so
+  // they are read from shared memory and split at each use, as dO's are
+  constexpr bool kQInRegs = D == 64;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
-  float* sQ = smem + G::kQ;
-  float* sdO = smem + G::kDO;
-  float* sDQ = smem + G::kDQ;
-  float* sK = smem + G::kK;
-  float* sV = smem + G::kV;
-  float* sDS = smem + G::kDS;
-  float* sLse = smem + G::kLse;
-  float* sDelta = smem + G::kDelta;
+  const float* sQ = smem + G::kQ;
+  const float* sdO = smem + G::kDO;
 
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const int kv_head = head / (h / h_kv);
   const bool banded = causal || window > 0;
-  const int q_tile = gridDim.x - 1 - blockIdx.x;
-  const int q0 = q_tile * kBlockQ;
-  const int q_rows = min(kBlockQ, s - q0);
-  const KSweep sweep(q0, q0 + q_rows - 1, s, banded, window);
+  // dense: longest causal rows first across all heads, as the forward
+  const TileOf<kRows, kBK> tile(h, h_kv, s, D, banded, window, !kMasked);
   const LiveTiles live =
-      kMasked ? live_k_tiles(smem_raw + G::kBytes, q0, s, banded, mask)
+      kMasked ? live_k_tiles<G::kThreads, kRows, kBK>(
+                    smem_raw + G::kBytes, tile.q0, s, banded, mask)
               : LiveTiles();
-  const int kt_begin = kMasked ? 0 : sweep.begin;
-  const int kt_end = kMasked ? live.count - 1 : sweep.end;
-  const size_t q_row = (size_t)(batch * h + head) * s + q0;
-  const float* k_head = k + (size_t)(batch * h_kv + kv_head) * s * D;
-  const float* v_head = v + (size_t)(batch * h_kv + kv_head) * s * D;
+  const int n_tiles =
+      kMasked ? live.count : tile.k_tile_end - tile.k_tile_begin + 1;
+  auto k_start = [&](int i) {
+    return (kMasked ? live.tile(i) : tile.k_tile_begin + i) * kBK;
+  };
+  // tile i's K and V into ring stage i % 2
+  auto load_kv = [&](int i) {
+    const int k0 = k_start(i);
+    const size_t at = tile.kv_offset + (size_t)k0 * D;
+    float* sK = smem + G::kRing + (i % 2) * 2 * G::kTile;
+    cp_async_rows_f32<D, kBK, kLd, G::kThreads>(sK, k + at, min(kBK, s - k0));
+    cp_async_rows_f32<D, kBK, kLd, G::kThreads>(sK + G::kTile, v + at,
+                                                min(kBK, s - k0));
+  };
+  if (n_tiles > 0) {  // an empty live list loads nothing
+    cp_async_rows_f32<D, kRows, kLd, G::kThreads>(
+        smem + G::kQ, q + tile.q_offset, tile.q_rows);
+    cp_async_rows_f32<D, kRows, kLd, G::kThreads>(
+        smem + G::kDO, dout + tile.q_offset, tile.q_rows);
+    load_kv(0);
+  }
+  cp_async_commit();
 
-  load_rows_f32<D, kBlockQ, kLd, kThreads>(sQ, q + q_row * D, q_rows);
-  load_rows_f32<D, kBlockQ, kLd, kThreads>(sdO, dout + q_row * D, q_rows);
-  for (int i = threadIdx.x; i < kBlockQ * kLd; i += kThreads) sDQ[i] = 0.f;
-  for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
-    sLse[i] = i < q_rows ? lse[q_row + i] : 0.f;
-    sDelta[i] = i < q_rows ? delta[q_row + i] : 0.f;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;        // fragment row group
+  const int t = lane % 4;        // fragment column pair
+  const int r0 = 16 * warp + g;  // this lane's rows of the tile: r0, r0 + 8
+  const int qw0 = tile.q0 + 16 * warp;  // the warp's first query
+  const float scale_log2 = scale * kLog2e;  // d^-1/2 log2(e)
+  // lse (log2 units) and delta of rows r0, r0 + 8, held for the sweep;
+  // rows past s read nothing (their pairs are masked)
+  float lse_log2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    const size_t at = tile.q_offset / D + row;
+    lse_log2[r] = row < tile.q_rows ? lse[at] * kLog2e : 0.f;
+    dl[r] = row < tile.q_rows ? delta[at] : 0.f;
   }
 
-  for (int kt = kt_begin; kt <= kt_end; ++kt) {
-    const int k0 = (kMasked ? live.tile(kt) : kt) * kBlockK;
-    const bool cut = kMasked && live.cut(kt);
-    __syncthreads();  // every thread is done with the previous K/V tiles
-    load_rows_f32<D, kBlockK, kLd, kThreads>(sK, k_head + (size_t)k0 * D,
-                                             min(kBlockK, s - k0));
-    load_rows_f32<D, kBlockK, kLd, kThreads>(sV, v_head + (size_t)k0 * D,
-                                             min(kBlockK, s - k0));
-    __syncthreads();
-
-    for (int idx = threadIdx.x; idx < kBlockQ * kBlockK; idx += kThreads) {
-      const int r = idx / kBlockK;  // query row
-      const int c = idx % kBlockK;  // key column
-      const float* qr = sQ + r * kLd;
-      const float* dr = sdO + r * kLd;
-      const float* kr = sK + c * kLd;
-      const float* vr = sV + c * kLd;
-      float sc = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int e = 0; e < D; ++e) {
-        sc = fmaf(qr[e], kr[e], sc);
-        dp = fmaf(dr[e], vr[e], dp);
-      }
-      const float p = visible(q0 + r, k0 + c, s, banded, window, cut, mask)
-                          ? expf(sc * scale - sLse[r]) : 0.f;
-      sDS[r * kLdS + c] = p * (dp - sDelta[r]);
-    }
-    __syncthreads();
-
-    for (int idx = threadIdx.x; idx < kBlockQ * D; idx += kThreads) {
-      const int r = idx / D;
-      const int e = idx % D;
-      float acc = sDQ[r * kLd + e];
-#pragma unroll 8
-      for (int c = 0; c < kBlockK; ++c) {
-        acc = fmaf(sDS[r * kLdS + c], sK[c * kLd + e], acc);
-      }
-      sDQ[r * kLd + e] = acc;
-    }
+  Tf32Split<4> qf[kQInRegs ? D / 8 : 1];
+  // rows r0 (0, 1) and r0 + 8 (2, 3), columns 8n + 2t, +1
+  float dq_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
   }
-  __syncthreads();
 
-  for (int idx = threadIdx.x; idx < kBlockQ * D; idx += kThreads) {
-    const int r = idx / D;
-    const int e = idx % D;
-    if (r < q_rows) dq[(q_row + r) * D + e] = sDQ[r * kLd + e] * scale;
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) load_kv(i + 1);
+    cp_async_commit();  // an empty group past the last tile
+    cp_async_wait<1>();  // Q, dO and tile i have landed (this thread's)
+    __syncthreads();     // ... and every thread's
+    if (kQInRegs && i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) qf[kk] = a_frag<kLd>(sQ, r0, kk, t);
+    }
+    const int k0 = k_start(i);
+    const bool cut = kMasked && live.cut(i);
+    const float* sK = smem + G::kRing + (i % 2) * 2 * G::kTile;
+    const float* sV = sK + G::kTile;
+    // the warp's 16 rows are past s, or see no key of this tile (band,
+    // window): skip
+    const bool dead = qw0 >= s || (banded && k0 > qw0 + 15) ||
+                      (window > 0 && qw0 - (k0 + kBK - 1) >= window);
+    if (!dead) {
+      // S = Q . K^T and dP = dO . V^T for rows r0, r0 + 8, keys 8j + 2t, +1
+      float sc[kBK / 8][4], dp[kBK / 8][4];
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        Tf32Split<4> a;
+        if constexpr (kQInRegs) {
+          a = qf[kk];
+        } else {
+          a = a_frag<kLd>(sQ, r0, kk, t);
+        }
+        const Tf32Split<4> ao = a_frag<kLd>(sdO, r0, kk, t);
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+          // B = K^T, V^T: (k 8kk + t, n 8j + g) and (8kk + t + 4, 8j + g)
+          const int at = (8 * j + g) * kLd + 8 * kk + t;
+          Tf32Split<2> bk, bv;
+          bk.set(0, sK[at]);
+          bk.set(1, sK[at + 4]);
+          bv.set(0, sV[at]);
+          bv.set(1, sV[at + 4]);
+          mma_3xtf32(sc[j], a, bk);
+          mma_3xtf32(dp[j], ao, bv);
+        }
+      }
+
+      // p = exp(S d^-1/2 - lse) on visible pairs, else 0 (every pair of
+      // a full tile is visible, so a row with lse = -inf never reaches
+      // exp2); ds = p o (dP - delta), split as the A operand of ds . K
+      const bool full = !cut && k0 + kBK <= s && qw0 + 16 <= s &&
+                        (!banded || k0 + kBK - 1 <= qw0) &&
+                        (window <= 0 || qw0 + 15 - k0 < window);
+      Tf32Split<4> da[kBK / 8];
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = c / 2;
+          float p = 0.f;
+          if (full || visible(qw0 + g + 8 * r, k0 + 8 * j + 2 * t + (c % 2),
+                              s, banded, window, cut, mask)) {
+            p = exp2_approx(fmaf(sc[j][c], scale_log2, -lse_log2[r]));
+          }
+          sc[j][c] = p * (dp[j][c] - dl[r]);
+        }
+        da[j] = acc_as_a(sc[j]);
+      }
+
+      // dQ += ds . K over the tile's keys: ds's accumulator is the A
+      // fragment with its keys permuted (acc_as_a), and K's B fragment
+      // reads the same keys (the forward's P . V with K for V).  The
+      // tensor cores truncate each accumulation, a bias that grows with a
+      // running sum's length, and dq sums the whole sweep: so each tile's
+      // product goes into a zeroed partial, kChunk column tiles at a
+      // time, which the CUDA cores add to dq with round-to-nearest
+      constexpr int kChunk = 8;
+      const float* kb = sK + (2 * t) * kLd + g;
+#pragma unroll
+      for (int n0 = 0; n0 < D / 8; n0 += kChunk) {
+        float part[kChunk][4];
+#pragma unroll
+        for (int n = 0; n < kChunk; ++n)
+          part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+          const float* kj = kb + 8 * j * kLd;  // keys 8j + 2t, + 1
+#pragma unroll
+          for (int n = 0; n < kChunk; ++n) {
+            mma_3xtf32(part[n], da[j], b_rows_permuted<kLd>(kj, n0 + n));
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kChunk; ++n) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dq_acc[n0 + n][c] += part[n][c];
+        }
+      }
+    }
+    __syncthreads();  // stage i % 2 is free for tile i + 2
+  }
+  cp_async_wait<0>();  // nothing in flight past the sweep
+
+  // dq = d^-1/2 ds . k, written once (no atomics): rows r0, r0 + 8,
+  // columns 8n + 2t, +1; an empty sweep writes zeros
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= tile.q_rows) continue;
+    float* dq_row = dq + tile.q_offset + (size_t)row * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(dq_row + 8 * n) = make_float2(
+          dq_acc[n][2 * r] * scale, dq_acc[n][2 * r + 1] * scale);
+    }
   }
 }
 
@@ -1185,17 +1309,23 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename Kernel>
-cudaError_t launch_dq_f32(Kernel kernel, size_t smem, const void* q,
-                          const void* k, const void* v, const void* dout,
-                          const void* lse, const void* delta, void* dq, int b,
-                          int h, int h_kv, int s, int causal, int window,
+template <int D, bool kMasked>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dq, int b, int h,
+                          int h_kv, int s, int causal, int window,
                           float scale, const BlockMask& mask,
                           cudaStream_t stream) {
+  using G = DqF32<D>;
+  // a masked block's live list of K tiles follows its tiles
+  const size_t smem =
+      G::kBytes + (kMasked ? live_list_bytes((s + G::kBK - 1) / G::kBK) : 0);
+  auto kernel = flash_bwd_dq_f32_kernel<D, kMasked>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((s + kBlockQ - 1) / kBlockQ, h, b);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  // TileOf's grid: the forward's order
+  const dim3 grid((s + G::kRows - 1) / G::kRows, h, b);
+  kernel<<<grid, G::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1299,9 +1429,6 @@ int dispatch_dq(const void* q, const void* k, const void* v,
                 void* dq, int dtype, int b, int h, int h_kv, int s, int d,
                 int causal, int window, float scale, const BlockMask& mask,
                 cudaStream_t st) {
-  // a masked f32 block's live list of K tiles follows its tiles in shared
-  // memory
-  const size_t list = kMasked ? live_list_bytes((s + kBlockK - 1) / kBlockK) : 0;
   if (dtype == 1 && d == 64)
     return (int)launch_dq_bf16<64, kMasked>(q, k, v, dout, lse, delta, dq, b,
                                             h, h_kv, s, causal, window, scale,
@@ -1311,15 +1438,13 @@ int dispatch_dq(const void* q, const void* k, const void* v,
                                              b, h, h_kv, s, causal, window,
                                              scale, mask, st);
   if (dtype == 0 && d == 64)
-    return (int)launch_dq_f32(
-        flash_bwd_dq_f32_kernel<64, kMasked>, DqF32<64>::kBytes + list, q, k,
-        v, dout, lse, delta, dq, b, h, h_kv, s, causal, window, scale, mask,
-        st);
+    return (int)launch_dq_f32<64, kMasked>(q, k, v, dout, lse, delta, dq, b,
+                                           h, h_kv, s, causal, window, scale,
+                                           mask, st);
   if (dtype == 0 && d == 128)
-    return (int)launch_dq_f32(
-        flash_bwd_dq_f32_kernel<128, kMasked>, DqF32<128>::kBytes + list, q,
-        k, v, dout, lse, delta, dq, b, h, h_kv, s, causal, window, scale, mask,
-        st);
+    return (int)launch_dq_f32<128, kMasked>(q, k, v, dout, lse, delta, dq, b,
+                                            h, h_kv, s, causal, window, scale,
+                                            mask, st);
   return (int)cudaErrorInvalidValue;
 }
 

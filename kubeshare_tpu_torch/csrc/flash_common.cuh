@@ -1,9 +1,9 @@
 // Building blocks shared by the flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu): shared-memory addresses, bf16 packing, the f32 kernels'
-// tile loads (synchronous, and by cp.async) and their 3xTF32 tensor-core
-// products, the Q tile a block owns (TileOf), and the block mask and tile
-// sweep of the block-sparse mode.  Each including source gets its own
-// copy (anonymous namespace).
+// tile loads by cp.async and their 3xTF32 tensor-core products, the Q
+// tile a block owns (TileOf), and the block mask and tile sweep of the
+// block-sparse mode.  Each including source gets its own copy (anonymous
+// namespace).
 
 #pragma once
 
@@ -21,22 +21,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// [ROWS, D] f32 tile into rows of LD floats, synchronously; rows at or
-// past `valid` are zeros.
-template <int D, int ROWS, int LD, int THREADS>
-__device__ __forceinline__ void load_rows_f32(float* dst,
-                                              const float* __restrict__ src,
-                                              int valid) {
-  constexpr int kChunks = D / 4;  // float4 per row
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid) val = reinterpret_cast<const float4*>(src + (size_t)r * D)[c];
-    reinterpret_cast<float4*>(dst + r * LD)[c] = val;
-  }
 }
 
 // ---- f32: cp.async and 3xTF32 mma.sync ----------------------------------

@@ -525,7 +525,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <int D>
 struct F32Smem {
   // keys a K / V tile: 32 ran 3% faster than 64 at d = 64 on the card
-  // (f32_ablations.py); 52 KB of shared memory a block at d = 64, 101 KB
+  // (flash_ablations.py); 52 KB of shared memory a block at d = 64, 101 KB
   // at d = 128
   static constexpr int kBK = 32;
   // floats a row: 16-byte rows, and every fragment load of a warp on 32
@@ -538,7 +538,7 @@ struct F32Smem {
   static constexpr size_t kBytes = sizeof(float) * (kRing + 2 * 2 * kTile);
 };
 
-// The bounds are measured, not derived (f32_ablations.py, fwd_no_cap):
+// The bounds are measured, not derived (flash_ablations.py, fwd_no_cap):
 // at d = 128 a register cap of three blocks' worth (170; shared memory
 // holds two) and at d = 64 an explicit minimum of one block (185
 // registers, against 168 without it) each ran 7-9% faster on the card

@@ -6,7 +6,7 @@ build targets sm_90a (wgmma and setmaxnreg exist only there), both
 sources share one copy of the Hopper helpers and of the tensor-map
 encoder, chip_smoke.py reads the registers and spills of every kernel
 instantiation from ptxas's lines, the bf16 kernels' wgmma and TMA
-instructions and the f32 forward and dK/dV kernels' mma.sync and cp.async
+instructions and the three f32 kernels' mma.sync and cp.async
 instructions from their SASS, and flash_ablations.py's edits still
 apply to the kernels' sources."""
 
@@ -125,6 +125,14 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124flash_bwd_dkv_f32_k
 ptxas info    : Function properties for _ZN12_GLOBAL__N_124flash_bwd_dkv_f32_kernelILi64ELb1EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiiifNS_9BlockMaskE
     40 bytes stack frame, 40 bytes spill stores, 40 bytes spill loads
 ptxas info    : Used 255 registers, used 1 barriers, 32 bytes smem, 472 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123flash_bwd_dq_f32_kernelILi128ELb0EEEvPKfS2_S2_S2_S2_S2_PfiiiiifNS_9BlockMaskE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_123flash_bwd_dq_f32_kernelILi128ELb0EEEvPKfS2_S2_S2_S2_S2_PfiiiiifNS_9BlockMaskE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 213 registers, used 1 barriers, 456 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123flash_bwd_dq_f32_kernelILi64ELb1EEEvPKfS2_S2_S2_S2_S2_PfiiiiifNS_9BlockMaskE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_123flash_bwd_dq_f32_kernelILi64ELb1EEEvPKfS2_S2_S2_S2_S2_PfiiiiifNS_9BlockMaskE
+    24 bytes stack frame, 24 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 32 bytes smem, 456 bytes cmem[0]
 """
 
 
@@ -138,6 +146,8 @@ def test_chip_smoke_reads_every_instantiation():
         ("flash_bwd_dq_bf16_kernel<64, masked>", 168, 24),
         ("flash_fwd_f32_kernel<64>", 179, 0),
         ("flash_bwd_dkv_f32_kernel<64, masked>", 255, 80),
+        ("flash_bwd_dq_f32_kernel<128>", 213, 0),
+        ("flash_bwd_dq_f32_kernel<64, masked>", 255, 40),
     ]
     # the forward's kernels keep the <D, kMasked> template that regex reads
     source = (_build.CSRC / "flash_fwd.cu").read_text()
@@ -162,7 +172,8 @@ def test_backward_kernels_keep_the_names_the_parsers_read():
 
 # cuobjdump -sass lines of two bf16 forward instantiations, an f32 one
 # (whose stray HGMMA line must not count as HMMA), one of each bf16
-# backward kernel, the f32 dQ (not counted) and two f32 dK/dV ones
+# backward kernel, two f32 dQ ones (a stray UTMALDG line not counted)
+# and two f32 dK/dV ones
 _SASS = """\
 \t\tFunction : _ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi128ELb0EEEv14CUtensorMap_stS1_S1_S1_PfiiiiifNS_9BlockMaskE
         /*0a50*/                   UTMALDG.3D [UR8], [UR4] ;
@@ -183,9 +194,14 @@ _SASS = """\
         /*0100*/                   UTMALDG.3D [UR8], [UR4] ;
         /*0200*/                   HGMMA.64x64x16.F32.BF16 R24, R100, gdesc[UR8], R24 ;
         /*0300*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
-\t\tFunction : _ZN12_GLOBAL__N_124flash_bwd_dq_f32_kernelILi64ELb0EEEvPKfS2_S2_S2_S2_S2_PfiiiiifNS_9BlockMaskE
+\t\tFunction : _ZN12_GLOBAL__N_123flash_bwd_dq_f32_kernelILi64ELb0EEEvPKfS2_S2_S2_S2_S2_PfiiiiifNS_9BlockMaskE
         /*0100*/                   UTMALDG.3D [UR8], [UR4] ;
         /*0200*/                   HMMA.1688.F32.TF32 R24, R100, R104, R24 ;
+\t\tFunction : _ZN12_GLOBAL__N_123flash_bwd_dq_f32_kernelILi128ELb1EEEvPKfS2_S2_S2_S2_S2_PfiiiiifNS_9BlockMaskE
+        /*0100*/                   LDGSTS.E.BYPASS.LTC128B.128 [R3], desc[UR6][R4.64] ;
+        /*0110*/                   LDGSTS.E.BYPASS.LTC128B.128 [R3+0x8400], desc[UR6][R6.64] ;
+        /*0200*/                   HMMA.1688.F32.TF32 R24, R100, R104, R24 ;
+        /*0210*/                   HMMA.1688.F32.TF32 R24, R108, R112, R24 ;
 \t\tFunction : _ZN12_GLOBAL__N_124flash_bwd_dkv_f32_kernelILi128ELb0EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiiifNS_9BlockMaskE
         /*0100*/                   LDGSTS.E.BYPASS.LTC128B.128 [R3], desc[UR6][R4.64] ;
         /*0110*/                   LDGSTS.E.BYPASS.LTC128B.128 [R3+0x4400], desc[UR6][R6.64] ;
@@ -212,24 +228,34 @@ def test_chip_smoke_counts_wgmma_and_tma_in_the_sass():
         "flash_fwd_f32_kernel<64>": {"HMMA": 0, "LDGSTS": 0},
         "flash_bwd_dkv_f32_kernel<128>": {"HMMA": 3, "LDGSTS": 2},
         "flash_bwd_dkv_f32_kernel<64, masked>": {"HMMA": 0, "LDGSTS": 1},
+        "flash_bwd_dq_f32_kernel<64>": {"HMMA": 1, "LDGSTS": 0},
+        "flash_bwd_dq_f32_kernel<128, masked>": {"HMMA": 2, "LDGSTS": 2},
     }
 
 
 def test_f32_kernels_keep_the_names_the_parsers_read():
     # kernel_resources, sass_counts and the spill check find the f32
-    # forward and dK/dV kernels by these names and their <D, kMasked>
-    # template arguments; the dQ kernel is not among them
+    # forward, dK/dV and dQ kernels by these names and their
+    # <D, kMasked> template arguments
     chip_smoke = _chip_smoke()
     assert chip_smoke.F32_SASS_KERNELS == ("flash_fwd_f32_kernel",
-                                           "flash_bwd_dkv_f32_kernel")
+                                           "flash_bwd_dkv_f32_kernel",
+                                           "flash_bwd_dq_f32_kernel")
     for stem, name in (("flash_fwd", "flash_fwd_f32_kernel"),
-                       ("flash_bwd", "flash_bwd_dkv_f32_kernel")):
+                       ("flash_bwd", "flash_bwd_dkv_f32_kernel"),
+                       ("flash_bwd", "flash_bwd_dq_f32_kernel")):
         source = (_build.CSRC / f"{stem}.cu").read_text()
         assert re.search(r"template <int D, bool kMasked>\s*__global__ void "
                          r"__launch_bounds__\([^)]*\)\s*" + name + r"\(",
                          source), name
-        # they run 3xTF32 mma.sync fed by cp.async (flash_common.cuh)
-        assert "mma_3xtf32(" in source and "cp_async_rows_f32<" in source
+        # each runs 3xTF32 mma.sync fed by cp.async (flash_common.cuh),
+        # in its own body or (dK/dV) the helper only it calls
+        body = source[source.index(name + "("):]
+        body = body[:body.index("\n}\n")]
+        assert "cp_async_rows_f32<" in body, name
+        assert "mma_3xtf32(" in body or "accumulate_step<" in body, name
+    # no synchronous tile load is left in the f32 kernels' helpers
+    assert "load_rows_f32" not in (_build.CSRC / "flash_common.cuh").read_text()
 
 
 def _ablation_variants():
@@ -282,6 +308,13 @@ def test_chip_smoke_holds_the_f32_kernels_at_the_f32_paths_shapes():
              if dtype == torch.float32 and causal}
     assert path <= dense
     assert chip_smoke.F32_TIMED_SHAPE in path
+    # and non-causal at the train shape, where every row of dq sums all s
+    # keys: the case that refuses dQ without its per-tile partials
+    train_shape = (chip_smoke.TRAIN_BATCH, train["n_heads"],
+                   chip_smoke.TRAIN_SEQ, train_d)
+    assert any(shape == train_shape and dtype == torch.float32 and not causal
+               and window is None for _, shape, _, dtype, causal, window
+               in chip_smoke.dense_cases(torch))
     masks = [shape for _, shape, _, dtype, *_ in
              chip_smoke.block_sparse_cases(torch) if dtype == torch.float32]
     assert any(shape[3] == 128 for shape in masks)

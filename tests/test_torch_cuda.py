@@ -695,10 +695,10 @@ def _doc_mask(lengths, block):
 ], ids=["gqa4_ragged_333", "window_100_d128", "doc_mask_gqa"])
 def test_f32_kernels_match_their_plain_versions(card, shape, h_kv, window,
                                                 mask):
-    """The f32 forward and dK/dV kernels (and the f32 dQ kernel beside
-    them) against flash_forward_reference / flash_backward_reference (or
-    the block-sparse pair) at a ragged GQA shape, a windowed d = 128
-    shape and a document block mask, all causal."""
+    """The f32 forward, dK/dV and dQ kernels against
+    flash_forward_reference / flash_backward_reference (or the
+    block-sparse pair) at a ragged GQA shape, a windowed d = 128 shape and
+    a document block mask, all causal."""
     device = card[0]
     b, h, s, d = shape
     rng = np.random.default_rng(15)
@@ -707,9 +707,13 @@ def test_f32_kernels_match_their_plain_versions(card, shape, h_kv, window,
     k, v = (torch.tensor(rng.standard_normal((b, h_kv, s, d),
                                              dtype=np.float32), device=device)
             for _ in range(2))
-    launched = (A.flash_forward.launches, A.flash_backward.launches_dkv,
-                A.block_sparse_forward.launches,
-                A.block_sparse_backward.launches_dkv)
+    def counts():
+        return (A.flash_forward.launches, A.flash_backward.launches_dkv,
+                A.flash_backward.launches_dq, A.block_sparse_forward.launches,
+                A.block_sparse_backward.launches_dkv,
+                A.block_sparse_backward.launches_dq)
+
+    launched = counts()
     if mask is None:
         out, lse = A.flash_forward(q, k, v, True, window)
         grads = A.flash_backward(q, k, v, out, lse, dout, True, window)
@@ -724,11 +728,8 @@ def test_f32_kernels_match_their_plain_versions(card, shape, h_kv, window,
         ref_grads = A.block_sparse_backward_reference(q, k, v, out, lse,
                                                       dout, *args)
     torch.cuda.synchronize()
-    now = (A.flash_forward.launches, A.flash_backward.launches_dkv,
-           A.block_sparse_forward.launches,
-           A.block_sparse_backward.launches_dkv)
-    assert [n - m for n, m in zip(now, launched)] == (
-        [1, 1, 0, 0] if mask is None else [0, 0, 1, 1])
+    assert [n - m for n, m in zip(counts(), launched)] == (
+        [1, 1, 1, 0, 0, 0] if mask is None else [0, 0, 0, 1, 1, 1])
     torch.testing.assert_close(out, ref_out, rtol=F32_OUT_TOL,
                                atol=F32_OUT_TOL)
     finite = torch.isfinite(ref_lse)

@@ -1,14 +1,14 @@
 """The f32 flash kernels' design, checked on the CPU.
 
 1. 3xTF32: csrc/flash_fwd.cu's f32 forward and csrc/flash_bwd.cu's f32
-   dK/dV kernel run every product on the tensor cores with each operand
-   split into a TF32 big part and a TF32 small part (three products,
-   small x small dropped).  Here the split is done with torch ops and bit
-   masks (round to nearest, ties away, to TF32's 10 mantissa bits, as
-   cvt.rna.tf32.f32) and the kernels' products (forward: S = Q K^T and
-   P V; dK/dV: S^T, dP^T, p^T dO, ds^T Q) are taken from the split parts,
-   summed exactly (f64) and rounded to f32, inside the plain versions'
-   arithmetic.  That stays within chip_smoke.py's kernel-vs-plain f32
+   dK/dV and dQ kernels run every product on the tensor cores with each
+   operand split into a TF32 big part and a TF32 small part (three
+   products, small x small dropped).  Here the split is done with torch
+   ops and bit masks (round to nearest, ties away, to TF32's 10 mantissa
+   bits, as cvt.rna.tf32.f32) and the kernels' products (forward: S =
+   Q K^T and P V; dK/dV: S^T, dP^T, p^T dO, ds^T Q; dQ: S, dP, ds K) are
+   taken from the split parts, summed exactly (f64) and rounded to f32,
+   inside the plain versions' arithmetic.  That stays within chip_smoke.py's kernel-vs-plain f32
    limits of the f32 plain versions; one TF32 pass does not, which is
    why the kernels take three.
 2. The f32 path's small twin: a 2-layer f32 model of the serving
@@ -121,6 +121,20 @@ def _dkv(q, k, v, out, lse, dout, mask, einsum):
             dv.reshape(b, h_kv, group, s, d).sum(dim=2))
 
 
+def _dq(q, k, v, out, lse, dout, mask, einsum):
+    """The dQ half of _flash_backward_plain's arithmetic with its three
+    products (S = Q K^T, dP = dO V^T, ds K) taken by ``einsum``."""
+    k_full, v_full = A._repeat_kv(q, k, v)
+    scale = q.shape[-1] ** -0.5
+    scores = einsum("bhqd,bhkd->bhqk", q, k_full) * scale
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.exp(scores - lse)
+    probs = torch.where(torch.isfinite(scores), probs, torch.zeros_like(probs))
+    delta = A._backward_delta(out, dout)
+    ds = probs * (einsum("bhqd,bhkd->bhqk", dout, v_full) - delta)
+    return scale * einsum("bhqk,bhkd->bhqd", ds, k_full)
+
+
 def _inputs(shape, h_kv, seed):
     b, h, s, d = shape
     rng = np.random.default_rng(seed)
@@ -178,6 +192,24 @@ def test_3xtf32_holds_the_f32_limits_and_one_pass_does_not(shape, h_kv,
     assert shares[3][0] <= 0.5 and shares[3][1] <= 0.5, shares
     # one pass: the forward's and the backward's limits both broken
     assert shares[1][0] > 1 and shares[1][1] > 1, shares
+
+
+@pytest.mark.parametrize("shape,h_kv,window", CASES,
+                         ids=["d64_gqa_ragged", "d128_window"])
+def test_3xtf32_dq_holds_the_f32_limit_and_one_pass_does_not(shape, h_kv,
+                                                              window):
+    # csrc/flash_bwd.cu's f32 dQ kernel: its three products in 3xTF32
+    # within half of BWD_TOLERANCES["float32"], one TF32 pass beyond it
+    q, k, v, dout = _inputs(shape, h_kv, seed=16)
+    s = shape[2]
+    mask = A._band_mask(s, s, window, q.device)
+    out, lse = A.flash_forward_reference(q, k, v, True, window)
+    ref_dq, _, _ = A.flash_backward_reference(q, k, v, out, lse, dout, True,
+                                              window)
+    shares = {passes: _rel(_dq(q, k, v, out, lse, dout, mask,
+                               _product(passes)), ref_dq) / GRAD_TOL
+              for passes in (3, 1)}
+    assert shares[3] <= 0.5 and shares[1] > 1, shares
 
 
 def test_tf32_rounding_keeps_ten_mantissa_bits():
