@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.rope import apply_rope
+from ..parallel.spmd import refuse_sharded
 from ..parallel.train import CAPTURE_WARMUP_STEPS, graph_capture
 from .transformer import (
     TransformerConfig,
@@ -237,7 +238,13 @@ def prefill(params: Dict, config: TransformerConfig,
     (cache, last_logits [batch, vocab] f32).
 
     One dense forward pass (the flash kernel on CUDA) that also collects
-    every layer's roped K/V and writes them into the cache in bulk."""
+    every layer's roped K/V and writes them into the cache in bulk.  One
+    device's parameters: a sharded tree raises ``TypeError`` (sharded
+    serving is ``serving.sharded``).  The check walks the tree once a
+    call, a cost of host time only beside the forward; without it a
+    sharded tree would fail deep in the forward with an indexing error
+    that names neither the cause nor the sharded entry points."""
+    refuse_sharded("prefill", params, prompt)
     check_config(config)
     batch, prompt_len = prompt.shape
     _check_prompt_fits(config, prompt_len)

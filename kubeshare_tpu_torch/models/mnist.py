@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..parallel.spmd import refuse_sharded
+from ..parallel.spmd import data_parallel_apply, mesh_of
 
 
 @dataclass(frozen=True)
@@ -69,8 +69,19 @@ def mnist_init(generator: torch.Generator, config: MnistConfig = MnistConfig(),
 
 def mnist_apply(params: Dict, images: torch.Tensor) -> torch.Tensor:
     """images: [batch, 28, 28, 1] (NHWC) -> logits [batch, classes].
-    One device's parameters: a sharded tree raises ``TypeError``."""
-    refuse_sharded("mnist_apply", params, images)
+
+    Mesh-aware: a tree of ``ShardedTensor`` leaves (``shard_params``,
+    e.g. ``make_train_step(..., mesh=mesh, param_rules={})``) runs the
+    data-parallel program (``parallel.spmd.data_parallel_apply``): each
+    work unit takes its rows of the batch and the logits come back as a
+    ``ShardedTensor`` split along the batch."""
+    mesh = mesh_of(params, images)
+    if mesh is not None:
+        return data_parallel_apply(_forward, params, images, mesh)
+    return _forward(params, images)
+
+
+def _forward(params: Dict, images: torch.Tensor) -> torch.Tensor:
     x = images.permute(0, 3, 1, 2)  # NCHW for conv2d
     for layer in ("conv1", "conv2"):
         w = params[layer]["w"].permute(3, 2, 0, 1)  # HWIO -> OIHW

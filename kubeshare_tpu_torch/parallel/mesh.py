@@ -335,11 +335,13 @@ def _check_divides(name: str, shape: Sequence[int], spec: PartitionSpec,
 
 
 def shard_tensor(x: torch.Tensor, spec: PartitionSpec, mesh: Mesh,
-                 copy: bool = False) -> ShardedTensor:
+                 copy: bool = False,
+                 non_blocking: bool = False) -> ShardedTensor:
     """Split ``x`` over ``mesh`` under ``spec``: each device receives its
     slice, contiguous, on its own device.  ``copy`` gives every shard its
     own storage (state updated in place); otherwise a replicated shard
-    already on its device is ``x`` itself."""
+    already on its device is ``x`` itself.  ``non_blocking`` copies from
+    pinned host memory asynchronously, on each device's current stream."""
     _check_divides(f"a tensor of shape {tuple(x.shape)}", x.shape, spec,
                    mesh)
     shards = []
@@ -348,15 +350,18 @@ def shard_tensor(x: torch.Tensor, spec: PartitionSpec, mesh: Mesh,
         piece = x[slices]
         if copy or piece.device != device or not piece.is_contiguous():
             piece = torch.empty(piece.shape, dtype=x.dtype,
-                                device=device).copy_(piece)
+                                device=device).copy_(
+                                    piece, non_blocking=non_blocking)
         shards.append(piece)
     return ShardedTensor(shards, spec, mesh, x.shape)
 
 
-def device_put(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
+def device_put(x: torch.Tensor, sharding: NamedSharding,
+               non_blocking: bool = False) -> ShardedTensor:
     """``jax.device_put(x, sharding)``: ``x`` split over the sharding's
     mesh under its spec, e.g. a batch under :func:`batch_sharding`."""
-    return shard_tensor(x, sharding.spec, sharding.mesh)
+    return shard_tensor(x, sharding.spec, sharding.mesh,
+                        non_blocking=non_blocking)
 
 
 def _keystr(path: Tuple) -> str:

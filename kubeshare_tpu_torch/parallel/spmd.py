@@ -5,7 +5,9 @@ lets XLA's SPMD partitioner (GSPMD) write the per-device program and its
 collectives.  This module is the port's counterpart of that partitioner,
 written out by hand for the mesh-aware entry points
 (``models.transformer.transformer_apply(_with_aux)``,
-``ops.moe.moe_apply``) and the training step (``parallel.train``).
+``ops.moe.moe_apply``, and through :func:`data_parallel_apply`
+``models.mnist.mnist_apply`` and ``models.resnet.resnet_apply``) and the
+training step (``parallel.train``).
 
 ONE CONTROLLER, as in ``serving/sharded.py``: one process drives every
 shard of a mesh, the collectives are plain functions over lists of
@@ -54,7 +56,7 @@ import numpy as np
 import torch
 
 from .mesh import (Mesh, P, PartitionSpec, ShardedTensor, _map_with_paths,
-                   _split_names, shard_tensor)
+                   _split_names, batch_sharding, device_put, shard_tensor)
 
 
 # ---------------------------------------------------------------------------
@@ -127,8 +129,8 @@ def refuse_sharded(name: str, *trees) -> None:
         raise TypeError(
             f"{name} runs on one device and got a sharded tree; the "
             "mesh-aware entry points are models.transformer_apply, "
-            "models.transformer_apply_with_aux and ops.moe_apply (MNIST "
-            "and ResNet under a mesh: ROADMAP.md queue A item 10b)")
+            "models.transformer_apply_with_aux, models.mnist_apply, "
+            "models.resnet_apply and ops.moe_apply")
 
 
 def same_mesh(a: Mesh, b: Mesh) -> bool:
@@ -235,6 +237,32 @@ class Units:
         shards = [xs[u].to(d, non_blocking=True)
                   for u, d in zip(self.unit_of, self.mesh.devices.flat)]
         return ShardedTensor(shards, spec, self.mesh, shape)
+
+
+def data_parallel_apply(fn, params, batch, mesh: Mesh) -> ShardedTensor:
+    """``fn(params, batch) -> [rows, ...]``, a one-device function whose
+    rows depend only on their own batch rows, as the sharded program over
+    ``mesh``: each work unit runs ``fn`` on its rows of the batch (split
+    by ``batch_sharding`` unless already placed) with every parameter
+    whole (replicated, or gathered at use where a rule splits it), and
+    the outputs come back as one :class:`ShardedTensor` split along the
+    batch.  The data-parallel program that GSPMD makes of a
+    per-sample model (convolutions, group norm) under a dp mesh."""
+    if not isinstance(batch, ShardedTensor):
+        batch = device_put(batch, batch_sharding(mesh, batch.ndim))
+    params = place_plain(params, mesh)
+    specs: List[PartitionSpec] = []
+    _map_with_paths(params, lambda _, leaf: specs.append(leaf.spec))
+    units = Units.of(mesh, [batch.spec] + specs)
+    rows = _split_names(batch.spec[0] if batch.spec else None)
+    xs = units.local(batch, {0: rows} if rows else None)
+    local: Dict[str, List[torch.Tensor]] = {}
+    _map_with_paths(params, lambda path, leaf: local.setdefault(
+        path, units.local(leaf)))
+    outs = [fn(_map_with_paths(params, lambda path, _: local[path][u]), x)
+            for u, x in enumerate(xs)]
+    return units.assemble(outs, P(batch.spec[0] if batch.spec else None),
+                          (batch.shape[0],) + tuple(outs[0].shape[1:]))
 
 
 def split_axis(batch: Tuple[str, ...], *uses) -> Optional[str]:

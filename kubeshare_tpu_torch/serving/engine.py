@@ -110,7 +110,7 @@ from ..models.decoding import (_filter_logits, bucket_width, capture_graph,
                                pick_rows, sampling_seeds)
 from ..models.transformer import TransformerConfig, check_config
 from ..parallel.train import tree_leaves
-from ..utils.promtext import MetricFamily, Sample, _format_value
+from ..utils.promtext import MetricFamily, MetricServer, Sample, _format_value
 from .autotune import AnalyticPolicy, AutoTuner
 from .drafter import NGramDrafter
 from .kv_blocks import (BlockAllocator, BlockExhausted, QuotaExceeded,
@@ -1725,6 +1725,16 @@ class ServingEngine:
                 planner, prefix, hit_tokens, evicted, *tier_families, ttft,
                 t_depth, t_blocks, t_tokens, preempt, cls_ttft, tbt,
                 coll_bytes, spec_tokens, spec_accept, tuner]
+
+    def serve_metrics(self, port: int = 0) -> MetricServer:
+        """Start the textfile HTTP scrape endpoint (``/metrics`` and
+        ``/kubeshare-serving``) over :meth:`collect_metrics`; returns the
+        started server (its ``.port`` is the bound port — pass 0 for
+        ephemeral; ``.stop()`` ends it)."""
+        server = MetricServer(self.collect_metrics, port=port,
+                              path="/kubeshare-serving")
+        server.start()
+        return server
 
     def _tier_metric_families(self) -> List[MetricFamily]:
         """The host and disk tiers' families, the JAX engine's."""

@@ -1,7 +1,9 @@
-"""corun_bench.py, the port's twin of bench.py's train suite, on the CPU:
-one worker's loop in-process against a real tpushare-tokend, one phase
-with a worker process, a worker that cannot reach the card failing its
-phase, and the metric's arithmetic on fixed inputs."""
+"""corun_bench.py, the port's twin of bench.py's train and serve suites,
+on the CPU: one worker's loop in-process against a real tpushare-tokend
+(a trainer and a decode pod), one phase with a worker process, the serve
+suite's three phases with worker processes, a worker that cannot reach
+the card failing its phase, and the metric's arithmetic on fixed
+inputs."""
 
 import argparse
 import json
@@ -76,6 +78,77 @@ def test_worker_loop_in_process(tmp_path, tokend, capsys, monkeypatch):
     assert (result["breakdown_ms"]["io_ms"]
             >= result["steps"] * result["io_wait_ms"])
     assert 0 < result["gated_ms"] <= result["breakdown_ms"]["compute_ms"] + 1
+
+
+DECODE_FIELDS = {"steps", "rate_steps_per_s", "new_tokens_per_request",
+                 "gated_ms", "tokens", "step_ms", "io_wait_ms", "lat_p50_ms",
+                 "lat_p95_ms", "lat_mean_ms"}
+
+
+def test_decode_worker_in_process(tmp_path, tokend, capsys):
+    barrier = tmp_path / "barrier"
+    barrier.touch()
+    args = argparse.Namespace(
+        device="cpu", tokend_port=tokend, pod_name="bench/pod-a",
+        seconds=0.5, io_wait_ms=0.0, calibrate_io=True, warmup_s=0.0,
+        barrier=str(barrier))
+    corun_bench.worker_decode_main(args)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[:5] == ["PHASE importing", "PHASE imported",
+                         "PHASE device-ready cpu cpu", "PHASE compiled",
+                         "READY"]
+    result = json.loads(lines[-1])
+    assert set(result) == DECODE_FIELDS
+    batch, _, new = corun_bench.SERVE_SMOKE_SHAPE
+    assert result["new_tokens_per_request"] == batch * new
+    # the pod returns its token after every request, so each request is
+    # granted one
+    assert result["steps"] > 0 and result["tokens"] == result["steps"]
+    assert result["io_wait_ms"] == result["step_ms"] > 0
+    assert 0 < result["lat_p50_ms"] <= result["lat_p95_ms"]
+    assert result["lat_p50_ms"] >= 0.5 * result["step_ms"]
+
+
+def test_serve_corun_phase_runs_both_pods(tokend_binary):
+    # the serve suite's co-run: two decode pod processes under one tokend
+    phase = corun_bench.Phase(["bench/pod-a", "bench/pod-b"], tokend_binary,
+                              seconds=0.5, io_wait_ms=1.0, device="cpu",
+                              suite="serve")
+    results = phase.run()
+    assert phase.device_kind == "cpu" and len(results) == 2
+    for result in results:
+        assert set(result) == DECODE_FIELDS
+        assert result["tokens"] > 0 and result["steps"] > 0
+
+
+def test_serve_suite_reports_tokens_per_s(monkeypatch):
+    # the suite's phases and arithmetic on canned pod results, 16 tokens a
+    # request: solo pods at 2 and 3 requests/s (service 10 and 20 ms),
+    # co-run pods at 1.5 and 2
+    def pod(rate, service_ms=None):
+        return {"rate_steps_per_s": rate, "new_tokens_per_request": 16,
+                "steps": 4, "tokens": 4, "step_ms": service_ms,
+                "lat_p50_ms": 1.0, "lat_p95_ms": 2.0}
+
+    canned = [[pod(2.0, 10.0)], [pod(3.0, 20.0)], [pod(1.5), pod(2.0)]]
+    runs = []
+
+    def run(phase):
+        runs.append((phase.suite, [p["name"] for p in phase.pods],
+                     phase.calibrate_io, phase.io_wait_ms))
+        phase.device_kind, phase.phase_timings = "cpu", []
+        return canned[len(runs) - 1]
+
+    monkeypatch.setattr(corun_bench.Phase, "run", run)
+    result = corun_bench.run_serve_suite("tokend", seconds=1.0, device="cpu")
+    assert runs == [("serve", ["bench/pod-a"], True, 0.0),
+                    ("serve", ["bench/pod-b"], True, 0.0),
+                    ("serve", ["bench/pod-a", "bench/pod-b"], False, 15.0)]
+    detail = result["detail"]
+    assert detail["solo_tokens_per_s"] == [32.0, 48.0]
+    assert detail["corun_tokens_per_s"] == [24.0, 32.0]
+    assert result["value"] == pytest.approx(56.0 / 80.0)
+    assert detail["tokens"] == {"solo_a": 4, "solo_b": 4, "corun": [4, 4]}
 
 
 def test_phase_runs_a_worker_process(tokend_binary):

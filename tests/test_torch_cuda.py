@@ -1,7 +1,9 @@
 """The port's captured (CUDA graph) serving and sharded training paths
-against their eager forms, and the f32 flash kernels (3xTF32 on the
-tensor cores) against their plain versions, on the card.  Every test
-here skips without a CUDA device.
+against their eager forms, the f32 flash kernels (3xTF32 on the tensor
+cores) against their plain versions, the full-width ResNet against the
+CPU, a checkpoint restored into a captured train step, and prefetch's
+stream ordering, on the card.  Every test here skips without a CUDA
+device.
 
 The file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed:
@@ -18,11 +20,16 @@ import numpy as np
 import pytest
 import torch
 
+from kubeshare_tpu_torch.data import prefetch_to_device
 from kubeshare_tpu_torch.models import decoding
+from kubeshare_tpu_torch.models.resnet import (ResNetConfig, resnet_apply,
+                                               resnet_init)
 from kubeshare_tpu_torch.ops import attention as A
 from kubeshare_tpu_torch.models.transformer import (
     TransformerConfig, transformer_apply, transformer_init,
     transformer_sharding_rules)
+from kubeshare_tpu_torch.parallel.checkpoint import (restore_checkpoint,
+                                                     save_checkpoint)
 from kubeshare_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 from kubeshare_tpu_torch.parallel.train import (_make_capturable, adamw,
                                                 make_train_step, tree_leaves)
@@ -671,6 +678,106 @@ def test_captured_sharded_train_step_equals_eager(card):
     np.testing.assert_allclose(losses, eager_losses, rtol=0, atol=LOGITS_TOL)
     for got, want in zip(captured, eager):
         torch.testing.assert_close(got, want, rtol=0, atol=LOGITS_TOL)
+
+
+# chip_smoke.py's RESNET_LOGITS_RTOL: f32 convolutions with TF32 off sum
+# in another order than the CPU's (TF32 convolutions would not pass)
+RESNET_LOGITS_RTOL = 1e-4
+
+
+def test_full_width_resnet_forward_equals_the_cpu(card):
+    device = card[0]
+    torch.backends.cudnn.allow_tf32 = False
+    config = ResNetConfig()
+    params = resnet_init(torch.Generator().manual_seed(0), config,
+                         device="cpu")
+    images = torch.randn((8, 32, 32, 3), generator=torch.Generator()
+                         .manual_seed(1))
+    with torch.no_grad():
+        want = resnet_apply(params, images, config)
+        got = resnet_apply(_on(params, device), images.to(device),
+                           config).cpu()
+    assert got.shape == (8, 10)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= RESNET_LOGITS_RTOL, err
+
+
+def _on(tree, device):
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on(v, device) for v in tree]
+    return tree.to(device, copy=True)
+
+
+def test_restore_into_a_captured_train_step_replays_to_the_bit(card,
+                                                               tmp_path):
+    """A small ResNet's captured step: a checkpoint saved after step 2,
+    steps 3-4 run, the checkpoint restored into the state the graph
+    replays (in place: the same tensors), steps 3-4 replayed — the
+    parameters and moments equal the first run's to the bit (the
+    convolutions deterministic)."""
+    device = card[0]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        config = ResNetConfig(widths=(16, 32), blocks_per_stage=(1, 1),
+                              groups=4)
+        init_state, step = make_train_step(
+            lambda p, x: resnet_apply(p, x, config), capture=True)
+        state = init_state(resnet_init(torch.Generator().manual_seed(0),
+                                       config, device=device))
+        gen = torch.Generator().manual_seed(3)
+        batches = [(torch.randn((16, 32, 32, 3), generator=gen).to(device),
+                    torch.randint(0, 10, (16,), generator=gen).to(device))
+                   for _ in range(4)]
+        for batch in batches[:2]:
+            state, _ = step(state, *batch)
+        save_checkpoint(str(tmp_path), state, 2)
+        losses = [float(step(state, *batch)[1]) for batch in batches[2:]]
+        leaves = tree_leaves(state.params)
+        final = [leaf.detach().clone() for leaf in leaves]
+        moments = [state.opt_state.state[leaf]["exp_avg"].clone()
+                   for leaf in leaves]
+        pointers = [leaf.data_ptr() for leaf in leaves]
+        state = restore_checkpoint(str(tmp_path), into=state)
+        assert state.step == 2
+        assert [leaf.data_ptr() for leaf in tree_leaves(state.params)] == \
+            pointers
+        again = [float(step(state, *batch)[1]) for batch in batches[2:]]
+        assert again == losses
+        for leaf, want, moment in zip(tree_leaves(state.params), final,
+                                      moments):
+            assert torch.equal(leaf, want)
+            assert torch.equal(state.opt_state.state[leaf]["exp_avg"],
+                               moment)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def test_prefetch_orders_its_copies_around_the_step(card):
+    """Each consumer step first keeps its stream busy (``_sleep``), then
+    reads the prefetched batch, whose reference it drops at once, while
+    the next copies run on the side stream: the step must see its own
+    batch — it waits for that batch's copy, and record_stream keeps the
+    allocator from handing the batch's memory to a later copy before the
+    step has read it."""
+    device = card[0]
+    n = 1 << 22  # 16 MiB a batch
+
+    def source():
+        for i in range(8):
+            yield {"x": np.full((n,), float(i), dtype=np.float32),
+                   "i": np.array([i])}
+
+    sums = []
+    for batch in prefetch_to_device(source(), size=2, sharding=device):
+        assert batch["x"].device == device
+        torch.cuda._sleep(20_000_000)
+        sums.append(batch["x"].sum())
+        del batch
+    torch.cuda.synchronize()
+    assert [float(x) for x in sums] == [float(i * n) for i in range(8)]
 
 
 # chip_smoke.py's f32 limits for a kernel against its plain version on the

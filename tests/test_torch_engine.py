@@ -12,6 +12,8 @@ streams being port-internal (the port draws Gumbel noise from a seed
 schedule, not JAX's PRNG).  On the CPU the engine runs its programs
 eagerly; the captured form runs in tests/test_torch_cuda.py."""
 
+import urllib.request
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +36,7 @@ from kubeshare_tpu_torch.serving import (QOS_OPPORTUNISTIC, EngineConfig,
                                          TenantRegistry, TenantSpec)
 from kubeshare_tpu_torch.serving.metrics_view import (flatten_metrics,
                                                       metric_value)
-from kubeshare_tpu_torch.utils.promtext import encode_families
+from kubeshare_tpu_torch.utils.promtext import encode_families, parse_text
 
 torch.set_num_threads(1)
 
@@ -283,6 +285,61 @@ def test_metrics_count_the_trace(model):
                         kind="cow_copy") == engine.cow_copies
     assert "kubeshare_serving_tbt_seconds_bucket" in encode_families(
         engine.collect_metrics())
+
+
+def _scrape(engine):
+    """The engine's /kubeshare-serving body over HTTP on port 0, as
+    {(name, sorted labels): value}."""
+    server = engine.serve_metrics(port=0)
+    try:
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/kubeshare-serving",
+            timeout=5).read().decode()
+    finally:
+        server.stop()
+    return {(s.name, tuple(sorted(s.labels.items()))): s.value
+            for s in parse_text(body)}
+
+
+def test_serve_metrics_body_equals_jax_engines():
+    """tests/test_serving.py::test_metrics_endpoint_scrapes_serving_plane's
+    model and trace (two requests sharing a 12-token prompt, served one
+    after the other) through both engines' serve_metrics: the same
+    samples, equal values but the wall-clock timings (the histograms'
+    buckets and sums of seconds; their counts equal)."""
+    dims = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+                max_seq_len=64, attention="reference")
+    jax_cfg = JaxConfig(dtype=jnp.float32, **dims)
+    params = jax_init(jax.random.PRNGKey(0), jax_cfg)
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, 64, 12)
+    reqs = [dict(rid="m0", prompt=shared, max_new_tokens=4),
+            dict(rid="m1", prompt=shared.copy(), max_new_tokens=3)]
+
+    def serve(engine, request):
+        for req in reqs:
+            engine.submit(request(**req))
+            engine.run()
+            engine.pop_finished()
+        return _scrape(engine)
+
+    want = serve(JaxServingEngine(params, jax_cfg, JaxEngineConfig(**POOL)),
+                 JaxRequest)
+    got = serve(ServingEngine(params_from_jax(jax.device_get(params), "cpu"),
+                              TransformerConfig(dtype=torch.float32, **dims),
+                              EngineConfig(**POOL), device="cpu"), Request)
+    assert got.keys() == want.keys()
+
+    def timing(key):
+        return "_seconds" in key[0] and not key[0].endswith("_count")
+
+    assert {k: v for k, v in got.items() if not timing(k)} == \
+        {k: v for k, v in want.items() if not timing(k)}
+    req = "kubeshare_serving_requests_total"
+    assert got[(req, (("stage", "finished"),))] == 2
+    assert got[("kubeshare_serving_prefix_hit_tokens_total", ())] == 11
+    assert got[("kubeshare_serving_ttft_seconds_bucket",
+                (("le", "+Inf"),))] == 2
 
 
 @pytest.mark.parametrize("overrides,kwargs", [

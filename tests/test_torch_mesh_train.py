@@ -30,7 +30,7 @@ from kubeshare_tpu.parallel import mesh as jax_mesh
 from kubeshare_tpu.parallel.train import cross_entropy_loss as jax_ce
 from kubeshare_tpu.parallel.train import make_train_step as jax_make_train_step
 from kubeshare_tpu_torch.convert import params_from_jax, train_state_from_jax
-from kubeshare_tpu_torch.models.mnist import mnist_apply, mnist_init
+from kubeshare_tpu_torch.models.decoding import prefill
 from kubeshare_tpu_torch.models.transformer import (
     TransformerConfig,
     transformer_apply,
@@ -551,14 +551,21 @@ def test_a_non_dividing_axis_raises_jax_message(case):
 
 
 def test_an_apply_fn_that_is_not_mesh_aware_raises_type_error():
+    # prefill runs on one device (sharded serving is serving.sharded);
+    # the message names the mesh-aware entry points
+    jax_cfg, cfg = _configs(**DENSE)
     _, mesh = _meshes(dp=2)
     init_state, train_step = port_train.make_train_step(
-        mnist_apply, mesh=mesh, param_rules={})
-    state = init_state(mnist_init(torch.Generator().manual_seed(0),
-                                  device="cpu"))
-    with pytest.raises(TypeError, match="transformer_apply"):
-        train_step(state, torch.zeros((4, 28, 28, 1)),
+        lambda p, t: prefill(p, cfg, t)[1], mesh=mesh, param_rules={})
+    state = init_state(params_from_jax(jax.device_get(jax_init(
+        jax.random.PRNGKey(0), jax_cfg)), "cpu"))
+    with pytest.raises(TypeError, match="prefill runs on one device") as info:
+        train_step(state, torch.zeros((4, 16), dtype=torch.long),
                    torch.zeros((4,), dtype=torch.long))
+    for name in ("transformer_apply", "mnist_apply", "resnet_apply",
+                 "moe_apply"):
+        assert name in str(info.value)
+    assert "10b" not in str(info.value)
 
 
 def test_a_sequence_split_batch_is_not_ported():
