@@ -226,6 +226,38 @@ Phases (any failure raises and the script exits non-zero):
    parameters and moments a unit holds, and checks that every copy of a
    slice is equal to the bit; the losses are held to the single-device
    captured runs of the train and moe phases.
+   long_context: long context and pipelined training of the train-step
+   flagship (TRAIN_DIMS, rope, bf16, full width and depth) on meshes
+   naming the card once a shard.  First row 1c: the ring's diagonal
+   partial (_partial_flash, the flash forward) at (1, 8, 4096, 128)
+   against its plain version and timed beside SDPA and the bound.  (a)
+   transformer_apply_ring, the contiguous hybrid ring over sp=4 at 1 x
+   16,384 tokens: logits against the single-device flash forward of the
+   same tokens (LC_LOGITS_ATOL) and a control with RoPE at offset 0 on
+   every shard that the limit must refuse; ten eager AdamW steps against
+   ten single-device steps (LC_FIRST_LOSS_ATOL, LC_DRIFT_*: step 1's
+   loss, every loss, the parameters over the update) and the RoPE
+   control's ten steps, which they must refuse; the same ten steps
+   captured (make_train_step(capture=True)) against the eager ring, each
+   step's CUDA-event ms.  (b) the zigzag hybrid ring over dp=2 x tp=2 x
+   sp=2 under transformer_fsdp_rules at 2 x 8,192: logits against the
+   single-device forward and a control whose diagonal blocks drop their
+   causal mask; ten steps against ten single-device steps at 2 x 8,192
+   (LC_FIRST_LOSS_ATOL, LC_ZIGZAG_DRIFT_LOSS_ATOL, LC_DRIFT_UPDATE_RTOL)
+   and the RoPE control's ten, which they must refuse.  (c)
+   transformer_apply_ulysses over sp=4 at 1 x 16,384: logits; ten steps
+   against (a)'s ten single-device steps (the same limits); its flash
+   forward, dK/dV and dQ at a member's shape (1, 2, 16384, 128) are
+   also held to their plain versions among the kernel phase's shapes
+   ("ulysses_member").  (d) transformer_train_1f1b over
+   pp=2 x sp=2, the hybrid ring in each stage, 4 microbatches of 1 x
+   8,192: step 1's loss and every gradient against autograd through
+   transformer_apply_ring over sp=2 (LC_1F1B_*), and a control that
+   forgets one microbatch's cotangent, which they must refuse; three
+   AdamW steps.  Launches are the kernels line's ring, ring_captured,
+   zigzag, ulysses and pipeline_1f1b columns: the flash forward on every
+   one, the backward kernels only on ulysses (the ring's backward is its
+   own block math, as in JAX).
 7. mnist: the co-run's MNIST at batch 512 from weights converted from a
    numpy tree: its logits against the CPU's, and 8 captured train steps
    against 8 eager ones, timed.
@@ -256,7 +288,7 @@ Phases (any failure raises and the script exits non-zero):
    out of the counters' sight.
 
 The launch counters are zeroed before each path and read after it (the
-captured path's around its capture: a replay bumps no counter).  The
+captured paths' around their capture: a replay bumps no counter).  The
 engine's paths (engine, engine_spec, engine_tier, engine_disagg,
 engine_fleet, engine_sharded, moe_engine) launch
 none of the kernels (their attention is the paged einsums, as in the JAX engine), so
@@ -678,6 +710,74 @@ SHARDED_DRIFT_LOSS_ATOL = 0.25
 # batched products (4 experts a unit, 8 unsharded) and the gradient sums
 # run in another order, about a bf16 ulp of the largest value
 SHARDED_MOE_RTOL = MOE_DISPATCH_RTOL
+
+
+# long_context: the train-step flagship (TRAIN_DIMS, rope, bf16, full
+# width and depth) at long sequences on meshes that name the card n
+# times: (a) the contiguous hybrid ring over sp=4 at 1 x 16,384 tokens,
+# (b) the zigzag ring over dp=2 x tp=2 x sp=2 (fsdp rules) at 2 x 8,192,
+# (c) Ulysses over sp=4 at 1 x 16,384, (d) the 1F1B schedule over pp=2 x
+# sp=2 with the ring in-stage, 4 microbatches of 1 x 8,192.  Each shard's
+# diagonal block runs the flash forward at (1, 8, 4096, 128): row 1c of
+# PERF.md's kernel table, timed here
+LC_SEQ = 16384
+LC_SP = 4
+LC_ZIGZAG_MESH = dict(dp=2, tp=2, sp=2)
+LC_ZIGZAG_SHAPE = (2, 8192)
+LC_PP, LC_PP_SP, LC_PP_MICRO = 2, 2, 4
+LC_PP_SHAPE = (4, 8192)
+# the ring (eager and captured), zigzag and Ulysses runs, each held to
+# as many single-device steps (LC_DRIFT_*), as the train phase
+LC_DRIFT_STEPS = 10
+LC_STEPS = 3  # 1F1B
+LC_DIAG_SHAPE = (1, TRAIN_DIMS["n_heads"], LC_SEQ // LC_SP,
+                 TRAIN_DIMS["d_model"] // TRAIN_DIMS["n_heads"])
+LC_ULYSSES_SHAPE = (1, TRAIN_DIMS["n_heads"] // LC_SP, LC_SEQ,
+                    LC_DIAG_SHAPE[3])
+# the sequence-parallel logits against the single-device flash forward
+# of the same tokens, max |diff| over the logits (max |logit| ~5.8): the
+# ring's full blocks round their scores to bf16 before the softmax (the
+# einsum partial, as in JAX) where the kernel keeps them f32.  First card
+# run: 0.0625 for the ring (a) and the zigzag ring (b), 0.0 for Ulysses
+# (c); the controls 1.836 (a ring applying RoPE at offset 0 on every
+# shard) and 6.203 (a zigzag ring whose diagonal blocks drop their causal
+# mask), which the limit refuses
+LC_LOGITS_ATOL = 0.3
+# ten eager ring steps against ten single-device steps (the trajectory
+# arithmetic of hold_drift); the zigzag ring's and Ulysses' ten steps
+# against ten single-device steps at their own shapes likewise.  The
+# ring's first card run: step 1's loss 5.054e-5
+# apart, every loss within 5.802e-3, the parameters' |diff| 5.733e-2 of
+# the single-device run's whole update; the RoPE-at-offset-0 ring's ten
+# steps 1.116e-4, 0.1504 and 1.084, refused by the loss and update
+# limits.  Step 1's loss cannot see that control (random weights attend
+# nearly uniformly at step 1): its limit is SHARDED_FIRST_LOSS_ATOL's,
+# for the bf16 round-off between two programs
+LC_FIRST_LOSS_ATOL = 1e-3
+LC_DRIFT_LOSS_ATOL = 0.05
+LC_DRIFT_UPDATE_RTOL = 0.25
+# (b) runs over dp=2 x tp=2 as well, whose psums of bf16 partial
+# products and split vocabulary part a run from one device's as in
+# train_sharded (SHARDED_DRIFT_LOSS_ATOL): its ten steps' losses came
+# 6.689e-2 apart in the first card run (update 0.1507, step 1 1.173e-4),
+# over LC_DRIFT_LOSS_ATOL, while the same program at f32 on the CPU
+# follows one device's losses to 1e-6 (tests/test_torch_longcontext.py).
+# Its loss is held at train_sharded's limit, its update and step 1 at
+# the ring's.  The control, the zigzag ring with RoPE at offset 0: step 1
+# 2.106e-3, losses 6.172e-2 apart, update 0.9884, refused by step 1's
+# and the update's limits; no loss limit above the shipped 6.689e-2 could
+# see it.  Ulysses' ten steps (first card run): step 1 equal, losses
+# 6.056e-4 apart, update 3.137e-2
+LC_ZIGZAG_DRIFT_LOSS_ATOL = SHARDED_DRIFT_LOSS_ATOL
+# a 1F1B step against autograd through transformer_apply_ring on a
+# pp-free mesh, the same tokens: loss (absolute) and every gradient (max
+# |diff| / max |ref|; cosine).  First card run: the loss equal (0.0),
+# gradients 9.498e-3 of max, cosine 0.99996 (per-microbatch products
+# round otherwise than whole-batch ones); a 1F1B that forgets one
+# microbatch's cotangent 0.9961 of max, cosine 0.8186, refused by the
+# gradient limits (its loss is unchanged by construction)
+LC_1F1B_LOSS_ATOL = 1e-4
+LC_1F1B_GRAD_RTOL = 0.05
 
 
 def check(condition: bool, message: str) -> None:
@@ -1132,6 +1232,10 @@ def dense_cases(torch):
         # (flash_ablations.py dq_no_partials)
         ("f32_noncausal_2048_d128", (TRAIN_BATCH, 8, TRAIN_SEQ, 128), 8,
          torch.float32, False, None),
+        # the long_context phase's Ulysses member: the whole 16,384-token
+        # sweep on n_heads / sp heads, the longest sweep of any path
+        ("ulysses_member", LC_ULYSSES_SHAPE, LC_ULYSSES_SHAPE[1],
+         torch.bfloat16, True, None),
     ]
 
 
@@ -3426,18 +3530,19 @@ def capturable_adamw(device):
     return make
 
 
-def hold_drift(what, run, reference, initial, limits, must_pass=True):
+def hold_drift(what, run, reference, initial, limits, must_pass=True,
+               first_atol=CAPTURE_SAME_LOSS_ATOL):
     """``run`` against ``reference`` (each (losses, parameters)): step 1's
-    loss at CAPTURE_SAME_LOSS_ATOL, the run at ``limits`` (loss, update).
-    A control passes ``must_pass=False``: the limits must refuse it."""
+    loss at ``first_atol``, the run at ``limits`` (loss, update).  A
+    control passes ``must_pass=False``: the limits must refuse it."""
     first, loss_err, update_err, max_abs = trajectory_errors(
         run, reference, initial)
     print(f"{what}: step 1 loss abs err {first:.3e} (tol "
-          f"{CAPTURE_SAME_LOSS_ATOL:g}), max {loss_err:.3e} (tol "
+          f"{first_atol:g}), max {loss_err:.3e} (tol "
           f"{limits[0]:g}), params worst |diff| / |update| "
           f"{update_err:.3e} (tol {limits[1]:g}), max abs diff "
           f"{max_abs:.3e}")
-    within = (first <= CAPTURE_SAME_LOSS_ATOL and loss_err <= limits[0]
+    within = (first <= first_atol and loss_err <= limits[0]
               and update_err <= limits[1])
     check(within == must_pass,
           f"{what}: " + ("outside the limits" if must_pass
@@ -4987,6 +5092,492 @@ def train_sharded_phase(torch, device, dense, moe_losses):
     return launches
 
 
+def lc_setup(torch, device, batch, seq, seed=11, **overrides):
+    """The train-step flagship at ``seq`` tokens (max_seq_len ``seq``,
+    weights from seed 0) and a batch of random tokens and targets (seed
+    ``seed``), on the card."""
+    from kubeshare_tpu_torch.models.transformer import (
+        TransformerConfig, transformer_init)
+
+    config = TransformerConfig(**{**TRAIN_DIMS, "max_seq_len": seq,
+                                  "positional": "rope",
+                                  "dtype": torch.bfloat16,
+                                  "attention": "ring", **overrides})
+    params = transformer_init(config, torch.Generator().manual_seed(0), device)
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, config.vocab_size, (batch, seq), generator=gen)
+    targets = torch.randint(0, config.vocab_size, (batch, seq), generator=gen)
+    return config, params, tokens.to(device), targets.to(device)
+
+
+def lc_mesh(device, names, **axes):
+    """A mesh over ``names`` naming the card once a shard."""
+    import numpy as np
+
+    from kubeshare_tpu_torch.parallel.mesh import Mesh
+
+    shape = tuple(axes[name] for name in names)
+    array = np.empty(int(np.prod(shape)), dtype=object)
+    array[:] = [device] * array.size
+    return Mesh(array.reshape(shape), names)
+
+
+def lc_single(torch, config, params, tokens):
+    """The single-device forward of the same tokens with the flash
+    kernel (``attention="flash"``): the logits every long-context path is
+    held to."""
+    from kubeshare_tpu_torch.models.transformer import transformer_apply
+
+    with torch.no_grad():
+        return transformer_apply(params, tokens, dataclasses.replace(
+            config, attention="flash"))
+
+
+def lc_logits_error(torch, what, logits, reference, must_pass=True):
+    """max |logits - reference| (gathered) at LC_LOGITS_ATOL; a control
+    passes ``must_pass=False``: the limit must refuse it."""
+    got = logits.gather() if hasattr(logits, "shards") else logits
+    diff = (got - reference).abs()
+    err, mean = float(diff.max()), float(diff.mean())
+    del got, diff
+    print(f"long_context {what} logits vs the single-device flash forward: "
+          f"max abs err {err:.4e} (tol {LC_LOGITS_ATOL}), mean {mean:.4e}, "
+          f"max |logit| {float(reference.abs().max()):.3f}")
+    check(math.isfinite(err) and (err <= LC_LOGITS_ATOL) == must_pass,
+          f"long_context {what}: logits err {err} " + (
+              "over the limit" if must_pass
+              else "within the limit: it does not refuse the control"))
+    return err
+
+
+def lc_rope_at_offset_zero():
+    """Control: every shard's RoPE at offset 0 (positions relative to the
+    shard's first token) in the sharded forward."""
+    from unittest import mock
+
+    from kubeshare_tpu_torch.models import transformer
+
+    rope = transformer.apply_rope
+    return mock.patch.object(transformer, "apply_rope",
+                             lambda x, pos: rope(x, pos - pos[0]))
+
+
+def lc_no_diagonal_mask():
+    """Control: the ring's diagonal blocks without their causal mask."""
+    import importlib
+    from unittest import mock
+
+    ring = importlib.import_module("kubeshare_tpu_torch.ops.ring_attention")
+    partial = ring._partial_flash
+    return mock.patch.object(ring, "_partial_flash",
+                             lambda q, k, v, causal: partial(q, k, v, False))
+
+
+def lc_expect(label, launches, fwd, bwd=0):
+    check(launches == {**only(), "flash_fwd": fwd, "flash_bwd_dkv": bwd,
+                       "flash_bwd_dq": bwd},
+          f"long_context {label} launched {launches}, expected flash_fwd "
+          f"{fwd} and each backward kernel {bwd}")
+
+
+def lc_train(torch, label, apply, mesh, params, tokens, targets, steps,
+             capture=False, rules=None):
+    """``steps`` AdamW steps through make_train_step (on ``mesh`` when
+    given) from ``params``, timed by CUDA events: (state, losses, step ms,
+    host enqueue ms, launches)."""
+    from kubeshare_tpu_torch.parallel.train import make_train_step
+
+    init_state, train_step = make_train_step(
+        apply, mesh=mesh, param_rules=rules if mesh is not None else None,
+        capture=capture)
+    state = init_state(clone_tree(params))
+    torch.cuda.synchronize()
+    reset_counts()
+    state, losses, step_ms, enqueue_ms = timed_steps(
+        torch, train_step, state, [(tokens, targets)] * steps)
+    launches = read_counts()
+    check(all(math.isfinite(x) for x in losses),
+          f"long_context {label}: non-finite loss {losses}")
+    check(losses[-1] < losses[0],
+          f"long_context {label}: the loss did not fall: {losses}")
+    print(f"long_context {label} {steps} steps: launches {launches}, losses "
+          + " ".join(f"{x:.4f}" for x in losses) + "; step ms "
+          + " ".join(f"{x:.2f}" for x in step_ms))
+    return state, losses, step_ms, enqueue_ms, launches
+
+
+def lc_leaves(state):
+    """A run's parameters (gathered where placed), for the trajectory
+    arithmetic."""
+    from kubeshare_tpu_torch.parallel.train import tree_leaves
+
+    return [leaf.gather() if hasattr(leaf, "shards") else leaf.detach()
+            for leaf in tree_leaves(state.params)]
+
+
+def lc_single_run(torch, label, config, params, tokens, targets):
+    """LC_DRIFT_STEPS single-device steps with the flash kernel: (the
+    run's (losses, parameters), the initial parameters, the steady step
+    median) that a sequence-parallel run is held to."""
+    from kubeshare_tpu_torch.models.transformer import transformer_apply
+    from kubeshare_tpu_torch.parallel.train import tree_leaves
+
+    initial = [leaf.detach().clone() for leaf in tree_leaves(params)]
+    flash = dataclasses.replace(config, attention="flash")
+    state, losses, step_ms, _, _ = lc_train(
+        torch, f"{label} single device", lambda p, t: transformer_apply(
+            p, t, flash), None, params, tokens, targets, LC_DRIFT_STEPS)
+    return (losses, lc_leaves(state)), initial, steady_median(step_ms)
+
+
+def lc_ring_phase(torch, device, launches):
+    """(a) the contiguous hybrid ring over sp=4 at 1 x LC_SEQ: logits
+    against the single-device flash forward (and the two controls), ten
+    eager steps against ten single-device steps (and the RoPE control's),
+    the same ten steps captured; returns the single-device run, its
+    initial parameters and its step median (Ulysses is held to them)."""
+    from kubeshare_tpu_torch.models.transformer import transformer_apply_ring
+    from kubeshare_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from kubeshare_tpu_torch.parallel.train import CAPTURE_WARMUP_STEPS
+
+    config, params, tokens, targets = lc_setup(torch, device, 1, LC_SEQ)
+    mesh = make_mesh(MeshSpec(dp=1, sp=LC_SP), devices=[device] * LC_SP)
+    reference = lc_single(torch, config, params, tokens)
+    with torch.no_grad():
+        lc_logits_error(torch, "(a) ring sp=4", transformer_apply_ring(
+            params, tokens, config, mesh), reference)
+        with lc_rope_at_offset_zero():
+            lc_logits_error(torch, "(a) control: RoPE at offset 0 on every "
+                            "shard", transformer_apply_ring(
+                                params, tokens, config, mesh), reference,
+                            must_pass=False)
+    del reference
+    torch.cuda.empty_cache()
+
+    single_run, initial, single_ms = lc_single_run(
+        torch, "(a)", config, params, tokens, targets)
+    ring_apply = lambda p, t: transformer_apply_ring(p, t, config, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, step_ms, enqueue_ms, ring_launches = lc_train(
+        torch, "(a) ring sp=4 eager", ring_apply, mesh, params, tokens,
+        targets, LC_DRIFT_STEPS, rules={})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    passes = LC_DRIFT_STEPS * config.n_layers * LC_SP
+    lc_expect("(a) ring", ring_launches, passes)
+    launches["ring"] = ring_launches
+    eager_run = (losses, lc_leaves(state))
+    eager_ms = steady_median(step_ms)
+    del state
+    limits = (LC_DRIFT_LOSS_ATOL, LC_DRIFT_UPDATE_RTOL)
+    hold_drift("long_context (a) ring eager vs single device", eager_run,
+               single_run, initial, limits, first_atol=LC_FIRST_LOSS_ATOL)
+    torch.cuda.empty_cache()
+    with lc_rope_at_offset_zero():
+        state, losses, _, _, _ = lc_train(
+            torch, "(a) control: RoPE at offset 0", ring_apply, mesh, params,
+            tokens, targets, LC_DRIFT_STEPS, rules={})
+    hold_drift("long_context (a) control: RoPE at offset 0 vs single device",
+               (losses, lc_leaves(state)), single_run, initial, limits,
+               must_pass=False, first_atol=LC_FIRST_LOSS_ATOL)
+    del state
+    torch.cuda.empty_cache()
+
+    state, losses, step_ms, enqueue_ms, captured_launches = lc_train(
+        torch, "(a) ring sp=4 captured", ring_apply, mesh, params, tokens,
+        targets, LC_DRIFT_STEPS, capture=True, rules={})
+    lc_expect("(a) ring captured", captured_launches,
+              (CAPTURE_WARMUP_STEPS + 1) * config.n_layers * LC_SP)
+    launches["ring_captured"] = captured_launches
+    hold_drift("long_context (a) ring captured vs eager",
+               (losses, lc_leaves(state)), eager_run, initial,
+               (CAPTURE_DRIFT_LOSS_ATOL, CAPTURE_DRIFT_UPDATE_RTOL))
+    captured_ms = steady_median(step_ms)
+    print(f"long_context (a) step, median of steps {TRAIN_TIMED_FROM}-"
+          f"{LC_DRIFT_STEPS} at 1 x {LC_SEQ} tokens (CUDA events): ring sp=4 "
+          f"eager {eager_ms:.3f} ms, captured {captured_ms:.3f} ms (host "
+          f"enqueue {steady_median(enqueue_ms):.3f} ms), single device "
+          f"eager {single_ms:.3f} ms; captured ring / single "
+          f"{captured_ms / single_ms:.3f}; {LC_SEQ / (captured_ms * 1e-3):.0f} "
+          f"tokens/s captured; peak memory (eager ring) {peak:.2f} GiB")
+    del state
+    torch.cuda.empty_cache()
+    return single_run, initial, single_ms
+
+
+def lc_zigzag_phase(torch, device, launches):
+    """(b) the zigzag ring over dp=2 x tp=2 x sp=2 under the fsdp rules at
+    LC_ZIGZAG_SHAPE: logits against the single-device forward (and the
+    no-diagonal-mask control), LC_DRIFT_STEPS AdamW steps against as
+    many single-device steps."""
+    from kubeshare_tpu_torch.models.transformer import (
+        transformer_apply_ring, transformer_fsdp_rules)
+    from kubeshare_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    batch, seq = LC_ZIGZAG_SHAPE
+    config, params, tokens, targets = lc_setup(torch, device, batch, seq)
+    units = math.prod(LC_ZIGZAG_MESH.values())
+    mesh = make_mesh(MeshSpec(**LC_ZIGZAG_MESH), devices=[device] * units)
+    rules = transformer_fsdp_rules()
+    reference = lc_single(torch, config, params, tokens)
+    apply = lambda p, t: transformer_apply_ring(p, t, config, mesh,
+                                                layout="zigzag")
+    with torch.no_grad():
+        from kubeshare_tpu_torch.parallel.mesh import shard_params
+
+        placed = shard_params(params, rules, mesh)
+        lc_logits_error(torch, "(b) zigzag dp=2 x tp=2 x sp=2",
+                        apply(placed, tokens), reference)
+        with lc_no_diagonal_mask():
+            lc_logits_error(torch, "(b) control: the diagonal blocks "
+                            "unmasked", apply(placed, tokens), reference,
+                            must_pass=False)
+        del placed
+    del reference
+    torch.cuda.empty_cache()
+    single_run, initial, single_ms = lc_single_run(
+        torch, "(b)", config, params, tokens, targets)
+    state, losses, step_ms, _, zigzag_launches = lc_train(
+        torch, "(b) zigzag", apply, mesh, params, tokens, targets,
+        LC_DRIFT_STEPS, rules=rules)
+    # a unit's diagonal step launches the kernel on its two quadrants
+    lc_expect("(b) zigzag", zigzag_launches,
+              LC_DRIFT_STEPS * config.n_layers * units * 2)
+    launches["zigzag"] = zigzag_launches
+    limits = (LC_ZIGZAG_DRIFT_LOSS_ATOL, LC_DRIFT_UPDATE_RTOL)
+    hold_drift("long_context (b) zigzag vs single device",
+               (losses, lc_leaves(state)), single_run, initial, limits,
+               first_atol=LC_FIRST_LOSS_ATOL)
+    print(f"long_context (b) zigzag step at {batch} x {seq} tokens, median "
+          f"of steps {TRAIN_TIMED_FROM}-{LC_DRIFT_STEPS} (CUDA events): "
+          f"{steady_median(step_ms):.3f} ms, single device "
+          f"{single_ms:.3f} ms; wq placed "
+          f"{state.params['layers'][0]['attn']['wq'].spec}")
+    del state
+    torch.cuda.empty_cache()
+    with lc_rope_at_offset_zero():
+        state, losses, _, _, _ = lc_train(
+            torch, "(b) control: RoPE at offset 0", apply, mesh, params,
+            tokens, targets, LC_DRIFT_STEPS, rules=rules)
+    hold_drift("long_context (b) control: RoPE at offset 0 vs single device",
+               (losses, lc_leaves(state)), single_run, initial, limits,
+               must_pass=False, first_atol=LC_FIRST_LOSS_ATOL)
+    del state, single_run, initial
+    torch.cuda.empty_cache()
+
+
+def lc_ulysses_phase(torch, device, launches, single):
+    """(c) Ulysses over sp=4 at 1 x LC_SEQ: logits against the
+    single-device forward, LC_DRIFT_STEPS AdamW steps against ``single``
+    ((a)'s single-device run of the same weights and tokens, its
+    initial parameters and step median)."""
+    from kubeshare_tpu_torch.models.transformer import transformer_apply_ulysses
+    from kubeshare_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    config, params, tokens, targets = lc_setup(torch, device, 1, LC_SEQ,
+                                               attention="ulysses")
+    mesh = make_mesh(MeshSpec(dp=1, sp=LC_SP), devices=[device] * LC_SP)
+    apply = lambda p, t: transformer_apply_ulysses(p, t, config, mesh)
+    reference = lc_single(torch, config, params, tokens)
+    with torch.no_grad():
+        lc_logits_error(torch, "(c) ulysses sp=4", apply(params, tokens),
+                        reference)
+    del reference
+    torch.cuda.empty_cache()
+    state, losses, step_ms, _, ulysses_launches = lc_train(
+        torch, "(c) ulysses", apply, mesh, params, tokens, targets,
+        LC_DRIFT_STEPS, rules={})
+    # every member attends over the whole sequence on n_heads / sp heads
+    passes = LC_DRIFT_STEPS * config.n_layers * LC_SP
+    lc_expect("(c) ulysses", ulysses_launches, passes, passes)
+    launches["ulysses"] = ulysses_launches
+    single_run, initial, single_ms = single
+    hold_drift("long_context (c) ulysses vs single device",
+               (losses, lc_leaves(state)), single_run, initial,
+               (LC_DRIFT_LOSS_ATOL, LC_DRIFT_UPDATE_RTOL),
+               first_atol=LC_FIRST_LOSS_ATOL)
+    print(f"long_context (c) ulysses step at 1 x {LC_SEQ} tokens, median of "
+          f"steps {TRAIN_TIMED_FROM}-{LC_DRIFT_STEPS} (CUDA events): "
+          f"{steady_median(step_ms):.3f} ms, single device {single_ms:.3f} "
+          f"ms; the flash kernels at {LC_ULYSSES_SHAPE}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def lc_forget_one_cotangent():
+    """Control: the 1F1B step's second microbatch seeds no cotangent (its
+    loss keeps its value, its gradient is zero)."""
+    import itertools
+    from unittest import mock
+
+    from kubeshare_tpu_torch.models import transformer
+
+    loss_fn = transformer.cross_entropy_loss
+    calls = itertools.count()
+
+    def forgetful(logits, targets):
+        value = loss_fn(logits, targets)
+        # the loss is called once a sequence member, microbatch-major
+        if next(calls) // LC_PP_SP == 1:
+            return value.detach() + 0 * value
+        return value
+
+    return mock.patch.object(transformer, "cross_entropy_loss", forgetful)
+
+
+def lc_pipeline_phase(torch, device, launches):
+    """(d) the 1F1B schedule over pp=2 x sp=2, the hybrid ring in-stage,
+    LC_PP_MICRO microbatches of LC_PP_SHAPE: step 1's loss and gradients
+    against autograd through transformer_apply_ring over sp=2 (and the
+    forgotten-cotangent control), then LC_STEPS AdamW steps."""
+    from kubeshare_tpu_torch.models.transformer import (
+        transformer_apply_ring, transformer_train_1f1b)
+    from kubeshare_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from kubeshare_tpu_torch.parallel.train import (adamw, cross_entropy_loss,
+                                                    tree_leaves)
+
+    batch, seq = LC_PP_SHAPE
+    config, params, tokens, targets = lc_setup(torch, device, batch, seq)
+    pp_mesh = lc_mesh(device, ("pp", "sp"), pp=LC_PP, sp=LC_PP_SP)
+
+    def step():
+        return transformer_train_1f1b(params, tokens, targets, config,
+                                      pp_mesh, num_microbatches=LC_PP_MICRO)
+
+    def errors(grads, ref):
+        rel = max(rel_err(g, r) for g, r in zip(grads, ref))
+        cosine = min(float(torch.nn.functional.cosine_similarity(
+            g.float().flatten(), r.float().flatten(), dim=0))
+            for g, r in zip(grads, ref))
+        return rel, cosine
+
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    mesh = make_mesh(MeshSpec(dp=1, sp=LC_PP_SP), devices=[device] * LC_PP_SP)
+    loss = cross_entropy_loss(transformer_apply_ring(params, tokens, config,
+                                                     mesh), targets)
+    ref = torch.autograd.grad(loss, leaves)
+    ref_loss = float(loss.detach())
+    del loss
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    torch.cuda.empty_cache()
+    for what, control in (("(d) 1f1b", None),
+                          ("(d) control: one microbatch's cotangent "
+                           "forgotten", lc_forget_one_cotangent)):
+        reset_counts()
+        if control is None:
+            got_loss, grads = step()
+            step_launches = read_counts()
+        else:
+            with control():
+                got_loss, grads = step()
+        loss_err = abs(float(got_loss) - ref_loss)
+        rel, cosine = errors(tree_leaves(grads), ref)
+        del grads
+        print(f"long_context {what} step 1 vs autograd through the ring on "
+              f"sp={LC_PP_SP}: loss {float(got_loss):.5f} vs {ref_loss:.5f} "
+              f"(abs err {loss_err:.3e}, tol {LC_1F1B_LOSS_ATOL}), worst "
+              f"grad max-abs-err/max-ref {rel:.3e} (tol {LC_1F1B_GRAD_RTOL}), "
+              f"lowest cosine {cosine:.6f} (tol {TRAIN_GRAD_MIN_COSINE})")
+        within = (loss_err <= LC_1F1B_LOSS_ATOL and rel <= LC_1F1B_GRAD_RTOL
+                  and cosine >= TRAIN_GRAD_MIN_COSINE)
+        check(within == (control is None),
+              f"long_context {what}: " + ("outside the limits"
+                                          if control is None else
+                                          "the limits do not refuse it"))
+    del ref
+    torch.cuda.empty_cache()
+    # microbatches x layers x sequence members, one diagonal each
+    passes = LC_PP_MICRO * config.n_layers * LC_PP_SP
+    lc_expect("(d) 1f1b", step_launches, passes)
+    opt = adamw(1e-3)(leaves)
+    losses, step_ms = [], []
+    reset_counts()
+    for _ in range(LC_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        loss, grads = step()
+        for leaf, grad in zip(leaves, tree_leaves(grads)):
+            leaf.grad = grad
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        end.record()
+        losses.append(loss)
+        step_ms.append((start, end))
+        del grads
+    pipeline_launches = read_counts()
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    step_ms = [a.elapsed_time(b) for a, b in step_ms]
+    lc_expect("(d) 1f1b steps", pipeline_launches, LC_STEPS * passes)
+    launches["pipeline_1f1b"] = pipeline_launches
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"long_context (d) 1f1b: the loss did not fall: {losses}")
+    print(f"long_context (d) 1f1b {LC_STEPS} AdamW steps of {batch} x {seq} "
+          f"tokens ({LC_PP_MICRO} microbatches, pp={LC_PP} x sp={LC_PP_SP}): "
+          f"launches {pipeline_launches}, losses "
+          + " ".join(f"{x:.4f}" for x in losses) + "; step ms "
+          + " ".join(f"{x:.2f}" for x in step_ms))
+    del opt, leaves, params
+    torch.cuda.empty_cache()
+
+
+def lc_diagonal_timing(torch, device):
+    """Row 1c: the ring's diagonal partial (``_partial_flash``, the flash
+    forward kernel, causal) at LC_DIAG_SHAPE, beside its plain version,
+    SDPA at the same shape and the bound."""
+    import importlib
+
+    import torch.nn.functional as F
+    from kubeshare_tpu_torch.ops import attention as A
+
+    ring = importlib.import_module("kubeshare_tpu_torch.ops.ring_attention")
+    gen = torch.Generator(device=device).manual_seed(4321)
+    q, k, v = (torch.randn(LC_DIAG_SHAPE, generator=gen, device=device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    out, lse = ring._partial_flash(q, k, v, True)
+    ref_out, ref_lse = A.flash_forward_reference(q, k, v, True)
+    err = check_forward(torch, f"kernel flash_fwd ring diagonal "
+                        f"{LC_DIAG_SHAPE}", out.to(q.dtype), lse[..., None],
+                        ref_out, ref_lse)
+    ms = time_ms(lambda: ring._partial_flash(q, k, v, True))
+    plain_ms = time_ms(lambda: A.flash_forward_reference(q, k, v, True))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    bound_ms, bound_by = flash_bound(LC_DIAG_SHAPE, LC_DIAG_SHAPE[1],
+                                     "bfloat16", True, None)
+    tflops, ratio = achieved("flash_fwd", LC_DIAG_SHAPE, ms, library_ms,
+                             visible_pairs(LC_DIAG_SHAPE[2], True, None))
+    print(f"kernel flash_fwd ring diagonal (row 1c) timing at "
+          f"{LC_DIAG_SHAPE} bfloat16 causal: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); {tflops:.1f} TFLOP/s, "
+          f"{ratio:.3f}x library")
+    return err, {"shape": list(LC_DIAG_SHAPE), "dtype": "bfloat16",
+                 "path": "ring_diagonal", "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": library_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "tflops": tflops,
+                 "library_ratio": ratio}
+
+
+def long_context_phase(torch, device):
+    """Long context on the card at full width: (a) the ring, (b) the
+    zigzag ring over dp x tp x sp, (c) Ulysses, (d) 1F1B x sp, and row
+    1c's timing.  Returns (launches by path, the diagonal's error and
+    timing)."""
+    t0 = time.perf_counter()
+    launches = {}
+    diag_err, diag_timing = lc_diagonal_timing(torch, device)
+    single = lc_ring_phase(torch, device, launches)
+    lc_zigzag_phase(torch, device, launches)
+    lc_ulysses_phase(torch, device, launches, single)
+    del single
+    lc_pipeline_phase(torch, device, launches)
+    print(f"long context phase: {time.perf_counter() - t0:.1f} s")
+    return launches, diag_err, diag_timing
+
 def main() -> int:
     import torch
 
@@ -5097,6 +5688,10 @@ def main() -> int:
     launches.update(train_sharded_phase(torch, device, captured,
                                         moe_captured))
     torch.cuda.empty_cache()
+    lc_launches, diag_err, diag_timing = long_context_phase(torch, device)
+    launches.update(lc_launches)
+    worst["flash_fwd"][1] = max(worst["flash_fwd"][1], diag_err)
+    torch.cuda.empty_cache()
     mnist_phase(torch, device)
     t0 = time.perf_counter()
     resnet_phase(torch, device)
@@ -5148,7 +5743,8 @@ def main() -> int:
             "bound_by": main_timing["bound_by"],
             "library_ms": main_timing["library_ms"],
             "timed_shape": main_timing["shape"],
-            "timings": [t[name] for t in kernel_timings],
+            "timings": [t[name] for t in kernel_timings]
+            + ([diag_timing] if name == "flash_fwd" else []),
         })
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(card)

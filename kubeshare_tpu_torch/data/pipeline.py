@@ -23,13 +23,14 @@ from __future__ import annotations
 import collections
 import contextlib
 import itertools
-from typing import Any, Callable, Iterable, Iterator, List, Optional
+from typing import Any, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..parallel.mesh import NamedSharding, _as_device, device_put
+from ..parallel.train import tree_map
 
 
 def _tree_leaves(tree: Any) -> List[Any]:
@@ -43,16 +44,6 @@ def _tree_leaves(tree: Any) -> List[Any]:
     if isinstance(tree, (list, tuple)):
         return [leaf for item in tree for leaf in _tree_leaves(item)]
     return [tree]
-
-
-def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {key: _tree_map(fn, value) for key, value in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, item) for item in tree)
-    return fn(tree)
 
 
 def _as_tensor(leaf: Any) -> torch.Tensor:
@@ -101,7 +92,7 @@ def prefetch_to_device(
         queue: collections.deque = collections.deque()
 
         def place(item):
-            return _tree_map(lambda a: _place(_as_tensor(a), target, False),
+            return tree_map(lambda a: _place(_as_tensor(a), target, False),
                              item)
 
         queue.extend(place(item) for item in itertools.islice(it, size))
@@ -120,7 +111,7 @@ def _prefetch_cuda(it: Iterator[Any], size: int, target,
 
     def enqueue(n: int) -> None:
         for item in itertools.islice(it, n):
-            pinned = _tree_map(lambda a: _as_tensor(a).pin_memory(), item)
+            pinned = tree_map(lambda a: _as_tensor(a).pin_memory(), item)
             with contextlib.ExitStack() as streams:
                 # no wait on the consumer's stream (that would queue the
                 # copy behind the step): the copy writes only memory the
@@ -129,7 +120,7 @@ def _prefetch_cuda(it: Iterator[Any], size: int, target,
                 # consumer's work on it is done
                 for stream in side.values():
                     streams.enter_context(torch.cuda.stream(stream))
-                placed = _tree_map(lambda t: _place(t, target, True), pinned)
+                placed = tree_map(lambda t: _place(t, target, True), pinned)
                 events = {}
                 for d, stream in side.items():
                     events[d] = torch.cuda.Event()
@@ -243,7 +234,7 @@ class ShardedBatchLoader:
         for b in range(self.batches_per_epoch):
             start = b * self._global_batch + self._pindex * self._batch
             idx = order[start:start + self._batch]
-            yield _tree_map(lambda a: a[idx], self._arrays)
+            yield tree_map(lambda a: a[idx], self._arrays)
 
     def epochs(self, start_epoch: int = 0) -> Iterator[Any]:
         """Endless batch stream across epochs, resumable at

@@ -251,6 +251,10 @@ def prefill(params: Dict, config: TransformerConfig,
     # the same refusal as the decode step: the cache this prefill feeds
     # could never be decoded from
     _check_moe_decodable(config)
+    if config.attention in ("ring", "ulysses"):
+        # the dense entry of a sequence-parallel config is sequence-split:
+        # fill the cache token by token, as JAX does
+        return prefill_incremental(params, config, prompt)
     kv_sink: list = []
     hidden, _ = _forward(params, prompt, config,
                          _select_attention(config, prompt.device), 0,

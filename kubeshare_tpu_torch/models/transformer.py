@@ -21,10 +21,16 @@ Both entry points are mesh-aware, as the JAX functions are under GSPMD:
 given a tree placed by ``parallel.mesh.shard_params`` (under
 :func:`transformer_sharding_rules` or :func:`transformer_fsdp_rules`)
 they run the sharded program (``parallel/spmd.py``) and return the
-logits as a ``ShardedTensor``.
+logits as a ``ShardedTensor``; a batch split along the sequence runs the
+ring.
 
-Not in this port yet (ROADMAP.md queue A): the ring / Ulysses /
-pipelined entries and a batch split along the sequence (item 11).
+Long context (``attention="ring"`` / ``"ulysses"``) has entry points of
+its own, as in JAX: :func:`transformer_apply_ring` (contiguous or
+zigzag, hybrid flash or einsum ring) and :func:`transformer_apply_ulysses`
+split the sequence over a mesh's ``sp`` axis; the pipelined
+:func:`transformer_apply_pipelined` (GPipe) and
+:func:`transformer_train_1f1b` (the 1F1B schedule) split the layers over
+a ``pp`` axis, with ring or Ulysses attention inside each stage.
 """
 
 from __future__ import annotations
@@ -40,11 +46,17 @@ from torch import nn
 from .. import resolve_device
 from ..ops.attention import attention_reference, flash_attention, use_kernel_default
 from ..ops.moe import MoEConfig, moe_apply, moe_init, sharded_moe
+from ..ops.ring_attention import (ring_group_fn, zigzag_positions,
+                                  zigzag_to_contiguous)
 from ..ops.rope import apply_rope, rope_positions
-from ..parallel.mesh import (Mesh, P, PartitionSpec, ShardedTensor,
-                             _split_names, batch_sharding, device_put)
+from ..ops.ulysses import ulysses_attention
+from ..parallel.mesh import (Mesh, NamedSharding, P, PartitionSpec,
+                             ShardedTensor, _split_names, batch_sharding,
+                             device_put)
+from ..parallel.pipeline import (pipeline_apply, pipeline_train_1f1b,
+                                 stack_stage_params)
 from ..parallel.spmd import Units, mesh_of, place_plain, split_axis
-from ..parallel.train import tree_leaves
+from ..parallel.train import cross_entropy_loss, tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
@@ -56,7 +68,7 @@ class TransformerConfig:
     d_ff: int = 2048
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    attention: str = "auto"  # auto | reference | flash
+    attention: str = "auto"  # auto | reference | flash | ring | ulysses
     attention_window: Optional[int] = None  # sliding-window (local) size
     # grouped-query attention: KV heads shared by query-head groups
     # (None = n_heads, plain MHA; 1 = MQA)
@@ -94,11 +106,8 @@ def check_config(config: TransformerConfig) -> None:
     """Refuse what this port does not run (loudly, never approximated)."""
     if config.moe_every is not None and config.moe_every < 1:
         raise ValueError(f"moe_every must be >= 1, got {config.moe_every}")
-    if config.attention in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention={config.attention!r} is not ported yet (ROADMAP.md "
-            "queue A item 11, long context)")
-    if config.attention not in ("auto", "reference", "flash"):
+    if config.attention not in ("auto", "reference", "flash", "ring",
+                                "ulysses"):
         raise ValueError(f"unknown attention kind {config.attention!r}")
     if config.positional not in ("learned", "rope"):
         raise ValueError(
@@ -223,14 +232,10 @@ def _moe_or_mlp(layer: Dict, config: TransformerConfig, y: torch.Tensor,
     return _mlp(y, layer["mlp"]), None
 
 
-def _layer_forward(layer: Dict, x: torch.Tensor, attention_fn: AttentionFn,
-                   config: TransformerConfig,
-                   rope_positions_or_none: Optional[torch.Tensor],
-                   moe_capacity: Optional[int] = None):
-    """One layer; returns (x, aux, (k, v)): aux is the MoE
-    load-balancing loss (None for a dense MLP), k/v the roped projections
-    (the bulk prefill writes them straight into the decode cache)."""
-    dtype = config.dtype
+def _attention_inputs(layer: Dict, x: torch.Tensor,
+                      rope_positions_or_none: Optional[torch.Tensor]):
+    """A layer's attention inputs: q, k, v [b, h, s, k] (norm,
+    projections, RoPE)."""
     y = _rms_norm(x, layer["norm1"]["scale"])
     q = _project(y, layer["attn"]["wq"])
     k = _project(y, layer["attn"]["wk"])
@@ -238,11 +243,32 @@ def _layer_forward(layer: Dict, x: torch.Tensor, attention_fn: AttentionFn,
     if rope_positions_or_none is not None:
         q = apply_rope(q, rope_positions_or_none)
         k = apply_rope(k, rope_positions_or_none)
-    o = attention_fn(q, k, v).to(dtype)
-    x = x + torch.einsum("bhsk,hkd->bsd", o, layer["attn"]["wo"].to(dtype))
+    return q, k, v
+
+
+def _layer_tail(layer: Dict, x: torch.Tensor, o: torch.Tensor,
+                config: TransformerConfig,
+                moe_capacity: Optional[int] = None):
+    """A layer after its attention output ``o``: (x, aux)."""
+    dtype = config.dtype
+    x = x + torch.einsum("bhsk,hkd->bsd", o.to(dtype),
+                         layer["attn"]["wo"].to(dtype))
     y = _rms_norm(x, layer["norm2"]["scale"])
     out, aux = _moe_or_mlp(layer, config, y, moe_capacity)
-    return x + out, aux, (k, v)
+    return x + out, aux
+
+
+def _layer_forward(layer: Dict, x: torch.Tensor, attention_fn: AttentionFn,
+                   config: TransformerConfig,
+                   rope_positions_or_none: Optional[torch.Tensor],
+                   moe_capacity: Optional[int] = None):
+    """One layer; returns (x, aux, (k, v)): aux is the MoE
+    load-balancing loss (None for a dense MLP), k/v the roped projections
+    (the bulk prefill writes them straight into the decode cache)."""
+    q, k, v = _attention_inputs(layer, x, rope_positions_or_none)
+    x, aux = _layer_tail(layer, x, attention_fn(q, k, v), config,
+                         moe_capacity)
+    return x, aux, (k, v)
 
 
 def _forward(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
@@ -307,7 +333,16 @@ def transformer_apply(params: Dict, tokens: torch.Tensor,
     backward runs the flash backward kernels.  Mesh-aware: a tree of
     ``ShardedTensor`` leaves (``parallel.mesh.shard_params``) runs the
     sharded program (:func:`_sharded_forward`) and returns the logits as
-    a ``ShardedTensor``."""
+    a ``ShardedTensor``.
+
+    ``attention="ring"`` / ``"ulysses"`` needs a sequence-split caller:
+    :func:`transformer_apply_ring` / :func:`transformer_apply_ulysses`."""
+    if config.attention in ("ring", "ulysses"):
+        raise ValueError(
+            f"attention={config.attention!r} shards the sequence axis; call "
+            f"transformer_apply_{config.attention}(params, tokens, config, "
+            f"mesh) instead"
+        )
     mesh = mesh_of(params, tokens)
     if mesh is not None:
         return _sharded_forward(params, tokens, config, mesh)[0]
@@ -321,6 +356,9 @@ def transformer_apply_with_aux(params: Dict, tokens: torch.Tensor,
     """Like :func:`transformer_apply` but also returns the summed MoE
     load-balancing auxiliary loss (0 for all-dense configs): add it to
     the training loss with a small coefficient (conventionally 1e-2)."""
+    if config.attention in ("ring", "ulysses"):
+        raise ValueError(
+            f"attention={config.attention!r} shards the sequence axis")
     mesh = mesh_of(params, tokens)
     if mesh is not None:
         return _sharded_forward(params, tokens, config, mesh)
@@ -388,15 +426,103 @@ def transformer_fsdp_rules(axis: str = "dp") -> Dict[str, PartitionSpec]:
     }
 
 
+GroupAttentionFn = Callable[[List[torch.Tensor], List[torch.Tensor],
+                             List[torch.Tensor], List[torch.device]],
+                            List[torch.Tensor]]
+
+
+def _group_attention(config: TransformerConfig, mesh: Mesh, kind: str,
+                     layout: str = "contiguous",
+                     use_flash: Optional[bool] = None) -> GroupAttentionFn:
+    """Causal attention over a sequence group: ``fn(qs, ks, vs, devices)``
+    -> the members' outputs.  ``kind`` "ulysses" (``ops/ulysses.py``,
+    ``use_flash`` as there) or "ring", resolved by
+    ``ops.ring_attention.ring_group_fn`` (a window on the contiguous
+    einsum ring, ``use_flash=None`` the hybrid ring on CUDA)."""
+    window = config.attention_window
+    if kind == "ulysses":
+        return lambda qs, ks, vs, devices: ulysses_attention(
+            qs, ks, vs, devices, causal=True, window=window,
+            use_flash=use_flash)
+    return ring_group_fn(mesh, layout, use_flash, window)
+
+
+@dataclass(frozen=True)
+class _SeqSplit:
+    """A sharded forward whose sequence is split over the mesh axis
+    ``axis``: ``attend`` attends over each group of units that differ
+    only on it (:func:`_group_attention`), ``layout`` "contiguous" or
+    "zigzag" places the shards.  ``local_moe``: each shard routes its own
+    tokens, as the JAX sp entries' shard_map body does; otherwise the
+    global batch is routed, as GSPMD routes JAX's ``transformer_apply``
+    over a batch split along sp."""
+
+    axis: str
+    attend: GroupAttentionFn
+    layout: str = "contiguous"
+    local_moe: bool = True
+
+
+def _units_attention(units: Units, config: TransformerConfig,
+                     split: Optional[_SeqSplit]):
+    """``attend(qs, ks, vs)`` over every unit: each unit's own attention
+    over its whole sequence, or, with a sequence split, each group of
+    units that differ only on the split axis attending together."""
+    if split is None:
+        fn = _select_attention(config, units.devices[0])
+        return lambda qs, ks, vs: [fn(q, k, v) for q, k, v in zip(qs, ks, vs)]
+    group_fn = split.attend
+    groups = units.groups((split.axis,))
+
+    def attend(qs, ks, vs):
+        outs: List[Optional[torch.Tensor]] = [None] * len(qs)
+        for group in groups:
+            results = group_fn([qs[u] for u in group], [ks[u] for u in group],
+                               [vs[u] for u in group],
+                               [units.devices[u] for u in group])
+            for u, o in zip(group, results):
+                outs[u] = o
+        return outs
+
+    return attend
+
+
+def _sharded_moe_layer(units: Units, moe: Dict, ys: List[torch.Tensor],
+                       config: TransformerConfig, batch: Tuple[str, ...],
+                       split: Optional[_SeqSplit]):
+    """An MoE layer over the units: (outs, aux), aux one tensor (the
+    global batch routed once) or, for ``split.local_moe``, each unit's
+    own (summed over layers and averaged over the mesh by the caller)."""
+    e, d, f = moe["w_in"].shape
+    moe_config = _moe_config(config, d, f, e)
+    if split is None:
+        return sharded_moe(units, moe, ys, moe_config, batch)
+    if split.local_moe:
+        # each shard routes its own tokens through the whole experts (the
+        # JAX shard_map body holds the replicated tree); the expert
+        # buffers follow the shard's token count
+        weights = {name: units.local(leaf) for name, leaf in moe.items()}
+        results = [moe_apply({name: w[u] for name, w in weights.items()}, y,
+                             moe_config) for u, y in enumerate(ys)]
+        return [out for out, _ in results], [aux for _, aux in results]
+    # the global batch's routing: each unit gathers its rows' whole
+    # sequences, and keeps its own positions of the output
+    full = units.all_gather(ys, 1, (split.axis,))
+    outs, aux = sharded_moe(units, moe, full, moe_config, batch)
+    return [out.narrow(1, units.coord(u, (split.axis,)) * y.shape[1],
+                       y.shape[1]) for u, (out, y) in enumerate(zip(outs, ys))], aux
+
+
 def _sharded_layer(units: Units, layer: Dict, xs: List[torch.Tensor],
-                   attention_fn: AttentionFn, config: TransformerConfig,
+                   attend, config: TransformerConfig,
                    positions: Optional[List[torch.Tensor]],
-                   batch: Tuple[str, ...]):
+                   batch: Tuple[str, ...], split: Optional[_SeqSplit]):
     """One layer over the units: (xs, aux).  Heads split over an axis on
     which wq / wk / wv (dim 1) and wo (dim 0) agree run per unit on the
     unit's query and KV heads and psum the output projection; the MLP's
     hidden likewise (w_in dim 1, w_out dim 0); every other split of a
-    weight (fsdp) is gathered at use."""
+    weight (fsdp) is gathered at use.  ``attend`` runs the attention of
+    every unit (:func:`_units_attention`)."""
     dtype = config.dtype
     attn = layer["attn"]
     heads = split_axis(batch, (attn["wq"], 1), (attn["wk"], 1),
@@ -409,23 +535,25 @@ def _sharded_layer(units: Units, layer: Dict, xs: List[torch.Tensor],
     wo = local(attn["wo"], 0, heads)
     norm1 = units.local(layer["norm1"]["scale"])
     norm2 = units.local(layer["norm2"]["scale"])
-    parts = []
+    qs, ks, vs = [], [], []
     for u, x in enumerate(xs):
         y = _rms_norm(x, norm1[u])
         q, k, v = _project(y, wq[u]), _project(y, wk[u]), _project(y, wv[u])
         if positions is not None:
             q = apply_rope(q, positions[u])
             k = apply_rope(k, positions[u])
-        o = attention_fn(q, k, v).to(dtype)
-        parts.append(torch.einsum("bhsk,hkd->bsd", o, wo[u].to(dtype)))
+        qs.append(q)
+        ks.append(k)
+        vs.append(v)
+    parts = [torch.einsum("bhsk,hkd->bsd", o.to(dtype), wo[u].to(dtype))
+             for u, o in enumerate(attend(qs, ks, vs))]
     if heads:
         parts = units.psum(parts, (heads,))
     xs = [x + part for x, part in zip(xs, parts)]
     ys = [_rms_norm(x, scale) for x, scale in zip(xs, norm2)]
     if "moe" in layer:
-        e, d, f = layer["moe"]["w_in"].shape
-        outs, aux = sharded_moe(units, layer["moe"], ys,
-                                _moe_config(config, d, f, e), batch)
+        outs, aux = _sharded_moe_layer(units, layer["moe"], ys, config,
+                                       batch, split)
         return [x + out.to(dtype) for x, out in zip(xs, outs)], aux
     mlp = layer["mlp"]
     hidden = split_axis(batch, (mlp["w_in"], 1), (mlp["w_out"], 0))
@@ -438,8 +566,30 @@ def _sharded_layer(units: Units, layer: Dict, xs: List[torch.Tensor],
     return [x + part for x, part in zip(xs, parts)], None
 
 
+def _mesh_mean_aux(units: Units, auxes: List[torch.Tensor],
+                   batch: Tuple[str, ...], seq_axis: str) -> torch.Tensor:
+    """The shards' aux losses averaged over the sequence axis, then over
+    the batch axes (JAX's pmean over sp, then over dp), on the lead
+    unit's device; units that differ only on a replica axis (tp) hold
+    copies and count once."""
+    lead = units.devices[0]
+    other = [a for a in units.axes if a not in batch and a != seq_axis]
+    rows: Dict[int, List] = {}
+    for u, aux in enumerate(auxes):
+        if units.coord(u, other) == 0:
+            rows.setdefault(units.coord(u, batch), []).append(
+                (units.coord(u, (seq_axis,)), aux))
+    means = []
+    for key in sorted(rows):
+        members = [aux.to(lead) for _, aux in sorted(rows[key],
+                                                     key=lambda m: m[0])]
+        means.append(sum(members[1:], members[0]) / len(members))
+    return sum(means[1:], means[0]) / len(means)
+
+
 def _sharded_forward(params: Dict, tokens, config: TransformerConfig,
-                     mesh: Mesh):
+                     mesh: Mesh, split: Optional[_SeqSplit] = None,
+                     batch_axis: Optional[str] = "dp"):
     """:func:`_forward` (causal, from position 0) as the sharded program
     over the work units of the params' and the batch's mesh; returns
     (logits as a ``ShardedTensor`` [batch, seq, vocab] f32, aux).
@@ -453,21 +603,68 @@ def _sharded_forward(params: Dict, tokens, config: TransformerConfig,
     logits stay split by vocabulary (the loss combines their log-softmax
     statistics: ``parallel.spmd.sharded_cross_entropy``).  A weight's
     other splits (fsdp) are gathered at use.  MoE layers run
-    ``ops.moe.sharded_moe``; ``config.remat`` recomputes each layer."""
+    ``ops.moe.sharded_moe``; ``config.remat`` recomputes each layer.
+
+    A sequence split (``split``, the sp entries; or a batch placed split
+    along the sequence, as ``batch_sharding(mesh, 2, seq_axis=1)``
+    places it) gives each unit its shard of the sequence as well: tokens
+    placed by rows only (the training step's placement, unplaced tokens
+    by ``batch_axis``) are re-split along ``split.axis``, RoPE and the
+    learned positions follow the shard's global positions, and attention
+    sees the whole sequence through the ring or Ulysses over the units
+    that share the rows.  A batch split along the sequence under
+    ``transformer_apply`` runs the contiguous ring (the hybrid ring with
+    the flash kernel on its diagonal blocks, the einsum ring for
+    attention "reference" or a window), since
+    the flash kernel needs the queries and keys of one whole sequence;
+    its MoE layers route the global batch.  The logits come back split
+    along the sequence too, in contiguous order (the zigzag ring's
+    hidden states are put back in order before the head)."""
     check_config(config)
     if not isinstance(tokens, ShardedTensor):
-        tokens = device_put(tokens, batch_sharding(mesh, tokens.ndim))
-    if any(_split_names(axes) for axes in tokens.spec[1:]):
-        raise NotImplementedError(
-            "a batch split along the sequence (sp) needs ring or Ulysses "
-            "attention, not ported yet (ROADMAP.md queue A item 11)")
+        sharding = (batch_sharding(mesh, tokens.ndim) if split is None
+                    else NamedSharding(mesh, P(batch_axis, None)))
+        tokens = device_put(tokens, sharding)
+    seq_split = _split_names(tokens.spec[1] if len(tokens.spec) > 1
+                             else None)
+    if split is None and seq_split:
+        if len(seq_split) != 1:
+            raise ValueError(f"a batch split along the sequence over "
+                             f"{seq_split}: the ring takes one axis")
+        # the hybrid ring where config.attention would run the flash
+        # kernel, the einsum ring for "reference" and for a window
+        use_flash = (None if config.attention_window is not None else
+                     {"reference": False, "flash": True}.get(
+                         config.attention))
+        split = _SeqSplit(seq_split[0],
+                          _group_attention(config, mesh, "ring",
+                                           use_flash=use_flash),
+                          local_moe=False)
     params = place_plain(params, mesh)
-    units = Units.of(mesh, [tokens.spec]
+    rows_spec = tokens.spec[0] if tokens.spec else None
+    units = Units.of(mesh, [P(rows_spec, split.axis if split else None)]
                      + [leaf.spec for leaf in tree_leaves(params)])
-    batch = tuple(_split_names(tokens.spec[0] if tokens.spec else None))
+    batch = tuple(_split_names(rows_spec))
     dtype = config.dtype
     seq = tokens.shape[1]
+    # every unit's rows, whole sequences (a split along sp is gathered)
     toks = units.local(tokens, {0: batch})
+    positions: Optional[List[torch.Tensor]] = None
+    if split is not None:
+        n = mesh.shape[split.axis]
+        zigzag = split.layout == "zigzag"
+        if seq % (2 * n if zigzag else n):
+            raise ValueError(
+                f"seq {seq} not divisible by {'2*' if zigzag else ''}"
+                f"{split.axis}={2 * n if zigzag else n}")
+        s_local = seq // n
+        positions = []
+        for u, tok in enumerate(toks):
+            j = units.coord(u, (split.axis,))
+            pos = (zigzag_positions(j, n, s_local, tok.device) if zigzag
+                   else torch.arange(s_local, device=tok.device) + j * s_local)
+            toks[u] = tok[:, pos]
+            positions.append(pos)
 
     # the embedding: the vocabulary split over one axis, each unit looks
     # up the tokens in its rows and adds zeros for the others.  The
@@ -489,35 +686,346 @@ def _sharded_forward(params: Dict, tokens, config: TransformerConfig,
     if vocab:
         xs = units.psum(xs, (vocab,))
     xs = [x.to(dtype) for x in xs]
-    positions = None
     if config.positional == "rope":
-        positions = [rope_positions(seq, 0, d) for d in units.devices]
+        if positions is None:
+            positions = [rope_positions(seq, 0, d) for d in units.devices]
     else:
         pos = units.local(params["pos_embed"])
-        xs = [x + p[:seq].to(dtype) for x, p in zip(xs, pos)]
+        xs = [x + (p[positions[u]] if positions is not None
+                   else p[:seq]).to(dtype)
+              for u, (x, p) in enumerate(zip(xs, pos))]
+        positions = None
 
-    attention_fn = _select_attention(config, units.devices[0])
+    attend = _units_attention(units, config, split)
     aux_total = torch.zeros((), dtype=torch.float32,
                             device=units.devices[0])
+    aux_units = None
     for layer in params["layers"]:
         if config.remat:
             xs, aux = torch.utils.checkpoint.checkpoint(
-                _sharded_layer, units, layer, xs, attention_fn, config,
-                positions, batch, use_reentrant=False)
+                _sharded_layer, units, layer, xs, attend, config, positions,
+                batch, split, use_reentrant=False)
         else:
-            xs, aux = _sharded_layer(units, layer, xs, attention_fn, config,
-                                     positions, batch)
-        if aux is not None:
+            xs, aux = _sharded_layer(units, layer, xs, attend, config,
+                                     positions, batch, split)
+        if isinstance(aux, list):
+            aux_units = aux if aux_units is None else [
+                a + b for a, b in zip(aux_units, aux)]
+        elif aux is not None:
             aux_total = aux_total + aux
+    if aux_units is not None:
+        aux_total = _mesh_mean_aux(units, aux_units, batch, split.axis)
 
+    final = units.local(params["final_norm"]["scale"])
+    xs = [_rms_norm(x, scale) for x, scale in zip(xs, final)]
+    if split is not None and split.layout == "zigzag":
+        # back to contiguous order at hidden width (the logits would be
+        # vocab / d_model times wider)
+        for group in units.groups((split.axis,)):
+            ordered = zigzag_to_contiguous([xs[u] for u in group],
+                                           [units.devices[u] for u in group],
+                                           axis=1)
+            for u, x in zip(group, ordered):
+                xs[u] = x
     head = split_axis(batch, (params["lm_head"], 1))
     lm_head = units.local(params["lm_head"], {1: (head,)} if head else None)
-    final = units.local(params["final_norm"]["scale"])
-    logits = [(_rms_norm(x, scale) @ w.to(dtype)).to(torch.float32)
-              for x, scale, w in zip(xs, final, lm_head)]
-    spec = P(tokens.spec[0] if tokens.spec else None, None, head)
+    logits = [(x @ w.to(dtype)).to(torch.float32)
+              for x, w in zip(xs, lm_head)]
+    spec = P(rows_spec, split.axis if split else None, head)
     shape = (tokens.shape[0], seq, params["lm_head"].shape[1])
     return units.assemble(logits, spec, shape), aux_total
+
+
+# ---------------------------------------------------------------------------
+# long context: the sequence split over sp (ring, Ulysses)
+# ---------------------------------------------------------------------------
+
+def _validate_sp_entry(strategy: str, config: TransformerConfig, mesh: Mesh,
+                       seq_axis: str) -> None:
+    """Shared preconditions of every sequence-parallel entry point (the
+    ring and Ulysses forwards and the pipelined sp path, which adds its
+    own MoE refusal)."""
+    if seq_axis not in mesh.shape:
+        raise ValueError(
+            f"sequence-parallel attention needs a {seq_axis!r} mesh axis "
+            f"(got {tuple(mesh.shape)})"
+        )
+    # a window on the CONTIGUOUS einsum ring is supported (out-of-band
+    # ring steps skip their block math); the zigzag / flash ring callers
+    # get a loud error at the op layer
+    if strategy == "ulysses" and (
+            config.n_heads % mesh.shape[seq_axis] != 0
+            or config.kv_heads % mesh.shape[seq_axis] != 0):
+        raise ValueError(
+            f"attention='ulysses' needs n_heads ({config.n_heads}) and "
+            f"n_kv_heads ({config.kv_heads}) divisible by the "
+            f"{seq_axis!r} mesh degree ({mesh.shape[seq_axis]})"
+        )
+    if (config.moe_every is not None
+            and config.moe_routing == "experts_choose"):
+        raise ValueError(
+            "expert-choice routing is whole-batch routing (an expert picks "
+            "its top-capacity tokens globally, ops/moe.py) — a sequence "
+            "shard cannot route it locally; use moe_routing="
+            "'tokens_choose' on the sequence-parallel entries"
+        )
+
+
+def transformer_apply_ring(
+    params: Dict,
+    tokens,
+    config: TransformerConfig,
+    mesh: Mesh,
+    batch_axis: Optional[str] = "dp",
+    seq_axis: str = "sp",
+    use_flash: Optional[bool] = None,
+    layout: str = "contiguous",
+    with_aux: bool = False,
+):
+    """Sequence-parallel forward: tokens split over ``seq_axis`` (and
+    their rows over ``batch_axis``), ring attention carrying K/V around
+    each group of sequence shards (the long-context path).  ``tokens`` is
+    a tensor or a ``ShardedTensor`` (the training step places rows only;
+    the sequence is split here); ``params`` a plain tree or one placed by
+    ``shard_params`` (tp heads and MLP hidden then split as in
+    :func:`_sharded_forward`).  Returns the logits as a ``ShardedTensor``
+    ``P(batch_axis, seq_axis, tp)``.
+
+    MoE configs route each sequence shard's tokens locally (routing is
+    per token; the expert buffers follow the shard's token count).
+    ``with_aux=True`` also returns the load-balancing aux loss averaged
+    over the mesh — a per-shard-mean estimate of the dense entry's
+    global-mean aux.
+
+    ``use_flash=None`` picks the hybrid ring on CUDA (the flash kernel on
+    the diagonal blocks, :func:`~kubeshare_tpu_torch.ops.ring_attention.
+    ring_flash_auto`), the einsum ring elsewhere.
+
+    ``layout="zigzag"`` runs the load-balanced causal ring end to end:
+    each shard holds two chunks of the sequence (RoPE and learned
+    positions follow their global positions), every layer attends with
+    the balanced partials, and the hidden states are put back in order
+    before the head — callers see contiguous sequences."""
+    _validate_sp_entry("ring", config, mesh, seq_axis)
+    attend = _group_attention(config, mesh, "ring", layout, use_flash)
+    logits, aux = _sharded_forward(
+        params, tokens, config, mesh, _SeqSplit(seq_axis, attend, layout),
+        batch_axis)
+    return (logits, aux) if with_aux else logits
+
+
+def transformer_apply_ulysses(
+    params: Dict,
+    tokens,
+    config: TransformerConfig,
+    mesh: Mesh,
+    batch_axis: Optional[str] = "dp",
+    seq_axis: str = "sp",
+    use_flash: Optional[bool] = None,
+    with_aux: bool = False,
+):
+    """Sequence-parallel forward via all-to-all (Ulysses) attention:
+    tokens split over ``seq_axis``; two all-to-alls swap each group's
+    shards to head-parallel for a FULL-sequence local attention (the
+    flash kernels at their best shapes), then swap back
+    (``ops/ulysses.py``).  Supports ``attention_window``; needs the heads
+    a unit holds divisible by the ``seq_axis`` degree.  MoE, ``with_aux``
+    and the placements as in :func:`transformer_apply_ring`."""
+    _validate_sp_entry("ulysses", config, mesh, seq_axis)
+    logits, aux = _sharded_forward(
+        params, tokens, config, mesh,
+        _SeqSplit(seq_axis, _group_attention(config, mesh, "ulysses",
+                                             use_flash=use_flash)),
+        batch_axis)
+    return (logits, aux) if with_aux else logits
+
+
+def transformer_activation_spec(use_sp: bool = True) -> PartitionSpec:
+    """Sharding for the [batch, seq] token array."""
+    return P("dp", "sp") if use_sp else P("dp", None)
+
+
+# ---------------------------------------------------------------------------
+# pipelined: the layers split over pp (GPipe, 1F1B), sp inside the stages
+# ---------------------------------------------------------------------------
+
+def _group_layer(layer: Dict, xs: List[torch.Tensor], attend,
+                 config: TransformerConfig,
+                 positions: List[Optional[torch.Tensor]]) -> List[torch.Tensor]:
+    """One dense layer over a stage's sequence members; ``attend(qs, ks,
+    vs)`` attends over all of them."""
+    inputs = [_attention_inputs(layer, x, pos)
+              for x, pos in zip(xs, positions)]
+    outs = attend(*(list(t) for t in zip(*inputs)))
+    return [_layer_tail(layer, x, o, config)[0] for x, o in zip(xs, outs)]
+
+
+def _pipeline_stage_setup(params: Dict, seq_len: int,
+                          config: TransformerConfig, mesh: Mesh,
+                          pp_axis: str, seq_axis: str,
+                          use_flash: Optional[bool]):
+    """Stack the layers into pp stages and build the stage body (ring or
+    Ulysses attention over the stage's sequence members when the config
+    asks for sequence parallelism).  Returns ``(stacked_params,
+    stage_fn, activation_spec)``."""
+    sp_attention = config.attention in ("ring", "ulysses")
+    if sp_attention:
+        _validate_sp_entry(config.attention, config, mesh, seq_axis)
+    if config.moe_every is not None:
+        # the sp branch too: the stage body would drop the aux loss
+        raise ValueError(
+            "MoE layers are not supported on the pipelined path yet")
+    n_stages = mesh.shape[pp_axis]
+    if config.n_layers % n_stages != 0:
+        raise ValueError(
+            f"n_layers {config.n_layers} not divisible into {n_stages} stages"
+        )
+    per_stage = config.n_layers // n_stages
+    use_rope = config.positional == "rope"
+    # each stage's layers stacked: leaves [pp, per_stage, ...]
+    stacked = stack_stage_params([
+        tree_map(lambda *ls: torch.stack(ls),
+                 *params["layers"][s * per_stage:(s + 1) * per_stage])
+        for s in range(n_stages)])
+
+    def run_layers(stage_layers, xs, attend, positions):
+        for i in range(per_stage):
+            xs = _group_layer(tree_map(lambda p, i=i: p[i], stage_layers), xs,
+                              attend, config, positions)
+        return xs
+
+    if sp_attention:
+        group_fn = _group_attention(config, mesh, config.attention,
+                                    use_flash=use_flash)
+
+        def stage_fn(stage_layers, xs):
+            # the stage's sequence members, contiguous shards in order
+            local_seq = xs[0].shape[1]
+            devices = [x.device for x in xs]
+            positions = [rope_positions(local_seq, j * local_seq, x.device)
+                         if use_rope else None for j, x in enumerate(xs)]
+            return run_layers(stage_layers, xs,
+                              lambda qs, ks, vs: group_fn(qs, ks, vs,
+                                                          devices),
+                              positions)
+
+        return stacked, stage_fn, P(None, seq_axis, None)
+
+    def stage_fn(stage_layers, xs):
+        fn = _select_attention(config, xs[0].device)
+        positions = [rope_positions(seq_len, 0, xs[0].device)
+                     if use_rope else None]
+        return run_layers(stage_layers, xs,
+                          lambda qs, ks, vs: [fn(qs[0], ks[0], vs[0])],
+                          positions)
+
+    return stacked, stage_fn, None
+
+
+def _embed(params: Dict, tokens: torch.Tensor, config: TransformerConfig):
+    """The pipelined paths' input: the embedding rows (and the learned
+    positions), run outside the pipeline."""
+    x = params["embed"][tokens].to(config.dtype)
+    if config.positional != "rope":
+        x = x + params["pos_embed"][: tokens.shape[1]].to(config.dtype)
+    return x
+
+
+def transformer_apply_pipelined(
+    params: Dict,
+    tokens: torch.Tensor,
+    config: TransformerConfig,
+    mesh: Mesh,
+    num_microbatches: int = 2,
+    pp_axis: str = "pp",
+    seq_axis: str = "sp",
+    use_flash: Optional[bool] = None,
+) -> torch.Tensor:
+    """Pipeline-parallel forward: the layers split into pp stages (GPipe
+    over ``pp_axis``, ``parallel.pipeline``); the embedding and the head
+    run outside the pipeline.  Requires n_layers % pp == 0.
+
+    pp x sp: with ``attention="ring"`` or ``"ulysses"`` (and
+    ``seq_axis`` in the mesh) the activations flow through the pipeline
+    split along the sequence, and each stage runs its sequence-parallel
+    attention over its members (the contiguous ring, the hybrid ring on
+    CUDA unless ``use_flash`` says otherwise).  Returns the logits [batch,
+    seq, vocab] f32."""
+    stacked, stage_fn, activation_spec = _pipeline_stage_setup(
+        params, tokens.shape[1], config, mesh, pp_axis, seq_axis, use_flash)
+    x = pipeline_apply(stacked, _embed(params, tokens, config), stage_fn,
+                       mesh, num_microbatches, pp_axis,
+                       activation_spec=activation_spec)
+    x = _rms_norm(x, params["final_norm"]["scale"].to(x.device))
+    return (x @ params["lm_head"].to(x.device, config.dtype)).to(
+        torch.float32)
+
+
+def transformer_train_1f1b(
+    params: Dict,
+    tokens: torch.Tensor,
+    targets: torch.Tensor,
+    config: TransformerConfig,
+    mesh: Mesh,
+    num_microbatches: int = 2,
+    pp_axis: str = "pp",
+    seq_axis: str = "sp",
+    use_flash: Optional[bool] = None,
+):
+    """A whole training step's loss and gradients under the 1F1B pipeline
+    schedule: cross-entropy loss and gradients for EVERY parameter — the
+    embedding and positional table (from the pipeline's input
+    cotangents), the stages' layers (1F1B proper), and the final norm and
+    lm_head (trained at the last stage as the pipeline's loss
+    parameters).  Composes with sequence parallelism as
+    :func:`transformer_apply_pipelined` does (1F1B x sp).  Returns
+    ``(loss, grads)`` with ``grads`` matching ``params`` (f32 tensors;
+    apply them with any optimizer)."""
+    stacked, stage_fn, activation_spec = _pipeline_stage_setup(
+        params, tokens.shape[1], config, mesh, pp_axis, seq_axis, use_flash)
+    dtype = config.dtype
+    seq = tokens.shape[1]
+    with torch.no_grad():
+        x = _embed(params, tokens, config)
+    loss_params = {"final_norm": params["final_norm"],
+                   "lm_head": params["lm_head"]}
+
+    def loss_fn(lp, out, y):
+        z = _rms_norm(out.to(dtype), lp["final_norm"]["scale"])
+        logits = (z @ lp["lm_head"].to(dtype)).to(torch.float32)
+        return cross_entropy_loss(logits, y)
+
+    loss, stage_grads, head_grads, dx = pipeline_train_1f1b(
+        stacked, x, targets, stage_fn, loss_fn, mesh, num_microbatches,
+        pp_axis=pp_axis, activation_spec=activation_spec,
+        loss_params=loss_params, return_input_grads=True)
+
+    # the embedding lookup's backward from the pipeline's input
+    # cotangents: d(embed) adds dx at each token's row, d(pos_embed) is
+    # the batch sum at each position
+    embed = params["embed"]
+    dx32 = dx.to(embed.device, torch.float32)
+    grads: Dict = {
+        "embed": torch.zeros(embed.shape, dtype=torch.float32,
+                             device=embed.device).index_add_(
+            0, tokens.reshape(-1).to(embed.device),
+            dx32.reshape(-1, dx32.shape[-1])).to(embed.dtype),
+        "final_norm": head_grads["final_norm"],
+        "lm_head": head_grads["lm_head"],
+    }
+    if config.positional != "rope":
+        pos_embed = params["pos_embed"]
+        dpos = torch.zeros(pos_embed.shape, dtype=torch.float32,
+                           device=pos_embed.device)
+        dpos[:seq] = dx32.sum(dim=0)
+        grads["pos_embed"] = dpos.to(pos_embed.dtype)
+    # the [pp, per_stage, ...] gradients back into the per-layer list
+    n_stages = mesh.shape[pp_axis]
+    per_stage = config.n_layers // n_stages
+    grads["layers"] = [
+        tree_map(lambda g, s=s, i=i: g[s, i], stage_grads)
+        for s in range(n_stages) for i in range(per_stage)]
+    return loss, {key: grads[key] for key in params if key in grads}
 
 
 class _Layer(nn.Module):

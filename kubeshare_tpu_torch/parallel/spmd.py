@@ -30,7 +30,9 @@ the group's):
   outermost, as a spec's tuple splits);
 - :func:`psum` sums once, in member order, and copies the sum to every
   member;
-- :func:`all_to_all` swaps a split axis for another (Ulysses, serving).
+- :func:`all_to_all` swaps a split axis for another (Ulysses, serving);
+- :func:`ring_shift` hands each member its predecessor's tensor (the
+  ring attention's K/V rotation, ``ops/ring_attention.py``).
 
 They are plain tensor operations, so autograd differentiates them: the
 transpose of a gather sums each member's slice of the cotangents (a
@@ -79,6 +81,16 @@ def psum(xs: List[torch.Tensor], devices) -> List[torch.Tensor]:
     for x in xs[1:]:
         total = total + x.to(devices[0], non_blocking=True)
     return [total.to(d, non_blocking=True) for d in devices]
+
+
+def ring_shift(xs: List[torch.Tensor], devices) -> List[torch.Tensor]:
+    """``lax.ppermute`` with the perm ``i -> i + 1``: member ``i``
+    receives member ``i - 1``'s tensor (member 0 the last member's), in
+    the member order of :func:`all_gather` and :func:`psum`.  On one
+    device it is a move between list entries."""
+    n = len(xs)
+    return [xs[(i - 1) % n].to(d, non_blocking=True)
+            for i, d in enumerate(devices)]
 
 
 def all_to_all(xs: List[torch.Tensor], split_dim: int, concat_dim: int,

@@ -73,6 +73,20 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [leaf for _, leaf in tree_leaves_with_paths(tree)]
 
 
+def tree_map(fn: Callable, *trees: Any) -> Any:
+    """``jax.tree.map`` over trees of dicts, lists and tuples: ``fn`` of
+    the trees' leaves at each position, in the first tree's structure; a
+    None in the first tree stays None."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {key: tree_map(fn, *(t[key] for t in trees)) for key in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean token-level cross entropy; logits [..., vocab], targets int.
     Sharded logits (a mesh-aware forward's) give the global mean as one

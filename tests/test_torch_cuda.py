@@ -846,3 +846,145 @@ def test_f32_kernels_match_their_plain_versions(card, shape, h_kv, window,
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
         err = float((got - want).abs().max() / want.abs().max())
         assert err <= F32_GRAD_TOL, (name, err)
+
+
+def _ring_qkv(shape, h_kv, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, h, s, d = shape
+    return [torch.randn(dims, generator=gen, device="cuda", dtype=dtype)
+            for dims in ((b, h, s, d), (b, h_kv, s, d), (b, h_kv, s, d))]
+
+
+def test_ring_diagonal_partial_equals_its_plain_version(card):
+    """The hybrid ring's diagonal block (``_partial_flash``): the flash
+    forward kernel, launched once, against its plain version (chip_smoke's
+    bf16 TOLERANCES); the whole hybrid ring on the card against attention
+    over the whole sequence; and the kernel refusing what it cannot take."""
+    from kubeshare_tpu_torch.ops import ring_attention as R
+
+    q, k, v = _ring_qkv((1, 8, 512, 128), 8, torch.bfloat16, 1)
+    before = A.flash_forward.launches
+    out, lse = R._partial_flash(q, k, v, True)
+    assert A.flash_forward.launches == before + 1
+    ref_out, ref_lse = A.flash_forward_reference(q, k, v, True)
+    torch.testing.assert_close(out, ref_out.float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(lse, ref_lse[..., 0], rtol=0, atol=1e-3)
+
+    q, k, v = _ring_qkv((2, 4, 1024, 64), 2, torch.float32, 2)
+    before = A.flash_forward.launches
+    outs = R.ring_flash_attention(*(list(x.chunk(4, dim=2))
+                                    for x in (q, k, v)))
+    assert A.flash_forward.launches == before + 4  # one diagonal a member
+    whole = A.attention_reference(q, k, v, causal=True)
+    torch.testing.assert_close(torch.cat(outs, dim=2), whole, rtol=1e-4,
+                               atol=1e-4)
+    with pytest.raises(ValueError, match="head_dim"):
+        R.ring_flash_attention(*([x[..., :8].contiguous()] * 2
+                                 for x in (q, k, v)))
+
+
+def test_zigzag_quadrant_launch_and_gradients(card):
+    """The zigzag hybrid ring on the card: each diagonal step launches the
+    kernel on two contiguous quadrants (a strided quadrant raises), and
+    its output and hand-scheduled gradients equal the einsum zigzag ring's
+    on the same tensors (autograd through plain operations) at f32."""
+    from kubeshare_tpu_torch.ops import ring_attention as R
+
+    q, k, v = _ring_qkv((1, 4, 512, 64), 4, torch.float32, 3)
+    c = 256 // 2
+    with pytest.raises(ValueError, match="contiguous"):
+        A.flash_forward(q[:, :, :c], k[:, :, :c], v[:, :, :c], True)
+    dout = torch.randn_like(q)
+    results = []
+    for fn in (R.ring_flash_attention_zigzag, R.ring_attention_zigzag):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        pieces = [list(R.zigzag_shard(x, 2).chunk(2, dim=2)) for x in leaves]
+        before = A.flash_forward.launches
+        out = R.zigzag_unshard(torch.cat(fn(*pieces), dim=2), 2)
+        launches = A.flash_forward.launches - before
+        (out * dout).sum().backward()
+        results.append((launches, out.detach(),
+                        [x.grad for x in leaves]))
+    (launches, out, grads), (plain_launches, ref, ref_grads) = results
+    assert launches == 4 and plain_launches == 0
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    for got, want in zip(grads, ref_grads):
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+def test_1f1b_step_on_the_card_equals_autograd_through_the_ring(card):
+    """A 1F1B step of a small f32 model (head_dim 64) over pp=2 x sp=2 on
+    ``[cuda:0] * 4``, the hybrid ring in each stage: its loss and every
+    gradient against autograd through transformer_apply_ring over sp=2,
+    and the flash forward launched on the path (never the backward
+    kernels: the ring's backward is its own)."""
+    from kubeshare_tpu_torch.models.transformer import (
+        transformer_apply_ring, transformer_train_1f1b)
+    from kubeshare_tpu_torch.parallel.mesh import Mesh
+    from kubeshare_tpu_torch.parallel.train import cross_entropy_loss
+
+    device = card[0]
+    config = TransformerConfig(vocab_size=128, d_model=128, n_heads=2,
+                               n_layers=2, d_ff=256, max_seq_len=256,
+                               attention="ring", positional="rope",
+                               dtype=torch.float32)
+    params = transformer_init(config, torch.Generator().manual_seed(5), device)
+    gen = torch.Generator().manual_seed(6)
+    tokens, targets = (torch.randint(0, 128, (4, 256), generator=gen)
+                       .to(device) for _ in range(2))
+    array = np.empty(4, dtype=object)
+    array[:] = [device] * 4
+    before = (A.flash_forward.launches, A.flash_backward.launches_dkv,
+              A.flash_backward.launches_dq)
+    loss, grads = transformer_train_1f1b(
+        params, tokens, targets, config, Mesh(array.reshape(2, 2),
+                                              ("pp", "sp")))
+    after = (A.flash_forward.launches, A.flash_backward.launches_dkv,
+             A.flash_backward.launches_dq)
+    # 2 microbatches x 2 layers x 2 members, one diagonal each
+    assert after[0] - before[0] == 8 and after[1:] == before[1:]
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    mesh = make_mesh(MeshSpec(dp=1, sp=2), devices=[device] * 2)
+    want = cross_entropy_loss(transformer_apply_ring(params, tokens, config,
+                                                     mesh), targets)
+    want.backward()
+    assert abs(float(loss) - float(want)) <= 1e-5 * abs(float(want))
+    for got, leaf in zip(tree_leaves(grads), leaves):
+        err = float((got - leaf.grad).abs().max() / leaf.grad.abs().max())
+        assert err <= 1e-4, err
+
+
+@pytest.mark.parametrize("branch", [[], ["--pp"]], ids=["dp_tp_sp", "1f1b"])
+def test_train_longcontext_runs_on_the_card(card, branch):
+    """``train_longcontext_torch.py`` as its README command runs it (no
+    ``--device``: the card): both branches train (the script asserts the
+    last loss is below the first); ``--pp``'s in-stage ring is the hybrid
+    ring, so the f32 flash forward (head_dim 64) runs on its diagonal
+    blocks, while the default branch's einsum zigzag ring launches no
+    kernel."""
+    import train_longcontext_torch
+
+    before = A.flash_forward.launches
+    losses = train_longcontext_torch.main(branch)["losses"]
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    launched = A.flash_forward.launches - before
+    # --pp: 4 steps x 2 microbatches x 4 layers x sp=4 members, one
+    # diagonal each
+    assert launched == (4 * 2 * 4 * 4 if branch else 0), launched
+
+
+def test_dryrun_multichip_on_the_card(card):
+    """``entry.dryrun_multichip(8)`` with its default device, the card:
+    every leg (the fsdp step, the rings and Ulysses, the MoE layers, the
+    1F1B pipelines, MoE in the ring) runs and is finite, and the hybrid
+    rings and Ulysses launch the flash kernels."""
+    from kubeshare_tpu_torch.entry import dryrun_multichip
+
+    before = (A.flash_forward.launches, A.flash_backward.launches_dkv)
+    line = dryrun_multichip(8)
+    assert line.startswith("dryrun_multichip ok: mesh dp=2 tp=2 sp=2 on "
+                           "8 x cuda:0")
+    assert A.flash_forward.launches > before[0]
+    assert A.flash_backward.launches_dkv > before[1]

@@ -72,6 +72,19 @@ def test_prefill_matches_jax(variant, attention):
                                rtol=F32_TOL, atol=F32_TOL)
 
 
+@pytest.mark.parametrize("attention", ["ring", "ulysses"])
+def test_sequence_parallel_config_prefills_token_by_token_as_jax(attention):
+    # a ring / Ulysses config's dense entry is sequence-split, so both
+    # packages' bulk prefill runs the incremental one
+    jax_cfg, torch_cfg, jp, tp = setup(positional="rope", attention=attention)
+    p = prompt(2, 6)
+    want_cache, want_logits = jax_decoding.prefill(jp, jax_cfg, jnp.asarray(p))
+    cache, logits = decoding.prefill(tp, torch_cfg, torch.from_numpy(p))
+    assert_cache_close(cache, want_cache)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
 @pytest.mark.parametrize("length,chunk", [
     (24, 8),   # whole chunks
     (21, 8),   # ragged tail slides back over written positions

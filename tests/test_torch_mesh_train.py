@@ -569,18 +569,32 @@ def test_an_apply_fn_that_is_not_mesh_aware_raises_type_error():
 
 
 def test_a_sequence_split_batch_is_not_ported():
-    _, cfg = _configs(**DENSE)
-    _, mesh = _meshes(dp=2, tp=2, sp=2)
+    # (named when the split was refused) a batch placed split along the
+    # sequence now trains: the sharded program runs the ring over sp, and
+    # the step's loss and parameters equal JAX's GSPMD step on tokens
+    # placed by batch_sharding(mesh, 2, seq_axis=1)
+    jax_cfg, cfg = _configs(**DENSE)
+    jmesh, mesh = _meshes(dp=2, tp=2, sp=2)
+    params = jax.device_get(jax_init(jax.random.PRNGKey(0), jax_cfg))
+    tokens, targets = _batch(7)
+    init, step = jax_make_train_step(
+        lambda p, t: jax_apply(p, t, jax_cfg), mesh=jmesh,
+        param_rules=jax_rules(), donate_state=False)
+    split = jax_mesh.batch_sharding(jmesh, 2, seq_axis=1)
+    jstate, jloss = step(init(params), *(jax.device_put(jnp.asarray(x), split)
+                                         for x in (tokens, targets)))
     init_state, train_step = port_train.make_train_step(
         lambda p, t: transformer_apply(p, t, cfg), mesh=mesh,
         param_rules=transformer_sharding_rules())
-    params = jax.device_get(jax_init(jax.random.PRNGKey(0), _configs(
-        **DENSE)[0]))
     state = init_state(params_from_jax(params, "cpu"))
-    tokens = device_put(torch.zeros((4, 16), dtype=torch.long),
-                        batch_sharding(mesh, 2, seq_axis=1))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_step(state, tokens, tokens)
+    placed = [device_put(torch.from_numpy(x).long(),
+                         batch_sharding(mesh, 2, seq_axis=1))
+              for x in (tokens, targets)]
+    assert placed[0].spec == P("dp", "sp")
+    state, loss = train_step(state, *placed)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_RTOL)
+    _assert_replicas_equal(state.params)
+    _assert_params_close(state.params, jstate.params)
 
 
 def test_capture_refuses_the_cpu_and_distinct_cards():

@@ -124,10 +124,18 @@ def test_same_seed_same_weights():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"attention": "ring"}, "long context"),
-    ({"attention": "ulysses"}, "long context"),
+    ({"attention": "ring"}, "call transformer_apply_ring"),
+    ({"attention": "ulysses"}, "call transformer_apply_ulysses"),
 ])
 def test_unported_configs_raise(overrides, match):
-    _, cfg = configs(**overrides)
-    with pytest.raises(NotImplementedError, match=match):
-        transformer_init(cfg, torch.Generator(), device="cpu")
+    # ring and Ulysses are ported: their configs build, and the one-device
+    # entry refuses them with JAX's ValueError (they need the sequence
+    # split over a mesh: transformer_apply_ring / _ulysses)
+    jax_cfg, cfg = configs(**overrides)
+    jax_params, params = converted(jax_cfg)
+    toks = tokens((1, 8), SMALL["vocab_size"])
+    with pytest.raises(ValueError, match=match) as port:
+        transformer_apply(params, torch.from_numpy(toks), cfg)
+    with pytest.raises(ValueError) as jax_error:
+        jax_apply(jax_params, jnp.asarray(toks), jax_cfg)
+    assert str(port.value) == str(jax_error.value)
