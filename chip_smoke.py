@@ -276,7 +276,44 @@ Phases (any failure raises and the script exits non-zero):
    convolutions, the captured step fed by the loader and prefetch, its
    CUDA-event ms and images/s; profile_trace's Chrome trace must hold
    CUDA kernel events.
-8. corun: corun_bench.py's four phases (solo A, solo B, the co-run of
+8. distributed: BASELINE config 5, the DDP gang worker
+   (train_distributed_torch.py's full-width config: vocab 8192, d 512, 8
+   heads, 6 layers, bf16, 32 x 256 tokens, weights from seed 0) over
+   torch.distributed.  (a) One process's 10 eager steps over the whole
+   global batch, then two gloo ranks on cuda:0 (NCCL refuses two ranks
+   on one GPU), real processes started as ``chip_smoke.py --ddp-worker
+   DIR`` with the gang env and one deadline (DDP_RANK_TIMEOUT_S; a rank
+   that fails kills the other), each its half of the batch: every rank
+   launches the three dense kernels 6 times a step, the ranks'
+   parameters are equal to the bit after every step (sha256), step 1's
+   gradients after the all-reduce lie within DDP_GRAD_RTOL of one
+   process's, and the losses and parameters follow its trajectory at
+   the drift limits; controls: the gradients summed and not divided
+   (refused by the gradient check; Adam hides it from the trajectory,
+   which is printed) and no all-reduce (the ranks' parameters part).
+   Each rank's step ms by CUDA events beside one process's.  The three
+   kernels at a rank's shape and at one process's, DDP_RANK_SHAPE and
+   DDP_SHAPE, are held to their plain versions among the kernel phase's
+   shapes ("ddp_rank", "ddp_single").  Then 3
+   steps captured over gloo (forward and backward one graph, the
+   all-reduce between replays, the optimizer a second graph): the ranks
+   equal to the bit, and equal to their eager steps with the same
+   capturable AdamW within CAPTURE_SAME_*.  (b) One
+   NCCL rank (world size 1): 3 eager steps against the plain step and 3
+   captured with the all-reduce inside the graph against eager steps
+   with the same optimizer (CAPTURE_SAME_*) and the default one (the
+   drift limits).  (c) dryrun_multichip(8) with its multislice leg, and
+   the DisaggRouter in virtual_multislice over [cuda:0, cuda:0] on 16
+   requests of disagg_trace: streams equal to the monolithic engine's,
+   every chain delivered.
+   discovery: discover_local_chips() against nvidia-smi's uuid, name
+   and memory.total (within DISCOVERY_MEMORY_MIB); Collector(
+   CudaEnumerator()) served on port 0 and scraped, its gpu_capacity
+   sample carrying the chip's labels; a ChipSupervisor for the card's
+   UUID over the tree's tpushare-tokend and tpushare-pmgr, one pod in
+   its port file, one MNIST step gated by TokenClient + ExecutionGuard
+   through the pod manager: tokend must charge the pod more than 0 ms.
+9. corun: corun_bench.py's four phases (solo A, solo B, the co-run of
    two MNIST pods under tpushare-tokend, the adversarial pair) at 3 s
    windows; every phase must produce a result and every pod must be
    granted tokens.  The ratio and the adversarial flags are reported.
@@ -293,7 +330,12 @@ engine's paths (engine, engine_spec, engine_tier, engine_disagg,
 engine_fleet, engine_sharded, moe_engine) launch
 none of the kernels (their attention is the paged einsums, as in the JAX engine), so
 their counts read 0; the speculative
-path's prefills launch the flash forward.  The
+path's prefills launch the flash forward.  The distributed column sums
+the two ranks' own counters (each zeroed before its ten steps and read
+after them in its process), distributed_captured their captured runs'
+(around the capture); distributed_single is (a)'s one process,
+distributed_nccl (b)'s four runs, distributed_multislice (c)'s dry run
+(its rings' flash kernels) and router (0).  The
 last lines are the card (nvidia-smi), a JSON ``kernels`` line, and
 ``{"ok": true, "device": {...}}``.
 
@@ -779,6 +821,43 @@ LC_ZIGZAG_DRIFT_LOSS_ATOL = SHARDED_DRIFT_LOSS_ATOL
 LC_1F1B_LOSS_ATOL = 1e-4
 LC_1F1B_GRAD_RTOL = 0.05
 
+# distributed: train_distributed_torch.py's full-width config (BASELINE
+# config 5) over torch.distributed.  DDP_WORLD gloo ranks on cuda:0, each
+# its half of the global batch, against one process over the whole batch;
+# every rank's process killed past DDP_RANK_TIMEOUT_S.
+DDP_WORLD = 2
+# the attention shape (batch, heads, seq, head_dim) of the one-process
+# step over the global batch; each rank's is its batch over DDP_WORLD.
+# distributed_phase holds the script's config to it, and dense_cases
+# holds the kernels to their plain versions at both
+DDP_SHAPE = (32, 8, 256, 64)
+DDP_RANK_SHAPE = (DDP_SHAPE[0] // DDP_WORLD, *DDP_SHAPE[1:])
+DDP_STEPS = 10
+DDP_RANK_TIMEOUT_S = 240
+DDP_NCCL_STEPS = 3
+DDP_DISAGG_REQUESTS = 16
+# step 1's gradients (after the all-reduce) against one process's over
+# the global batch, max |diff| / max |ref| per tensor: the halves' bf16
+# weight-gradient products round otherwise than the whole batch's.
+# First card run 4.545e-3; the control, the gradients summed and not
+# divided by the world size, 1.007
+DDP_GRAD_RTOL = 0.1
+# the ten losses and the parameters over the update against one
+# process's ten steps, at the captured step's bf16 drift limits.  First
+# card run: step 1 9.537e-7, losses 9.975e-4, update 2.565e-2.  The
+# undivided control passes them (losses 2.447e-3, update 2.802e-2: Adam
+# normalises a doubled gradient away), so the gradient check is the one
+# that must refuse it; no trajectory limit above the shipped reading
+# could
+DDP_FIRST_LOSS_ATOL = 1e-3
+DDP_DRIFT_LOSS_ATOL = TRAIN_LOSS_ATOL
+DDP_DRIFT_UPDATE_RTOL = TRAIN_GRAD_RTOL
+# discovery: the card's memory by torch (cudaDeviceProp.totalGlobalMem)
+# against nvidia-smi's memory.total (NVML), in MiB: 480.0 MiB apart on
+# an H100 80GB HBM3 (81,559 MiB by NVML), the CUDA driver's reserve; a card
+# of another size lies thousands of MiB away
+DISCOVERY_MEMORY_MIB = 1024
+
 
 def check(condition: bool, message: str) -> None:
     if not condition:
@@ -1236,6 +1315,11 @@ def dense_cases(torch):
         # sweep on n_heads / sp heads, the longest sweep of any path
         ("ulysses_member", LC_ULYSSES_SHAPE, LC_ULYSSES_SHAPE[1],
          torch.bfloat16, True, None),
+        # the distributed phase's shapes: a DDP rank's half of the global
+        # batch, and the one process over the whole batch it is held to
+        ("ddp_rank", DDP_RANK_SHAPE, DDP_RANK_SHAPE[1], torch.bfloat16,
+         True, None),
+        ("ddp_single", DDP_SHAPE, DDP_SHAPE[1], torch.bfloat16, True, None),
     ]
 
 
@@ -2372,12 +2456,13 @@ def serve(torch, engine, trace, mean_gap=None, sampled=False, release=None,
 
 
 def disagg_pass(torch, device, params, config, trace, disagg, mixed=False,
-                sampled=False, fabric=False, mean_gap=None, top_k=None):
+                sampled=False, fabric=False, mean_gap=None, top_k=None,
+                topology=None):
     """One pass over ``trace``: the monolithic ServingEngine (``mixed``) or
-    the two-cell DisaggRouter (over a LoopbackTransport fabric when
-    ``fabric``), warmed up, then every request submitted at once or, with
-    ``mean_gap``, at its arrival scaled by it (open loop).  Returns
-    (streams, stats)."""
+    the DisaggRouter (two-cell, or ``topology``; over a LoopbackTransport
+    fabric when ``fabric``), warmed up, then every request submitted at
+    once or, with ``mean_gap``, at its arrival scaled by it (open loop).
+    Returns (streams, stats)."""
     from kubeshare_tpu_torch.serving import (DisaggRouter, EngineConfig,
                                              LoopbackTransport, ServingEngine)
     from kubeshare_tpu_torch.serving.metrics_view import (
@@ -2390,7 +2475,8 @@ def disagg_pass(torch, device, params, config, trace, disagg, mixed=False,
             params, config, EngineConfig(**shared, **DISAGG_PREFILL),
             EngineConfig(**shared, **DISAGG_DECODE),
             max_pending_handoffs=DISAGG_PENDING,
-            fabric=LoopbackTransport() if fabric else None, device=device)
+            fabric=LoopbackTransport() if fabric else None, device=device,
+            topology=topology)
         pools = {"prefill": engine.prefill, "decode": engine.decode}
         round_trip = chain_round_trip(torch, engine) if not fabric else None
     else:
@@ -5578,6 +5664,546 @@ def long_context_phase(torch, device):
     print(f"long context phase: {time.perf_counter() - t0:.1f} s")
     return launches, diag_err, diag_timing
 
+# ---------------------------------------------------------------------------
+# distributed and discovery: the DDP gang worker over torch.distributed and
+# the node side (device discovery, the collector, the per-chip supervisor)
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_listening(port: int, timeout: float = 30.0) -> None:
+    import socket
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=1):
+                return
+        except OSError:
+            check(time.monotonic() < deadline,
+                  f"nothing listens on port {port} after {timeout} s")
+            time.sleep(0.05)
+
+
+def ddp_leaves(state):
+    """The optimizer's parameters (the mesh's shards), in its order."""
+    return [p for group in state.opt_state.param_groups
+            for p in group["params"]]
+
+
+def params_digest(torch, leaves) -> str:
+    """sha256 of every parameter's bytes: equal digests, equal bits."""
+    import hashlib
+
+    flat = torch.cat([p.detach().reshape(-1) for p in leaves])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def ddp_run(torch, T, args, device, tokens, steps, distributed,
+            grads_out=None, **options):
+    """``steps`` steps of train_distributed_torch's step (``options`` to
+    make_train_step, e.g. ``capture=True``) on ``tokens`` from the seed's
+    weights: (losses, digests, step ms by CUDA events, host ms, launches,
+    state, initial parameters); step 1's gradients, read before the
+    optimizer (after the all-reduce when ``distributed``), are appended
+    to ``grads_out``."""
+    _, init_state, train_step, params = T.setup(args, device, distributed,
+                                                 **options)
+    state = init_state(params)
+    leaves = ddp_leaves(state)
+    initial = [p.detach().clone() for p in leaves]
+    if grads_out is not None:
+        state.opt_state.register_step_pre_hook(
+            lambda *_: None if grads_out else grads_out.extend(
+                p.grad.detach().clone() for p in leaves))
+    losses, digests, step_ms, host_ms = [], [], [], []
+    reset_counts()
+    for _ in range(steps):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        start.record()
+        state, loss = train_step(state, tokens, tokens)
+        end.record()
+        end.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        digests.append(params_digest(torch, leaves))
+    return losses, digests, step_ms, host_ms, read_counts(), state, initial
+
+
+def ddp_worker(torch, out_dir: str) -> int:
+    """One rank of the distributed phase (``chip_smoke.py --ddp-worker
+    DIR``, the gang env set): DDP_STEPS steps of the shipped step;
+    DDP_NCCL_STEPS captured (two graphs around gloo's all-reduce) and as
+    many eager with the same capturable AdamW; then the controls (the sum
+    without the division, DDP_STEPS steps; no all-reduce, one step), each
+    from the seed's weights.  Writes its record to DIR/rank<r>.json; rank
+    0 also saves step 1's gradients and each run's last parameters."""
+    import train_distributed_torch as T
+    from kubeshare_tpu_torch.parallel import train as port_train
+    from kubeshare_tpu_torch.parallel.distributed import initialize_from_env
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    # two ranks on one card: NCCL refuses a duplicate GPU
+    spec = initialize_from_env(backend="gloo", device=device)
+    rank, world = spec.process_id, spec.num_processes
+    args = T.parse_args([])
+    tokens = T.rank_rows(T.global_batch(T.model_config(args), args), rank,
+                         world).to(device)
+    record = {}
+
+    def run(label, steps, **options):
+        grads = []
+        losses, digests, step_ms, host_ms, launches, state, _ = ddp_run(
+            torch, T, args, device, tokens, steps, True,
+            None if options else grads, **options)
+        record[label] = dict(losses=losses, digests=digests,
+                             step_ms=step_ms, host_ms=host_ms,
+                             launches=launches)
+        if rank == 0:
+            if grads:
+                torch.save([g.cpu() for g in grads],
+                           f"{out_dir}/grads_{label}.pt")
+            torch.save([p.detach().cpu() for p in ddp_leaves(state)],
+                       f"{out_dir}/params_{label}.pt")
+
+    shipped = port_train.GroupMean.all_reduce, port_train.GroupMean.unflatten
+    reduce_ms = []
+
+    def timed_all_reduce(self):
+        # the flats' host copy waits for the backward anyway: synchronise
+        # first, so the time is the transport's alone
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shipped[0](self)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    port_train.GroupMean.all_reduce = timed_all_reduce
+    run("shipped", DDP_STEPS)
+    record["shipped"]["all_reduce_ms"] = reduce_ms
+    port_train.GroupMean.all_reduce = shipped[0]
+    run("captured", DDP_NCCL_STEPS, capture=True)
+    run("captured_same", DDP_NCCL_STEPS, optimizer=capturable_adamw(device))
+
+    def undivided(self):
+        # the gradients summed over the ranks and not divided (the loss
+        # still the mean): a missing division by the world size
+        shipped[1](self)
+        for bucket in self.buckets:
+            for t in bucket:
+                if t is not self.loss:
+                    t.mul_(self.size)
+
+    port_train.GroupMean.unflatten = undivided
+    run("undivided", DDP_STEPS)
+    port_train.GroupMean.all_reduce = lambda self: None
+    port_train.GroupMean.unflatten = lambda self: None
+    run("no_all_reduce", 1)
+    port_train.GroupMean.all_reduce, port_train.GroupMean.unflatten = shipped
+    torch.distributed.destroy_process_group()
+    with open(f"{out_dir}/rank{rank}.json", "w") as f:
+        json.dump(record, f)
+    return 0
+
+
+def run_ranks(cmd, envs, out_dir, timeout_s):
+    """Start one process per env (stdout and stderr into ``out_dir``) and
+    wait for all of them by one deadline.  A rank that exits non-zero or
+    a deadline passed kills the others and fails the run."""
+    import os
+
+    procs = []
+    try:
+        for rank, extra in enumerate(envs):
+            env = {k: v for k, v in os.environ.items()
+                   if not k.startswith("TPUSHARE_")}
+            env.update(extra)
+            with open(f"{out_dir}/rank{rank}.out", "w") as out, \
+                    open(f"{out_dir}/rank{rank}.err", "w") as err:
+                procs.append(subprocess.Popen(cmd, env=env, stdout=out,
+                                              stderr=err))
+        deadline = time.monotonic() + timeout_s
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(f"{out_dir}/rank{rank}.err") as f:
+                tail = f.read()[-3000:]
+            raise RuntimeError(f"rank {rank} exited {p.returncode} (a "
+                               f"negative code: killed at the "
+                               f"{timeout_s} s limit or by a peer's "
+                               f"failure): {tail}")
+
+
+def ddp_two_ranks(torch, device, T, args):
+    """(a): two gloo ranks of the full-width DDP step on the card against
+    one process's step over the whole global batch, eager and captured.
+    Returns the launches of the ranks' eager and captured runs (summed
+    over the ranks) and of the one process."""
+    import os
+    import tempfile
+
+    from kubeshare_tpu_torch.parallel.train import CAPTURE_WARMUP_STEPS
+
+    tokens = T.global_batch(T.model_config(args), args).to(device)
+    grads = []
+    losses, _, step_ms, host_ms, single_launches, state, initial = ddp_run(
+        torch, T, args, device, tokens, DDP_STEPS, False, grads)
+    reference = (losses, ddp_leaves(state))
+    per_step = only("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    n_layers = T.model_config(args).n_layers
+    expect = {name: n * n_layers * DDP_STEPS for name, n in per_step.items()}
+    check(single_launches == expect,
+          f"one process launched {single_launches}, expected {expect}")
+    print(f"distributed (a) one process, {args.batch} x {args.seq} tokens: "
+          f"losses " + " ".join(f"{x:.4f}" for x in losses)
+          + f"; step ms {steady_median(step_ms):.3f} by CUDA events "
+          f"(median of steps {TRAIN_TIMED_FROM}-{DDP_STEPS}), host "
+          f"{steady_median(host_ms):.3f}")
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as out:
+        port = free_port()
+        t0 = time.perf_counter()
+        run_ranks([sys.executable, os.path.abspath(__file__), "--ddp-worker",
+                   out],
+                  [{"TPUSHARE_GANG_NAME": "ddp",
+                    "TPUSHARE_GANG_SIZE": str(DDP_WORLD),
+                    "TPUSHARE_GANG_RANK": str(rank),
+                    "TPUSHARE_COORDINATOR": f"127.0.0.1:{port}",
+                    "PYTHONPATH": here} for rank in range(DDP_WORLD)],
+                  out, DDP_RANK_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        records = []
+        for rank in range(DDP_WORLD):
+            with open(f"{out}/rank{rank}.json") as f:
+                records.append(json.load(f))
+        loaded = {name: [t.to(device) for t in torch.load(
+            f"{out}/{name}.pt")] for name in (
+            "grads_shipped", "grads_undivided", "params_shipped",
+            "params_undivided", "params_captured", "params_captured_same")}
+    shipped = [r["shipped"] for r in records]
+    for rank, run in enumerate(shipped):
+        print(f"distributed (a) rank {rank}/{DDP_WORLD} (gloo, cuda:0, "
+              f"{args.batch // DDP_WORLD} x {args.seq} tokens): launches "
+              f"{run['launches']}; step ms {steady_median(run['step_ms']):.3f}"
+              f" by CUDA events (median of steps {TRAIN_TIMED_FROM}-"
+              f"{DDP_STEPS}; " + " ".join(f"{x:.1f}" for x in run["step_ms"])
+              + f"), host {steady_median(run['host_ms']):.3f}; of it the "
+              f"all-reduce (host copy, gloo, copy back) "
+              f"{steady_median(run['all_reduce_ms']):.3f} ms")
+        check(run["launches"] == expect,
+              f"rank {rank} launched {run['launches']}, expected {expect}")
+    equal_steps = sum(a == b for a, b in zip(shipped[0]["digests"],
+                                            shipped[1]["digests"]))
+    print(f"distributed (a) ranks' parameters equal to the bit after "
+          f"{equal_steps}/{DDP_STEPS} steps (sha256); the ranks' processes "
+          f"took {ranks_s:.1f} s")
+    check(equal_steps == DDP_STEPS and shipped[0]["losses"]
+          == shipped[1]["losses"], "the ranks' parameters or losses differ")
+    grad_err = max(rel_err(g, r) for g, r in zip(loaded["grads_shipped"],
+                                                 grads))
+    sum_err = max(rel_err(g, r) for g, r in zip(loaded["grads_undivided"],
+                                                grads))
+    print(f"distributed (a) step 1's gradients against one process's over "
+          f"the global batch ({len(grads)} tensors): worst max-abs-err/"
+          f"max-ref {grad_err:.3e} (tol {DDP_GRAD_RTOL:g}); control, the sum "
+          f"without the division: {sum_err:.3e}")
+    check(grad_err <= DDP_GRAD_RTOL,
+          f"step 1's gradients differ from one process's by {grad_err}")
+    check(sum_err > DDP_GRAD_RTOL,
+          f"the gradient check does not refuse the undivided sum ({sum_err})")
+    hold_drift("distributed (a) 2 ranks vs one process",
+               (shipped[0]["losses"], loaded["params_shipped"]), reference,
+               initial, (DDP_DRIFT_LOSS_ATOL, DDP_DRIFT_UPDATE_RTOL),
+               first_atol=DDP_FIRST_LOSS_ATOL)
+    first, loss_err, update_err, _ = trajectory_errors(
+        (records[0]["undivided"]["losses"], loaded["params_undivided"]),
+        reference, initial)
+    print(f"distributed (a) control, the sum without the division, "
+          f"{DDP_STEPS} steps: step 1 loss abs err {first:.3e}, max "
+          f"{loss_err:.3e}, update {update_err:.3e} (Adam scales the doubled "
+          f"gradient away: the gradient check refuses it)")
+    captured = [r["captured"] for r in records]
+    per_capture = {name: n * n_layers * (CAPTURE_WARMUP_STEPS + 1)
+                   for name, n in per_step.items()}
+    print(f"distributed (a) {DDP_WORLD} gloo ranks captured (forward + "
+          f"backward, gloo's all-reduce, the optimizer: two graphs), "
+          f"{DDP_NCCL_STEPS} steps: losses " + " ".join(
+              f"{x:.4f}" for x in captured[0]["losses"])
+          + f"; step ms " + ", ".join(" ".join(f"{x:.1f}" for x in
+                                               run["step_ms"])
+                                      for run in captured)
+          + f" by CUDA events; launches around the capture "
+          f"{captured[0]['launches']}")
+    for rank, run in enumerate(captured):
+        check(run["launches"] == per_capture,
+              f"rank {rank} captured with {run['launches']}, expected "
+              f"{per_capture}")
+    check(captured[0]["digests"] == captured[1]["digests"],
+          "the captured ranks' parameters differ")
+    hold_drift("distributed (a) captured ranks vs eager ranks with the "
+               "same optimizer",
+               (captured[0]["losses"], loaded["params_captured"]),
+               (records[0]["captured_same"]["losses"],
+                loaded["params_captured_same"]), initial,
+               (CAPTURE_SAME_LOSS_ATOL, CAPTURE_SAME_UPDATE_RTOL))
+    apart = [records[r]["no_all_reduce"]["digests"][0]
+             for r in range(DDP_WORLD)]
+    print(f"distributed (a) control, no all-reduce: the ranks' parameters "
+          f"after step 1 equal: {apart[0] == apart[1]}")
+    check(apart[0] != apart[1],
+          "the ranks stayed equal without the all-reduce")
+    return ({name: sum(r["shipped"]["launches"][name] for r in records)
+             for name in expect},
+            {name: sum(r["captured"]["launches"][name] for r in records)
+             for name in expect}, single_launches)
+
+
+def ddp_nccl(torch, device, T, args):
+    """(b): one NCCL rank (world size 1), eager and captured with the
+    all-reduce inside the graph, against the plain single-device step."""
+    import torch.distributed as dist
+
+    from kubeshare_tpu_torch.parallel.train import CapturedTrainStep
+
+    tokens = T.rank_rows(T.global_batch(T.model_config(args), args), 0,
+                         DDP_WORLD).to(device)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    launches = []
+    try:
+        def run(distributed, **options):
+            _, init_state, train_step, params = T.setup(
+                args, device, distributed, **options)
+            state = init_state(params)
+            initial = [p.detach().clone() for p in ddp_leaves(state)]
+            reset_counts()
+            losses = []
+            for _ in range(DDP_NCCL_STEPS):
+                state, loss = train_step(state, tokens, tokens)
+                losses.append(float(loss))
+            launches.append(read_counts())
+            return (losses, ddp_leaves(state)), initial, train_step
+
+        default, initial, _ = run(False)
+        same, _, _ = run(False, optimizer=capturable_adamw(device))
+        eager, _, _ = run(True)
+        captured, _, step = run(True, capture=True)
+    finally:
+        dist.destroy_process_group()
+    check(isinstance(step, CapturedTrainStep) and step.mean is not None
+          and step.update_graph is None,
+          "the NCCL step did not capture its all-reduce in one graph")
+    bits = all(torch.equal(a, b) for a, b in zip(eager[1], default[1]))
+    print(f"distributed (b) one NCCL rank, {DDP_NCCL_STEPS} steps: eager "
+          f"losses " + " ".join(f"{x:.4f}" for x in eager[0])
+          + f", equal to the plain step's to the bit: {bits}; captured (the "
+          f"all-reduce inside the graph) " + " ".join(
+              f"{x:.4f}" for x in captured[0]))
+    hold_drift("distributed (b) NCCL eager vs the plain step", eager, default,
+               initial, (CAPTURE_SAME_LOSS_ATOL, CAPTURE_SAME_UPDATE_RTOL))
+    hold_captured("distributed (b) NCCL", captured, same, default, initial,
+                  CAPTURE_DRIFT_LOSS_ATOL, CAPTURE_DRIFT_UPDATE_RTOL)
+    return {name: sum(c[name] for c in launches) for name in launches[0]}
+
+
+def ddp_multislice(torch, device):
+    """(c): the dry run's multislice leg on the card, and the disagg
+    router in virtual_multislice over [cuda:0, cuda:0] against the
+    monolithic engine."""
+    from kubeshare_tpu_torch import constants
+    from kubeshare_tpu_torch.entry import (dryrun_multichip, entry,
+                                           flagship_config)
+    from kubeshare_tpu_torch.parallel.distributed import (
+        multislice_spec_from_env)
+    from kubeshare_tpu_torch.serving import DisaggTopology
+
+    reset_counts()
+    line = dryrun_multichip(8)
+    launches = read_counts()
+    check("multislice dcn mesh 2 slices x 4 devices" in line,
+          f"the dry run ran no multislice leg: {line}")
+    ms = multislice_spec_from_env({constants.ENV_MEGASCALE_NUM_SLICES: "2",
+                                   constants.ENV_MEGASCALE_SLICE_ID: "0"})
+    topology = DisaggTopology("virtual_multislice", ms,
+                              devices=(device, device))
+    check(topology.place() == (device, device),
+          f"virtual_multislice placed {topology.place()}")
+    config = flagship_config()
+    _, (params, _) = entry()
+    trace = disagg_trace(config)[:DDP_DISAGG_REQUESTS]
+    oracle, _ = disagg_pass(torch, device, params, config, trace, False)
+    streams, stats = disagg_pass(torch, device, params, config, trace, True,
+                                 topology=topology)
+    same = sum(streams[rid] == oracle[rid] for rid, _, _, _ in trace)
+    print(f"distributed (c) disagg router, virtual_multislice over "
+          f"[{device}, {device}]: {stats['tokens_per_s']:.1f} tokens/s, "
+          f"migrations {stats['migrations']} packed / {stats['delivered']} "
+          f"delivered, {stats['migrated_bytes']} bytes; streams equal to the "
+          f"monolithic engine's: {same}/{len(trace)}")
+    check(same == len(trace), "the multislice router's streams differ")
+    check(stats["migrations"] == stats["delivered"] == len(trace),
+          f"{stats['delivered']} of {len(trace)} chains delivered")
+    for name, n in stats["launches"].items():
+        launches[name] += n
+    return launches
+
+
+def distributed_phase(torch, device):
+    """The DDP gang worker (train_distributed_torch.py's full-width
+    config, BASELINE config 5) over torch.distributed: (a) two gloo ranks
+    on the card, (b) one NCCL rank eager and captured, (c) the multislice
+    dry run and router."""
+    import train_distributed_torch as T
+
+    args = T.parse_args([])
+    config = T.model_config(args)
+    shape = (args.batch, config.n_heads, args.seq, config.head_dim)
+    if shape != DDP_SHAPE:
+        raise AssertionError(f"distributed: attention shape {shape} is not "
+                             f"the kernel phase's DDP_SHAPE {DDP_SHAPE}")
+    launches = {}
+    (launches["distributed"], launches["distributed_captured"],
+     launches["distributed_single"]) = ddp_two_ranks(torch, device, T, args)
+    torch.cuda.empty_cache()
+    launches["distributed_nccl"] = ddp_nccl(torch, device, T, args)
+    torch.cuda.empty_cache()
+    launches["distributed_multislice"] = ddp_multislice(torch, device)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def discovery_phase(torch, device):
+    """Device discovery and the node daemons on the card:
+    discover_local_chips against nvidia-smi, the collector served and
+    scraped, and a ChipSupervisor over the tree's tokend and pod manager
+    gating one MNIST step."""
+    import os
+    import tempfile
+    import urllib.request
+
+    import corun_bench
+    from kubeshare_tpu_torch.cell import discover_local_chips
+    from kubeshare_tpu_torch.collector import Collector, CudaEnumerator
+    from kubeshare_tpu_torch.isolation import ExecutionGuard, TokenClient
+    from kubeshare_tpu_torch.models.mnist import mnist_apply, mnist_init
+    from kubeshare_tpu_torch.parallel.train import make_train_step
+    from kubeshare_tpu_torch.runtime import ChipSupervisor, find_binary
+    from kubeshare_tpu_torch.utils.promtext import parse_text
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid,name,memory.total",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()
+    chips = discover_local_chips()
+    check(len(chips) == len(smi) == torch.cuda.device_count() == 1,
+          f"discovered {chips}, nvidia-smi {smi}")
+    chip = chips[0]
+    uuid, name, mib = (x.strip() for x in smi[0].split(","))
+    memory_mib = chip.memory / 2**20
+    print(f"discovery: {chip}; nvidia-smi uuid {uuid}, name {name}, memory "
+          f"{mib} MiB (torch total_memory {memory_mib:.1f} MiB, "
+          f"{float(mib) - memory_mib:.1f} MiB less)")
+    check(chip.uuid == uuid, f"uuid {chip.uuid} != nvidia-smi's {uuid}")
+    check(chip.model == name.replace(" ", "-"),
+          f"model {chip.model} != nvidia-smi's {name}")
+    check(abs(float(mib) - memory_mib) <= DISCOVERY_MEMORY_MIB,
+          f"memory {memory_mib} MiB != nvidia-smi's {mib} MiB")
+
+    server = Collector(CudaEnumerator()).serve(port=0)
+    try:
+        text = urllib.request.urlopen(
+            f"http://127.0.0.1:{server.port}/kubeshare-collector",
+            timeout=10).read().decode()
+    finally:
+        server.stop()
+    samples = [s for s in parse_text(text) if s.name == "gpu_capacity"]
+    print(f"discovery collector: {len(samples)} gpu_capacity sample(s), "
+          f"labels {samples[0].labels if samples else None}")
+    check(len(samples) == 1 and {k: samples[0].labels.get(k) for k in
+                                 ("uuid", "model", "memory", "index")}
+          == {"uuid": chip.uuid, "model": chip.model,
+              "memory": str(chip.memory), "index": "0"},
+          f"the collector exported {samples}")
+
+    corun_bench.ensure_tokend()
+    if find_binary("tpushare-pmgr") is None:
+        subprocess.run(["make", "-C", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "native"), "build/tpushare-pmgr"],
+            check=True, capture_output=True, timeout=300)
+    check(find_binary("tpushare-pmgr") is not None,
+          "cannot build tpushare-pmgr")
+    pod = "default/ddp-mnist"
+    with tempfile.TemporaryDirectory() as tmp:
+        config_dir, port_dir = f"{tmp}/config", f"{tmp}/ports"
+        os.makedirs(config_dir)
+        os.makedirs(port_dir)
+        with open(f"{config_dir}/{chip.uuid}", "w") as f:
+            f.write(f"1\n{pod} 1.0 0.5 0\n")
+        pmgr_port, tokend_port = free_port(), free_port()
+        with open(f"{port_dir}/{chip.uuid}.tmp", "w") as f:
+            f.write(f"1\n{pod} {pmgr_port}\n")
+        os.rename(f"{port_dir}/{chip.uuid}.tmp", f"{port_dir}/{chip.uuid}")
+        with ChipSupervisor(chip.uuid, config_dir=config_dir,
+                            port_dir=port_dir, tokend_port=tokend_port,
+                            poll_interval=0.1, base_quota_ms=50.0,
+                            min_quota_ms=5.0, window_ms=1000.0) as sup:
+            wait_listening(tokend_port)
+            wait_listening(pmgr_port)
+            guard = ExecutionGuard(client=TokenClient(
+                "127.0.0.1", pmgr_port, "stamped-by-pmgr"), from_env=False)
+            init_state, train_step = make_train_step(mnist_apply)
+            state = init_state(mnist_init(torch.Generator().manual_seed(0),
+                                          device=device))
+            gen = torch.Generator().manual_seed(3)
+            images = torch.rand((MNIST_BATCH, 28, 28, 1),
+                                generator=gen).to(device)
+            labels = torch.randint(0, 10, (MNIST_BATCH,),
+                                   generator=gen).to(device)
+
+            @guard
+            def step(state):
+                return train_step(state, images, labels)[0]
+
+            state = step(state)
+            guard.finish()
+            probe = TokenClient("127.0.0.1", tokend_port, "probe")
+            stat = json.loads(probe.stat())
+            probe.close()
+            managers = len(sup.pod_managers)
+    entry = stat["pods"].get(pod, {})
+    print(f"discovery supervisor: tokend on {tokend_port}, {managers} pod "
+          f"manager(s); one MNIST step (batch {MNIST_BATCH}) gated: tokens "
+          f"{guard.tokens_acquired}, guard charged "
+          f"{guard.total_gated_ms:.3f} ms; tokend for {pod}: grants "
+          f"{entry.get('grants')}, charged {entry.get('charged_total_ms')} ms")
+    check(managers == 1, f"{managers} pod managers for one pod")
+    check(guard.tokens_acquired >= 1 and entry.get("grants", 0) >= 1,
+          "the MNIST step was not granted a token")
+    check(entry.get("charged_total_ms", 0) > 0,
+          f"tokend charged {pod} nothing: {stat}")
+
+
 def main() -> int:
     import torch
 
@@ -5585,6 +6211,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        return ddp_worker(torch, sys.argv[2])
     from kubeshare_tpu_torch.ops import _build
 
     device = torch.device("cuda", 0)
@@ -5697,6 +6325,12 @@ def main() -> int:
     resnet_phase(torch, device)
     torch.cuda.empty_cache()
     print(f"resnet phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(distributed_phase(torch, device))
+    print(f"distributed phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    discovery_phase(torch, device)
+    print(f"discovery phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     corun_phase()
     print(f"corun phase: {time.perf_counter() - t0:.1f} s")

@@ -62,11 +62,14 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     - the MoE layer with experts over dp, gradients included, and over a
       dedicated ep axis (dp x ep x tp) when ``n_devices % 4 == 0``;
     - the 1F1B pipeline over pp x sp with the ring, then Ulysses, inside
-      each stage, and an MoE model through the ring entry with its aux.
+      each stage, and an MoE model through the ring entry with its aux;
+    - when ``n_devices`` is even, the multislice leg: a 2-slice mesh
+      (``slice_device_mesh`` over the devices, from the MEGASCALE env
+      contract) and one data-parallel train step over its "dcn" axis,
+      parameters replicated, the batch split across the slices.
 
     Widths are the JAX dry run's but for the heads: head_dim 64 (the
-    smallest the flash kernels take; JAX's model has 8).  The JAX dry
-    run's multislice leg needs ``parallel/distributed.py``, not ported.
+    smallest the flash kernels take; JAX's model has 8).
     Returns the summary line it prints."""
     from dataclasses import replace
 
@@ -79,6 +82,9 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
     from .ops.moe import MoEConfig, moe_apply, moe_init, moe_sharding_rules
     from .ops.ring_attention import ring_attention_sharded
     from .ops.ulysses import ulysses_attention_sharded
+    from . import constants
+    from .parallel.distributed import (multislice_spec_from_env,
+                                       slice_device_mesh)
     from .parallel.mesh import (Mesh, MeshSpec, NamedSharding, P,
                                 ShardedTensor, batch_sharding, device_put,
                                 make_mesh, shard_params)
@@ -190,6 +196,30 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
             with_aux=True)
         ((logits.gather() ** 2).mean() + 0.01 * aux).backward()
         checks.append(all(finite(leaf.grad) for leaf in leaves))
+    # multislice: the MEGASCALE env's 2-slice virtual topology, the slice
+    # boundary on the outer ("dcn") axis, one dp-over-dcn train step
+    ms_loss = ms_mesh = None
+    if n_devices % 2 == 0:
+        ms = multislice_spec_from_env({
+            constants.ENV_MEGASCALE_NUM_SLICES: "2",
+            constants.ENV_MEGASCALE_SLICE_ID: "0",
+        })
+        if ms is None or ms.num_slices != 2:
+            raise RuntimeError(f"multislice spec {ms}")
+        ms_mesh = slice_device_mesh(ms, devices=devices)
+        if ms_mesh.axis_names != ("dcn", "device") \
+                or ms_mesh.devices.shape != (2, n_devices // 2):
+            raise RuntimeError(f"multislice mesh {ms_mesh.axis_names} "
+                               f"{ms_mesh.devices.shape}")
+        ms_init, ms_step = make_train_step(
+            lambda p, x: transformer_apply(p, x, config), mesh=ms_mesh,
+            param_rules={})
+        ms_state = ms_init(transformer_init(config, gen, device))
+        ms_tokens = device_put(
+            torch.ones((2 * ms.num_slices, 16), dtype=torch.long,
+                       device=device), NamedSharding(ms_mesh, P("dcn")))
+        ms_state, ms_loss = ms_step(ms_state, ms_tokens, ms_tokens)
+        checks.append(bool(torch.isfinite(ms_loss)))
     if not all(checks):
         raise RuntimeError(f"non-finite results in the dry run: {checks}")
     line = (f"dryrun_multichip ok: mesh dp={dp} tp={tp} sp={sp} on "
@@ -200,6 +230,11 @@ def dryrun_multichip(n_devices: int, device=None) -> str:
             f"{' + dedicated-ep mesh' if n_devices % 4 == 0 else ''}"
             f"{' + moe-in-ring-sp' if sp > 1 else ''} + 1f1b pp={pp_stages} "
             f"x sp={pp_sp} ({', '.join(k.attention for k in kinds)} "
-            f"in-stage), loss={float(loss):.4f}")
+            f"in-stage)"
+            + (f" + multislice dcn mesh {ms_mesh.devices.shape[0]} slices x "
+               f"{ms_mesh.devices.shape[1]} devices (dp-over-DCN train "
+               f"step, loss={float(ms_loss):.4f})" if ms_loss is not None
+               else "")
+            + f", loss={float(loss):.4f}")
     print(line)
     return line

@@ -32,6 +32,18 @@ shards, keeps every copy of a slice equal to the bit.
     init_state, train_step = make_train_step(
         lambda p, t: transformer_apply(p, t, config), mesh=mesh,
         param_rules=transformer_sharding_rules())
+
+With a ``process_group`` the step trains data-parallel across processes
+(``parallel/distributed.py`` bootstraps them from the gang env), as the
+JAX step does over a multi-process mesh: each process steps on its own
+rows of the global batch, the gradients are averaged over the group
+after the backward (and after ``sum_copies`` under a ``mesh``, which
+still splits each process's work over its own devices), so every
+process applies the same update to the same parameters.
+
+    initialize_from_env()
+    init_state, train_step = make_train_step(
+        lambda p, t: transformer_apply(p, t, config), process_group=True)
 """
 
 from __future__ import annotations
@@ -120,6 +132,7 @@ def make_train_step(
     optimizer: Optional[OptimizerFactory] = None,
     loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = cross_entropy_loss,
     capture: bool = False,
+    process_group: Any = None,
 ):
     """Returns (init_state_fn, train_step_fn).
 
@@ -150,8 +163,21 @@ def make_train_step(
     use.  Under a mesh the whole sharded step is one graph, so the mesh
     must name one CUDA device (``[cuda:0] * n``); distinct CUDA devices
     raise ``ValueError``.
+
+    ``process_group``: None (one process), True (the default group of
+    ``torch.distributed``) or a group (e.g. a ``RankMesh``'s "dcn"
+    column).  ``init_state`` then broadcasts the group's first rank's
+    parameters to the others; the step all-reduces the gradients over
+    the group and divides them by its size (one flat buffer and one
+    collective per dtype, the loss in its dtype's buffer), before the
+    optimizer, so the returned loss is the group's mean.  A gloo group
+    carries CUDA buffers through host memory.  Captured, the all-reduce
+    runs inside the graph under NCCL; gloo cannot be captured, so there
+    the step is two graphs, forward and backward, then the optimizer,
+    with the all-reduce between them.
     """
     optimizer = optimizer or adamw(1e-3)
+    group = _resolve_group(process_group)
     if mesh is not None and capture:
         devices = set(mesh.devices.flat)
         if len(devices) > 1 and all(d.type == "cuda" for d in devices):
@@ -169,12 +195,14 @@ def make_train_step(
         leaves = _shards(params)
         if capture:
             _cuda_device_of(leaves)
+        if group is not None:
+            broadcast_from_first(leaves, group)
         for leaf in leaves:
             leaf.requires_grad_(True)
         return TrainState(params=params, opt_state=optimizer(leaves), step=0)
 
     if capture:
-        return init_state, CapturedTrainStep(apply_fn, loss_fn, mesh)
+        return init_state, CapturedTrainStep(apply_fn, loss_fn, mesh, group)
 
     def train_step(state: TrainState, inputs: torch.Tensor,
                    targets: torch.Tensor) -> Tuple[TrainState, torch.Tensor]:
@@ -184,6 +212,11 @@ def make_train_step(
         loss.backward()
         if mesh is not None:
             sum_copies(tree_leaves(state.params))
+        if group is not None:
+            mean = GroupMean(group)
+            mean.flatten(state.opt_state, loss)
+            mean.all_reduce()
+            mean.unflatten()
         state.opt_state.step()
         state.opt_state.zero_grad(set_to_none=True)
         return (TrainState(params=state.params, opt_state=state.opt_state,
@@ -191,6 +224,103 @@ def make_train_step(
                 loss.detach())
 
     return init_state, train_step
+
+
+def _resolve_group(process_group):
+    """None: one process; True: the default group; else the group."""
+    if process_group is None:
+        return None
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "process_group needs torch.distributed initialised first "
+            "(parallel.distributed.initialize_from_env)")
+    return dist.group.WORLD if process_group is True else process_group
+
+
+def _buckets(tensors: List[torch.Tensor]) -> List[List[torch.Tensor]]:
+    """The tensors grouped by (dtype, device), in order of appearance."""
+    out: dict = {}
+    for t in tensors:
+        out.setdefault((t.dtype, t.device), []).append(t)
+    return list(out.values())
+
+
+def _collective(op, flat: torch.Tensor, via_host: bool) -> None:
+    """``op(flat)``, through a host copy when ``via_host`` and ``flat``
+    is not on the CPU (gloo's transport is host memory)."""
+    if via_host and flat.device.type != "cpu":
+        host = flat.cpu()
+        op(host)
+        flat.copy_(host)
+    else:
+        op(flat)
+
+
+@torch.no_grad()
+def _unflatten(flat: torch.Tensor, tensors: List[torch.Tensor]) -> None:
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
+@torch.no_grad()
+def broadcast_from_first(tensors: List[torch.Tensor], group) -> None:
+    """Every tensor set in place to the group's first rank's, one
+    broadcast per (dtype, device)."""
+    import torch.distributed as dist
+
+    src = dist.get_global_rank(group, 0)
+    via_host = dist.get_backend(group) == "gloo"
+    for bucket in _buckets(tensors):
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        _collective(lambda x: dist.broadcast(x, src, group=group), flat,
+                    via_host)
+        _unflatten(flat, bucket)
+
+
+class GroupMean:
+    """An optimizer's gradients and a loss averaged over a process group
+    in three parts, so that a captured step can run the collective
+    between two graphs: :meth:`flatten` (one buffer per dtype and
+    device, the loss last in its dtype's), :meth:`all_reduce` (the sums)
+    and :meth:`unflatten` (divide by the group's size and copy back: the
+    gradients and the loss, in place, become the group's means)."""
+
+    def __init__(self, group) -> None:
+        import torch.distributed as dist
+
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.via_host = dist.get_backend(group) == "gloo"
+        self.buckets: List[List[torch.Tensor]] = []
+        self.flats: List[torch.Tensor] = []
+        self.loss: Optional[torch.Tensor] = None
+
+    @torch.no_grad()
+    def flatten(self, optimizer: torch.optim.Optimizer,
+                loss: torch.Tensor) -> None:
+        grads = [p.grad for g in optimizer.param_groups for p in g["params"]
+                 if p.grad is not None]
+        self.loss = loss.detach().reshape(1)
+        self.buckets = _buckets(grads + [self.loss])
+        self.flats = [torch.cat([t.reshape(-1) for t in bucket])
+                      for bucket in self.buckets]
+
+    def all_reduce(self) -> None:
+        import torch.distributed as dist
+
+        for flat in self.flats:
+            _collective(lambda x: dist.all_reduce(x, group=self.group), flat,
+                        self.via_host)
+
+    @torch.no_grad()
+    def unflatten(self) -> None:
+        for bucket, flat in zip(self.buckets, self.flats):
+            flat.div_(self.size)
+            _unflatten(flat, bucket)
 
 
 def _shards(tree: Any) -> List[torch.Tensor]:
@@ -316,13 +446,22 @@ class CapturedTrainStep:
     optimizer over every shard); the static buffers are placed batches,
     and a call's inputs are placed by ``batch_sharding`` and copied in
     shard by shard.
+
+    With a process ``group`` the gradients' all-reduce over the group is
+    part of the step: inside the graph under NCCL.  Gloo's collectives
+    cannot be captured, so under gloo ``graph`` holds forward, backward
+    and the flattening of the gradients, the all-reduce runs between the
+    replays, and ``update_graph`` holds the division, the copy back and
+    the optimizer (one memory pool for both).
     """
 
-    def __init__(self, apply_fn, loss_fn, mesh=None) -> None:
+    def __init__(self, apply_fn, loss_fn, mesh=None, group=None) -> None:
         self.apply_fn = apply_fn
         self.loss_fn = loss_fn
         self.mesh = mesh
+        self.mean = GroupMean(group) if group is not None else None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.update_graph: Optional[torch.cuda.CUDAGraph] = None
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.inputs: Optional[torch.Tensor] = None
         self.targets: Optional[torch.Tensor] = None
@@ -356,19 +495,37 @@ class CapturedTrainStep:
                 else:
                     static.copy_(given)
         self.graph.replay()
+        if self.update_graph is not None:
+            self.mean.all_reduce()
+            self.update_graph.replay()
         # the graph's loss is a static tensor that the next replay
         # overwrites; hand the caller a copy, as JAX returns a fresh array
         return (TrainState(params=state.params, opt_state=state.opt_state,
                            step=state.step + 1),
                 self.loss.clone())
 
-    def _pass(self, state: TrainState) -> torch.Tensor:
+    def _backward(self, state: TrainState) -> torch.Tensor:
+        """Forward and backward (the gradients flattened for the group's
+        all-reduce when there is a group)."""
         loss = self.loss_fn(self.apply_fn(state.params, self.inputs),
                             self.targets)
         loss.backward()
         if self.mesh is not None:
             sum_copies(tree_leaves(state.params))
+        if self.mean is not None:
+            self.mean.flatten(state.opt_state, loss)
+        return loss
+
+    def _update(self, state: TrainState) -> None:
+        if self.mean is not None:
+            self.mean.unflatten()
         state.opt_state.step()
+
+    def _pass(self, state: TrainState) -> torch.Tensor:
+        loss = self._backward(state)
+        if self.mean is not None:
+            self.mean.all_reduce()
+        self._update(state)
         return loss
 
     def _capture(self, state: TrainState, inputs: torch.Tensor,
@@ -405,7 +562,14 @@ class CapturedTrainStep:
         # parameters, so the graph-pool addresses baked into them stay
         # valid across replays
         graph = torch.cuda.CUDAGraph()
-        with graph_capture(graph):
-            loss = self._pass(state)
+        if self.mean is not None and self.mean.via_host:
+            with graph_capture(graph):
+                loss = self._backward(state)
+            self.update_graph = torch.cuda.CUDAGraph()
+            with graph_capture(self.update_graph, pool=graph.pool()):
+                self._update(state)
+        else:
+            with graph_capture(graph):
+                loss = self._pass(state)
         _restore(leaves, optimizer, saved)
         self.graph, self.optimizer, self.loss = graph, optimizer, loss.detach()

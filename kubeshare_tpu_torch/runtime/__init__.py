@@ -1,3 +1,3 @@
-from .launcher import find_binary
+from .launcher import ChipSupervisor, find_binary
 
-__all__ = ["find_binary"]
+__all__ = ["ChipSupervisor", "find_binary"]

@@ -40,9 +40,12 @@ Three pieces:
 
 Topology (:class:`DisaggTopology`): ``two_cell`` runs both pools in one
 process on the router's device — two fractional cells of one card.
-``virtual_multislice`` (JAX's placement on two slices of a multislice
-mesh) raises: it needs ``slice_device_mesh`` from
-``parallel/distributed.py`` (ROADMAP.md queue A item 11).
+``virtual_multislice`` places the prefill pool on slice 0's first device
+and the decode pool on slice 1's of a 2-slice mesh
+(``parallel.distributed.slice_device_mesh``), so the KV migration
+crosses the slice boundary where a deployment's cross-slice transfer
+sits; on one card both are ``cuda:0`` and the chain still goes through
+``pack`` / ``deliver``.
 
 Each pool keeps its OWN radix prefix index (matching happens where
 admission happens), with one HOST TIER shared underneath as the
@@ -64,6 +67,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.distributed import (MultisliceSpec, _world_size,
+                                    multislice_spec_from_env,
+                                    slice_device_mesh)
+from ..parallel.mesh import _visible_cuda_devices
 from ..utils.promtext import MetricFamily, Sample
 from .autotune import AutoTuner
 from .engine import (EngineConfig, Request, RequestResult, ServingEngine,
@@ -132,16 +139,21 @@ class DisaggTopology:
 
     ``two_cell`` (default): both pools in one process on the router's
     device — two fractional cells of one card, each pool chargeable
-    through its own ExecutionGuard.  ``virtual_multislice``, JAX's
-    placement of the pools on two slices of a multislice mesh, is not
-    ported (it needs ``parallel/distributed.py``'s
-    ``slice_device_mesh``, ROADMAP.md queue A item 11): :meth:`place`
+    through its own ExecutionGuard.  ``virtual_multislice``: the prefill
+    pool on the first device of slice 0 and the decode pool on the first
+    device of slice 1 of a 2-slice mesh built from the MEGASCALE env
+    contract over ``devices`` (None: every visible CUDA device, as JAX
+    reads ``jax.devices()``), so the KV migration crosses the slice
+    boundary where a deployment's cross-slice transfer sits.  A device
+    may repeat (``[cuda:0, cuda:0]`` on one card).  Both pools live in
+    the router's process, so the mesh is one process's: under several
+    processes slice 1's devices are another process's, and ``place``
     raises."""
 
     mode: str = "two_cell"
-    # the multislice spec of virtual_multislice (kept so a configuration
-    # reads the same in both packages)
-    multislice: Optional[object] = None
+    # MEGASCALE-style spec for virtual_multislice (None: read the env)
+    multislice: Optional[MultisliceSpec] = None
+    devices: Optional[Tuple] = None
 
     def __post_init__(self) -> None:
         if self.mode not in ("two_cell", "virtual_multislice"):
@@ -154,10 +166,26 @@ class DisaggTopology:
         ``device`` (None: the engines' default, the CUDA device)."""
         if self.mode == "two_cell":
             return device, device
-        raise NotImplementedError(
-            "virtual_multislice: the port has no multislice mesh yet — "
-            "it needs slice_device_mesh from parallel/distributed.py "
-            "(ROADMAP.md queue A item 11); use two_cell")
+        ms = self.multislice or multislice_spec_from_env()
+        if ms is None:
+            raise ValueError(
+                "virtual_multislice topology needs a MultisliceSpec "
+                "(pass one, or set the MEGASCALE env like "
+                "dryrun_multichip does)")
+        world = _world_size()
+        if world > 1:
+            raise ValueError(
+                f"virtual_multislice places both pools in this process, but "
+                f"torch.distributed runs {world} processes: slice 1's "
+                f"devices are another process's")
+        devices = (list(self.devices) if self.devices is not None
+                   else _visible_cuda_devices())
+        if len(devices) < 2:
+            raise ValueError(
+                f"virtual_multislice needs >= 2 devices, have "
+                f"{len(devices)}")
+        mesh = slice_device_mesh(ms, devices=devices)
+        return mesh.devices[0, 0], mesh.devices[1, 0]
 
 
 @dataclass

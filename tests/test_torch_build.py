@@ -284,6 +284,27 @@ def test_ablation_edits_apply(name):
         assert {stems[kernel] for kernel in kernels} == {source[:-3]}, name
 
 
+def test_chip_smoke_holds_the_kernels_at_the_ddp_paths_shapes():
+    # train_distributed_torch.py's attention shape over the global batch
+    # (one process) and over a rank's rows are bf16 causal dense kernel
+    # cases: the kernels of the distributed phase are held to their plain
+    # versions where that path runs them, not only rank against process
+    import torch
+
+    import train_distributed_torch as T
+
+    chip_smoke = _chip_smoke()
+    args = T.parse_args([])
+    config = T.model_config(args)
+    single = (args.batch, config.n_heads, args.seq, config.head_dim)
+    rank = (args.batch // chip_smoke.DDP_WORLD, *single[1:])
+    assert (single, rank) == (chip_smoke.DDP_SHAPE, chip_smoke.DDP_RANK_SHAPE)
+    dense = {shape for _, shape, _, dtype, causal, window
+             in chip_smoke.dense_cases(torch)
+             if dtype == torch.bfloat16 and causal and window is None}
+    assert {single, rank} <= dense
+
+
 def test_chip_smoke_holds_the_f32_kernels_at_the_f32_paths_shapes():
     # the f32 phase's attention shapes (the serving flagship's forward and
     # prefill, the train-step flagship's step) are dense kernel cases,

@@ -1,9 +1,10 @@
 """The port's captured (CUDA graph) serving and sharded training paths
 against their eager forms, the f32 flash kernels (3xTF32 on the tensor
 cores) against their plain versions, the full-width ResNet against the
-CPU, a checkpoint restored into a captured train step, and prefetch's
-stream ordering, on the card.  Every test here skips without a CUDA
-device.
+CPU, a checkpoint restored into a captured train step, prefetch's
+stream ordering, two gloo ranks of train_distributed_torch.py on one
+card, and device discovery against nvidia-smi, on the card.  Every test
+here skips without a CUDA device.
 
 The file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed:
@@ -988,3 +989,66 @@ def test_dryrun_multichip_on_the_card(card):
                            "8 x cuda:0")
     assert A.flash_forward.launches > before[0]
     assert A.flash_backward.launches_dkv > before[1]
+    assert "multislice dcn mesh 2 slices x 4 devices" in line
+
+
+def test_two_gloo_ranks_train_on_the_card(card):
+    """``train_distributed_torch.py`` at full width as a 2-member gang on
+    cuda:0 over gloo (NCCL refuses two ranks on one GPU): both ranks
+    rendezvous from the gang env, train three steps on their halves of
+    the batch and print the same losses."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    from native_helpers import free_port
+
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(2):
+            env = dict(os.environ, TPUSHARE_GANG_SIZE="2",
+                       TPUSHARE_GANG_RANK=str(rank),
+                       TPUSHARE_COORDINATOR=f"127.0.0.1:{port}",
+                       PYTHONPATH=str(repo))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(repo / "train_distributed_torch.py"),
+                 "--backend", "gloo", "--steps", "3"], env=env,
+                cwd=str(repo), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    lines = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, err[-3000:]
+        [line] = [ln for ln in out.splitlines()
+                  if ln.startswith(f"[proc {rank}/2] step 3 loss ")]
+        lines.append(line.split()[5])
+    assert lines[0] == lines[1]
+
+
+def test_discovery_agrees_with_nvidia_smi(card):
+    """discover_local_chips: one ChipInfo per card with nvidia-smi's UUID
+    and name (spaces as '-'), its memory within 1 GiB of nvidia-smi's
+    (torch reads the CUDA runtime's total, nvidia-smi NVML's)."""
+    import subprocess
+
+    from kubeshare_tpu_torch.cell import discover_local_chips
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid,name,memory.total",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()
+    chips = discover_local_chips()
+    assert len(chips) == len(smi) == torch.cuda.device_count()
+    for index, (chip, line) in enumerate(zip(chips, smi)):
+        uuid, name, mib = (x.strip() for x in line.split(","))
+        assert (chip.uuid, chip.model, chip.index, chip.coords) == (
+            uuid, name.replace(" ", "-"), index, None)
+        assert abs(chip.memory / 2**20 - float(mib)) <= 1024

@@ -23,6 +23,7 @@ import kubeshare_tpu.serving as jax_serving
 import kubeshare_tpu.serving.chaos as jax_chaos
 import kubeshare_tpu_torch.serving as port_serving
 import kubeshare_tpu_torch.serving.chaos as chaos
+import kubeshare_tpu_torch.serving.disagg as disagg
 from kubeshare_tpu.models.transformer import TransformerConfig as JaxConfig
 from kubeshare_tpu.models.transformer import transformer_init as jax_init
 from kubeshare_tpu_torch.convert import params_from_jax
@@ -558,9 +559,91 @@ def test_decode_pool_refuses_submit_and_prefill_pool_migrations(models):
             payloads=[], result=None, emitted_prefix=[], last_token_at=None)
 
 
-def test_virtual_multislice_topology_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        DisaggTopology("virtual_multislice").place()
+def test_virtual_multislice_topology_raises_naming_its_item(monkeypatch):
+    """virtual_multislice places the pools on slice 0's and slice 1's
+    first devices of the 2-slice mesh, and raises JAX's ValueErrors
+    without a spec or with fewer than two devices."""
+    from kubeshare_tpu.parallel.distributed import MultisliceSpec as JaxSpec
+    from kubeshare_tpu_torch.parallel.distributed import MultisliceSpec
+
+    ms = MultisliceSpec(num_slices=2, slice_id=0, processes_per_slice=1)
+    cpu = torch.device("cpu")
+    assert DisaggTopology("virtual_multislice", ms,
+                          devices=(cpu,) * 4).place() == (cpu, cpu)
+    # the devices given, not the router's
+    assert DisaggTopology("virtual_multislice", ms, devices=(
+        "cpu", "cpu")).place("cuda") == (cpu, cpu)
+    # slice 0's and slice 1's first devices: a mesh of four names them
+    picked = DisaggTopology("virtual_multislice", ms, devices=(
+        "cpu", "meta", "meta", "cpu")).place()
+    assert picked == (cpu, torch.device("meta"))
+    jax_topology = jax_serving.DisaggTopology(
+        "virtual_multislice", JaxSpec(2, 0, 1))
+    for topology in (DisaggTopology("virtual_multislice"),
+                     jax_serving.DisaggTopology("virtual_multislice")):
+        with pytest.raises(ValueError, match="needs a MultisliceSpec"):
+            topology.place()
+    # no devices given: every visible CUDA device, whatever the router
+    # names (one card here: a 1-slice count)
+    with monkeypatch.context() as patch:
+        patch.setattr(disagg, "_visible_cuda_devices",
+                      lambda: [torch.device("cuda", 0)])
+        with pytest.raises(ValueError) as err:
+            DisaggTopology("virtual_multislice", ms).place("cpu")
+    assert str(err.value) == "virtual_multislice needs >= 2 devices, have 1"
+    # several processes: slice 1's devices are another process's
+    with monkeypatch.context() as patch:
+        patch.setattr(disagg, "_world_size", lambda: 2)
+        with pytest.raises(ValueError, match="runs 2 processes"):
+            DisaggTopology("virtual_multislice", ms,
+                           devices=(cpu, cpu)).place()
+    assert jax_topology.place()[0] != jax_topology.place()[1]
     with pytest.raises(ValueError, match="two_cell"):
         DisaggTopology("three_cell")
     assert DisaggTopology().place("cpu") == ("cpu", "cpu")
+
+
+def test_virtual_multislice_topology_places_pools_apart(models):
+    """The twin of tests/test_serving.py::TestDisagg::
+    test_virtual_multislice_topology_places_pools_apart over [cpu, cpu]:
+    the KV chains cross the slice boundary, and the streams equal JAX's
+    router's over its 2-slice virtual topology."""
+    from kubeshare_tpu.parallel.distributed import \
+        multislice_spec_from_env as jax_ms
+    from kubeshare_tpu_torch.parallel.distributed import \
+        multislice_spec_from_env
+
+    env = {"MEGASCALE_NUM_SLICES": "2", "MEGASCALE_SLICE_ID": "0"}
+    jax_cfg, jp, _, _ = models["gqa_rope"]
+    rng = np.random.default_rng(51)
+    reqs = [("a", rng.integers(0, 64, 14), 5), ("b", rng.integers(0, 64, 7), 6)]
+    jax_router = _jax_router(jax_cfg, jp, topology=jax_serving.DisaggTopology(
+        "virtual_multislice", jax_ms(env)))
+    want = _jax_streams(jax_router, reqs)
+    assert jax_router.migrator.delivered == 2
+    router = _router(models["gqa_rope"], topology=DisaggTopology(
+        "virtual_multislice", multislice_spec_from_env(env),
+        devices=("cpu", "cpu")))
+    router.warmup()
+    assert _streams(router, reqs) == want
+    assert router.migrator.delivered == 2
+
+
+def test_virtual_multislice_router_naming_its_device_reads_the_visible_ones(
+        models, monkeypatch):
+    """A router that names its device and a topology with no devices:
+    the mesh is built over the visible devices (patched to two CPU
+    devices here), as JAX's over jax.devices(), not over the router's one
+    device, and the streams equal the monolithic engine's."""
+    from kubeshare_tpu_torch.parallel.distributed import MultisliceSpec
+
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(disagg, "_visible_cuda_devices", lambda: [cpu, cpu])
+    rng = np.random.default_rng(52)
+    reqs = [("a", rng.integers(0, 64, 9), 4), ("b", rng.integers(0, 64, 6), 5)]
+    want = _streams(_mono(models["gqa_rope"]), reqs)
+    router = _router(models["gqa_rope"], topology=DisaggTopology(
+        "virtual_multislice", MultisliceSpec(2, 0, 1)))
+    router.warmup()
+    assert _streams(router, reqs) == want
+    assert router.migrator.delivered == 2

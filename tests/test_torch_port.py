@@ -50,10 +50,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "serving.fleet", "serving.sharded", "parallel.mesh",
                      "models.resnet", "data.pipeline", "parallel.checkpoint",
                      "utils.profiling", "ops.ring_attention", "ops.ulysses",
-                     "parallel.pipeline"):
+                     "parallel.pipeline", "parallel.distributed",
+                     "cell.allocator", "cell.topology",
+                     "collector.collector", "cli", "__main__"):
             assert "kubeshare_tpu_torch." + name in names, name
         import chip_smoke, corun_bench, model_bench, train_cifar_torch
-        import train_longcontext_torch
+        import train_distributed_torch, train_longcontext_torch
         assert len(names) >= 20, names
         bad = sorted(m for m in sys.modules if m == "jax"
                      or m.startswith("jax.") or m == "kubeshare_tpu"
