@@ -323,6 +323,39 @@ Phases (any failure raises and the script exits non-zero):
    tokens; the tokens/s ratio and the p50/p95 latencies are reported.
    The pods' prefills launch the flash forward in their own processes,
    out of the counters' sight.
+10. interposer: libcudahook.so.1 (csrc/cuda_hook.cc) LD_PRELOADed into
+   the port's unmodified workloads.  (a) csrc/hook_test/api_check.cc,
+   the in-tree driver prototypes held by static_assert against the
+   toolkit's cuda.h, is built and run.  Two pods, each behind a
+   tpushare-pmgr and a tokend of its own: hook/full (limit 1.0, the
+   default 10 s window) and hook/half (limit and memory cap
+   INTERPOSER_FRACTION, a 1 s window).  Three child
+   processes (``chip_smoke.py --interposer-child ROLE OUT``), none of
+   which imports kubeshare_tpu_torch.isolation: "plain" without the
+   hook, "hooked" under it as hook/full, "limited" under it as hook/half.
+   (b) The train-step flagship's 10 eager and 10 captured steps in plain
+   and hooked: losses and parameters (sha256) equal to the bit, 10 graph
+   launches, and the hook's launches by kernel name of the three flash
+   kernels equal to the port's counters (the proof that no copy of the
+   CUDA runtime bypasses the hook).  (c) The broker's charge for
+   captured steps 2-10 against their CUDA-event ms, within
+   INTERPOSER_CHARGE_RANGE, which the host's dispatch time (the control)
+   falls outside.  (d) A greedy captured loop (the loss read every step)
+   in limited against plain: steps/s within INTERPOSER_SHARE_RANGE,
+   which excludes the ungated loop's 1.0.  (e) In limited: the broker's
+   mem_used at a quiescent point against memory_reserved() (no less),
+   0.6 of the card refused with torch.OutOfMemoryError, mem_used back to
+   its value after del and empty_cache, mem_get_info reporting the cap
+   as total.  (f) The serving engine over engine_trace in plain and
+   hooked (every dispatch shape captured in warm-up under the hook): the
+   streams equal to the bit, 0 captures after warm-up.  (h) The eager
+   and captured steps' CUDA-event medians with and without the hook;
+   the libraries' resolution paths from the hooked child's counters.
+   (g) corun_bench.run_suite with gate="preload" at 3 s windows: every
+   pod must be granted tokens; the ratio and the adversarial flags are
+   reported.  The kernels line's interposer column is the hooked
+   child's launch counters over (b); interposer_hook_launches is the
+   hook's count of the same launches.
 
 The launch counters are zeroed before each path and read after it (the
 captured paths' around their capture: a replay bumps no counter).  The
@@ -357,6 +390,8 @@ import dataclasses
 import itertools
 import json
 import math
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -857,6 +892,26 @@ DDP_DRIFT_UPDATE_RTOL = TRAIN_GRAD_RTOL
 # an H100 80GB HBM3 (81,559 MiB by NVML), the CUDA driver's reserve; a card
 # of another size lies thousands of MiB away
 DISCOVERY_MEMORY_MIB = 1024
+
+# ---- interposer: libcudahook.so.1 under the unmodified workloads ----
+# two pods, each behind its own tokend: hook/full at limit 1.0 (the
+# bit-equality, charge and overhead runs) at tokend's default 10 s
+# window, hook/half at limit and memory cap INTERPOSER_FRACTION (the
+# share and the memory checks) at a 1 s window, so that its share
+# settles within the greedy loop's warm-up.  (At a 1 s window a pod busy
+# for most of a second nears limit 1.0 and waits at the broker.)
+INTERPOSER_HALF_WINDOW_MS = 1000
+INTERPOSER_FRACTION = 0.5
+INTERPOSER_GREEDY_S = 3.0  # the greedy captured loop's measured window
+INTERPOSER_WARMUP_S = 1.5  # its warm-up: the limited pod's share settles
+INTERPOSER_CHILD_TIMEOUT_S = 300
+# (c): the broker's charge for captured steps 2-10 over their CUDA-event
+# ms; the control it must refuse is the host's dispatch time of the same
+# steps (a graph launch returns in microseconds)
+INTERPOSER_CHARGE_RANGE = (0.8, 1.5)
+# (d): the limited pod's greedy steps/s over the ungated loop's; the
+# control it must refuse is the ungated loop itself (1.0)
+INTERPOSER_SHARE_RANGE = (0.35, 0.65)
 
 
 def check(condition: bool, message: str) -> None:
@@ -6093,6 +6148,410 @@ def distributed_phase(torch, device):
     return launches
 
 
+HOOK_KERNEL = re.compile(
+    r"(flash_(?:fwd|bwd_dkv|bwd_dq))_(?:bf16|f32)_kernelILi\d+ELb([01])E")
+
+
+def hook_kernel_counts(kernels):
+    """The hook's launches by kernel name mapped onto read_counts()'s
+    names: <D, false> instantiations are the dense kernels, <D, true> the
+    block-sparse ones (the bf16 and f32 kernels share a counter, as the
+    port's wrappers count them)."""
+    counts = {name: 0 for name in read_counts()}
+    for name, n in kernels.items():
+        match = HOOK_KERNEL.search(name)
+        if match:
+            key = match.group(1) + ("_block_sparse" if match.group(2) == "1"
+                                    else "")
+            counts[key] += n
+    return counts
+
+
+def hook_stats():
+    """The preloaded hook's counters, every charge at the broker first:
+    its own exported C functions, read through ctypes (the interposer
+    phase's children import nothing of kubeshare_tpu_torch.isolation)."""
+    import ctypes
+
+    process = ctypes.CDLL(None)
+    settle, stats = process.cudahook_settle, process.cudahook_stats
+    settle.argtypes, settle.restype = [ctypes.c_double], ctypes.c_int
+    stats.argtypes, stats.restype = [ctypes.c_char_p, ctypes.c_long], ctypes.c_long
+    check(settle(5000.0) == 0, "the hook's charges did not reach the broker")
+    size = stats(None, 0)
+    buf = ctypes.create_string_buffer(size + 1)
+    stats(buf, size + 1)
+    return json.loads(buf.value.decode())
+
+
+def broker_stat():
+    """This pod's line of the broker's STAT, asked through its pmgr."""
+    import os
+    import socket
+
+    with socket.create_connection(
+            ("127.0.0.1", int(os.environ["POD_MANAGER_PORT"])), timeout=30) as s:
+        s.sendall(b"STAT\n")
+        data = b""
+        while not data.endswith(b"\n"):
+            chunk = s.recv(1 << 16)
+            check(bool(chunk), "the broker closed the STAT connection")
+            data += chunk
+    return json.loads(data)["pods"][os.environ["POD_NAME"]]
+
+
+def greedy_rate(torch, train_step, state, batch):
+    """A greedy captured loop (no input wait; the loss read every step):
+    INTERPOSER_WARMUP_S, then steps/s over INTERPOSER_GREEDY_S."""
+    deadline = time.perf_counter() + INTERPOSER_WARMUP_S
+    while time.perf_counter() < deadline:
+        state, loss = train_step(state, *batch)
+        float(loss)
+    start = time.perf_counter()
+    steps = 0
+    while time.perf_counter() - start < INTERPOSER_GREEDY_S:
+        state, loss = train_step(state, *batch)
+        float(loss)
+        steps += 1
+    return steps / (time.perf_counter() - start)
+
+
+def interposer_train(torch, device, hooked):
+    """The train-step flagship, eager then captured, TRAIN_STEPS each
+    from one state and batch (the captured run's step 1 apart from
+    steps 2-10, so that the charge covers replays alone), then the
+    greedy captured loop.  Losses, parameter digests, CUDA-event and
+    enqueue ms, the port's launch counters and, under the hook, its
+    counts and the broker's grants and charged ms for each run."""
+    from kubeshare_tpu_torch.models.transformer import transformer_apply
+    from kubeshare_tpu_torch.parallel.train import make_train_step, tree_leaves
+
+    result = {}
+    for mode, capture in (("eager", False), ("captured", True)):
+        config, params, tokens, targets = train_setup(torch, device)
+        init_state, train_step = make_train_step(
+            lambda p, t: transformer_apply(p, t, config), capture=capture)
+        state = init_state(params)
+        batch = (tokens, targets)
+        torch.cuda.synchronize()
+        before = hook_stats() if hooked else None
+        reset_counts()
+        first = []
+        if capture:  # step 1: warm-up, capture, replay
+            state, first, _, _ = timed_steps(torch, train_step, state, [batch])
+        if hooked:  # step 1's charges at the broker, its lease returned
+            mid = hook_stats()
+            stat0 = broker_stat()
+        state, losses, step_ms, enqueue_ms = timed_steps(
+            torch, train_step, state, [batch] * (TRAIN_STEPS - len(first)))
+        if hooked:  # before the digest, whose copies are device work too
+            after = hook_stats()
+            stat1 = broker_stat()
+        # medians of steps TRAIN_TIMED_FROM.. (step_ms starts at step
+        # len(first) + 1)
+        steady = slice(TRAIN_TIMED_FROM - 1 - len(first), None)
+        run = {"losses": first + losses,
+               "digest": params_digest(torch, tree_leaves(state.params)),
+               "step_ms": step_ms, "enqueue_ms": enqueue_ms,
+               "steady_ms": statistics.median(step_ms[steady]),
+               "steady_enqueue_ms": statistics.median(enqueue_ms[steady]),
+               "launches": read_counts()}
+        if hooked:
+            run["hook"] = {key: after[key] - before[key] for key in (
+                "graph_launches", "eager_launches", "captured_launches",
+                "acquires", "acquire_ms", "charged_ms")}
+            run["hook"]["kernels"] = {
+                name: n - hook_kernel_counts(before["kernels"])[name]
+                for name, n in hook_kernel_counts(after["kernels"]).items()}
+            run["broker"] = {
+                "charged_ms": stat1["charged_total_ms"] - stat0["charged_total_ms"],
+                "grants": stat1["grants"] - stat0["grants"],
+                "hook_charged_ms": after["charged_ms"] - mid["charged_ms"]}
+        result[mode] = run
+        if capture:
+            result["greedy_steps_per_s"] = greedy_rate(torch, train_step,
+                                                       state, batch)
+        del state, train_step, params
+        torch.cuda.empty_cache()
+    return result
+
+
+def interposer_child(torch, role, out_path):
+    """A child process of the interposer phase: the workloads,
+    unmodified.  "plain" runs without the hook, "hooked" under it (pod
+    hook/full): the train-step flagship (interposer_train) and the serving
+    engine over engine_trace.  "limited" (pod hook/half, a memory cap of
+    INTERPOSER_FRACTION) runs the memory checks, then the greedy loop."""
+    import os
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = {"role": role}
+    if role == "limited":
+        anchor = torch.zeros(1, device=device)  # a segment held throughout
+        torch.cuda.synchronize()
+        total = torch.cuda.get_device_properties(0).total_memory
+        base = broker_stat()["mem_used"]
+        held = torch.empty(1 << 30, dtype=torch.uint8, device=device)
+        torch.cuda.synchronize()
+        result["quiescent"] = {"mem_used": broker_stat()["mem_used"],
+                               "reserved": torch.cuda.memory_reserved(device)}
+        try:
+            torch.empty(int(0.6 * total), dtype=torch.uint8, device=device)
+            result["refused"] = None
+        except torch.OutOfMemoryError as e:
+            result["refused"] = str(e).splitlines()[0][:240]
+        del held
+        torch.cuda.empty_cache()
+        check(float(anchor) == 0.0, "the anchor tensor changed")
+        free, reported = torch.cuda.mem_get_info(device)
+        result.update(base=base, after=broker_stat()["mem_used"],
+                      total=total, mem_get_info=[free, reported],
+                      cap=int(float(os.environ["TPUSHARE_MEM_FRACTION"])
+                              * total))
+        from kubeshare_tpu_torch.models.transformer import transformer_apply
+        from kubeshare_tpu_torch.parallel.train import make_train_step
+
+        config, params, tokens, targets = train_setup(torch, device)
+        init_state, train_step = make_train_step(
+            lambda p, t: transformer_apply(p, t, config), capture=True)
+        result["greedy_steps_per_s"] = greedy_rate(
+            torch, train_step, init_state(params), (tokens, targets))
+    else:
+        from kubeshare_tpu_torch.entry import entry, flagship_config
+
+        result["train"] = interposer_train(torch, device, role == "hooked")
+        config = flagship_config()
+        _, (params, _) = entry()
+        streams, stats = engine_pass(torch, device, params, config,
+                                     engine_trace(config))
+        result["engine"] = {"streams": streams,
+                            "new_captures": stats["new_captures"],
+                            "captures": stats["captures"],
+                            "tokens_per_s": stats["tokens_per_s"]}
+    result["isolation_imported"] = sorted(
+        name for name in sys.modules
+        if name.startswith("kubeshare_tpu_torch.isolation"))
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def run_interposer_child(role, out_dir, env):
+    """``chip_smoke.py --interposer-child role`` in ``env``; its result."""
+    import os
+
+    out = os.path.join(out_dir, f"{role}.json")
+    with open(os.path.join(out_dir, f"{role}.err"), "w") as err:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--interposer-child",
+             role, out], env=env, stdout=err, stderr=subprocess.STDOUT,
+            timeout=INTERPOSER_CHILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        with open(os.path.join(out_dir, f"{role}.err")) as f:
+            tail = f.read()[-3000:]
+        check(False, f"interposer child {role} exited {proc.returncode}: "
+                     f"{tail}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def interposer_phase(torch, device, engine_streams):
+    """10. interposer: libcudahook.so.1 LD_PRELOADed under the port's
+    unmodified workloads (see the module docstring).  Returns the launch
+    counters of the hooked child's train runs (the kernels line's
+    interposer column) and the hook's own counts of the same launches."""
+    import os
+    import tempfile
+
+    import corun_bench
+    from kubeshare_tpu_torch.isolation import hook
+
+    # (a) the in-tree prototypes against the toolkit's cuda.h
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    api_check = hook.build(
+        "api_check", (hook.CSRC / "hook_test" / "api_check.cc",),
+        (f"-I{cuda_home}/include",),
+        headers=(hook.CSRC / "cuda_driver_api.h",), label="api_check")
+    proc = subprocess.run([str(api_check)], capture_output=True, text=True,
+                          timeout=60)
+    print(f"interposer (a) {proc.stdout.strip()}")
+    check(proc.returncode == 0, f"api_check failed: {proc.stdout}")
+
+    library = hook.hook_path()
+    tokend_binary = corun_bench.ensure_binary("tpushare-tokend")
+    pmgr_binary = corun_bench.ensure_binary("tpushare-pmgr")
+    total = torch.cuda.get_device_properties(device).total_memory
+    out_dir = tempfile.mkdtemp(prefix="interposer-")
+    procs, pmgrs = [], {}
+    try:
+        for pod, limit, cap, window in (
+                ("hook/full", 1.0, total, None),
+                ("hook/half", INTERPOSER_FRACTION,
+                 int(INTERPOSER_FRACTION * total), INTERPOSER_HALF_WINDOW_MS)):
+            config = pod.replace("/", "-")
+            with open(os.path.join(out_dir, config), "w") as f:
+                f.write(f"1\n{pod} {limit} {limit} {cap}\n")
+            tokend_port = free_port()
+            procs.append(subprocess.Popen(
+                [tokend_binary, "-p", out_dir, "-f", config, "-P",
+                 str(tokend_port)]
+                + (["-w", str(window)] if window else []),
+                stderr=subprocess.DEVNULL))
+            wait_listening(tokend_port)
+            pmgrs[pod] = free_port()
+            procs.append(subprocess.Popen(
+                [pmgr_binary], stderr=subprocess.DEVNULL,
+                env=dict(os.environ, SCHEDULER_IP="127.0.0.1",
+                         SCHEDULER_PORT=str(tokend_port),
+                         POD_MANAGER_IP="127.0.0.1",
+                         POD_MANAGER_PORT=str(pmgrs[pod]), POD_NAME=pod)))
+            wait_listening(pmgrs[pod])
+        bare = {k: v for k, v in os.environ.items()
+                if k not in ("LD_PRELOAD", "POD_MANAGER_PORT", "POD_NAME")
+                and not k.startswith(("TPUSHARE_", "CUDAHOOK_"))}
+        stats_path = os.path.join(out_dir, "hooked_stats.json")
+        plain = run_interposer_child("plain", out_dir, bare)
+        hooked = run_interposer_child("hooked", out_dir, {
+            **bare, **hook.hook_env(pmgrs["hook/full"], "hook/full",
+                                    stats_path=stats_path,
+                                    library=library)})
+        limited = run_interposer_child("limited", out_dir, {
+            **bare, **hook.hook_env(pmgrs["hook/half"], "hook/half",
+                                    mem_fraction=INTERPOSER_FRACTION,
+                                    library=library)})
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    card = card_line()
+    for child in (plain, hooked, limited):
+        check(not child["isolation_imported"],
+              f"the {child['role']} child imported "
+              f"{child['isolation_imported']}")
+
+    # (b) gating changes no arithmetic; the hook sees every launch
+    for mode in ("eager", "captured"):
+        a, b = plain["train"][mode], hooked["train"][mode]
+        seen = b["hook"]["kernels"]
+        print(f"interposer (b) {mode}: losses equal to the bit "
+              f"{a['losses'] == b['losses']} ({' '.join(f'{x:.4f}' for x in b['losses'])}), "
+              f"parameters equal to the bit {a['digest'] == b['digest']}; "
+              f"hook: {b['hook']['graph_launches']} graph launches, "
+              f"{b['hook']['eager_launches']} eager ({b['hook']['captured_launches']} "
+              f"in a capture), {b['hook']['acquires']} grants "
+              f"({b['hook']['acquire_ms']:.3f} ms acquiring); flash launches "
+              f"by name {seen}, the port's counters {b['launches']}; {card}")
+        check(a["losses"] == b["losses"] and a["digest"] == b["digest"],
+              f"the {mode} run under the hook differs from the run without")
+        check(seen == b["launches"] == a["launches"],
+              f"the hook counted {seen}, the port {b['launches']} (without "
+              f"the hook {a['launches']}): a launch bypassed the hook")
+    captured = hooked["train"]["captured"]
+    check(captured["hook"]["graph_launches"] == TRAIN_STEPS,
+          f"{captured['hook']['graph_launches']} graph launches for "
+          f"{TRAIN_STEPS} captured steps")
+
+    # (c) the charge is the device's time, not the dispatch's
+    event_ms = sum(captured["step_ms"])
+    charge = captured["broker"]["charged_ms"] / event_ms
+    control = sum(captured["enqueue_ms"]) / event_ms
+    lo, hi = INTERPOSER_CHARGE_RANGE
+    print(f"interposer (c) charge: the broker charged "
+          f"{captured['broker']['charged_ms']:.3f} ms ({captured['broker']['grants']} "
+          f"grants; the hook released {captured['broker']['hook_charged_ms']:.3f}"
+          f") for {len(captured['step_ms'])} captured steps of "
+          f"{event_ms:.3f} ms by CUDA events = {charge:.4f} (limits {lo}-{hi}); "
+          f"the host's dispatch {sum(captured['enqueue_ms']):.3f} ms = "
+          f"{control:.4f} (the control, refused); {card}")
+    check(lo <= charge <= hi, f"the charge is {charge} of the device time")
+    check(not lo <= control <= hi, "the charge limits admit the dispatch time")
+
+    # (d) the share: a greedy loop at limit 0.5
+    ungated = plain["train"]["greedy_steps_per_s"]
+    share = limited["greedy_steps_per_s"] / ungated
+    lo, hi = INTERPOSER_SHARE_RANGE
+    print(f"interposer (d) share: greedy captured loop {ungated:.2f} steps/s "
+          f"ungated, {hooked['train']['greedy_steps_per_s']:.2f} under the hook "
+          f"at limit 1.0, {limited['greedy_steps_per_s']:.2f} at limit "
+          f"{INTERPOSER_FRACTION} = {share:.4f} of ungated (limits {lo}-{hi}; "
+          f"the control, the ungated loop at 1.0, refused); {card}")
+    check(lo <= share <= hi, f"the limited pod ran at {share} of ungated")
+    check(not lo <= 1.0 <= hi, "the share limits admit the ungated loop")
+
+    # (e) memory, in a pod that never imports the guard
+    free, reported = limited["mem_get_info"]
+    quiescent = limited["quiescent"]
+    print(f"interposer (e) memory: mem_used {quiescent['mem_used']} B at a "
+          f"quiescent point against memory_reserved {quiescent['reserved']} B "
+          f"(difference {quiescent['mem_used'] - quiescent['reserved']} B); "
+          f"0.6 of the card refused: {limited['refused']}; after del and "
+          f"empty_cache mem_used {limited['after']} B, before {limited['base']} B; "
+          f"mem_get_info total {reported} B, free {free} B, the cap "
+          f"{limited['cap']} B; {card}")
+    check(limited["refused"] is not None,
+          "0.6 of the card was allocated under a 0.5 cap")
+    check(quiescent["mem_used"] >= quiescent["reserved"],
+          "memory PyTorch holds is not charged to the pod")
+    check(limited["after"] == limited["base"],
+          "mem_used did not return to its value before the allocation")
+    # the hook's cap is the fraction of cuMemGetInfo's total, the child's
+    # of cudaDeviceProp.totalGlobalMem: the same memory, read two ways
+    check(abs(reported - limited["cap"]) <= 2 << 20,
+          "mem_get_info does not report the cap")
+
+    # (f) capture safety: the engine's warm-up captures under the hook
+    engine = hooked["engine"]
+    print(f"interposer (f) engine: {engine['captures']} captures in warm-up, "
+          f"{engine['new_captures']} after; streams equal to the run without "
+          f"the hook {engine['streams'] == plain['engine']['streams']}, to "
+          f"the engine phase's {engine['streams'] == engine_streams}; "
+          f"{engine['tokens_per_s']:.1f} tokens/s (without "
+          f"{plain['engine']['tokens_per_s']:.1f}); {card}")
+    check(engine["streams"] == plain["engine"]["streams"],
+          "the engine's streams under the hook differ")
+    check(engine["new_captures"] == 0, "the engine captured after warm-up")
+
+    # (h) overhead
+    for mode in ("eager", "captured"):
+        a, b = plain["train"][mode], hooked["train"][mode]
+        print(f"interposer (h) {mode} step, median of steps "
+              f"{TRAIN_TIMED_FROM}-{TRAIN_STEPS}: {b['steady_ms']:.3f} ms "
+              f"under the hook, {a['steady_ms']:.3f} without (CUDA events), "
+              f"{b['steady_ms'] / a['steady_ms']:.4f}; host enqueue "
+              f"{b['steady_enqueue_ms']:.3f} / {a['steady_enqueue_ms']:.3f} "
+              f"ms; {card}")
+
+    stats = hook.read_stats(stats_path)
+    for library_name, paths in sorted(stats["resolution"].items()):
+        print(f"interposer resolution {library_name}: {json.dumps(paths)}")
+
+    # (g) the co-run with the preload gate
+    t0 = time.perf_counter()
+    result = corun_bench.run_suite(corun_bench.ensure_tokend(),
+                                   seconds=CORUN_SECONDS, gate="preload")
+    detail = result["detail"]
+    tokens = detail["tokens"]
+    print(f"interposer (g) corun with the preload gate: ratio "
+          f"{result['value']:.4f} ({CORUN_SECONDS:g} s windows, "
+          f"{time.perf_counter() - t0:.1f} s): solo steps/s "
+          f"{detail['solo_a_steps_per_s']:.2f} + {detail['solo_b_steps_per_s']:.2f}, "
+          f"co-run " + " + ".join(f"{r:.2f}" for r in detail["corun_steps_per_s"])
+          + f"; tokens {json.dumps(tokens)}; adversarial "
+          f"{json.dumps(detail['adversarial'])}; {card}")
+    granted = [tokens["solo_a"], tokens["solo_b"], *tokens["corun"],
+               *tokens["adversarial"]]
+    check(all(n > 0 for n in granted), f"a pod was granted no token: {tokens}")
+    runs = hooked["train"]
+    return ({name: runs["eager"]["launches"][name]
+             + runs["captured"]["launches"][name] for name in read_counts()},
+            {name: runs["eager"]["hook"]["kernels"][name]
+             + runs["captured"]["hook"]["kernels"][name]
+             for name in read_counts()})
+
+
 def discovery_phase(torch, device):
     """Device discovery and the node daemons on the card:
     discover_local_chips against nvidia-smi, the collector served and
@@ -6213,6 +6672,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--ddp-worker"]:
         return ddp_worker(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--interposer-child"]:
+        return interposer_child(torch, sys.argv[2], sys.argv[3])
     from kubeshare_tpu_torch.ops import _build
 
     device = torch.device("cuda", 0)
@@ -6337,6 +6798,10 @@ def main() -> int:
     t0 = time.perf_counter()
     corun_serve_phase()
     print(f"corun serve phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["interposer"], hook_counts = interposer_phase(
+        torch, device, engine_streams)
+    print(f"interposer phase: {time.perf_counter() - t0:.1f} s")
 
     fwd_src = "kubeshare_tpu_torch/csrc/flash_fwd.cu"
     bwd_src = "kubeshare_tpu_torch/csrc/flash_bwd.cu"
@@ -6379,6 +6844,9 @@ def main() -> int:
             "timed_shape": main_timing["shape"],
             "timings": [t[name] for t in kernel_timings]
             + ([diag_timing] if name == "flash_fwd" else []),
+            # the same launches of the interposer column, as the hook
+            # counted them by kernel name
+            "interposer_hook_launches": hook_counts[name],
         })
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(card)

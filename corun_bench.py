@@ -9,6 +9,7 @@ its serve suite (``--suite serve``).
     python3 corun_bench.py                 # batch 512, 10 s windows
     python3 corun_bench.py --seconds 3     # shorter windows
     python3 corun_bench.py --suite serve   # two decode pods
+    python3 corun_bench.py --gate preload  # pods under libcudahook.so.1
 
 Each pod is its own OS process: the port's MNIST, its captured train step
 (``make_train_step(..., capture=True)``: one CUDA graph replay a step) and
@@ -39,6 +40,15 @@ co-run at the solo mean.  Reported: the co-run's aggregate tokens/s over
 the summed solo tokens/s, each pod's tokens/s and p50/p95 request latency
 (queue wait + service).  ``--device cpu`` takes JAX's smoke config (d 64,
 2 layers, batch 2, prompt 8, 8 tokens) and the eager step.
+
+``--gate preload``: the workers build no ``ExecutionGuard``.  Each pod
+gets a ``tpushare-pmgr`` of its own and runs under the CUDA driver
+interposer (``LD_PRELOAD=libcudahook.so.1``, ``isolation.hook``), which
+gates its launches as the scheduler's injection would (a step's or a
+decode token's graph, under 10 ms, and the eager kernels under a lease
+of the broker's quota).  A pod's
+tokens and gated ms are then the hook's grants and charged device ms
+over the window, and its token wait is inside its compute time.
 """
 
 from __future__ import annotations
@@ -94,20 +104,36 @@ def free_port() -> int:
     return port
 
 
-def ensure_tokend() -> str:
-    """The token daemon's binary, built with ``make`` if it is missing
-    (only that target: the port needs no PJRT interposer)."""
+def ensure_binary(name: str = "tpushare-tokend") -> str:
+    """A native runtime binary (the token daemon, or ``tpushare-pmgr``),
+    built with ``make`` if it is missing (only that target: the port
+    needs no PJRT interposer)."""
     from kubeshare_tpu_torch.runtime import find_binary
 
-    binary = find_binary("tpushare-tokend")
+    binary = find_binary(name)
     if binary is None:
         subprocess.run(["make", "-C", os.path.join(REPO, "native"),
-                        "build/tpushare-tokend"],
+                        f"build/{name}"],
                        check=True, capture_output=True, timeout=300)
-        binary = find_binary("tpushare-tokend")
+        binary = find_binary(name)
     if binary is None:
-        raise RuntimeError("cannot build tpushare-tokend")
+        raise RuntimeError(f"cannot build {name}")
     return binary
+
+
+def ensure_tokend() -> str:
+    """The token daemon's binary (see :func:`ensure_binary`)."""
+    return ensure_binary("tpushare-tokend")
+
+
+def hook_counters():
+    """(grants, charged device ms) of the preloaded hook so far, every
+    charge at the broker first."""
+    from kubeshare_tpu_torch.isolation import hook
+
+    hook.settle()
+    stats = hook.live_stats()
+    return stats["acquires"], stats["charged_ms"]
 
 
 # ---------------------------------------------------------------------------
@@ -120,7 +146,6 @@ def worker_main(args: argparse.Namespace) -> None:
     import torch
 
     from kubeshare_tpu_torch import resolve_device
-    from kubeshare_tpu_torch.isolation import ExecutionGuard, TokenClient
     from kubeshare_tpu_torch.models.mnist import mnist_apply, mnist_init
     from kubeshare_tpu_torch.parallel.train import cross_entropy_loss, make_train_step
 
@@ -140,8 +165,7 @@ def worker_main(args: argparse.Namespace) -> None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    client = TokenClient("127.0.0.1", args.tokend_port, args.pod_name)
-    guard = ExecutionGuard(client=client, from_env=False)
+    guard = _worker_guard(args)
 
     params = mnist_init(torch.Generator().manual_seed(0), device=device)
     # the reference's north-star pod is PyTorch MNIST with a DataLoader
@@ -179,8 +203,9 @@ def worker_main(args: argparse.Namespace) -> None:
         # step's start, whatever the sleep's own overshoot
         start = start_index(int(rng.integers(0, DATASET_SIZE - BATCH)))
         deadline = step_start + args.io_wait_ms / 1e3
-        if deadline - time.monotonic() > SPIN_S:
-            time.sleep(deadline - time.monotonic() - SPIN_S)
+        sleep_s = deadline - time.monotonic() - SPIN_S
+        if sleep_s > 0:
+            time.sleep(sleep_s)
         while time.monotonic() < deadline:
             pass
         return start
@@ -220,11 +245,13 @@ def worker_main(args: argparse.Namespace) -> None:
         t0 = time.monotonic()
         batch_start = next_batch(t0)  # input pipeline: ungated (card idle)
         t1 = time.monotonic()
-        guard.acquire()
+        if guard is not None:
+            guard.acquire()
         start = time.monotonic()
         state = run_step(state, batch_start)
         end = time.monotonic()
-        guard.charge((end - start) * 1e3)
+        if guard is not None:
+            guard.charge((end - start) * 1e3)
         breakdown["io_ms"] += (t1 - t0) * 1e3
         breakdown["wait_ms"] += (start - t1) * 1e3
         breakdown["compute_ms"] += (end - start) * 1e3
@@ -236,11 +263,10 @@ def worker_main(args: argparse.Namespace) -> None:
         warmup_deadline = time.monotonic() + args.warmup_s
         while time.monotonic() < warmup_deadline:
             state = gated_step(state)
-        guard.total_gated_ms = 0.0
-        guard.tokens_acquired = 0
         for key in breakdown:
             breakdown[key] = 0.0
 
+    gate = _GateWindow(guard)
     window_start = time.monotonic()
     deadline = window_start + args.seconds
     last_done = window_start
@@ -252,12 +278,11 @@ def worker_main(args: argparse.Namespace) -> None:
     # completed steps over the time that produced exactly those steps: the
     # step in progress at the deadline neither counts nor adds time
     elapsed = last_done - window_start
-    guard.finish()
-    client.close()
+    tokens, gated_ms = gate.close()
     print(json.dumps({"steps": steps,
                       "rate_steps_per_s": steps / elapsed if steps else 0.0,
-                      "gated_ms": guard.total_gated_ms,
-                      "tokens": guard.tokens_acquired,
+                      "gated_ms": gated_ms,
+                      "tokens": tokens,
                       "step_ms": step_ms,
                       "breakdown_ms": breakdown,
                       "io_wait_ms": args.io_wait_ms}), flush=True)
@@ -274,7 +299,6 @@ def worker_decode_main(args: argparse.Namespace) -> None:
     import torch
 
     from kubeshare_tpu_torch import resolve_device
-    from kubeshare_tpu_torch.isolation import ExecutionGuard, TokenClient
     from kubeshare_tpu_torch.models.decoding import (init_kv_cache,
                                                      make_decode_step, prefill)
     from kubeshare_tpu_torch.models.transformer import (TransformerConfig,
@@ -291,8 +315,7 @@ def worker_decode_main(args: argparse.Namespace) -> None:
         kind = "cpu"
     print(f"PHASE device-ready {device.type} {kind}", flush=True)
 
-    client = TokenClient("127.0.0.1", args.tokend_port, args.pod_name)
-    guard = ExecutionGuard(client=client, from_env=False)
+    guard = _worker_guard(args)
 
     config = TransformerConfig(**(SERVE_CONFIG if cuda
                                   else SERVE_SMOKE_CONFIG))
@@ -345,14 +368,16 @@ def worker_decode_main(args: argparse.Namespace) -> None:
     def gated_request(i: int) -> None:
         time.sleep(args.io_wait_ms / 1e3)  # the inter-arrival gap
         arrival = time.monotonic()
-        guard.acquire()
+        if guard is not None:
+            guard.acquire()
         start = time.monotonic()
         serve(i)
         end = time.monotonic()
-        guard.charge((end - start) * 1e3)
-        # the request is the gating granularity: hand the card back
-        # between requests rather than hold a token through the gap
-        guard.finish()
+        if guard is not None:
+            guard.charge((end - start) * 1e3)
+            # the request is the gating granularity: hand the card back
+            # between requests rather than hold a token through the gap
+            guard.finish()
         latencies.append((end - arrival) * 1e3)
 
     if args.warmup_s > 0:
@@ -361,10 +386,9 @@ def worker_decode_main(args: argparse.Namespace) -> None:
         while time.monotonic() < warmup_deadline:
             gated_request(i)
             i += 1
-        guard.total_gated_ms = 0.0
-        guard.tokens_acquired = 0
         latencies.clear()
 
+    gate = _GateWindow(guard)
     window_start = time.monotonic()
     deadline = window_start + args.seconds
     last_done = window_start
@@ -374,20 +398,54 @@ def worker_decode_main(args: argparse.Namespace) -> None:
         last_done = time.monotonic()
         requests += 1
     elapsed = last_done - window_start
-    client.close()
+    tokens, gated_ms = gate.close()
     lat = np.asarray(latencies) if latencies else np.asarray([0.0])
     print(json.dumps({
         "steps": requests,
         "rate_steps_per_s": requests / elapsed if requests else 0.0,
         "new_tokens_per_request": new_tokens * batch,
-        "gated_ms": guard.total_gated_ms,
-        "tokens": guard.tokens_acquired,
+        "gated_ms": gated_ms,
+        "tokens": tokens,
         "step_ms": step_ms,
         "io_wait_ms": args.io_wait_ms,
         "lat_p50_ms": float(np.percentile(lat, 50)),
         "lat_p95_ms": float(np.percentile(lat, 95)),
         "lat_mean_ms": float(lat.mean()),
     }), flush=True)
+
+
+def _worker_guard(args: argparse.Namespace):
+    """The in-process ExecutionGuard of ``--gate guard``; None under
+    ``--gate preload``, where the hook gates the unmodified steps."""
+    if getattr(args, "gate", "guard") == "preload":
+        return None
+    from kubeshare_tpu_torch.isolation import ExecutionGuard, TokenClient
+
+    client = TokenClient("127.0.0.1", args.tokend_port, args.pod_name)
+    return ExecutionGuard(client=client, from_env=False)
+
+
+class _GateWindow:
+    """A pod's grants and gated ms over its measured window: the guard's
+    counters, or the preloaded hook's (read at the window's two ends)."""
+
+    def __init__(self, guard):
+        self.guard = guard
+        if guard is None:
+            self.start = hook_counters()
+        else:
+            guard.total_gated_ms = 0.0
+            guard.tokens_acquired = 0
+
+    def close(self):
+        """(grants, gated ms) since the window began; the gate hands its
+        token back."""
+        if self.guard is None:
+            grants, charged_ms = hook_counters()
+            return grants - self.start[0], charged_ms - self.start[1]
+        self.guard.finish()
+        self.guard.client.close()
+        return self.guard.tokens_acquired, self.guard.total_gated_ms
 
 
 # ---------------------------------------------------------------------------
@@ -426,12 +484,13 @@ class Phase:
 
     ``pods`` entries are names (limit 1.0, request 0.5, the phase's
     io_wait / calibrate) or dicts overriding ``limit`` / ``request`` /
-    ``io_wait_ms`` / ``calibrate_io`` per pod."""
+    ``io_wait_ms`` / ``calibrate_io`` per pod.  ``gate="preload"`` runs
+    each pod under libcudahook.so.1 behind a tpushare-pmgr of its own."""
 
     def __init__(self, pods, tokend_binary, seconds, io_wait_ms,
                  device=None, calibrate_io=False,
                  window_ms=10000.0, base_quota_ms=300.0, min_quota_ms=20.0,
-                 warmup_s=0.0, extra_rows=(), suite="train"):
+                 warmup_s=0.0, extra_rows=(), suite="train", gate="guard"):
         self.pods = [p if isinstance(p, dict) else {"name": p} for p in pods]
         self.tokend_binary = tokend_binary
         self.seconds = seconds
@@ -444,6 +503,7 @@ class Phase:
         self.warmup_s = warmup_s
         self.extra_rows = list(extra_rows)  # absent pods with reservations
         self.suite = suite  # the workers' workload: "train" or "serve"
+        self.gate = gate  # "guard" (in-process) or "preload" (the hook)
         self.phase_timings = None
         self.device_kind = None
 
@@ -495,9 +555,13 @@ class Phase:
                "-w", str(self.window_ms)]
         tokend = subprocess.Popen(cmd, stderr=subprocess.DEVNULL)
         barrier = os.path.join(workdir, "barrier")
-        procs, logs = [], []
+        procs, logs, brokers = [], [], []
         try:
             _wait_listening(port)
+            envs = [None] * len(self.pods)
+            if self.gate == "preload":
+                envs = [self._preload_env(pod["name"], port, brokers)
+                        for pod in self.pods]
             spawn_time = time.monotonic()
             for i, pod in enumerate(self.pods):
                 cmd = [
@@ -506,7 +570,7 @@ class Phase:
                     "--seconds", str(self.seconds), "--barrier", barrier,
                     "--io-wait-ms", str(pod.get("io_wait_ms", self.io_wait_ms)),
                     "--warmup-s", str(self.warmup_s),
-                    "--suite", self.suite,
+                    "--suite", self.suite, "--gate", self.gate,
                 ]
                 if self.device is not None:
                     cmd += ["--device", self.device]
@@ -516,7 +580,7 @@ class Phase:
                 with open(logs[-1], "w") as err:
                     procs.append(subprocess.Popen(
                         cmd, stdout=subprocess.PIPE, stderr=err, text=True,
-                        cwd=REPO))
+                        cwd=REPO, env=envs[i]))
             readers = [_LineReader(proc) for proc in procs]
             self.phase_timings = self._await_ready(readers, logs, spawn_time)
             self.device_kind = next(
@@ -543,12 +607,29 @@ class Phase:
                 results.append(json.loads(payload[-1]))
             return results
         finally:
-            for proc in procs:
+            for proc in procs + brokers:
                 if proc.poll() is None:
                     proc.kill()
                 proc.wait()
             tokend.kill()
             tokend.wait()
+
+    @staticmethod
+    def _preload_env(pod: str, tokend_port: int, brokers: list) -> dict:
+        """A pmgr for ``pod`` (appended to ``brokers``) and the worker's
+        environment with the hook preloaded behind it."""
+        from kubeshare_tpu_torch.isolation import hook
+
+        pmgr_port = free_port()
+        brokers.append(subprocess.Popen(
+            [ensure_binary("tpushare-pmgr")],
+            env=dict(os.environ, SCHEDULER_IP="127.0.0.1",
+                     SCHEDULER_PORT=str(tokend_port),
+                     POD_MANAGER_IP="127.0.0.1",
+                     POD_MANAGER_PORT=str(pmgr_port), POD_NAME=pod),
+            stderr=subprocess.DEVNULL))
+        _wait_listening(pmgr_port)
+        return dict(os.environ, **hook.hook_env(pmgr_port, pod))
 
 
 def _wait_listening(port: int, timeout_s: float = 10.0) -> None:
@@ -604,10 +685,13 @@ def adversarial_summary(adv: list, victim_solo_rate: float,
     }
 
 
-def run_suite(tokend_binary: str, seconds: float = 10.0, device=None) -> dict:
+def run_suite(tokend_binary: str, seconds: float = 10.0, device=None,
+              gate: str = "guard") -> dict:
     """Solo A, solo B, the co-run and the adversarial phase; returns
-    ``{"value": ratio, "detail": {...}}``.  A phase that fails raises."""
-    common = dict(tokend_binary=tokend_binary, seconds=seconds, device=device)
+    ``{"value": ratio, "detail": {...}}``.  A phase that fails raises.
+    ``gate``: each pod's in-process guard, or the preloaded hook."""
+    common = dict(tokend_binary=tokend_binary, seconds=seconds, device=device,
+                  gate=gate)
     # solo phases calibrate their wait to their own step and keep the
     # sibling's reservation in the config (request floors are relative to
     # the full two-pod placement)
@@ -637,6 +721,7 @@ def run_suite(tokend_binary: str, seconds: float = 10.0, device=None) -> dict:
         "value": corun_ratio(solo_a, solo_b, corun),
         "detail": {
             "device": corun_phase.device_kind,
+            "gate": gate,
             "batch": BATCH,
             "window_s": seconds,
             "solo_a_steps_per_s": solo_rate_a,
@@ -662,13 +747,13 @@ def run_suite(tokend_binary: str, seconds: float = 10.0, device=None) -> dict:
 
 
 def run_serve_suite(tokend_binary: str, seconds: float = 10.0,
-                    device=None) -> dict:
+                    device=None, gate: str = "guard") -> dict:
     """Solo A, solo B and the co-run of two decode pods; returns
     ``{"value": ratio, "detail": {...}}``, the ratio the co-run's
     aggregate tokens/s over the summed solo tokens/s.  A phase that fails
     raises."""
     common = dict(tokend_binary=tokend_binary, seconds=seconds,
-                  device=device, suite="serve")
+                  device=device, suite="serve", gate=gate)
     solo_kw = dict(common, io_wait_ms=0.0, calibrate_io=True)
     solo_a = Phase(["bench/pod-a"], extra_rows=["bench/pod-b 1.0 0.5 0"],
                    **solo_kw).run()[0]
@@ -725,6 +810,10 @@ def main() -> int:
                              "default is the CUDA card")
     parser.add_argument("--suite", default="train", choices=tuple(METRICS),
                         help="train: MNIST trainer pods; serve: decode pods")
+    parser.add_argument("--gate", default="guard",
+                        choices=("guard", "preload"),
+                        help="guard: each pod's in-process ExecutionGuard; "
+                             "preload: each pod under libcudahook.so.1")
     # worker-mode flags
     parser.add_argument("--worker", action="store_true")
     parser.add_argument("--pod-name", default="")
@@ -741,7 +830,8 @@ def main() -> int:
 
     card = card_line() if args.device is None else "cpu"
     suite = run_suite if args.suite == "train" else run_serve_suite
-    result = suite(ensure_tokend(), seconds=args.seconds, device=args.device)
+    result = suite(ensure_tokend(), seconds=args.seconds, device=args.device,
+                   gate=args.gate)
     print(card)
     print(json.dumps({
         "metric": METRICS[args.suite],
@@ -749,6 +839,7 @@ def main() -> int:
         "unit": "ratio",
         "vs_baseline": result["value"] / TARGET,
         "platform": "gpu" if args.device is None else "cpu",
+        "gate": args.gate,
         "detail": result["detail"],
     }))
     return 0

@@ -10,6 +10,7 @@ of the JAX package).
 ENV_PROCESS_BOUNDS = "TPU_PROCESS_BOUNDS"
 ENV_POD_MANAGER_PORT = "POD_MANAGER_PORT"
 ENV_POD_NAME = "POD_NAME"
+ENV_SHIM_PRELOAD = "LD_PRELOAD"
 ENV_MEM_FRACTION = "TPUSHARE_MEM_FRACTION"  # HBM cap as fraction of device memory
 
 # multi-slice bootstrap env for gangs whose cells span interconnect
@@ -20,6 +21,9 @@ ENV_MEGASCALE_SLICE_ID = "MEGASCALE_SLICE_ID"
 # ---- filesystem layout on the node (hostPath bus) ----
 ROOT_DIR = "/kubeshare"
 LIBRARY_PATH = ROOT_DIR + "/library"
+# the CUDA driver interposer (csrc/cuda_hook.cc) the scheduler would inject
+# into a PyTorch pod, where it injects libtpushim.so.1 into a JAX pod
+SHIM_LIBRARY = LIBRARY_PATH + "/libcudahook.so.1"
 SCHEDULER_DIR = ROOT_DIR + "/scheduler"
 CHIP_CONFIG_DIR = SCHEDULER_DIR + "/config/"
 POD_MANAGER_PORT_DIR = SCHEDULER_DIR + "/podmanagerport/"

@@ -339,3 +339,25 @@ def test_chip_smoke_holds_the_f32_kernels_at_the_f32_paths_shapes():
     masks = [shape for _, shape, _, dtype, *_ in
              chip_smoke.block_sparse_cases(torch) if dtype == torch.float32]
     assert any(shape[3] == 128 for shape in masks)
+
+
+def test_chip_smoke_maps_the_hooks_kernel_names_onto_the_counters():
+    """The interposer phase holds the hook's launches by kernel name to
+    the port's counters: the mangled names the card reported for the
+    dense bf16 instantiations, a masked (<D, true>) and an f32 one map
+    onto read_counts()'s names, anything else onto none."""
+    chip_smoke = _chip_smoke()
+    prefix = "_ZN45_GLOBAL__N__202562cc_12_flash_bwd_cu_9b88a19e"
+    kernels = {
+        "_ZN45_GLOBAL__N__bbb420da_12_flash_fwd_cu_5326155221flash_fwd_bf16"
+        "_kernelILi128ELb0EEEv14CUtensorMap_stS1_S1_S1_PfiiiiifNS_9BlockMaskE": 8,
+        prefix + "25flash_bwd_dkv_bf16_kernelILi128ELb0EEEv14CUtensorMap_st": 8,
+        prefix + "24flash_bwd_dq_bf16_kernelILi128ELb0EEEv14CUtensorMap_st": 8,
+        prefix + "24flash_bwd_dq_bf16_kernelILi64ELb1EEEv14CUtensorMap_st": 2,
+        prefix + "24flash_bwd_dq_f32_kernelILi64ELb0EEEvPKfS2_": 3,
+        "_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_": 500,
+    }
+    assert chip_smoke.hook_kernel_counts(kernels) == {
+        "flash_fwd": 8, "flash_bwd_dkv": 8, "flash_bwd_dq": 11,
+        "flash_fwd_block_sparse": 0, "flash_bwd_dkv_block_sparse": 0,
+        "flash_bwd_dq_block_sparse": 2}

@@ -162,6 +162,34 @@ def test_phase_runs_a_worker_process(tokend_binary):
     assert list(phase.phase_timings[0]) == corun_bench.PHASE_ORDER
 
 
+def test_preload_phase_runs_its_worker_under_the_hook(tokend_binary):
+    # --gate preload: the worker builds no guard; it runs under
+    # libcudahook.so.1 behind a pmgr of its own, and reports the hook's
+    # grants and charged ms over its window (none on the CPU, which
+    # launches nothing on a card)
+    phase = corun_bench.Phase(
+        ["bench/pod-a"], tokend_binary, seconds=0.3, io_wait_ms=1.0,
+        device="cpu", gate="preload", extra_rows=["bench/pod-b 1.0 0.5 0"])
+    (result,) = phase.run()
+    assert set(result) == RESULT_FIELDS
+    assert result["steps"] > 0
+    assert result["tokens"] == 0 and result["gated_ms"] == 0.0
+
+
+def test_shim_drive_torch_needs_a_card():
+    # the driver of an unmodified pod under libcudahook.so.1 has no CPU
+    # fallback: without a card it raises before starting anything
+    import os
+    import subprocess
+
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "shim_drive_torch.py")],
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "finds none" in proc.stderr
+
+
 def test_worker_without_a_card_fails_its_phase(tokend_binary, monkeypatch):
     # the default device is the card: a worker that finds none exits at
     # device-ready, and the phase fails (no CPU fallback)

@@ -3,7 +3,8 @@ against their eager forms, the f32 flash kernels (3xTF32 on the tensor
 cores) against their plain versions, the full-width ResNet against the
 CPU, a checkpoint restored into a captured train step, prefetch's
 stream ordering, two gloo ranks of train_distributed_torch.py on one
-card, and device discovery against nvidia-smi, on the card.  Every test
+card, device discovery against nvidia-smi, and a captured step under
+the CUDA driver interposer (libcudahook.so.1), on the card.  Every test
 here skips without a CUDA device.
 
 The file imports neither JAX nor the JAX package, so it also runs where
@@ -1052,3 +1053,90 @@ def test_discovery_agrees_with_nvidia_smi(card):
         assert (chip.uuid, chip.model, chip.index, chip.coords) == (
             uuid, name.replace(" ", "-"), index, None)
         assert abs(chip.memory / 2**20 - float(mib)) <= 1024
+
+
+HOOK_CHILD = """
+import json, sys, torch
+sys.path.insert(0, %r)
+from kubeshare_tpu_torch.isolation import hook
+from kubeshare_tpu_torch.models.transformer import (TransformerConfig,
+                                                    transformer_apply,
+                                                    transformer_init)
+from kubeshare_tpu_torch.ops import attention as A
+from kubeshare_tpu_torch.parallel.train import make_train_step
+
+device = torch.device("cuda", 0)
+config = TransformerConfig(vocab_size=256, d_model=256, n_heads=4, n_layers=2,
+                           d_ff=512, max_seq_len=128, positional="rope",
+                           dtype=torch.bfloat16, attention="flash")
+params = transformer_init(config, torch.Generator().manual_seed(0), device)
+gen = torch.Generator().manual_seed(1)
+tokens, targets = (torch.randint(0, 256, (2, 128), generator=gen).to(device)
+                   for _ in range(2))
+init_state, step = make_train_step(
+    lambda p, t: transformer_apply(p, t, config), capture=True)
+state = init_state(params)
+for _ in range(5):
+    state, loss = step(state, tokens, targets)
+float(loss)
+hook.settle()
+print(json.dumps({"stats": hook.live_stats(),
+                  "port": [A.flash_forward.launches,
+                           A.flash_backward.launches_dkv,
+                           A.flash_backward.launches_dq]}))
+"""
+
+
+def test_a_captured_step_under_the_hook(card, tmp_path):
+    """Five captured steps of a small flash-attention transformer in a
+    child under libcudahook.so.1, behind a real tpushare-pmgr and
+    tpushare-tokend: each replay is a graph launch the broker granted,
+    and the hook counted each flash kernel by name as often as the
+    port's wrappers launched it (warm-up passes and the capture)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(repo))
+    import corun_bench
+    from kubeshare_tpu_torch.isolation import TokenClient, hook
+
+    (tmp_path / "card").write_text("1\nhook/pod 1.0 1.0 0\n")
+    tokend_port, pmgr_port = corun_bench.free_port(), corun_bench.free_port()
+    procs = [subprocess.Popen(
+        [corun_bench.ensure_binary("tpushare-tokend"), "-p", str(tmp_path),
+         "-f", "card", "-P", str(tokend_port)], stderr=subprocess.DEVNULL)]
+    try:
+        corun_bench._wait_listening(tokend_port)
+        procs.append(subprocess.Popen(
+            [corun_bench.ensure_binary("tpushare-pmgr")],
+            stderr=subprocess.DEVNULL,
+            env=dict(os.environ, SCHEDULER_IP="127.0.0.1",
+                     SCHEDULER_PORT=str(tokend_port),
+                     POD_MANAGER_IP="127.0.0.1",
+                     POD_MANAGER_PORT=str(pmgr_port), POD_NAME="hook/pod")))
+        corun_bench._wait_listening(pmgr_port)
+        child = subprocess.run(
+            [sys.executable, "-c", HOOK_CHILD % str(repo)],
+            env=dict(os.environ, **hook.hook_env(pmgr_port, "hook/pod")),
+            capture_output=True, text=True, timeout=300)
+        assert child.returncode == 0, child.stderr[-3000:]
+        client = TokenClient("127.0.0.1", tokend_port, "observer")
+        pod = json.loads(client.stat())["pods"]["hook/pod"]
+        client.close()
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    result = json.loads(child.stdout.strip().splitlines()[-1])
+    stats = result["stats"]
+    assert stats["gated"] and stats["graph_launches"] == 5
+    assert pod["grants"] == stats["acquires"] >= 1
+    assert pod["charged_total_ms"] > 0
+    by_kernel = [sum(n for name, n in stats["kernels"].items()
+                     if f"{kernel}_bf16_kernel" in name)
+                 for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")]
+    assert by_kernel == result["port"] and min(by_kernel) > 0
