@@ -313,6 +313,30 @@ Phases (any failure raises and the script exits non-zero):
    UUID over the tree's tpushare-tokend and tpushare-pmgr, one pod in
    its port file, one MNIST step gated by TokenClient + ExecutionGuard
    through the pod manager: tokend must charge the pod more than 0 ms.
+   placement: the port's control plane places pods on the card and runs
+   them.  The topology is built from discover_local_chips() (one node,
+   one cell of the card's model) with TopologyConfig.from_dict; the
+   port's KubeShareScheduler and SchedulerEngine over a FakeCluster bind
+   pod A (request 0.5, limit 1.0) and pod B (0.5, 0.5), each with gpu_mem
+   PLACEMENT_MEM_FRACTION of the card, to the card's UUID at two ports of
+   the 50050 pool, and refuse pod C (0.5): the card is full.  The port's
+   ConfigDaemon writes config/<UUID> and podmanagerport/<UUID>, and a
+   ChipSupervisor over them runs the tree's tpushare-tokend and one
+   tpushare-pmgr per pod at the scheduler's ports (a port of the pool
+   taken on the host fails the phase).  A and B then run at once as
+   child processes (chip_smoke.py --interposer-child pod OUT) whose env
+   is the container env the scheduler injected, with a node's two
+   substitutions: LD_PRELOAD's /kubeshare/library path becomes the built
+   hook's, and NVIDIA_VISIBLE_DEVICES becomes CUDA_VISIBLE_DEVICES.  Each
+   sees one device of the injected UUID, mem_get_info's total within
+   PLACEMENT_CAP_TOLERANCE of the card of its gpu_mem, 0.3 of the card
+   allocates and 0.6 raises torch.OutOfMemoryError, and it runs
+   PLACEMENT_SECONDS of captured MNIST steps; "running ungated" in its
+   stderr fails the phase.  Tokend's stat must show each pod under the
+   scheduler's pod key with a grant and a charge.  Deleting B reclaims
+   its cell and port: the files fall to one pod, the supervisor reaps
+   B's pod manager, C binds on the next cycle and its pod manager runs
+   at C's port.
 9. corun: corun_bench.py's four phases (solo A, solo B, the co-run of
    two MNIST pods under tpushare-tokend, the adversarial pair) at 3 s
    windows; every phase must produce a result and every pod must be
@@ -892,6 +916,18 @@ DDP_DRIFT_UPDATE_RTOL = TRAIN_GRAD_RTOL
 # an H100 80GB HBM3 (81,559 MiB by NVML), the CUDA driver's reserve; a card
 # of another size lies thousands of MiB away
 DISCOVERY_MEMORY_MIB = 1024
+
+# ---- placement: the port's control plane placing pods on the card ----
+PLACEMENT_NODE = "card-node"
+PLACEMENT_MEM_FRACTION = 0.4  # each pod's gpu_mem, of the card
+PLACEMENT_FITS = 0.3  # of the card: allocates under the 0.4 cap
+PLACEMENT_REFUSED = 0.6  # of the card: the hook refuses it
+PLACEMENT_SECONDS = 4.0  # captured MNIST steps in each pod, at once
+PLACEMENT_CHILD_TIMEOUT_S = 180
+# mem_get_info's total against the pod's gpu_mem, over the card's memory:
+# the hook caps at TPUSHARE_MEM_FRACTION, printed to 4 decimals, of
+# cuMemGetInfo's total, so the cap may be off by about 4 MiB of 80 GB
+PLACEMENT_CAP_TOLERANCE = 5e-5
 
 # ---- interposer: libcudahook.so.1 under the unmodified workloads ----
 # two pods, each behind its own tokend: hook/full at limit 1.0 (the
@@ -6289,7 +6325,9 @@ def interposer_child(torch, role, out_path):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     result = {"role": role}
-    if role == "limited":
+    if role == "pod":
+        result.update(placement_pod(torch, device))
+    elif role == "limited":
         anchor = torch.zeros(1, device=device)  # a segment held throughout
         torch.cuda.synchronize()
         total = torch.cuda.get_device_properties(0).total_memory
@@ -6552,6 +6590,295 @@ def interposer_phase(torch, device, engine_streams):
              for name in read_counts()})
 
 
+def placement_pod(torch, device):
+    """A pod of the placement phase, in its own process under the env the
+    scheduler injected: the device it sees, the memory cap, then
+    PLACEMENT_SECONDS of captured MNIST steps, the hook's counters and
+    its line of the broker's STAT."""
+    import math
+    import os
+
+    from kubeshare_tpu_torch.models.mnist import mnist_apply, mnist_init
+    from kubeshare_tpu_torch.parallel.train import make_train_step
+
+    props = torch.cuda.get_device_properties(device)
+    total = props.total_memory
+    free, reported = torch.cuda.mem_get_info(device)
+    result = {"device_count": torch.cuda.device_count(),
+              "uuid": f"GPU-{props.uuid}", "total": total,
+              "mem_get_info": [free, reported],
+              "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+    held = torch.empty(int(PLACEMENT_FITS * total), dtype=torch.uint8,
+                       device=device)
+    torch.cuda.synchronize()
+    result["fits"] = held.numel()
+    del held
+    torch.cuda.empty_cache()
+    try:
+        torch.empty(int(PLACEMENT_REFUSED * total), dtype=torch.uint8,
+                    device=device)
+        result["refused"] = None
+    except torch.OutOfMemoryError as e:
+        result["refused"] = str(e).splitlines()[0][:240]
+    torch.cuda.empty_cache()
+
+    init_state, train_step = make_train_step(mnist_apply, capture=True)
+    state = init_state(mnist_init(torch.Generator().manual_seed(0),
+                                  device=device))
+    gen = torch.Generator().manual_seed(3)
+    images = torch.rand((MNIST_BATCH, 28, 28, 1), generator=gen).to(device)
+    labels = torch.randint(0, 10, (MNIST_BATCH,), generator=gen).to(device)
+    losses = []
+    deadline = time.perf_counter() + PLACEMENT_SECONDS
+    while time.perf_counter() < deadline:
+        state, loss = train_step(state, images, labels)
+        losses.append(float(loss))
+    check(all(math.isfinite(x) for x in losses), f"MNIST losses {losses}")
+    result["steps"] = len(losses)
+    result["losses"] = [losses[0], losses[-1]]
+    stats = hook_stats()
+    result["hook"] = {key: stats[key] for key in (
+        "gated", "acquires", "leases", "graph_launches", "captured_launches",
+        "graph_launches_in_lease", "charged_ms", "mem_fraction", "denials")}
+    result["broker"] = broker_stat()
+    return result
+
+
+def placement_phase(torch, device):
+    """The port's control plane on the card: pod labels -> the port's
+    scheduler -> the port's configd files -> ChipSupervisor -> pod
+    processes under libcudahook.so.1 (see the module docstring)."""
+    import os
+    import socket
+    import tempfile
+
+    import corun_bench
+    from kubeshare_tpu_torch import constants
+    from kubeshare_tpu_torch.cell import TopologyConfig, discover_local_chips
+    from kubeshare_tpu_torch.cell.spec import check_physical_cells
+    from kubeshare_tpu_torch.cluster.api import FakeClock, Node, Pod, PodPhase
+    from kubeshare_tpu_torch.cluster.fake import FakeCluster
+    from kubeshare_tpu_torch.configd import ConfigDaemon
+    from kubeshare_tpu_torch.isolation import TokenClient, hook
+    from kubeshare_tpu_torch.runtime import ChipSupervisor
+    from kubeshare_tpu_torch.scheduler import KubeShareScheduler, SchedulerEngine
+
+    started = time.perf_counter()
+    card = card_line()
+    [chip] = discover_local_chips()
+    topology = TopologyConfig.from_dict({
+        "cellTypes": {"1-GPU-NODE": {
+            "childCellType": chip.model, "childCellNumber": 1,
+            "childCellPriority": 100, "isNodeLevel": True}},
+        "cells": [{"cellType": "1-GPU-NODE", "cellId": PLACEMENT_NODE}]})
+    check_physical_cells(topology)
+    cluster = FakeCluster()
+    cluster.add_node(Node(PLACEMENT_NODE,
+                          {constants.NODE_LABEL_FILTER: "true"}))
+    clock = FakeClock(0.0)
+    plugin = KubeShareScheduler(
+        topology, cluster, lambda node: [chip] if node == PLACEMENT_NODE else [],
+        clock=clock)
+    engine = SchedulerEngine(plugin, cluster, clock)
+    gpu_mem = int(PLACEMENT_MEM_FRACTION * chip.memory)
+
+    def submit(name, request, limit):
+        cluster.create_pod(Pod(
+            name=name, scheduler_name=constants.SCHEDULER_NAME,
+            labels={constants.POD_GPU_REQUEST: request,
+                    constants.POD_GPU_LIMIT: limit,
+                    constants.POD_GPU_MEMORY: str(gpu_mem)}))
+
+    submit("pod-a", "0.5", "1.0")
+    submit("pod-b", "0.5", "0.5")
+    results = {r.pod_key: r.result for r in engine.run_until_idle()}
+    check(results == {"default/pod-a": "bound", "default/pod-b": "bound"},
+          f"placement cycles {results}")
+    submit("pod-c", "0.5", "0.5")
+    refused = engine.run_until_idle()
+    check(refused and all(r.result == "unschedulable" for r in refused),
+          f"pod C on a full card: {refused}")
+    pods = {name: cluster.get_pod("default", name) for name in ("pod-a", "pod-b")}
+    ports = {}
+    for name, pod in pods.items():
+        annotations = pod.annotations
+        ports[name] = int(annotations[constants.POD_MANAGER_PORT])
+        print(f"placement {name}: node {pod.node_name}, annotations "
+              f"{json.dumps(annotations, sort_keys=True)}")
+        check(pod.node_name == PLACEMENT_NODE
+              and annotations[constants.POD_GPU_UUID] == chip.uuid,
+              f"{name} bound to {annotations}")
+        check(constants.POD_MANAGER_PORT_START < ports[name]
+              < constants.POD_MANAGER_PORT_START + constants.POD_MANAGER_PORT_POOL,
+              f"{name}'s manager port {ports[name]} is outside the pool")
+        env = pod.containers[0].env
+        shown = {k: (v if k in (constants.ENV_VISIBLE_DEVICES,
+                                constants.ENV_MEM_BYTES,
+                                constants.ENV_MEM_FRACTION) else "...")
+                 for k, v in sorted(env.items())}
+        print(f"placement {name} env: {json.dumps(shown)}")
+        check(env[constants.ENV_VISIBLE_DEVICES] == chip.uuid
+              and env[constants.ENV_SHIM_PRELOAD] == constants.SHIM_LIBRARY
+              and env[constants.ENV_POD_NAME] == pod.key,
+              f"{name}'s env {env}")
+        cluster.set_pod_phase("default", name, PodPhase.RUNNING)
+    check(ports["pod-a"] != ports["pod-b"], f"one manager port: {ports}")
+
+    corun_bench.ensure_tokend()
+    corun_bench.ensure_binary("tpushare-pmgr")
+    library = str(hook.hook_path())
+    out_dir = tempfile.mkdtemp(prefix="placement-")
+    config_dir, port_dir = f"{out_dir}/config", f"{out_dir}/ports"
+    daemon = ConfigDaemon(PLACEMENT_NODE, cluster=cluster,
+                          config_dir=config_dir, port_dir=port_dir)
+    daemon.sync()
+
+    def files():
+        out = {}
+        for directory in (config_dir, port_dir):
+            with open(os.path.join(directory, chip.uuid)) as f:
+                out[os.path.basename(directory)] = f.read()
+        return out
+
+    placed = files()
+    print(f"placement files: {json.dumps(placed)}")
+    check(placed["config"] == f"2\ndefault/pod-a 1.0 0.5 {gpu_mem}\n"
+          f"default/pod-b 0.5 0.5 {gpu_mem}\n", f"config file {placed}")
+    check(placed["ports"] == f"2\ndefault/pod-a {ports['pod-a']}\n"
+          f"default/pod-b {ports['pod-b']}\n", f"port file {placed}")
+    def require_free(port):
+        """The scheduler's port is the pod manager's: no other is picked."""
+        with socket.socket() as s:
+            try:
+                s.bind(("0.0.0.0", port))
+            except OSError as e:
+                check(False, f"port {port} of the pod manager pool is taken "
+                             f"on this host ({e}): the scheduler's pod "
+                             f"cannot get its manager there")
+
+    for port in ports.values():
+        require_free(port)
+
+    tokend_port = free_port()
+    with ChipSupervisor(chip.uuid, config_dir=config_dir, port_dir=port_dir,
+                        tokend_port=tokend_port, poll_interval=0.1,
+                        base_quota_ms=50.0, min_quota_ms=5.0,
+                        window_ms=1000.0) as supervisor:
+        wait_listening(tokend_port)
+        for port in ports.values():
+            wait_listening(port)
+        bare = {k: v for k, v in os.environ.items()
+                if k not in ("LD_PRELOAD", "POD_MANAGER_PORT", "POD_NAME",
+                             "POD_MANAGER_IP", "CUDA_VISIBLE_DEVICES")
+                and not k.startswith(("TPUSHARE_", "CUDAHOOK_", "NVIDIA_"))}
+        children = {}
+        for name, pod in pods.items():
+            env = dict(pod.containers[0].env)
+            check(env[constants.ENV_SHIM_PRELOAD] == constants.SHIM_LIBRARY,
+                  f"{name} preloads {env[constants.ENV_SHIM_PRELOAD]}")
+            # the node's hostPath mount and the container runtime's mapping
+            env[constants.ENV_SHIM_PRELOAD] = library
+            env["CUDA_VISIBLE_DEVICES"] = env.pop(constants.ENV_VISIBLE_DEVICES)
+            out = os.path.join(out_dir, f"{name}.json")
+            err = open(os.path.join(out_dir, f"{name}.err"), "w")
+            children[name] = (subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--interposer-child", "pod", out],
+                env={**bare, **env}, stdout=err, stderr=subprocess.STDOUT),
+                out, err)
+        deadline = time.monotonic() + PLACEMENT_CHILD_TIMEOUT_S
+        runs = {}
+        try:
+            for name, (proc, out, err) in children.items():
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for proc, _, err in children.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                err.close()
+        for name, (proc, out, _) in children.items():
+            with open(os.path.join(out_dir, f"{name}.err")) as f:
+                log = f.read()
+            check(proc.returncode == 0,
+                  f"pod {name} exited {proc.returncode}: {log[-3000:]}")
+            check("running ungated" not in log,
+                  f"pod {name} ran ungated: {log[-3000:]}")
+            with open(out) as f:
+                runs[name] = json.load(f)
+        probe = TokenClient("127.0.0.1", tokend_port, "probe")
+        stat = json.loads(probe.stat())
+        probe.close()
+        print(f"placement tokend stat: {json.dumps(stat, sort_keys=True)}")
+        for name, run in runs.items():
+            pod = pods[name]
+            free, reported = run["mem_get_info"]
+            cap_error = abs(reported - gpu_mem) / run["total"]
+            entry = stat["pods"].get(pod.key, {})
+            print(f"placement {name} pod: {run['device_count']} device, uuid "
+                  f"{run['uuid']} (visible {run['visible']}); mem_get_info "
+                  f"total {reported} B against gpu_mem {gpu_mem} B "
+                  f"({cap_error:.2e} of the card), free {free} B; "
+                  f"{PLACEMENT_FITS} of the card ({run['fits']} B) allocated, "
+                  f"{PLACEMENT_REFUSED} refused: {run['refused']}; "
+                  f"{run['steps']} captured MNIST steps, loss "
+                  f"{run['losses'][0]:.4f} -> {run['losses'][1]:.4f}; hook "
+                  f"{json.dumps(run['hook'])}; its broker line "
+                  f"{json.dumps(run['broker'])}; tokend for {pod.key}: grants "
+                  f"{entry.get('grants')}, charged {entry.get('charged_total_ms')}"
+                  f" ms; {card}")
+            check(run["device_count"] == 1 and run["uuid"] == chip.uuid,
+                  f"{name} sees {run['device_count']} device(s), {run['uuid']}")
+            check(cap_error <= PLACEMENT_CAP_TOLERANCE,
+                  f"{name}'s mem_get_info total {reported} is not its "
+                  f"gpu_mem {gpu_mem}")
+            check(run["refused"] is not None,
+                  f"{name} allocated {PLACEMENT_REFUSED} of the card")
+            check(run["hook"]["gated"] and run["hook"]["graph_launches"] > 0,
+                  f"{name}'s hook {run['hook']}")
+            check(entry.get("grants", 0) >= 1
+                  and entry.get("charged_total_ms", 0) > 0,
+                  f"tokend charged {pod.key} nothing: {stat}")
+
+        # reclaim: B goes; its cell and port come back and C binds there
+        cluster.delete_pod("default", "pod-b")
+        daemon.sync()
+        reclaimed = files()
+        print(f"placement files after deleting pod-b: {json.dumps(reclaimed)}")
+        check(reclaimed["config"] == f"1\ndefault/pod-a 1.0 0.5 {gpu_mem}\n"
+              and reclaimed["ports"] == f"1\ndefault/pod-a {ports['pod-a']}\n",
+              f"files after the reclaim {reclaimed}")
+        check(not plugin.port_bitmaps[PLACEMENT_NODE].is_masked(
+            ports["pod-b"] - constants.POD_MANAGER_PORT_START),
+              "pod-b's port was not reclaimed")
+        wanted = {f"default/pod-a {ports['pod-a']}"}
+        until = time.monotonic() + 10
+        while set(supervisor.pod_managers) != wanted and time.monotonic() < until:
+            time.sleep(0.1)
+        check(set(supervisor.pod_managers) == wanted,
+              f"pod managers after the reclaim {sorted(supervisor.pod_managers)}")
+        bound = engine.run_until_idle()
+        check([(r.pod_key, r.result) for r in bound]
+              == [("default/pod-c", "bound")], f"pod C after the reclaim {bound}")
+        pod_c = cluster.get_pod("default", "pod-c")
+        c_port = int(pod_c.annotations[constants.POD_MANAGER_PORT])
+        require_free(c_port)
+        cluster.set_pod_phase("default", "pod-c", PodPhase.RUNNING)
+        daemon.sync()
+        wanted.add(f"default/pod-c {c_port}")
+        until = time.monotonic() + 10
+        while set(supervisor.pod_managers) != wanted and time.monotonic() < until:
+            time.sleep(0.1)
+        check(set(supervisor.pod_managers) == wanted,
+              f"pod managers after C bound {sorted(supervisor.pod_managers)}")
+        wait_listening(c_port)
+        print(f"placement reclaim: pod-b's cell and port "
+              f"{ports['pod-b']} reclaimed, its manager reaped; pod-c bound "
+              f"to {pod_c.annotations[constants.POD_GPU_UUID]} at port "
+              f"{c_port}, its manager running; files {json.dumps(files())}")
+    print(f"placement: {time.perf_counter() - started:.1f} s wall; {card}")
+
+
 def discovery_phase(torch, device):
     """Device discovery and the node daemons on the card:
     discover_local_chips against nvidia-smi, the collector served and
@@ -6792,6 +7119,9 @@ def main() -> int:
     t0 = time.perf_counter()
     discovery_phase(torch, device)
     print(f"discovery phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    placement_phase(torch, device)
+    print(f"placement phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     corun_phase()
     print(f"corun phase: {time.perf_counter() - t0:.1f} s")

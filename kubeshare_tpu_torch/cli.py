@@ -1,17 +1,22 @@
-"""Node-daemon entry points of the port: ``python -m kubeshare_tpu_torch
-collector|launcher``, the ``collector`` and ``launcher`` subcommands of
-kubeshare_tpu/cli.py with the same flags, so a node of CUDA cards runs
-what ``deploy/node-daemon.yaml`` asks of the JAX package:
+"""Component entry points of the port: ``python -m kubeshare_tpu_torch
+<component>``, the subcommands of kubeshare_tpu/cli.py with the same
+flags, so a cluster of CUDA cards runs what ``deploy/`` asks of the JAX
+package:
 
     python -m kubeshare_tpu_torch collector [--port 9004] [--fake-chips N]
     python -m kubeshare_tpu_torch launcher [--chip-uuids GPU-...,GPU-...]
+    python -m kubeshare_tpu_torch scheduler --cluster fake [--collector-urls URL,...]
+    python -m kubeshare_tpu_torch configd --cluster fake [--config-dir DIR]
 
 The collector exports the node's CUDA devices (``CudaEnumerator``); the
 launcher runs one ``ChipSupervisor`` (tokend + pod managers) a device,
 for the UUIDs ``discover_local_chips`` finds when ``--chip-uuids`` is
-empty.  The other subcommands of the JAX package (scheduler, aggregator,
-configd, simulate) are control plane that serves both packages and run
-from it.
+empty.  The scheduler places pods on cells of the inventory the
+collectors export (``PromInventory``) and injects a CUDA pod's env; the
+config daemon writes the placements into the files tokend and the pod
+managers read.  The cluster backend is the in-memory FakeCluster, or
+``--cluster k8s`` where the ``kubernetes`` package is installed.  The
+JAX package's ``aggregator`` and ``simulate`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,10 +41,15 @@ def _add_common(parser: argparse.ArgumentParser) -> None:
                         or socket.gethostname())
 
 
-def _serve_forever() -> None:
+def _install_stop() -> list:
     stop: list = []
     signal.signal(signal.SIGTERM, lambda *a: stop.append(1))
     signal.signal(signal.SIGINT, lambda *a: stop.append(1))
+    return stop
+
+
+def _serve_forever() -> None:
+    stop = _install_stop()
     while not stop:
         time.sleep(1)
 
@@ -64,6 +74,35 @@ def cmd_collector(args: argparse.Namespace) -> int:
     log.info("collector serving on :%d/kubeshare-collector", server.port)
     _serve_forever()
     server.stop()
+    return 0
+
+
+def cmd_configd(args: argparse.Namespace) -> int:
+    from .configd import ConfigDaemon, write_scheduler_ip
+
+    log = configure_logger("kubeshare-config", args.level, args.log_dir)
+    # own IP for in-pod hooks (ref kubeshare-query-ip): flag, else the
+    # downward-API POD_IP env the manifests inject
+    scheduler_ip = args.write_scheduler_ip or os.environ.get("POD_IP")
+    if scheduler_ip:
+        path = write_scheduler_ip(scheduler_ip, args.library_path)
+        log.info("wrote scheduler IP to %s", path)
+    daemon = ConfigDaemon(
+        args.node_name,
+        cluster=None if args.aggregator_url else _make_cluster(args),
+        aggregator_url=args.aggregator_url,
+        config_dir=args.config_dir,
+        port_dir=args.port_dir,
+    )
+    log.info("configd for node %s -> %s", args.node_name, args.config_dir)
+    interval = args.sync_interval
+    stop = _install_stop()
+    while not stop:
+        try:
+            daemon.sync()
+        except Exception as e:  # keep the daemon alive through blips
+            log.warning("sync failed: %s", e)
+        time.sleep(interval)
     return 0
 
 
@@ -115,6 +154,80 @@ def cmd_launcher(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_scheduler(args: argparse.Namespace) -> int:
+    from .cell import load_config
+    from .collector import PromInventory
+    from .scheduler import KubeShareScheduler, SchedulerArgs, SchedulerEngine
+
+    log = configure_logger("kubeshare-scheduler", args.level, args.log_dir)
+    topology = load_config(path=args.kubeshare_config)
+    cluster = _make_cluster(args)
+    inventory = PromInventory(args.collector_urls.split(",")) if args.collector_urls \
+        else (lambda node: [])
+    plugin = KubeShareScheduler(
+        topology, cluster, inventory,
+        args=SchedulerArgs(level=args.level, bind_mode=args.bind_mode),
+        log_dir=args.log_dir,
+    )
+    engine = SchedulerEngine(plugin, cluster)
+    metric_server = None
+    if args.metrics_port >= 0:
+        from .utils.promtext import MetricServer
+
+        metric_server = MetricServer(plugin.collect_metrics, port=args.metrics_port)
+        metric_server.start()
+        log.info("scheduler metrics on :%d/metrics", metric_server.port)
+    elector = None
+    if getattr(args, "leader_elect", False):
+        from .scheduler.leader import LeaderElector
+
+        identity = args.leader_identity or (
+            f"{socket.gethostname()}-{os.getpid()}")
+        elector = LeaderElector(
+            cluster, identity, lease_duration_s=args.lease_duration)
+        log.info("leader election on (identity=%s)", identity)
+    log.info("scheduler running (bind_mode=%s)", args.bind_mode)
+    stop = _install_stop()
+    while not stop:
+        if elector is not None and not elector.is_leader():
+            time.sleep(args.idle_interval)
+            continue
+        result = engine.run_once()
+        if result is None:
+            time.sleep(args.idle_interval)
+        else:
+            log.info("cycle: %s -> %s %s", result.pod_key, result.result,
+                     result.message)
+            if result.result in ("unschedulable", "error"):
+                # back off instead of hot-spinning on a stuck head-of-queue
+                time.sleep(args.idle_interval)
+    if metric_server is not None:
+        metric_server.stop()
+    return 0
+
+
+def _make_cluster(args: argparse.Namespace):
+    backend = getattr(args, "cluster", "fake")
+    if backend == "fake":
+        from .cluster.fake import FakeCluster
+
+        return FakeCluster()
+    if backend == "k8s":
+        try:
+            from .cluster.k8s import K8sCluster
+        except Exception as e:
+            raise SystemExit(
+                "the kubernetes client package is not available in this "
+                "environment; run components with --cluster fake or install "
+                "the kubernetes package (the adapter is import-gated)"
+            ) from e
+        try:
+            return K8sCluster(kubeconfig=getattr(args, "kubeconfig", None))
+        except RuntimeError as e:
+            raise SystemExit(str(e)) from e
+    raise SystemExit(f"unknown cluster backend {backend}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="kubeshare_tpu_torch")
     sub = parser.add_subparsers(dest="component", required=True)
@@ -127,6 +240,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fake-model", default="NVIDIA-H100-80GB-HBM3")
     p.add_argument("--fake-hbm-gb", type=int, default=80)
     p.set_defaults(fn=cmd_collector)
+
+    p = sub.add_parser("configd", help="per-node config daemon (ref pkg/config)")
+    _add_common(p)
+    p.add_argument("--cluster", default="fake", choices=["fake", "k8s"])
+    p.add_argument("--aggregator-url", default=None)
+    p.add_argument("--config-dir", default=constants.CHIP_CONFIG_DIR)
+    p.add_argument("--port-dir", default=constants.POD_MANAGER_PORT_DIR)
+    p.add_argument("--sync-interval", type=float, default=5.0)
+    p.add_argument("--library-path", default=constants.LIBRARY_PATH)
+    p.add_argument("--write-scheduler-ip", default=None,
+                   help="also write schedulerIP.txt (ref kubeshare-query-ip)")
+    p.set_defaults(fn=cmd_configd)
 
     p = sub.add_parser("launcher", help="per-chip token runtime supervisor "
                        "(ref gemini launcher.py)")
@@ -150,6 +275,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run per-chip tokends independently (reference "
                         "behavior) instead of gang-aligning grants via -G")
     p.set_defaults(fn=cmd_launcher)
+
+    p = sub.add_parser("scheduler", help="scheduling control loop (ref pkg/scheduler)")
+    _add_common(p)
+    p.add_argument("--cluster", default="fake", choices=["fake", "k8s"])
+    p.add_argument("--kubeshare-config", default=constants.CONFIG_FILE)
+    p.add_argument("--collector-urls", default="")
+    p.add_argument("--bind-mode", default="patch", choices=["patch", "shadow"])
+    p.add_argument("--idle-interval", type=float, default=0.5)
+    p.add_argument("--metrics-port", type=int, default=9006,
+                   help="scheduler-state metrics port; -1 disables")
+    p.add_argument("--leader-elect", action="store_true",
+                   help="lease-based leader election: only the holder of "
+                        "the kubeshare-scheduler lease runs scheduling "
+                        "cycles (HA replicas; the reference rode "
+                        "kube-scheduler's elector)")
+    p.add_argument("--leader-identity", default="",
+                   help="lease holder identity (default: hostname-pid)")
+    p.add_argument("--lease-duration", type=float, default=15.0)
+    p.set_defaults(fn=cmd_scheduler)
     return parser
 
 

@@ -30,7 +30,10 @@
 //    trip through the pod's broker took 1-3 ms on an H100 machine's host,
 //    and one per 3.6 ms engine dispatch cost the serving engine 44% of
 //    its tokens/s there.
-//    A graph's first launch takes a token, which measures it.
+//    A graph's first launch takes a token, which measures it.  Its class
+//    is kept by the exec's address until cuGraphExecDestroy, which the
+//    hook wraps to forget it: a graph instantiated later at that address
+//    is measured anew.
 //  * Eager launches (cuLaunchKernel, cuLaunchKernelEx,
 //    cuLaunchCooperativeKernel and their _ptsz forms) come by the
 //    thousand; a round trip each would cost more than the launch.  So one
@@ -233,6 +236,8 @@ CUDAHOOK_UNWRAPPED(cuKernelGetName)
     1, HookedEndCapture)                                                       \
   X(cuStreamDestroy, cuStreamDestroy_t, cuStreamDestroy, 2000, 0,              \
     HookedStreamDestroy)                                                       \
+  X(cuGraphExecDestroy, cuGraphExecDestroy_t, cuGraphExecDestroy, 10000, 0,    \
+    HookedGraphExecDestroy)                                                    \
   X(cuCtxSynchronize, cuCtxSynchronize_t, cuCtxSynchronize, 2000, 0,           \
     HookedCtxSynchronize)                                                      \
   X(cuStreamSynchronize, cuStreamSynchronize_t, cuStreamSynchronize, 2000, 0,  \
@@ -468,10 +473,12 @@ struct Gate {
   // kGraphGrantMs rides a lease instead.  A lease asks for nothing: it
   // lasts whatever quota the broker grants, and its long charges must not
   // inflate a graph's quota, and with it the broker's per-grant floor
-  // (5% of the quota, tokend Release)
+  // (5% of the quota, tokend Release).  Keyed by the exec's address, which
+  // the driver hands out again after cuGraphExecDestroy: the destroy
+  // erases the entry (ForgetGraph)
   std::unordered_map<CUgraphExec, double> graph_ms;
   double charged_ms = 0.0;
-  long long releases = 0;
+  long long releases = 0, graph_destroys = 0;
 
   // memory ledger
   std::mutex mem_mu;
@@ -541,8 +548,10 @@ void Marker(void* arg) {
   MarkerDone(G(), static_cast<Pending*>(arg), NowMs());
 }
 
-Pending* NewPending(Gate& g, double start_ms, double ready_ms, bool graph) {
+Pending* NewPending(Gate& g, double start_ms, double ready_ms, bool graph,
+                    CUgraphExec exec = nullptr) {
   auto* p = new Pending{start_ms, ready_ms, 1, graph};
+  p->exec = exec;
   std::lock_guard<std::mutex> lock(g.charge_mu);
   g.live.insert(p);
   return p;
@@ -679,7 +688,9 @@ void Release(Gate& g, Pending* p) {
       g.charge_cv.notify_all();
       return;
     }
-    if (p->graph) {
+    // a graph destroyed while its charge was in flight has no exec left
+    // (ForgetGraph): its class is not recorded again
+    if (p->graph && p->exec != nullptr) {
       auto seen = g.graph_ms.emplace(p->exec, charged);
       if (!seen.second) {
         seen.first->second = 0.8 * seen.first->second + 0.2 * charged;
@@ -869,8 +880,7 @@ CUresult HookedGraphLaunch(CUgraphExec exec, CUstream stream) {
   double start = NowMs();
   CUresult rc = real(exec, stream);
   double dispatched = NowMs();
-  Pending* p = NewPending(g, start, dispatched, true);
-  p->exec = exec;
+  Pending* p = NewPending(g, start, dispatched, true, exec);
   {
     std::lock_guard<std::mutex> lock(g.mu);
     g.acquires++;
@@ -960,6 +970,29 @@ CUresult HookedStreamDestroy(CUstream stream) {
     }
   }
   return Real<cuStreamDestroy_t>(I)(stream);
+}
+
+// A graph about to go away: its class is forgotten before the driver may
+// hand its address to the next instantiation, which is then measured anew
+// (with the old class, a short graph there would pay a grant on every
+// launch, and a long one would ride the lease unmeasured).  A charge of
+// this graph still in flight forgets it too: rather than a generation per
+// exec, each live charge drops its exec under charge_mu, the lock Release
+// takes, so that a release completing after the destroy finds no exec and
+// cannot record the dead graph's class again.
+void ForgetGraph(Gate& g, CUgraphExec exec) {
+  std::lock_guard<std::mutex> lock(g.charge_mu);
+  g.graph_ms.erase(exec);
+  for (Pending* p : g.live) {
+    if (p->exec == exec) p->exec = nullptr;
+  }
+  g.graph_destroys++;
+}
+
+template <int I>
+CUresult HookedGraphExecDestroy(CUgraphExec exec) {
+  if (exec != nullptr) ForgetGraph(G(), exec);
+  return Real<cuGraphExecDestroy_t>(I)(exec);
 }
 
 // ---- host waits --------------------------------------------------------------
@@ -1377,8 +1410,10 @@ std::string StatsJson() {
   {
     std::lock_guard<std::mutex> lock(g.charge_mu);
     std::snprintf(buf, sizeof(buf),
-                  "\"charged_ms\":%.6f,\"releases\":%lld,\"pending\":%zu,",
-                  g.charged_ms, g.releases, g.live.size());
+                  "\"charged_ms\":%.6f,\"releases\":%lld,\"pending\":%zu,"
+                  "\"graph_classes\":%zu,\"graph_destroys\":%lld,",
+                  g.charged_ms, g.releases, g.live.size(), g.graph_ms.size(),
+                  g.graph_destroys);
     out += buf;
   }
   {
@@ -1488,6 +1523,11 @@ CUDAHOOK_EXPORT_LAUNCH_COOPERATIVE(cuLaunchCooperativeKernel_ptsz)
   }
 CUDAHOOK_EXPORT_GRAPH_LAUNCH(cuGraphLaunch)
 CUDAHOOK_EXPORT_GRAPH_LAUNCH(cuGraphLaunch_ptsz)
+
+extern "C" CUresult cuGraphExecDestroy(CUgraphExec exec) {
+  RecordDirect(CUDAHOOK_CALLER);
+  return HookedGraphExecDestroy<k_cuGraphExecDestroy>(exec);
+}
 
 #define CUDAHOOK_EXPORT_BEGIN_CAPTURE(name)                                    \
   extern "C" CUresult name(CUstream stream) {                                  \

@@ -75,6 +75,7 @@ SAME_FN(cuStreamBeginCaptureToGraph_t,
         decltype(::cuStreamBeginCaptureToGraph));
 SAME_FN(cuStreamEndCapture_t, decltype(::cuStreamEndCapture));
 SAME_FN(cuStreamDestroy_t, decltype(::cuStreamDestroy_v2));
+SAME_FN(cuGraphExecDestroy_t, decltype(::cuGraphExecDestroy));
 SAME_FN(cuCtxSynchronize_t, decltype(::cuCtxSynchronize));
 SAME_FN(cuStreamSynchronize_t, decltype(::cuStreamSynchronize));
 SAME_FN(cuEventSynchronize_t, decltype(::cuEventSynchronize));

@@ -22,6 +22,9 @@
 //    CUDA_ERROR_STREAM_CAPTURE_UNSUPPORTED and invalidates the capture;
 //    its cuStreamEndCapture then fails with ..._INVALIDATED, as PyTorch
 //    sees it under the real driver.
+//  * Graphs: cuGraphExecDestroy keeps the exec's memory and hands its
+//    address to the next cuGraphInstantiateWithFlags, as a driver may
+//    reuse a freed address.
 //  * Contexts: stream work needs a current context on the calling thread
 //    (cuDevicePrimaryCtxRetain + cuCtxSetCurrent), as with the real
 //    driver's legacy stream.
@@ -81,6 +84,7 @@ struct Fake {
   int global_captures = 0;
   std::unordered_set<CUstream> streams;
   std::uintptr_t next_handle = 0x100000;
+  std::deque<Graph*> freed_execs;  // destroyed, handed out again first
 
   long long total = 2000000, used = 0;
   std::unordered_map<CUdeviceptr, long long> allocs;
@@ -379,8 +383,28 @@ CUresult cuStreamEndCapture_ptsz(CUstream stream, CUgraph* graph) {
 CUresult cuGraphInstantiateWithFlags(CUgraphExec* exec, CUgraph graph,
                                      unsigned long long) {
   if (graph == nullptr) return CUDA_ERROR_INVALID_VALUE;
-  *exec = reinterpret_cast<CUgraphExec>(
-      new Graph{reinterpret_cast<Graph*>(graph)->us});
+  long long us = reinterpret_cast<Graph*>(graph)->us;
+  Fake& f = F();
+  std::lock_guard<std::mutex> lock(f.mu);
+  Graph* made;
+  if (!f.freed_execs.empty()) {
+    made = f.freed_execs.front();
+    f.freed_execs.pop_front();
+    made->us = us;
+  } else {
+    made = new Graph{us};
+  }
+  *exec = reinterpret_cast<CUgraphExec>(made);
+  return CUDA_SUCCESS;
+}
+
+CUresult cuGraphExecDestroy(CUgraphExec exec) {
+  if (exec == nullptr) return CUDA_ERROR_INVALID_VALUE;
+  Fake& f = F();
+  std::lock_guard<std::mutex> lock(f.mu);
+  Count(f, "cuGraphExecDestroy");
+  // a launch already submitted ran its own copy of the duration
+  f.freed_execs.push_back(reinterpret_cast<Graph*>(exec));
   return CUDA_SUCCESS;
 }
 
@@ -562,6 +586,7 @@ const ProcEntry kProcs[] = {
     PROC(cuStreamEndCapture, 10000, true, cuStreamEndCapture_ptsz),
     PROC(cuGraphInstantiateWithFlags, 11040, false,
          cuGraphInstantiateWithFlags),
+    PROC(cuGraphExecDestroy, 10000, false, cuGraphExecDestroy),
     PROC(cuGraphLaunch, 10000, false, cuGraphLaunch),
     PROC(cuGraphLaunch, 10000, true, cuGraphLaunch_ptsz),
     PROC(cuLaunchHostFunc, 10000, false, cuLaunchHostFunc),

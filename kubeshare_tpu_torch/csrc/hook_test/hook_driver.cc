@@ -42,6 +42,15 @@
 //   --unsafe-in-capture  cuStreamSynchronize inside the capture (the
 //                     control: the fake driver must invalidate it)
 //   --destroy-stream  destroy the eager streams after the bursts
+//   --reuse-graph     a graph of --graph-us launched 3 times (each waited
+//                     for, then 50 ms), destroyed once its lease has gone
+//                     back, then a graph of --reuse-us U (default 20000)
+//                     instantiated in its place: "graph_reused=<0|1>"
+//                     (same address), "reuse before <json>", one launch,
+//                     "reuse after <json>" (the hook's counters)
+//   --destroy-in-flight  a graph of --graph-us launched and destroyed at
+//                     once, its charge still in flight; then waited for:
+//                     "in_flight after <json>"
 //   --exclusive-mix   interleave bursts and graph launches (the broker's
 //                     exclusive mode must not stall them)
 //   --pause-ms P      after everything, print "idle" and sleep P ms
@@ -73,6 +82,7 @@ cuGraphLaunch_t cuGraphLaunch;
 cuStreamBeginCapture_v2_t cuStreamBeginCapture_v2;
 cuStreamEndCapture_t cuStreamEndCapture;
 cuStreamDestroy_t cuStreamDestroy_v2;
+cuGraphExecDestroy_t cuGraphExecDestroy;
 cuMemAlloc_v2_t cuMemAlloc_v2;
 cuMemAllocPitch_v2_t cuMemAllocPitch_v2;
 cuMemAllocManaged_t cuMemAllocManaged;
@@ -107,6 +117,7 @@ struct Api {
   cuStreamBeginCapture_v2_t* begin_capture;
   cuStreamEndCapture_t* end_capture;
   InstantiateFn* instantiate;
+  cuGraphExecDestroy_t* graph_destroy;
   cuGraphLaunch_t* graph_launch;
   cuLaunchKernel_t* launch;
   cuMemAlloc_v2_t* alloc;
@@ -127,7 +138,7 @@ struct Options {
   bool ptsz = false;
   long kernel = 7;
   int graphs = 0, graph_gap_ms = -1;
-  unsigned int graph_us = 1000;
+  unsigned int graph_us = 1000, reuse_us = 20000;
   int bursts = 0, burst = 10, streams = 1, gap_ms = 0;
   unsigned int kernel_us = 100;
   long long alloc = 0, alloc_over = 0;
@@ -135,7 +146,8 @@ struct Options {
   long long pitch_w = 0, pitch_h = 0, managed = 0, async = 0, pool_async = 0,
             vmm = 0;
   bool mem_info = false, lookups = false, capture = false, unsafe = false,
-       destroy_streams = false, exclusive_mix = false, sync = true;
+       destroy_streams = false, exclusive_mix = false, sync = true,
+       reuse_graph = false, destroy_in_flight = false;
   int capture_ms = 400, pause_ms = 0, sleep_ms = 0;
 };
 
@@ -195,6 +207,7 @@ Api Load() {
                                         "cuGraphInstantiateWithFlags");
   if (g_opt.path == "direct") {
     api.stream_destroy = &cuStreamDestroy_v2;
+    api.graph_destroy = &cuGraphExecDestroy;
     api.begin_capture = &cuStreamBeginCapture_v2;
     api.end_capture = &cuStreamEndCapture;
     api.graph_launch = &cuGraphLaunch;
@@ -213,6 +226,8 @@ Api Load() {
   }
   api.stream_destroy = Need<cuStreamDestroy_t>("cuStreamDestroy",
                                                "cuStreamDestroy_v2");
+  api.graph_destroy = Need<cuGraphExecDestroy_t>("cuGraphExecDestroy",
+                                                 "cuGraphExecDestroy");
   api.begin_capture = Need<cuStreamBeginCapture_v2_t>(
       "cuStreamBeginCapture", p ? "cuStreamBeginCapture_v2_ptsz"
                                 : "cuStreamBeginCapture_v2", true);
@@ -330,6 +345,16 @@ void Sleep(int ms) {
   std::this_thread::sleep_for(std::chrono::milliseconds(ms));
 }
 
+// "<label> <the hook's counters>", when the hook is loaded
+void PrintHookStats(const char* label) {
+  auto* stats = reinterpret_cast<long (*)(char*, long)>(
+      dlsym(RTLD_DEFAULT, "cudahook_stats"));
+  if (stats == nullptr) return;
+  std::vector<char> buf(static_cast<size_t>(stats(nullptr, 0)) + 1);
+  stats(buf.data(), static_cast<long>(buf.size()));
+  std::printf("%s %s\n", label, buf.data());
+}
+
 }  // namespace
 
 int main(int argc, char** argv) {
@@ -368,6 +393,9 @@ int main(int argc, char** argv) {
     else if (flag == "--unsafe-in-capture") o.unsafe = true;
     else if (flag == "--destroy-stream") o.destroy_streams = true;
     else if (flag == "--exclusive-mix") o.exclusive_mix = true;
+    else if (flag == "--reuse-graph") o.reuse_graph = true;
+    else if (flag == "--reuse-us") o.reuse_us = std::atoi(next());
+    else if (flag == "--destroy-in-flight") o.destroy_in_flight = true;
     else if (flag == "--pause-ms") o.pause_ms = std::atoi(next());
     else if (flag == "--no-sync") o.sync = false;
     else if (flag == "--sleep-ms") o.sleep_ms = std::atoi(next());
@@ -415,6 +443,33 @@ int main(int argc, char** argv) {
       api.graph_launch(exec, graph_stream);
     }
     std::printf("mix done\n");
+  }
+
+  if (o.reuse_graph) {
+    CUgraphExec short_graph = MakeGraph(api, graph_stream, o.graph_us);
+    for (int i = 0; i < 3; i++) {
+      api.graph_launch(short_graph, graph_stream);
+      api.ctx_sync();
+      Sleep(50);  // its charge released: the next launch knows its class
+    }
+    Sleep(400);  // the lease it rode goes back for idleness
+    api.graph_destroy(short_graph);
+    CUgraphExec long_graph = MakeGraph(api, graph_stream, o.reuse_us);
+    std::printf("graph_reused=%d\n", long_graph == short_graph);
+    PrintHookStats("reuse before");
+    api.graph_launch(long_graph, graph_stream);
+    api.ctx_sync();
+    Sleep(50);
+    PrintHookStats("reuse after");
+  }
+
+  if (o.destroy_in_flight) {
+    CUgraphExec exec = MakeGraph(api, graph_stream, o.graph_us);
+    api.graph_launch(exec, graph_stream);
+    api.graph_destroy(exec);  // the launch's marker has not fired yet
+    api.ctx_sync();
+    Sleep(100);
+    PrintHookStats("in_flight after");
   }
 
   if (o.capture) {
@@ -534,11 +589,7 @@ int main(int argc, char** argv) {
   if (settle != nullptr && stats != nullptr && std::getenv("HOOK_DRIVER_SETTLE")) {
     settle(2000.0);
   }
-  if (stats != nullptr) {
-    std::vector<char> buf(static_cast<size_t>(stats(nullptr, 0)) + 1);
-    stats(buf.data(), static_cast<long>(buf.size()));
-    std::printf("hook %s\n", buf.data());
-  }
+  if (stats != nullptr) PrintHookStats("hook");
   std::fflush(stdout);
   return 0;
 }

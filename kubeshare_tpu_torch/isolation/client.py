@@ -2,8 +2,8 @@
 
 The port's own copy of kubeshare_tpu/isolation/client.py (the port
 imports nothing of the JAX package).  Speaks the tokend/pmgr wire
-protocol (see native/tokend.cc), unchanged: the scheduler and
-``tpushare-tokend`` serve JAX and PyTorch pods alike.  Two
+protocol (see native/tokend.cc), unchanged: ``tpushare-tokend`` and
+``tpushare-pmgr`` serve JAX and PyTorch pods alike.  Two
 implementations with one interface:
 
 - ``TokenClient``: pure Python sockets — the default for in-process

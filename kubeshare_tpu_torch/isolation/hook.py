@@ -98,8 +98,8 @@ def hook_env(pod_manager_port, pod_name: str,
              mem_fraction: Optional[float] = None,
              stats_path: Optional[str] = None,
              library: Optional[str] = None) -> Dict[str, str]:
-    """The environment the scheduler would inject into a PyTorch pod:
-    the hook preloaded (``library``, by default :func:`hook_path`; on a
+    """The part of a fractional pod's env that the hook reads, as the
+    port's scheduler injects it (scheduler/plugin.py): the hook preloaded (``library``, by default :func:`hook_path`; on a
     node, ``constants.SHIM_LIBRARY``), the pod's broker and name, and its
     memory cap as a fraction of the card.  ``stats_path`` asks for the
     counters at exit."""

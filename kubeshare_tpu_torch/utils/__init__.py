@@ -1,3 +1,4 @@
+from .bitmap import Bitmap, RRBitmap
 from .logger import get_logger
 
-__all__ = ["get_logger"]
+__all__ = ["Bitmap", "RRBitmap", "get_logger"]

@@ -195,6 +195,49 @@ def test_short_graphs_ride_a_lease(built, tokend):
     assert 5 <= r.pod["charged_total_ms"] <= 12, r.pod
 
 
+def _line_json(r, label):
+    prefix = label + " "
+    for line in r.out.splitlines():
+        if line.startswith(prefix):
+            return json.loads(line[len(prefix):])
+    raise AssertionError(f"no {label!r} line in {r.out!r}")
+
+
+@pytest.mark.parametrize("path", ["cudart", "direct"])
+def test_a_reused_graph_address_is_measured_anew(built, tokend, path):
+    """A 0.5 ms graph learns its class (it rides a lease), is destroyed,
+    and the fake driver hands its address to a 20 ms graph.  The long
+    graph's first launch takes a grant of its own, which measures it: the
+    destroy erased the short graph's class (the JAX shim's cache erase on
+    destroy, native/shim/interposer.cc)."""
+    r = run(built, tokend, "--path", path, "--reuse-graph",
+            "--graph-us", 500, "--reuse-us", 20_000)
+    assert r.rc == 0, r.err
+    assert r.has("graph_reused=1")
+    before, after = _line_json(r, "reuse before"), _line_json(r, "reuse after")
+    assert before["graph_destroys"] == 1 and before["graph_classes"] == 0
+    assert before["graph_launches_in_lease"] >= 1  # the short graph's class
+    assert after["acquires"] - before["acquires"] == 1
+    assert after["leases"] == before["leases"]
+    assert after["graph_launches_in_lease"] == before["graph_launches_in_lease"]
+    assert after["graph_classes"] == 1 and after["pending"] == 0
+    assert r.fake["cuGraphExecDestroy"] == "1"
+
+
+def test_a_destroy_racing_its_release_leaves_no_class(built, tokend):
+    """A 50 ms graph destroyed right after its launch, before its marker
+    fired: the release that completes afterwards still charges the work
+    (at least the device's 50 ms, which a loaded host stretches), but must
+    not record the dead graph's class again, so no entry is left behind."""
+    r = run(built, tokend, "--destroy-in-flight", "--graph-us", 50_000)
+    assert r.rc == 0, r.err
+    after = _line_json(r, "in_flight after")
+    assert after["graph_destroys"] == 1 and after["releases"] == 1
+    assert after["pending"] == 0 and after["graph_classes"] == 0
+    assert r.pod["grants"] == 1
+    assert r.pod["charged_total_ms"] >= 40, r.pod
+
+
 def test_eager_bursts_hold_one_grant_a_lease(built, tokend):
     """Eager launches pass under one lease while its quota lasts: 60
     launches within 50 ms take one grant."""

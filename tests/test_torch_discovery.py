@@ -178,8 +178,8 @@ cells:
 
 def test_full_slice_with_the_ports_supervisor_and_trainers(tmp_path):
     """The twin of tests/test_e2e.py::test_full_slice: the JAX package's
-    scheduler and configd (control plane, shared by both packages) place
-    two 0.5 pods on one card; the port's ChipSupervisor runs the real
+    scheduler and configd place two 0.5 pods on one card (their files are
+    the port's byte for byte, tests/test_torch_configd.py); the port's ChipSupervisor runs the real
     tokend and a pod manager per pod; the port's MNIST trainers, gated by
     the port's TokenClient + ExecutionGuard, are granted and charged."""
     if find_binary("tpushare-tokend") is None \

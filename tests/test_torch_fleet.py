@@ -742,3 +742,75 @@ def test_fleet_places_and_releases_through_the_plane(models):
     fleet.drain(fleet.replicas[0].name)
     fleet.run()
     assert len(cluster.list_pods(namespace="serving")) == 1
+
+
+# -- the port's own scheduler plane --------------------------------------------
+
+GPU_TOPOLOGY = """
+cellTypes:
+  2-H100-NODE:
+    childCellType: "NVIDIA-H100-80GB-HBM3"
+    childCellNumber: 2
+    childCellPriority: 100
+    isNodeLevel: true
+cells:
+- cellType: 2-H100-NODE
+  cellId: gpu-a
+"""
+
+
+def _port_plane(**kwargs):
+    from kubeshare_tpu_torch import constants
+    from kubeshare_tpu_torch.cell import load_config
+    from kubeshare_tpu_torch.cell.allocator import ChipInfo
+    from kubeshare_tpu_torch.cluster.api import FakeClock, Node
+    from kubeshare_tpu_torch.cluster.fake import FakeCluster
+    from kubeshare_tpu_torch.scheduler import (FleetPlacementPlane,
+                                               KubeShareScheduler,
+                                               SchedulerArgs, SchedulerEngine)
+
+    chips = [ChipInfo(f"GPU-{i}a3c-0000-4000-8000-00000000000{i}", 80 << 30,
+                      "NVIDIA-H100-80GB-HBM3", i) for i in range(2)]
+    cluster = FakeCluster()
+    cluster.add_node(Node(name="gpu-a",
+                          labels={constants.NODE_LABEL_FILTER: "true"}))
+    clock = FakeClock(1000.0)
+    plugin = KubeShareScheduler(
+        topology=load_config(text=GPU_TOPOLOGY), cluster=cluster,
+        inventory=lambda node: chips if node == "gpu-a" else [],
+        args=SchedulerArgs(), clock=clock)
+    engine = SchedulerEngine(plugin, cluster, clock)
+    return FleetPlacementPlane(engine, cluster, **kwargs), cluster, plugin
+
+
+def test_fleet_places_through_the_ports_own_plane(models):
+    """The port's ReplicaFleet places each replica through the port's
+    FleetPlacementPlane and scheduler: a fractional cell on a card, the
+    CUDA pod's env on the replica's pod, and a retirement reclaims it."""
+    from kubeshare_tpu_torch import constants
+
+    plane, cluster, plugin = _port_plane(**FRACTION)
+    fleet = _fleet(models["plain"], placement=plane, max_replicas=3)
+    pods = cluster.list_pods(namespace="serving")
+    assert len(pods) == 2
+    for handle in fleet.replicas:
+        placement = handle.placement
+        assert placement.node == "gpu-a" and placement.cell_id
+        assert placement.gpu_uuid.startswith("GPU-")
+        assert placement.manager_port > constants.POD_MANAGER_PORT_START
+        pod = cluster.get_pod("serving", placement.pod_name)
+        env = pod.containers[0].env
+        assert env[constants.ENV_VISIBLE_DEVICES] == placement.gpu_uuid
+        assert env[constants.ENV_SHIM_PRELOAD] == constants.SHIM_LIBRARY
+        assert env[constants.ENV_POD_MANAGER_PORT] == str(placement.manager_port)
+    fleet.drain("r0")
+    fleet.run()
+    assert len(cluster.list_pods(namespace="serving")) == 1
+    assert plane.release_causes == {"retired": 1}
+    assert sum(1 - leaf.available
+               for leaf in plugin.allocator.leaf_cells.values()) == \
+        pytest.approx(0.5)
+    handle = fleet.scale_up(warmup=False)
+    assert handle.placement.gpu_uuid.startswith("GPU-")
+    with pytest.raises(RuntimeError, match="unplaceable"):
+        _port_plane(gpu_request="4.0", gpu_limit="4.0")[0].place("r9")

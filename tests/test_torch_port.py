@@ -51,7 +51,13 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "models.resnet", "data.pipeline", "parallel.checkpoint",
                      "utils.profiling", "ops.ring_attention", "ops.ulysses",
                      "parallel.pipeline", "parallel.distributed",
-                     "cell.allocator", "cell.topology",
+                     "cell.allocator", "cell.topology", "cell.spec",
+                     "cell.element", "cell.cell", "cluster.api",
+                     "cluster.fake", "cluster.k8s", "scheduler.podspec",
+                     "scheduler.podgroup", "scheduler.plugin",
+                     "scheduler.framework", "scheduler.leader",
+                     "scheduler.placement", "configd.configd",
+                     "utils.bitmap", "utils.atomicfile", "utils.net",
                      "collector.collector", "cli", "__main__"):
             assert "kubeshare_tpu_torch." + name in names, name
         import chip_smoke, corun_bench, model_bench, train_cifar_torch
@@ -66,6 +72,33 @@ def test_port_imports_no_jax_and_no_jax_package():
     proc = _python(REPO, "-c", code)
     assert proc.returncode == 0, proc.stderr
     assert "imported" in proc.stdout
+
+
+def test_control_plane_imports_without_yaml():
+    # the card's machine has no PyYAML: the scheduler, the cells and the
+    # config daemon import without it, and a topology is built from a dict
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["yaml"] = None
+        import kubeshare_tpu_torch.scheduler
+        import kubeshare_tpu_torch.cell
+        import kubeshare_tpu_torch.configd
+        import kubeshare_tpu_torch.cli
+        from kubeshare_tpu_torch.cell import TopologyConfig
+        from kubeshare_tpu_torch.cell.spec import check_physical_cells
+        config = TopologyConfig.from_dict({"cellTypes": {"N": {
+            "childCellType": "GPU", "childCellNumber": 1,
+            "isNodeLevel": True}}, "cells": [{"cellType": "N"}]})
+        check_physical_cells(config)
+        assert config.cells[0].children[0].cell_id == "1/1"
+        try:
+            kubeshare_tpu_torch.cell.load_config(text="cells: []")
+        except ImportError:
+            print("yaml refused only by load_config")
+    """)
+    proc = _python(REPO, "-c", code)
+    assert proc.returncode == 0, proc.stderr
+    assert "yaml refused only by load_config" in proc.stdout
 
 
 def test_port_sources_call_no_library_attention():
