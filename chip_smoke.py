@@ -321,6 +321,12 @@ Phases (any failure raises and the script exits non-zero):
    PLACEMENT_MEM_FRACTION of the card, to the card's UUID at two ports of
    the 50050 pool, and refuse pod C (0.5): the card is full.  The port's
    ConfigDaemon writes config/<UUID> and podmanagerport/<UUID>, and a
+   The port's Aggregator, served on a free port, exports one
+   gpu_requirement sample a running pod with the card's UUID, the node,
+   the limit, request, memory and manager port; a second ConfigDaemon in
+   aggregator mode scrapes it into its own directories, and its files
+   must equal the cluster mode's byte for byte (the reference's chain:
+   scheduler -> aggregator -> config daemon).  A
    ChipSupervisor over them runs the tree's tpushare-tokend and one
    tpushare-pmgr per pod at the scheduler's ports (a port of the pool
    taken on the host fails the phase).  A and B then run at once as
@@ -6644,6 +6650,55 @@ def placement_pod(torch, device):
     return result
 
 
+def placement_aggregator(cluster, chip, pods, ports, gpu_mem, out_dir,
+                         placed):
+    """The reference's wiring on the placement phase's cluster: the
+    port's Aggregator served on a free port, its gpu_requirement samples
+    for the two running pods, and a ConfigDaemon in aggregator mode whose
+    files must equal the cluster mode's (``placed``) byte for byte."""
+    from kubeshare_tpu_torch import constants
+    from kubeshare_tpu_torch.aggregator import Aggregator
+    from kubeshare_tpu_torch.configd import ConfigDaemon
+    from kubeshare_tpu_torch.utils.promtext import parse_text
+    import urllib.request
+
+    server = Aggregator(cluster).serve(port=free_port())
+    try:
+        url = f"http://127.0.0.1:{server.port}/kubeshare-aggregator"
+        with urllib.request.urlopen(url, timeout=10) as response:
+            text = response.read().decode()
+        daemon = ConfigDaemon(PLACEMENT_NODE, aggregator_url=url,
+                              config_dir=f"{out_dir}/agg-config",
+                              port_dir=f"{out_dir}/agg-ports")
+        daemon.sync()
+    finally:
+        server.stop()
+    samples = {s.labels["pod"]: s.labels for s in parse_text(text)
+               if s.name == constants.METRIC_REQUIREMENT}
+    print(f"placement aggregator: {len(text)} B of exposition text, "
+          f"gpu_requirement {json.dumps(samples, sort_keys=True)}")
+    check(sorted(samples) == ["pod-a", "pod-b"],
+          f"aggregator samples for {sorted(samples)}")
+    for name, labels in samples.items():
+        want = {"namespace": "default", "node": PLACEMENT_NODE,
+                "uuid": chip.uuid,
+                "limit": pods[name].labels[constants.POD_GPU_LIMIT],
+                "request": "0.5", "memory": str(gpu_mem),
+                "port": str(ports[name]), "group_name": f"default/{name}",
+                "cell_id": pods[name].annotations[constants.POD_CELL_ID]}
+        got = {k: labels.get(k) for k in want}
+        check(got == want, f"aggregator sample for {name}: {got}, "
+                           f"wanted {want}")
+    scraped = {}
+    for kind in ("config", "ports"):
+        with open(f"{out_dir}/agg-{kind}/{chip.uuid}") as f:
+            scraped[kind] = f.read()
+    print(f"placement aggregator-mode files: {json.dumps(scraped)}; equal "
+          f"to the cluster mode's: {scraped == placed}")
+    check(scraped == placed, f"aggregator-mode files {scraped} differ "
+                             f"from the cluster mode's {placed}")
+
+
 def placement_phase(torch, device):
     """The port's control plane on the card: pod labels -> the port's
     scheduler -> the port's configd files -> ChipSupervisor -> pod
@@ -6746,6 +6801,7 @@ def placement_phase(torch, device):
           f"default/pod-b 0.5 0.5 {gpu_mem}\n", f"config file {placed}")
     check(placed["ports"] == f"2\ndefault/pod-a {ports['pod-a']}\n"
           f"default/pod-b {ports['pod-b']}\n", f"port file {placed}")
+    placement_aggregator(cluster, chip, pods, ports, gpu_mem, out_dir, placed)
     def require_free(port):
         """The scheduler's port is the pod manager's: no other is picked."""
         with socket.socket() as s:

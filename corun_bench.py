@@ -105,20 +105,11 @@ def free_port() -> int:
 
 
 def ensure_binary(name: str = "tpushare-tokend") -> str:
-    """A native runtime binary (the token daemon, or ``tpushare-pmgr``),
-    built with ``make`` if it is missing (only that target: the port
-    needs no PJRT interposer)."""
-    from kubeshare_tpu_torch.runtime import find_binary
+    """A native runtime binary, built if it is missing
+    (``runtime.ensure_binary``)."""
+    from kubeshare_tpu_torch.runtime import ensure_binary as ensure
 
-    binary = find_binary(name)
-    if binary is None:
-        subprocess.run(["make", "-C", os.path.join(REPO, "native"),
-                        f"build/{name}"],
-                       check=True, capture_output=True, timeout=300)
-        binary = find_binary(name)
-    if binary is None:
-        raise RuntimeError(f"cannot build {name}")
-    return binary
+    return ensure(name)
 
 
 def ensure_tokend() -> str:

@@ -6,7 +6,9 @@ package:
     python -m kubeshare_tpu_torch collector [--port 9004] [--fake-chips N]
     python -m kubeshare_tpu_torch launcher [--chip-uuids GPU-...,GPU-...]
     python -m kubeshare_tpu_torch scheduler --cluster fake [--collector-urls URL,...]
+    python -m kubeshare_tpu_torch aggregator --cluster fake [--port 9005]
     python -m kubeshare_tpu_torch configd --cluster fake [--config-dir DIR]
+    python -m kubeshare_tpu_torch simulate --trace examples/trace-small.txt
 
 The collector exports the node's CUDA devices (``CudaEnumerator``); the
 launcher runs one ``ChipSupervisor`` (tokend + pod managers) a device,
@@ -14,9 +16,13 @@ for the UUIDs ``discover_local_chips`` finds when ``--chip-uuids`` is
 empty.  The scheduler places pods on cells of the inventory the
 collectors export (``PromInventory``) and injects a CUDA pod's env; the
 config daemon writes the placements into the files tokend and the pod
-managers read.  The cluster backend is the in-memory FakeCluster, or
-``--cluster k8s`` where the ``kubernetes`` package is installed.  The
-JAX package's ``aggregator`` and ``simulate`` are not ported yet.
+managers read, from the cluster API or, with ``--aggregator-url``, from
+the aggregator's ``gpu_requirement`` samples (the reference's wiring).
+``simulate`` replays an arrival trace through the scheduler on a virtual
+clock and prints its report as JSON on the last line.  The cluster
+backend is the in-memory FakeCluster, or ``--cluster k8s`` where the
+``kubernetes`` package is installed.  Only ``scheduler`` and
+``simulate --kubeshare-config`` read YAML (PyYAML).
 """
 
 from __future__ import annotations
@@ -72,6 +78,19 @@ def cmd_collector(args: argparse.Namespace) -> int:
     collector = Collector(enumerator, node_name=args.node_name)
     server = collector.serve(port=args.port)
     log.info("collector serving on :%d/kubeshare-collector", server.port)
+    _serve_forever()
+    server.stop()
+    return 0
+
+
+def cmd_aggregator(args: argparse.Namespace) -> int:
+    from .aggregator import Aggregator
+
+    log = configure_logger("kubeshare-aggregator", args.level, args.log_dir)
+    cluster = _make_cluster(args)
+    aggregator = Aggregator(cluster)
+    server = aggregator.serve(port=args.port)
+    log.info("aggregator serving on :%d/kubeshare-aggregator", server.port)
     _serve_forever()
     server.stop()
     return 0
@@ -206,6 +225,22 @@ def cmd_scheduler(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_simulate(args: argparse.Namespace) -> int:
+    from .simulator import run_trace
+
+    report = run_trace(
+        trace_path=args.trace,
+        topology_path=args.kubeshare_config,
+        nodes=args.nodes,
+        chips_per_node=args.chips_per_node,
+        time_scale=args.time_scale,
+        seed=args.seed,
+        gang_fraction=args.gang_fraction,
+    )
+    print(report.to_json())
+    return 0
+
+
 def _make_cluster(args: argparse.Namespace):
     backend = getattr(args, "cluster", "fake")
     if backend == "fake":
@@ -240,6 +275,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fake-model", default="NVIDIA-H100-80GB-HBM3")
     p.add_argument("--fake-hbm-gb", type=int, default=80)
     p.set_defaults(fn=cmd_collector)
+
+    p = sub.add_parser("aggregator", help="placement exporter (ref pkg/aggregator)")
+    _add_common(p)
+    p.add_argument("--port", type=int, default=constants.AGGREGATOR_PORT)
+    p.add_argument("--cluster", default="fake", choices=["fake", "k8s"])
+    p.set_defaults(fn=cmd_aggregator)
 
     p = sub.add_parser("configd", help="per-node config daemon (ref pkg/config)")
     _add_common(p)
@@ -294,6 +335,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="lease holder identity (default: hostname-pid)")
     p.add_argument("--lease-duration", type=float, default=15.0)
     p.set_defaults(fn=cmd_scheduler)
+
+    p = sub.add_parser("simulate", help="trace-driven load simulation "
+                       "(ref test/simulator)")
+    p.add_argument("--trace", required=True)
+    p.add_argument("--kubeshare-config", default=None)
+    p.add_argument("--nodes", type=int, default=4)
+    p.add_argument("--chips-per-node", type=int, default=4)
+    p.add_argument("--time-scale", type=float, default=0.0,
+                   help="0 = as fast as possible")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--gang-fraction", type=float, default=0.0,
+                   help="fraction of arrivals that are coscheduled gangs")
+    p.set_defaults(fn=cmd_simulate)
     return parser
 
 

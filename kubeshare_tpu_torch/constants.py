@@ -85,3 +85,4 @@ TOKEN_WINDOW_MS = 10000.0
 METRIC_CAPACITY = "gpu_capacity"
 METRIC_REQUIREMENT = "gpu_requirement"
 COLLECTOR_PORT = 9004
+AGGREGATOR_PORT = 9005

@@ -140,6 +140,16 @@ def _loaded():
     return stats, settle
 
 
+def preloaded() -> bool:
+    """Whether ``libcudahook.so.1`` is loaded in this process (the pod
+    runs under ``LD_PRELOAD``, as the port's scheduler injects it)."""
+    try:
+        _loaded()
+    except RuntimeError:
+        return False
+    return True
+
+
 def live_stats() -> dict:
     """The counters of the hook preloaded into this process."""
     stats, _ = _loaded()

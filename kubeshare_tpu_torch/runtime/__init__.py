@@ -1,3 +1,3 @@
-from .launcher import ChipSupervisor, find_binary
+from .launcher import ChipSupervisor, cell_tokend, ensure_binary, find_binary
 
-__all__ = ["ChipSupervisor", "find_binary"]
+__all__ = ["ChipSupervisor", "cell_tokend", "ensure_binary", "find_binary"]

@@ -13,12 +13,15 @@ never sees a torn write.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
+import socket
 import subprocess
+import tempfile
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 from .. import constants
 from ..utils.logger import get_logger
@@ -36,6 +39,21 @@ def find_binary(name: str) -> Optional[str]:
         if os.path.isfile(path) and os.access(path, os.X_OK):
             return path
     return None
+
+
+def ensure_binary(name: str = "tpushare-tokend") -> str:
+    """A native runtime binary (the token daemon, or ``tpushare-pmgr``),
+    built from ``native/`` with ``make`` when it is missing (only that
+    target: the port needs no PJRT interposer)."""
+    binary = find_binary(name)
+    if binary is None:
+        native = os.path.abspath(os.path.join(_BINARY_DIRS[0], ".."))
+        subprocess.run(["make", "-C", native, f"build/{name}"],
+                       check=True, capture_output=True, timeout=300)
+        binary = find_binary(name)
+    if binary is None:
+        raise RuntimeError(f"cannot build {name}")
+    return binary
 
 
 class ChipSupervisor:
@@ -263,3 +281,33 @@ class ChipSupervisor:
 
     def __exit__(self, *exc: object) -> None:
         self.stop()
+
+
+@contextlib.contextmanager
+def cell_tokend(cells: Sequence[Tuple[str, str, str]],
+                min_quota_ms: float = 5.0) -> Iterator[int]:
+    """A ``tpushare-tokend`` (built if missing) for one chip whose share
+    table lists ``cells``, ``(pod, limit, request)`` triples with no
+    memory cap, at a 50 ms quota over a 1 s window, under a
+    :class:`ChipSupervisor` in a temporary directory; yields the port it
+    listens on.  The serving examples' runtime: each pool's guard talks
+    to it with its cell's name, with no pod manager between them."""
+    from ..utils.atomicfile import write_atomic
+    from ..utils.net import wait_listening
+
+    chip_uuid = "demo-chip-0"
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="tokend-") as workdir:
+        table = "".join(f"{pod} {limit} {request} 0\n"
+                        for pod, limit, request in cells)
+        write_atomic(os.path.join(workdir, chip_uuid),
+                     f"{len(cells)}\n{table}")
+        with ChipSupervisor(chip_uuid, config_dir=workdir,
+                            port_dir=os.path.join(workdir, "ports"),
+                            tokend_port=port, base_quota_ms=50.0,
+                            min_quota_ms=min_quota_ms, window_ms=1000.0,
+                            tokend_binary=ensure_binary("tpushare-tokend")):
+            wait_listening(port)
+            yield port

@@ -187,20 +187,28 @@ def test_needs_a_decision_source():
 
 
 def test_aggregator_mode_matches(tmp_path):
-    """The port's daemon reading JAX's aggregator (the port's aggregator
-    is not ported yet) writes what JAX's daemon writes from it."""
-    cluster = JaxFakeCluster()
-    bound_pod(JAX, cluster, "p1", UUIDS[0], "50051")
-    bound_pod(JAX, cluster, "p2", UUIDS[0], "50052", request="0.25")
-    bound_pod(JAX, cluster, "whole", f"{UUIDS[0]},{UUIDS[1]}", None,
-              request="2", limit="2")
-    bound_pod(JAX, cluster, "far", UUIDS[1], "50053", node="gpu-b")
-    server = JaxAggregator(cluster).serve(port=0)
+    """The port's daemon reading the port's aggregator writes what JAX's
+    daemon writes from JAX's aggregator over the same pods; reading JAX's
+    aggregator (the cross-check) it writes the same again."""
+    from kubeshare_tpu_torch.aggregator import Aggregator
+
+    clusters = {}
+    for name, pkg in (("jax", JAX), ("port", PORT)):
+        cluster = clusters[name] = pkg["FakeCluster"]()
+        bound_pod(pkg, cluster, "p1", UUIDS[0], "50051")
+        bound_pod(pkg, cluster, "p2", UUIDS[0], "50052", request="0.25")
+        bound_pod(pkg, cluster, "whole", f"{UUIDS[0]},{UUIDS[1]}", None,
+                  request="2", limit="2")
+        bound_pod(pkg, cluster, "far", UUIDS[1], "50053", node="gpu-b")
+    servers = {"jax": JaxAggregator(clusters["jax"]).serve(port=0),
+               "port": Aggregator(clusters["port"]).serve(port=0)}
     try:
-        url = f"http://127.0.0.1:{server.port}/kubeshare-aggregator"
-        for name, daemon_cls in (("jax", JaxConfigDaemon),
-                                 ("port", ConfigDaemon)):
-            daemon_cls("gpu-a", aggregator_url=url,
+        urls = {name: f"http://127.0.0.1:{server.port}/kubeshare-aggregator"
+                for name, server in servers.items()}
+        for name, daemon_cls, source in (("jax", JaxConfigDaemon, "jax"),
+                                         ("port", ConfigDaemon, "port"),
+                                         ("cross", ConfigDaemon, "jax")):
+            daemon_cls("gpu-a", aggregator_url=urls[source],
                        config_dir=str(tmp_path / name / "config"),
                        port_dir=str(tmp_path / name / "ports")).sync()
         # an unreachable aggregator writes nothing and raises nothing
@@ -208,9 +216,10 @@ def test_aggregator_mode_matches(tmp_path):
                      config_dir=str(tmp_path / "dead" / "config"),
                      port_dir=str(tmp_path / "dead" / "ports")).sync()
     finally:
-        server.stop()
+        for server in servers.values():
+            server.stop()
     port_files = tree(tmp_path / "port")
-    assert port_files == tree(tmp_path / "jax")
+    assert port_files == tree(tmp_path / "jax") == tree(tmp_path / "cross")
     assert port_files[f"config/{UUIDS[0]}"].startswith(b"2\n")
     assert tree(tmp_path / "dead") == {}
 

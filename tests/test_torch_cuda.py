@@ -3,9 +3,11 @@ against their eager forms, the f32 flash kernels (3xTF32 on the tensor
 cores) against their plain versions, the full-width ResNet against the
 CPU, a checkpoint restored into a captured train step, prefetch's
 stream ordering, two gloo ranks of train_distributed_torch.py on one
-card, device discovery against nvidia-smi, and a captured step under
-the CUDA driver interposer (libcudahook.so.1), on the card.  Every test
-here skips without a CUDA device.
+card, device discovery against nvidia-smi, a captured step under the
+CUDA driver interposer (libcudahook.so.1), and the root twins of
+examples/ at their full configurations (the MNIST pod under the env the
+port's scheduler injects), on the card.  Every test here skips without
+a CUDA device.
 
 The file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed:
@@ -1140,3 +1142,224 @@ def test_a_captured_step_under_the_hook(card, tmp_path):
                      if f"{kernel}_bf16_kernel" in name)
                  for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")]
     assert by_kernel == result["port"] and min(by_kernel) > 0
+
+
+# ---- the root twins of examples/ at their full configurations ----
+
+def _twin_line(name, summary, keys):
+    """The twin's wall time and headline numbers, with the card's name and
+    power limit, on a line of its own (read with ``pytest -s``)."""
+    import json
+    import subprocess
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"\ntwin {name}: " + json.dumps(
+        {k: summary[k] for k in keys}, sort_keys=True) + f"; {card}",
+          flush=True)
+
+
+MNIST_POD_CHILD = """
+import json, sys, time
+sys.path.insert(0, %r)
+t0 = time.monotonic()
+import train_mnist_torch
+summary = train_mnist_torch.main([])
+summary.pop("state")
+summary["process_s"] = time.monotonic() - t0
+print(json.dumps(summary))
+"""
+# the broker's charge for steps 2-1,000 over their CUDA-event ms: about 1
+# when the hook alone charges (the interposer phase's captured steps read
+# 0.9955), about 2 if the pod's guard charged each step a second time.
+# First card run 1.11: these ~1.1 ms graphs ride the hook's lease, whose
+# segments close at 2 ms of quiet and so take in the host's gaps between
+# steps.  Step 1's event spans the capture's host time, so it is left out
+# (the hook's charge after step 1 is subtracted from the broker's)
+MNIST_CHARGE_RANGE = (0.8, 1.5)
+# the broker's total against the hook's own: the broker hears only the
+# hook (first card run 1,351.63 against 1,331.37 ms: the exit settle)
+MNIST_BROKER_HOOK_RTOL = 0.05
+
+
+def test_train_mnist_pod_is_charged_once_under_the_scheduler_env(card,
+                                                                 tmp_path):
+    """``train_mnist_torch.py`` at its defaults (1,000 captured steps at
+    batch 256) as the pod the port's scheduler places on the card: its
+    env is the one the scheduler injects (the hook preloaded, the pod
+    manager's port, the memory cap), behind the configd files and a
+    ChipSupervisor's real tokend and pmgr.  The script sees the hook and
+    builds no guard, so the broker charges each step once: its charge
+    for steps 2-1,000 over their CUDA-event ms lies in
+    MNIST_CHARGE_RANGE, and its total is the hook's own charge within
+    MNIST_BROKER_HOOK_RTOL."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    from kubeshare_tpu_torch import constants
+    from kubeshare_tpu_torch.cell import TopologyConfig, discover_local_chips
+    from kubeshare_tpu_torch.cell.spec import check_physical_cells
+    from kubeshare_tpu_torch.cluster.api import FakeClock, Node, Pod, PodPhase
+    from kubeshare_tpu_torch.cluster.fake import FakeCluster
+    from kubeshare_tpu_torch.configd import ConfigDaemon
+    from kubeshare_tpu_torch.isolation import TokenClient, hook
+    from kubeshare_tpu_torch.runtime import ChipSupervisor, ensure_binary
+    from kubeshare_tpu_torch.scheduler import KubeShareScheduler, SchedulerEngine
+    from kubeshare_tpu_torch.utils.net import wait_listening
+
+    repo = Path(__file__).resolve().parent.parent
+    [chip] = discover_local_chips()
+    topology = TopologyConfig.from_dict({
+        "cellTypes": {"1-GPU-NODE": {"childCellType": chip.model,
+                                     "childCellNumber": 1,
+                                     "isNodeLevel": True}},
+        "cells": [{"cellType": "1-GPU-NODE", "cellId": "mnist-node"}]})
+    check_physical_cells(topology)
+    cluster = FakeCluster()
+    cluster.add_node(Node("mnist-node", {constants.NODE_LABEL_FILTER: "true"}))
+    clock = FakeClock(0.0)
+    engine = SchedulerEngine(KubeShareScheduler(
+        topology, cluster, lambda node: [chip], clock=clock), cluster, clock)
+    cluster.create_pod(Pod(
+        name="mnist", scheduler_name=constants.SCHEDULER_NAME,
+        labels={constants.POD_GPU_REQUEST: "0.5",
+                constants.POD_GPU_LIMIT: "1.0",
+                constants.POD_GPU_MEMORY: str(chip.memory // 4)}))
+    assert [r.result for r in engine.run_until_idle()] == ["bound"]
+    pod = cluster.get_pod("default", "mnist")
+    cluster.set_pod_phase("default", "mnist", PodPhase.RUNNING)
+    ConfigDaemon("mnist-node", cluster=cluster,
+                 config_dir=str(tmp_path / "config"),
+                 port_dir=str(tmp_path / "ports")).sync()
+    env = dict(pod.containers[0].env)
+    assert env[constants.ENV_SHIM_PRELOAD] == constants.SHIM_LIBRARY
+    # the node's hostPath mount and the container runtime's mapping
+    env[constants.ENV_SHIM_PRELOAD] = str(hook.hook_path())
+    env["CUDA_VISIBLE_DEVICES"] = env.pop(constants.ENV_VISIBLE_DEVICES)
+    bare = {k: v for k, v in os.environ.items()
+            if k not in ("LD_PRELOAD", "POD_MANAGER_PORT", "POD_NAME",
+                         "POD_MANAGER_IP", "CUDA_VISIBLE_DEVICES")
+            and not k.startswith(("TPUSHARE_", "CUDAHOOK_", "NVIDIA_"))}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        tokend_port = s.getsockname()[1]
+    started = time.monotonic()
+    with ChipSupervisor(chip.uuid, config_dir=str(tmp_path / "config"),
+                        port_dir=str(tmp_path / "ports"),
+                        tokend_port=tokend_port, poll_interval=0.1,
+                        tokend_binary=ensure_binary("tpushare-tokend"),
+                        pmgr_binary=ensure_binary("tpushare-pmgr")):
+        wait_listening(tokend_port)
+        wait_listening(int(env[constants.ENV_POD_MANAGER_PORT]))
+        child = subprocess.run(
+            [sys.executable, "-c", MNIST_POD_CHILD % str(repo)],
+            env={**bare, **env}, capture_output=True, text=True, timeout=600)
+        assert child.returncode == 0, child.stderr[-3000:]
+        assert "running ungated" not in child.stderr, child.stderr[-3000:]
+        probe = TokenClient("127.0.0.1", tokend_port, "probe")
+        entry = json.loads(probe.stat())["pods"][pod.key]
+        probe.close()
+    summary = json.loads(child.stdout.strip().splitlines()[-1])
+    summary["wall_s"] = time.monotonic() - started
+    assert summary["gate"] == "hook" and summary["steps"] == 1000
+    assert np.isfinite(summary["losses"]).all()
+    steps_ms = sum(summary["step_ms"][1:])
+    hooked = summary["hook"]
+    first = hooked["charged_ms_after_first_step"]
+    summary.update(
+        broker_charged_ms=entry["charged_total_ms"],
+        broker_grants=entry["grants"], step1_event_ms=summary["step_ms"][0],
+        steps_event_ms=steps_ms,
+        charge_over_event_ms=(entry["charged_total_ms"] - first) / steps_ms,
+        hook_steps_charge_over_event_ms=(
+            (hooked["charged_ms"] - first) / steps_ms))
+    _twin_line("train_mnist_torch.py (under the scheduler's env)", summary,
+               ("wall_s", "process_s", "steps_per_s", "step1_event_ms",
+                "steps_event_ms", "broker_charged_ms", "broker_grants",
+                "charge_over_event_ms", "hook_steps_charge_over_event_ms",
+                "hook", "gate"))
+    low, high = MNIST_CHARGE_RANGE
+    assert low <= summary["charge_over_event_ms"] <= high, summary
+    assert low <= summary["hook_steps_charge_over_event_ms"] <= high, summary
+    assert abs(entry["charged_total_ms"] - hooked["charged_ms"]) <= \
+        MNIST_BROKER_HOOK_RTOL * hooked["charged_ms"], (entry, hooked)
+
+
+@pytest.mark.parametrize("script,keys", [
+    ("serve_fractional_torch", ("tokens_per_s", "tokens", "seconds",
+                                "preemptions", "tier_demoted_blocks",
+                                "tier_promoted_blocks", "spec_drafted",
+                                "spec_accepted", "grants", "charged_ms",
+                                "captures_after_warmup")),
+    ("serve_disagg_torch", ("tokens_per_s", "tokens", "seconds",
+                            "delivered", "migrated_bytes",
+                            "streams_equal_monolithic", "cells",
+                            "captures_after_warmup")),
+    ("serve_fleet_torch", ("tokens_per_s", "tokens", "seconds", "owners",
+                           "inherited", "tier_hits", "states", "routing",
+                           "prefix_hit_tokens", "captures_after_warmup")),
+    ("serve_sharded_torch", ("tokens_per_s", "tokens", "seconds",
+                             "collective_bytes", "streams_equal_single_device",
+                             "grants", "charged_ms",
+                             "captures_after_warmup")),
+])
+def test_serving_twin_runs_on_the_card(card, script, keys):
+    """The serving twins of examples/ at their full configurations (no
+    ``--device``: the card).  Each raises where its JAX example raises
+    (a graph captured after warm-up, a stream unequal to its replay, a
+    broken affinity or drain); here the headline numbers are checked and
+    printed."""
+    import importlib
+    import time
+
+    started = time.monotonic()
+    summary = importlib.import_module(script).main([])
+    summary["wall_s"] = time.monotonic() - started
+    assert summary["device"].startswith("cuda")
+    assert summary["captures_after_warmup"] == 0
+    assert summary["tokens"] > 0
+    if script == "serve_fractional_torch":
+        assert sum(summary["preemptions"].values()) > 0
+        assert summary["tier_demoted_blocks"] > 0
+        assert summary["charged_ms"] > 0
+    if script == "serve_disagg_torch":
+        assert summary["streams_equal_monolithic"] == summary["requests"]
+        assert summary["delivered"] == summary["requests"]
+    if script == "serve_sharded_torch":
+        assert summary["streams_equal_single_device"] == summary["requests"]
+        assert summary["collective_bytes"]["prefill_chunk"] > 0
+    _twin_line(f"{script}.py", summary, ("wall_s",) + keys)
+
+
+def test_demo_e2e_runs_on_the_card(card):
+    """``demo_e2e_torch.py`` on the card: the chip discover_local_chips
+    finds, both pods bound to its UUID, the config file, three captured
+    MNIST steps a pod gated through its pod manager, the reclaim."""
+    import time
+
+    import demo_e2e_torch
+    from kubeshare_tpu_torch.cell import discover_local_chips
+
+    started = time.monotonic()
+    summary = demo_e2e_torch.main([])
+    summary["wall_s"] = time.monotonic() - started
+    [chip] = discover_local_chips()
+    assert summary["chip"] == chip.uuid
+    assert {p["uuid"] for p in summary["placements"].values()} == {chip.uuid}
+    mem = demo_e2e_torch.POD_MEMORY
+    assert summary["files"]["config"] == (
+        f"2\ndefault/mnist-a 1.0 0.5 {mem}\ndefault/mnist-b 1.0 0.5 {mem}\n")
+    assert summary["reclaim"]["files"]["config"] == (
+        f"1\ndefault/mnist-b 1.0 0.5 {mem}\n")
+    assert summary["reclaim"]["available"] == 0.5
+    for steps in summary["steps"].values():
+        assert steps["tokens"] >= 1 and np.isfinite(steps["losses"]).all()
+    _twin_line("demo_e2e_torch.py", summary,
+               ("wall_s", "chip", "steps", "tokend", "reclaim"))

@@ -58,10 +58,13 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "scheduler.framework", "scheduler.leader",
                      "scheduler.placement", "configd.configd",
                      "utils.bitmap", "utils.atomicfile", "utils.net",
-                     "collector.collector", "cli", "__main__"):
+                     "collector.collector", "aggregator.aggregator",
+                     "simulator.simulator", "cli", "__main__"):
             assert "kubeshare_tpu_torch." + name in names, name
         import chip_smoke, corun_bench, model_bench, train_cifar_torch
         import train_distributed_torch, train_longcontext_torch
+        import train_mnist_torch, serve_fractional_torch, serve_disagg_torch
+        import serve_fleet_torch, serve_sharded_torch, demo_e2e_torch
         assert len(names) >= 20, names
         bad = sorted(m for m in sys.modules if m == "jax"
                      or m.startswith("jax.") or m == "kubeshare_tpu"
