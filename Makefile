@@ -20,11 +20,15 @@
 #   make images          build the kubeshare-tpu:latest container image
 #   make image-check     validate everything the Dockerfile needs, sans docker
 #   make e2e-kind        kind-based end-to-end (skips cleanly without kind)
+#   make images-torch    build the port's kubeshare-tpu-torch:latest image
+#   make image-check-torch  validate everything docker/Dockerfile.torch needs, sans docker
+#   make e2e-kind-torch  the port's kind end-to-end (skips cleanly without kind)
 
 IMAGE ?= kubeshare-tpu:latest
+IMAGE_TORCH ?= kubeshare-tpu-torch:latest
 DOCKER ?= $(shell command -v docker || command -v podman)
 
-.PHONY: all native test serve-smoke serve-prefix-smoke serve-qos-smoke serve-mixed-smoke serve-tier-smoke serve-spec-smoke serve-disagg-smoke serve-sharded-smoke serve-loop-smoke serve-loop-v2-smoke serve-fleet-smoke serve-autotune-smoke serve-chaos-smoke serve-fabric-smoke images image-check e2e-kind tsan clean
+.PHONY: all native test serve-smoke serve-prefix-smoke serve-qos-smoke serve-mixed-smoke serve-tier-smoke serve-spec-smoke serve-disagg-smoke serve-sharded-smoke serve-loop-smoke serve-loop-v2-smoke serve-fleet-smoke serve-autotune-smoke serve-chaos-smoke serve-fabric-smoke images image-check e2e-kind images-torch image-check-torch e2e-kind-torch tsan clean
 
 all: native
 
@@ -106,6 +110,27 @@ image-check: native
 
 e2e-kind:
 	deploy/e2e-kind.sh
+
+images-torch: image-check-torch
+ifeq ($(strip $(DOCKER)),)
+	@echo "error: neither docker nor podman found; cannot build $(IMAGE_TORCH)." >&2
+	@echo "image-check-torch passed: the build context is complete — run" >&2
+	@echo "  docker build -f docker/Dockerfile.torch -t $(IMAGE_TORCH) ." >&2
+	@echo "on a machine with a container runtime." >&2
+	@exit 1
+else
+	$(DOCKER) build -f docker/Dockerfile.torch -t $(IMAGE_TORCH) .
+endif
+
+# Everything `docker build -f docker/Dockerfile.torch` needs, verifiable on
+# container-less hosts: tokend and pmgr, the driver interposer (g++), every
+# path the Dockerfile copies, and the port's subcommands.
+image-check-torch:
+	$(MAKE) -C native build/tpushare-tokend build/tpushare-pmgr
+	@python3 deploy/cuda/image_check.py $(IMAGE_TORCH)
+
+e2e-kind-torch:
+	deploy/cuda/e2e-kind.sh
 
 clean:
 	$(MAKE) -C native clean

@@ -316,10 +316,14 @@ Phases (any failure raises and the script exits non-zero):
    placement: the port's control plane places pods on the card and runs
    them.  The topology is built from discover_local_chips() (one node,
    one cell of the card's model) with TopologyConfig.from_dict; the
-   port's KubeShareScheduler and SchedulerEngine over a FakeCluster bind
+   port's KubeShareScheduler, in the shadow bind mode the deployment runs
+   (deploy/cuda/scheduler.yaml: each placed pod is deleted and created
+   again, so its uid changes), and SchedulerEngine over a FakeCluster bind
    pod A (request 0.5, limit 1.0) and pod B (0.5, 0.5), each with gpu_mem
    PLACEMENT_MEM_FRACTION of the card, to the card's UUID at two ports of
-   the 50050 pool, and refuse pod C (0.5): the card is full.  The port's
+   the 50050 pool, and refuse pod C, the pod of
+   deploy/cuda/examples/mnist-fractional.yaml (MNIST_MANIFEST_*: request
+   0.5): the card is full.  The port's
    ConfigDaemon writes config/<UUID> and podmanagerport/<UUID>, and a
    The port's Aggregator, served on a free port, exports one
    gpu_requirement sample a running pod with the card's UUID, the node,
@@ -342,7 +346,12 @@ Phases (any failure raises and the script exits non-zero):
    scheduler's pod key with a grant and a charge.  Deleting B reclaims
    its cell and port: the files fall to one pod, the supervisor reaps
    B's pod manager, C binds on the next cycle and its pod manager runs
-   at C's port.
+   at C's port.  C then runs the manifest's container command
+   (python train_mnist_torch.py, at --steps MNIST_MANIFEST_STEPS) under
+   its injected env with the same two substitutions: it must exit 0
+   without "running ungated", its hook (CUDAHOOK_STATS) must be gated
+   with graph launches, and tokend must show a grant and a charge for
+   C's key.
 9. corun: corun_bench.py's four phases (solo A, solo B, the co-run of
    two MNIST pods under tpushare-tokend, the adversarial pair) at 3 s
    windows; every phase must produce a result and every pod must be
@@ -930,6 +939,18 @@ PLACEMENT_FITS = 0.3  # of the card: allocates under the 0.4 cap
 PLACEMENT_REFUSED = 0.6  # of the card: the hook refuses it
 PLACEMENT_SECONDS = 4.0  # captured MNIST steps in each pod, at once
 PLACEMENT_CHILD_TIMEOUT_S = 180
+# deploy/cuda/examples/mnist-fractional.yaml, the pod that binds in B's
+# place: its name, labels and container command, kept here so that the
+# script needs no PyYAML (tests/test_torch_deploy.py holds them equal to
+# the file)
+MNIST_MANIFEST = "deploy/cuda/examples/mnist-fractional.yaml"
+MNIST_MANIFEST_POD = "mnist1"
+MNIST_MANIFEST_CONTAINER = "train"
+MNIST_MANIFEST_LABELS = {
+    "sharedgpu/gpu_request": "0.5", "sharedgpu/gpu_limit": "1.0",
+    "sharedgpu/gpu_mem": "8589934592", "sharedgpu/priority": "100"}
+MNIST_MANIFEST_COMMAND = ("python", "train_mnist_torch.py")
+MNIST_MANIFEST_STEPS = 100  # captured steps of about 1 ms at batch 256
 # mem_get_info's total against the pod's gpu_mem, over the card's memory:
 # the hook caps at TPUSHARE_MEM_FRACTION, printed to 4 decimals, of
 # cuMemGetInfo's total, so the cap may be off by about 4 MiB of 80 GB
@@ -6711,12 +6732,14 @@ def placement_phase(torch, device):
     from kubeshare_tpu_torch import constants
     from kubeshare_tpu_torch.cell import TopologyConfig, discover_local_chips
     from kubeshare_tpu_torch.cell.spec import check_physical_cells
-    from kubeshare_tpu_torch.cluster.api import FakeClock, Node, Pod, PodPhase
+    from kubeshare_tpu_torch.cluster.api import (Container, FakeClock, Node,
+                                                 Pod, PodPhase)
     from kubeshare_tpu_torch.cluster.fake import FakeCluster
     from kubeshare_tpu_torch.configd import ConfigDaemon
     from kubeshare_tpu_torch.isolation import TokenClient, hook
     from kubeshare_tpu_torch.runtime import ChipSupervisor
-    from kubeshare_tpu_torch.scheduler import KubeShareScheduler, SchedulerEngine
+    from kubeshare_tpu_torch.scheduler import (KubeShareScheduler,
+                                               SchedulerArgs, SchedulerEngine)
 
     started = time.perf_counter()
     card = card_line()
@@ -6733,27 +6756,39 @@ def placement_phase(torch, device):
     clock = FakeClock(0.0)
     plugin = KubeShareScheduler(
         topology, cluster, lambda node: [chip] if node == PLACEMENT_NODE else [],
-        clock=clock)
+        args=SchedulerArgs(bind_mode="shadow"), clock=clock)
     engine = SchedulerEngine(plugin, cluster, clock)
     gpu_mem = int(PLACEMENT_MEM_FRACTION * chip.memory)
+    submitted = {}  # name -> uid of the pod as submitted
 
-    def submit(name, request, limit):
-        cluster.create_pod(Pod(
+    def submit(name, labels, container="main"):
+        submitted[name] = cluster.create_pod(Pod(
             name=name, scheduler_name=constants.SCHEDULER_NAME,
-            labels={constants.POD_GPU_REQUEST: request,
-                    constants.POD_GPU_LIMIT: limit,
-                    constants.POD_GPU_MEMORY: str(gpu_mem)}))
+            labels=labels, containers=[Container(name=container)])).uid
 
-    submit("pod-a", "0.5", "1.0")
-    submit("pod-b", "0.5", "0.5")
+    def shadow_bound(name):
+        """The bound pod is the shadow bind's copy: a new pod, new uid."""
+        pod = cluster.get_pod("default", name)
+        print(f"placement {name}: shadow bind, uid {submitted[name]} -> "
+              f"{pod.uid}")
+        check(pod.uid != submitted[name],
+              f"{name} kept its uid {pod.uid}: not bound in shadow mode")
+        return pod
+
+    for name, limit in (("pod-a", "1.0"), ("pod-b", "0.5")):
+        submit(name, {constants.POD_GPU_REQUEST: "0.5",
+                      constants.POD_GPU_LIMIT: limit,
+                      constants.POD_GPU_MEMORY: str(gpu_mem)})
     results = {r.pod_key: r.result for r in engine.run_until_idle()}
     check(results == {"default/pod-a": "bound", "default/pod-b": "bound"},
           f"placement cycles {results}")
-    submit("pod-c", "0.5", "0.5")
+    manifest_key = f"default/{MNIST_MANIFEST_POD}"
+    submit(MNIST_MANIFEST_POD, dict(MNIST_MANIFEST_LABELS),
+           MNIST_MANIFEST_CONTAINER)
     refused = engine.run_until_idle()
     check(refused and all(r.result == "unschedulable" for r in refused),
-          f"pod C on a full card: {refused}")
-    pods = {name: cluster.get_pod("default", name) for name in ("pod-a", "pod-b")}
+          f"pod C ({MNIST_MANIFEST}) on a full card: {refused}")
+    pods = {name: shadow_bound(name) for name in ("pod-a", "pod-b")}
     ports = {}
     for name, pod in pods.items():
         annotations = pod.annotations
@@ -6915,13 +6950,13 @@ def placement_phase(torch, device):
               f"pod managers after the reclaim {sorted(supervisor.pod_managers)}")
         bound = engine.run_until_idle()
         check([(r.pod_key, r.result) for r in bound]
-              == [("default/pod-c", "bound")], f"pod C after the reclaim {bound}")
-        pod_c = cluster.get_pod("default", "pod-c")
+              == [(manifest_key, "bound")], f"pod C after the reclaim {bound}")
+        pod_c = shadow_bound(MNIST_MANIFEST_POD)
         c_port = int(pod_c.annotations[constants.POD_MANAGER_PORT])
         require_free(c_port)
-        cluster.set_pod_phase("default", "pod-c", PodPhase.RUNNING)
+        cluster.set_pod_phase("default", MNIST_MANIFEST_POD, PodPhase.RUNNING)
         daemon.sync()
-        wanted.add(f"default/pod-c {c_port}")
+        wanted.add(f"{manifest_key} {c_port}")
         until = time.monotonic() + 10
         while set(supervisor.pod_managers) != wanted and time.monotonic() < until:
             time.sleep(0.1)
@@ -6929,10 +6964,74 @@ def placement_phase(torch, device):
               f"pod managers after C bound {sorted(supervisor.pod_managers)}")
         wait_listening(c_port)
         print(f"placement reclaim: pod-b's cell and port "
-              f"{ports['pod-b']} reclaimed, its manager reaped; pod-c bound "
+              f"{ports['pod-b']} reclaimed, its manager reaped; "
+              f"{MNIST_MANIFEST_POD} bound "
               f"to {pod_c.annotations[constants.POD_GPU_UUID]} at port "
               f"{c_port}, its manager running; files {json.dumps(files())}")
+        placement_manifest_pod(pod_c, bare, library, out_dir, tokend_port,
+                               card)
     print(f"placement: {time.perf_counter() - started:.1f} s wall; {card}")
+
+
+def placement_manifest_pod(pod, bare, library, out_dir, tokend_port, card):
+    """Pod C of the placement phase, the pod of MNIST_MANIFEST: its
+    container command at --steps MNIST_MANIFEST_STEPS under the env the
+    scheduler injected (with the node's two substitutions), from the root
+    of the checkout as the image's working directory; it must run gated
+    by the hook and be charged by tokend under its key."""
+    import os
+
+    from kubeshare_tpu_torch import constants
+    from kubeshare_tpu_torch.isolation import TokenClient, hook
+
+    check(pod.labels == MNIST_MANIFEST_LABELS
+          and [c.name for c in pod.containers] == [MNIST_MANIFEST_CONTAINER],
+          f"{pod.key} is not {MNIST_MANIFEST}'s pod: {pod.labels}, "
+          f"{[c.name for c in pod.containers]}")
+    env = dict(pod.containers[0].env)
+    check(env[constants.ENV_SHIM_PRELOAD] == constants.SHIM_LIBRARY
+          and env[constants.ENV_POD_NAME] == pod.key,
+          f"{pod.key}'s env {env}")
+    env[constants.ENV_SHIM_PRELOAD] = library
+    env["CUDA_VISIBLE_DEVICES"] = env.pop(constants.ENV_VISIBLE_DEVICES)
+    stats_path = os.path.join(out_dir, f"{pod.name}-hook.json")
+    env[hook.ENV_STATS] = stats_path
+    command = [sys.executable, *MNIST_MANIFEST_COMMAND[1:],
+               "--steps", str(MNIST_MANIFEST_STEPS)]
+    began = time.perf_counter()
+    proc = subprocess.run(command, env={**bare, **env},
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True,
+                          timeout=PLACEMENT_CHILD_TIMEOUT_S)
+    wall_s = time.perf_counter() - began
+    log = proc.stdout + proc.stderr
+    check(proc.returncode == 0,
+          f"{pod.key} ({' '.join(command)}) exited {proc.returncode}: "
+          f"{log[-3000:]}")
+    check("running ungated" not in log, f"{pod.key} ran ungated: {log[-3000:]}")
+    done = re.search(r"done: (\d+) steps, final loss (\S+)", proc.stdout)
+    check(done is not None and int(done.group(1)) == MNIST_MANIFEST_STEPS
+          and math.isfinite(float(done.group(2))),
+          f"{pod.key}'s output: {proc.stdout[-2000:]}")
+    stats = hook.read_stats(stats_path)
+    probe = TokenClient("127.0.0.1", tokend_port, "probe")
+    entry = json.loads(probe.stat())["pods"].get(pod.key, {})
+    probe.close()
+    shown = {key: stats.get(key) for key in (
+        "gated", "acquires", "graph_launches", "captured_launches",
+        "charged_ms", "mem_fraction", "denials")}
+    print(f"placement {pod.name} ({MNIST_MANIFEST}): labels "
+          f"{json.dumps(pod.labels, sort_keys=True)}; "
+          f"{' '.join(MNIST_MANIFEST_COMMAND)} --steps "
+          f"{MNIST_MANIFEST_STEPS}: {done.group(1)} steps, final loss "
+          f"{done.group(2)}, {wall_s:.1f} s wall (process start included); "
+          f"hook {json.dumps(shown)}; tokend for {pod.key}: grants "
+          f"{entry.get('grants')}, charged {entry.get('charged_total_ms')} "
+          f"ms; {card}")
+    check(stats.get("gated") and stats.get("graph_launches", 0) > 0,
+          f"{pod.key}'s hook {stats}")
+    check(entry.get("grants", 0) >= 1 and entry.get("charged_total_ms", 0) > 0,
+          f"tokend charged {pod.key} nothing: {entry}")
 
 
 def discovery_phase(torch, device):

@@ -47,6 +47,13 @@ class Pod:
     containers: List[Container] = field(default_factory=lambda: [Container()])
     volumes: List[str] = field(default_factory=list)
     creation_timestamp: float = 0.0
+    # The manifest the API server returned for this pod (a dict in the
+    # API's camelCase), or None for a pod built in memory.  Deliberately
+    # not a dataclass field: the modelled fields stay JAX's, and the
+    # Kubernetes adapter writes this spec back when it recreates the pod
+    # (shadow bind), so image, command, resources, volumes and owner
+    # references survive the fields modelled above.
+    source = None
 
     @functools.cached_property
     def key(self) -> str:
@@ -61,7 +68,7 @@ class Pod:
         return self.phase in (PodPhase.SUCCEEDED, PodPhase.FAILED)
 
     def copy(self) -> "Pod":
-        return Pod(
+        twin = Pod(
             namespace=self.namespace,
             name=self.name,
             uid=self.uid,
@@ -77,6 +84,8 @@ class Pod:
             volumes=list(self.volumes),
             creation_timestamp=self.creation_timestamp,
         )
+        twin.source = self.source  # read only: manifests copy it first
+        return twin
 
     def get_env(self, name: str) -> Optional[str]:
         for c in self.containers:

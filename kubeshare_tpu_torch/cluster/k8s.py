@@ -14,13 +14,24 @@ server on hosts with a container runtime.
 Only the fields the framework reads/writes are translated (see
 cluster.api.Pod/Node); everything else round-trips untouched because
 updates are applied as strategic-merge patches rather than full replaces.
+
+Unlike JAX's adapter, a pod read from the API server keeps its whole
+manifest (``Pod.source``), and a pod created from it writes that
+manifest back with the modelled fields on top.  The shadow bind deletes
+a pod and creates its placed copy, and a copy of the modelled fields
+alone has no image, command or volumes, which the API server refuses;
+the library the scheduler mounts becomes a ``hostPath`` volume of its
+own (``LIBRARY_VOLUME``), as the reference's deep copy adds it (ref
+pod.go:402-476).
 """
 
 from __future__ import annotations
 
+import copy
 import threading
 from typing import Dict, List, Optional
 
+from .. import constants
 from .api import ClusterAPI, Container, EventHandler, Node, Pod, PodPhase
 
 
@@ -35,6 +46,43 @@ def _require_client():
     return client, config, watch
 
 
+# the hostPath volume of constants.LIBRARY_PATH in a pod's manifest
+LIBRARY_VOLUME = "kubeshare-library"
+# metadata the API server sets on a pod it stores; a created pod sends none
+_SERVER_METADATA = frozenset((
+    "uid", "resourceVersion", "creationTimestamp", "selfLink",
+    "managedFields", "generation", "deletionTimestamp",
+    "deletionGracePeriodSeconds"))
+
+
+def _camel(name: str) -> str:
+    head, *rest = name.split("_")
+    return head + "".join(part[:1].upper() + part[1:] for part in rest)
+
+
+def _manifest_of(obj):
+    """An API object as the dict the API server takes: camelCase keys,
+    unset fields left out.  The client's models name their keys in
+    ``attribute_map``; another object (a test double) by its attributes."""
+    if obj is None or isinstance(obj, (str, int, float, bool)):
+        return obj
+    if isinstance(obj, (list, tuple)):
+        return [_manifest_of(v) for v in obj]
+    if isinstance(obj, dict):
+        return {k: _manifest_of(v) for k, v in obj.items()}
+    if hasattr(obj, "isoformat"):
+        return obj.isoformat()
+    names = getattr(obj, "attribute_map", None)
+    if names is None:
+        names = {attr: _camel(attr) for attr in vars(obj)}
+    out = {}
+    for attr, key in names.items():
+        value = getattr(obj, attr, None)
+        if value is not None:
+            out[key] = _manifest_of(value)
+    return out
+
+
 def _to_pod(obj) -> Pod:
     spec = obj.spec
     meta = obj.metadata
@@ -46,7 +94,7 @@ def _to_pod(obj) -> Pod:
     phase = PodPhase.PENDING
     if obj.status and obj.status.phase in PodPhase._value2member_map_:
         phase = PodPhase(obj.status.phase)
-    return Pod(
+    pod = Pod(
         namespace=meta.namespace or "default",
         name=meta.name,
         uid=meta.uid or "",
@@ -61,6 +109,27 @@ def _to_pod(obj) -> Pod:
             meta.creation_timestamp.timestamp() if meta.creation_timestamp else 0.0
         ),
     )
+    pod.source = {"metadata": _manifest_of(meta), "spec": _manifest_of(spec)}
+    return pod
+
+
+def _merged_env(source_env: List[dict], env: Dict[str, str]) -> List[dict]:
+    """A container's env entries: the source's, each one the pod still
+    holds at the value read from it kept as written (``valueFrom``
+    included), the others set to the pod's value, and the pod's new
+    names after them."""
+    out, seen = [], set()
+    for entry in source_env:
+        name = entry.get("name")
+        if name not in env:
+            continue
+        seen.add(name)
+        if env[name] == (entry.get("value") or ""):
+            out.append(entry)
+        else:
+            out.append({"name": name, "value": env[name]})
+    out += [{"name": k, "value": v} for k, v in env.items() if k not in seen]
+    return out
 
 
 def _to_node(obj) -> Node:
@@ -187,29 +256,48 @@ class K8sCluster(ClusterAPI):
             raise
 
     def _pod_manifest(self, pod: Pod) -> dict:
-        return {
-            "apiVersion": "v1",
-            "kind": "Pod",
-            "metadata": {
-                "name": pod.name,
-                "namespace": pod.namespace,
-                "labels": pod.labels,
-                "annotations": pod.annotations,
-            },
-            "spec": {
-                "schedulerName": pod.scheduler_name,
-                "nodeName": pod.node_name or None,
-                "containers": [
-                    {
-                        "name": c.name,
-                        "env": [
-                            {"name": k, "value": v} for k, v in c.env.items()
-                        ],
-                    }
-                    for c in pod.containers
-                ],
-            },
-        }
+        """The body that creates ``pod``: its source manifest when it was
+        read from the API server (image, command, resources, volumes,
+        owner references and the rest), with the modelled fields laid on
+        top: metadata, scheduler, node, each container's env (the pod's
+        values replace same-named entries), and constants.LIBRARY_PATH as
+        the hostPath volume LIBRARY_VOLUME, mounted in each container
+        that mounts it.  A pod built in memory has only those fields."""
+        source = copy.deepcopy(pod.source or {})
+        meta = {k: v for k, v in (source.get("metadata") or {}).items()
+                if k not in _SERVER_METADATA}
+        meta.update(name=pod.name, namespace=pod.namespace,
+                    labels=pod.labels, annotations=pod.annotations)
+        spec = source.get("spec") or {}
+        spec["schedulerName"] = pod.scheduler_name
+        spec["nodeName"] = pod.node_name or None
+        volumes = spec.get("volumes") or []
+        library = None
+        if constants.LIBRARY_PATH in pod.volumes:
+            library = next((v["name"] for v in volumes
+                            if (v.get("hostPath") or {}).get("path")
+                            == constants.LIBRARY_PATH), None)
+            if library is None:
+                library = LIBRARY_VOLUME
+                volumes.append({"name": library, "hostPath": {
+                    "path": constants.LIBRARY_PATH,
+                    "type": "DirectoryOrCreate"}})
+            spec["volumes"] = volumes
+        by_name = {c.get("name"): c for c in spec.get("containers") or []}
+        containers = []
+        for c in pod.containers:
+            out = by_name.get(c.name) or {"name": c.name}
+            out["env"] = _merged_env(out.get("env") or [], c.env)
+            mounts = out.get("volumeMounts") or []
+            if (library and constants.LIBRARY_PATH in c.volume_mounts
+                    and all(m.get("mountPath") != constants.LIBRARY_PATH
+                            for m in mounts)):
+                out["volumeMounts"] = mounts + [
+                    {"name": library, "mountPath": constants.LIBRARY_PATH}]
+            containers.append(out)
+        spec["containers"] = containers
+        return {"apiVersion": "v1", "kind": "Pod", "metadata": meta,
+                "spec": spec}
 
     # ---- watches -----------------------------------------------------
     def add_pod_handler(self, handler: EventHandler) -> None:

@@ -128,6 +128,9 @@ class KubeShareScheduler:
         self.bound_pod_queue: Dict[str, List[Pod]] = {}
         self.bound_queue_lock = threading.RLock()
         self._suppressed_deletes: set = set()
+        # keys whose shadow copy is being created: its add event is this
+        # cycle's own pod, not one bound before a restart (see reserve)
+        self._shadow_creates: set = set()
         # (node, model, kind) -> (fit_generation, node-local score)
         self._node_score_cache: Dict[tuple, tuple] = {}
 
@@ -200,6 +203,8 @@ class KubeShareScheduler:
         # scheduler-restart recovery (ref pod.go:47-78)
         if constants.POD_GPU_MEMORY not in pod.annotations:
             return  # regular pod: nothing to re-reserve
+        if pod.key in self._shadow_creates:
+            return  # reserve's own shadow copy: its status is in hand
         with self.pod_status_lock:
             existing = self.pod_status.get(pod.key)
             if existing is not None and existing.uid == pod.uid:
@@ -539,8 +544,18 @@ class KubeShareScheduler:
             finally:
                 self._suppressed_deletes.discard(pod.key)
             assumed.uid = ""
-            created = self.cluster.create_pod(assumed)
-            status.uid = created.uid
+            # The copy's add event can arrive before its uid is known
+            # here (a cluster that dispatches synchronously always does).
+            # Taken for a pod bound before a restart, it would be queued
+            # for recovery, and if the pod were deleted before its node's
+            # next Filter, recovery would reserve its cells again for
+            # nobody: a leak JAX's plugin has.
+            self._shadow_creates.add(pod.key)
+            try:
+                created = self.cluster.create_pod(assumed)
+                status.uid = created.uid
+            finally:
+                self._shadow_creates.discard(pod.key)
         else:
             self.cluster.update_pod(assumed)
             status.uid = assumed.uid

@@ -139,17 +139,213 @@ MANIFESTS = {
 }
 
 
+LIBRARY_VOLUME = {"name": "kubeshare-library",
+                  "hostPath": {"path": "/kubeshare/library",
+                               "type": "DirectoryOrCreate"}}
+LIBRARY_MOUNT = {"name": "kubeshare-library", "mountPath": "/kubeshare/library"}
+
+
+def _holds(small, big):
+    """Every key of ``small`` is in ``big`` with a value that holds the
+    small one's: dicts key by key, lists item by item."""
+    if isinstance(small, dict):
+        return isinstance(big, dict) and all(
+            k in big and _holds(v, big[k]) for k, v in small.items())
+    if isinstance(small, list):
+        return isinstance(big, list) and len(small) == len(big) and all(
+            _holds(a, b) for a, b in zip(small, big))
+    return small == big
+
+
 @pytest.mark.parametrize("name", sorted(MANIFESTS))
 def test_pod_manifest_matches(name):
+    """A pod built in memory renders JAX's manifest, and a placed one
+    (the library mounted) JAX's plus the library as a valid hostPath
+    volume and its mount: JAX's adapter writes neither, so its pod would
+    run without the hook (a bare path is no volume name)."""
     jax_pod, port_pod = _pod_pair(**MANIFESTS[name])
-    assert port_k8s.K8sCluster._pod_manifest(None, port_pod) == \
-        jax_k8s.K8sCluster._pod_manifest(None, jax_pod)
+    port = port_k8s.K8sCluster._pod_manifest(None, port_pod)
+    jax = jax_k8s.K8sCluster._pod_manifest(None, jax_pod)
+    if name == "pending":
+        assert port == jax
     if name == "placed":
-        manifest = port_k8s.K8sCluster._pod_manifest(None, port_pod)
-        assert manifest["spec"]["schedulerName"] == "kubeshare-scheduler"
-        assert manifest["spec"]["nodeName"] == "gpu-a"
+        assert port != jax and _holds(jax, port)
+        assert port["spec"]["volumes"] == [LIBRARY_VOLUME]
+        assert port["spec"]["containers"][0]["volumeMounts"] == [LIBRARY_MOUNT]
+        assert "volumes" not in jax["spec"]
+        assert "volumeMounts" not in jax["spec"]["containers"][0]
+        assert port["spec"]["schedulerName"] == "kubeshare-scheduler"
+        assert port["spec"]["nodeName"] == "gpu-a"
         assert {"name": "POD_NAME", "value": "ns/p"} in \
-            manifest["spec"]["containers"][0]["env"]
+            port["spec"]["containers"][0]["env"]
+
+
+class _Stamped(_Stamp):
+    """A server timestamp, as the client gives it (a datetime)."""
+
+    def isoformat(self):
+        return "2026-01-01T00:00:00+00:00"
+
+
+def source_pod(name="src", namespace="ns", labels=None):
+    """A pod as the API server returns it: a Job's pod with an image,
+    command, args, resources, ports, plain and downward-API env, a
+    configMap volume and its mount, a sidecar, and the metadata the
+    server sets."""
+    def container(cname, image, env):
+        return attrdict(
+            name=cname, image=image, command=["python", "train.py"],
+            args=["--steps", "5"], working_dir="/work",
+            resources=attrdict(limits={"cpu": "2", "memory": "4Gi"},
+                               requests={"cpu": "1"}),
+            ports=[attrdict(container_port=8080, name="http",
+                            protocol="TCP")],
+            env=[attrdict(name=k, value=v, value_from=None)
+                 for k, v in env.items()],
+            volume_mounts=[attrdict(name="conf", mount_path="/etc/conf",
+                                    read_only=True)])
+
+    return attrdict(
+        metadata=attrdict(
+            name=name, namespace=namespace, uid="uid-src",
+            resource_version="7", creation_timestamp=_Stamped(),
+            managed_fields=[attrdict(manager="kubectl")],
+            labels=dict(labels or {}), annotations={"team": "ml"},
+            owner_references=[attrdict(api_version="batch/v1", kind="Job",
+                                       name="job-1", uid="uid-job",
+                                       controller=True)]),
+        spec=attrdict(
+            scheduler_name="kubeshare-scheduler", node_name=None,
+            restart_policy="Never", service_account_name="trainer",
+            containers=[
+                container("train", "img:1", {"MODE": "train",
+                                             "NVIDIA_VISIBLE_DEVICES": "all"}),
+                container("sidecar", "img:side", {"ROLE": "log"})],
+            volumes=[attrdict(name="conf",
+                              config_map=attrdict(name="train-conf"))]),
+        status=attrdict(phase="Pending", host_ip=None))
+
+
+def test_shadow_bind_keeps_the_source_spec(fake_k8s):
+    """The shadow bind through the adapter: the create body carries the
+    source pod's image, command, args, resources, ports, other env,
+    volumes, mounts, owner references and service account, none of the
+    server's metadata, the injected env (replacing the source's
+    NVIDIA_VISIBLE_DEVICES), the node, and the library as a hostPath
+    volume under a valid name, mounted in both containers."""
+    import copy
+    import re
+
+    cluster, store = fake_k8s
+    store.pods[("ns", "src")] = source_pod(labels={
+        constants.POD_GPU_REQUEST: "0.5", constants.POD_GPU_LIMIT: "1.0"})
+    engine = _scheduler_over(cluster, store, bind_mode="shadow")
+    bodies = []
+    create = cluster.core.create_namespaced_pod
+
+    def spy(namespace, body):
+        bodies.append(copy.deepcopy(body))
+        return create(namespace, body)
+
+    cluster.core.create_namespaced_pod = spy
+    result = engine.run_once()
+    assert result is not None and result.result == "bound", result
+    [body] = bodies
+    meta, spec = body["metadata"], body["spec"]
+    assert meta["ownerReferences"] == [{
+        "apiVersion": "batch/v1", "kind": "Job", "name": "job-1",
+        "uid": "uid-job", "controller": True}]
+    assert not {"uid", "resourceVersion", "creationTimestamp",
+                "managedFields"} & set(meta)
+    assert meta["annotations"]["team"] == "ml"
+    assert meta["annotations"][constants.POD_GPU_UUID].startswith("GPU-")
+    assert spec["nodeName"] == "node-1"
+    assert spec["restartPolicy"] == "Never"
+    assert spec["serviceAccountName"] == "trainer"
+    assert spec["volumes"] == [
+        {"name": "conf", "configMap": {"name": "train-conf"}}, LIBRARY_VOLUME]
+    for volume in spec["volumes"]:
+        assert re.fullmatch(r"[a-z0-9]([-a-z0-9]{0,61}[a-z0-9])?",
+                            volume["name"]), volume
+    train, sidecar = spec["containers"]
+    for c, image in ((train, "img:1"), (sidecar, "img:side")):
+        assert c["image"] == image
+        assert c["command"] == ["python", "train.py"]
+        assert c["args"] == ["--steps", "5"] and c["workingDir"] == "/work"
+        assert c["resources"] == {"limits": {"cpu": "2", "memory": "4Gi"},
+                                  "requests": {"cpu": "1"}}
+        assert c["ports"] == [{"containerPort": 8080, "name": "http",
+                               "protocol": "TCP"}]
+        assert c["volumeMounts"] == [
+            {"name": "conf", "mountPath": "/etc/conf", "readOnly": True},
+            LIBRARY_MOUNT]
+        env = {e["name"]: e["value"] for e in c["env"]}
+        assert len(env) == len(c["env"])  # no name twice
+        assert env[constants.ENV_SHIM_PRELOAD] == constants.SHIM_LIBRARY
+        assert env[constants.ENV_VISIBLE_DEVICES] == \
+            meta["annotations"][constants.POD_GPU_UUID]
+        assert env[constants.ENV_POD_NAME] == "ns/src"
+        assert int(env[constants.ENV_POD_MANAGER_PORT]) == \
+            int(meta["annotations"][constants.POD_MANAGER_PORT])
+    assert {"name": "MODE", "value": "train"} in train["env"]
+    assert {"name": "ROLE", "value": "log"} in sidecar["env"]
+    # the recreated pod is the one the store now holds, bound
+    assert store.pods[("ns", "src")].spec.node_name == "node-1"
+
+
+def test_jax_adapter_drops_the_source_spec():
+    """JAX's adapter on the same input, placed as the plugin places it:
+    its manifest has no image, command, resources, volumes or owner
+    references (the API server refuses a container without an image),
+    where the port's keeps them and keeps a downward-API env entry as
+    written."""
+    obj = source_pod()
+    obj.spec.containers[0].env.append(attrdict(
+        name="NODE", value=None,
+        value_from=attrdict(field_ref=attrdict(field_path="spec.nodeName"))))
+    rendered = {}
+    for package in (jax_k8s, port_k8s):
+        pod = package._to_pod(obj)
+        pod.node_name = "node-1"
+        for container in pod.containers:
+            container.env["POD_NAME"] = "ns/src"
+            container.volume_mounts.append(constants.LIBRARY_PATH)
+        pod.volumes.append(constants.LIBRARY_PATH)
+        rendered[package] = package.K8sCluster._pod_manifest(None, pod)
+    jax, port = rendered[jax_k8s], rendered[port_k8s]
+    assert set(jax["spec"]["containers"][0]) == {"name", "env"}
+    assert "volumes" not in jax["spec"]
+    assert "ownerReferences" not in jax["metadata"]
+    assert _holds(jax["metadata"], port["metadata"])
+    train = port["spec"]["containers"][0]
+    assert train["image"] == "img:1" and train["command"] == ["python",
+                                                              "train.py"]
+    assert port["spec"]["volumes"][-1] == LIBRARY_VOLUME
+    assert port["metadata"]["ownerReferences"][0]["name"] == "job-1"
+    assert {"name": "NODE", "valueFrom": {"fieldRef": {
+        "fieldPath": "spec.nodeName"}}} in train["env"]
+    assert {"name": "NODE", "value": ""} in \
+        jax["spec"]["containers"][0]["env"]
+
+
+def test_manifest_of_uses_the_clients_attribute_map():
+    """The client's models name their JSON keys in ``attribute_map``
+    (``host_pid`` is ``hostPID``, not ``hostPid``); plain objects are
+    camel-cased; timestamps become ISO text, unset fields vanish."""
+
+    class V1Spec:
+        attribute_map = {"host_pid": "hostPID", "node_name": "nodeName"}
+
+        def __init__(self):
+            self.host_pid = True
+            self.node_name = None
+
+    assert port_k8s._manifest_of(V1Spec()) == {"hostPID": True}
+    assert port_k8s._manifest_of(attrdict(
+        mount_path="/x", sub_path=None, stamp=_Stamped(),
+        items=[attrdict(read_only=False)], labels={"a_b": "c"})) == {
+        "mountPath": "/x", "stamp": "2026-01-01T00:00:00+00:00",
+        "items": [{"readOnly": False}], "labels": {"a_b": "c"}}
 
 
 # ---- the in-memory cluster ---------------------------------------------------
@@ -385,14 +581,15 @@ cells:
 """
 
 
-def _scheduler_over(cluster, store):
+def _scheduler_over(cluster, store, bind_mode="patch"):
     store.put_node("node-1", labels={constants.NODE_LABEL_FILTER: "true"})
     inventory = {"node-1": [ChipInfo(f"GPU-{i}", 80 << 30,
                                      "NVIDIA-H100-80GB-HBM3", i)
                             for i in range(4)]}
     plugin = KubeShareScheduler(
         topology=load_config(text=ONE_NODE), cluster=cluster,
-        inventory=lambda node: inventory.get(node, []), args=SchedulerArgs())
+        inventory=lambda node: inventory.get(node, []),
+        args=SchedulerArgs(bind_mode=bind_mode))
     return SchedulerEngine(plugin, cluster)
 
 

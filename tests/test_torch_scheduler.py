@@ -507,6 +507,29 @@ def test_pipeline_matches(case):
     twin(scenario, **kwargs)
 
 
+def test_shadow_bound_pod_deleted_before_the_next_filter():
+    """A pod deleted after its shadow bind gives its cell back in the
+    port.  JAX's plugin takes the add event of its own shadow copy,
+    which arrives before the copy's uid is known, for a pod bound before
+    a restart and queues it for recovery; the node's next Filter then
+    reserves the deleted pod's cell again, for nobody."""
+    held, tracked = {}, {}
+    for pkg in (JAX, PORT):
+        side = Side(pkg, topology=GPU_TOPOLOGY, inventory=GPU_INVENTORY,
+                    nodes=("gpu-a",), bind_mode="shadow")
+        side.pod("p", request="0.5", limit="1.0")
+        assert [r.result for r in side.run()] == ["bound"]
+        side.cluster.delete_pod("default", "p")
+        side.pod("q", request="0.5", limit="1.0")
+        assert [r.result for r in side.run()] == ["bound"]
+        leaves = side.plugin.allocator.leaf_cells.values()
+        held[pkg.name] = sum(1.0 - leaf.available for leaf in leaves)
+        tracked[pkg.name] = sorted(side.plugin.pod_status)
+    assert held == {"port": 0.5, "jax": 1.0}
+    assert tracked == {"port": ["default/q"],
+                       "jax": ["default/p", "default/q"]}
+
+
 def test_fractional_pod_env_is_the_cuda_pods():
     port = twin(_fractional, topology=GPU_TOPOLOGY, inventory=GPU_INVENTORY)
     pod = port.cluster.get_pod("default", "mnist1")
