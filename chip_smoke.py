@@ -307,9 +307,19 @@ Phases (any failure raises and the script exits non-zero):
    requests of disagg_trace: streams equal to the monolithic engine's,
    every chain delivered.
    discovery: discover_local_chips() against nvidia-smi's uuid, name
-   and memory.total (within DISCOVERY_MEMORY_MIB); Collector(
+   and memory.total (within DISCOVERY_MEMORY_MIB); the card's link
+   record (cell.topology.LinkRecord) from the driver's NVML, loaded with
+   no fallback: NVML's uuid and bus id against nvidia-smi's (a bus id
+   nvidia-smi prints as N/A must be NVML's NOT_SUPPORTED, and the record
+   then carries the CUDA runtime's), the NUMA node against sysfs and
+   nvidia-smi topo -m's NUMA affinity where either gives one, the
+   enabled NVLinks against nvidia-smi nvlink -s's active links, the
+   NVLink domain against the links' far ends, link_distance(chip, chip)
+   == 0; csrc/nvml_test/api_check.cc built against the toolkit's nvml.h
+   and run; Collector(
    CudaEnumerator()) served on port 0 and scraped, its gpu_capacity
-   sample carrying the chip's labels; a ChipSupervisor for the card's
+   sample carrying the chip's labels and the record's topo label, which
+   PromInventory reads back to the same record; a ChipSupervisor for the card's
    UUID over the tree's tpushare-tokend and tpushare-pmgr, one pod in
    its port file, one MNIST step gated by TokenClient + ExecutionGuard
    through the pod manager: tokend must charge the pod more than 0 ms.
@@ -7034,18 +7044,141 @@ def placement_manifest_pod(pod, bare, library, out_dir, tokend_port, card):
           f"tokend charged {pod.key} nothing: {entry}")
 
 
+def nvidia_smi_locality(uuid):
+    """nvidia-smi's view of the card ``uuid``: its bus id (None where it
+    prints N/A), the NUMA affinity ``topo -m`` prints for it (None where
+    topo -m fails or prints none) and its active NVLinks (``nvlink -s``:
+    each "Link <n>: <rate>" line, "<inactive>" ones not)."""
+    from kubeshare_tpu_torch.cell import nvml
+
+    def smi(*args):
+        return subprocess.run(["nvidia-smi", *args], capture_output=True,
+                              text=True, timeout=60)
+
+    rows = smi("--query-gpu=index,uuid,pci.bus_id", "--format=csv,noheader")
+    bus_id = gpu = None
+    for row in rows.stdout.strip().splitlines():
+        row_index, row_uuid, row_bus = (x.strip() for x in row.split(","))
+        if row_uuid == uuid:
+            gpu = row_index  # nvidia-smi's index, its topo -m row
+            try:
+                bus_id = nvml.nvml_bus_id(row_bus)
+            except ValueError:  # "[N/A]"
+                bus_id = None
+    numa = None
+    topo = smi("topo", "-m")
+    lines = [re.sub(r"\x1b\[[0-9;]*m", "", line)
+             for line in topo.stdout.splitlines()]
+    index = [i for i, line in enumerate(lines) if "NUMA Affinity" in line]
+    if topo.returncode == 0 and index:
+        header = [c.strip() for c in lines[index[0]].split("\t")]
+        column = header.index("NUMA Affinity")
+        for line in lines[index[0] + 1:]:
+            cells = [c.strip() for c in line.split("\t")]
+            if cells and cells[0] == f"GPU{gpu}" and len(cells) > column:
+                numa = int(cells[column]) if cells[column].isdigit() else None
+    links, current = 0, False
+    for line in smi("nvlink", "-s").stdout.splitlines():
+        if line.startswith("GPU "):
+            current = uuid in line
+        elif current and re.match(r"\s*Link \d+: ", line) \
+                and "inactive" not in line.lower():
+            links += 1
+    return {"bus_id": bus_id, "topo_rc": topo.returncode,
+            "topo_numa": numa, "active_links": links}
+
+
+def discovery_locality(torch, chip):
+    """The card's link record against NVML (loaded with no fallback) and
+    the witnesses that do not share the record's rules: nvidia-smi's bus
+    id, sysfs's and ``topo -m``'s NUMA node and ``nvlink -s``'s active
+    links.  A comparison that no witness answers on this host is printed
+    as skipped.  Then nvml_test/api_check.cc against the toolkit's
+    nvml.h."""
+    import os
+
+    from kubeshare_tpu_torch.cell import nvml
+    from kubeshare_tpu_torch.cell.topology import link_distance, link_tier
+    from kubeshare_tpu_torch.isolation import hook
+
+    # NVML must load: a missing or failing library raises here
+    devices = {d.uuid: d for d in nvml.read_devices()}
+    check(chip.uuid in devices, f"NVML lists {sorted(devices)}, not "
+                                f"{chip.uuid}")
+    device = devices[chip.uuid]
+    record = chip.links
+    smi = nvidia_smi_locality(chip.uuid)
+    props = torch.cuda.get_device_properties(chip.index)
+    runtime_bus = "%08X:%02X:%02X.0" % (props.pci_domain_id, props.pci_bus_id,
+                                        props.pci_device_id)
+    sysfs_numa = None
+    for bus_id in {b for b in (smi["bus_id"], runtime_bus) if b}:
+        path = f"/sys/bus/pci/devices/{nvml.sysfs_bus_id(bus_id)}/numa_node"
+        if os.path.exists(path):
+            with open(path) as f:
+                sysfs_numa = int(f.read())
+    kinds = sorted({l.remote_type for l in device.links})
+    print(f"discovery link record: {record}; NVML bus id {device.bus_id} "
+          f"(nvidia-smi {smi['bus_id']}, CUDA runtime {runtime_bus}), NUMA "
+          f"node: sysfs {sysfs_numa}, topo -m "
+          f"{smi['topo_numa'] if smi['topo_rc'] == 0 else 'failed'}; "
+          f"{len(device.links)} enabled NVLinks (nvidia-smi nvlink -s: "
+          f"{smi['active_links']} active), far ends of type {kinds} at "
+          f"{sorted({l.remote_bus_id for l in device.links})}")
+    check(record is not None, "the chip carries no link record")
+    skipped = []
+    # NVML and nvidia-smi agree on the bus id, or both hide it
+    check(device.bus_id == smi["bus_id"],
+          f"NVML bus id {device.bus_id} != nvidia-smi's {smi['bus_id']}")
+    if smi["bus_id"] is not None:
+        check(record.bus_id == smi["bus_id"],
+              f"record bus id {record.bus_id} != nvidia-smi's "
+              f"{smi['bus_id']}")
+    else:
+        skipped.append("bus id (nvidia-smi prints none)")
+    if sysfs_numa is not None:
+        check(record.numa_node == max(sysfs_numa, -1),
+              f"record NUMA node {record.numa_node} != sysfs's {sysfs_numa}")
+    if smi["topo_numa"] is not None:
+        check(record.numa_node == smi["topo_numa"],
+              f"record NUMA node {record.numa_node} != topo -m's "
+              f"{smi['topo_numa']}")
+    if sysfs_numa is None and smi["topo_numa"] is None:
+        skipped.append("NUMA node (no sysfs numa_node, no topo -m affinity)")
+    check(len(device.links) == smi["active_links"],
+          f"{len(device.links)} enabled NVLinks, nvidia-smi "
+          f"{smi['active_links']}")
+    check(link_distance(record, record) == 0
+          and link_tier(record, record) == "X", "link_distance(chip, chip)")
+    print(f"discovery locality checks skipped: "
+          f"{'; '.join(skipped) if skipped else 'none'}")
+
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    api_check = hook.build(
+        "nvml_api_check", (hook.CSRC / "nvml_test" / "api_check.cc",),
+        (f"-I{cuda_home}/include",), headers=(hook.CSRC / "nvml_api.h",),
+        label="nvml_api_check")
+    proc = subprocess.run([str(api_check)], capture_output=True, text=True,
+                          timeout=60)
+    print(f"discovery {proc.stdout.strip()}")
+    check(proc.returncode == 0, f"nvml api_check failed: {proc.stdout}")
+
+
 def discovery_phase(torch, device):
     """Device discovery and the node daemons on the card:
-    discover_local_chips against nvidia-smi, the collector served and
-    scraped, and a ChipSupervisor over the tree's tokend and pod manager
-    gating one MNIST step."""
+    discover_local_chips against nvidia-smi, the card's link record
+    against NVML, nvidia-smi and sysfs, the collector served and scraped
+    (the record round-tripping through its topo label), and a
+    ChipSupervisor over the tree's tokend and pod manager gating one
+    MNIST step."""
     import os
     import tempfile
     import urllib.request
 
     import corun_bench
     from kubeshare_tpu_torch.cell import discover_local_chips
-    from kubeshare_tpu_torch.collector import Collector, CudaEnumerator
+    from kubeshare_tpu_torch.collector import (Collector, CudaEnumerator,
+                                               PromInventory)
     from kubeshare_tpu_torch.isolation import ExecutionGuard, TokenClient
     from kubeshare_tpu_torch.models.mnist import mnist_apply, mnist_init
     from kubeshare_tpu_torch.parallel.train import make_train_step
@@ -7070,22 +7203,28 @@ def discovery_phase(torch, device):
           f"model {chip.model} != nvidia-smi's {name}")
     check(abs(float(mib) - memory_mib) <= DISCOVERY_MEMORY_MIB,
           f"memory {memory_mib} MiB != nvidia-smi's {mib} MiB")
+    discovery_locality(torch, chip)
 
     server = Collector(CudaEnumerator()).serve(port=0)
+    url = f"http://127.0.0.1:{server.port}/kubeshare-collector"
     try:
-        text = urllib.request.urlopen(
-            f"http://127.0.0.1:{server.port}/kubeshare-collector",
-            timeout=10).read().decode()
+        text = urllib.request.urlopen(url, timeout=10).read().decode()
+        samples = [s for s in parse_text(text) if s.name == "gpu_capacity"]
+        node = samples[0].labels.get("node") if samples else None
+        inventory = PromInventory([url], ttl=0)(node)
     finally:
         server.stop()
-    samples = [s for s in parse_text(text) if s.name == "gpu_capacity"]
     print(f"discovery collector: {len(samples)} gpu_capacity sample(s), "
-          f"labels {samples[0].labels if samples else None}")
+          f"labels {samples[0].labels if samples else None}; PromInventory "
+          f"read back {[(c.uuid, c.links) for c in inventory]}")
     check(len(samples) == 1 and {k: samples[0].labels.get(k) for k in
-                                 ("uuid", "model", "memory", "index")}
+                                 ("uuid", "model", "memory", "index", "topo")}
           == {"uuid": chip.uuid, "model": chip.model,
-              "memory": str(chip.memory), "index": "0"},
+              "memory": str(chip.memory), "index": "0",
+              "topo": chip.links.label()},
           f"the collector exported {samples}")
+    check(inventory == [chip] and inventory[0].links == chip.links,
+          f"PromInventory read {inventory}")
 
     corun_bench.ensure_tokend()
     if find_binary("tpushare-pmgr") is None:

@@ -42,6 +42,11 @@ class ChipInfo:
     model: str = ""
     index: int = 0
     coords: Optional[Tuple[int, ...]] = None
+    # A CUDA card's cell.topology.LinkRecord (bus id, NUMA node, PCIe
+    # path, NVLink domain), or None.  Deliberately not a dataclass field:
+    # the fields stay JAX's, so equality ignores it and tests compare it
+    # on its own.
+    links = None
 
 
 class CellAllocator:
@@ -125,6 +130,7 @@ class CellAllocator:
             leaf.full_memory = chip.memory
             leaf.free_memory += chip.memory
             leaf.coords = chip.coords
+            leaf.links = chip.links  # follows its chip's UUID, as coords do
             self.leaf_cells[chip.uuid] = leaf
             # capacity + HBM accrue to the leaf and every ancestor only as
             # physical chips bind (declared-but-absent chips never count)

@@ -4,7 +4,9 @@ The port's copy of kubeshare_tpu/cell/cell.py.  A ``Cell`` mirrors the reference
 cell.go:131-183): fractional availability, whole-cell availability, free/full
 device memory, health, a chip UUID at the leaves, and parent/child links.
 Leaves may carry mesh ``coords`` so locality scoring can use true hop
-distance instead of the ID-path heuristic; a CUDA cell carries none.
+distance instead of the ID-path heuristic; a CUDA leaf carries none, but
+may carry its card's ``links`` (``cell.topology.LinkRecord``), which
+orders the cards of one node by NVLink and PCIe distance.
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ class Cell:
     healthy: bool = False
     state: CellState = CellState.FREE
     coords: Optional[Tuple[int, ...]] = None  # mesh coordinates (None on CUDA)
+    # a CUDA leaf's LinkRecord, bound from its chip (not a dataclass
+    # field: the fields stay JAX's)
+    links = None
 
     parent: Optional["Cell"] = field(default=None, repr=False)
     children: List["Cell"] = field(default_factory=list, repr=False)

@@ -11,24 +11,34 @@ nothing of the JAX package).  The pure functions are the JAX module's:
 - ``slice_key`` names a cell's interconnect domain, and ``chip_box`` a
   selection's bounding box.
 
-A CUDA cell carries no coordinates, so the port's scheduler scores CUDA
-cells by ``cell_id_distance``.
+A CUDA card has no mesh coordinates.  Its counterpart is the interconnect
+``nvidia-smi topo -m`` prints, which :class:`LinkRecord` holds for one
+card: its PCI bus id, NUMA node, PCIe upstream path and NVLink domain.
+``link_distance`` orders two cards of one node by the tiers of that
+matrix, and the scheduler scores two cells of one node by it when both
+carry a record (``scheduler/plugin.py``'s ``cell_distance``).
 
 ``discover_local_chips`` walks ``torch.cuda`` in place of the JAX
 package's PJRT walk.  Each visible CUDA device is one chip, named as the
 reference's NVML collector named its GPUs (ref pkg/collector/
 gpu.go:26-107): the NVML UUID, the device name with spaces replaced by
-``-``, and its memory.  An H100 (or a node of NVSwitch-linked cards) has
-no mesh coordinates, so ``coords`` is None; NVLink locality is not
-modelled yet.
+``-``, and its memory.  ``coords`` stays None; the link record comes
+from NVML (``cell/nvml.py``) and sysfs, matched by UUID.  Out of scope:
+NVLink fabrics that span nodes (NVL72, ``nvmlDeviceGetGpuFabricInfo``):
+two cells on different nodes are never compared by their records.
 """
-
 from __future__ import annotations
 
+import os
+import re
+from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+from .. import constants
+from . import nvml
 from .allocator import ChipInfo
 from .spec import TopologyConfig
+from ..utils.logger import get_logger
 
 # heterogeneity ranking by default: newer generations score higher
 DEFAULT_MODEL_PRIORITY = {
@@ -59,6 +69,111 @@ def ici_distance(
             d = min(d, torus_dims[i] - d)
         total += d
     return total
+
+
+# nvidia-smi topo -m's tiers, nearest first, and the distance of each
+LINK_TIERS = {"X": 0, "NV": 1, "PIX": 2, "PXB": 3, "PHB": 4, "NODE": 5,
+              "SYS": 6}
+NVSWITCH_DOMAIN = "nvswitch"
+_ROOT = re.compile(r"^pci[0-9a-f]{4,8}:[0-9a-f]{2}$")
+
+
+@dataclass(frozen=True)
+class LinkRecord:
+    """Where one CUDA card sits in its node.
+
+    - ``bus_id``: its PCI bus id in NVML's form (``00000000:19:00.0``);
+      where NVML hides the PCI function (a sandboxed host), the CUDA
+      runtime's; "" where neither says;
+    - ``numa_node``: sysfs's ``numa_node`` of the PCI function (its CPU
+      affinity); -1 for none;
+    - ``upstream``: the ``realpath`` of ``/sys/bus/pci/devices/<bus id>``
+      from its root complex (``pci0000:00``) down to the card's parent
+      bridge, in sysfs's form; empty where sysfs has no PCI tree;
+    - ``nvlink``: its NVLink domain: ``"nvswitch"`` where an enabled link
+      reaches an NVSwitch (the node's switch fabric), else the connected
+      component of the node's GPU-to-GPU NVLink graph, named by its
+      lowest bus id; "" for a card without an enabled link.
+
+    :meth:`label` is the collector's ``topo`` label,
+    ``<bus id>;<numa node>;<upstream joined by />;<nvlink>``, and
+    :meth:`from_label` reads it back (None if malformed).
+    """
+
+    bus_id: str
+    numa_node: int = -1
+    upstream: Tuple[str, ...] = ()
+    nvlink: str = ""
+
+    def label(self) -> str:
+        return ";".join((self.bus_id, str(self.numa_node),
+                         "/".join(self.upstream), self.nvlink))
+
+    @classmethod
+    def from_label(cls, text: str) -> Optional["LinkRecord"]:
+        fields = text.split(";")
+        if len(fields) != 4:
+            return None
+        bus_id, numa, upstream, nvlink = fields
+        try:
+            if bus_id and bus_id != nvml.nvml_bus_id(bus_id):
+                return None
+            numa_node = int(numa)
+            path = tuple(upstream.split("/")) if upstream else ()
+            if path and not _ROOT.match(path[0]):
+                return None
+            for bridge in path[1:]:
+                if bridge != nvml.sysfs_bus_id(bridge):
+                    return None
+        except ValueError:
+            return None
+        if numa_node < -1:
+            return None
+        return cls(bus_id, numa_node, path, nvlink)
+
+
+def link_tier(a: LinkRecord, b: LinkRecord) -> str:
+    """The ``nvidia-smi topo -m`` entry between two cards of one node:
+
+    ====  ========  ==================================================
+    tier  distance  the two cards
+    ====  ========  ==================================================
+    X     0         are one card (the same bus id)
+    NV    1         share an NVLink domain (a bridge, or NVSwitches)
+    PIX   2         meet below one PCIe switch: at most one bridge
+                    below their common bridge on either side
+    PXB   3         meet at a common bridge with several below it
+    PHB   4         meet at their root complex (the PCIe host bridge)
+    NODE  5         sit under two host bridges of one NUMA node
+    SYS   6         sit on two NUMA nodes, or nothing says they share one
+    ====  ========  ==================================================
+
+    Within a node the distances stay inside the spread of
+    ``cell_id_distance`` over its leaves, and far below the 100 that a
+    crossed tree level costs there.
+    """
+    if a.bus_id and a.bus_id == b.bus_id:
+        return "X"
+    if a.nvlink and a.nvlink == b.nvlink:
+        return "NV"
+    if a.upstream and b.upstream and a.upstream[0] == b.upstream[0]:
+        common = 0
+        for x, y in zip(a.upstream[1:], b.upstream[1:]):
+            if x != y:
+                break
+            common += 1
+        if common == 0:
+            return "PHB"
+        below = max(len(a.upstream), len(b.upstream)) - 1 - common
+        return "PIX" if below <= 1 else "PXB"
+    if a.numa_node >= 0 and a.numa_node == b.numa_node:
+        return "NODE"
+    return "SYS"
+
+
+def link_distance(a: LinkRecord, b: LinkRecord) -> float:
+    """Locality of two cards of one node: :func:`link_tier`'s distance."""
+    return float(LINK_TIERS[link_tier(a, b)])
 
 
 def slice_key(cell, slice_types: frozenset = frozenset()) -> str:
@@ -203,25 +318,112 @@ def generate_tpu_topology_config(
     return config
 
 
-def discover_local_chips() -> List[ChipInfo]:
+def discover_local_chips(nvml_library: str = nvml.DEFAULT_LIBRARY,
+                         sysfs: Optional[str] = None) -> List[ChipInfo]:
     """One ChipInfo per visible CUDA device: ``uuid`` ``"GPU-<uuid>"``
     (the form ``nvidia-smi --query-gpu=uuid`` prints), ``memory`` the
     device's total memory in bytes, ``model`` its normalised name (e.g.
-    ``NVIDIA-H100-80GB-HBM3``), ``index`` its ordinal.  A host without a
-    CUDA device has no chips: the list is empty."""
+    ``NVIDIA-H100-80GB-HBM3``), ``index`` its ordinal, and ``links`` its
+    :class:`LinkRecord` from NVML and sysfs, matched by UUID (an
+    index means another card under ``CUDA_VISIBLE_DEVICES``).  ``sysfs``
+    defaults to ``$KUBESHARE_SYSFS`` or ``/sys``.  A host without a CUDA
+    device has no chips: the list is empty."""
     import torch
 
     chips: List[ChipInfo] = []
+    runtime_bus_ids: Dict[str, str] = {}
     for index in range(torch.cuda.device_count()):
         props = torch.cuda.get_device_properties(index)
-        chips.append(ChipInfo(
+        chip = ChipInfo(
             uuid=f"GPU-{props.uuid}",
             memory=int(props.total_memory),
             model=_normalize_kind(props.name),
             index=index,
             coords=None,
-        ))
+        )
+        chips.append(chip)
+        if getattr(props, "pci_bus_id", None) is not None:
+            runtime_bus_ids[chip.uuid] = "%08X:%02X:%02X.0" % (
+                props.pci_domain_id, props.pci_bus_id, props.pci_device_id)
+    if chips:
+        if sysfs is None:
+            sysfs = os.environ.get(constants.ENV_SYSFS, "/sys")
+        records = _link_records(nvml_library, sysfs, runtime_bus_ids)
+        for chip in chips:
+            chip.links = records.get(chip.uuid)
     return chips
+
+
+def _link_records(nvml_library: str, sysfs: str,
+                  runtime_bus_ids: Dict[str, str]) -> Dict[str, LinkRecord]:
+    """UUID -> :class:`LinkRecord` of every device NVML reports, with its
+    PCIe path and NUMA node from the ``sysfs`` tree; empty where NVML
+    cannot be loaded or a query fails (those chips carry no record, as a
+    TPU chip without coordinates: the record only orders cards, so a
+    failing NVML must not cost the node its inventory).
+    ``runtime_bus_ids`` (UUID -> bus id) stands in for a bus id NVML does
+    not report."""
+    try:
+        devices = nvml.read_devices(nvml_library)
+    except nvml.NvmlUnavailable:
+        return {}
+    except nvml.NvmlError as e:
+        get_logger("kubeshare-collector").warning(
+            "NVML failed, chips carry no link record: %s", e)
+        return {}
+    bus_ids = {d.uuid: d.bus_id or runtime_bus_ids.get(d.uuid, "")
+               for d in devices}
+    # the GPU-to-GPU NVLink graph over bus ids (peers NVML lists but this
+    # process cannot see included), as a union-find; a card without a bus
+    # id joins under its UUID, which sorts after every bus id
+    parent: Dict[str, str] = {}
+
+    def find(x: str) -> str:
+        parent.setdefault(x, x)
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for d in devices:
+        for link in d.links:
+            if link.remote_type == nvml.LINK_GPU and link.remote_bus_id:
+                a = find(bus_ids[d.uuid] or d.uuid)
+                b = find(link.remote_bus_id)
+                parent[max(a, b)] = min(a, b)
+    records = {}
+    for d in devices:
+        bus_id = bus_ids[d.uuid]
+        if any(l.remote_type == nvml.LINK_SWITCH for l in d.links):
+            domain = NVSWITCH_DOMAIN
+        elif any(l.remote_type == nvml.LINK_GPU and l.remote_bus_id
+                 for l in d.links):
+            domain = find(bus_id or d.uuid)
+        else:
+            domain = ""
+        upstream, numa_node = _pci_placement(sysfs, bus_id)
+        records[d.uuid] = LinkRecord(bus_id, numa_node, upstream, domain)
+    return records
+
+
+def _pci_placement(sysfs: str, bus_id: str) -> Tuple[Tuple[str, ...], int]:
+    """The upstream path and ``numa_node`` of a PCI function in a sysfs
+    tree; ``((), -1)`` where the tree does not hold it."""
+    if not bus_id:
+        return (), -1
+    device = os.path.join(sysfs, "bus", "pci", "devices",
+                          nvml.sysfs_bus_id(bus_id))
+    if not os.path.exists(device):
+        return (), -1
+    parts = os.path.realpath(device).split(os.sep)
+    roots = [i for i, part in enumerate(parts) if _ROOT.match(part)]
+    upstream = tuple(parts[roots[0]:-1]) if roots else ()
+    try:
+        with open(os.path.join(device, "numa_node")) as f:
+            numa_node = int(f.read().strip())
+    except (OSError, ValueError):
+        numa_node = -1
+    return upstream, max(numa_node, -1)
 
 
 def _normalize_kind(kind: str) -> str:

@@ -7,6 +7,21 @@ one (ref pkg/collector/collector.go:42-60): labels node/uuid/model/
 memory/index, value = scrape unix time, and a ``coords`` label when a
 chip has mesh coordinates (a CUDA device has none).
 
+A CUDA card with a link record (``cell.topology.LinkRecord``: NVML and
+sysfs, see ``discover_local_chips``) adds one label, ``topo``:
+
+    topo="<bus id>;<NUMA node>;<PCIe upstream path>;<NVLink domain>"
+
+e.g. ``topo="00000000:18:00.0;0;pci0000:15/0000:15:01.0/0000:16:00.0/0000:17:00.0;nvswitch"``:
+the bus id in NVML's form, the NUMA node (-1 for none), the bridges from
+the root complex down to the card's parent joined by ``/`` (empty
+without a sysfs PCI tree), and the NVLink domain (``nvswitch``, the
+lowest bus id of a bridged group, or empty).  A chip without a record
+exports exactly the JAX package's labels, and the JAX package's
+``PromInventory`` ignores ``topo``, so either scheduler reads either
+collector.  ``PromInventory`` reads the label back; a malformed one
+means no record, as a malformed ``coords`` means no coordinates.
+
 Enumeration is behind a callable so tests and daemons inject fakes; the
 real backend, :class:`CudaEnumerator`, walks ``torch.cuda`` through
 ``cell.topology.discover_local_chips`` in place of the JAX package's
@@ -22,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 from .. import constants
 from ..cell.allocator import ChipInfo
+from ..cell.topology import LinkRecord
 from ..utils.logger import get_logger
 from ..utils.promtext import MetricFamily, MetricServer, parse_text
 
@@ -104,6 +120,8 @@ class Collector:
             }
             if chip.coords is not None:
                 labels["coords"] = ",".join(str(c) for c in chip.coords)
+            if chip.links is not None:
+                labels["topo"] = chip.links.label()
             family.add(labels, now)
         return [family]
 
@@ -163,15 +181,16 @@ class PromInventory:
                     index = int(labels.get("index", "0"))
                 except ValueError:
                     continue
-                cache.setdefault(labels.get("node", ""), []).append(
-                    ChipInfo(
-                        uuid=labels.get("uuid", ""),
-                        memory=memory,
-                        model=labels.get("model", ""),
-                        index=index,
-                        coords=coords,
-                    )
+                chip = ChipInfo(
+                    uuid=labels.get("uuid", ""),
+                    memory=memory,
+                    model=labels.get("model", ""),
+                    index=index,
+                    coords=coords,
                 )
+                if labels.get("topo"):
+                    chip.links = LinkRecord.from_label(labels["topo"])
+                cache.setdefault(labels.get("node", ""), []).append(chip)
         if any_success:
             self._cache = cache
         # else: keep last-known-good inventory through transient scrape outages

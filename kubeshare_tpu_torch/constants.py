@@ -47,6 +47,9 @@ ENV_POD_NAME = "POD_NAME"
 ENV_SHIM_PRELOAD = "LD_PRELOAD"
 ENV_MEM_FRACTION = "TPUSHARE_MEM_FRACTION"  # memory cap as fraction of device memory
 ENV_MEM_BYTES = "TPUSHARE_MEM_BYTES"  # memory cap in bytes
+# where device discovery finds the node's sysfs (default /sys): the
+# collector's DaemonSet mounts the host's /sys read-only and names it
+ENV_SYSFS = "KUBESHARE_SYSFS"
 
 # multi-slice bootstrap env for gangs whose cells span interconnect
 # domains (parallel/distributed.py's multislice_spec_from_env reads them)

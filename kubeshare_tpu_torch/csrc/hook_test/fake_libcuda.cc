@@ -34,9 +34,12 @@
 //  * Names: a CUfunction below 0x10000 is "kernel_<n>" to cuFuncGetName;
 //    one above is a CUkernel that only cuKernelGetName names
 //    ("library_kernel_<n>").
-//  * fake_stats() reports what it saw; fake_symbol(name) returns its own
-//    definition of a name, bypassing any dlsym interposer.
+//  * fake_stats() reports what it saw, its device clock's busy time
+//    (busy_us) and the span from the first submission to the last
+//    completion (span_us); fake_symbol(name) returns its own definition
+//    of a name, bypassing any dlsym interposer.
 
+#include <algorithm>
 #include <atomic>
 #include <chrono>
 #include <condition_variable>
@@ -61,6 +64,7 @@ struct Op {
   long long us = 0;          // device time
   CUhostFn fn = nullptr;     // or a host function
   void* data = nullptr;
+  long long submit_ns = 0;   // when it was queued (steady clock)
 };
 
 struct Capture {
@@ -79,6 +83,12 @@ struct Fake {
   std::deque<Op> queue;
   long long submitted = 0, completed = 0;
   bool worker = false;
+  // The device's own clock: busy_ns sums each op's completion minus the
+  // later of its submission and the previous completion (the hook's span
+  // formula, as the device sees it: a sleep that overruns on a loaded
+  // host counts); span_ns runs from the first submission to the last
+  // completion, host gaps between launches included.
+  long long busy_ns = 0, first_submit_ns = -1, last_done_ns = 0;
 
   std::unordered_map<CUstream, Capture> captures;
   int global_captures = 0;
@@ -103,6 +113,12 @@ const CUcontext kPrimary = reinterpret_cast<CUcontext>(0xc0);
 
 void Count(Fake& f, const char* name) { f.counts[name]++; }
 
+long long NowNs() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
 void Worker() {
   Fake& f = F();
   while (true) {
@@ -115,7 +131,10 @@ void Worker() {
     }
     if (op.us > 0) std::this_thread::sleep_for(std::chrono::microseconds(op.us));
     if (op.fn != nullptr) op.fn(op.data);
+    long long done = NowNs();
     std::lock_guard<std::mutex> lock(f.mu);
+    f.busy_ns += done - std::max(op.submit_ns, f.last_done_ns);
+    f.last_done_ns = done;
     f.completed++;
     f.cv.notify_all();
   }
@@ -126,6 +145,8 @@ void SubmitLocked(Fake& f, Op op) {
     f.worker = true;
     std::thread(Worker).detach();
   }
+  op.submit_ns = NowNs();
+  if (f.first_submit_ns < 0) f.first_submit_ns = op.submit_ns;
   f.queue.push_back(op);
   f.submitted++;
   f.cv.notify_all();
@@ -702,7 +723,11 @@ const char* fake_stats(void) {
   std::lock_guard<std::mutex> lock(f.mu);
   out = "used=" + std::to_string(f.used) + " allocs=" +
         std::to_string(f.allocs.size()) + " unsafe=" + std::to_string(f.unsafe) +
-        " host_fns=" + std::to_string(f.host_fns);
+        " host_fns=" + std::to_string(f.host_fns) +
+        " busy_us=" + std::to_string(f.busy_ns / 1000) + " span_us=" +
+        std::to_string(f.first_submit_ns < 0
+                           ? 0
+                           : (f.last_done_ns - f.first_submit_ns) / 1000);
   for (const auto& kv : f.counts) {
     out += " " + kv.first + "=" + std::to_string(kv.second);
   }

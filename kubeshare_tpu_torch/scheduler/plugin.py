@@ -24,8 +24,12 @@ reads, and none of libtpu's:
   / ``MEGASCALE_SLICE_ID``).
 
 Other deltas over the reference:
-- locality scoring uses hop distance when mesh coords are known (a CUDA
-  cell has none), falling back to the reference's cell-ID path distance
+- locality scoring charges a flat DCN tier between slices, then uses hop
+  distance when mesh coords are known (a CUDA cell has none), then, for
+  two CUDA cells of one node that both carry a link record, the tiers of
+  ``nvidia-smi topo -m`` (NVLink, then PCIe, then NUMA:
+  ``cell.topology.link_distance``), falling back to the reference's
+  cell-ID path distance
 - binding defaults to in-place patch+bind ("patch" mode); the reference's
   delete-and-recreate shadow-pod trick (ref scheduler.go:515-528) is kept as
   ``bind_mode="shadow"`` for parity
@@ -44,7 +48,8 @@ from ..cell.cell import Cell
 from ..cell.element import build_cell_chains
 from ..cell.cell import build_cell_forest
 from ..cell.spec import TopologyConfig
-from ..cell.topology import cell_id_distance, ici_distance, slice_key
+from ..cell.topology import (cell_id_distance, ici_distance, link_distance,
+                             slice_key)
 from ..cluster.api import Clock, ClusterAPI, Node, Pod, PodPhase
 from ..utils.bitmap import RRBitmap
 from ..utils.logger import get_logger
@@ -478,15 +483,20 @@ class KubeShareScheduler:
 
     def cell_distance(self, a: Cell, b: Cell) -> float:
         """Tiered locality (SURVEY §7.2, §5): ICI hop distance when mesh
-        coords are known for both cells, else the reference's cell-ID path
-        distance — but cells in different ICI domains (slices) first pay a
-        flat DCN tier the reference's string heuristic never modeled."""
+        coords are known for both cells, else NVLink / PCIe distance when
+        both are CUDA cards of one node with link records, else the
+        reference's cell-ID path distance — but cells in different ICI
+        domains (slices) first pay a flat DCN tier the reference's string
+        heuristic never modeled."""
         if self.slice_of(a) != self.slice_of(b):
             return self.DCN_CROSSING_COST + cell_id_distance(
                 a.id.split("/"), b.id
             )
         if a.coords is not None and b.coords is not None:
             return ici_distance(a.coords, b.coords)
+        if a.links is not None and b.links is not None and a.node \
+                and a.node == b.node:
+            return link_distance(a.links, b.links)
         return cell_id_distance(a.id.split("/"), b.id)
 
     def slice_of(self, cell: Cell) -> str:

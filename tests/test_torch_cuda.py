@@ -3,8 +3,9 @@ against their eager forms, the f32 flash kernels (3xTF32 on the tensor
 cores) against their plain versions, the full-width ResNet against the
 CPU, a checkpoint restored into a captured train step, prefetch's
 stream ordering, two gloo ranks of train_distributed_torch.py on one
-card, device discovery against nvidia-smi, a captured step under the
-CUDA driver interposer (libcudahook.so.1), and the root twins of
+card, device discovery and NVML's link records against nvidia-smi, a
+captured step under the CUDA driver interposer (libcudahook.so.1), and
+the root twins of
 examples/ at their full configurations (the MNIST pod under the env the
 port's scheduler injects), on the card.  Every test here skips without
 a CUDA device.
@@ -1055,6 +1056,20 @@ def test_discovery_agrees_with_nvidia_smi(card):
         assert (chip.uuid, chip.model, chip.index, chip.coords) == (
             uuid, name.replace(" ", "-"), index, None)
         assert abs(chip.memory / 2**20 - float(mib)) <= 1024
+
+
+def test_nvml_locality_agrees_with_nvidia_smi(card):
+    """Each card's link record from the driver's NVML (no fallback) and
+    sysfs: its bus id, NUMA node and enabled NVLinks against nvidia-smi's
+    and sysfs's, link_distance to itself 0, and csrc/nvml_api.h held
+    against the toolkit's nvml.h (chip_smoke.py's discovery checks)."""
+    from chip_smoke import discovery_locality
+    from kubeshare_tpu_torch.cell import discover_local_chips
+
+    chips = discover_local_chips()
+    assert chips and all(chip.links is not None for chip in chips)
+    for chip in chips:
+        discovery_locality(torch, chip)
 
 
 HOOK_CHILD = """

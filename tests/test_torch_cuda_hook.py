@@ -33,6 +33,15 @@ from native_helpers import free_port, wait_listening
 TEST_CSRC = hook.CSRC / "hook_test"
 CAP = 1_000_000  # ns/pod-a's memory cap in the tokend config below
 QUOTA_MS = 50  # tokend -q: an eager lease lasts this long
+# test_short_graphs_ride_a_lease's broker quota: six launches and their
+# gaps stay inside one lease with six busy processes beside the test
+# (their span reached 96 ms there at 5 ms gaps, past QUOTA_MS)
+LEASE_QUOTA_MS = 100
+# What that test's charge may exceed the fake driver's busy time by: the
+# hook stamps a launch before the driver queues it and its markers run
+# behind the work (2 ms), and tokend charges a grant at least the lesser
+# of its hold and 5% of its quota (the first launch's own grant)
+LEASE_CHARGE_MARGIN_MS = 2.0 + 0.05 * LEASE_QUOTA_MS
 
 
 @pytest.fixture(scope="session")
@@ -54,14 +63,14 @@ def built():
     return {"hook": str(hook.hook_path()), "driver": str(driver)}
 
 
-def _start_tokend(tmp_path, exclusive=False):
+def _start_tokend(tmp_path, exclusive=False, quota_ms=QUOTA_MS):
     config_dir = tmp_path / "config"
     config_dir.mkdir(exist_ok=True)
     (config_dir / "chip-0").write_text(
         f"2\nns/pod-a 1.0 0.5 {CAP}\nns/pod-b 1.0 0.3 500000\n")
     port = free_port()
     cmd = [find_binary("tpushare-tokend"), "-p", str(config_dir), "-f",
-           "chip-0", "-P", str(port), "-q", str(QUOTA_MS), "-m", "5",
+           "chip-0", "-P", str(port), "-q", str(quota_ms), "-m", "5",
            "-w", "1000"]
     if exclusive:
         cmd.append("-x")
@@ -182,17 +191,31 @@ def test_graph_launches_are_gated_one_grant_each(built, tokend):
     assert r.pod["mem_used"] == 0
 
 
-def test_short_graphs_ride_a_lease(built, tokend):
+def test_short_graphs_ride_a_lease(built, tmp_path):
     """A 1 ms graph: its first launch takes a grant and measures it; the
     next five, under the 10 ms a grant's round trip is worth, take one
     lease between them.  Each is charged its own device time (~6 ms in
-    all), the 5 ms host gaps between them not."""
-    r = run(built, tokend, "--graphs", 6, "--graph-gap-ms", 5,
-            "--sleep-ms", 300)
+    all), the 3 ms host gaps between them not.
+
+    The bound is the fake driver's own busy time (which grows with the
+    host's load, as the charge does) plus LEASE_CHARGE_MARGIN_MS.  The
+    control: a hook that charged the gaps would charge about the span
+    from the first launch to the last completion, which the fake also
+    reports, and the bound must refuse it."""
+    proc, port = _start_tokend(tmp_path, quota_ms=LEASE_QUOTA_MS)
+    try:
+        r = run(built, port, "--graphs", 6, "--graph-gap-ms", 3,
+                "--sleep-ms", 300)
+    finally:
+        proc.kill()
+        proc.wait()
     assert r.rc == 0, r.err
     assert r.pod["grants"] == 2 and r.hook["leases"] == 1
     assert r.hook["graph_launches_in_lease"] == 5
-    assert 5 <= r.pod["charged_total_ms"] <= 12, r.pod
+    busy_ms = int(r.fake["busy_us"]) / 1000
+    bound_ms = busy_ms + LEASE_CHARGE_MARGIN_MS
+    assert 5 <= r.pod["charged_total_ms"] <= bound_ms, (r.pod, r.fake)
+    assert int(r.fake["span_us"]) / 1000 > bound_ms, r.fake
 
 
 def _line_json(r, label):

@@ -181,6 +181,24 @@ def test_node_daemon():
         m["mountPath"] for m in configd["volumeMounts"]}
 
 
+def test_the_collector_reads_nvml_and_the_pci_tree():
+    """Device discovery's link records need libnvidia-ml.so.1, which the
+    NVIDIA container runtime mounts for the "utility" capability, and
+    the host's PCI tree: /sys read-only where KUBESHARE_SYSFS names it."""
+    [daemon] = by_kind("node-daemon.yaml", "DaemonSet")
+    spec = daemon["spec"]["template"]["spec"]
+    [collector] = [c for c in spec["containers"] if c["name"] == "collector"]
+    env = {e["name"]: e.get("value") for e in collector["env"]}
+    assert "utility" in env[constants.ENV_DRIVER_CAPABILITIES].split(",")
+    assert "compute" in env[constants.ENV_DRIVER_CAPABILITIES].split(",")
+    sysfs = env[constants.ENV_SYSFS]
+    [mount] = [m for m in collector["volumeMounts"]
+               if m["mountPath"] == sysfs]
+    assert mount["readOnly"] is True
+    volumes = {v["name"]: v for v in spec["volumes"]}
+    assert volumes[mount["name"]]["hostPath"]["path"] == "/sys"
+
+
 def forest_of(path):
     config = load_config(path=path)
     check_physical_cells(config)

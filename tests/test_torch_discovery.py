@@ -4,7 +4,9 @@
 against the JAX package's on the CPU.
 
 The collector's exposition text equals the JAX collector's for the same
-chips, so a scheduler scraping either reads the same inventory; the
+chips, so a scheduler scraping either reads the same inventory; a card's
+link record travels as one more label, which the port's inventory reads
+back and the JAX package's ignores; the
 CUDA enumerator keeps the JAX enumerator's timeout and failure
 semantics; and the port's supervisor runs the real native tokend and pod
 managers under the JAX package's scheduler and configd, gating the
@@ -30,10 +32,12 @@ import kubeshare_tpu.collector.collector as jax_collector_module
 from kubeshare_tpu.cell.allocator import ChipInfo as JaxChipInfo
 from kubeshare_tpu.collector import Collector as JaxCollector
 from kubeshare_tpu.collector import FakeEnumerator as JaxFakeEnumerator
+from kubeshare_tpu.collector import PromInventory as JaxPromInventory
 from kubeshare_tpu.utils.promtext import encode_families as jax_encode
 import kubeshare_tpu_torch.collector.collector as collector_module
 from kubeshare_tpu_torch.cell import topology
 from kubeshare_tpu_torch.cell.allocator import ChipInfo
+from kubeshare_tpu_torch.cell.topology import LinkRecord
 from kubeshare_tpu_torch.collector import (Collector, CudaEnumerator,
                                            FakeEnumerator, PromInventory)
 from kubeshare_tpu_torch.runtime import ChipSupervisor, find_binary
@@ -134,6 +138,60 @@ def test_inventory_scrape_parses_the_collector():
         assert inventory("host-b") == []
     finally:
         server.stop()
+
+
+# link records of the first two chips of CHIPS: an HGX card on the
+# NVSwitch fabric and a bridged H100 NVL card
+RECORDS = [LinkRecord("00000000:1B:00.0", 0,
+                      ("pci0000:18", "0000:18:01.0", "0000:19:00.0",
+                       "0000:1a:00.0"), "nvswitch"),
+           LinkRecord("00000000:4F:00.0", 1, ("pci0000:4d", "0000:4d:01.0"),
+                      "00000000:4F:00.0")]
+
+
+def _recorded_chips():
+    chips = [ChipInfo(*c) for c in CHIPS]
+    for chip, record in zip(chips, RECORDS):
+        chip.links = record
+    return chips
+
+
+def _scrape(chips, read):
+    server = Collector(FakeEnumerator(chips), node_name="host-a").serve(port=0)
+    try:
+        return read(f"http://127.0.0.1:{server.port}/kubeshare-collector")
+    finally:
+        server.stop()
+
+
+def test_link_records_round_trip_through_the_collector():
+    """The topo label carries each record to the scheduler's inventory;
+    a chip without one exports no topo label and reads back none."""
+    chips = _recorded_chips()
+    text = encode_families(
+        Collector(FakeEnumerator(chips), node_name="host-a").collect())
+    assert text.count("topo=") == 2
+    assert ('topo="00000000:1B:00.0;0;pci0000:18/0000:18:01.0/0000:19:00.0/'
+            '0000:1a:00.0;nvswitch"') in text
+    got = _scrape(chips, lambda url: PromInventory([url], ttl=0)("host-a"))
+    assert got == chips
+    assert [c.links for c in got] == RECORDS + [None]
+
+
+def test_jax_inventory_reads_the_labelled_text_to_the_same_chips():
+    """JAX's PromInventory ignores the topo label: a JAX scheduler reading
+    the port's collector sees the chips it would see without records."""
+    got = _scrape(_recorded_chips(),
+                  lambda url: JaxPromInventory([url], ttl=0)("host-a"))
+    assert got == [JaxChipInfo(*c) for c in CHIPS]
+
+
+def test_a_malformed_topo_label_means_no_record():
+    chips = _recorded_chips()
+    chips[0].links = SimpleNamespace(label=lambda: "00000000:1B:00.0;zero;;")
+    got = _scrape(chips, lambda url: PromInventory([url], ttl=0)("host-a"))
+    assert got == [ChipInfo(*c) for c in CHIPS]
+    assert [c.links for c in got] == [None, RECORDS[1], None]
 
 
 def test_collector_subcommand_serves_fake_chips():

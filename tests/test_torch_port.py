@@ -51,7 +51,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "models.resnet", "data.pipeline", "parallel.checkpoint",
                      "utils.profiling", "ops.ring_attention", "ops.ulysses",
                      "parallel.pipeline", "parallel.distributed",
-                     "cell.allocator", "cell.topology", "cell.spec",
+                     "cell.allocator", "cell.topology", "cell.nvml",
+                     "cell.spec",
                      "cell.element", "cell.cell", "cluster.api",
                      "cluster.fake", "cluster.k8s", "scheduler.podspec",
                      "scheduler.podgroup", "scheduler.plugin",

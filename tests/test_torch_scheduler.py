@@ -33,6 +33,7 @@ from kubeshare_tpu.utils import promtext as jax_promtext
 from kubeshare_tpu_torch import constants
 from kubeshare_tpu_torch.cell import load_config as port_load_config
 from kubeshare_tpu_torch.cell.allocator import ChipInfo as PortChipInfo
+from kubeshare_tpu_torch.cell.topology import LinkRecord
 from kubeshare_tpu_torch.cluster import api as port_api
 from kubeshare_tpu_torch.cluster.fake import FakeCluster as PortFakeCluster
 from kubeshare_tpu_torch.isolation import hook
@@ -763,6 +764,62 @@ GANGS = {
 def test_gangs_recovery_and_regressions_match(case):
     scenario, kwargs = GANGS[case]
     twin(scenario, **kwargs)
+
+
+# four H100 NVL cards bridged in pairs 0-2 and 1-3, each pair on one NUMA
+# node (tests/test_torch_topology.py's nvl_pairs node), and their link
+# records as the port's collector reports them
+NVL_TOPOLOGY = """
+cellTypes:
+  4-NVL-NODE:
+    childCellType: "NVIDIA-H100-NVL"
+    childCellNumber: 4
+    childCellPriority: 100
+    isNodeLevel: true
+cells:
+- cellType: 4-NVL-NODE
+  cellId: nvl-a
+"""
+NVL_INVENTORY = {
+    "nvl-a": [(f"GPU-d{i}4c1e-0000-4000-8000-00000000000{i}", 94 << 30,
+               "NVIDIA-H100-NVL", i, None) for i in range(4)]}
+NVL_RECORDS = [
+    LinkRecord(f"00000000:{bus:02X}:00.0", numa,
+               (f"pci0000:{bus - 2:02x}", f"0000:{bus - 2:02x}:01.0"),
+               f"00000000:{peer:02X}:00.0")
+    for bus, numa, peer in ((0x4F, 0, 0x4F), (0xCE, 1, 0xCE),
+                            (0x52, 0, 0x4F), (0xD1, 1, 0xCE))]
+
+
+def _whole_card_gang(side):
+    """Two guaranteed members asking for one whole card each; returns the
+    card each holds."""
+    _gang(side, name="nvl", n=2, headcount=2, threshold=0.5, request="1.0",
+          priority="50", prefix="m")
+    side.run()
+    return {key: s.uuid for key, s in sorted(side.plugin.pod_status.items())}
+
+
+def test_a_whole_card_gang_member_takes_the_nvlink_peer():
+    """The first member holds GPU 0.  Without records the second takes
+    GPU 1, the nearest cell id, as JAX's scheduler does on the same cells;
+    with them it takes GPU 2, GPU 0's NVLink peer (NV, distance 1), over
+    GPU 1 and GPU 3 on the other NUMA node (SYS, 6)."""
+    uuids = [chip[0] for chip in NVL_INVENTORY["nvl-a"]]
+    kwargs = dict(topology=NVL_TOPOLOGY, inventory=NVL_INVENTORY)
+    jax_side = Side(JAX, **kwargs)
+    assert _whole_card_gang(jax_side) == {
+        "default/m0": uuids[0], "default/m1": uuids[1]}
+    twin(_whole_card_gang, **kwargs)  # the port without records: JAX's
+
+    side = Side(PORT, **kwargs)
+    for chip, record in zip(side.inv["nvl-a"], NVL_RECORDS):
+        chip.links = record
+    side.restart()
+    assert _whole_card_gang(side) == {
+        "default/m0": uuids[0], "default/m1": uuids[2]}
+    leaves = side.plugin.allocator.leaf_cells
+    assert [leaves[u].links for u in uuids] == NVL_RECORDS
 
 
 def test_gang_env_feeds_the_ports_bootstrap():
