@@ -305,7 +305,19 @@ Phases (any failure raises and the script exits non-zero):
    drift limits).  (c) dryrun_multichip(8) with its multislice leg, and
    the DisaggRouter in virtual_multislice over [cuda:0, cuda:0] on 16
    requests of disagg_trace: streams equal to the monolithic engine's,
-   every chain delivered.
+   every chain delivered.  (d) The mesh of ranks: in (a)'s two gloo
+   processes, after (a)'s runs, train_distributed_torch.py --tp 2
+   (make_mesh over the gang: dp=1 x tp=2, each rank half of every
+   tp-split weight, the whole global batch) takes 10 eager steps, after
+   a probe of which gloo collectives take CUDA tensors.  Every rank
+   launches the three dense kernels 6 times a step at DDP_TP_SHAPE (held
+   to their plain versions and timed among the kernel phase's shapes,
+   "distributed_tp"); its losses and final parameters equal the
+   one-process step over the same mesh on [cuda:0] * 2 to the bit, and
+   one device's ((a)'s one process) within SHARDED_FIRST_LOSS_ATOL /
+   SHARDED_DRIFT_LOSS_ATOL; each rank's parameter bytes beside the
+   one-process mesh device 0's, the step ms by CUDA events and the
+   share and bytes of the rank collectives.
    discovery: discover_local_chips() against nvidia-smi's uuid, name
    and memory.total (within DISCOVERY_MEMORY_MIB); the card's link
    record (cell.topology.LinkRecord) from the driver's NVML, loaded with
@@ -936,6 +948,12 @@ DDP_GRAD_RTOL = 0.1
 DDP_FIRST_LOSS_ATOL = 1e-3
 DDP_DRIFT_LOSS_ATOL = TRAIN_LOSS_ATOL
 DDP_DRIFT_UPDATE_RTOL = TRAIN_GRAD_RTOL
+# distributed (d): train_distributed_torch.py --tp DDP_TP as DDP_WORLD gloo
+# ranks on cuda:0, one mesh of the ranks (dp=1 x tp=2, as JAX's example
+# over two one-chip processes): each rank's unit is the whole global batch
+# on n_heads / tp heads, the attention shape DDP_TP_SHAPE
+DDP_TP = 2
+DDP_TP_SHAPE = (DDP_SHAPE[0], DDP_SHAPE[1] // DDP_TP, *DDP_SHAPE[2:])
 # discovery: the card's memory by torch (cudaDeviceProp.totalGlobalMem)
 # against nvidia-smi's memory.total (NVML), in MiB: 480.0 MiB apart on
 # an H100 80GB HBM3 (81,559 MiB by NVML), the CUDA driver's reserve; a card
@@ -1448,6 +1466,10 @@ def dense_cases(torch):
         ("ddp_rank", DDP_RANK_SHAPE, DDP_RANK_SHAPE[1], torch.bfloat16,
          True, None),
         ("ddp_single", DDP_SHAPE, DDP_SHAPE[1], torch.bfloat16, True, None),
+        # distributed (d): a tp rank's unit, the global batch on half the
+        # heads
+        ("distributed_tp", DDP_TP_SHAPE, DDP_TP_SHAPE[1], torch.bfloat16,
+         True, None),
     ]
 
 
@@ -1496,6 +1518,8 @@ def kernel_phase(torch, device):
     # the f32 train path's shape (the f32 phase's train-step flagship)
     timings.append(time_shape(torch, (TRAIN_BATCH, 8, TRAIN_SEQ, 128), gen,
                               "float32"))
+    # distributed (d)'s: a tp rank's unit over the mesh of ranks
+    timings.append(time_shape(torch, DDP_TP_SHAPE, gen))
     return worst, timings
 
 
@@ -5873,8 +5897,9 @@ def ddp_worker(torch, out_dir: str) -> int:
     DDP_NCCL_STEPS captured (two graphs around gloo's all-reduce) and as
     many eager with the same capturable AdamW; then the controls (the sum
     without the division, DDP_STEPS steps; no all-reduce, one step), each
-    from the seed's weights.  Writes its record to DIR/rank<r>.json; rank
-    0 also saves step 1's gradients and each run's last parameters."""
+    from the seed's weights; then distributed (d)'s run (``tp_run``).
+    Writes its record to DIR/rank<r>.json; rank 0 also saves step 1's
+    gradients and each run's last parameters."""
     import train_distributed_torch as T
     from kubeshare_tpu_torch.parallel import train as port_train
     from kubeshare_tpu_torch.parallel.distributed import initialize_from_env
@@ -5938,6 +5963,7 @@ def ddp_worker(torch, out_dir: str) -> int:
     port_train.GroupMean.unflatten = lambda self: None
     run("no_all_reduce", 1)
     port_train.GroupMean.all_reduce, port_train.GroupMean.unflatten = shipped
+    record["tp"] = tp_run(torch, out_dir, rank, world)
     torch.distributed.destroy_process_group()
     with open(f"{out_dir}/rank{rank}.json", "w") as f:
         json.dump(record, f)
@@ -5986,7 +6012,8 @@ def ddp_two_ranks(torch, device, T, args):
     """(a): two gloo ranks of the full-width DDP step on the card against
     one process's step over the whole global batch, eager and captured.
     Returns the launches of the ranks' eager and captured runs (summed
-    over the ranks) and of the one process."""
+    over the ranks) and of the one process, the one process's losses,
+    and (d)'s: the ranks' records and final parameters."""
     import os
     import tempfile
 
@@ -6028,7 +6055,8 @@ def ddp_two_ranks(torch, device, T, args):
         loaded = {name: [t.to(device) for t in torch.load(
             f"{out}/{name}.pt")] for name in (
             "grads_shipped", "grads_undivided", "params_shipped",
-            "params_undivided", "params_captured", "params_captured_same")}
+            "params_undivided", "params_captured", "params_captured_same",
+            "params_tp")}
     shipped = [r["shipped"] for r in records]
     for rank, run in enumerate(shipped):
         print(f"distributed (a) rank {rank}/{DDP_WORLD} (gloo, cuda:0, "
@@ -6045,7 +6073,7 @@ def ddp_two_ranks(torch, device, T, args):
                                             shipped[1]["digests"]))
     print(f"distributed (a) ranks' parameters equal to the bit after "
           f"{equal_steps}/{DDP_STEPS} steps (sha256); the ranks' processes "
-          f"took {ranks_s:.1f} s")
+          f"took {ranks_s:.1f} s ((a)'s runs, then (d)'s)")
     check(equal_steps == DDP_STEPS and shipped[0]["losses"]
           == shipped[1]["losses"], "the ranks' parameters or losses differ")
     grad_err = max(rel_err(g, r) for g, r in zip(loaded["grads_shipped"],
@@ -6104,7 +6132,183 @@ def ddp_two_ranks(torch, device, T, args):
     return ({name: sum(r["shipped"]["launches"][name] for r in records)
              for name in expect},
             {name: sum(r["captured"]["launches"][name] for r in records)
-             for name in expect}, single_launches)
+             for name in expect}, single_launches, losses,
+            ([r["tp"] for r in records], loaded["params_tp"]))
+
+
+def gloo_cuda_probe(torch) -> dict:
+    """Which of gloo's collectives take CUDA tensors (bf16, on this
+    rank's card) themselves; the rank mesh's transport stages through the
+    host and uses gloo's CPU collectives either way."""
+    import torch.distributed as dist
+
+    x = torch.arange(8, device="cuda", dtype=torch.bfloat16)
+    calls = {
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(16, device="cuda", dtype=x.dtype), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device="cuda", dtype=x.dtype), x),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(8, device="cuda", dtype=x.dtype), x),
+    }
+    found = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            found[name] = "takes CUDA tensors"
+        except (RuntimeError, ValueError) as e:
+            found[name] = f"refuses them ({str(e).splitlines()[0][:80]})"
+        dist.barrier()
+    return found
+
+
+def tp_run(torch, out_dir: str, rank: int, world: int) -> dict:
+    """Distributed (d) in a rank of (a)'s gang (``ddp_worker``): gloo's
+    collectives probed on CUDA tensors, then DDP_STEPS eager steps of
+    train_distributed_torch.py --tp DDP_TP, the mesh of the ranks, on the
+    whole global batch, each collective of the rank mesh timed (the
+    device synchronised around it).  Returns the rank's record; rank 0
+    also saves the final parameters, gathered, to DIR/params_tp.pt."""
+    import train_distributed_torch as T
+    from kubeshare_tpu_torch.parallel.spmd import RankLine
+    from kubeshare_tpu_torch.parallel.train import tree_leaves
+
+    device = torch.device("cuda", 0)
+    probe = gloo_cuda_probe(torch)
+    args = T.parse_args(["--tp", str(DDP_TP)])
+    tokens = T.rank_tokens(T.global_batch(T.model_config(args), args), args,
+                           rank, world).to(device)
+    _, init_state, train_step, params = T.setup(args, device, True)
+    state = init_state(params)
+    collective_ms, received = [], []
+    shipped = RankLine.gather, RankLine.scatter_sum
+
+    def timed(fn, share):
+        def call(self, x, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, x, *a)
+            torch.cuda.synchronize()
+            collective_ms[-1] += (time.perf_counter() - t0) * 1e3
+            # the bytes this rank receives from the others
+            received[-1] += int(x.numel() * x.element_size()
+                                * (self.size - 1) * share(self.size))
+            return out
+        return call
+
+    RankLine.gather = timed(shipped[0], lambda n: 1)
+    RankLine.scatter_sum = timed(shipped[1], lambda n: 1 / n)
+    losses, step_ms, host_ms = [], [], []
+    reset_counts()
+    for _ in range(DDP_STEPS):
+        collective_ms.append(0.0)
+        received.append(0)
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        start.record()
+        state, loss = train_step(state, tokens, tokens)
+        end.record()
+        end.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    launches = read_counts()
+    RankLine.gather, RankLine.scatter_sum = shipped
+    final = [leaf.gather().cpu() for leaf in tree_leaves(state.params)]
+    if rank == 0:
+        torch.save(final, f"{out_dir}/params_tp.pt")
+    leaves = tree_leaves(state.params)
+    return dict(losses=losses, step_ms=step_ms, host_ms=host_ms,
+                collective_ms=collective_ms, received=received,
+                launches=launches, bytes=unit_bytes(state),
+                param_bytes=sum(leaf.shards[0].numel() * leaf.element_size()
+                                for leaf in leaves),
+                whole_bytes=sum(leaf.shape.numel() * leaf.element_size()
+                                for leaf in leaves),
+                mesh=dict(tree_leaves(state.params)[0].mesh.shape),
+                probe=probe)
+
+
+def ddp_tp(torch, device, T, single_losses, ranks):
+    """(d): two gloo ranks of train_distributed_torch.py --tp DDP_TP, one
+    mesh of the ranks (run in (a)'s processes: ``ranks`` is their records
+    and rank 0's final parameters), against the one-process step over
+    the same mesh naming the card twice (equal to the bit) and against
+    one device (the one process's run of (a), at the sharded limits).
+    Returns the ranks' launches (summed) and the one-process mesh's."""
+    from kubeshare_tpu_torch.parallel.train import tree_leaves
+
+    records, final = ranks
+    args = T.parse_args(["--tp", str(DDP_TP)])
+    config = T.model_config(args)
+    tokens = T.global_batch(config, args).to(device)
+    _, init_state, train_step, params = T.setup(args, device, False)
+    state = init_state(params)
+    reset_counts()
+    state, losses, step_ms, _ = timed_steps(
+        torch, train_step, state, [(tokens, tokens)] * DDP_STEPS)
+    one_launches = read_counts()
+    reference = [leaf.gather() for leaf in tree_leaves(state.params)]
+    one_bytes = unit_bytes(state)
+    del state
+    torch.cuda.empty_cache()
+    for name, found in records[0]["probe"].items():
+        print(f"distributed (d) gloo {name} on cuda:0 bf16: {found}")
+    per_step = only("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    expect = {name: n * config.n_layers * DDP_STEPS
+              for name, n in per_step.items()}
+    # one controller runs both units' bodies
+    check(one_launches == {name: DDP_TP * n for name, n in expect.items()},
+          f"the one-process mesh launched {one_launches}, expected "
+          f"{DDP_TP} x {expect}")
+    print(f"distributed (d) one process, mesh {{'dp': 1, 'tp': {DDP_TP}, "
+          f"'sp': 1}} over [cuda:0] * {DDP_TP}: losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; step ms {steady_median(step_ms):.3f} by CUDA events; unit "
+          f"bytes (parameters + AdamW moments, mesh device 0) {one_bytes}")
+    for rank, run in enumerate(records):
+        share = [c / h for c, h in zip(run["collective_ms"], run["host_ms"])]
+        print(f"distributed (d) rank {rank}/{DDP_WORLD} (gloo, cuda:0, mesh "
+              f"{run['mesh']} over the ranks, attention {DDP_TP_SHAPE}): "
+              f"launches {run['launches']}; parameter bytes "
+              f"{run['param_bytes']} of the model's {run['whole_bytes']}, "
+              f"with the AdamW moments {run['bytes']} (the one-process "
+              f"mesh device 0's {one_bytes}); step ms "
+              f"{steady_median(run['step_ms']):.3f} by CUDA events (median "
+              f"of steps {TRAIN_TIMED_FROM}-{DDP_STEPS}; "
+              + " ".join(f"{x:.1f}" for x in run["step_ms"])
+              + f"), host {steady_median(run['host_ms']):.3f}; of it in the "
+              f"rank collectives (host copy, gloo, copy back) "
+              f"{steady_median(run['collective_ms']):.3f} ms, share "
+              f"{steady_median(share):.3f}, {run['received'][-1]} bytes "
+              f"received a step")
+        check(run["launches"] == expect,
+              f"rank {rank} launched {run['launches']}, expected {expect}")
+        check(run["mesh"] == {"dp": 1, "tp": DDP_TP, "sp": 1},
+              f"rank {rank} ran mesh {run['mesh']}")
+        check(run["bytes"] == one_bytes,
+              f"rank {rank} holds {run['bytes']} bytes, the one-process "
+              f"unit {one_bytes}")
+    same_losses = records[0]["losses"] == records[1]["losses"] == losses
+    same_params = all(torch.equal(a, b) for a, b in zip(final, reference))
+    print(f"distributed (d) ranks against the one-process mesh: losses "
+          f"equal to the bit: {same_losses}; parameters after {DDP_STEPS} "
+          f"steps equal to the bit: {same_params}")
+    check(same_losses and same_params,
+          "the ranks differ from the one-process mesh")
+    first = abs(losses[0] - single_losses[0])
+    err = max(abs(a - b) for a, b in zip(losses, single_losses))
+    print(f"distributed (d) against one device ((a)'s one process): step 1 "
+          f"loss abs err {first:.3e} (tol {SHARDED_FIRST_LOSS_ATOL:g}), max "
+          f"over {DDP_STEPS} steps {err:.3e} (tol "
+          f"{SHARDED_DRIFT_LOSS_ATOL:g})")
+    check(first <= SHARDED_FIRST_LOSS_ATOL and err <= SHARDED_DRIFT_LOSS_ATOL,
+          f"distributed (d): the losses differ from one device's by {first} "
+          f"at step 1, {err} at most")
+    return ({name: sum(r["launches"][name] for r in records)
+             for name in expect}, one_launches)
 
 
 def ddp_nccl(torch, device, T, args):
@@ -6201,7 +6405,8 @@ def distributed_phase(torch, device):
     """The DDP gang worker (train_distributed_torch.py's full-width
     config, BASELINE config 5) over torch.distributed: (a) two gloo ranks
     on the card, (b) one NCCL rank eager and captured, (c) the multislice
-    dry run and router."""
+    dry run and router, (d) two gloo ranks at --tp 2, one mesh of the
+    ranks."""
     import train_distributed_torch as T
 
     args = T.parse_args([])
@@ -6212,11 +6417,15 @@ def distributed_phase(torch, device):
                              f"the kernel phase's DDP_SHAPE {DDP_SHAPE}")
     launches = {}
     (launches["distributed"], launches["distributed_captured"],
-     launches["distributed_single"]) = ddp_two_ranks(torch, device, T, args)
+     launches["distributed_single"], single_losses, tp_ranks) = \
+        ddp_two_ranks(torch, device, T, args)
     torch.cuda.empty_cache()
     launches["distributed_nccl"] = ddp_nccl(torch, device, T, args)
     torch.cuda.empty_cache()
     launches["distributed_multislice"] = ddp_multislice(torch, device)
+    torch.cuda.empty_cache()
+    launches["distributed_tp"], launches["distributed_tp_one_process"] = \
+        ddp_tp(torch, device, T, single_losses, tp_ranks)
     torch.cuda.empty_cache()
     return launches
 

@@ -83,7 +83,7 @@ def prefetch_to_device(
     if isinstance(sharding, NamedSharding):
         target = sharding
         devices = list(dict.fromkeys(_as_device(d)
-                                     for d in sharding.mesh.devices.flat))
+                                     for d in sharding.mesh.local_devices))
     else:
         target = _as_device(resolve_device(sharding))
         devices = [target]

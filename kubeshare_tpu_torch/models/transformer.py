@@ -52,7 +52,7 @@ from ..ops.rope import apply_rope, rope_positions
 from ..ops.ulysses import ulysses_attention
 from ..parallel.mesh import (Mesh, NamedSharding, P, PartitionSpec,
                              ShardedTensor, _split_names, batch_sharding,
-                             device_put)
+                             device_put, refuse_rank_mesh)
 from ..parallel.pipeline import (pipeline_apply, pipeline_train_1f1b,
                                  stack_stage_params)
 from ..parallel.spmd import Units, mesh_of, place_plain, split_axis
@@ -627,6 +627,9 @@ def _sharded_forward(params: Dict, tokens, config: TransformerConfig,
         tokens = device_put(tokens, sharding)
     seq_split = _split_names(tokens.spec[1] if len(tokens.spec) > 1
                              else None)
+    if split is not None or seq_split:
+        refuse_rank_mesh(mesh, "a batch split along the sequence (the "
+                         "ring and Ulysses)", "11f")
     if split is None and seq_split:
         if len(seq_split) != 1:
             raise ValueError(f"a batch split along the sequence over "
@@ -745,6 +748,7 @@ def _validate_sp_entry(strategy: str, config: TransformerConfig, mesh: Mesh,
     """Shared preconditions of every sequence-parallel entry point (the
     ring and Ulysses forwards and the pipelined sp path, which adds its
     own MoE refusal)."""
+    refuse_rank_mesh(mesh, f"attention={strategy!r}", "11f")
     if seq_axis not in mesh.shape:
         raise ValueError(
             f"sequence-parallel attention needs a {seq_axis!r} mesh axis "

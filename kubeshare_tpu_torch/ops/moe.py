@@ -50,7 +50,8 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..parallel.mesh import (Mesh, P, PartitionSpec, ShardedTensor,
-                             _split_names, batch_sharding, device_put)
+                             _split_names, batch_sharding, device_put,
+                             refuse_rank_mesh)
 from ..parallel.spmd import Units, mesh_of, place_plain
 
 
@@ -392,6 +393,7 @@ def sharded_moe(units: Units, params: Dict[str, ShardedTensor],
     over their whole buffers, the outputs are gathered over the expert
     axis, and each unit combines its own rows.  Units that hold the same
     experts (dp replicas of them) compute them alike."""
+    refuse_rank_mesh(units.mesh, "an MoE layer (sharded_moe)", "11e")
     _check_moe(config)
     expert = tuple(_split_names(params["w_in"].spec[0]
                                 if params["w_in"].spec else None))

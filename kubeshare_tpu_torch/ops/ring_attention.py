@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import (Mesh, NamedSharding, P, ShardedTensor,
-                             _split_names, device_put)
+                             _split_names, device_put, refuse_rank_mesh)
 from ..parallel.spmd import Units, ring_shift
 from .attention import flash_forward, use_kernel_default
 
@@ -667,6 +667,7 @@ def ring_group_fn(mesh: Mesh, layout: str = "contiguous",
     einsum ring (:func:`resolve_windowed_ring` refuses the others),
     ``use_flash=None`` the hybrid ring on CUDA (:func:`ring_flash_auto`),
     and the layout picks the zigzag or the contiguous body."""
+    refuse_rank_mesh(mesh, "ring attention", "11f")
     if layout not in ("contiguous", "zigzag"):
         raise ValueError(f"unknown ring layout {layout!r}")
     if layout == "zigzag" and not causal:
@@ -714,6 +715,7 @@ def over_sequence_groups(fn: Callable, tensors, mesh: Mesh,
     order); the outputs come back as one :class:`ShardedTensor` under
     ``spec`` — the one-controller form of a ``shard_map`` whose body runs
     collectives over ``seq_axis``."""
+    refuse_rank_mesh(mesh, "ring and Ulysses attention", "11f")
     units = Units.of(mesh, [spec])
     keep = {dim: _split_names(axes) for dim, axes in enumerate(spec)
             if _split_names(axes)}

@@ -31,11 +31,24 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from .mesh import ShardedTensor, shard_tensor
+from .mesh import RankMesh, ShardedTensor, shard_tensor
 from .train import TrainState, tree_leaves_with_paths
 
 _STEP_RE = re.compile(r"ckpt-(\d+)\.bin$")
 FORMAT = "kubeshare_tpu_torch.checkpoint/1"
+
+
+def _refuse_ranks(tree: Any) -> None:
+    """``ValueError`` for a tree placed over a mesh of ranks: each rank
+    holds its own shards, and a file of one rank's would be a partial
+    tree (ROADMAP queue A item 11h)."""
+    for _, leaf in tree_leaves_with_paths(tree):
+        if isinstance(leaf, ShardedTensor) and isinstance(leaf.mesh,
+                                                          RankMesh):
+            raise ValueError(
+                "checkpoints of a state sharded over a mesh of ranks are "
+                "not written or restored yet (ROADMAP queue A item 11h); "
+                "each rank holds only its own shards")
 
 
 def _whole(leaf) -> torch.Tensor:
@@ -95,6 +108,7 @@ def save_checkpoint(directory: str, state: Any, step: int,
                     keep: int = 3) -> str:
     """Write a :class:`TrainState` or a tree of tensors to
     ``ckpt-<step>.bin``; returns its path."""
+    _refuse_ranks(state.params if isinstance(state, TrainState) else state)
     os.makedirs(directory, exist_ok=True)
     if isinstance(state, TrainState):
         payload = {"format": FORMAT, "kind": "train_state",
@@ -145,6 +159,8 @@ def restore_checkpoint(directory: str, step: Optional[int] = None,
     optimizer builds it.  The optimizer's hyperparameters stay those of
     ``into`` (the JAX optimizer's live in its code, not its state).
     Returns ``into`` (a :class:`TrainState` with the file's step)."""
+    if into is not None:
+        _refuse_ranks(into.params if isinstance(into, TrainState) else into)
     if step is None:
         found = latest_checkpoint(directory)
         if found is None:

@@ -24,15 +24,17 @@ explicitly.
 
 from __future__ import annotations
 
+import itertools
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .. import constants, resolve_device
 from ..utils.logger import get_logger
-from .mesh import Mesh, _device_array, _visible_cuda_devices
+from .mesh import (Mesh, MeshSpec, RankMesh, _device_array, _mesh_axes,
+                   _visible_cuda_devices, _world_size)
 
 ENV_GANG_NAME = "TPUSHARE_GANG_NAME"
 ENV_GANG_SIZE = "TPUSHARE_GANG_SIZE"
@@ -137,36 +139,6 @@ def multislice_spec_from_env(
     return MultisliceSpec(num_slices, slice_id, max(1, processes))
 
 
-class RankMesh:
-    """The ranks of a process group on named axes: ``devices`` is an int
-    array of global ranks shaped (num_slices, ranks per slice), so
-    ``devices[s, i]`` is the i-th process of slice s.  ``group(axis)``
-    is this rank's ``torch.distributed`` subgroup along ``axis``: over
-    "dcn" the ranks of its column (one per slice, the cross-slice
-    all-reduce of data parallelism), over "device" those of its row (its
-    own slice)."""
-
-    def __init__(self, ranks: np.ndarray, axis_names: Sequence[str],
-                 groups: Dict[str, object]):
-        self.devices = ranks
-        self.axis_names = tuple(axis_names)
-        self._groups = groups
-
-    @property
-    def shape(self) -> Dict[str, int]:
-        return dict(zip(self.axis_names, self.devices.shape))
-
-    def group(self, axis: str):
-        return self._groups[axis]
-
-
-def _world_size() -> int:
-    import torch.distributed as dist
-
-    return (dist.get_world_size()
-            if dist.is_available() and dist.is_initialized() else 1)
-
-
 def _gather_slice_ids(slice_id: int) -> List[int]:
     """Every rank's slice id, in rank order (over the default group)."""
     import torch.distributed as dist
@@ -200,21 +172,41 @@ def _rank_grid(slice_ids: Sequence[int], num_slices: int) -> np.ndarray:
     return np.array(ordered, dtype=np.int64).reshape(num_slices, -1)
 
 
-def _axis_groups(grid: np.ndarray, axis_names: Sequence[str]) -> Dict[str, object]:
-    """This rank's subgroup along each axis of ``grid``.  Every rank
-    creates every group, in one order, as ``new_group`` requires."""
+def _axis_groups(grid: np.ndarray,
+                 axis_names: Sequence[str]) -> Dict[Tuple[str, ...], object]:
+    """This rank's subgroup over every combination of the axes of
+    ``grid`` (keyed by the axis names in grid order): the ranks that
+    differ from it only on those axes.  Every rank creates every group,
+    in one order, as ``new_group`` requires."""
     import torch.distributed as dist
 
     rank = dist.get_rank()
-    groups: Dict[str, object] = {}
-    for axis, name in enumerate(axis_names):
-        lines = np.moveaxis(grid, axis, -1).reshape(-1, grid.shape[axis])
-        for line in lines:
-            members = [int(r) for r in line]
-            group = dist.new_group(members)
-            if rank in members:
-                groups[name] = group
+    groups: Dict[Tuple[str, ...], object] = {}
+    for n in range(1, len(axis_names) + 1):
+        for axes in itertools.combinations(range(len(axis_names)), n):
+            rest = [a for a in range(grid.ndim) if a not in axes]
+            size = int(np.prod([grid.shape[a] for a in axes]))
+            lines = np.transpose(grid, rest + list(axes)).reshape(-1, size)
+            for line in lines:
+                members = [int(r) for r in line]
+                group = dist.new_group(members)
+                if rank in members:
+                    groups[tuple(axis_names[a] for a in axes)] = group
     return groups
+
+
+def rank_mesh(spec: MeshSpec, device=None) -> RankMesh:
+    """``make_mesh(spec)`` over a gang: the default group's ranks on
+    (dp, tp, sp) — (dp, ep, tp, sp) when ep > 1 — in rank order, as JAX
+    orders a multi-process ``jax.devices()`` by process, with every
+    subgroup of every combination of axes; this rank on ``device``
+    (None: its current CUDA device, raising without one)."""
+    import torch.distributed as dist
+
+    shape, names = _mesh_axes(spec, dist.get_world_size())
+    grid = np.arange(dist.get_world_size(), dtype=np.int64).reshape(shape)
+    return RankMesh(grid, names, _axis_groups(grid, names),
+                    resolve_device(device))
 
 
 def slice_device_mesh(
@@ -235,7 +227,8 @@ def slice_device_mesh(
       > 1): each process knows only its own slice id, so the ranks
       gather their ids once over the default group and are grouped by
       the slice each reported; returns a :class:`RankMesh` of ranks
-      with one subgroup per row and per column.  A ``torch.device``
+      (no device of its own: it groups ranks) with a subgroup per row,
+      per column and over both.  A ``torch.device``
       cannot name another process's device, so ``devices`` must be
       None here.
 

@@ -23,6 +23,15 @@ under :func:`batch_sharding`) the same way.  The sharded program that
 runs on such trees (the mesh-aware forwards, the training step) is
 built in :mod:`.spmd`.
 
+Across processes (``torch.distributed`` initialised with world size > 1,
+one GPU a rank) :func:`make_mesh` with no ``devices`` returns a
+:class:`RankMesh`: the gang's ranks on the axes, in rank order, as JAX's
+``make_mesh`` over a multi-process ``jax.devices()`` orders devices by
+process.  Each rank owns one position and its own device, and a
+:class:`ShardedTensor` over it holds that position's shard only; the
+sharded program runs each rank's unit and crosses ranks through the
+subgroups the mesh creates (``spmd``'s rank collectives).
+
 ep subdivides the batch dimension alongside dp (batch shards over
 (dp, ep); experts replicated over dp, sharded over ep): the GShard
 layout.  A mesh with ep == 1 keeps the three-axis ("dp", "tp", "sp")
@@ -124,6 +133,89 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
 
+    @property
+    def local(self) -> Tuple[int, ...]:
+        """The flat positions whose shards this process holds: every one
+        (one controller drives the whole mesh)."""
+        return tuple(range(self.devices.size))
+
+    @property
+    def local_devices(self) -> List[torch.device]:
+        """The devices of :attr:`local`, in its order."""
+        return list(self.devices.flat)
+
+
+def _axes_key(mesh: Mesh, axes) -> Tuple[str, ...]:
+    """``axes`` (one name or several) as a tuple in mesh order."""
+    names = {axes} if isinstance(axes, str) else set(axes)
+    unknown = names - set(mesh.axis_names)
+    if unknown:
+        raise ValueError(f"mesh {mesh.axis_names} has no axis "
+                         f"{sorted(unknown)}")
+    return tuple(a for a in mesh.axis_names if a in names)
+
+
+class RankMesh(Mesh):
+    """The ranks of a process group on named axes: ``devices`` is an int
+    array of global ranks (``make_mesh``'s gang mesh in rank order;
+    ``slice_device_mesh``'s grouped by slice), so ``devices[i, j]`` is
+    the rank at that position.  This process is rank ``rank`` at flat
+    position ``position``, on its own ``device`` (None where the mesh
+    only groups ranks, as ``slice_device_mesh``'s does); a tensor placed
+    over the mesh holds that position's shard only.
+
+    ``group(axes)`` is this rank's ``torch.distributed`` subgroup over
+    one axis or several: the ranks that differ from it only on those
+    axes.  Every rank created every subgroup of every combination of
+    axes, in one order (``distributed._axis_groups``), because
+    ``new_group`` must be called alike on every rank; none is created
+    later, when only some ranks would call it."""
+
+    def __init__(self, ranks: np.ndarray, axis_names: Sequence[str],
+                 groups: Dict[Tuple[str, ...], object],
+                 device=None) -> None:
+        import torch.distributed as dist
+
+        super().__init__(ranks, axis_names)
+        self.rank = dist.get_rank()
+        self.position = int(np.flatnonzero(ranks.reshape(-1)
+                                           == self.rank)[0])
+        self.device = None if device is None else _as_device(device)
+        self._groups = groups
+        self.lines: Dict[Tuple[str, ...], object] = {}  # spmd.mesh_line's
+
+    @property
+    def local(self) -> Tuple[int, ...]:
+        return (self.position,)
+
+    @property
+    def local_devices(self) -> List[torch.device]:
+        if self.device is None:
+            raise ValueError(
+                "this rank mesh names no device for its rank (it groups "
+                "ranks only); build it with make_mesh(spec, device=...)")
+        return [self.device]
+
+    def coords(self, position: Optional[int] = None) -> Tuple[int, ...]:
+        """The coordinates of ``position`` (default: this rank's)."""
+        at = self.position if position is None else position
+        return tuple(int(i) for i in np.unravel_index(at, self.devices.shape))
+
+    def group(self, axes):
+        return self._groups[_axes_key(self, axes)]
+
+
+def refuse_rank_mesh(mesh: Optional[Mesh], what: str, item: str) -> None:
+    """Raise ``ValueError`` when ``mesh`` is a :class:`RankMesh`: ``what``
+    runs on one controller's mesh only, and over ranks it is ROADMAP
+    queue A item ``item``, not yet built (no path falls back to the
+    one-controller program or to one device)."""
+    if isinstance(mesh, RankMesh):
+        raise ValueError(
+            f"{what} does not run over a mesh of ranks yet (ROADMAP queue "
+            f"A item {item}); use a one-process mesh (make_mesh with "
+            f"devices=...)")
+
 
 @dataclass(frozen=True)
 class NamedSharding:
@@ -159,17 +251,43 @@ def _visible_cuda_devices() -> List[torch.device]:
             for i in range(torch.cuda.device_count())]
 
 
+def _mesh_axes(spec: MeshSpec, n: int):
+    """(shape, axis names) of ``spec`` over ``n`` devices or ranks."""
+    dp, ep, tp, sp = spec.resolve(n)
+    if ep > 1:
+        return (dp, ep, tp, sp), ("dp", "ep", "tp", "sp")
+    return (dp, tp, sp), ("dp", "tp", "sp")
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
 def make_mesh(spec: MeshSpec = MeshSpec(),
-              devices: Optional[Sequence] = None) -> Mesh:
+              devices: Optional[Sequence] = None, device=None) -> Mesh:
     """The mesh of ``spec`` over ``devices`` (None: every visible CUDA
-    device), shaped (dp, tp, sp), or (dp, ep, tp, sp) when ep > 1."""
+    device), shaped (dp, tp, sp), or (dp, ep, tp, sp) when ep > 1.
+
+    With ``torch.distributed`` initialised at world size > 1 and no
+    ``devices``: the :class:`RankMesh` of the gang's ranks in rank order
+    (``distributed.rank_mesh``), this rank on ``device`` (None: its
+    current CUDA device).  ``device`` with ``devices`` given, or on one
+    process, raises ``ValueError``."""
+    if devices is None and _world_size() > 1:
+        from .distributed import rank_mesh
+
+        return rank_mesh(spec, device)
+    if device is not None:
+        raise ValueError(
+            "device names a rank's own device in a mesh of ranks; a "
+            "one-process mesh takes devices=[...]")
     devices = list(devices if devices is not None
                    else _visible_cuda_devices())
-    dp, ep, tp, sp = spec.resolve(len(devices))
-    if ep > 1:
-        return Mesh(_device_array(devices, (dp, ep, tp, sp)),
-                    ("dp", "ep", "tp", "sp"))
-    return Mesh(_device_array(devices, (dp, tp, sp)), ("dp", "tp", "sp"))
+    shape, names = _mesh_axes(spec, len(devices))
+    return Mesh(_device_array(devices, shape), names)
 
 
 def serving_mesh(tp: int, dp: int = 1,
@@ -236,9 +354,11 @@ def _shard_slices(shape: Sequence[int], spec: PartitionSpec,
 
 
 class ShardedTensor:
-    """One tensor laid out over a :class:`Mesh`: ``shards[i]`` is what
-    device ``i`` (the mesh's flat order) holds under ``spec``, the
-    port's counterpart of a sharded ``jax.Array``.  Shards live on
+    """One tensor laid out over a :class:`Mesh`: ``shards[k]`` is what
+    the mesh's local position ``mesh.local[k]`` holds under ``spec`` —
+    on one controller every position (``shards[i]`` is device ``i``'s,
+    the mesh's flat order), over a :class:`RankMesh` this rank's alone —
+    the port's counterpart of a sharded ``jax.Array``.  Shards live on
     their own devices and are updated in place where the tensor is
     state (the serving pool).  Reads that cross shards gather them
     (:meth:`gather`, :meth:`index_select`) — data movement only."""
@@ -287,16 +407,25 @@ class ShardedTensor:
         return len(self._owners) == 1
 
     def gather(self) -> torch.Tensor:
-        """The whole tensor on the lead device."""
+        """The whole tensor on the lead device (over a :class:`RankMesh`,
+        on this rank's device: a collective that every rank of the mesh
+        calls)."""
+        shards = self.shards
+        if isinstance(self.mesh, RankMesh):
+            from .spmd import mesh_line
+
+            shards = mesh_line(self.mesh, self.mesh.axis_names).gather(
+                self.shards[0].detach())
         out = torch.empty(self.shape, dtype=self.dtype, device=self.device)
         for i, slices in self._owners:
-            out[slices] = self.shards[i].to(self.device, non_blocking=True)
+            out[slices] = shards[i].to(self.device, non_blocking=True)
         return out
 
     def index_select(self, dim: int, index: torch.Tensor) -> torch.Tensor:
         """``torch.index_select`` of the whole tensor along an unsplit
         ``dim``, each shard selecting its own rows, gathered on the lead
         device."""
+        refuse_rank_mesh(self.mesh, "ShardedTensor.index_select", "11i")
         if any(s[dim] != slice(0, self.shape[dim]) for _, s in self._owners):
             raise ValueError(
                 f"index_select along dim {dim}, which {self.spec} splits")
@@ -338,16 +467,17 @@ def shard_tensor(x: torch.Tensor, spec: PartitionSpec, mesh: Mesh,
                  copy: bool = False,
                  non_blocking: bool = False) -> ShardedTensor:
     """Split ``x`` over ``mesh`` under ``spec``: each device receives its
-    slice, contiguous, on its own device.  ``copy`` gives every shard its
+    slice, contiguous, on its own device (over a :class:`RankMesh`, this
+    rank's slice only: every rank passes the same whole ``x``).  ``copy`` gives every shard its
     own storage (state updated in place); otherwise a replicated shard
     already on its device is ``x`` itself.  ``non_blocking`` copies from
     pinned host memory asynchronously, on each device's current stream."""
     _check_divides(f"a tensor of shape {tuple(x.shape)}", x.shape, spec,
                    mesh)
+    slices = _shard_slices(x.shape, spec, mesh)
     shards = []
-    for device, slices in zip(mesh.devices.flat,
-                              _shard_slices(x.shape, spec, mesh)):
-        piece = x[slices]
+    for device, at in zip(mesh.local_devices, mesh.local):
+        piece = x[slices[at]]
         if copy or piece.device != device or not piece.is_contiguous():
             piece = torch.empty(piece.shape, dtype=x.dtype,
                                 device=device).copy_(

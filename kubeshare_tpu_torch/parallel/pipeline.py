@@ -35,7 +35,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .mesh import Mesh, PartitionSpec, _split_names
+from .mesh import Mesh, PartitionSpec, _split_names, refuse_rank_mesh
 from .train import tree_leaves, tree_map
 
 StageFn = Callable[[Any, List[torch.Tensor]], List[torch.Tensor]]
@@ -92,6 +92,7 @@ class _Stages:
     members' pieces under a spec and joins back."""
 
     def __init__(self, mesh: Mesh, pp_axis: str, axes: Sequence[str]):
+        refuse_rank_mesh(mesh, "pipeline parallelism", "11i")
         self.mesh, self.pp_axis = mesh, pp_axis
         self.axes = tuple(a for a in mesh.axis_names if a in axes)
         self.n_stages = mesh.shape[pp_axis]

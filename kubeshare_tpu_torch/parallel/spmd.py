@@ -13,7 +13,22 @@ ONE CONTROLLER, as in ``serving/sharded.py``: one process drives every
 shard of a mesh, the collectives are plain functions over lists of
 per-device tensors, and a mesh may name one device several times
 (``[cuda:0] * 4`` runs four bodies in turn on the card's one stream).
-No ``torch.distributed``.
+
+A MESH OF RANKS (``mesh.RankMesh``: ``make_mesh`` over a gang, one GPU
+a rank) runs the same program with one unit a rank: :class:`Units`
+holds this rank's unit alone, with its global coordinates, and a
+collective over a group that spans ranks runs over that group's
+``torch.distributed`` subgroup (:class:`RankLine`), in the member order
+of the functions above, through ``torch.autograd.Function``s whose
+backward is the transpose stated below.  A rank at a nonzero
+coordinate of a replica axis RECOMPUTES its unit, as GSPMD does (every
+rank runs a body; none waits to receive one), but its loss is not
+differentiated: the loss reads each distinct slice of the logits from
+its owner (the first position holding it) and only owners backpropagate,
+so no gradient is counted twice.  Each owner differentiates its own
+share (its vocabulary piece's terms), while the loss's value is the
+global mean, equal to the one-controller's to the bit: each rank sums
+what it received in the one-controller's order.
 
 WORK UNITS.  :class:`Units` holds one body per distinct coordinate on
 the axes that some spec names (a parameter's or the batch's).  An axis
@@ -40,12 +55,19 @@ reduce-scatter: what an fsdp weight's gradient receives), and the
 transpose of a psum hands every input the sum of the members'
 cotangents, because every member's copy of the sum feeds its own work.
 
+Over ranks the same transposes are autograd Functions: a gather's
+backward is a reduce-scatter (an ``all_to_all`` of the cotangents'
+pieces, each member summing its piece in member order), a psum's
+backward psums the cotangents.
+
 TRAINING.  Every shard of a placed parameter is a leaf of its own;
 after the backward a slice held by several shards has a partial
 gradient in each unit that used it (a dp replica holds its rows' share).
 :func:`sum_copies` sums them and gives every copy the sum — the psum that
 GSPMD inserts for a replicated leaf — so an elementwise optimizer keeps
-every copy of a slice equal to the bit.  The training loss is counted
+every copy of a slice equal to the bit (over ranks: the copies' ranks
+exchange their gradients and each sums them in mesh order, so every
+rank holds the same bits).  The training loss is counted
 once: :func:`sharded_cross_entropy` reads each distinct slice of the
 logits once, whatever replicates it.
 """
@@ -57,8 +79,10 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .mesh import (Mesh, P, PartitionSpec, ShardedTensor, _map_with_paths,
-                   _split_names, batch_sharding, device_put, shard_tensor)
+from .mesh import (Mesh, P, PartitionSpec, RankMesh, ShardedTensor,
+                   _axes_key, _map_with_paths, _shard_slices, _split_names,
+                   batch_sharding, device_put, refuse_rank_mesh,
+                   shard_tensor)
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +135,149 @@ def all_to_all(xs: List[torch.Tensor], split_dim: int, concat_dim: int,
 
 
 # ---------------------------------------------------------------------------
+# across ranks: the collectives over a RankMesh's subgroups
+# ---------------------------------------------------------------------------
+
+def _ordered_sum(xs: List[torch.Tensor]) -> torch.Tensor:
+    """``xs[0] + xs[1] + ...``, in order (:func:`psum`'s arithmetic)."""
+    total = xs[0]
+    for x in xs[1:]:
+        total = total + x
+    return total
+
+
+class RankLine:
+    """This rank's subgroup over ``axes`` of a :class:`RankMesh`: the
+    ranks that differ from it only on them, in member order (mixed radix
+    over ``axes`` as given, the first outermost, as :meth:`Units.groups`
+    orders units), and the transport between them.
+
+    A tensor travels as its raw bytes (a ``uint8`` view), so no backend
+    needs its dtype, and every sum is made by each member itself, in
+    member order, from what it received: the one-controller functions'
+    arithmetic, so a psum equals :func:`psum` to the bit and every
+    member holds the same bits.  Gloo's transport is host memory: a CUDA
+    tensor is copied to the host, exchanged by gloo's CPU collectives
+    (``all_gather_into_tensor``, ``all_to_all_single``) and copied
+    back.  A gather receives (n - 1) x the tensor's bytes a member, a
+    psum as many (a ring all-reduce would move 2 (n - 1) / n x, but in
+    its own order), a reduce-scatter (n - 1) / n x; through the host
+    each also copies its input out and its output in."""
+
+    def __init__(self, mesh: RankMesh, axes: Sequence[str]) -> None:
+        import torch.distributed as dist
+
+        self.axes = tuple(axes)
+        key = _axes_key(mesh, self.axes)
+        me = mesh.coords()
+        fixed = [i for i, a in enumerate(mesh.axis_names) if a not in key]
+        where = [mesh.axis_names.index(a) for a in self.axes]
+
+        def at(coords) -> int:
+            index = 0
+            for i in where:
+                index = index * mesh.devices.shape[i] + coords[i]
+            return index
+
+        members = sorted((p for p in range(mesh.devices.size)
+                          if all(mesh.coords(p)[i] == me[i] for i in fixed)),
+                         key=lambda p: at(mesh.coords(p)))
+        self.size = len(members)
+        self.index = members.index(mesh.position)
+        self.group = mesh.group(key)
+        # member m's rank within the subgroup, where collectives put it
+        self.order = [dist.get_group_rank(self.group,
+                                          int(mesh.devices.flat[p]))
+                      for p in members]
+        self.via_host = dist.get_backend(self.group) == "gloo"
+
+    def _bytes(self, x: torch.Tensor) -> torch.Tensor:
+        flat = x.detach().contiguous().reshape(-1).view(torch.uint8)
+        return flat.cpu() if self.via_host else flat
+
+    def gather(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Every member's ``x`` (one shape and dtype on every member), in
+        member order, on ``x``'s device."""
+        import torch.distributed as dist
+
+        if self.size == 1:
+            return [x]
+        send = self._bytes(x)
+        out = torch.empty(self.size * send.numel(), dtype=torch.uint8,
+                          device=send.device)
+        gather = (getattr(dist, "all_gather_single", None)
+                  or dist.all_gather_into_tensor)  # the older name
+        gather(out, send, group=self.group)
+        out = out.to(x.device).view(x.dtype).view(self.size, *x.shape)
+        return [out[r] for r in self.order]
+
+    def scatter_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """A reduce-scatter: member ``i`` receives every member's piece
+        ``i`` of ``x`` along ``dim``, summed in member order."""
+        import torch.distributed as dist
+
+        n = self.size
+        size = x.shape[dim] // n
+        by_rank: List[Optional[torch.Tensor]] = [None] * n
+        for m, r in enumerate(self.order):
+            by_rank[r] = x.narrow(dim, m * size, size)
+        send = torch.cat([self._bytes(piece) for piece in by_rank])
+        out = torch.empty_like(send)
+        dist.all_to_all_single(out, send, group=self.group)
+        shape = by_rank[0].shape
+        out = out.to(x.device).view(x.dtype).view(n, *shape)
+        return _ordered_sum([out[r] for r in self.order])
+
+
+def mesh_line(mesh: RankMesh, axes: Sequence[str]) -> RankLine:
+    """The mesh's :class:`RankLine` over ``axes`` (in that member
+    order), made once."""
+    key = tuple(axes)
+    if key not in mesh.lines:
+        mesh.lines[key] = RankLine(mesh, key)
+    return mesh.lines[key]
+
+
+class _RankGather(torch.autograd.Function):
+    """:func:`all_gather` across ranks; backward: the reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, line: RankLine):
+        ctx.dim, ctx.line = dim, line
+        return torch.cat(line.gather(x), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.line.scatter_sum(grad, ctx.dim), None, None
+
+
+class _RankPsum(torch.autograd.Function):
+    """:func:`psum` across ranks; backward: the psum of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, line: RankLine):
+        ctx.line = line
+        return _ordered_sum(line.gather(x))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ordered_sum(ctx.line.gather(grad)), None
+
+
+def _mine_in_order(mine: torch.Tensor, line: Optional[RankLine]
+                   ) -> torch.Tensor:
+    """The sum over the line's members of one tensor each, in member
+    order: this member's ``mine`` (differentiable) in its place, the
+    others' received values (constants).  Its value is the same bits on
+    every member; its gradient reaches ``mine`` alone."""
+    if line is None:
+        return mine
+    parts = line.gather(mine.detach())
+    parts[line.index] = mine
+    return _ordered_sum(parts)
+
+
+# ---------------------------------------------------------------------------
 # the work units of a mesh
 # ---------------------------------------------------------------------------
 
@@ -146,7 +313,8 @@ def refuse_sharded(name: str, *trees) -> None:
 
 
 def same_mesh(a: Mesh, b: Mesh) -> bool:
-    return a is b or (a.axis_names == b.axis_names
+    return a is b or (type(a) is type(b)
+                      and a.axis_names == b.axis_names
                       and a.devices.shape == b.devices.shape
                       and all(x == y for x, y in zip(a.devices.flat,
                                                      b.devices.flat)))
@@ -156,7 +324,10 @@ class Units:
     """The work units of ``mesh`` over ``axes`` (the named ones; the
     others are replica axes): unit ``u`` has coordinates
     ``coords[u]`` on ``self.axes`` (mesh order), runs on
-    ``devices[u]``, and reads the shards of mesh device ``rep[u]``."""
+    ``devices[u]``, and reads the local shard ``rep[u]`` (on one
+    controller, mesh device ``rep[u]``'s).  Over a :class:`RankMesh`
+    the one unit is this rank's own: its coordinates are global, its
+    device the rank's, and its collectives cross ranks."""
 
     def __init__(self, mesh: Mesh, axes: Iterable[str]) -> None:
         axes = set(axes)
@@ -168,6 +339,13 @@ class Units:
         self.axes = tuple(a for a in mesh.axis_names if a in axes)
         self.sizes = {a: mesh.shape[a] for a in self.axes}
         position = [mesh.axis_names.index(a) for a in self.axes]
+        self.ranked = isinstance(mesh, RankMesh)
+        if self.ranked:
+            me = mesh.coords()
+            self.coords = [tuple(me[p] for p in position)]
+            self.unit_of, self.rep = [0], [0]
+            self.devices = mesh.local_devices
+            return
         self.coords: List[Tuple[int, ...]] = list(
             np.ndindex(*[self.sizes[a] for a in self.axes]))
         unit = {c: u for u, c in enumerate(self.coords)}
@@ -215,12 +393,24 @@ class Units:
                 out[u] = y
         return out
 
+    def _across(self, op, xs, axes) -> List[torch.Tensor]:
+        """``op(x, line)`` for the rank's unit over its line on ``axes``."""
+        line = mesh_line(self.mesh, tuple(axes)) if axes else None
+        if line is None or line.size == 1:
+            return list(xs)
+        return [op(x, line) for x in xs]
+
     def all_gather(self, xs, dim: int, axes) -> List[torch.Tensor]:
         """:func:`all_gather` within every group over ``axes``."""
+        if self.ranked:
+            return self._across(
+                lambda x, line: _RankGather.apply(x, dim, line), xs, axes)
         return self._collective(all_gather, xs, tuple(axes), dim)
 
     def psum(self, xs, axes) -> List[torch.Tensor]:
         """:func:`psum` within every group over ``axes``."""
+        if self.ranked:
+            return self._across(_RankPsum.apply, xs, axes)
         return self._collective(psum, xs, tuple(axes))
 
     def local(self, x: ShardedTensor,
@@ -247,7 +437,7 @@ class Units:
         device holds its unit's tensor (a copy where its device
         differs)."""
         shards = [xs[u].to(d, non_blocking=True)
-                  for u, d in zip(self.unit_of, self.mesh.devices.flat)]
+                  for u, d in zip(self.unit_of, self.mesh.local_devices)]
         return ShardedTensor(shards, spec, self.mesh, shape)
 
 
@@ -260,6 +450,7 @@ def data_parallel_apply(fn, params, batch, mesh: Mesh) -> ShardedTensor:
     the outputs come back as one :class:`ShardedTensor` split along the
     batch.  The data-parallel program that GSPMD makes of a
     per-sample model (convolutions, group norm) under a dp mesh."""
+    refuse_rank_mesh(mesh, "data_parallel_apply (MNIST, ResNet)", "11i")
     if not isinstance(batch, ShardedTensor):
         batch = device_put(batch, batch_sharding(mesh, batch.ndim))
     params = place_plain(params, mesh)
@@ -301,7 +492,12 @@ def sum_copies(leaves: Iterable[ShardedTensor]) -> None:
     """For every slice of every leaf: the sum of its shards' gradients
     (in mesh order, on the first holder's device), given to each shard
     that holds the slice, every shard its own tensor.  A slice no unit
-    used keeps no gradient."""
+    used keeps no gradient.  Over a :class:`RankMesh`
+    (:func:`_sum_copies_across`) every rank calls it."""
+    leaves = list(leaves)
+    if leaves and isinstance(leaves[0].mesh, RankMesh):
+        _sum_copies_across(leaves)
+        return
     for leaf in leaves:
         for group in leaf.copies:
             shards = [leaf.shards[i] for i in group]
@@ -319,6 +515,47 @@ def sum_copies(leaves: Iterable[ShardedTensor]) -> None:
                                                            copy=True)
 
 
+def _sum_copies_across(leaves: List[ShardedTensor]) -> None:
+    """:func:`sum_copies` over a :class:`RankMesh`.  The copies of this
+    rank's slice of a leaf are the ranks that differ from it only on the
+    axes the leaf's spec does not name (its :class:`RankLine` over them,
+    in mesh order).  The leaves that share such a line and a dtype travel
+    in one gather (a missing gradient as zeros, beside one gather of
+    presence flags), and every rank sums the present gradients in mesh
+    order, as the one-controller sum does, so every copy ends with the
+    same bits."""
+    buckets: Dict[Tuple, Tuple[RankLine, List[torch.Tensor]]] = {}
+    for leaf in leaves:
+        named = {n for axes in leaf.spec for n in _split_names(axes)}
+        free = tuple(a for a in leaf.mesh.axis_names if a not in named)
+        if not free:
+            continue
+        line = mesh_line(leaf.mesh, free)
+        if line.size == 1:
+            continue  # one copy: its gradient is the sum
+        shard = leaf.shards[0]
+        buckets.setdefault((free, shard.dtype), (line, []))[1].append(shard)
+    for line, shards in buckets.values():
+        flat = torch.cat([(s.grad if s.grad is not None
+                           else torch.zeros_like(s)).reshape(-1)
+                          for s in shards])
+        grads = line.gather(flat)
+        present = line.gather(torch.tensor([s.grad is not None
+                                            for s in shards],
+                                           dtype=torch.uint8))
+        offset = 0
+        for j, shard in enumerate(shards):
+            n = shard.numel()
+            total = None
+            for flags, grad in zip(present, grads):
+                if flags[j]:
+                    part = grad[offset:offset + n].view_as(shard)
+                    total = (part.clone() if total is None
+                             else total.add_(part))
+            shard.grad = total
+            offset += n
+
+
 def sharded_cross_entropy(logits: ShardedTensor, targets) -> torch.Tensor:
     """Mean token cross entropy of sharded logits [..., vocab] against
     integer targets [...] (a :class:`ShardedTensor` or a tensor), one f32
@@ -328,7 +565,10 @@ def sharded_cross_entropy(logits: ShardedTensor, targets) -> torch.Tensor:
     split, the block's pieces combine into global log-softmax statistics
     (the max over the pieces, their summed exponentials, the target's
     logit from the piece that holds it) — Megatron's vocab-parallel cross
-    entropy, without gathering the logits."""
+    entropy, without gathering the logits.  Over a :class:`RankMesh`:
+    :func:`_rank_cross_entropy`."""
+    if isinstance(logits.mesh, RankMesh):
+        return _rank_cross_entropy(logits, targets)
     if isinstance(targets, ShardedTensor):
         targets = targets.gather()
     lead = logits.device
@@ -357,4 +597,58 @@ def sharded_cross_entropy(logits: ShardedTensor, targets) -> torch.Tensor:
             picked = value if picked is None else picked + value
         nll = (peak + torch.log(sumexp) - picked).sum()
         total = nll if total is None else total + nll
+    return total / targets.numel()
+
+
+def _rank_cross_entropy(logits: ShardedTensor, targets) -> torch.Tensor:
+    """:func:`sharded_cross_entropy` over a :class:`RankMesh`, a
+    collective every rank calls.  The value is the global mean on every
+    rank, equal to the one-controller's to the bit: the vocabulary
+    pieces' statistics cross the ranks that split the vocabulary (in
+    mesh order, the one-controller's order of the pieces), each block's
+    sum crosses the mesh, and each rank adds them in the one-controller's
+    order.  The gradient is this rank's share: only its own piece's
+    terms are differentiable, and only where the rank owns its slice
+    (the first position that holds it); at a replica's position the
+    result is a constant, so its backward is skipped and no gradient is
+    counted twice."""
+    mesh = logits.mesh
+    if isinstance(targets, ShardedTensor):
+        targets = targets.gather()
+    mine = _shard_slices(logits.shape, logits.spec, mesh)[mesh.position]
+    owned = any(i == mesh.position for i, _ in logits._owners)
+    piece = logits.shards[0] if owned else logits.shards[0].detach()
+    ndim = len(logits.shape)
+    vocab_axes = _split_names(logits.spec[ndim - 1]
+                              if len(logits.spec) >= ndim else None)
+    line = (mesh_line(mesh, _axes_key(mesh, vocab_axes))
+            if vocab_axes else None)
+    if line is not None and line.size == 1:
+        line = None
+    target = targets[mine[:-1]].to(piece.device).long()
+    maxima = piece.detach().float().amax(dim=-1)
+    peak = (torch.stack(line.gather(maxima)).amax(dim=0) if line is not None
+            else maxima)
+    piece = piece.float()
+    vocab = mine[-1]
+    sumexp = _mine_in_order(torch.exp(piece - peak[..., None]).sum(dim=-1),
+                            line)
+    inside = (target >= vocab.start) & (target < vocab.stop)
+    index = (target - vocab.start).clamp(0, piece.shape[-1] - 1)
+    value = torch.where(
+        inside, torch.gather(piece, -1, index[..., None])[..., 0],
+        torch.zeros((), dtype=piece.dtype, device=piece.device))
+    picked = _mine_in_order(value, line)
+    nll = (peak + torch.log(sumexp) - picked).sum()
+    # the blocks of rows in the one-controller's order, each read from its
+    # first owner; this rank's own block from its own (differentiable) sum
+    nlls = mesh_line(mesh, mesh.axis_names).gather(nll.detach())
+    rows = tuple((x.start, x.stop) for x in mine[:-1])
+    blocks: Dict[Tuple, int] = {}
+    for i, slices in logits._owners:
+        blocks.setdefault(tuple((x.start, x.stop) for x in slices[:-1]), i)
+    total = None
+    for key, first in blocks.items():
+        term = nll if owned and key == rows else nlls[first]
+        total = term if total is None else total + term
     return total / targets.numel()

@@ -44,6 +44,21 @@ process applies the same update to the same parameters.
     initialize_from_env()
     init_state, train_step = make_train_step(
         lambda p, t: transformer_apply(p, t, config), process_group=True)
+
+With a mesh of ranks (``make_mesh`` over a gang: ``mesh.RankMesh``, one
+GPU a rank) the step is the same sharded program run across the
+processes, as JAX's step runs one SPMD program over a multi-process
+mesh: each rank places its own shards (every rank passes the same
+initial tree, drawn from one seed, and the same global batch), runs its
+unit, crosses ranks through the mesh's subgroups, and sums its copies'
+gradients with the ranks that hold the same slices.  The mesh's dp axis
+is the gang's data parallelism, so it takes no ``process_group``.
+
+    initialize_from_env()
+    mesh = make_mesh(MeshSpec(dp=-1, tp=2))      # the gang's ranks
+    init_state, train_step = make_train_step(
+        lambda p, t: transformer_apply(p, t, config), mesh=mesh,
+        param_rules=transformer_sharding_rules())
 """
 
 from __future__ import annotations
@@ -55,7 +70,8 @@ from typing import Any, Callable, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
-from .mesh import ShardedTensor, batch_sharding, device_put, shard_params
+from .mesh import (RankMesh, ShardedTensor, batch_sharding, device_put,
+                   shard_params)
 from .spmd import sharded_cross_entropy, sum_copies
 
 OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
@@ -175,8 +191,21 @@ def make_train_step(
     runs inside the graph under NCCL; gloo cannot be captured, so there
     the step is two graphs, forward and backward, then the optimizer,
     with the all-reduce between them.
+
+    A ``mesh`` of ranks (:class:`~.mesh.RankMesh`): each rank's
+    ``init_state`` places its own shards of the tree it is given, the
+    step takes the whole global batch on every rank and places this
+    rank's part, and the returned loss is the global mean on every rank.
+    Its loss must be ``cross_entropy_loss``, which counts each rank's
+    share once; a ``process_group`` beside it raises ``ValueError`` (the
+    mesh's dp axis already averages over the gang: the two would
+    average twice), and so does ``capture=True``: gloo's collectives
+    cannot be captured, and NCCL's inside a graph need two cards
+    (ROADMAP queue A item 11d).
     """
     optimizer = optimizer or adamw(1e-3)
+    if isinstance(mesh, RankMesh):
+        _check_rank_mesh_step(loss_fn, capture, process_group)
     group = _resolve_group(process_group)
     if mesh is not None and capture:
         devices = set(mesh.devices.flat)
@@ -209,7 +238,9 @@ def make_train_step(
         if mesh is not None:
             inputs, targets = _place_batch(mesh, inputs, targets)
         loss = loss_fn(apply_fn(state.params, inputs), targets)
-        loss.backward()
+        # over ranks a replica's loss is a constant: it has no share
+        if loss.requires_grad or not isinstance(mesh, RankMesh):
+            loss.backward()
         if mesh is not None:
             sum_copies(tree_leaves(state.params))
         if group is not None:
@@ -224,6 +255,26 @@ def make_train_step(
                 loss.detach())
 
     return init_state, train_step
+
+
+def _check_rank_mesh_step(loss_fn, capture: bool, process_group) -> None:
+    """The ``ValueError``s of a step over a mesh of ranks."""
+    if process_group is not None:
+        raise ValueError(
+            "a mesh of ranks is the gang's data parallelism over its dp "
+            "axis; process_group would average the gradients a second "
+            "time: pass one or the other")
+    if capture:
+        raise ValueError(
+            "capture=True over a mesh of ranks: gloo's collectives cannot "
+            "be captured in a CUDA graph, and NCCL's inside one need a "
+            "card a rank, not yet built (ROADMAP queue A item 11d); use "
+            "the eager step")
+    if loss_fn is not cross_entropy_loss:
+        raise ValueError(
+            "over a mesh of ranks the loss must count each rank's share "
+            "of the logits once, as cross_entropy_loss does; another "
+            "loss over ranks is ROADMAP queue A item 11i")
 
 
 def _resolve_group(process_group):

@@ -305,6 +305,24 @@ def test_chip_smoke_holds_the_kernels_at_the_ddp_paths_shapes():
     assert {single, rank} <= dense
 
 
+def test_chip_smoke_holds_the_kernels_at_the_tp_gang_shape():
+    # train_distributed_torch.py --tp 2 over two ranks: each rank's unit
+    # runs the global batch on half the heads, a bf16 causal dense case
+    import torch
+
+    import train_distributed_torch as T
+
+    chip_smoke = _chip_smoke()
+    args = T.parse_args(["--tp", str(chip_smoke.DDP_TP)])
+    config = T.model_config(args)
+    unit = (args.batch, config.n_heads // args.tp, args.seq, config.head_dim)
+    assert unit == chip_smoke.DDP_TP_SHAPE == (32, 4, 256, 64)
+    dense = {shape for _, shape, _, dtype, causal, window
+             in chip_smoke.dense_cases(torch)
+             if dtype == torch.bfloat16 and causal and window is None}
+    assert unit in dense
+
+
 def test_chip_smoke_holds_the_f32_kernels_at_the_f32_paths_shapes():
     # the f32 phase's attention shapes (the serving flagship's forward and
     # prefill, the train-step flagship's step) are dense kernel cases,

@@ -103,6 +103,69 @@ def test_train_mnist_resume_equals_a_straight_run(tmp_path, monkeypatch):
         "ckpt-2.bin", "ckpt-4.bin", "ckpt-6.bin"]
 
 
+def test_train_distributed_tp2_over_two_ranks_is_one_mesh(tmp_path):
+    """Two gloo ranks at ``--tp 2`` form one dp=1 x tp=2 mesh, as JAX's
+    example over two one-chip processes: each rank holds half of every
+    tp-split leaf and no copy of the other's, and the ranks' losses are
+    the one-controller mesh's over [cpu] * 2."""
+    import os
+    import subprocess
+
+    from native_helpers import free_port
+
+    from kubeshare_tpu_torch.models.transformer import (
+        transformer_init, transformer_sharding_rules)
+    from kubeshare_tpu_torch.parallel.mesh import (MeshSpec, make_mesh,
+                                                   shard_params)
+    from kubeshare_tpu_torch.parallel.train import tree_leaves
+
+    twin = _twin("train_distributed_torch")
+    args = SMALL + ["--tp", "2", "--steps", "2"]
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(2):
+            env = {k: v for k, v in os.environ.items()
+                   if not k.startswith("TPUSHARE_")}
+            env.update(TPUSHARE_GANG_SIZE="2", TPUSHARE_GANG_RANK=str(rank),
+                       TPUSHARE_COORDINATOR=f"127.0.0.1:{port}",
+                       PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+                       CUDA_VISIBLE_DEVICES="")
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "train_distributed_torch.py")]
+                + args, env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        # one process: the same mesh over [cpu] * 2, one controller
+        single = twin.main(args)
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    config = twin.model_config(twin.parse_args(args))
+    params = transformer_init(config, torch.Generator().manual_seed(0),
+                              "cpu")
+    # what one position of the one-controller mesh holds: half of every
+    # tp-split leaf
+    placed = tree_leaves(shard_params(
+        params, transformer_sharding_rules(),
+        make_mesh(MeshSpec(dp=1, tp=2), devices=[torch.device("cpu")] * 2)))
+    for leaf in placed:
+        split = "tp" in [axes for axes in leaf.spec]
+        assert leaf.shards[0].numel() * (2 if split else 1) == leaf.shape.numel()
+    half = sum(leaf.shards[0].numel() * leaf.element_size()
+               for leaf in placed)
+    assert single["mesh"] == {"dp": 1, "tp": 2, "sp": 1}
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, err[-3000:]
+        assert (f"[proc {rank}/2] mesh {{'dp': 1, 'tp': 2, 'sp': 1}} over "
+                f"the ranks; parameter bytes {half}") in out, out
+        assert (f"[proc {rank}/2] step 2 loss {single['losses'][-1]:.4f} "
+                in out), out
+    assert half < single["param_bytes"]
+
+
 def _leaves(tree, path=()):
     if isinstance(tree, dict):
         for key, value in tree.items():

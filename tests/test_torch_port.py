@@ -48,6 +48,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "serving.qos", "serving.metrics_view",
                      "serving.fabric", "serving.disagg",
                      "serving.fleet", "serving.sharded", "parallel.mesh",
+                     "parallel.spmd", "parallel.train",
                      "models.resnet", "data.pipeline", "parallel.checkpoint",
                      "utils.profiling", "ops.ring_attention", "ops.ulysses",
                      "parallel.pipeline", "parallel.distributed",

@@ -7,18 +7,30 @@
     python3 train_distributed_torch.py [--steps 200] [--batch 32] [--tp 1] [--sp 1] [--seq 256]
     python3 train_distributed_torch.py --backend gloo     # several ranks on one card
     python3 train_distributed_torch.py --small --device cpu   # on the CPU (gloo)
+    python3 train_distributed_torch.py --tp 2   # two pods: dp=1 x tp=2 across them
 
 Bootstraps ``torch.distributed`` from the gang env first
-(``initialize_from_env``; a solo pod runs single-process), splits the
-global batch over the ranks, and trains the Transformer data-parallel
-across them: each rank builds ``MeshSpec(dp=-1, tp, sp)`` over its own
-device (``[device] * (tp * sp)``; one controller runs the shards in
-turn) and steps through ``make_train_step(mesh=..., param_rules=
-transformer_sharding_rules(), process_group=True)``, which broadcasts
-rank 0's parameters at the start and averages the gradients over the
-ranks every step.  The model is the JAX script's at full width (vocab
-8192, d 512, 8 heads, 6 layers, d_ff 2048, bf16, attention "auto": the
-flash kernels on CUDA); ``--small`` is its tiny f32 CPU model.
+(``initialize_from_env``; a solo pod runs single-process), then:
+
+- ``--tp`` or ``--sp`` above 1 over a gang: the mesh of the gang's ranks,
+  ``make_mesh(MeshSpec(dp=-1, tp, sp))``, as the JAX script's
+  ``make_mesh`` over the multi-process ``jax.devices()`` (one GPU a
+  rank): every rank draws the same weights from seed 0 and keeps its own
+  shards under ``transformer_sharding_rules()``, takes the whole global
+  batch and steps through ``make_train_step(mesh=...)``, one sharded
+  program across the processes.  Two one-GPU pods at ``--tp 2`` are dp=1
+  x tp=2: each holds half of every tp-split weight, and the tp partial
+  sums cross the processes.
+- ``--tp 1 --sp 1`` over a gang: data parallelism across the ranks, each
+  on its own rows of the global batch through ``make_train_step(mesh=
+  <[device]>, process_group=True)``, which broadcasts rank 0's
+  parameters at the start and averages the gradients every step.
+- a solo pod: the mesh over ``[device] * (tp * sp)``, one controller
+  running the shards in turn.
+
+The model is the JAX script's at full width (vocab 8192, d 512, 8 heads,
+6 layers, d_ff 2048, bf16, attention "auto": the flash kernels on
+CUDA); ``--small`` is its tiny f32 CPU model.
 
 The backend is NCCL on CUDA and gloo on the CPU; NCCL refuses two ranks
 on one GPU ("Duplicate GPU detected"), so ranks that share a card pass
@@ -87,12 +99,29 @@ def rank_rows(tokens, rank: int, world: int):
     return tokens[rank * rows:(rank + 1) * rows]
 
 
+def rank_mesh_run(args: argparse.Namespace, distributed: bool) -> bool:
+    """Whether the gang's ranks form one mesh: tp or sp above 1 over a
+    gang (otherwise the ranks are data-parallel replicas)."""
+    return distributed and args.tp * args.sp > 1
+
+
+def rank_tokens(tokens, args: argparse.Namespace, rank: int, world: int):
+    """What a rank passes to its step: the whole global batch over a
+    mesh of ranks (the step places this rank's part), its own rows
+    otherwise."""
+    if rank_mesh_run(args, world > 1):
+        return tokens
+    return rank_rows(tokens, rank, world)
+
+
 def setup(args: argparse.Namespace, device, distributed: bool,
           **step_options):
     """(config, init_state, train_step, params): the model (weights from
-    seed 0), its mesh over ``[device] * (tp * sp)`` and the data-parallel
-    step (``process_group=True`` when ``distributed``; ``step_options``,
-    e.g. ``capture=True``, go to ``make_train_step``)."""
+    seed 0) and its step: over a gang with tp or sp above 1, the mesh of
+    the gang's ranks (this rank on ``device``); otherwise the mesh over
+    ``[device] * (tp * sp)`` and, when ``distributed``, the data-parallel
+    step (``process_group=True``).  ``step_options``, e.g.
+    ``capture=True``, go to ``make_train_step``."""
     import torch
 
     from kubeshare_tpu_torch.models.transformer import (
@@ -100,12 +129,15 @@ def setup(args: argparse.Namespace, device, distributed: bool,
     from kubeshare_tpu_torch.parallel import MeshSpec, make_mesh, make_train_step
 
     config = model_config(args)
-    mesh = make_mesh(MeshSpec(dp=-1, tp=args.tp, sp=args.sp),
-                     devices=[device] * (args.tp * args.sp))
+    spec = MeshSpec(dp=-1, tp=args.tp, sp=args.sp)
+    ranked = rank_mesh_run(args, distributed)
+    mesh = (make_mesh(spec, device=device) if ranked else
+            make_mesh(spec, devices=[device] * (args.tp * args.sp)))
     init_state, train_step = make_train_step(
         lambda p, x: transformer_apply(p, x, config), mesh=mesh,
         param_rules=transformer_sharding_rules(),
-        process_group=True if distributed else None, **step_options)
+        process_group=True if distributed and not ranked else None,
+        **step_options)
     params = transformer_init(config, torch.Generator().manual_seed(0), device)
     return config, init_state, train_step, params
 
@@ -116,6 +148,7 @@ def main(argv=None) -> dict:
     import torch
 
     from kubeshare_tpu_torch import resolve_device
+    from kubeshare_tpu_torch.parallel import tree_leaves
     from kubeshare_tpu_torch.parallel.distributed import initialize_from_env
 
     device = resolve_device(args.device)
@@ -125,7 +158,15 @@ def main(argv=None) -> dict:
     config, init_state, train_step, params = setup(args, device,
                                                    spec is not None)
     state = init_state(params)
-    tokens = rank_rows(global_batch(config, args), rank, world).to(device)
+    tokens = rank_tokens(global_batch(config, args), args, rank,
+                         world).to(device)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for g in state.opt_state.param_groups
+                      for p in g["params"])
+    mesh = next(iter(tree_leaves(state.params))).mesh
+    print(f"[proc {rank}/{world}] mesh {mesh.shape}"
+          f"{' over the ranks' if rank_mesh_run(args, world > 1) else ''}; "
+          f"parameter bytes {param_bytes}", flush=True)
     on_card = device.type == "cuda"
     start = torch.cuda.Event(enable_timing=True) if on_card else None
     t0 = time.perf_counter()
@@ -148,7 +189,8 @@ def main(argv=None) -> dict:
                   flush=True)
     if spec is not None:
         torch.distributed.destroy_process_group()
-    return {"rank": rank, "world": world,
+    return {"rank": rank, "world": world, "mesh": dict(mesh.shape),
+            "param_bytes": param_bytes,
             "losses": [float(x) for x in losses]}
 
 
