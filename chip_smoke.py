@@ -308,7 +308,7 @@ Phases (any failure raises and the script exits non-zero):
    every chain delivered.  (d) The mesh of ranks: in (a)'s two gloo
    processes, after (a)'s runs, train_distributed_torch.py --tp 2
    (make_mesh over the gang: dp=1 x tp=2, each rank half of every
-   tp-split weight, the whole global batch) takes 10 eager steps, after
+   tp-split weight, the whole global batch) takes 5 eager steps, after
    a probe of which gloo collectives take CUDA tensors.  Every rank
    launches the three dense kernels 6 times a step at DDP_TP_SHAPE (held
    to their plain versions and timed among the kernel phase's shapes,
@@ -317,7 +317,20 @@ Phases (any failure raises and the script exits non-zero):
    one device's ((a)'s one process) within SHARDED_FIRST_LOSS_ATOL /
    SHARDED_DRIFT_LOSS_ATOL; each rank's parameter bytes beside the
    one-process mesh device 0's, the step ms by CUDA events and the
-   share and bytes of the rank collectives.
+   share and bytes of the rank collectives.  (e) and (f), in the same
+   processes after (d): the train-step flagship (half its layers) at 1 x
+   LC_SEQ over a mesh of the two ranks dp=1 x tp=1 x sp=2, DDP_SP_STEPS
+   eager steps of the zigzag hybrid ring (each rank's diagonal quadrants launch the
+   flash forward at LC_DIAG_SHAPE, twice a layer) and of Ulysses (the
+   three kernels once a layer at DDP_ULYSSES_SHAPE, held to their plain
+   versions and timed among the kernel phase's shapes,
+   "distributed_sp_ulysses"); then the MoE model (MOE_DIMS) at
+   TRAIN_BATCH x TRAIN_SEQ over dp=2 ranks, the experts split over dp,
+   loss CE + MOE_AUX_COEF x aux.  Each: launches per rank as expected,
+   losses and final parameters equal to the one-process mesh over
+   [cuda:0] * 2 to the bit, one device's within the LC_* limits ((e))
+   or SHARDED_* ((f)); step ms by CUDA events and the rank collectives'
+   ms, share and bytes received a step.
    discovery: discover_local_chips() against nvidia-smi's uuid, name
    and memory.total (within DISCOVERY_MEMORY_MIB); the card's link
    record (cell.topology.LinkRecord) from the driver's NVML, loaded with
@@ -865,8 +878,10 @@ LC_ZIGZAG_SHAPE = (2, 8192)
 LC_PP, LC_PP_SP, LC_PP_MICRO = 2, 2, 4
 LC_PP_SHAPE = (4, 8192)
 # the ring (eager and captured), zigzag and Ulysses runs, each held to
-# as many single-device steps (LC_DRIFT_*), as the train phase
-LC_DRIFT_STEPS = 10
+# as many single-device steps (LC_DRIFT_*), as the train phase; five
+# since distributed (e) and (f) joined the script (ten before, where the
+# limits below were first read)
+LC_DRIFT_STEPS = 5
 LC_STEPS = 3  # 1F1B
 LC_DIAG_SHAPE = (1, TRAIN_DIMS["n_heads"], LC_SEQ // LC_SP,
                  TRAIN_DIMS["d_model"] // TRAIN_DIMS["n_heads"])
@@ -928,8 +943,10 @@ DDP_WORLD = 2
 # holds the kernels to their plain versions at both
 DDP_SHAPE = (32, 8, 256, 64)
 DDP_RANK_SHAPE = (DDP_SHAPE[0] // DDP_WORLD, *DDP_SHAPE[1:])
-DDP_STEPS = 10
-DDP_RANK_TIMEOUT_S = 240
+# (a)'s and (d)'s steps: five since (e) and (f) joined the ranks'
+# processes (ten before)
+DDP_STEPS = 5
+DDP_RANK_TIMEOUT_S = 480
 DDP_NCCL_STEPS = 3
 DDP_DISAGG_REQUESTS = 16
 # step 1's gradients (after the all-reduce) against one process's over
@@ -954,6 +971,30 @@ DDP_DRIFT_UPDATE_RTOL = TRAIN_GRAD_RTOL
 # on n_heads / tp heads, the attention shape DDP_TP_SHAPE
 DDP_TP = 2
 DDP_TP_SHAPE = (DDP_SHAPE[0], DDP_SHAPE[1] // DDP_TP, *DDP_SHAPE[2:])
+# distributed (e) and (f), in the same rank processes after (d), each
+# DDP_SP_STEPS eager steps over a mesh of the two ranks, held to the
+# one-process mesh over [cuda:0] * 2 (equal to the bit) and to one
+# device: (e) the train-step flagship (DDP_SP_LAYERS of its layers) at 1
+# x LC_SEQ tokens over dp=1 x tp=1 x sp=DDP_SP, the zigzag hybrid ring (each rank's diagonal
+# quadrants at LC_DIAG_SHAPE, the flash forward) and then Ulysses (a
+# member attends the whole sequence on n_heads / sp heads,
+# DDP_ULYSSES_SHAPE, the three kernels), at the long-context limits
+# (LC_FIRST_LOSS_ATOL, LC_DRIFT_*); (f) the MoE model (MOE_DIMS) at
+# TRAIN_BATCH x TRAIN_SEQ over dp=DDP_WORLD with the experts split over
+# dp, loss CE + MOE_AUX_COEF x aux, at the sharded limits
+# (SHARDED_FIRST_LOSS_ATOL, SHARDED_DRIFT_LOSS_ATOL)
+DDP_SP = 2
+DDP_SP_STEPS = 3
+# (e)'s depth: half the flagship's layers at its full width.  Over gloo
+# through the host a step is transport-bound (2,292,387,911 bytes a
+# zigzag rank at 8 layers: the replicated tree's f32 gradients and the
+# ring's K/V and dK/dV, 5.6-8.2 s a step on one card's host), and the
+# whole script must stay well inside its limit on a slow host
+DDP_SP_LAYERS = TRAIN_DIMS["n_layers"] // 2
+DDP_ULYSSES_SHAPE = (1, TRAIN_DIMS["n_heads"] // DDP_SP, LC_SEQ,
+                     LC_DIAG_SHAPE[3])
+DDP_MOE_RANK_SHAPE = (TRAIN_BATCH // DDP_WORLD, MOE_DIMS["n_heads"],
+                      TRAIN_SEQ, MOE_DIMS["d_model"] // MOE_DIMS["n_heads"])
 # discovery: the card's memory by torch (cudaDeviceProp.totalGlobalMem)
 # against nvidia-smi's memory.total (NVML), in MiB: 480.0 MiB apart on
 # an H100 80GB HBM3 (81,559 MiB by NVML), the CUDA driver's reserve; a card
@@ -1470,6 +1511,12 @@ def dense_cases(torch):
         # heads
         ("distributed_tp", DDP_TP_SHAPE, DDP_TP_SHAPE[1], torch.bfloat16,
          True, None),
+        # distributed (e): a Ulysses member over the two ranks, the whole
+        # 16,384-token sweep on half the heads; (f): an MoE dp rank's row
+        ("distributed_sp_ulysses", DDP_ULYSSES_SHAPE, DDP_ULYSSES_SHAPE[1],
+         torch.bfloat16, True, None),
+        ("distributed_moe_rank", DDP_MOE_RANK_SHAPE, DDP_MOE_RANK_SHAPE[1],
+         torch.bfloat16, True, None),
     ]
 
 
@@ -1518,8 +1565,11 @@ def kernel_phase(torch, device):
     # the f32 train path's shape (the f32 phase's train-step flagship)
     timings.append(time_shape(torch, (TRAIN_BATCH, 8, TRAIN_SEQ, 128), gen,
                               "float32"))
-    # distributed (d)'s: a tp rank's unit over the mesh of ranks
+    # distributed (d)'s: a tp rank's unit over the mesh of ranks; (e)'s
+    # Ulysses member and (f)'s MoE dp rank
     timings.append(time_shape(torch, DDP_TP_SHAPE, gen))
+    timings.append(time_shape(torch, DDP_ULYSSES_SHAPE, gen))
+    timings.append(time_shape(torch, DDP_MOE_RANK_SHAPE, gen))
     return worst, timings
 
 
@@ -5897,7 +5947,8 @@ def ddp_worker(torch, out_dir: str) -> int:
     DDP_NCCL_STEPS captured (two graphs around gloo's all-reduce) and as
     many eager with the same capturable AdamW; then the controls (the sum
     without the division, DDP_STEPS steps; no all-reduce, one step), each
-    from the seed's weights; then distributed (d)'s run (``tp_run``).
+    from the seed's weights; then distributed (d)'s, (e)'s and (f)'s runs
+    (``tp_run``, ``sp_run``, ``moe_rank_run``).
     Writes its record to DIR/rank<r>.json; rank 0 also saves step 1's
     gradients and each run's last parameters."""
     import train_distributed_torch as T
@@ -5964,6 +6015,10 @@ def ddp_worker(torch, out_dir: str) -> int:
     run("no_all_reduce", 1)
     port_train.GroupMean.all_reduce, port_train.GroupMean.unflatten = shipped
     record["tp"] = tp_run(torch, out_dir, rank, world)
+    torch.cuda.empty_cache()
+    record["sp"] = sp_run(torch, out_dir, rank)
+    torch.cuda.empty_cache()
+    record["moe"] = moe_rank_run(torch, out_dir, rank)
     torch.distributed.destroy_process_group()
     with open(f"{out_dir}/rank{rank}.json", "w") as f:
         json.dump(record, f)
@@ -6013,7 +6068,8 @@ def ddp_two_ranks(torch, device, T, args):
     one process's step over the whole global batch, eager and captured.
     Returns the launches of the ranks' eager and captured runs (summed
     over the ranks) and of the one process, the one process's losses,
-    and (d)'s: the ranks' records and final parameters."""
+    and (d)'s, (e)'s and (f)'s: the ranks' records and final parameters
+    by run."""
     import os
     import tempfile
 
@@ -6056,7 +6112,8 @@ def ddp_two_ranks(torch, device, T, args):
             f"{out}/{name}.pt")] for name in (
             "grads_shipped", "grads_undivided", "params_shipped",
             "params_undivided", "params_captured", "params_captured_same",
-            "params_tp")}
+            "params_tp", "params_sp_zigzag", "params_sp_ulysses",
+            "params_moe")}
     shipped = [r["shipped"] for r in records]
     for rank, run in enumerate(shipped):
         print(f"distributed (a) rank {rank}/{DDP_WORLD} (gloo, cuda:0, "
@@ -6133,7 +6190,11 @@ def ddp_two_ranks(torch, device, T, args):
              for name in expect},
             {name: sum(r["captured"]["launches"][name] for r in records)
              for name in expect}, single_launches, losses,
-            ([r["tp"] for r in records], loaded["params_tp"]))
+            {"tp": ([r["tp"] for r in records], loaded["params_tp"]),
+             "sp": ([r["sp"] for r in records],
+                    {kind: loaded[f"params_sp_{kind}"]
+                     for kind in ("zigzag", "ulysses")}),
+             "moe": ([r["moe"] for r in records], loaded["params_moe"])})
 
 
 def gloo_cuda_probe(torch) -> dict:
@@ -6163,6 +6224,178 @@ def gloo_cuda_probe(torch) -> dict:
     return found
 
 
+class RankCollectives:
+    """Every transfer of the rank mesh's lines (``spmd.RankLine``: the
+    gather, the reduce-scatter, the all-to-all, the shift, the chunk
+    exchange) timed with the device synchronised around it, and the
+    bytes this rank receives from the others counted, step by step
+    (:meth:`step` opens a step)."""
+
+    NAMES = ("gather", "scatter_sum", "all_to_all", "shift", "exchange")
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ms, self.received = [], []
+
+    @staticmethod
+    def received_bytes(name, line, args) -> int:
+        n = line.size
+        if name == "exchange":
+            _, expect, like = args
+            return sum(count for m, count in expect.items()
+                       if m != line.index) * like.numel() * like.element_size()
+        if name == "shift":
+            offset = args[1] if len(args) > 1 else 1
+            return (0 if offset % n == 0 else
+                    sum(x.numel() * x.element_size() for x in args[0]))
+        x = args[0]
+        share = (n - 1) if name == "gather" else (n - 1) / n
+        return int(x.numel() * x.element_size() * share)
+
+    def step(self) -> None:
+        self.ms.append(0.0)
+        self.received.append(0)
+
+    def __enter__(self):
+        from kubeshare_tpu_torch.parallel.spmd import RankLine
+
+        self.shipped = {name: getattr(RankLine, name) for name in self.NAMES}
+        torch = self.torch
+
+        def timed(name, fn):
+            def call(line, *args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(line, *args)
+                torch.cuda.synchronize()
+                if self.ms:
+                    self.ms[-1] += (time.perf_counter() - t0) * 1e3
+                    self.received[-1] += self.received_bytes(name, line,
+                                                             args)
+                return out
+            return call
+
+        for name, fn in self.shipped.items():
+            setattr(RankLine, name, timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from kubeshare_tpu_torch.parallel.spmd import RankLine
+
+        for name, fn in self.shipped.items():
+            setattr(RankLine, name, fn)
+        return False
+
+
+def rank_steps(torch, train_step, state, tokens, targets, steps) -> dict:
+    """``steps`` eager steps of a step over a mesh of ranks, each rank
+    collective timed (:class:`RankCollectives`): the rank's losses, step
+    ms by CUDA events, host ms, collective ms and received bytes a step,
+    and launches."""
+    losses, step_ms, host_ms = [], [], []
+    with RankCollectives(torch) as timed:
+        reset_counts()
+        for _ in range(steps):
+            timed.step()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            t0 = time.perf_counter()
+            start.record()
+            state, loss = train_step(state, tokens, targets)
+            end.record()
+            end.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            step_ms.append(start.elapsed_time(end))
+            losses.append(float(loss))
+        launches = read_counts()
+    return dict(losses=losses, step_ms=step_ms, host_ms=host_ms,
+                collective_ms=timed.ms, received=timed.received,
+                launches=launches)
+
+
+def sp_apply(config, mesh, kind):
+    """(e)'s forward over ``mesh``: the zigzag hybrid ring or Ulysses."""
+    from kubeshare_tpu_torch.models.transformer import (
+        transformer_apply_ring, transformer_apply_ulysses)
+
+    if kind == "zigzag":
+        return lambda p, t: transformer_apply_ring(p, t, config, mesh,
+                                                   layout="zigzag")
+    ulysses = dataclasses.replace(config, attention="ulysses")
+    return lambda p, t: transformer_apply_ulysses(p, t, ulysses, mesh)
+
+
+def moe_dp_rules():
+    """(f)'s placement: the transformer rules with the experts split over
+    dp (``moe_sharding_rules("dp")``'s expert split) in place of tp."""
+    from kubeshare_tpu_torch.models.transformer import (
+        transformer_sharding_rules)
+    from kubeshare_tpu_torch.ops.moe import moe_sharding_rules
+
+    rules = transformer_sharding_rules()
+    rules.update({f"moe']['{name}": spec for name, spec in
+                  moe_sharding_rules("dp").items() if name != "router"})
+    return rules
+
+
+def sp_run(torch, out_dir: str, rank: int) -> dict:
+    """Distributed (e) in a rank of (a)'s gang: DDP_SP_STEPS eager steps
+    of the train-step flagship (DDP_SP_LAYERS layers) at 1 x LC_SEQ over
+    the mesh of the ranks
+    (dp=1 x tp=1 x sp=DDP_SP), the zigzag hybrid ring and then Ulysses,
+    each from the seed's weights; rank 0 saves each run's final
+    parameters, gathered, to DIR/params_sp_<kind>.pt."""
+    from kubeshare_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from kubeshare_tpu_torch.parallel.train import make_train_step, tree_leaves
+
+    device = torch.device("cuda", 0)
+    mesh = make_mesh(MeshSpec(dp=1, tp=1, sp=DDP_SP), device=device)
+    config, params, tokens, targets = lc_setup(torch, device, 1, LC_SEQ,
+                                               n_layers=DDP_SP_LAYERS)
+    runs = {}
+    for kind in ("zigzag", "ulysses"):
+        init_state, train_step = make_train_step(
+            sp_apply(config, mesh, kind), mesh=mesh, param_rules={})
+        state = init_state(clone_tree(params))
+        runs[kind] = dict(rank_steps(torch, train_step, state, tokens,
+                                     targets, DDP_SP_STEPS),
+                          mesh=dict(mesh.shape))
+        final = [leaf.gather().cpu() for leaf in tree_leaves(state.params)]
+        if rank == 0:
+            torch.save(final, f"{out_dir}/params_sp_{kind}.pt")
+        del state, final, train_step, init_state
+        torch.cuda.empty_cache()
+    return runs
+
+
+def moe_rank_run(torch, out_dir: str, rank: int) -> dict:
+    """Distributed (f) in a rank of (a)'s gang: DDP_SP_STEPS eager steps
+    of the MoE model at TRAIN_BATCH x TRAIN_SEQ over dp=DDP_WORLD ranks,
+    the experts split over dp, loss CE + MOE_AUX_COEF x aux; rank 0 saves
+    the final parameters, gathered, to DIR/params_moe.pt."""
+    from kubeshare_tpu_torch.models.transformer import (
+        transformer_apply_with_aux)
+    from kubeshare_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from kubeshare_tpu_torch.parallel.train import (CrossEntropyWithAux,
+                                                    make_train_step,
+                                                    tree_leaves)
+
+    device = torch.device("cuda", 0)
+    mesh = make_mesh(MeshSpec(dp=DDP_WORLD), device=device)
+    config, params, tokens, targets = train_setup(torch, device, MOE_DIMS)
+    init_state, train_step = make_train_step(
+        lambda p, t: transformer_apply_with_aux(p, t, config), mesh=mesh,
+        param_rules=moe_dp_rules(),
+        loss_fn=CrossEntropyWithAux(MOE_AUX_COEF))
+    state = init_state(params)
+    run = dict(rank_steps(torch, train_step, state, tokens, targets,
+                          DDP_SP_STEPS), mesh=dict(mesh.shape))
+    final = [leaf.gather().cpu() for leaf in tree_leaves(state.params)]
+    if rank == 0:
+        torch.save(final, f"{out_dir}/params_moe.pt")
+    return run
+
+
 def tp_run(torch, out_dir: str, rank: int, world: int) -> dict:
     """Distributed (d) in a rank of (a)'s gang (``ddp_worker``): gloo's
     collectives probed on CUDA tensors, then DDP_STEPS eager steps of
@@ -6171,7 +6404,6 @@ def tp_run(torch, out_dir: str, rank: int, world: int) -> dict:
     device synchronised around it).  Returns the rank's record; rank 0
     also saves the final parameters, gathered, to DIR/params_tp.pt."""
     import train_distributed_torch as T
-    from kubeshare_tpu_torch.parallel.spmd import RankLine
     from kubeshare_tpu_torch.parallel.train import tree_leaves
 
     device = torch.device("cuda", 0)
@@ -6181,48 +6413,12 @@ def tp_run(torch, out_dir: str, rank: int, world: int) -> dict:
                            rank, world).to(device)
     _, init_state, train_step, params = T.setup(args, device, True)
     state = init_state(params)
-    collective_ms, received = [], []
-    shipped = RankLine.gather, RankLine.scatter_sum
-
-    def timed(fn, share):
-        def call(self, x, *a):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(self, x, *a)
-            torch.cuda.synchronize()
-            collective_ms[-1] += (time.perf_counter() - t0) * 1e3
-            # the bytes this rank receives from the others
-            received[-1] += int(x.numel() * x.element_size()
-                                * (self.size - 1) * share(self.size))
-            return out
-        return call
-
-    RankLine.gather = timed(shipped[0], lambda n: 1)
-    RankLine.scatter_sum = timed(shipped[1], lambda n: 1 / n)
-    losses, step_ms, host_ms = [], [], []
-    reset_counts()
-    for _ in range(DDP_STEPS):
-        collective_ms.append(0.0)
-        received.append(0)
-        start, end = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-        t0 = time.perf_counter()
-        start.record()
-        state, loss = train_step(state, tokens, tokens)
-        end.record()
-        end.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        step_ms.append(start.elapsed_time(end))
-        losses.append(float(loss))
-    launches = read_counts()
-    RankLine.gather, RankLine.scatter_sum = shipped
+    run = rank_steps(torch, train_step, state, tokens, tokens, DDP_STEPS)
     final = [leaf.gather().cpu() for leaf in tree_leaves(state.params)]
     if rank == 0:
         torch.save(final, f"{out_dir}/params_tp.pt")
     leaves = tree_leaves(state.params)
-    return dict(losses=losses, step_ms=step_ms, host_ms=host_ms,
-                collective_ms=collective_ms, received=received,
-                launches=launches, bytes=unit_bytes(state),
+    return dict(run, bytes=unit_bytes(state),
                 param_bytes=sum(leaf.shards[0].numel() * leaf.element_size()
                                 for leaf in leaves),
                 whole_bytes=sum(leaf.shape.numel() * leaf.element_size()
@@ -6306,6 +6502,173 @@ def ddp_tp(torch, device, T, single_losses, ranks):
           f"{SHARDED_DRIFT_LOSS_ATOL:g})")
     check(first <= SHARDED_FIRST_LOSS_ATOL and err <= SHARDED_DRIFT_LOSS_ATOL,
           f"distributed (d): the losses differ from one device's by {first} "
+          f"at step 1, {err} at most")
+    return ({name: sum(r["launches"][name] for r in records)
+             for name in expect}, one_launches)
+
+
+def rank_lines(label, records, unit):
+    """Each rank's line of a run over the mesh of the ranks: launches,
+    step ms by CUDA events, the rank collectives' ms, share of the step
+    and bytes received a step."""
+    for rank, run in enumerate(records):
+        share = [c / h for c, h in zip(run["collective_ms"], run["host_ms"])]
+        print(f"distributed {label} rank {rank}/{DDP_WORLD} (gloo, cuda:0, "
+              f"mesh {run['mesh']} over the ranks, {unit}): launches "
+              f"{run['launches']}; losses " + " ".join(
+                  f"{x:.4f}" for x in run["losses"])
+              + f"; step ms {steady_median(run['step_ms']):.3f} by CUDA "
+              f"events (median of steps {TRAIN_TIMED_FROM}-"
+              f"{len(run['step_ms'])}; " + " ".join(
+                  f"{x:.1f}" for x in run["step_ms"])
+              + f"), host {steady_median(run['host_ms']):.3f}; of it in the "
+              f"rank collectives (host copy, gloo, copy back) "
+              f"{steady_median(run['collective_ms']):.3f} ms, share "
+              f"{steady_median(share):.3f}, {run['received'][-1]} bytes "
+              f"received a step")
+
+
+def hold_ranks(torch, label, records, final, losses, reference):
+    """The ranks' losses and final parameters equal to the one-process
+    mesh's (``losses``, ``reference``) to the bit."""
+    same_losses = all(r["losses"] == losses for r in records)
+    same_params = all(torch.equal(a, b.to(a.device))
+                      for a, b in zip(reference, final))
+    print(f"distributed {label} ranks against the one-process mesh: losses "
+          f"equal to the bit: {same_losses}; parameters after "
+          f"{len(losses)} steps equal to the bit: {same_params}")
+    check(same_losses and same_params,
+          f"distributed {label}: the ranks differ from the one-process mesh")
+
+
+def ddp_sp(torch, device, ranks):
+    """(e): the zigzag hybrid ring and Ulysses over dp=1 x tp=1 x
+    sp=DDP_SP gloo ranks (run in (a)'s processes: ``ranks`` is their
+    records and rank 0's final parameters by kind) against the
+    one-process mesh over [cuda:0] * DDP_SP (equal to the bit) and one
+    device's DDP_SP_STEPS steps (the long-context limits).  Returns the
+    ranks' launches (summed) and the one-process meshes'."""
+    from kubeshare_tpu_torch.models.transformer import transformer_apply
+    from kubeshare_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from kubeshare_tpu_torch.parallel.train import tree_leaves
+
+    records, finals = ranks
+    config, params, tokens, targets = lc_setup(torch, device, 1, LC_SEQ,
+                                               n_layers=DDP_SP_LAYERS)
+    initial = [leaf.detach().clone() for leaf in tree_leaves(params)]
+    flash = dataclasses.replace(config, attention="flash")
+    state, losses, step_ms, _, _ = lc_train(
+        torch, "distributed (e) single device", lambda p, t:
+        transformer_apply(p, t, flash), None, params, tokens, targets,
+        DDP_SP_STEPS)
+    single = (losses, lc_leaves(state))
+    single_ms = steady_median(step_ms)
+    del state
+    torch.cuda.empty_cache()
+    mesh = make_mesh(MeshSpec(dp=1, tp=1, sp=DDP_SP),
+                     devices=[device] * DDP_SP)
+    n = DDP_SP_STEPS * config.n_layers
+    # a zigzag rank's diagonal step runs the kernel on its two quadrants;
+    # a Ulysses member attends the whole sequence once a layer
+    expect = {"zigzag": {**only(), "flash_fwd": 2 * n},
+              "ulysses": {name: c * n for name, c in only(
+                  "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq").items()}}
+    summed, one_launches = dict(only()), dict(only())
+    for kind in ("zigzag", "ulysses"):
+        state, losses, step_ms, _, launches = lc_train(
+            torch, f"distributed (e) {kind} one process over [{device}] * "
+            f"{DDP_SP}", sp_apply(config, mesh, kind), mesh, params, tokens,
+            targets, DDP_SP_STEPS, rules={})
+        check(launches == {k: DDP_SP * c for k, c in expect[kind].items()},
+              f"distributed (e) {kind}: the one-process mesh launched "
+              f"{launches}, expected {DDP_SP} x {expect[kind]}")
+        reference = lc_leaves(state)
+        del state
+        runs = [r[kind] for r in records]
+        rank_lines(f"(e) {kind}", runs, "1 x " + str(LC_SEQ) + " tokens, "
+                   + (f"diagonal quadrants {LC_DIAG_SHAPE}" if kind == "zigzag"
+                      else f"member {DDP_ULYSSES_SHAPE}"))
+        for rank, run in enumerate(runs):
+            check(run["launches"] == expect[kind],
+                  f"distributed (e) {kind} rank {rank} launched "
+                  f"{run['launches']}, expected {expect[kind]}")
+            for name, c in run["launches"].items():
+                summed[name] += c
+        for name, c in launches.items():
+            one_launches[name] += c
+        final = [t.to(device) for t in finals[kind]]
+        hold_ranks(torch, f"(e) {kind}", runs, final, losses, reference)
+        hold_drift(f"distributed (e) {kind} ranks vs single device",
+                   (runs[0]["losses"], final), single, initial,
+                   (LC_DRIFT_LOSS_ATOL, LC_DRIFT_UPDATE_RTOL),
+                   first_atol=LC_FIRST_LOSS_ATOL)
+        print(f"distributed (e) {kind} step at 1 x {LC_SEQ} tokens, median "
+              f"of steps {TRAIN_TIMED_FROM}-{DDP_SP_STEPS} (CUDA events): "
+              f"ranks " + ", ".join(f"{steady_median(r['step_ms']):.3f}"
+                                    for r in runs)
+              + f" ms, one-process mesh {steady_median(step_ms):.3f} ms, "
+              f"single device {single_ms:.3f} ms")
+        del reference
+        torch.cuda.empty_cache()
+    return summed, one_launches
+
+
+def ddp_moe(torch, device, ranks):
+    """(f): the MoE model over dp=DDP_WORLD gloo ranks, the experts split
+    over dp (run in (a)'s processes), against the one-process mesh over
+    [cuda:0] * DDP_WORLD (equal to the bit) and one device's DDP_SP_STEPS
+    steps (the sharded limits).  Returns the ranks' launches (summed) and
+    the one-process mesh's."""
+    from kubeshare_tpu_torch.models.transformer import (
+        transformer_apply_with_aux)
+    from kubeshare_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from kubeshare_tpu_torch.parallel.train import (CrossEntropyWithAux,
+                                                    make_train_step,
+                                                    tree_leaves)
+
+    records, final = ranks
+    config, params, tokens, targets = train_setup(torch, device, MOE_DIMS)
+    apply = lambda p, t: transformer_apply_with_aux(p, t, config)
+    loss_fn = CrossEntropyWithAux(MOE_AUX_COEF)
+    init_state, train_step = make_train_step(apply, loss_fn=loss_fn)
+    state = init_state(clone_tree(params))
+    state, single, _, _ = timed_steps(torch, train_step, state,
+                                      [(tokens, targets)] * DDP_SP_STEPS)
+    del state
+    mesh = make_mesh(MeshSpec(dp=DDP_WORLD), devices=[device] * DDP_WORLD)
+    init_state, train_step = make_train_step(
+        apply, mesh=mesh, param_rules=moe_dp_rules(), loss_fn=loss_fn)
+    state = init_state(params)
+    reset_counts()
+    state, losses, step_ms, _ = timed_steps(
+        torch, train_step, state, [(tokens, targets)] * DDP_SP_STEPS)
+    one_launches = read_counts()
+    w_in = state.params["layers"][1]["moe"]["w_in"]
+    reference = [leaf.gather() for leaf in tree_leaves(state.params)]
+    del state
+    torch.cuda.empty_cache()
+    expect = {name: c * DDP_SP_STEPS * config.n_layers for name, c in only(
+        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq").items()}
+    check(one_launches == {k: DDP_WORLD * c for k, c in expect.items()},
+          f"distributed (f): the one-process mesh launched {one_launches}, "
+          f"expected {DDP_WORLD} x {expect}")
+    rank_lines("(f) moe", records, f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+               f"{config.moe_num_experts} experts split as {w_in.spec}")
+    for rank, run in enumerate(records):
+        check(run["launches"] == expect,
+              f"distributed (f) rank {rank} launched {run['launches']}, "
+              f"expected {expect}")
+    print(f"distributed (f) moe one process over [{device}] * {DDP_WORLD}: "
+          f"losses " + " ".join(f"{x:.4f}" for x in losses)
+          + f"; step ms {steady_median(step_ms):.3f} by CUDA events")
+    hold_ranks(torch, "(f) moe", records, final, losses, reference)
+    first = abs(records[0]["losses"][0] - single[0])
+    err = max(abs(a - b) for a, b in zip(records[0]["losses"], single))
+    print(f"distributed (f) moe ranks against one device: step 1 loss abs "
+          f"err {first:.3e} (tol {SHARDED_FIRST_LOSS_ATOL:g}), max over "
+          f"{DDP_SP_STEPS} steps {err:.3e} (tol {SHARDED_DRIFT_LOSS_ATOL:g})")
+    check(first <= SHARDED_FIRST_LOSS_ATOL and err <= SHARDED_DRIFT_LOSS_ATOL,
+          f"distributed (f): the losses differ from one device's by {first} "
           f"at step 1, {err} at most")
     return ({name: sum(r["launches"][name] for r in records)
              for name in expect}, one_launches)
@@ -6406,7 +6769,8 @@ def distributed_phase(torch, device):
     config, BASELINE config 5) over torch.distributed: (a) two gloo ranks
     on the card, (b) one NCCL rank eager and captured, (c) the multislice
     dry run and router, (d) two gloo ranks at --tp 2, one mesh of the
-    ranks."""
+    ranks; (e) sequence parallelism (the zigzag hybrid ring, Ulysses) and
+    (f) MoE over a mesh of the same two ranks."""
     import train_distributed_torch as T
 
     args = T.parse_args([])
@@ -6417,7 +6781,7 @@ def distributed_phase(torch, device):
                              f"the kernel phase's DDP_SHAPE {DDP_SHAPE}")
     launches = {}
     (launches["distributed"], launches["distributed_captured"],
-     launches["distributed_single"], single_losses, tp_ranks) = \
+     launches["distributed_single"], single_losses, ranks) = \
         ddp_two_ranks(torch, device, T, args)
     torch.cuda.empty_cache()
     launches["distributed_nccl"] = ddp_nccl(torch, device, T, args)
@@ -6425,7 +6789,13 @@ def distributed_phase(torch, device):
     launches["distributed_multislice"] = ddp_multislice(torch, device)
     torch.cuda.empty_cache()
     launches["distributed_tp"], launches["distributed_tp_one_process"] = \
-        ddp_tp(torch, device, T, single_losses, tp_ranks)
+        ddp_tp(torch, device, T, single_losses, ranks["tp"])
+    torch.cuda.empty_cache()
+    launches["distributed_sp"], launches["distributed_sp_one_process"] = \
+        ddp_sp(torch, device, ranks["sp"])
+    torch.cuda.empty_cache()
+    launches["distributed_moe"], launches["distributed_moe_one_process"] = \
+        ddp_moe(torch, device, ranks["moe"])
     torch.cuda.empty_cache()
     return launches
 

@@ -52,7 +52,8 @@
 // used; it only stamps the time (no CUDA call).  A lease's launches fall
 // into segments, each closed by markers once launches go quiet (kQuietMs,
 // 2 ms) or the host is about to wait (cuCtxSynchronize,
-// cuStreamSynchronize, cuEventSynchronize): the lease is charged its
+// cuStreamSynchronize, cuEventSynchronize), and a short graph's launch is
+// a segment of its own (GraphInLeaseLocked): the lease is charged its
 // segments' device spans, not the host's gaps between them nor the wait
 // before it went back.  A helper thread releases each completed charge
 // over TCP; every span is ready - max(start, previous ready), so
@@ -744,11 +745,26 @@ void HelperLoop(Gate* g) {
   }
 }
 
+// A short graph's launch under the lease is a segment of its own: the
+// open segment (the eager work before it) is closed first, and the
+// graph's own right behind it, so that the graph is charged from the
+// later of its launch and the previous completion to its completion, as
+// the JAX shim charges each Execute (native/shim/interposer.cc).  A
+// host-paced captured pod launches its graphs with host gaps shorter than
+// kQuietMs, which would otherwise fall inside one segment and be charged
+// as device time.  Costs one marker a launch.  Caller holds g.mu.
+void GraphInLeaseLocked(Gate& g, CUstream stream, double now) {
+  LaunchedInLeaseLocked(g, stream, now);
+  MarkLeaseLocked(g, /*other_thread=*/false);
+}
+
 // An eager launch: under the lease (taken, or renewed once expired), or
 // ungated while a capture is live.  The launch itself is issued under
 // g.mu, so that no marker can slip in between its bookkeeping and it.
+// ``graph``: a short graph's launch, a segment of its own
+// (GraphInLeaseLocked).
 template <typename Call>
-CUresult EagerLaunch(CUstream stream, Call call) {
+CUresult EagerLaunch(CUstream stream, Call call, bool graph = false) {
   Gate& g = G();
   std::unique_lock<std::mutex> lock(g.mu);
   if (g.capturing > 0) {
@@ -782,8 +798,18 @@ CUresult EagerLaunch(CUstream stream, Call call) {
     now = NowMs();
     if (!g.lease) StartLeaseLocked(g, now, quota);
   }
+  if (graph && g.capturing == 0) {
+    MarkLeaseLocked(g, /*other_thread=*/false);
+    now = NowMs();
+  }
   CUresult rc = call();
-  if (g.capturing == 0) LaunchedInLeaseLocked(g, stream, now);
+  if (g.capturing == 0) {
+    if (graph) {
+      GraphInLeaseLocked(g, stream, now);
+    } else {
+      LaunchedInLeaseLocked(g, stream, now);
+    }
+  }
   return rc;
 }
 
@@ -852,8 +878,10 @@ CUresult HookedGraphLaunch(CUgraphExec exec, CUstream stream) {
     double now = NowMs();
     if (g.lease && now < g.lease_end) {
       S().graph_launches_in_lease++;
+      MarkLeaseLocked(g, /*other_thread=*/false);
+      now = NowMs();
       CUresult rc = real(exec, stream);
-      LaunchedInLeaseLocked(g, key, now);
+      GraphInLeaseLocked(g, key, now);
       return rc;
     }
     if (known < 0 || known >= kGraphGrantMs) {
@@ -864,7 +892,8 @@ CUresult HookedGraphLaunch(CUgraphExec exec, CUstream stream) {
   }
   if (known >= 0 && known < kGraphGrantMs) {
     S().graph_launches_in_lease++;
-    return EagerLaunch(key, [&] { return real(exec, stream); });
+    return EagerLaunch(key, [&] { return real(exec, stream); },
+                       /*graph=*/true);
   }
   double asked = NowMs();
   double quota = tpushare_acquire(std::max(known, 1.0));

@@ -55,7 +55,7 @@ from ..parallel.mesh import (Mesh, NamedSharding, P, PartitionSpec,
                              device_put, refuse_rank_mesh)
 from ..parallel.pipeline import (pipeline_apply, pipeline_train_1f1b,
                                  stack_stage_params)
-from ..parallel.spmd import Units, mesh_of, place_plain, split_axis
+from ..parallel.spmd import Units, mesh_line, mesh_of, place_plain, split_axis
 from ..parallel.train import cross_entropy_loss, tree_leaves, tree_map
 
 
@@ -472,15 +472,17 @@ def _units_attention(units: Units, config: TransformerConfig,
         fn = _select_attention(config, units.devices[0])
         return lambda qs, ks, vs: [fn(q, k, v) for q, k, v in zip(qs, ks, vs)]
     group_fn = split.attend
-    groups = units.groups((split.axis,))
+    # one controller: every group of units; over ranks: this rank's unit
+    # in its group on the rank line
+    groups = units.sequence_groups((split.axis,))
 
     def attend(qs, ks, vs):
         outs: List[Optional[torch.Tensor]] = [None] * len(qs)
-        for group in groups:
-            results = group_fn([qs[u] for u in group], [ks[u] for u in group],
-                               [vs[u] for u in group],
-                               [units.devices[u] for u in group])
-            for u, o in zip(group, results):
+        for members, group in groups:
+            results = group_fn([qs[u] for u in members],
+                               [ks[u] for u in members],
+                               [vs[u] for u in members], group)
+            for u, o in zip(members, results):
                 outs[u] = o
         return outs
 
@@ -566,19 +568,43 @@ def _sharded_layer(units: Units, layer: Dict, xs: List[torch.Tensor],
     return [x + part for x, part in zip(xs, parts)], None
 
 
+def _rank_auxes(units: Units, aux: torch.Tensor) -> List[Tuple]:
+    """Over a mesh of ranks: every unit's (coordinates on the unit axes,
+    aux), in the one-controller's unit order.  Each rank's aux crosses
+    the mesh, and this rank's own (differentiable) stands in its place.
+    A rank at a nonzero coordinate of a replica axis is no unit, so it is
+    left out, as one controller runs no such unit (and such a rank's own
+    aux is never in the sum: it differentiates nothing)."""
+    mesh = units.mesh
+    parts = mesh_line(mesh, mesh.axis_names).gather(aux.detach())
+    at = [mesh.axis_names.index(a) for a in units.axes]
+    entries = []
+    for p, part in enumerate(parts):
+        coords = mesh.coords(p)
+        if any(coords[i] for i in range(len(coords)) if i not in at):
+            continue
+        entries.append((tuple(coords[i] for i in at),
+                        aux if p == mesh.position else part))
+    return entries
+
+
 def _mesh_mean_aux(units: Units, auxes: List[torch.Tensor],
                    batch: Tuple[str, ...], seq_axis: str) -> torch.Tensor:
     """The shards' aux losses averaged over the sequence axis, then over
     the batch axes (JAX's pmean over sp, then over dp), on the lead
     unit's device; units that differ only on a replica axis (tp) hold
-    copies and count once."""
+    copies and count once.  Over a mesh of ranks every rank computes the
+    same mean from the units' auxes in the one-controller's order, and
+    its gradient reaches each rank's own aux once."""
     lead = units.devices[0]
     other = [a for a in units.axes if a not in batch and a != seq_axis]
+    entries = (_rank_auxes(units, auxes[0]) if units.ranked else
+               [(units.coords[u], aux) for u, aux in enumerate(auxes)])
     rows: Dict[int, List] = {}
-    for u, aux in enumerate(auxes):
-        if units.coord(u, other) == 0:
-            rows.setdefault(units.coord(u, batch), []).append(
-                (units.coord(u, (seq_axis,)), aux))
+    for coords, aux in entries:
+        if units.index_of(coords, other) == 0:
+            rows.setdefault(units.index_of(coords, batch), []).append(
+                (units.index_of(coords, (seq_axis,)), aux))
     means = []
     for key in sorted(rows):
         members = [aux.to(lead) for _, aux in sorted(rows[key],
@@ -627,9 +653,6 @@ def _sharded_forward(params: Dict, tokens, config: TransformerConfig,
         tokens = device_put(tokens, sharding)
     seq_split = _split_names(tokens.spec[1] if len(tokens.spec) > 1
                              else None)
-    if split is not None or seq_split:
-        refuse_rank_mesh(mesh, "a batch split along the sequence (the "
-                         "ring and Ulysses)", "11f")
     if split is None and seq_split:
         if len(seq_split) != 1:
             raise ValueError(f"a batch split along the sequence over "
@@ -723,12 +746,12 @@ def _sharded_forward(params: Dict, tokens, config: TransformerConfig,
     xs = [_rms_norm(x, scale) for x, scale in zip(xs, final)]
     if split is not None and split.layout == "zigzag":
         # back to contiguous order at hidden width (the logits would be
-        # vocab / d_model times wider)
-        for group in units.groups((split.axis,)):
-            ordered = zigzag_to_contiguous([xs[u] for u in group],
-                                           [units.devices[u] for u in group],
+        # vocab / d_model times wider); across ranks an exchange of
+        # chunks over the sp line
+        for members, group in units.sequence_groups((split.axis,)):
+            ordered = zigzag_to_contiguous([xs[u] for u in members], group,
                                            axis=1)
-            for u, x in zip(group, ordered):
+            for u, x in zip(members, ordered):
                 xs[u] = x
     head = split_axis(batch, (params["lm_head"], 1))
     lm_head = units.local(params["lm_head"], {1: (head,)} if head else None)
@@ -747,8 +770,8 @@ def _validate_sp_entry(strategy: str, config: TransformerConfig, mesh: Mesh,
                        seq_axis: str) -> None:
     """Shared preconditions of every sequence-parallel entry point (the
     ring and Ulysses forwards and the pipelined sp path, which adds its
-    own MoE refusal)."""
-    refuse_rank_mesh(mesh, f"attention={strategy!r}", "11f")
+    own MoE refusal).  A mesh of ranks runs each entry with one unit a
+    rank, the ring's and Ulysses' collectives over its sp line."""
     if seq_axis not in mesh.shape:
         raise ValueError(
             f"sequence-parallel attention needs a {seq_axis!r} mesh axis "
@@ -872,6 +895,7 @@ def _pipeline_stage_setup(params: Dict, seq_len: int,
     Ulysses attention over the stage's sequence members when the config
     asks for sequence parallelism).  Returns ``(stacked_params,
     stage_fn, activation_spec)``."""
+    refuse_rank_mesh(mesh, "pipeline parallelism", "11i")
     sp_attention = config.attention in ("ring", "ulysses")
     if sp_attention:
         _validate_sp_entry(config.attention, config, mesh, seq_axis)

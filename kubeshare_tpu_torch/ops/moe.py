@@ -36,7 +36,7 @@ Expert parallelism: :func:`moe_sharding_rules` places the experts over
 a mesh axis, and :func:`moe_apply` given placed parameters and a placed
 batch runs :func:`sharded_moe` (routing over the global batch, each
 unit its own experts; ``parallel/spmd.py`` holds the units and the
-collectives).
+collectives), on one controller's mesh or across a mesh of ranks.
 """
 
 from __future__ import annotations
@@ -50,8 +50,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..parallel.mesh import (Mesh, P, PartitionSpec, ShardedTensor,
-                             _split_names, batch_sharding, device_put,
-                             refuse_rank_mesh)
+                             _split_names, batch_sharding, device_put)
 from ..parallel.spmd import Units, mesh_of, place_plain
 
 
@@ -380,20 +379,30 @@ def sharded_moe(units: Units, params: Dict[str, ShardedTensor],
     """:func:`moe_apply` over the work units of a mesh, the JAX function's
     semantics on the global batch: ``ys[u]`` is unit ``u``'s rows
     [b_u, s, d] of a batch split over the ``batch`` axes; returns each
-    unit's rows of the output and the aux loss (on the lead unit's
-    device).
+    unit's rows of the output and the aux loss (the lead unit's).
 
     Routing is a function of the whole batch — the capacity counts every
     token, the slots follow the global row order, the aux averages over
     all tokens and expert choice ranks them all — so every unit gathers
     the batch's tokens (over ``batch``, dp outermost, then ep: the order
-    ``batch_sharding`` splits) and the lead unit routes once.  Each unit
-    runs its own experts (``w_in``'s axis-0 split: tp under the
-    transformer rules, the ep axis under :func:`moe_sharding_rules`)
-    over their whole buffers, the outputs are gathered over the expert
-    axis, and each unit combines its own rows.  Units that hold the same
-    experts (dp replicas of them) compute them alike."""
-    refuse_rank_mesh(units.mesh, "an MoE layer (sharded_moe)", "11e")
+    ``batch_sharding`` splits) and routes the WHOLE batch itself, from
+    its gathered tokens and its copy of the replicated router: the same
+    bits on every unit, so the same routing, and no unit routes on its
+    own rows alone.  Each unit's router copy and tokens receive the
+    gradient of the gates that unit uses (its own rows', or its own
+    experts'), and the aux is differentiated once, on the lead unit:
+    the copies' gradients are then summed in mesh order by
+    ``spmd.sum_copies``, on one controller and across ranks alike, so
+    the two programs agree to the bit.  Over a mesh of ranks each rank
+    is one unit; every rank returns the aux's value, and only the lead
+    rank (coordinate 0 on every axis) differentiates it.
+
+    Each unit runs its own experts (``w_in``'s axis-0 split: tp under
+    the transformer rules, dp or the ep axis under
+    :func:`moe_sharding_rules`) over their whole buffers, the outputs are
+    gathered over the expert axis, and each unit combines its own rows.
+    Units that hold the same experts (dp replicas of them) compute them
+    alike."""
     _check_moe(config)
     expert = tuple(_split_names(params["w_in"].spec[0]
                                 if params["w_in"].spec else None))
@@ -412,7 +421,7 @@ def sharded_moe(units: Units, params: Dict[str, ShardedTensor],
               for y in units.all_gather(ys, 0, batch)]
     n, d = tokens[0].shape
     capacity = moe_capacity(config, n, capacity)
-    probs = router_probs({"router": router[0]}, tokens[0])
+    probs = [router_probs({"router": r}, t) for r, t in zip(router, tokens)]
 
     def own(u):
         """Unit u: (device, first expert, first token, token count)."""
@@ -426,18 +435,19 @@ def sharded_moe(units: Units, params: Dict[str, ShardedTensor],
 
     outs = []
     if config.routing == "experts_choose":
-        gates, picks = _top_k(probs.T, min(capacity, n))  # [e, capacity]
-        cap = picks.shape[1]
+        # [e, capacity] a unit
+        chosen = [_top_k(p.T, min(capacity, n)) for p in probs]
+        cap = chosen[0][1].shape[1]
         ran = []
-        for u in range(len(units)):
+        for u, (gates, picks) in enumerate(chosen):
             dev, first, _, _ = own(u)
-            mine = picks[first:first + local_e].to(dev)
+            mine = picks[first:first + local_e]
             if config.dispatch == "scatter":
                 rows = mine[..., None].expand(local_e, cap, d)
                 done = ffn(u, torch.gather(tokens[u].expand(local_e, n, d),
                                            1, rows))
                 done = done * gates[first:first + local_e].to(
-                    dev, dtype)[..., None]
+                    dtype)[..., None]
             else:
                 token_ids = torch.arange(n, device=dev)
                 dispatch = (mine[..., None] == token_ids).permute(
@@ -446,9 +456,9 @@ def sharded_moe(units: Units, params: Dict[str, ShardedTensor],
                                            tokens[u]))
             ran.append(done)
         ran = units.all_gather(ran, 0, expert)
-        for u in range(len(units)):
+        for u, (gates, picks) in enumerate(chosen):
             dev, _, start, count = own(u)
-            rel = picks.to(dev) - start
+            rel = picks - start
             if config.dispatch == "scatter":
                 # other units' tokens go to a sentinel row, sliced off
                 rel = torch.where((rel >= 0) & (rel < count), rel, count)
@@ -460,53 +470,53 @@ def sharded_moe(units: Units, params: Dict[str, ShardedTensor],
             else:
                 token_ids = torch.arange(count, device=dev)
                 combine = ((rel[..., None] == token_ids).permute(2, 0, 1)
-                           .to(dtype) * gates.to(dev, dtype)[None])
+                           .to(dtype) * gates.to(dtype)[None])
                 combined = torch.einsum("nec,ecd->nd", combine, ran[u])
             outs.append(combined.reshape(ys[u].shape))
-        aux = torch.zeros((), dtype=torch.float32, device=probs.device)
+        aux = torch.zeros((), dtype=torch.float32, device=units.devices[0])
         return outs, aux
 
-    gates, index, onehot, kept, position = tokens_choose_routing(
-        probs, k, capacity)
+    routed = [tokens_choose_routing(p, k, capacity) for p in probs]
     if config.dispatch == "scatter":
-        slot, keep_all = _scatter_slots(index, kept, position, capacity)
-        ran = []
-        for u in range(len(units)):
+        ran, slots = [], []
+        for u, (gates, index, _, kept, position) in enumerate(routed):
             dev, first, _, _ = own(u)
-            mine, _ = _scatter_slots(index.to(dev), kept.to(dev),
-                                     position.to(dev), capacity, first,
+            slots.append(_scatter_slots(index, kept, position, capacity))
+            mine, _ = _scatter_slots(index, kept, position, capacity, first,
                                      local_e)
             buf = _scatter_dispatch(tokens[u], mine, k, local_e * capacity,
                                     dtype)
             ran.append(ffn(u, buf[:-1].reshape(local_e, capacity, d)))
         ran = units.all_gather(ran, 0, expert)
-        for u in range(len(units)):
+        for u, ((gates, _, _, _, _), (slot, keep_all)) in enumerate(
+                zip(routed, slots)):
             dev, _, start, count = own(u)
             rows = slice(start, start + count)
             combined = _scatter_combine(
-                ran[u], slot.reshape(k, n)[:, rows].reshape(-1).to(dev),
-                gates[rows].to(dev),
-                keep_all.reshape(k, n)[:, rows].reshape(-1).to(dev), dtype)
+                ran[u], slot.reshape(k, n)[:, rows].reshape(-1), gates[rows],
+                keep_all.reshape(k, n)[:, rows].reshape(-1), dtype)
             outs.append(combined.reshape(ys[u].shape))
     else:
-        slots = torch.arange(capacity, device=probs.device)
-        dispatch_k = (kept[:, :, None]
-                      & (position[:, None] == slots)[:, None, :]
-                      ).to(dtype).reshape(k, n, e, capacity)
-        dispatch = dispatch_k.sum(dim=0)  # [n, e, capacity]
-        combine = torch.einsum("kn,knec->nec", gates.T.to(dtype), dispatch_k)
-        ran = []
-        for u in range(len(units)):
+        ran, combines = [], []
+        for u, (gates, _, _, kept, position) in enumerate(routed):
             dev, first, _, _ = own(u)
+            slots = torch.arange(capacity, device=dev)
+            dispatch_k = (kept[:, :, None]
+                          & (position[:, None] == slots)[:, None, :]
+                          ).to(dtype).reshape(k, n, e, capacity)
+            dispatch = dispatch_k.sum(dim=0)  # [n, e, capacity]
+            combines.append(torch.einsum("kn,knec->nec", gates.T.to(dtype),
+                                         dispatch_k))
             ran.append(ffn(u, torch.einsum(
-                "nec,nd->ecd", dispatch[:, first:first + local_e].to(dev),
+                "nec,nd->ecd", dispatch[:, first:first + local_e],
                 tokens[u])))
         ran = units.all_gather(ran, 0, expert)
-        for u in range(len(units)):
+        for u, combine in enumerate(combines):
             dev, _, start, count = own(u)
             combined = torch.einsum(
-                "nec,ecd->nd", combine[start:start + count].to(dev), ran[u])
+                "nec,ecd->nd", combine[start:start + count], ran[u])
             outs.append(combined.reshape(ys[u].shape))
+    onehot = routed[0][2]
     assignment_fraction = onehot[:, 0, :].to(torch.float32).mean(dim=0)
-    aux = (assignment_fraction * probs.mean(dim=0)).sum() * e
-    return outs, aux
+    aux = (assignment_fraction * probs[0].mean(dim=0)).sum() * e
+    return outs, (aux if units.lead else aux.detach())

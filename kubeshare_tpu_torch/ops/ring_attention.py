@@ -1,22 +1,30 @@
 """Ring attention: sequence-parallel attention over a group of sequence
 shards, port of kubeshare_tpu/ops/ring_attention.py.
 
-ONE CONTROLLER (``parallel/spmd.py``): the JAX functions run inside
-``shard_map`` on one device's shard and rotate K/V with ``ppermute``;
-here a ring is the list of its members' local q, k, v [batch, heads,
-local_seq, head_dim] in member order (ring position), the global
-sequence being their concatenation, and the rotation is
-:func:`~kubeshare_tpu_torch.parallel.spmd.ring_shift` (a move between
-list entries on one device).  The member index and the step are Python
-ints, so JAX's ``lax.switch`` / ``lax.cond`` over them become choices
-made on the host: a fully masked block is skipped, and the step keeps no
-data-dependent control flow (a CUDA graph captures it).
+The JAX functions run inside ``shard_map`` on one device's shard and
+rotate K/V with ``ppermute``.  Here a ring runs over a group
+(``parallel/spmd.py``): the lists hold the local q, k, v [batch, heads,
+local_seq, head_dim] of the members this process holds, the global
+sequence being the members' concatenation in member order (ring
+position).  On one controller (``spmd.LocalGroup``, or a plain list of
+devices) that is every member and the rotation a move between list
+entries; over a mesh of ranks (``spmd.RankGroup``) it is this rank's
+member at its index on the sp line, and the rotation crosses ranks.
+Each schedule is written once over the group: the group's size and the
+held members' indices come from it, never from a list's length.  The
+member index and the step are Python ints, so JAX's ``lax.switch`` /
+``lax.cond`` over them become choices made on the host: a fully masked
+block is skipped, and the step keeps no data-dependent control flow (a
+CUDA graph captures it).
 
 Two bodies, as in JAX:
 
 - the einsum ring (:func:`ring_attention`, :func:`ring_attention_zigzag`):
-  an online softmax over every block, differentiated by autograd through
-  its plain PyTorch operations (JAX differentiates it with autodiff);
+  an online softmax over every block.  JAX differentiates it with
+  autodiff; here it keeps its global lse and takes the hand-scheduled
+  ring backward below, the hybrid ring's (autograd through the shifts
+  would skip, on a member whose later blocks are all masked, the shifts
+  that carry the other members' cotangents home across ranks);
 - the hybrid ring (:func:`ring_flash_attention`,
   :func:`ring_flash_attention_zigzag`): each step's block partial has a
   static mask shape — fully visible blocks are the einsum partial,
@@ -46,8 +54,8 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import (Mesh, NamedSharding, P, ShardedTensor,
-                             _split_names, device_put, refuse_rank_mesh)
-from ..parallel.spmd import Units, ring_shift
+                             _split_names, device_put)
+from ..parallel.spmd import LocalGroup, RankGroup, Units
 from .attention import flash_forward, use_kernel_default
 
 _NEG_INF = float("-inf")
@@ -55,6 +63,16 @@ _NEG_INF = float("-inf")
 
 def _devices(xs: Sequence[torch.Tensor], devices) -> List[torch.device]:
     return list(devices) if devices is not None else [x.device for x in xs]
+
+
+def group_of(xs: Sequence[torch.Tensor], devices):
+    """The group a ring or Ulysses runs over: ``devices`` itself when it
+    is one (``spmd.LocalGroup`` / ``spmd.RankGroup``), else the
+    one-controller group of every member, on ``devices`` (None: the
+    members' own)."""
+    if isinstance(devices, (LocalGroup, RankGroup)):
+        return devices
+    return LocalGroup(_devices(xs, devices))
 
 
 def _block_scores(q: torch.Tensor, k: torch.Tensor,
@@ -136,31 +154,39 @@ class _Zigzag:
 # the einsum ring: an online softmax, differentiated by autograd
 # ---------------------------------------------------------------------------
 
-def _ring_online_softmax(qs, ks, vs, devices, causal: bool, layout,
-                         window: Optional[int] = None) -> List[torch.Tensor]:
-    """The shared online-softmax ring body: K/V rotate around the members
-    while each member's streaming softmax accumulates over the blocks it
-    receives.  ``layout`` gives the members' global positions.
+def _ring_steps(group, causal: bool, layout,
+                window: Optional[int]) -> int:
+    """Ring steps (blocks each member visits): the group's size, or on the
+    contiguous layout under a causal window :func:`windowed_ring_steps`."""
+    if causal and window is not None and isinstance(layout, _Contiguous):
+        return windowed_ring_steps(window, layout.s, group.size)
+    return group.size
+
+
+def _ring_online_softmax(qs, ks, vs, group, causal: bool, layout,
+                         window: Optional[int] = None):
+    """The einsum ring's forward: K/V rotate around the group while each
+    held member's streaming softmax accumulates over the blocks it
+    receives.  ``layout`` gives the members' global positions.  Returns
+    each held member's (out in q's dtype, global lse f32).
 
     ``window`` (causal only): the band ``q_pos - k_pos < window``; a block
     entirely outside the band (fully future, or fully past the window)
     skips its math, and on the contiguous layout the rotation stops after
     :func:`windowed_ring_steps` steps."""
-    n = len(qs)
+    n = group.size
     scale = qs[0].shape[-1] ** -0.5
-    steps = n
-    if causal and window is not None and isinstance(layout, _Contiguous):
-        steps = windowed_ring_steps(window, qs[0].shape[2], n)
+    steps = _ring_steps(group, causal, layout, window)
     state = []
     for q in qs:
         acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         l = acc[..., 0]
         state.append((l - float("inf"), l, acc))
-    q_pos = ([layout.positions(i, q.device) for i, q in enumerate(qs)]
-             if causal else None)
+    q_pos = ([layout.positions(i, q.device)
+              for i, q in zip(group.indices, qs)] if causal else None)
     k_cur, v_cur = list(ks), list(vs)
     for t in range(steps):
-        for i, q in enumerate(qs):
+        for j, (i, q) in enumerate(zip(group.indices, qs)):
             src = (i - t) % n  # the ring position this K/V came from
             if causal:
                 q_lo, q_hi = layout.bounds(i)
@@ -169,13 +195,13 @@ def _ring_online_softmax(qs, ks, vs, devices, causal: bool, layout,
                 if k_lo > q_hi or (window is not None
                                    and q_lo - k_hi >= window):
                     continue
-            m, l, acc = state[i]
-            scores = _block_scores(q, k_cur[i], scale)
+            m, l, acc = state[j]
+            scores = _block_scores(q, k_cur[j], scale)
             if causal:
                 k_pos = layout.positions(src, q.device)
-                mask = q_pos[i][:, None] >= k_pos[None, :]
+                mask = q_pos[j][:, None] >= k_pos[None, :]
                 if window is not None:
-                    mask &= (q_pos[i][:, None] - k_pos[None, :]) < window
+                    mask &= (q_pos[j][:, None] - k_pos[None, :]) < window
                 scores = torch.where(mask, scores,
                                      torch.full_like(scores, _NEG_INF))
             new_m = torch.maximum(m, scores.amax(dim=-1))
@@ -188,13 +214,12 @@ def _ring_online_softmax(qs, ks, vs, devices, causal: bool, layout,
                                      torch.zeros_like(m))
             l = l * correction + probs.sum(dim=-1)
             acc = acc * correction[..., None] + _block_pv(
-                probs.to(v_cur[i].dtype), v_cur[i]).float()
-            state[i] = (new_m, l, acc)
+                probs.to(v_cur[j].dtype), v_cur[j]).float()
+            state[j] = (new_m, l, acc)
         if t < steps - 1:
-            k_cur = ring_shift(k_cur, devices)
-            v_cur = ring_shift(v_cur, devices)
-    return [(acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
-            for (_, l, acc), q in zip(state, qs)]
+            k_cur, v_cur = group.shift([k_cur, v_cur])
+    return [((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype),
+             m + torch.log(l)) for (m, l, acc), q in zip(state, qs)]
 
 
 def windowed_ring_steps(window: int, s_local: int, axis_size: int) -> int:
@@ -244,9 +269,14 @@ def ring_attention(qs: List[torch.Tensor], ks: List[torch.Tensor],
     ``window`` (implies causal): sliding-window band over global
     positions; fully out-of-band ring steps skip their block math."""
     resolve_windowed_ring(window, causal=causal)
-    return _ring_online_softmax(
-        qs, ks, vs, _devices(qs, devices), causal,
-        _Contiguous(len(qs), qs[0].shape[2]), window=window)
+    group = group_of(qs, devices)
+    layout = _Contiguous(group.size, qs[0].shape[2])
+    return _apply_ring(
+        lambda q, k, v, g: _ring_online_softmax(q, k, v, g, causal, layout,
+                                                window),
+        lambda q, k, v, o, l, d, g: _ring_backward(q, k, v, o, l, d, g,
+                                                   causal, window),
+        qs, ks, vs, group)
 
 
 # ---------------------------------------------------------------------------
@@ -302,26 +332,25 @@ def _merge_into(running, i, blk):
         *running[i], *blk)
 
 
-def _hybrid_ring(qs, ks, vs, devices, block_partial):
+def _hybrid_ring(qs, ks, vs, group, block_partial):
     """The hybrid ring's schedule: at step ``t`` member ``i`` holds the
     K/V that started at ring position ``(i - t) % n`` and merges
     ``block_partial(i, src, q, k, v)`` (None: fully masked, skipped).
-    Returns each member's (out in q's dtype, lse f32)."""
-    n = len(qs)
-    running = [None] * n
+    Returns each held member's (out in q's dtype, lse f32)."""
+    n = group.size
+    running = [None] * len(qs)
     k_cur, v_cur = list(ks), list(vs)
     for t in range(n):
-        for i, q in enumerate(qs):
-            blk = block_partial(i, (i - t) % n, q, k_cur[i], v_cur[i])
+        for j, (i, q) in enumerate(zip(group.indices, qs)):
+            blk = block_partial(i, (i - t) % n, q, k_cur[j], v_cur[j])
             if blk is not None:
-                _merge_into(running, i, blk)
+                _merge_into(running, j, blk)
         if t < n - 1:
-            k_cur = ring_shift(k_cur, devices)
-            v_cur = ring_shift(v_cur, devices)
+            k_cur, v_cur = group.shift([k_cur, v_cur])
     return [(out.to(q.dtype), lse) for (out, lse), q in zip(running, qs)]
 
 
-def _ring_flash_forward(qs, ks, vs, devices, causal: bool):
+def _ring_flash_forward(qs, ks, vs, group, causal: bool):
     def block_partial(i, src, q, k, v):
         if not causal:
             # every block fully visible: the einsum partial
@@ -331,7 +360,7 @@ def _ring_flash_forward(qs, ks, vs, devices, causal: bool):
         if src < i:
             return _partial_einsum(q, k, v, False)  # fully visible
         return None  # a later shard: fully masked
-    return _hybrid_ring(qs, ks, vs, devices, block_partial)
+    return _hybrid_ring(qs, ks, vs, group, block_partial)
 
 
 def _sum_heads_to_kv(x: torch.Tensor, group: int) -> torch.Tensor:
@@ -361,37 +390,36 @@ def _bwd_block(q, k, v, g, lse, delta, mask, scale: float, group: int):
     return dq, dk, dv
 
 
-def _ring_bwd_loop(qs, ks, vs, devices, step_math):
-    """The backward ring's schedule: K/V rotate as in the forward and each
-    block's dK/dV accumulator travels with it (at step ``t`` block ``src``
-    and its accumulator sit with member ``(src + t) % n``), so after the
-    loop each lands back with its home member.  ``step_math(i, src, q, k,
-    v, dq, dk, dv)`` adds one block's contribution to member ``i``'s dq
-    and block ``src``'s dk / dv in place.  Returns (dqs, dks, dvs) in the
-    inputs' dtypes."""
-    n = len(qs)
+def _ring_bwd_loop(qs, ks, vs, group, step_math, steps: Optional[int] = None):
+    """The backward ring's schedule over ``steps`` steps (default: the
+    group's size): K/V rotate as in the forward and each block's dK/dV
+    accumulator travels with it (at step ``t`` block ``src`` and its
+    accumulator sit with member ``(src + t) % n``); one more shift after
+    the loop brings each accumulator home.  ``step_math(i, src, q, k, v,
+    dq, dk, dv)`` adds one block's contribution to member ``i``'s dq and
+    block ``src``'s dk / dv in place.  Returns the held members' (dqs,
+    dks, dvs) in the inputs' dtypes."""
+    steps = group.size if steps is None else steps
+    n = group.size
     dqs = [torch.zeros(q.shape, dtype=torch.float32, device=q.device)
            for q in qs]
-    dks = [torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-           for k in ks]
-    dvs = [torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-           for v in vs]
+    dk_cur = [torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+              for k in ks]
+    dv_cur = [torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+              for v in vs]
     k_cur, v_cur = list(ks), list(vs)
-    for t in range(n):
-        for i, q in enumerate(qs):
-            src = (i - t) % n
-            dev = devices[i]
-            dk, dv = dks[src].to(dev), dvs[src].to(dev)
-            step_math(i, src, q, k_cur[i], v_cur[i], dqs[i], dk, dv)
-            dks[src], dvs[src] = dk, dv
-        if t < n - 1:
-            k_cur = ring_shift(k_cur, devices)
-            v_cur = ring_shift(v_cur, devices)
+    for t in range(steps):
+        for j, (i, q) in enumerate(zip(group.indices, qs)):
+            step_math(i, (i - t) % n, q, k_cur[j], v_cur[j], dqs[j],
+                      dk_cur[j], dv_cur[j])
+        if t < steps - 1:
+            k_cur, v_cur, dk_cur, dv_cur = group.shift(
+                [k_cur, v_cur, dk_cur, dv_cur])
+    # member i holds block (i - steps + 1)'s accumulators: send them home
+    dks, dvs = group.shift([dk_cur, dv_cur], -(steps - 1))
     return ([dq.to(q.dtype) for dq, q in zip(dqs, qs)],
-            [dk.to(devices[j]).to(k.dtype) for j, (dk, k) in
-             enumerate(zip(dks, ks))],
-            [dv.to(devices[j]).to(v.dtype) for j, (dv, v) in
-             enumerate(zip(dvs, vs))])
+            [dk.to(k.dtype) for dk, k in zip(dks, ks)],
+            [dv.to(v.dtype) for dv, v in zip(dvs, vs)])
 
 
 def _residuals(qs, ks, outs, gs):
@@ -401,45 +429,62 @@ def _residuals(qs, ks, outs, gs):
     return g32, delta, qs[0].shape[-1] ** -0.5, qs[0].shape[1] // ks[0].shape[1]
 
 
-def _ring_backward(qs, ks, vs, outs, lses, gs, devices, causal: bool):
+def _ring_backward(qs, ks, vs, outs, lses, gs, group, causal: bool,
+                   window: Optional[int] = None):
     """The hand-scheduled contiguous ring backward from the forward's
     residuals: each block needs only the flash backward block math with
     the global lse (``p = exp(scores - lse)``), about twice the forward's
     FLOPs, where autodiff through the forward ring would replay it.  A
     causal block from a later ring position is fully masked and skipped,
-    as in the forward."""
-    g32, delta, scale, group = _residuals(qs, ks, outs, gs)
+    as in the forward; under a ``window`` so is a block wholly past the
+    band, and the ring stops after :func:`windowed_ring_steps` steps."""
+    g32, delta, scale, heads = _residuals(qs, ks, outs, gs)
+    s = qs[0].shape[2]
+    at = {i: j for j, i in enumerate(group.indices)}
+    layout = _Contiguous(group.size, s)
 
     def step_math(i, src, q, k, v, dq, dk, dv):
         if causal and src > i:
             return
         mask = None
-        if causal and src == i:
-            s = q.shape[2]
+        if causal and window is not None:
+            q_lo, _ = layout.bounds(i)
+            _, k_hi = layout.bounds(src)
+            if q_lo - k_hi >= window:
+                return
+            q_pos = layout.positions(i, q.device)
+            k_pos = layout.positions(src, q.device)
+            mask = ((q_pos[:, None] >= k_pos[None, :])
+                    & ((q_pos[:, None] - k_pos[None, :]) < window))
+        elif causal and src == i:
             mask = (torch.arange(s, device=q.device)[:, None]
                     >= torch.arange(s, device=q.device)[None, :])
-        dq_blk, dk_blk, dv_blk = _bwd_block(q, k, v, g32[i], lses[i],
-                                            delta[i], mask, scale, group)
+        j = at[i]
+        dq_blk, dk_blk, dv_blk = _bwd_block(q, k, v, g32[j], lses[j],
+                                            delta[j], mask, scale, heads)
         dk += dk_blk
         dv += dv_blk
         dq += dq_blk
 
-    return _ring_bwd_loop(qs, ks, vs, devices, step_math)
+    return _ring_bwd_loop(qs, ks, vs, group, step_math,
+                          _ring_steps(group, causal, layout, window))
 
 
 class _RingFunction(torch.autograd.Function):
-    """A hybrid ring with its hand-scheduled backward over ``n`` members:
-    ``apply(forward, backward, devices, n, *qs, *ks, *vs)`` returns the
-    members' outputs; the forward saves q, k, v, out and the global lse."""
+    """A ring with its hand-scheduled backward over a group, of which
+    this process holds ``n`` members (one controller: all of them; over
+    ranks: its own): ``apply(forward, backward, group, n, *qs, *ks,
+    *vs)`` returns the held members' outputs; the forward saves their q,
+    k, v, out and global lse."""
 
     @staticmethod
-    def forward(ctx, forward, backward, devices, n, *tensors):
+    def forward(ctx, forward, backward, group, n, *tensors):
         qs, ks, vs = tensors[:n], tensors[n:2 * n], tensors[2 * n:]
-        results = forward(qs, ks, vs, devices)
+        results = forward(qs, ks, vs, group)
         outs = [out for out, _ in results]
         lses = [lse for _, lse in results]
         ctx.save_for_backward(*tensors, *outs, *lses)
-        ctx.backward_fn, ctx.devices, ctx.n = backward, devices, n
+        ctx.backward_fn, ctx.group, ctx.n = backward, group, n
         return tuple(outs)
 
     @staticmethod
@@ -451,16 +496,16 @@ class _RingFunction(torch.autograd.Function):
         gs = [torch.zeros_like(out) if g is None else g
               for g, out in zip(gs, outs)]
         dqs, dks, dvs = ctx.backward_fn(qs, ks, vs, outs, lses, gs,
-                                        ctx.devices)
+                                        ctx.group)
         return (None, None, None, None, *dqs, *dks, *dvs)
 
 
-def _apply_ring(forward, backward, qs, ks, vs, devices) -> List[torch.Tensor]:
+def _apply_ring(forward, backward, qs, ks, vs, group) -> List[torch.Tensor]:
     # the flash kernel reads contiguous tensors (the model's projections
     # are permuted views)
     tensors = [x.contiguous() for x in (*qs, *ks, *vs)]
     return list(_RingFunction.apply(forward, backward,
-                                    _devices(qs, devices), len(qs), *tensors))
+                                    group_of(qs, group), len(qs), *tensors))
 
 
 def ring_flash_attention(qs: List[torch.Tensor], ks: List[torch.Tensor],
@@ -517,18 +562,17 @@ def zigzag_to_contiguous(xs: List[torch.Tensor], devices=None,
     """:func:`zigzag_unshard` within a group: member ``j`` of zigzag
     shards ``xs`` (chunks ``j`` and ``2n-1-j`` along ``axis``) receives
     the contiguous shard ``j`` (chunks ``2j`` and ``2j+1``).  Only the
-    chunks move, each once."""
-    n = len(xs)
-    devices = _devices(xs, devices)
-    c = _check_even(xs[0].shape[axis])
+    chunks move, each once: across ranks an exchange over the group's
+    line, whose backward sends each chunk's cotangent back."""
+    group = group_of(xs, devices)
+    n = group.size
+    _check_even(xs[0].shape[axis])
 
-    def chunk(x):
-        holder, half = (x, 0) if x < n else (2 * n - 1 - x, 1)
-        return xs[holder].narrow(axis, half * c, c)
+    def source(j, c):
+        x = 2 * j + c
+        return (x, 0) if x < n else (2 * n - 1 - x, 1)
 
-    return [torch.cat([chunk(2 * j).to(devices[j], non_blocking=True),
-                       chunk(2 * j + 1).to(devices[j], non_blocking=True)],
-                      dim=axis) for j in range(n)]
+    return group.exchange_chunks(xs, axis, 2, source)
 
 
 def _check_even(s_local: int) -> int:
@@ -545,11 +589,16 @@ def ring_attention_zigzag(qs: List[torch.Tensor], ks: List[torch.Tensor],
     concatenated.  Non-causal callers should use :func:`ring_attention`
     (zigzag only helps causal)."""
     _check_even(qs[0].shape[2])
-    return _ring_online_softmax(qs, ks, vs, _devices(qs, devices), causal,
-                                _Zigzag(len(qs), qs[0].shape[2]))
+    if not causal:
+        return ring_attention(qs, ks, vs, devices, causal=False)
+    group = group_of(qs, devices)
+    layout = _Zigzag(group.size, qs[0].shape[2])
+    return _apply_ring(
+        lambda q, k, v, g: _ring_online_softmax(q, k, v, g, True, layout),
+        _zigzag_ring_backward, qs, ks, vs, group)
 
 
-def _zigzag_hybrid_forward(qs, ks, vs, devices):
+def _zigzag_hybrid_forward(qs, ks, vs, group):
     """The causal zigzag ring with per-quadrant static-mask partials:
     each off-diagonal step computes ONE unmasked half block ([2c x c] for
     earlier sources, [c x 2c] for later); the diagonal step runs the
@@ -587,24 +636,26 @@ def _zigzag_hybrid_forward(qs, ks, vs, devices):
         return (torch.cat([out_ll, out_hi], dim=2),
                 torch.cat([lse_ll, lse_hi], dim=2))
 
-    return _hybrid_ring(qs, ks, vs, devices, block_partial)
+    return _hybrid_ring(qs, ks, vs, group, block_partial)
 
 
-def _zigzag_ring_backward(qs, ks, vs, outs, lses, gs, devices):
+def _zigzag_ring_backward(qs, ks, vs, outs, lses, gs, group):
     """Quadrant-skipping backward for the zigzag layout: the forward's
     three static cases — earlier sources touch only [2c x c] (all q rows
     x k-low), later sources only [c x 2c] (q-high x all k), the diagonal
     its two causal c x c quadrants plus one full c x c."""
-    g32, delta, scale, group = _residuals(qs, ks, outs, gs)
+    g32, delta, scale, heads = _residuals(qs, ks, outs, gs)
     c = qs[0].shape[2] // 2
     diag = (torch.arange(c, device=qs[0].device)[:, None]
             >= torch.arange(c, device=qs[0].device)[None, :])
+    at = {i: j for j, i in enumerate(group.indices)}
 
     def step_math(i, src, q, k, v, dq, dk, dv):
-        g, lse, dl = g32[i], lses[i], delta[i]
+        j = at[i]
+        g, lse, dl = g32[j], lses[j], delta[j]
         if src < i:
             dq_blk, dk_lo, dv_lo = _bwd_block(
-                q, k[:, :, :c], v[:, :, :c], g, lse, dl, None, scale, group)
+                q, k[:, :, :c], v[:, :, :c], g, lse, dl, None, scale, heads)
             dk[:, :, :c] += dk_lo
             dv[:, :, :c] += dv_lo
             dq += dq_blk
@@ -613,7 +664,7 @@ def _zigzag_ring_backward(qs, ks, vs, outs, lses, gs, devices):
         lse_hi, d_hi = lse[:, :, c:], dl[:, :, c:]
         if src > i:
             dq_hi, dk_blk, dv_blk = _bwd_block(q_hi, k, v, g_hi, lse_hi, d_hi,
-                                               None, scale, group)
+                                               None, scale, heads)
             dk += dk_blk
             dv += dv_blk
             dq[:, :, c:] += dq_hi
@@ -622,17 +673,17 @@ def _zigzag_ring_backward(qs, ks, vs, outs, lses, gs, devices):
         v_lo, v_hi = v[:, :, :c], v[:, :, c:]
         dq_ll, dk_ll, dv_ll = _bwd_block(
             q[:, :, :c], k_lo, v_lo, g[:, :, :c], lse[:, :, :c],
-            dl[:, :, :c], diag.to(q.device), scale, group)
+            dl[:, :, :c], diag.to(q.device), scale, heads)
         dq_hl, dk_hl, dv_hl = _bwd_block(q_hi, k_lo, v_lo, g_hi, lse_hi,
-                                         d_hi, None, scale, group)
+                                         d_hi, None, scale, heads)
         dq_hh, dk_hh, dv_hh = _bwd_block(q_hi, k_hi, v_hi, g_hi, lse_hi,
                                          d_hi, diag.to(q.device), scale,
-                                         group)
+                                         heads)
         dq += torch.cat([dq_ll, dq_hl + dq_hh], dim=2)
         dk += torch.cat([dk_ll + dk_hl, dk_hh], dim=2)
         dv += torch.cat([dv_ll + dv_hl, dv_hh], dim=2)
 
-    return _ring_bwd_loop(qs, ks, vs, devices, step_math)
+    return _ring_bwd_loop(qs, ks, vs, group, step_math)
 
 
 def ring_flash_attention_zigzag(qs: List[torch.Tensor],
@@ -652,7 +703,7 @@ def ring_flash_auto(mesh: Mesh) -> bool:
     the mesh's devices are CUDA devices (the kernel at every length,
     ``ops.attention.use_kernel_default``, in place of the JAX package's
     TPU-measured length threshold), the einsum ring elsewhere."""
-    return use_kernel_default(mesh.devices.flat[0])
+    return use_kernel_default(mesh.local_devices[0])
 
 
 GroupFn = Callable[..., List[torch.Tensor]]
@@ -666,8 +717,9 @@ def ring_group_fn(mesh: Mesh, layout: str = "contiguous",
     ``fn(qs, ks, vs, devices) -> outputs``: a window takes the contiguous
     einsum ring (:func:`resolve_windowed_ring` refuses the others),
     ``use_flash=None`` the hybrid ring on CUDA (:func:`ring_flash_auto`),
-    and the layout picks the zigzag or the contiguous body."""
-    refuse_rank_mesh(mesh, "ring attention", "11f")
+    and the layout picks the zigzag or the contiguous body.  The group
+    (``fn``'s ``devices``) may be a list of devices (one controller) or
+    a ``spmd.RankGroup`` (this rank's member of a group across ranks)."""
     if layout not in ("contiguous", "zigzag"):
         raise ValueError(f"unknown ring layout {layout!r}")
     if layout == "zigzag" and not causal:
@@ -713,9 +765,10 @@ def over_sequence_groups(fn: Callable, tensors, mesh: Mesh,
     mesh's units that differ only on ``seq_axis`` (each list holds the
     group's local pieces of one of ``tensors`` under ``spec``, in member
     order); the outputs come back as one :class:`ShardedTensor` under
-    ``spec`` — the one-controller form of a ``shard_map`` whose body runs
-    collectives over ``seq_axis``."""
-    refuse_rank_mesh(mesh, "ring and Ulysses attention", "11f")
+    ``spec`` — the form of a ``shard_map`` whose body runs collectives
+    over ``seq_axis``.  Over a mesh of ranks ``fn`` runs this rank's
+    member over its line on ``seq_axis`` (its ``devices`` a
+    ``spmd.RankGroup``)."""
     units = Units.of(mesh, [spec])
     keep = {dim: _split_names(axes) for dim, axes in enumerate(spec)
             if _split_names(axes)}
@@ -726,10 +779,9 @@ def over_sequence_groups(fn: Callable, tensors, mesh: Mesh,
         locals_.append(units.local(device_put(x, NamedSharding(mesh, spec)),
                                    keep))
     outs: List[Optional[torch.Tensor]] = [None] * len(units)
-    for group in units.groups((seq_axis,)):
-        results = fn(*[[xs[u] for u in group] for xs in locals_],
-                     [units.devices[u] for u in group])
-        for u, y in zip(group, results):
+    for members, group in units.sequence_groups((seq_axis,)):
+        results = fn(*[[xs[u] for u in members] for xs in locals_], group)
+        for u, y in zip(members, results):
             outs[u] = y
     return units.assemble(outs, spec, tensors[0].shape)
 

@@ -11,10 +11,12 @@ back:
                      local attention (the flash kernel at full s)
     [b, h/sp, s, d]  --all_to_all-->  [b, h, s/sp, d]
 
-One controller, as in ``ops/ring_attention.py``: a group is the list of
-its members' local q, k, v in member order, and the swaps are
-``parallel.spmd.all_to_all`` — the collective the tensor-parallel serving
-route (``serving/sharded.py``) uses.  The local attention is the port's
+A group is written as in ``ops/ring_attention.py``: on one controller
+the list of its members' local q, k, v in member order, the swaps
+``parallel.spmd.all_to_all`` (the collective the tensor-parallel serving
+route, ``serving/sharded.py``, uses); over a mesh of ranks this rank's
+member alone, the swaps the rank all-to-all over its sp line
+(``spmd.RankGroup``), whose size is the group's degree.  The local attention is the port's
 differentiable :func:`~kubeshare_tpu_torch.ops.attention.flash_attention`
 (the forward, dK/dV and dQ kernels on CUDA) or the plain reference;
 autograd differentiates the swaps (an all-to-all's transpose is the
@@ -28,9 +30,8 @@ from typing import List, Optional
 import torch
 
 from ..parallel.mesh import Mesh, P, ShardedTensor
-from ..parallel.spmd import all_to_all
 from .attention import attention_reference, flash_attention, use_kernel_default
-from .ring_attention import _devices, over_sequence_groups
+from .ring_attention import group_of, over_sequence_groups
 
 
 def _local_attention(q, k, v, causal: bool, window: Optional[int],
@@ -50,9 +51,12 @@ def ulysses_attention(qs: List[torch.Tensor], ks: List[torch.Tensor],
                       causal: bool = True, window: Optional[int] = None,
                       use_flash: Optional[bool] = None) -> List[torch.Tensor]:
     """Ulysses attention over a group: ``qs[i]``, ``ks[i]``, ``vs[i]``
-    are member ``i``'s local [batch, heads, seq/sp, head_dim]; returns
-    the members' outputs."""
-    sp = len(qs)
+    are the local [batch, heads, seq/sp, head_dim] of the members held
+    here (``devices``: a list of devices, every member, or a
+    ``spmd.RankGroup``, this rank's); returns their outputs.  The
+    degree is the group's size, never the lists' length."""
+    group = group_of(qs, devices)
+    sp = group.size
     if sp == 1:
         return [_local_attention(qs[0], ks[0], vs[0], causal, window,
                                  use_flash)]
@@ -62,14 +66,13 @@ def ulysses_attention(qs: List[torch.Tensor], ks: List[torch.Tensor],
             f"ulysses needs heads divisible by the sequence-parallel degree: "
             f"q heads {h}, kv heads {h_kv}, sp {sp}"
         )
-    devices = _devices(qs, devices)
 
     def swap_in(xs):
-        return all_to_all(xs, 1, 2, devices)
+        return group.all_to_all(xs, 1, 2)
 
     outs = [_local_attention(q, k, v, causal, window, use_flash)
             for q, k, v in zip(swap_in(qs), swap_in(ks), swap_in(vs))]
-    return all_to_all(outs, 2, 1, devices)
+    return group.all_to_all(outs, 2, 1)
 
 
 def ulysses_attention_sharded(

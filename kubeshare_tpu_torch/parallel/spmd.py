@@ -58,7 +58,16 @@ cotangents, because every member's copy of the sum feeds its own work.
 Over ranks the same transposes are autograd Functions: a gather's
 backward is a reduce-scatter (an ``all_to_all`` of the cotangents'
 pieces, each member summing its piece in member order), a psum's
-backward psums the cotangents.
+backward psums the cotangents, an all-to-all's backward is the mirrored
+all-to-all and a ring shift's backward shifts the other way.
+
+A SEQUENCE GROUP (the ring and Ulysses, ``ops/ring_attention.py``,
+``ops/ulysses.py``) is written once over :class:`LocalGroup` (one
+controller: every member, in member order, on its devices) or
+:class:`RankGroup` (a mesh of ranks: this rank's member alone, at its
+index on a :class:`RankLine`): both give the group's size, the indices
+of the members held here, the shift and the all-to-all, so no group
+size is ever read from the length of a member list.
 
 TRAINING.  Every shard of a placed parameter is a leaf of its own;
 after the backward a slice held by several shards has a partial
@@ -97,6 +106,29 @@ def all_gather(xs: List[torch.Tensor], dim: int,
             for d in devices]
 
 
+class _LocalGather(torch.autograd.Function):
+    """:func:`all_gather` with the transpose written out: member ``i``'s
+    cotangent is every copy's piece ``i`` summed in member order, the
+    reduce-scatter that the gather across ranks makes (autograd would add
+    the copies' contributions in its own order, which past two members
+    rounds otherwise)."""
+
+    @staticmethod
+    def forward(ctx, dim: int, devices, *xs):
+        ctx.dim = dim
+        ctx.places = [(x.device, x.shape[dim]) for x in xs]
+        return tuple(all_gather(list(xs), dim, devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out, at = [], 0
+        for device, size in ctx.places:
+            out.append(_ordered_sum([g.narrow(ctx.dim, at, size).to(device)
+                                     for g in grads]))
+            at += size
+        return (None, None, *out)
+
+
 def psum(xs: List[torch.Tensor], devices) -> List[torch.Tensor]:
     """``lax.psum``: the members' sum, added once in member order on the
     first member's device and copied to the others (a member on that
@@ -107,13 +139,14 @@ def psum(xs: List[torch.Tensor], devices) -> List[torch.Tensor]:
     return [total.to(d, non_blocking=True) for d in devices]
 
 
-def ring_shift(xs: List[torch.Tensor], devices) -> List[torch.Tensor]:
-    """``lax.ppermute`` with the perm ``i -> i + 1``: member ``i``
-    receives member ``i - 1``'s tensor (member 0 the last member's), in
-    the member order of :func:`all_gather` and :func:`psum`.  On one
-    device it is a move between list entries."""
+def ring_shift(xs: List[torch.Tensor], devices,
+               offset: int = 1) -> List[torch.Tensor]:
+    """``lax.ppermute`` with the perm ``i -> i + offset``: member ``i``
+    receives member ``i - offset``'s tensor (with ``offset`` 1, member 0
+    the last member's), in the member order of :func:`all_gather` and
+    :func:`psum`.  On one device it is a move between list entries."""
     n = len(xs)
-    return [xs[(i - 1) % n].to(d, non_blocking=True)
+    return [xs[(i - offset) % n].to(d, non_blocking=True)
             for i, d in enumerate(devices)]
 
 
@@ -161,8 +194,10 @@ class RankLine:
     (``all_gather_into_tensor``, ``all_to_all_single``) and copied
     back.  A gather receives (n - 1) x the tensor's bytes a member, a
     psum as many (a ring all-reduce would move 2 (n - 1) / n x, but in
-    its own order), a reduce-scatter (n - 1) / n x; through the host
-    each also copies its input out and its output in."""
+    its own order), a reduce-scatter (n - 1) / n x, an all-to-all
+    (n - 1) / n x, a shift 1 x (nothing where the offset is a multiple
+    of n); through the host each also copies its input out and its
+    output in."""
 
     def __init__(self, mesh: RankMesh, axes: Sequence[str]) -> None:
         import torch.distributed as dist
@@ -228,6 +263,91 @@ class RankLine:
         out = out.to(x.device).view(x.dtype).view(n, *shape)
         return _ordered_sum([out[r] for r in self.order])
 
+    def all_to_all(self, x: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """:func:`all_to_all` across the members, data only: this member
+        receives piece ``index`` of every member's ``split_dim``,
+        concatenated along ``concat_dim`` in member order."""
+        import torch.distributed as dist
+
+        n = self.size
+        if n == 1:
+            return x
+        size = x.shape[split_dim] // n
+        by_rank: List[Optional[torch.Tensor]] = [None] * n
+        for m, r in enumerate(self.order):
+            by_rank[r] = x.narrow(split_dim, m * size, size)
+        send = torch.cat([self._bytes(piece) for piece in by_rank])
+        out = torch.empty_like(send)
+        dist.all_to_all_single(out, send, group=self.group)
+        shape = by_rank[0].shape
+        out = out.to(x.device).view(x.dtype).view(n, *shape)
+        return torch.cat([out[r] for r in self.order], dim=concat_dim)
+
+    def shift(self, xs: Sequence[torch.Tensor],
+              offset: int = 1) -> List[torch.Tensor]:
+        """:func:`ring_shift` across the members, data only: this member
+        receives member ``index - offset``'s tensors (one shape and dtype
+        each on every member), all of them in one exchange."""
+        import torch.distributed as dist
+
+        n = self.size
+        if offset % n == 0:
+            return list(xs)
+        send = torch.cat([self._bytes(x) for x in xs])
+        to = self.order[(self.index + offset) % n]
+        source = self.order[(self.index - offset) % n]
+        sizes = [0] * n
+        sizes[to] = send.numel()
+        received = [0] * n
+        received[source] = send.numel()
+        out = torch.empty_like(send)
+        dist.all_to_all_single(out, send, received, sizes, group=self.group)
+        out, at = out.to(xs[0].device), 0
+        shifted = []
+        for x in xs:
+            nbytes = x.numel() * x.element_size()
+            shifted.append(out[at:at + nbytes].view(x.dtype).view(x.shape))
+            at += nbytes
+        return shifted
+
+    def exchange(self, pieces: Dict[int, List[torch.Tensor]],
+                 expect: Dict[int, int], like: torch.Tensor
+                 ) -> Dict[int, List[torch.Tensor]]:
+        """Pieces of ``like``'s shape and dtype to and from the members:
+        ``pieces[m]`` goes to member ``m``, and ``expect[m]`` pieces come
+        back from member ``m`` (this member's own move locally)."""
+        import torch.distributed as dist
+
+        n = self.size
+        nbytes = like.numel() * like.element_size()
+        sizes, received = [0] * n, [0] * n
+        by_rank: List[List[torch.Tensor]] = [[] for _ in range(n)]
+        for m, sent in pieces.items():
+            if m != self.index:
+                by_rank[self.order[m]] = sent
+                sizes[self.order[m]] = len(sent) * nbytes
+        for m, count in expect.items():
+            if m != self.index:
+                received[self.order[m]] = count * nbytes
+        flat = [self._bytes(p) for group in by_rank for p in group]
+        send = (torch.cat(flat) if flat else
+                self._bytes(like.new_empty((0,))))
+        out = torch.empty(sum(received), dtype=torch.uint8,
+                          device=send.device)
+        dist.all_to_all_single(out, send, received, sizes, group=self.group)
+        out = out.to(like.device)
+        starts = np.cumsum([0] + received)
+        got = {self.index: list(pieces.get(self.index, []))}
+        for m, count in expect.items():
+            if m == self.index:
+                continue
+            at = int(starts[self.order[m]])
+            got[m] = [out[at + j * nbytes:at + (j + 1) * nbytes]
+                      .view(like.dtype).view(like.shape)
+                      for j in range(count)]
+        return got
+
 
 def mesh_line(mesh: RankMesh, axes: Sequence[str]) -> RankLine:
     """The mesh's :class:`RankLine` over ``axes`` (in that member
@@ -262,6 +382,152 @@ class _RankPsum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return _ordered_sum(ctx.line.gather(grad)), None
+
+
+class _RankAllToAll(torch.autograd.Function):
+    """:func:`all_to_all` across ranks; backward: the mirrored
+    all-to-all (``concat_dim`` split, ``split_dim`` concatenated)."""
+
+    @staticmethod
+    def forward(ctx, x, split_dim: int, concat_dim: int, line: RankLine):
+        ctx.dims, ctx.line = (split_dim, concat_dim), line
+        return line.all_to_all(x, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim = ctx.dims
+        return (ctx.line.all_to_all(grad, concat_dim, split_dim), None,
+                None, None)
+
+
+class _RankShift(torch.autograd.Function):
+    """:func:`ring_shift` across ranks; backward: the shift the other way
+    (the cotangent goes back to the member the tensor came from)."""
+
+    @staticmethod
+    def forward(ctx, x, offset: int, line: RankLine):
+        ctx.offset, ctx.line = offset, line
+        return line.shift([x], offset)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.line.shift([grad], -ctx.offset)[0], None, None
+
+
+class LocalGroup:
+    """A group whose members this process holds all of (one controller):
+    member ``i`` on ``devices[i]``, the shift and the all-to-all moves
+    between list entries."""
+
+    def __init__(self, devices) -> None:
+        self.devices = list(devices)
+        self.size = len(self.devices)
+        self.indices = list(range(self.size))
+
+    def shift(self, lists: Sequence[List[torch.Tensor]],
+              offset: int = 1) -> List[List[torch.Tensor]]:
+        """Each list of ``lists`` shifted (:func:`ring_shift`)."""
+        return [ring_shift(xs, self.devices, offset) for xs in lists]
+
+    def all_to_all(self, xs: List[torch.Tensor], split_dim: int,
+                   concat_dim: int) -> List[torch.Tensor]:
+        return all_to_all(xs, split_dim, concat_dim, self.devices)
+
+    def exchange_chunks(self, xs: List[torch.Tensor], dim: int, count: int,
+                        source) -> List[torch.Tensor]:
+        """Member ``j`` receives its ``count`` chunks (of ``xs``' split
+        of ``dim`` into ``count`` a member), chunk ``c`` being chunk
+        ``source(j, c) = (member, slot)``'s, concatenated in order."""
+        size = xs[0].shape[dim] // count
+        return [torch.cat([xs[m].narrow(dim, slot * size, size).to(
+            d, non_blocking=True) for m, slot in (source(j, c)
+                                                  for c in range(count))],
+            dim=dim) for j, d in enumerate(self.devices)]
+
+
+class RankGroup:
+    """This rank's member alone of a group that spans ranks (its
+    :class:`RankLine`): the lists hold one tensor, the member's, and its
+    index and the group's size come from the line."""
+
+    def __init__(self, line: RankLine, device) -> None:
+        self.line = line
+        self.devices = [device]
+        self.size = line.size
+        self.indices = [line.index]
+
+    def shift(self, lists: Sequence[List[torch.Tensor]],
+              offset: int = 1) -> List[List[torch.Tensor]]:
+        """Each list of ``lists`` shifted, all in one exchange (data only:
+        the ring's schedules run inside their own autograd Function)."""
+        moved = self.line.shift([xs[0] for xs in lists], offset)
+        return [[x] for x in moved]
+
+    def all_to_all(self, xs: List[torch.Tensor], split_dim: int,
+                   concat_dim: int) -> List[torch.Tensor]:
+        return [_RankAllToAll.apply(xs[0], split_dim, concat_dim,
+                                    self.line)]
+
+    def exchange_chunks(self, xs: List[torch.Tensor], dim: int, count: int,
+                        source) -> List[torch.Tensor]:
+        """:meth:`LocalGroup.exchange_chunks` across ranks, differentiable
+        (the backward sends each chunk's cotangent back to its source)."""
+        return [_RankChunks.apply(xs[0], dim, count, source, self.line)]
+
+
+def _chunk_moves(line: RankLine, count: int, source):
+    """What this member sends and receives in a chunk exchange: ({member:
+    [my slots it receives, in its chunk order]}, {member: [(my chunk,
+    its slot) that it sends me, in my chunk order]})."""
+    sends: Dict[int, List[int]] = {}
+    for j in range(line.size):
+        for c in range(count):
+            m, slot = source(j, c)
+            if m == line.index:
+                sends.setdefault(j, []).append(slot)
+    receives: Dict[int, List[Tuple[int, int]]] = {}
+    for c in range(count):
+        m, slot = source(line.index, c)
+        receives.setdefault(m, []).append((c, slot))
+    return sends, receives
+
+
+class _RankChunks(torch.autograd.Function):
+    """A chunk exchange across ranks (:meth:`RankGroup.exchange_chunks`);
+    backward: every chunk's cotangent back to the slot it came from."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, count: int, source, line: RankLine):
+        ctx.args = (dim, count, source, line)
+        size = x.shape[dim] // count
+        chunk = x.narrow(dim, 0, size)
+        sends, receives = _chunk_moves(line, count, source)
+        got = line.exchange(
+            {m: [x.narrow(dim, s * size, size) for s in slots]
+             for m, slots in sends.items()},
+            {m: len(pairs) for m, pairs in receives.items()}, chunk)
+        out: List[Optional[torch.Tensor]] = [None] * count
+        for m, pairs in receives.items():
+            for (c, _), piece in zip(pairs, got[m]):
+                out[c] = piece
+        return torch.cat(out, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, count, source, line = ctx.args
+        size = grad.shape[dim] // count
+        chunk = grad.narrow(dim, 0, size)
+        sends, receives = _chunk_moves(line, count, source)
+        # the transpose: each received chunk's cotangent goes back
+        back = line.exchange(
+            {m: [grad.narrow(dim, c * size, size) for c, _ in pairs]
+             for m, pairs in receives.items()},
+            {m: len(slots) for m, slots in sends.items()}, chunk)
+        out: List[Optional[torch.Tensor]] = [None] * count
+        for m, slots in sends.items():
+            for s, piece in zip(slots, back[m]):
+                out[s] = piece
+        return torch.cat(out, dim=dim), None, None, None, None
 
 
 def _mine_in_order(mine: torch.Tensor, line: Optional[RankLine]
@@ -308,7 +574,9 @@ def refuse_sharded(name: str, *trees) -> None:
         raise TypeError(
             f"{name} runs on one device and got a sharded tree; the "
             "mesh-aware entry points are models.transformer_apply, "
-            "models.transformer_apply_with_aux, models.mnist_apply, "
+            "models.transformer_apply_with_aux, "
+            "models.transformer_apply_ring, "
+            "models.transformer_apply_ulysses, models.mnist_apply, "
             "models.resnet_apply and ops.moe_apply")
 
 
@@ -340,11 +608,16 @@ class Units:
         self.sizes = {a: mesh.shape[a] for a in self.axes}
         position = [mesh.axis_names.index(a) for a in self.axes]
         self.ranked = isinstance(mesh, RankMesh)
+        # a rank at a nonzero coordinate of a replica axis recomputes its
+        # unit and differentiates nothing (one controller: no such unit)
+        self.replica = False
         if self.ranked:
             me = mesh.coords()
             self.coords = [tuple(me[p] for p in position)]
             self.unit_of, self.rep = [0], [0]
             self.devices = mesh.local_devices
+            self.replica = any(me[i] for i, a in enumerate(mesh.axis_names)
+                               if a not in self.axes)
             return
         self.coords: List[Tuple[int, ...]] = list(
             np.ndindex(*[self.sizes[a] for a in self.axes]))
@@ -367,9 +640,13 @@ class Units:
     def coord(self, u: int, axes: Sequence[str]) -> int:
         """Unit ``u``'s index over ``axes`` (mixed radix, the first axis
         outermost, as a spec's tuple splits); 0 for no axes."""
+        return self.index_of(self.coords[u], axes)
+
+    def index_of(self, coords: Sequence[int], axes: Sequence[str]) -> int:
+        """:meth:`coord` of a unit's coordinates on :attr:`axes`."""
         at = 0
         for a in axes:
-            at = at * self.sizes[a] + self.coords[u][self.axes.index(a)]
+            at = at * self.sizes[a] + coords[self.axes.index(a)]
         return at
 
     def groups(self, axes: Sequence[str]) -> List[List[int]]:
@@ -405,13 +682,53 @@ class Units:
         if self.ranked:
             return self._across(
                 lambda x, line: _RankGather.apply(x, dim, line), xs, axes)
-        return self._collective(all_gather, xs, tuple(axes), dim)
+        return self._collective(
+            lambda members, d, devices: list(_LocalGather.apply(
+                d, devices, *members)), xs, tuple(axes), dim)
 
     def psum(self, xs, axes) -> List[torch.Tensor]:
         """:func:`psum` within every group over ``axes``."""
         if self.ranked:
             return self._across(_RankPsum.apply, xs, axes)
         return self._collective(psum, xs, tuple(axes))
+
+    def all_to_all(self, xs, split_dim: int, concat_dim: int,
+                   axes) -> List[torch.Tensor]:
+        """:func:`all_to_all` within every group over ``axes``."""
+        if self.ranked:
+            return self._across(lambda x, line: _RankAllToAll.apply(
+                x, split_dim, concat_dim, line), xs, axes)
+        return self._collective(all_to_all, xs, tuple(axes), split_dim,
+                                concat_dim)
+
+    def ring_shift(self, xs, axes, offset: int = 1) -> List[torch.Tensor]:
+        """:func:`ring_shift` within every group over ``axes``."""
+        if self.ranked:
+            return self._across(lambda x, line: _RankShift.apply(
+                x, offset, line), xs, axes)
+        return self._collective(
+            lambda members, devices: ring_shift(members, devices, offset),
+            xs, tuple(axes))
+
+    def sequence_groups(self, axes) -> List[Tuple[List[int], object]]:
+        """Every group of units over ``axes``, as (its units here, in
+        member order; the group object a ring or Ulysses runs over):
+        one controller, each group as a :class:`LocalGroup`; over ranks,
+        this rank's unit in a :class:`RankGroup` of its line."""
+        if self.ranked:
+            return [([0], RankGroup(mesh_line(self.mesh, tuple(axes)),
+                                    self.devices[0]))]
+        return [(group, LocalGroup([self.devices[u] for u in group]))
+                for group in self.groups(tuple(axes))]
+
+    @property
+    def lead(self) -> bool:
+        """Whether this process holds the lead unit (all coordinates 0),
+        where one-time terms (the routed batch's aux) are differentiated:
+        always on one controller; over ranks, on the rank at coordinate 0
+        of every axis."""
+        return not self.ranked or (not self.replica
+                                   and not any(self.coords[0]))
 
     def local(self, x: ShardedTensor,
               keep: Optional[Dict[int, Tuple[str, ...]]] = None

@@ -126,6 +126,23 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Ten
     return nll.mean()
 
 
+class CrossEntropyWithAux:
+    """The MoE training loss: ``cross_entropy_loss(logits, targets) +
+    aux_coef * aux`` over a forward that returns ``(logits, aux)``
+    (``transformer_apply_with_aux``, the sp entries' ``with_aux=True``),
+    the form JAX's MoE steps train with.  Over a mesh of ranks each term
+    is counted once: the cross entropy by its owners' shares, the aux by
+    the rank that differentiates it (``ops.moe.sharded_moe``'s lead, or
+    each rank's own share of the sp entries' mean)."""
+
+    def __init__(self, aux_coef: float) -> None:
+        self.aux_coef = aux_coef
+
+    def __call__(self, out, targets) -> torch.Tensor:
+        logits, aux = out
+        return cross_entropy_loss(logits, targets) + self.aux_coef * aux
+
+
 def adamw(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 1e-4) -> OptimizerFactory:
     """``optax.adamw``'s defaults as a ``torch.optim.AdamW`` factory.
@@ -196,8 +213,8 @@ def make_train_step(
     ``init_state`` places its own shards of the tree it is given, the
     step takes the whole global batch on every rank and places this
     rank's part, and the returned loss is the global mean on every rank.
-    Its loss must be ``cross_entropy_loss``, which counts each rank's
-    share once; a ``process_group`` beside it raises ``ValueError`` (the
+    Its loss must be ``cross_entropy_loss`` or a
+    :class:`CrossEntropyWithAux`, which count each rank's share once; a ``process_group`` beside it raises ``ValueError`` (the
     mesh's dp axis already averages over the gang: the two would
     average twice), and so does ``capture=True``: gloo's collectives
     cannot be captured, and NCCL's inside a graph need two cards
@@ -270,11 +287,13 @@ def _check_rank_mesh_step(loss_fn, capture: bool, process_group) -> None:
             "be captured in a CUDA graph, and NCCL's inside one need a "
             "card a rank, not yet built (ROADMAP queue A item 11d); use "
             "the eager step")
-    if loss_fn is not cross_entropy_loss:
+    if not (loss_fn is cross_entropy_loss
+            or isinstance(loss_fn, CrossEntropyWithAux)):
         raise ValueError(
             "over a mesh of ranks the loss must count each rank's share "
-            "of the logits once, as cross_entropy_loss does; another "
-            "loss over ranks is ROADMAP queue A item 11i")
+            "of the logits once, as cross_entropy_loss and "
+            "CrossEntropyWithAux do; another loss over ranks is ROADMAP "
+            "queue A item 11i")
 
 
 def _resolve_group(process_group):
@@ -384,7 +403,10 @@ def _shards(tree: Any) -> List[torch.Tensor]:
 
 
 def _place_batch(mesh, *batch) -> List[ShardedTensor]:
-    """Each tensor placed by ``batch_sharding`` (placed ones as given)."""
+    """Each tensor placed by ``batch_sharding`` (placed ones as given: a
+    batch placed along the sequence, ``batch_sharding(mesh, 2,
+    seq_axis=1)``, keeps its split, and the loss gathers targets placed
+    by rows)."""
     return [x if isinstance(x, ShardedTensor)
             else device_put(x, batch_sharding(mesh, x.ndim)) for x in batch]
 

@@ -323,6 +323,31 @@ def test_chip_smoke_holds_the_kernels_at_the_tp_gang_shape():
     assert unit in dense
 
 
+def test_chip_smoke_holds_the_kernels_at_the_sp_and_moe_gang_shapes():
+    # distributed (e): a zigzag rank's diagonal quadrants are the ring's
+    # row-1c shape, a Ulysses member attends the whole sequence on half
+    # the heads; (f): an MoE dp rank's row of the train batch; each a
+    # bf16 causal dense case
+    import torch
+
+    chip_smoke = _chip_smoke()
+    dims = chip_smoke.TRAIN_DIMS
+    head_dim = dims["d_model"] // dims["n_heads"]
+    quadrant = (1, dims["n_heads"],
+                chip_smoke.LC_SEQ // chip_smoke.DDP_SP // 2, head_dim)
+    member = (1, dims["n_heads"] // chip_smoke.DDP_SP, chip_smoke.LC_SEQ,
+              head_dim)
+    rank = (chip_smoke.TRAIN_BATCH // chip_smoke.DDP_WORLD,
+            chip_smoke.MOE_DIMS["n_heads"], chip_smoke.TRAIN_SEQ, head_dim)
+    assert quadrant == chip_smoke.LC_DIAG_SHAPE == (1, 8, 4096, 128)
+    assert member == chip_smoke.DDP_ULYSSES_SHAPE == (1, 4, 16384, 128)
+    assert rank == chip_smoke.DDP_MOE_RANK_SHAPE == (1, 8, 2048, 128)
+    dense = {shape for _, shape, _, dtype, causal, window
+             in chip_smoke.dense_cases(torch)
+             if dtype == torch.bfloat16 and causal and window is None}
+    assert {member, rank} <= dense
+
+
 def test_chip_smoke_holds_the_f32_kernels_at_the_f32_paths_shapes():
     # the f32 phase's attention shapes (the serving flagship's forward and
     # prefill, the train-step flagship's step) are dense kernel cases,

@@ -1037,6 +1037,106 @@ def test_two_gloo_ranks_train_on_the_card(card):
     assert lines[0] == lines[1]
 
 
+ZIGZAG_RANK = """
+import json, sys
+import torch
+from kubeshare_tpu_torch.models.transformer import (TransformerConfig,
+                                                    transformer_apply_ring,
+                                                    transformer_init)
+from kubeshare_tpu_torch.ops import attention as A
+from kubeshare_tpu_torch.parallel.distributed import initialize_from_env
+from kubeshare_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+from kubeshare_tpu_torch.parallel.train import make_train_step
+
+device = torch.device("cuda", 0)
+torch.cuda.set_device(device)
+spec = initialize_from_env(backend="gloo", device=device)
+config = TransformerConfig(**json.loads(sys.argv[2]))
+mesh = make_mesh(MeshSpec(dp=1, tp=1, sp=2), device=device)
+params = transformer_init(config, torch.Generator().manual_seed(0), device)
+gen = torch.Generator().manual_seed(1)
+tokens = torch.randint(0, config.vocab_size, (1, config.max_seq_len),
+                       generator=gen).to(device)
+init_state, step = make_train_step(
+    lambda p, t: transformer_apply_ring(p, t, config, mesh, layout="zigzag"),
+    mesh=mesh, param_rules={})
+state = init_state(params)
+A.flash_forward.launches = 0
+losses = []
+for _ in range(3):
+    state, loss = step(state, tokens, tokens)
+    losses.append(float(loss))
+with open(f"{sys.argv[1]}/rank{spec.process_id}.json", "w") as f:
+    json.dump(dict(losses=losses, launches=A.flash_forward.launches), f)
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_zigzag_ring_over_two_gloo_ranks_equals_the_one_process_mesh(
+        card, tmp_path):
+    """The zigzag hybrid ring over sp=2 as two gloo ranks on cuda:0 (one
+    mesh of the ranks) at a small bf16 width: each rank's diagonal step
+    launches the flash forward on its two quadrants, and three steps'
+    losses equal the one-process mesh's over [cuda:0] * 2 to the bit."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from native_helpers import free_port
+
+    from kubeshare_tpu_torch.models.transformer import transformer_apply_ring
+
+    device = card[0]
+    dims = dict(vocab_size=256, d_model=256, n_heads=4, n_layers=2,
+                d_ff=512, max_seq_len=512, positional="rope",
+                attention="ring")
+    repo = Path(__file__).resolve().parent.parent
+    (tmp_path / "rank.py").write_text(ZIGZAG_RANK)
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(2):
+            env = dict(os.environ, TPUSHARE_GANG_SIZE="2",
+                       TPUSHARE_GANG_RANK=str(rank),
+                       TPUSHARE_COORDINATOR=f"127.0.0.1:{port}",
+                       PYTHONPATH=str(repo))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(tmp_path / "rank.py"), str(tmp_path),
+                 json.dumps(dims)], env=env, cwd=str(repo),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text())
+             for r in range(2)]
+    config = TransformerConfig(**dims)
+    mesh = make_mesh(MeshSpec(dp=1, tp=1, sp=2), devices=[device] * 2)
+    params = transformer_init(config, torch.Generator().manual_seed(0),
+                              device)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, config.vocab_size, (1, config.max_seq_len),
+                           generator=gen).to(device)
+    init_state, step = make_train_step(
+        lambda p, t: transformer_apply_ring(p, t, config, mesh,
+                                            layout="zigzag"),
+        mesh=mesh, param_rules={})
+    state = init_state(params)
+    losses = []
+    for _ in range(3):
+        state, loss = step(state, tokens, tokens)
+        losses.append(float(loss))
+    # three steps x two layers x the two diagonal quadrants
+    assert [r["launches"] for r in ranks] == [12, 12]
+    assert ranks[0]["losses"] == ranks[1]["losses"] == losses
+
+
 def test_discovery_agrees_with_nvidia_smi(card):
     """discover_local_chips: one ChipInfo per card with nvidia-smi's UUID
     and name (spaces as '-'), its memory within 1 GiB of nvidia-smi's

@@ -218,6 +218,35 @@ def test_short_graphs_ride_a_lease(built, tmp_path):
     assert int(r.fake["span_us"]) / 1000 > bound_ms, r.fake
 
 
+def test_a_host_paced_captured_pod_is_charged_its_graphs_not_its_gaps(
+        built, tmp_path):
+    """A host-paced captured pod: a 0.3 ms graph, measured by one launch,
+    then launched every 1.5 ms without waiting for it, so the host's gaps
+    are shorter than the hook's quiet time (kQuietMs, 2 ms) and no wait
+    closes a segment.  The device is idle four fifths of the time; the
+    charge must follow
+    its busy time (the fake driver's busy_us, plus
+    LEASE_CHARGE_MARGIN_MS), not the span from the first launch to the
+    last completion (span_us), which the bound must refuse: each short
+    graph's launch is charged from the later of its launch and the
+    previous completion to its own, as the JAX shim charges each
+    Execute."""
+    proc, port = _start_tokend(tmp_path, quota_ms=LEASE_QUOTA_MS)
+    try:
+        r = run(built, port, "--graphs", 30, "--graph-us", 300,
+                "--graph-host-us", 1500, "--sleep-ms", 300)
+    finally:
+        proc.kill()
+        proc.wait()
+    assert r.rc == 0, r.err
+    # one launch measured the graph first: the paced 30 ride the lease
+    assert r.hook["graph_launches_in_lease"] == 30, r.hook
+    busy_ms = int(r.fake["busy_us"]) / 1000
+    bound_ms = busy_ms + LEASE_CHARGE_MARGIN_MS
+    assert 8 <= r.pod["charged_total_ms"] <= bound_ms, (r.pod, r.fake)
+    assert int(r.fake["span_us"]) / 1000 > bound_ms, r.fake
+
+
 def _line_json(r, label):
     prefix = label + " "
     for line in r.out.splitlines():

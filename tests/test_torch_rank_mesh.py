@@ -25,8 +25,11 @@ whole global batch and keeps its own shards.
   cross-rank sum, is refused by the gradient check.
 - The paths the rank mesh leaves out raise ``ValueError`` naming their
   ROADMAP item: the captured step, ``process_group`` beside the mesh,
-  another loss, checkpoints, MoE layers, the ring and Ulysses, a batch
-  split along the sequence, ``data_parallel_apply``."""
+  another loss, checkpoints, ``data_parallel_apply``, pipelines,
+  ``ShardedTensor.index_select``.  (MoE layers, the
+  ring, Ulysses and a batch split along the sequence run over ranks:
+  ``tests/test_torch_rank_mesh_moe.py`` and
+  ``tests/test_torch_rank_mesh_sp.py``.)"""
 
 import os
 import pickle
@@ -88,16 +91,16 @@ WORKER = """
     import torch
     from kubeshare_tpu_torch.convert import params_from_jax
     from kubeshare_tpu_torch.models.transformer import (
-        TransformerConfig, transformer_apply, transformer_apply_ring,
-        transformer_fsdp_rules, transformer_init, transformer_sharding_rules)
+        TransformerConfig, transformer_apply, transformer_fsdp_rules,
+        transformer_sharding_rules)
     from kubeshare_tpu_torch.parallel import spmd
     from kubeshare_tpu_torch.parallel import train as T
+    from kubeshare_tpu_torch.parallel.pipeline import pipeline_apply
     from kubeshare_tpu_torch.parallel.checkpoint import (restore_checkpoint,
                                                          save_checkpoint)
     from kubeshare_tpu_torch.parallel.distributed import initialize_from_env
     from kubeshare_tpu_torch.parallel.mesh import (
-        MeshSpec, RankMesh, _shard_slices, _split_names, batch_sharding,
-        device_put, make_mesh)
+        MeshSpec, RankMesh, _shard_slices, _split_names, make_mesh)
 
     torch.set_num_threads(1)
     out_dir = sys.argv[1]
@@ -202,23 +205,12 @@ WORKER = """
         refused("save_checkpoint", lambda: save_checkpoint(tmp, state, 1))
         refused("restore_checkpoint",
                 lambda: restore_checkpoint(tmp, 1, into=state))
-    moe = TransformerConfig(dtype=torch.float32, attention="reference",
-                            moe_every=2, moe_num_experts=4, moe_top_k=2,
-                            **inputs["model"])
-    moe_params = transformer_init(moe, torch.Generator().manual_seed(2),
-                                  "cpu")
-    moe_state = T.make_train_step(lambda p, t: None, mesh=mesh,
-                                  param_rules=rules["dp2_tp2"]())[0](
-                                      moe_params)
-    refused("moe", lambda: transformer_apply(moe_state.params, tokens, moe))
-    sp_mesh = meshes["tp2_sp2"]
-    refused("ring", lambda: transformer_apply_ring(
-        state.params, tokens, config, sp_mesh))
-    refused("sequence_split", lambda: transformer_apply(
-        state.params, device_put(tokens, batch_sharding(sp_mesh, 2, 1)),
-        config))
     refused("data_parallel_apply", lambda: spmd.data_parallel_apply(
         lambda p, x: x, {}, tokens, mesh))
+    refused("pipeline", lambda: pipeline_apply(
+        {}, tokens.float(), lambda p, x: x, mesh, 2, pp_axis="dp"))
+    refused("index_select", lambda: state.params["embed"].index_select(
+        0, torch.tensor([0])))
     record["errors"] = errors
     with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
         pickle.dump(record, f)
@@ -427,8 +419,8 @@ def test_gradient_check_refuses_a_psum_without_the_cross_rank_sum(runs):
 @pytest.mark.parametrize("path, item", [
     ("capture", "11d"), ("process_group", "average"), ("loss_fn", "11i"),
     ("save_checkpoint", "11h"), ("restore_checkpoint", "11h"),
-    ("moe", "11e"), ("ring", "11f"), ("sequence_split", "11f"),
-    ("data_parallel_apply", "11i")])
+    ("data_parallel_apply", "11i"), ("pipeline", "11i"),
+    ("index_select", "11i")])
 def test_paths_left_out_raise_value_error(runs, path, item):
     ranks, _, _, _ = runs
     for rank in ranks:
