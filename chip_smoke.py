@@ -330,7 +330,24 @@ Phases (any failure raises and the script exits non-zero):
    losses and final parameters equal to the one-process mesh over
    [cuda:0] * 2 to the bit, one device's within the LC_* limits ((e))
    or SHARDED_* ((f)); step ms by CUDA events and the rank collectives'
-   ms, share and bytes received a step.
+   ms, share and bytes received a step.  (g) and (h), in the same
+   processes after (f): the train-step flagship (TRAIN_DIMS, full width
+   and depth) under transformer_train_1f1b over pp=2 ranks
+   (rank_mesh_over), DDP_PP_MICRO microbatches of one row, each rank a
+   stage of four layers launching the three kernels at
+   DDP_MOE_RANK_SHAPE once a layer and microbatch: a step with every
+   forward hop carrying the previous microbatch (the control), then
+   DDP_PP_STEPS eager AdamW steps; step 1's loss, each rank's stage's
+   gradients and the embedding's and head's (sha256), the losses and
+   the final parameters equal the one-process pipeline's over
+   [cuda:0] * 2 to the bit, the control's must not, and the one-process
+   pipeline follows one device's steps (SHARDED_FIRST_LOSS_ATOL, the
+   train step's drift limits); each rank's step ms by CUDA events, the
+   hops' (point to point) and broadcasts' ms and the bytes received a
+   step.  (h) the ResNet (ResNetConfig(), RESNET_BATCH images) through
+   data_parallel_apply over dp=2 ranks, DDP_RESNET_STEPS eager steps
+   with deterministic convolutions: losses and final parameters equal
+   to the one-process dp=2 mesh's to the bit, step ms beside it.
    discovery: discover_local_chips() against nvidia-smi's uuid, name
    and memory.total (within DISCOVERY_MEMORY_MIB); the card's link
    record (cell.topology.LinkRecord) from the driver's NVML, loaded with
@@ -995,6 +1012,22 @@ DDP_ULYSSES_SHAPE = (1, TRAIN_DIMS["n_heads"] // DDP_SP, LC_SEQ,
                      LC_DIAG_SHAPE[3])
 DDP_MOE_RANK_SHAPE = (TRAIN_BATCH // DDP_WORLD, MOE_DIMS["n_heads"],
                       TRAIN_SEQ, MOE_DIMS["d_model"] // MOE_DIMS["n_heads"])
+# distributed (g), in the same rank processes after (f): the train-step
+# flagship (TRAIN_DIMS: full width and depth, bf16) under
+# transformer_train_1f1b over pp=DDP_WORLD ranks, each rank a stage of
+# n_layers / pp layers, TRAIN_BATCH microbatches of one row (a
+# microbatch's attention is (1, 8, TRAIN_SEQ, 128), DDP_MOE_RANK_SHAPE,
+# held to the plain versions and timed as "distributed_moe_rank"),
+# DDP_PP_STEPS eager AdamW steps held to the one-process pipeline over
+# [cuda:0] * DDP_WORLD (equal to the bit) and to one device (the
+# sharded first-loss limit and the train step's drift limits)
+DDP_PP_MICRO = TRAIN_BATCH
+DDP_PP_STEPS = 4
+# (h): the gang's CIFAR ResNet (ResNetConfig()) through
+# data_parallel_apply over dp=DDP_WORLD ranks, RESNET_BATCH images,
+# DDP_RESNET_STEPS eager steps with deterministic convolutions, held to
+# the one-process dp=DDP_WORLD mesh to the bit
+DDP_RESNET_STEPS = 4
 # discovery: the card's memory by torch (cudaDeviceProp.totalGlobalMem)
 # against nvidia-smi's memory.total (NVML), in MiB: 480.0 MiB apart on
 # an H100 80GB HBM3 (81,559 MiB by NVML), the CUDA driver's reserve; a card
@@ -1515,6 +1548,7 @@ def dense_cases(torch):
         # 16,384-token sweep on half the heads; (f): an MoE dp rank's row
         ("distributed_sp_ulysses", DDP_ULYSSES_SHAPE, DDP_ULYSSES_SHAPE[1],
          torch.bfloat16, True, None),
+        # (f)'s MoE dp rank's row, and (g)'s microbatch on a pp stage
         ("distributed_moe_rank", DDP_MOE_RANK_SHAPE, DDP_MOE_RANK_SHAPE[1],
          torch.bfloat16, True, None),
     ]
@@ -1566,7 +1600,7 @@ def kernel_phase(torch, device):
     timings.append(time_shape(torch, (TRAIN_BATCH, 8, TRAIN_SEQ, 128), gen,
                               "float32"))
     # distributed (d)'s: a tp rank's unit over the mesh of ranks; (e)'s
-    # Ulysses member and (f)'s MoE dp rank
+    # Ulysses member, and (f)'s MoE dp rank (the shape of (g)'s microbatch)
     timings.append(time_shape(torch, DDP_TP_SHAPE, gen))
     timings.append(time_shape(torch, DDP_ULYSSES_SHAPE, gen))
     timings.append(time_shape(torch, DDP_MOE_RANK_SHAPE, gen))
@@ -5947,9 +5981,9 @@ def ddp_worker(torch, out_dir: str) -> int:
     DDP_NCCL_STEPS captured (two graphs around gloo's all-reduce) and as
     many eager with the same capturable AdamW; then the controls (the sum
     without the division, DDP_STEPS steps; no all-reduce, one step), each
-    from the seed's weights; then distributed (d)'s, (e)'s and (f)'s runs
-    (``tp_run``, ``sp_run``, ``moe_rank_run``).
-    Writes its record to DIR/rank<r>.json; rank 0 also saves step 1's
+    from the seed's weights; then distributed (d)'s to (h)'s runs
+    (``tp_run``, ``sp_run``, ``moe_rank_run``, ``pp_rank_run``,
+    ``resnet_rank_run``).  Writes its record to DIR/rank<r>.json; rank 0 also saves step 1's
     gradients and each run's last parameters."""
     import train_distributed_torch as T
     from kubeshare_tpu_torch.parallel import train as port_train
@@ -5957,6 +5991,10 @@ def ddp_worker(torch, out_dir: str) -> int:
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    # the parent's numerics (main): f32 products and convolutions without
+    # TF32, so (h)'s ranks run the one-process mesh's convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     # two ranks on one card: NCCL refuses a duplicate GPU
     spec = initialize_from_env(backend="gloo", device=device)
     rank, world = spec.process_id, spec.num_processes
@@ -6019,6 +6057,10 @@ def ddp_worker(torch, out_dir: str) -> int:
     record["sp"] = sp_run(torch, out_dir, rank)
     torch.cuda.empty_cache()
     record["moe"] = moe_rank_run(torch, out_dir, rank)
+    torch.cuda.empty_cache()
+    record["pp"] = pp_rank_run(torch, rank)
+    torch.cuda.empty_cache()
+    record["resnet"] = resnet_rank_run(torch)
     torch.distributed.destroy_process_group()
     with open(f"{out_dir}/rank{rank}.json", "w") as f:
         json.dump(record, f)
@@ -6194,7 +6236,9 @@ def ddp_two_ranks(torch, device, T, args):
              "sp": ([r["sp"] for r in records],
                     {kind: loaded[f"params_sp_{kind}"]
                      for kind in ("zigzag", "ulysses")}),
-             "moe": ([r["moe"] for r in records], loaded["params_moe"])})
+             "moe": ([r["moe"] for r in records], loaded["params_moe"]),
+             "pp": [r["pp"] for r in records],
+             "resnet": [r["resnet"] for r in records]})
 
 
 def gloo_cuda_probe(torch) -> dict:
@@ -6227,19 +6271,29 @@ def gloo_cuda_probe(torch) -> dict:
 class RankCollectives:
     """Every transfer of the rank mesh's lines (``spmd.RankLine``: the
     gather, the reduce-scatter, the all-to-all, the shift, the chunk
-    exchange) timed with the device synchronised around it, and the
-    bytes this rank receives from the others counted, step by step
-    (:meth:`step` opens a step)."""
+    exchange, the pipeline's point-to-point hops and their completion,
+    the broadcast of a stage's result) timed with the device
+    synchronised around it, and the bytes this rank receives from the
+    others counted, step by step (:meth:`step` opens a step); ``by``
+    keeps each transfer's ms a step."""
 
-    NAMES = ("gather", "scatter_sum", "all_to_all", "shift", "exchange")
+    NAMES = ("gather", "scatter_sum", "all_to_all", "shift", "exchange",
+             "send", "recv", "wait", "broadcast")
 
     def __init__(self, torch):
         self.torch = torch
         self.ms, self.received = [], []
+        self.by = {name: [] for name in self.NAMES}
 
     @staticmethod
     def received_bytes(name, line, args) -> int:
         n = line.size
+        if name in ("send", "wait"):
+            return 0
+        if name in ("recv", "broadcast"):
+            if name == "broadcast" and args[1] == line.index:
+                return 0  # the member that sends
+            return sum(x.numel() * x.element_size() for x in args[0])
         if name == "exchange":
             _, expect, like = args
             return sum(count for m, count in expect.items()
@@ -6255,6 +6309,8 @@ class RankCollectives:
     def step(self) -> None:
         self.ms.append(0.0)
         self.received.append(0)
+        for times in self.by.values():
+            times.append(0.0)
 
     def __enter__(self):
         from kubeshare_tpu_torch.parallel.spmd import RankLine
@@ -6270,6 +6326,7 @@ class RankCollectives:
                 torch.cuda.synchronize()
                 if self.ms:
                     self.ms[-1] += (time.perf_counter() - t0) * 1e3
+                    self.by[name][-1] += (time.perf_counter() - t0) * 1e3
                     self.received[-1] += self.received_bytes(name, line,
                                                              args)
                 return out
@@ -6394,6 +6451,201 @@ def moe_rank_run(torch, out_dir: str, rank: int) -> dict:
     if rank == 0:
         torch.save(final, f"{out_dir}/params_moe.pt")
     return run
+
+
+def pp_pairs(params, grads, first_layer):
+    """(parameter, gradient) for every gradient of a 1F1B step:
+    ``grads["layers"][i]`` is layer ``first_layer + i``'s (over ranks a
+    rank's gradients are its stage's layers and the whole embedding and
+    head)."""
+    from kubeshare_tpu_torch.parallel.train import tree_leaves
+
+    pairs = []
+    for key, grad in grads.items():
+        if key == "layers":
+            for i, layer in enumerate(grad):
+                pairs += zip(tree_leaves(params["layers"][first_layer + i]),
+                             tree_leaves(layer))
+        else:
+            pairs += zip(tree_leaves(params[key]), tree_leaves(grad))
+    return pairs
+
+
+def pp_digests(torch, params, grads, first_layer, stages):
+    """sha256 of a 1F1B step's gradients (or, with ``grads`` None, the
+    parameters they update): of the embedding's, the final norm's and
+    the head's, and of each stage's layers, ``stages`` (first layer,
+    count) pairs."""
+    from kubeshare_tpu_torch.parallel.train import tree_leaves
+
+    pairs = (pp_pairs(params, grads, first_layer) if grads is not None
+             else [(p, p) for p in tree_leaves(params)])
+    layers = {id(p) for layer in params["layers"] for p in tree_leaves(layer)}
+    rest = [g for p, g in pairs if id(p) not in layers]
+    by_stage = []
+    for first, count in stages:
+        held = {id(p) for layer in params["layers"][first:first + count]
+                for p in tree_leaves(layer)}
+        by_stage.append(params_digest(torch, [g for p, g in pairs
+                                              if id(p) in held]))
+    return dict(rest=params_digest(torch, rest), layers=by_stage)
+
+
+def pp_train(torch, step, params, first_layer, stages, steps, timed=None):
+    """``steps`` AdamW steps of a 1F1B ``step() -> (loss, grads)`` that
+    reads ``params`` (updated in place; a layer the step returns no
+    gradient for, another rank's stage, stays as it is): losses, step ms
+    by CUDA events, host ms, launches, step 1's gradient digests and the
+    final parameters' (``pp_digests``); with ``timed`` (a
+    :class:`RankCollectives`) also each rank transfer's ms and the bytes
+    received, a step."""
+    import contextlib
+
+    from kubeshare_tpu_torch.parallel.train import adamw, tree_leaves
+
+    opt = adamw(1e-3)(tree_leaves(params))
+    losses, step_ms, host_ms, first = [], [], [], None
+    with timed if timed is not None else contextlib.nullcontext():
+        reset_counts()
+        for _ in range(steps):
+            if timed is not None:
+                timed.step()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            t0 = time.perf_counter()
+            start.record()
+            loss, grads = step()
+            if first is None:  # step 1 (not in the steady median)
+                first = pp_digests(torch, params, grads, first_layer, stages)
+            for param, grad in pp_pairs(params, grads, first_layer):
+                param.grad = grad
+            del grads
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            end.record()
+            end.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            step_ms.append(start.elapsed_time(end))
+            losses.append(float(loss))
+        launches = read_counts()
+    run = dict(losses=losses, step_ms=step_ms, host_ms=host_ms,
+               launches=launches, first=first,
+               final=pp_digests(torch, params, None, 0, stages))
+    if timed is not None:
+        run.update(collective_ms=timed.ms, received=timed.received,
+                   by=timed.by)
+    return run
+
+
+def pp_stale_hop():
+    """Control: every forward hop after a stage's first carries the
+    previous microbatch's activations."""
+    from unittest import mock
+
+    from kubeshare_tpu_torch.parallel import pipeline
+
+    shipped = pipeline._RankStages.post
+    previous = {}
+
+    def stale(self, xs, stage, m, direction):
+        if direction == pipeline.FORWARD:
+            previous[m] = xs
+            xs = previous.get(m - 1, xs)
+        shipped(self, xs, stage, m, direction)
+
+    return mock.patch.object(pipeline._RankStages, "post", stale)
+
+
+def pp_rank_run(torch, rank: int) -> dict:
+    """Distributed (g) in a rank of (a)'s gang: the train-step flagship
+    under transformer_train_1f1b over pp=DDP_WORLD ranks (this rank's
+    stage: its n_layers / pp layers), from the seed's weights: one step
+    of the stale-hop control, then DDP_PP_STEPS eager AdamW steps with
+    each rank transfer timed."""
+    from kubeshare_tpu_torch.models.transformer import transformer_train_1f1b
+    from kubeshare_tpu_torch.parallel.distributed import rank_mesh_over
+
+    device = torch.device("cuda", 0)
+    mesh = rank_mesh_over(("pp",), (DDP_WORLD,), device=device)
+    config, params, tokens, targets = train_setup(torch, device)
+    per = config.n_layers // DDP_WORLD
+    stage = [(rank * per, per)]
+
+    def step():
+        return transformer_train_1f1b(params, tokens, targets, config, mesh,
+                                      num_microbatches=DDP_PP_MICRO)
+
+    with pp_stale_hop():
+        loss, grads = step()
+    control = dict(loss=float(loss), first=pp_digests(
+        torch, params, grads, rank * per, stage))
+    del grads
+    run = pp_train(torch, step, params, rank * per, stage, DDP_PP_STEPS,
+                   RankCollectives(torch))
+    return dict(run, control=control, mesh=dict(mesh.shape))
+
+
+def resnet_rank_setup(torch, device):
+    """(h)'s model, weights and batch on ``device``: ResNetConfig(), the
+    seed's weights, RESNET_BATCH random images (seed 0), the same on
+    every rank (the rank mesh places each rank's rows)."""
+    import numpy as np
+
+    from kubeshare_tpu_torch.models.resnet import ResNetConfig, resnet_init
+
+    config = ResNetConfig()
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal((RESNET_BATCH, 32, 32, 3), dtype=np.float32)
+    labels = rng.integers(0, 10, (RESNET_BATCH,), dtype=np.int64)
+    return (config, resnet_init(torch.Generator().manual_seed(0), config,
+                                device=device),
+            torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device))
+
+
+def resnet_dp_steps(torch, mesh, params, config, images, labels,
+                    ranked: bool) -> dict:
+    """DDP_RESNET_STEPS eager steps of the ResNet over ``mesh``
+    (``data_parallel_apply``) with deterministic convolutions: the run
+    (``rank_steps``'s record over ranks; losses, step ms and launches on
+    one process) and the digest of the final parameters (a replicated
+    leaf's first shard is the whole of it)."""
+    from kubeshare_tpu_torch.models.resnet import resnet_apply
+    from kubeshare_tpu_torch.parallel.train import make_train_step, tree_leaves
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        init_state, train_step = make_train_step(
+            lambda p, x: resnet_apply(p, x, config), mesh=mesh,
+            param_rules={})
+        state = init_state(params)
+        if ranked:
+            run = rank_steps(torch, train_step, state, images, labels,
+                             DDP_RESNET_STEPS)
+        else:
+            reset_counts()
+            state, losses, step_ms, _ = timed_steps(
+                torch, train_step, state,
+                [(images, labels)] * DDP_RESNET_STEPS)
+            run = dict(losses=losses, step_ms=step_ms,
+                       launches=read_counts())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return dict(run, mesh=dict(mesh.shape), digest=params_digest(
+        torch, [leaf.shards[0] for leaf in tree_leaves(state.params)]))
+
+
+def resnet_rank_run(torch) -> dict:
+    """Distributed (h) in a rank of (a)'s gang: the ResNet over
+    dp=DDP_WORLD ranks (``resnet_dp_steps``)."""
+    from kubeshare_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    device = torch.device("cuda", 0)
+    config, params, images, labels = resnet_rank_setup(torch, device)
+    return resnet_dp_steps(torch, make_mesh(MeshSpec(dp=DDP_WORLD),
+                                            device=device),
+                           params, config, images, labels, True)
 
 
 def tp_run(torch, out_dir: str, rank: int, world: int) -> dict:
@@ -6674,6 +6926,127 @@ def ddp_moe(torch, device, ranks):
              for name in expect}, one_launches)
 
 
+def ddp_pp(torch, device, records):
+    """(g): the train-step flagship under transformer_train_1f1b over
+    pp=DDP_WORLD gloo ranks (run in (a)'s processes: ``records`` is their
+    records) against the one-process pipeline over [cuda:0] * DDP_WORLD
+    (step 1's loss, each rank's stage's gradients and the embedding's and
+    head's, the losses and the final parameters equal to the bit; the
+    stale-hop control refused) and one device's DDP_PP_STEPS steps (the
+    sharded first-loss limit, the train step's drift limits).  Returns
+    the ranks' launches (summed) and the one-process pipeline's."""
+    from kubeshare_tpu_torch.models.transformer import (
+        transformer_apply, transformer_train_1f1b)
+    from kubeshare_tpu_torch.parallel.train import make_train_step, tree_leaves
+
+    config, params, tokens, targets = train_setup(torch, device)
+    initial = [leaf.detach().clone() for leaf in tree_leaves(params)]
+    init_state, train_step = make_train_step(
+        lambda p, t: transformer_apply(p, t, config))
+    state, losses, single_ms, _ = timed_steps(
+        torch, train_step, init_state(clone_tree(params)),
+        [(tokens, targets)] * DDP_PP_STEPS)
+    single = (losses, [leaf.detach() for leaf in tree_leaves(state.params)])
+    del state, init_state, train_step
+    torch.cuda.empty_cache()
+    per = config.n_layers // DDP_WORLD
+    stages = [(s * per, per) for s in range(DDP_WORLD)]
+    mesh = lc_mesh(device, ("pp",), pp=DDP_WORLD)
+    one = pp_train(torch, lambda: transformer_train_1f1b(
+        params, tokens, targets, config, mesh,
+        num_microbatches=DDP_PP_MICRO), params, 0, stages, DDP_PP_STEPS)
+    # each microbatch runs each of a stage's layers once, forward and back
+    expect = {name: c * DDP_PP_MICRO * per * DDP_PP_STEPS for name, c in
+              only("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq").items()}
+    check(one["launches"] == {k: DDP_WORLD * c for k, c in expect.items()},
+          f"distributed (g): the one-process pipeline launched "
+          f"{one['launches']}, expected {DDP_WORLD} x {expect}")
+    print(f"distributed (g) one process, the pipeline over [{device}] * "
+          f"{DDP_WORLD} ({DDP_PP_MICRO} microbatches of 1 x {TRAIN_SEQ}): "
+          f"losses " + " ".join(f"{x:.4f}" for x in one["losses"])
+          + f"; step ms {steady_median(one['step_ms']):.3f} by CUDA events; "
+          f"one device {steady_median(single_ms):.3f}")
+    rank_lines("(g) pp", records, f"stage of {per} layers, {DDP_PP_MICRO} "
+               f"microbatches at {DDP_MOE_RANK_SHAPE}")
+    for rank, run in enumerate(records):
+        hops = [sum(run["by"][name][i] for name in ("send", "recv", "wait"))
+                for i in range(len(run["step_ms"]))]
+        share = [h / t for h, t in zip(hops, run["host_ms"])]
+        print(f"distributed (g) rank {rank}: the hops (point to point, "
+              f"send + recv + wait) {steady_median(hops):.3f} ms a step, "
+              f"share {steady_median(share):.3f}; the broadcasts of the "
+              f"loss, the head's gradients and dx "
+              f"{steady_median(run['by']['broadcast']):.3f} ms")
+        check(run["launches"] == expect,
+              f"distributed (g) rank {rank} launched {run['launches']}, "
+              f"expected {expect}")
+        check(run["mesh"] == {"pp": DDP_WORLD},
+              f"distributed (g) rank {rank} ran mesh {run['mesh']}")
+        first = (run["losses"][0] == one["losses"][0]
+                 and run["first"]["rest"] == one["first"]["rest"]
+                 and run["first"]["layers"] == [one["first"]["layers"][rank]])
+        final = (run["losses"] == one["losses"]
+                 and run["final"]["rest"] == one["final"]["rest"]
+                 and run["final"]["layers"] == [one["final"]["layers"][rank]])
+        stale = (run["control"]["loss"] == one["losses"][0]
+                 and run["control"]["first"] == run["first"])
+        print(f"distributed (g) rank {rank} against the one-process "
+              f"pipeline: step 1's loss and gradients (its stage's layers, "
+              f"the embedding, final norm and head) equal to the bit: "
+              f"{first}; losses and parameters after {DDP_PP_STEPS} steps "
+              f"equal to the bit: {final}; control, each hop carrying the "
+              f"previous microbatch: loss {run['control']['loss']:.6f} "
+              f"(shipped {one['losses'][0]:.6f}), equal to the bit: {stale}")
+        check(first and final,
+              f"distributed (g) rank {rank} differs from the one-process "
+              f"pipeline")
+        check(not stale, "distributed (g): the check does not refuse the "
+                         "stale hop")
+    hold_drift("distributed (g) the one-process pipeline vs one device",
+               (one["losses"], [leaf.detach() for leaf in
+                                tree_leaves(params)]), single, initial,
+               (TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL),
+               first_atol=SHARDED_FIRST_LOSS_ATOL)
+    return ({name: sum(r["launches"][name] for r in records)
+             for name in expect}, one["launches"])
+
+
+def ddp_resnet(torch, device, records):
+    """(h): the ResNet through data_parallel_apply over dp=DDP_WORLD gloo
+    ranks (run in (a)'s processes) against the one-process dp=DDP_WORLD
+    mesh over [cuda:0] * DDP_WORLD: losses and final parameters equal to
+    the bit.  Returns the ranks' launches (summed) and the one-process
+    mesh's (no flash kernel: a per-sample model)."""
+    from kubeshare_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    config, params, images, labels = resnet_rank_setup(torch, device)
+    one = resnet_dp_steps(torch, make_mesh(MeshSpec(dp=DDP_WORLD),
+                                           devices=[device] * DDP_WORLD),
+                          params, config, images, labels, False)
+    check(one["launches"] == only(),
+          f"distributed (h): the one-process mesh launched {one['launches']}")
+    rank_lines("(h) resnet", records, f"{RESNET_BATCH // DDP_WORLD} of "
+               f"{RESNET_BATCH} images, ResNetConfig()")
+    same = all(r["losses"] == one["losses"] and r["digest"] == one["digest"]
+               for r in records)
+    print(f"distributed (h) resnet one process over [{device}] * "
+          f"{DDP_WORLD}: losses " + " ".join(f"{x:.5f}" for x in
+                                            one["losses"])
+          + f"; step ms {steady_median(one['step_ms']):.3f} by CUDA events, "
+          f"ranks " + ", ".join(f"{steady_median(r['step_ms']):.3f}"
+                                for r in records)
+          + f"; the ranks' losses and parameters after {DDP_RESNET_STEPS} "
+          f"steps equal to the bit: {same}")
+    for rank, run in enumerate(records):
+        check(run["launches"] == only() and run["mesh"] == one["mesh"],
+              f"distributed (h) rank {rank} ran {run['mesh']}, launched "
+              f"{run['launches']}")
+    check(same, "distributed (h): the ranks differ from the one-process mesh")
+    check(all(math.isfinite(x) for x in one["losses"]),
+          f"distributed (h): non-finite loss {one['losses']}")
+    return only(), one["launches"]
+
+
 def ddp_nccl(torch, device, T, args):
     """(b): one NCCL rank (world size 1), eager and captured with the
     all-reduce inside the graph, against the plain single-device step."""
@@ -6769,8 +7142,9 @@ def distributed_phase(torch, device):
     config, BASELINE config 5) over torch.distributed: (a) two gloo ranks
     on the card, (b) one NCCL rank eager and captured, (c) the multislice
     dry run and router, (d) two gloo ranks at --tp 2, one mesh of the
-    ranks; (e) sequence parallelism (the zigzag hybrid ring, Ulysses) and
-    (f) MoE over a mesh of the same two ranks."""
+    ranks; (e) sequence parallelism (the zigzag hybrid ring, Ulysses),
+    (f) MoE, (g) the 1F1B pipeline and (h) the ResNet over a mesh of the
+    same two ranks."""
     import train_distributed_torch as T
 
     args = T.parse_args([])
@@ -6796,6 +7170,13 @@ def distributed_phase(torch, device):
     torch.cuda.empty_cache()
     launches["distributed_moe"], launches["distributed_moe_one_process"] = \
         ddp_moe(torch, device, ranks["moe"])
+    torch.cuda.empty_cache()
+    launches["distributed_pp"], launches["distributed_pp_one_process"] = \
+        ddp_pp(torch, device, ranks["pp"])
+    torch.cuda.empty_cache()
+    (launches["distributed_resnet"],
+     launches["distributed_resnet_one_process"]) = ddp_resnet(
+        torch, device, ranks["resnet"])
     torch.cuda.empty_cache()
     return launches
 

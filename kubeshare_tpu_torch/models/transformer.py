@@ -51,11 +51,12 @@ from ..ops.ring_attention import (ring_group_fn, zigzag_positions,
 from ..ops.rope import apply_rope, rope_positions
 from ..ops.ulysses import ulysses_attention
 from ..parallel.mesh import (Mesh, NamedSharding, P, PartitionSpec,
-                             ShardedTensor, _split_names, batch_sharding,
-                             device_put, refuse_rank_mesh)
+                             RankMesh, ShardedTensor, _split_names,
+                             batch_sharding, device_put)
 from ..parallel.pipeline import (pipeline_apply, pipeline_train_1f1b,
                                  stack_stage_params)
-from ..parallel.spmd import Units, mesh_line, mesh_of, place_plain, split_axis
+from ..parallel.spmd import (RankGroup, Units, mesh_line, mesh_of,
+                             place_plain, split_axis)
 from ..parallel.train import cross_entropy_loss, tree_leaves, tree_map
 
 
@@ -894,8 +895,12 @@ def _pipeline_stage_setup(params: Dict, seq_len: int,
     """Stack the layers into pp stages and build the stage body (ring or
     Ulysses attention over the stage's sequence members when the config
     asks for sequence parallelism).  Returns ``(stacked_params,
-    stage_fn, activation_spec)``."""
-    refuse_rank_mesh(mesh, "pipeline parallelism", "11i")
+    stage_fn, activation_spec)``.
+
+    Over a :class:`RankMesh` the stack is this rank's stage's alone,
+    placed ``P(pp)`` (a rank holds no other stage's layers), and the ring
+    or Ulysses runs over the rank's sequence line: its member is this
+    rank's, its RoPE positions start at its sp coordinate's offset."""
     sp_attention = config.attention in ("ring", "ulysses")
     if sp_attention:
         _validate_sp_entry(config.attention, config, mesh, seq_axis)
@@ -910,11 +915,23 @@ def _pipeline_stage_setup(params: Dict, seq_len: int,
         )
     per_stage = config.n_layers // n_stages
     use_rope = config.positional == "rope"
-    # each stage's layers stacked: leaves [pp, per_stage, ...]
-    stacked = stack_stage_params([
-        tree_map(lambda *ls: torch.stack(ls),
-                 *params["layers"][s * per_stage:(s + 1) * per_stage])
-        for s in range(n_stages)])
+
+    def stack(s):
+        # stage s's layers stacked: leaves [per_stage, ...]
+        return tree_map(lambda *ls: torch.stack(ls),
+                        *params["layers"][s * per_stage:(s + 1) * per_stage])
+
+    group = None
+    if isinstance(mesh, RankMesh):
+        stage = mesh.coords()[mesh.axis_names.index(pp_axis)]
+        stacked = tree_map(lambda p: ShardedTensor(
+            [p[None]], P(pp_axis), mesh, (n_stages, *p.shape)), stack(stage))
+        if sp_attention:
+            group = RankGroup(mesh_line(mesh, (seq_axis,)),
+                              mesh.local_devices[0])
+    else:
+        # leaves [pp, per_stage, ...]
+        stacked = stack_stage_params([stack(s) for s in range(n_stages)])
 
     def run_layers(stage_layers, xs, attend, positions):
         for i in range(per_stage):
@@ -927,14 +944,19 @@ def _pipeline_stage_setup(params: Dict, seq_len: int,
                                     use_flash=use_flash)
 
         def stage_fn(stage_layers, xs):
-            # the stage's sequence members, contiguous shards in order
+            # the stage's sequence members held here (one controller:
+            # every member, contiguous shards in order; over ranks, this
+            # rank's), each at its member index's offset
             local_seq = xs[0].shape[1]
-            devices = [x.device for x in xs]
+            members = (group if group is not None
+                       else [x.device for x in xs])
+            indices = (group.indices if group is not None
+                       else range(len(xs)))
             positions = [rope_positions(local_seq, j * local_seq, x.device)
-                         if use_rope else None for j, x in enumerate(xs)]
+                         if use_rope else None for j, x in zip(indices, xs)]
             return run_layers(stage_layers, xs,
                               lambda qs, ks, vs: group_fn(qs, ks, vs,
-                                                          devices),
+                                                          members),
                               positions)
 
         return stacked, stage_fn, P(None, seq_axis, None)
@@ -1008,7 +1030,16 @@ def transformer_train_1f1b(
     parameters).  Composes with sequence parallelism as
     :func:`transformer_apply_pipelined` does (1F1B x sp).  Returns
     ``(loss, grads)`` with ``grads`` matching ``params`` (f32 tensors;
-    apply them with any optimizer)."""
+    apply them with any optimizer).
+
+    Over a :class:`RankMesh` (every rank passes the same ``params``,
+    ``tokens`` and ``targets``) the loss and the gradients of the
+    embedding, the positional table, the final norm and the head are the
+    whole ones on every rank (the input cotangents come from stage 0's
+    ranks, the head's from the last stage's), and ``grads["layers"]``
+    holds this rank's stage's layers only: entry ``i`` is layer ``stage
+    * n_layers / pp + i``'s gradient, the stage being the rank's pp
+    coordinate.  Other stages' layers are not in it."""
     stacked, stage_fn, activation_spec = _pipeline_stage_setup(
         params, tokens.shape[1], config, mesh, pp_axis, seq_axis, use_flash)
     dtype = config.dtype
@@ -1048,11 +1079,16 @@ def transformer_train_1f1b(
         dpos[:seq] = dx32.sum(dim=0)
         grads["pos_embed"] = dpos.to(pos_embed.dtype)
     # the [pp, per_stage, ...] gradients back into the per-layer list
+    # (over ranks: this rank's stage's [1, per_stage, ...] shard)
     n_stages = mesh.shape[pp_axis]
     per_stage = config.n_layers // n_stages
-    grads["layers"] = [
-        tree_map(lambda g, s=s, i=i: g[s, i], stage_grads)
-        for s in range(n_stages) for i in range(per_stage)]
+    if isinstance(mesh, RankMesh):
+        grads["layers"] = [tree_map(lambda g, i=i: g.shards[0][0, i],
+                                    stage_grads) for i in range(per_stage)]
+    else:
+        grads["layers"] = [
+            tree_map(lambda g, s=s, i=i: g[s, i], stage_grads)
+            for s in range(n_stages) for i in range(per_stage)]
     return loss, {key: grads[key] for key in params if key in grads}
 
 

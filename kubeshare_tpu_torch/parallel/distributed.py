@@ -209,6 +209,27 @@ def rank_mesh(spec: MeshSpec, device=None) -> RankMesh:
                     resolve_device(device))
 
 
+def rank_mesh_over(axis_names: Sequence[str], shape: Sequence[int],
+                   device=None) -> RankMesh:
+    """The gang's ranks in rank order on any named axes, e.g.
+    ``rank_mesh_over(("pp", "sp"), (2, 2))`` for a pipeline: the
+    counterpart of JAX's ``Mesh(np.array(jax.devices()).reshape(shape),
+    axis_names)`` over a multi-process ``jax.devices()``, with every
+    subgroup of every combination of axes; this rank on ``device`` (as
+    :func:`rank_mesh`).  The axes' product must be the world size."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    if int(np.prod(shape)) != world or len(shape) != len(axis_names):
+        raise ValueError(
+            f"axes {tuple(axis_names)} of sizes {tuple(shape)} do not lay "
+            f"out a gang of {world} ranks")
+    grid = np.arange(world, dtype=np.int64).reshape(tuple(shape))
+    names = tuple(axis_names)
+    return RankMesh(grid, names, _axis_groups(grid, names),
+                    resolve_device(device))
+
+
 def slice_device_mesh(
     ms: MultisliceSpec,
     axis_names: tuple = ("dcn", "device"),

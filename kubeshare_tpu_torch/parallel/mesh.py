@@ -205,18 +205,6 @@ class RankMesh(Mesh):
         return self._groups[_axes_key(self, axes)]
 
 
-def refuse_rank_mesh(mesh: Optional[Mesh], what: str, item: str) -> None:
-    """Raise ``ValueError`` when ``mesh`` is a :class:`RankMesh`: ``what``
-    runs on one controller's mesh only, and over ranks it is ROADMAP
-    queue A item ``item``, not yet built (no path falls back to the
-    one-controller program or to one device)."""
-    if isinstance(mesh, RankMesh):
-        raise ValueError(
-            f"{what} does not run over a mesh of ranks yet (ROADMAP queue "
-            f"A item {item}); use a one-process mesh (make_mesh with "
-            f"devices=...)")
-
-
 @dataclass(frozen=True)
 class NamedSharding:
     """A :class:`PartitionSpec` over a :class:`Mesh`."""
@@ -407,36 +395,50 @@ class ShardedTensor:
         return len(self._owners) == 1
 
     def gather(self) -> torch.Tensor:
-        """The whole tensor on the lead device (over a :class:`RankMesh`,
-        on this rank's device: a collective that every rank of the mesh
-        calls)."""
-        shards = self.shards
+        """The whole tensor on the lead device.  Over a :class:`RankMesh`
+        it is a collective that every rank of the mesh calls, and a
+        replicated read: each rank receives the whole tensor on its own
+        device, and differentiating the same function of it on every
+        rank hands each owned shard its slice of the cotangent once
+        (``spmd.replicated_read``)."""
         if isinstance(self.mesh, RankMesh):
-            from .spmd import mesh_line
-
-            shards = mesh_line(self.mesh, self.mesh.axis_names).gather(
-                self.shards[0].detach())
+            return self._read_across(self.shards[0], self.shape,
+                                     self._owners)
         out = torch.empty(self.shape, dtype=self.dtype, device=self.device)
         for i, slices in self._owners:
-            out[slices] = shards[i].to(self.device, non_blocking=True)
+            out[slices] = self.shards[i].to(self.device, non_blocking=True)
         return out
+
+    def _read_across(self, piece: torch.Tensor, shape, owners
+                     ) -> torch.Tensor:
+        from .spmd import replicated_read
+
+        mine = next((slices for i, slices in owners
+                     if i == self.mesh.position), None)
+        return replicated_read(piece, self.mesh, shape, owners, mine)
 
     def index_select(self, dim: int, index: torch.Tensor) -> torch.Tensor:
         """``torch.index_select`` of the whole tensor along an unsplit
         ``dim``, each shard selecting its own rows, gathered on the lead
-        device."""
-        refuse_rank_mesh(self.mesh, "ShardedTensor.index_select", "11i")
+        device (over a :class:`RankMesh`: each rank selects from its own
+        shard, then the rows cross the mesh as :meth:`gather`'s do)."""
         if any(s[dim] != slice(0, self.shape[dim]) for _, s in self._owners):
             raise ValueError(
                 f"index_select along dim {dim}, which {self.spec} splits")
         shape = list(self.shape)
         shape[dim] = index.numel()
+        owners = [(i, slices[:dim] + (slice(None),) + slices[dim + 1:])
+                  for i, slices in self._owners]
+        if isinstance(self.mesh, RankMesh):
+            shard = self.shards[0]
+            return self._read_across(
+                shard.index_select(dim, index.to(shard.device)), shape,
+                owners)
         out = torch.empty(shape, dtype=self.dtype, device=self.device)
-        for i, slices in self._owners:
+        for i, slices in owners:
             shard = self.shards[i]
             rows = shard.index_select(dim, index.to(shard.device))
-            out[slices[:dim] + (slice(None),) + slices[dim + 1:]] = rows.to(
-                self.device, non_blocking=True)
+            out[slices] = rows.to(self.device, non_blocking=True)
         return out
 
     def __repr__(self) -> str:

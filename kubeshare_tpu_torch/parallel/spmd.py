@@ -59,7 +59,14 @@ Over ranks the same transposes are autograd Functions: a gather's
 backward is a reduce-scatter (an ``all_to_all`` of the cotangents'
 pieces, each member summing its piece in member order), a psum's
 backward psums the cotangents, an all-to-all's backward is the mirrored
-all-to-all and a ring shift's backward shifts the other way.
+all-to-all and a ring shift's backward shifts the other way.  A
+replicated read (``ShardedTensor.gather`` and ``index_select`` across
+ranks, :func:`replicated_read`) is not such a gather: every rank
+computes the same function of the whole tensor (a loss), so its
+backward hands each owned shard its slice of this rank's own cotangent
+and sums nothing.  A pipeline's hops are point to point
+(:meth:`RankLine.send` and :meth:`RankLine.recv`), so a stage waits on
+the neighbour that feeds it and on no other rank.
 
 A SEQUENCE GROUP (the ring and Ulysses, ``ops/ring_attention.py``,
 ``ops/ulysses.py``) is written once over :class:`LocalGroup` (one
@@ -90,8 +97,7 @@ import torch
 
 from .mesh import (Mesh, P, PartitionSpec, RankMesh, ShardedTensor,
                    _axes_key, _map_with_paths, _shard_slices, _split_names,
-                   batch_sharding, device_put, refuse_rank_mesh,
-                   shard_tensor)
+                   batch_sharding, device_put, shard_tensor)
 
 
 # ---------------------------------------------------------------------------
@@ -220,15 +226,88 @@ class RankLine:
         self.size = len(members)
         self.index = members.index(mesh.position)
         self.group = mesh.group(key)
-        # member m's rank within the subgroup, where collectives put it
-        self.order = [dist.get_group_rank(self.group,
-                                          int(mesh.devices.flat[p]))
-                      for p in members]
+        # member m's global rank (where point-to-point hops go) and its
+        # rank within the subgroup (where collectives put it)
+        self.ranks = [int(mesh.devices.flat[p]) for p in members]
+        self.order = [dist.get_group_rank(self.group, r) for r in self.ranks]
         self.via_host = dist.get_backend(self.group) == "gloo"
+        self.pending: List[Tuple[object, torch.Tensor]] = []
 
     def _bytes(self, x: torch.Tensor) -> torch.Tensor:
         flat = x.detach().contiguous().reshape(-1).view(torch.uint8)
         return flat.cpu() if self.via_host else flat
+
+    @staticmethod
+    def _split(flat: torch.Tensor, likes: Sequence[torch.Tensor],
+               device) -> List[torch.Tensor]:
+        """``flat``'s bytes as tensors of ``likes``' shapes and dtypes, in
+        order, on ``device``."""
+        flat, at, out = flat.to(device), 0, []
+        for like in likes:
+            nbytes = like.numel() * like.element_size()
+            out.append(flat[at:at + nbytes].view(like.dtype).view(like.shape))
+            at += nbytes
+        return out
+
+    def send(self, xs: Sequence[torch.Tensor], member: int, tag: int) -> None:
+        """Post ``xs`` (one message, tagged ``tag``) to member ``member``
+        without waiting: point to point, so a hop needs no call from the
+        members it does not concern.  :meth:`wait` completes the posted
+        sends."""
+        import torch.distributed as dist
+
+        buf = torch.cat([self._bytes(x) for x in xs])
+        self.pending.append((dist.isend(buf, self.ranks[member], tag=tag),
+                             buf))
+
+    def recv(self, likes: Sequence[torch.Tensor], member: int,
+             tag: int) -> List[torch.Tensor]:
+        """The message tagged ``tag`` from member ``member``, as tensors
+        of ``likes``' shapes and dtypes on their device (waits for it:
+        the tag picks it out of whatever else that member has posted)."""
+        import torch.distributed as dist
+
+        nbytes = sum(x.numel() * x.element_size() for x in likes)
+        buf = torch.empty(nbytes, dtype=torch.uint8,
+                          device="cpu" if self.via_host else likes[0].device)
+        dist.recv(buf, self.ranks[member], tag=tag)
+        return self._split(buf, likes, likes[0].device)
+
+    def wait(self) -> None:
+        """Complete every send this member posted."""
+        for work, _ in self.pending:
+            work.wait()
+        self.pending = []
+
+    def sum(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """:func:`psum` of each of ``xs`` across the members, data only:
+        each sum added in member order, one gather per dtype."""
+        if self.size == 1:
+            return list(xs)
+        out: List[Optional[torch.Tensor]] = [None] * len(xs)
+        by_dtype: Dict[torch.dtype, List[int]] = {}
+        for i, x in enumerate(xs):
+            by_dtype.setdefault(x.dtype, []).append(i)
+        for where in by_dtype.values():
+            flat = torch.cat([xs[i].reshape(-1) for i in where])
+            total, at = _ordered_sum(self.gather(flat)), 0
+            for i in where:
+                out[i] = total[at:at + xs[i].numel()].view_as(xs[i])
+                at += xs[i].numel()
+        return out
+
+    def broadcast(self, xs: Sequence[torch.Tensor],
+                  member: int) -> List[torch.Tensor]:
+        """Member ``member``'s ``xs`` on every member, in one message (the
+        others pass tensors of the same shapes and dtypes, whose values
+        are not read)."""
+        import torch.distributed as dist
+
+        if self.size == 1:
+            return list(xs)
+        buf = torch.cat([self._bytes(x) for x in xs])
+        dist.broadcast(buf, self.ranks[member], group=self.group)
+        return self._split(buf, xs, xs[0].device)
 
     def gather(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Every member's ``x`` (one shape and dtype on every member), in
@@ -412,6 +491,41 @@ class _RankShift(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return ctx.line.shift([grad], -ctx.offset)[0], None, None
+
+
+class _RankRead(torch.autograd.Function):
+    """A replicated read across ranks: every position's ``piece`` (one
+    shape and dtype on every rank) gathered over the whole mesh, each
+    distinct slice written from its owner (``owners``: (position,
+    slices) pairs) into one tensor of ``shape`` on every rank.  Every
+    rank then computes the same function of that tensor, so each holds
+    the same cotangent: the backward hands this rank's piece its own
+    slice of it where the rank owns one (``mine``), and nothing where
+    its slice is a copy.  A reduce-scatter of the cotangents, the
+    transpose for reads that differ by rank, would count each share once
+    a rank."""
+
+    @staticmethod
+    def forward(ctx, piece, line: RankLine, shape, owners, mine):
+        ctx.mine = mine
+        pieces = line.gather(piece)
+        out = torch.empty(shape, dtype=piece.dtype, device=piece.device)
+        for i, slices in owners:
+            out[slices] = pieces[i]
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        mine = None if ctx.mine is None else grad[ctx.mine]
+        return mine, None, None, None, None
+
+
+def replicated_read(piece: torch.Tensor, mesh: RankMesh, shape, owners,
+                    mine) -> torch.Tensor:
+    """:class:`_RankRead` over the whole mesh (``ShardedTensor.gather``
+    and ``index_select`` across ranks)."""
+    return _RankRead.apply(piece, mesh_line(mesh, mesh.axis_names),
+                           tuple(shape), owners, mine)
 
 
 class LocalGroup:
@@ -766,8 +880,11 @@ def data_parallel_apply(fn, params, batch, mesh: Mesh) -> ShardedTensor:
     whole (replicated, or gathered at use where a rule splits it), and
     the outputs come back as one :class:`ShardedTensor` split along the
     batch.  The data-parallel program that GSPMD makes of a
-    per-sample model (convolutions, group norm) under a dp mesh."""
-    refuse_rank_mesh(mesh, "data_parallel_apply (MNIST, ResNet)", "11i")
+    per-sample model (convolutions, group norm) under a dp mesh.  Over a
+    :class:`RankMesh` each rank runs its own unit's rows and the result
+    holds this rank's shard; a training step sums the copies' gradients
+    across the ranks (:func:`sum_copies`), and nothing else crosses them:
+    a per-sample model reads no other row."""
     if not isinstance(batch, ShardedTensor):
         batch = device_put(batch, batch_sharding(mesh, batch.ndim))
     params = place_plain(params, mesh)

@@ -212,17 +212,24 @@ def make_train_step(
     A ``mesh`` of ranks (:class:`~.mesh.RankMesh`): each rank's
     ``init_state`` places its own shards of the tree it is given, the
     step takes the whole global batch on every rank and places this
-    rank's part, and the returned loss is the global mean on every rank.
-    Its loss must be ``cross_entropy_loss`` or a
-    :class:`CrossEntropyWithAux`, which count each rank's share once; a ``process_group`` beside it raises ``ValueError`` (the
-    mesh's dp axis already averages over the gang: the two would
-    average twice), and so does ``capture=True``: gloo's collectives
-    cannot be captured, and NCCL's inside a graph need two cards
-    (ROADMAP queue A item 11d).
+    rank's part, and the returned loss is the global loss on every rank.
+    Any ``loss_fn`` runs, as JAX's step takes any loss over a global
+    array.  ``cross_entropy_loss`` and :class:`CrossEntropyWithAux` read
+    each rank's share of the logits without gathering them; any other
+    loss reads the sharded output through ``gather()`` (or
+    ``index_select``), a replicated read: every rank computes the same
+    loss from the whole output, and each share's gradient reaches its
+    owner once, from the owner's own copy of the loss (the gather's
+    backward hands each owned shard its slice, with no sum over the
+    ranks, which would count it once a rank).  A ``process_group``
+    beside the mesh raises ``ValueError`` (the mesh's dp axis already
+    averages over the gang: the two would average twice), and so does
+    ``capture=True``: gloo's collectives cannot be captured, and NCCL's
+    inside a graph need two cards (ROADMAP queue A item 11d).
     """
     optimizer = optimizer or adamw(1e-3)
     if isinstance(mesh, RankMesh):
-        _check_rank_mesh_step(loss_fn, capture, process_group)
+        _check_rank_mesh_step(capture, process_group)
     group = _resolve_group(process_group)
     if mesh is not None and capture:
         devices = set(mesh.devices.flat)
@@ -255,7 +262,9 @@ def make_train_step(
         if mesh is not None:
             inputs, targets = _place_batch(mesh, inputs, targets)
         loss = loss_fn(apply_fn(state.params, inputs), targets)
-        # over ranks a replica's loss is a constant: it has no share
+        # over ranks a replica's cross entropy is a constant: it has no
+        # share (a loss over gather() differentiates, and the read hands
+        # a replica's copies nothing)
         if loss.requires_grad or not isinstance(mesh, RankMesh):
             loss.backward()
         if mesh is not None:
@@ -274,7 +283,7 @@ def make_train_step(
     return init_state, train_step
 
 
-def _check_rank_mesh_step(loss_fn, capture: bool, process_group) -> None:
+def _check_rank_mesh_step(capture: bool, process_group) -> None:
     """The ``ValueError``s of a step over a mesh of ranks."""
     if process_group is not None:
         raise ValueError(
@@ -287,13 +296,6 @@ def _check_rank_mesh_step(loss_fn, capture: bool, process_group) -> None:
             "be captured in a CUDA graph, and NCCL's inside one need a "
             "card a rank, not yet built (ROADMAP queue A item 11d); use "
             "the eager step")
-    if not (loss_fn is cross_entropy_loss
-            or isinstance(loss_fn, CrossEntropyWithAux)):
-        raise ValueError(
-            "over a mesh of ranks the loss must count each rank's share "
-            "of the logits once, as cross_entropy_loss and "
-            "CrossEntropyWithAux do; another loss over ranks is ROADMAP "
-            "queue A item 11i")
 
 
 def _resolve_group(process_group):

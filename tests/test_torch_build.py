@@ -348,6 +348,24 @@ def test_chip_smoke_holds_the_kernels_at_the_sp_and_moe_gang_shapes():
     assert {member, rank} <= dense
 
 
+def test_chip_smoke_holds_the_kernels_at_the_pp_gang_shape():
+    # distributed (g): the train-step flagship's batch in microbatches of
+    # one row through a stage of each rank, a bf16 causal dense case
+    import torch
+
+    chip_smoke = _chip_smoke()
+    dims = chip_smoke.TRAIN_DIMS
+    micro = (chip_smoke.TRAIN_BATCH // chip_smoke.DDP_PP_MICRO,
+             dims["n_heads"], chip_smoke.TRAIN_SEQ,
+             dims["d_model"] // dims["n_heads"])
+    assert micro == (1, 8, 2048, 128)
+    assert dims["n_layers"] % chip_smoke.DDP_WORLD == 0
+    dense = {shape for _, shape, _, dtype, causal, window
+             in chip_smoke.dense_cases(torch)
+             if dtype == torch.bfloat16 and causal and window is None}
+    assert micro in dense
+
+
 def test_chip_smoke_holds_the_f32_kernels_at_the_f32_paths_shapes():
     # the f32 phase's attention shapes (the serving flagship's forward and
     # prefill, the train-step flagship's step) are dense kernel cases,

@@ -1137,6 +1137,127 @@ def test_zigzag_ring_over_two_gloo_ranks_equals_the_one_process_mesh(
     assert ranks[0]["losses"] == ranks[1]["losses"] == losses
 
 
+PP_RANK = """
+import hashlib, json, sys
+import torch
+from kubeshare_tpu_torch.models.transformer import (TransformerConfig,
+                                                    transformer_init,
+                                                    transformer_train_1f1b)
+from kubeshare_tpu_torch.ops import attention as A
+from kubeshare_tpu_torch.parallel.distributed import (initialize_from_env,
+                                                      rank_mesh_over)
+from kubeshare_tpu_torch.parallel.train import tree_leaves
+
+device = torch.device("cuda", 0)
+torch.cuda.set_device(device)
+spec = initialize_from_env(backend="gloo", device=device)
+config = TransformerConfig(**json.loads(sys.argv[2]))
+mesh = rank_mesh_over(("pp",), (2,), device=device)
+params = transformer_init(config, torch.Generator().manual_seed(0), device)
+gen = torch.Generator().manual_seed(1)
+tokens, targets = (torch.randint(0, config.vocab_size,
+                                 (2, config.max_seq_len),
+                                 generator=gen).to(device) for _ in range(2))
+
+
+def counts():
+    return [A.flash_forward.launches, A.flash_backward.launches_dkv,
+            A.flash_backward.launches_dq]
+
+
+def digest(tensors):
+    return hashlib.sha256(b"".join(t.detach().cpu().numpy().tobytes()
+                                   for t in tensors)).hexdigest()
+
+
+before = counts()
+loss, grads = transformer_train_1f1b(params, tokens, targets, config, mesh)
+launches = [a - b for a, b in zip(counts(), before)]
+with open(f"{sys.argv[1]}/rank{spec.process_id}.json", "w") as f:
+    json.dump(dict(loss=float(loss), launches=launches,
+                   layers=digest(tree_leaves(grads["layers"])),
+                   rest=digest([leaf for key, g in grads.items()
+                                if key != "layers"
+                                for leaf in tree_leaves(g)])), f)
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_1f1b_over_two_gloo_ranks_equals_the_one_process_pipeline(
+        card, tmp_path):
+    """A 1F1B step of a small bf16 model (head_dim 64, two layers) over
+    pp=2 as two gloo ranks on cuda:0 (``rank_mesh_over``): each rank's
+    stage launches the flash forward, dK/dV and dQ kernels once a
+    microbatch, and its loss, its stage's gradients and the embedding's
+    and head's equal the one-process pipeline's over [cuda:0] * 2 to the
+    bit."""
+    import hashlib
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from native_helpers import free_port
+
+    from kubeshare_tpu_torch.models.transformer import transformer_train_1f1b
+    from kubeshare_tpu_torch.parallel.mesh import Mesh
+
+    device = card[0]
+    dims = dict(vocab_size=256, d_model=256, n_heads=4, n_layers=2,
+                d_ff=512, max_seq_len=256, positional="rope",
+                attention="flash")
+    repo = Path(__file__).resolve().parent.parent
+    (tmp_path / "rank.py").write_text(PP_RANK)
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(2):
+            env = dict(os.environ, TPUSHARE_GANG_SIZE="2",
+                       TPUSHARE_GANG_RANK=str(rank),
+                       TPUSHARE_COORDINATOR=f"127.0.0.1:{port}",
+                       PYTHONPATH=str(repo))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(tmp_path / "rank.py"), str(tmp_path),
+                 json.dumps(dims)], env=env, cwd=str(repo),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text())
+             for r in range(2)]
+    config = TransformerConfig(**dims)
+    params = transformer_init(config, torch.Generator().manual_seed(0),
+                              device)
+    gen = torch.Generator().manual_seed(1)
+    tokens, targets = (torch.randint(0, config.vocab_size,
+                                     (2, config.max_seq_len),
+                                     generator=gen).to(device)
+                       for _ in range(2))
+    array = np.empty(2, dtype=object)
+    array[:] = [device] * 2
+    loss, grads = transformer_train_1f1b(params, tokens, targets, config,
+                                         Mesh(array, ("pp",)))
+
+    def digest(tensors):
+        return hashlib.sha256(b"".join(t.detach().cpu().numpy().tobytes()
+                                       for t in tensors)).hexdigest()
+
+    rest = digest([leaf for key, g in grads.items() if key != "layers"
+                   for leaf in tree_leaves(g)])
+    for rank, record in enumerate(ranks):
+        # two microbatches through the stage's one layer
+        assert record["launches"] == [2, 2, 2]
+        assert record["loss"] == float(loss)
+        assert record["rest"] == rest
+        assert record["layers"] == digest(tree_leaves(grads["layers"][rank]))
+
+
 def test_discovery_agrees_with_nvidia_smi(card):
     """discover_local_chips: one ChipInfo per card with nvidia-smi's UUID
     and name (spaces as '-'), its memory within 1 GiB of nvidia-smi's

@@ -25,11 +25,12 @@ whole global batch and keeps its own shards.
   cross-rank sum, is refused by the gradient check.
 - The paths the rank mesh leaves out raise ``ValueError`` naming their
   ROADMAP item: the captured step, ``process_group`` beside the mesh,
-  another loss, checkpoints, ``data_parallel_apply``, pipelines,
-  ``ShardedTensor.index_select``.  (MoE layers, the
-  ring, Ulysses and a batch split along the sequence run over ranks:
-  ``tests/test_torch_rank_mesh_moe.py`` and
-  ``tests/test_torch_rank_mesh_sp.py``.)"""
+  checkpoints; and MoE layers on the pipelined path, which JAX refuses
+  too.  (MoE layers, the ring, Ulysses and a batch split along the
+  sequence run over ranks: ``tests/test_torch_rank_mesh_moe.py`` and
+  ``tests/test_torch_rank_mesh_sp.py``; pipelines, ``data_parallel_apply``,
+  any loss and ``ShardedTensor.index_select``:
+  ``tests/test_torch_rank_mesh_pp.py``.)"""
 
 import os
 import pickle
@@ -91,11 +92,10 @@ WORKER = """
     import torch
     from kubeshare_tpu_torch.convert import params_from_jax
     from kubeshare_tpu_torch.models.transformer import (
-        TransformerConfig, transformer_apply, transformer_fsdp_rules,
-        transformer_sharding_rules)
+        TransformerConfig, transformer_apply, transformer_apply_pipelined,
+        transformer_fsdp_rules, transformer_sharding_rules)
     from kubeshare_tpu_torch.parallel import spmd
     from kubeshare_tpu_torch.parallel import train as T
-    from kubeshare_tpu_torch.parallel.pipeline import pipeline_apply
     from kubeshare_tpu_torch.parallel.checkpoint import (restore_checkpoint,
                                                          save_checkpoint)
     from kubeshare_tpu_torch.parallel.distributed import initialize_from_env
@@ -196,8 +196,6 @@ WORKER = """
         apply, mesh=mesh, param_rules=rules["dp2_tp2"](), capture=True))
     refused("process_group", lambda: T.make_train_step(
         apply, mesh=mesh, process_group=True))
-    refused("loss_fn", lambda: T.make_train_step(
-        apply, mesh=mesh, loss_fn=lambda logits, t: logits.gather().sum()))
     init_state, _ = T.make_train_step(apply, mesh=mesh,
                                       param_rules=rules["dp2_tp2"]())
     state = init_state(params_from_jax(inputs["params"], "cpu"))
@@ -205,12 +203,11 @@ WORKER = """
         refused("save_checkpoint", lambda: save_checkpoint(tmp, state, 1))
         refused("restore_checkpoint",
                 lambda: restore_checkpoint(tmp, 1, into=state))
-    refused("data_parallel_apply", lambda: spmd.data_parallel_apply(
-        lambda p, x: x, {}, tokens, mesh))
-    refused("pipeline", lambda: pipeline_apply(
-        {}, tokens.float(), lambda p, x: x, mesh, 2, pp_axis="dp"))
-    refused("index_select", lambda: state.params["embed"].index_select(
-        0, torch.tensor([0])))
+    moe = TransformerConfig(dtype=torch.float32, attention="reference",
+                            moe_every=2, moe_num_experts=4,
+                            **inputs["model"])
+    refused("pipelined_moe", lambda: transformer_apply_pipelined(
+        {}, tokens, moe, mesh, pp_axis="dp"))
     record["errors"] = errors
     with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
         pickle.dump(record, f)
@@ -417,10 +414,9 @@ def test_gradient_check_refuses_a_psum_without_the_cross_rank_sum(runs):
 
 
 @pytest.mark.parametrize("path, item", [
-    ("capture", "11d"), ("process_group", "average"), ("loss_fn", "11i"),
+    ("capture", "11d"), ("process_group", "average"),
     ("save_checkpoint", "11h"), ("restore_checkpoint", "11h"),
-    ("data_parallel_apply", "11i"), ("pipeline", "11i"),
-    ("index_select", "11i")])
+    ("pipelined_moe", "pipelined path")])
 def test_paths_left_out_raise_value_error(runs, path, item):
     ranks, _, _, _ = runs
     for rank in ranks:
